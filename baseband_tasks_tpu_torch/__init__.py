@@ -1,16 +1,41 @@
-"""PyTorch/CUDA port of baseband_tasks_tpu: the flagship slice.
+"""PyTorch/CUDA port of baseband_tasks_tpu.
 
-Coherent dedispersion -> detection -> pulse-phase fold of channelized,
-plane-packed baseband, through hand-written CUDA kernels for NVIDIA
-Hopper (``csrc/``) on a CUDA device and their plain PyTorch versions on
-the CPU.  Importing the package imports torch and numpy only; the
-kernels are built with ``nvcc`` at their first launch.
+Two slices so far:
+
+- the flagship: coherent dedispersion -> detection -> pulse-phase fold
+  of channelized, plane-packed baseband (``WidebandPulsarPipeline``);
+- the lazy stream-task core (``Base``/``TaskBase``/``PaddedTaskBase``,
+  generators, shaping, ``Channelize``/``Dechannelize``, ``Square``/
+  ``Power``) on the three-engine ``fourier`` layer, with coherent
+  ``Disperse``/``Dedisperse``.
+
+Frames are torch tensors on the stream's device.  On a CUDA device the
+FFT and filter passes run hand-written CUDA kernels for NVIDIA Hopper
+(``csrc/``); on the CPU their plain PyTorch versions.  Importing the
+package imports torch and numpy only; the kernels are built with
+``nvcc`` at their first launch.
 """
 
+from .base import (Base, BaseTaskBase, TaskBase, PaddedTaskBase, Task,
+                   SetAttribute)
+from .channelize import Channelize, Dechannelize
+from .dispersion import Disperse, Dedisperse
 from .dm import DispersionMeasure
+from .fourier import fft_maker
+from .functions import Square, Power
+from .generators import (StreamGenerator, EmptyStreamGenerator, Noise,
+                         NoiseGenerator)
 from .models import WidebandPulsarPipeline
 from .phases import Polyco, PolycoPhase
+from .shaping import (ChangeSampleShape, Reshape, Transpose,
+                      ReshapeAndTranspose, GetItem, GetSlice)
 from .utils import Time, units
 
-__all__ = ["WidebandPulsarPipeline", "DispersionMeasure", "Time", "units",
-           "Polyco", "PolycoPhase"]
+__all__ = ["Base", "BaseTaskBase", "TaskBase", "PaddedTaskBase", "Task",
+           "SetAttribute", "StreamGenerator", "EmptyStreamGenerator",
+           "Noise", "NoiseGenerator", "Channelize", "Dechannelize",
+           "Square", "Power", "ChangeSampleShape", "Reshape", "Transpose",
+           "ReshapeAndTranspose", "GetItem", "GetSlice", "Disperse",
+           "Dedisperse", "DispersionMeasure", "fft_maker",
+           "WidebandPulsarPipeline", "Time", "units", "Polyco",
+           "PolycoPhase"]

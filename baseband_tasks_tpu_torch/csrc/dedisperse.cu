@@ -30,54 +30,10 @@
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
 #include "fft.cuh"
 
 namespace bbt {
-
-constexpr int kThreads = 256;
-constexpr int kMaxSmem = 200 * 1024;  // of the 227 KB a block may use
-constexpr int kMaxTileLanes = 16;
-
-// Largest power-of-two lane tile <= 16 that divides L and whose shared
-// tile (n rows of float2, plus `extra_per_lane` bytes per lane and
-// `fixed` bytes) fits the budget; returns log2 of it, or -1.
-inline int choose_log_tl(int n, int L, int extra_per_lane, int fixed) {
-  for (int log_tl = 4; log_tl >= 0; --log_tl) {
-    const int tl = 1 << log_tl;
-    if (tl > kMaxTileLanes || L % tl) continue;
-    const long bytes = static_cast<long>(n) * tl * 8 + (n / 2) * 8 +
-                       static_cast<long>(extra_per_lane) * tl + fixed;
-    if (bytes <= kMaxSmem) return log_tl;
-  }
-  return -1;
-}
-
-// Tile load with kBatch loads in flight per thread: element idx of
-// [0, total) is fetched by load(idx) and then handed to store(idx, value).
-constexpr int kBatch = 8;
-
-template <typename Load, typename Store>
-__device__ __forceinline__ void batched(int total, Load load, Store store) {
-  for (int i0 = threadIdx.x; i0 < total; i0 += kBatch * blockDim.x) {
-    decltype(load(0)) v[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int idx = i0 + u * blockDim.x;
-      if (idx < total) v[u] = load(idx);
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int idx = i0 + u * blockDim.x;
-      if (idx < total) store(idx, v[u]);
-    }
-  }
-}
-
-inline int log2i(int n) {
-  int k = 0;
-  while ((1 << k) < n) ++k;
-  return k;
-}
 
 __device__ __forceinline__ float decode_field(unsigned f, int bits,
                                               float offset, float4 lv) {
@@ -89,7 +45,11 @@ __device__ __forceinline__ float decode_field(unsigned f, int bits,
 // ---------------------------------------------------------------------------
 // K1: replaces `_k1_body_stream2_packed` (PACKED, dedisperse_pallas.py:764,
 // with `_decode_planes` :732 and `_stage_a_twiddle` :201) and
-// `_k1_body_stream2` (float32 planes, :570).
+// `_k1_body_stream2` (float32 planes, :570); with no edges (kf = ke = 0)
+// and no scale it is also `_k1_body` (:223, the plain window of
+// `_dedisperse_impl` and the forward `fft_pallas._fft_impl`) and
+// `spectral_filter._k1_filter_body` (:92) without `pre` or scale, launched
+// as k1_window (`bbt_k1_window`).
 //
 // Block (lane tile, b) assembles window column b: rows c < kf from the
 // front edge (row c*N2+b), rows c >= kf+nm from the end edge, and main row
@@ -116,7 +76,7 @@ k1_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   const int b = blockIdx.y;
   const int l0 = blockIdx.x << log_tl;
   const int nm = n1 - kf - ke;
-  const float s = *scale;
+  const float s = scale ? *scale : 1.0f;
   fill_twiddles(tw, n1);
 
   // element idx of a tile of rows: (row, lane) of a (rows, N2, L) plane
@@ -325,16 +285,6 @@ k3_fold_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
   }
 }
 
-// Select the device (this library's runtime keeps its own current device)
-// and allow the kernel more than 48 KB of dynamic shared memory.
-template <typename Kernel>
-cudaError_t prepare(Kernel* kernel, size_t smem, int device) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
-
 }  // namespace bbt
 
 using bbt::kThreads;
@@ -349,7 +299,7 @@ extern "C" int bbt_k1_packed(const void* xpr, const void* xpi, const float* fr,
                              float lv3, int device, void* stream) {
   const int log_tl = bbt::choose_log_tl(n1, L, 0, 0);
   if (log_tl < 0) return cudaErrorInvalidValue;
-  const size_t smem = (static_cast<size_t>(n1) << log_tl) * 8 + (n1 / 2) * 8;
+  const size_t smem = bbt::column_smem(n1, log_tl);
   cudaError_t err = bbt::prepare(bbt::k1_kernel<true>, smem, device);
   if (err != cudaSuccess) return err;
   bbt::k1_kernel<true><<<dim3(L >> log_tl, n2), kThreads, smem,
@@ -368,7 +318,7 @@ extern "C" int bbt_k1_float(const float* xr, const float* xi, const float* fr,
                             void* stream) {
   const int log_tl = bbt::choose_log_tl(n1, L, 0, 0);
   if (log_tl < 0) return cudaErrorInvalidValue;
-  const size_t smem = (static_cast<size_t>(n1) << log_tl) * 8 + (n1 / 2) * 8;
+  const size_t smem = bbt::column_smem(n1, log_tl);
   cudaError_t err = bbt::prepare(bbt::k1_kernel<false>, smem, device);
   if (err != cudaSuccess) return err;
   bbt::k1_kernel<false><<<dim3(L >> log_tl, n2), kThreads, smem,
@@ -378,11 +328,28 @@ extern "C" int bbt_k1_float(const float* xr, const float* xi, const float* fr,
   return cudaGetLastError();
 }
 
+// k1_window: stage A of a whole (N, L) window, no edges, no scale.
+extern "C" int bbt_k1_window(const float* xr, const float* xi, float* yr,
+                             float* yi, int n1, int n2, int L, int device,
+                             void* stream) {
+  const int log_tl = bbt::choose_log_tl(n1, L, 0, 0);
+  if (log_tl < 0) return cudaErrorInvalidValue;
+  const size_t smem = bbt::column_smem(n1, log_tl);
+  cudaError_t err = bbt::prepare(bbt::k1_kernel<false>, smem, device);
+  if (err != cudaSuccess) return err;
+  bbt::k1_kernel<false><<<dim3(L >> log_tl, n2), kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      xr, xi, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+      yr, yi, bbt::log2i(n1), n2, L, log_tl, 0, 0, 32, 0.0f,
+      make_float4(0.f, 0.f, 0.f, 0.f));
+  return cudaGetLastError();
+}
+
 extern "C" int bbt_k2(float* yr, float* yi, const float* csr, const float* csi,
                       int n1, int n2, int L, int device, void* stream) {
   const int log_tl = bbt::choose_log_tl(n2, L, 0, 0);
   if (log_tl < 0) return cudaErrorInvalidValue;
-  const size_t smem = (static_cast<size_t>(n2) << log_tl) * 8 + (n2 / 2) * 8;
+  const size_t smem = bbt::column_smem(n2, log_tl);
   cudaError_t err = bbt::prepare(bbt::k2_kernel, smem, device);
   if (err != cudaSuccess) return err;
   bbt::k2_kernel<<<dim3(L >> log_tl, n1), kThreads, smem,
@@ -403,7 +370,7 @@ extern "C" int bbt_k3_fold(const float* zr, const float* zi, const int* fold,
     smem_acc = 0;
   }
   if (log_tl < 0) return cudaErrorInvalidValue;
-  size_t smem = (static_cast<size_t>(n1) << log_tl) * 8 + (n1 / 2) * 8;
+  size_t smem = bbt::column_smem(n1, log_tl);
   if (smem_acc)
     smem += (static_cast<size_t>(n_phase + 1) << log_tl) * 4 + (n_phase + 1) * 4;
   cudaError_t err = bbt::prepare(bbt::k3_fold_kernel, smem, device);

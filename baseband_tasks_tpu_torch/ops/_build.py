@@ -1,12 +1,14 @@
-"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+"""Build, load and launch the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources have a plain C interface, so ``nvcc`` compiles them into a
-shared library in seconds (PyTorch's own extension builder would include
-its headers and take minutes), and ``ctypes`` loads it.  The library goes
-to ``build/kernels/`` beside the package, named by a hash of the sources
-and flags, so an edited source is never served by a stale build.  Each C
-entry point returns the launch's ``cudaGetLastError()`` code; the kernel
-wrappers raise when it is not 0.
+The sources have a plain C interface, so ``nvcc`` compiles each of them
+into a shared library in seconds (``torch.utils.cpp_extension`` would
+include PyTorch's headers and take minutes), and ``ctypes`` loads them.  The
+sources are compiled in parallel, one ``nvcc`` each, into ``build/kernels/``
+beside the package; each library is named by a hash of its source, the
+shared headers and the flags, so an edited source is never served by a
+stale build.  Each C entry point returns the launch's ``cudaGetLastError()``
+code; :func:`launch` raises when it is not 0 and otherwise adds one to the
+kernel's count in :data:`launch_counts`.
 
 Nothing here runs at import: the first kernel launch builds and loads.
 """
@@ -19,9 +21,13 @@ import os
 import shutil
 import subprocess
 import tempfile
+import types
 from pathlib import Path
 
-__all__ = ["library", "build", "nvcc_path"]
+import torch
+
+__all__ = ["library", "build", "nvcc_path", "launch", "launch_counts",
+           "reset_launch_counts"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -30,15 +36,30 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C entry points of csrc/dedisperse.cu and their argument types
+# C entry points of csrc/*.cu and their argument types (each ends with
+# the device index and the stream)
 _SIGNATURES = {
     "bbt_k1_packed": [_P] * 9 + [_I] * 6 + [_F] * 5 + [_I, _P],
     "bbt_k1_float": [_P] * 9 + [_I] * 5 + [_I, _P],
+    "bbt_k1_window": [_P] * 4 + [_I] * 3 + [_I, _P],
     "bbt_k2": [_P] * 4 + [_I] * 3 + [_I, _P],
     "bbt_k3_fold": [_P] * 5 + [_I] * 6 + [_I, _P],
+    "bbt_k2_fwd": [_P] * 4 + [_F] + [_I] * 3 + [_I, _P],
+    "bbt_k2_inv": [_P] * 4 + [_F] + [_I] * 3 + [_I, _P],
+    "bbt_k3_trim": [_P] * 4 + [_I] * 5 + [_I, _P],
 }
 
+#: kernel launches since the last :func:`reset_launch_counts`, by launch
+#: name (the flagship's K1p/K1f/K2/K3 and the four-step passes)
+launch_counts = {"k1_packed": 0, "k1_float": 0, "k2": 0, "k3_fold": 0,
+                 "k1_window": 0, "k2_fwd": 0, "k2_inv": 0, "k3_trim": 0}
+
 _lib = None
+
+
+def reset_launch_counts():
+    for name in launch_counts:
+        launch_counts[name] = 0
 
 
 def nvcc_path():
@@ -53,49 +74,86 @@ def nvcc_path():
                        "to build the Hopper kernels")
 
 
-def _sources():
-    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+def _library_path(unit, headers):
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in [unit, *headers]:
+        digest.update(p.name.encode() + p.read_bytes())
+    return BUILD_DIR / f"lib{unit.stem}_{digest.hexdigest()[:16]}.so"
 
 
 def build():
-    """Compile ``csrc/*.cu`` if no library of these sources exists yet.
+    """Compile every ``csrc/*.cu`` that has no library of its current
+    sources yet, all at once.
 
-    Returns ``(path, log)``: the library and the compiler's output
-    (``-Xptxas -v`` registers and shared memory per kernel; empty when a
-    cached build was found).
+    Returns ``(paths, log)``: the libraries and the compilers' output
+    (``-Xptxas -v`` registers and shared memory per kernel; empty for a
+    cached build).
     """
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in _sources():
-        digest.update(p.name.encode() + p.read_bytes())
-    so = BUILD_DIR / f"libbbt_kernels_{digest.hexdigest()[:16]}.so"
-    if so.exists():
-        return so, ""
+    units = sorted(CSRC.glob("*.cu"))
+    headers = sorted(CSRC.glob("*.cuh"))
+    paths = [_library_path(u, headers) for u in units]
+    todo = [(u, so) for u, so in zip(units, paths) if not so.exists()]
+    if not todo:
+        return paths, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    units = [str(p) for p in _sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = nvcc_path()
+    jobs = []
     try:
-        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, *units],
-                              capture_output=True, text=True, check=False)
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)
+        for unit, so in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", tmp, str(unit)],
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            jobs.append((unit, so, tmp, proc))
+        log, failed = [], []
+        for unit, so, tmp, proc in jobs:
+            out = proc.communicate()[0]
+            log.append(f"{unit.name}:\n{out}")
+            if proc.returncode:
+                failed.append(f"{unit.name} ({proc.returncode}):\n{out}")
+            else:
+                os.replace(tmp, so)
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return so, proc.stdout + proc.stderr
+        for _, _, tmp, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return paths, "".join(log)
 
 
 def library():
-    """The loaded kernel library (built on first use)."""
+    """A namespace of the C entry points of every kernel library (built on
+    first use), with their argument types set."""
     global _lib
     if _lib is None:
-        path, _ = build()
-        lib = ctypes.CDLL(str(path))
+        paths, _ = build()
+        libs = [ctypes.CDLL(str(p)) for p in paths]
+        fns = {}
         for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
+            found = [getattr(lib, name) for lib in libs if hasattr(lib, name)]
+            if len(found) != 1:
+                raise RuntimeError(f"{name}: found in {len(found)} kernel "
+                                   f"libraries, expected 1")
+            fn = found[0]
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _lib = lib
+            fns[name] = fn
+        _lib = types.SimpleNamespace(**fns)
     return _lib
+
+
+def launch(name, fn, device, *args):
+    """Call entry point ``fn`` with ``args``, the device index and the
+    current stream; raise on a launch error, else count one ``name``."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = getattr(library(), fn)(*args, index, stream)
+    if err:
+        raise RuntimeError(f"{fn} launch failed with CUDA error {err}")
+    launch_counts[name] += 1

@@ -20,7 +20,7 @@ Each stage has a wrapper and a plain PyTorch version (``*_ref``) that
 produces the same layout.  A wrapper given CUDA tensors launches its
 hand-written Hopper kernel (``csrc/dedisperse.cu``) or raises; given CPU
 tensors it runs the plain version.  Each launch adds one to
-:data:`launch_counts`.
+:data:`launch_counts` (shared with ``ops/fft.py``, in ``ops/_build.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ import math
 import numpy as np
 import torch
 
+from ._build import launch, launch_counts, reset_launch_counts
 from .fold import fold_accumulate
 from .unpack import decode_planes, default_levels, default_offset
 
@@ -43,15 +44,6 @@ __all__ = ["split_n", "permute_to_storage_order", "fold_phase_vector",
 _FX_BITS = 31
 _FX_ONE = 1 << _FX_BITS          # one pulse cycle in fixed-point units
 _FX_MASK = _FX_ONE - 1
-
-#: kernel launches since the last :func:`reset_launch_counts`
-launch_counts = {"k1_packed": 0, "k1_float": 0, "k2": 0, "k3_fold": 0}
-
-
-def reset_launch_counts():
-    for name in launch_counts:
-        launch_counts[name] = 0
-
 
 def _is_pow2(n):
     return n > 0 and (n & (n - 1)) == 0
@@ -196,23 +188,13 @@ def _check(t, name, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(name, fn, device, *args):
-    from ._build import library
-    index = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = getattr(library(), fn)(*args, index, stream)
-    if err:
-        raise RuntimeError(f"{fn} launch failed with CUDA error {err}")
-    launch_counts[name] += 1
-
-
 def _check_kernel_geometry(n1, n2):
     # the in-kernel twiddle argument c·b/N is exact in float32 only below
-    # 2^24; a radix-2 column needs at least two rows
-    if n1 * n2 > (1 << 24) or n1 < 2:
-        raise ValueError(f"window {n1 * n2} outside the kernels' range "
-                         f"[4, 2^24]")
+    # 2^24; a radix-2 column needs at least two rows; a stage-B column of
+    # N2 rows (12 bytes each with its twiddles) must fit shared memory
+    if n1 * n2 > (1 << 24) or n1 < 2 or n2 > (1 << 14):
+        raise ValueError(f"window {n1 * n2} = {n1}x{n2} outside the "
+                         f"kernels' range: N in [4, 2^24], N2 <= 2^14")
 
 
 def _check_edges(fr, fi, er, ei, scale, L, device):
@@ -250,7 +232,7 @@ def stage_a_packed(xpr, xpi, fr, fi, er, ei, scale, *, bits, offset=None,
     lv = default_levels(bits) if levels is None else levels
     yr = torch.empty((n2, n1, L), dtype=torch.float32, device=dev)
     yi = torch.empty_like(yr)
-    _launch("k1_packed", "bbt_k1_packed", dev, xpr.data_ptr(),
+    launch("k1_packed", "bbt_k1_packed", dev, xpr.data_ptr(),
             xpi.data_ptr(), fr.data_ptr(), fi.data_ptr(), er.data_ptr(),
             ei.data_ptr(), scale.data_ptr(), yr.data_ptr(), yi.data_ptr(),
             n1, n2, L, kf, ke, bits, float(offset), *map(float, lv))
@@ -271,7 +253,7 @@ def stage_a(xr, xi, fr, fi, er, ei, scale):
     _check_edges(fr, fi, er, ei, scale, L, dev)
     yr = torch.empty((n2, n1, L), dtype=torch.float32, device=dev)
     yi = torch.empty_like(yr)
-    _launch("k1_float", "bbt_k1_float", dev, xr.data_ptr(), xi.data_ptr(),
+    launch("k1_float", "bbt_k1_float", dev, xr.data_ptr(), xi.data_ptr(),
             fr.data_ptr(), fi.data_ptr(), er.data_ptr(), ei.data_ptr(),
             scale.data_ptr(), yr.data_ptr(), yi.data_ptr(), n1, n2, L,
             fr.shape[0] // n2, er.shape[0] // n2)
@@ -288,7 +270,7 @@ def stage_b(yr, yi, csr, csi):
     dev = yr.device
     for name, t in (("yr", yr), ("yi", yi), ("csr", csr), ("csi", csi)):
         _check(t, name, torch.float32, (n2, n1, L), dev)
-    _launch("k2", "bbt_k2", dev, yr.data_ptr(), yi.data_ptr(),
+    launch("k2", "bbt_k2", dev, yr.data_ptr(), yi.data_ptr(),
             csr.data_ptr(), csi.data_ptr(), n1, n2, L)
     return yr, yi
 
@@ -310,7 +292,7 @@ def detect_fold(zr, zi, fold, *, n_phase, pad_start, n_valid):
     _check(fold, "fold", torch.int32, (3,), dev)
     prof = torch.zeros((n_phase + 1, L), dtype=torch.float32, device=dev)
     cnt = torch.zeros((n_phase + 1,), dtype=torch.int32, device=dev)
-    _launch("k3_fold", "bbt_k3_fold", dev, zr.data_ptr(), zi.data_ptr(),
+    launch("k3_fold", "bbt_k3_fold", dev, zr.data_ptr(), zi.data_ptr(),
             fold.data_ptr(), prof.data_ptr(), cnt.data_ptr(), n1, n2, L,
             n_phase, int(pad_start), int(n_valid))
     return prof, cnt

@@ -1,4 +1,4 @@
-"""Host-side utility layer: units, two-double time."""
+"""Host-side utility layer: units, two-double time, dtype helpers."""
 
 from . import units
 from .time import Time, TimeDelta, two_sum

@@ -6,10 +6,13 @@ On a GPU machine (which need not have jax) run them with
     python -m pytest tests/test_torch_cuda.py -q -p no:cacheprovider \
         --noconftest -o filterwarnings=error
 
-They cover what the flagship smoke (``chip_smoke.py``) does not: every
-bit depth, the float32 twin, small and lopsided windows, a fold whose
+They cover what the smoke (``chip_smoke.py``) does not: every bit
+depth, the float32 twin, small and lopsided windows, a fold whose
 partial profile does not fit shared memory (the global-atomic branch),
-and the wrappers' refusals.  Tolerances as in ``chip_smoke.py``: planes
+the four-step passes (k1_window, k2_fwd, k2_inv, k3_trim) at 8, 16 and
+128 lanes and windows of 2^9 to 2^18 with and without pads, the FFT
+engine and the dispersion tasks on the card, and the wrappers'
+refusals.  Tolerances as in ``chip_smoke.py``: planes
 to 1e-4 of their largest element (float32 FFT roundoff is ~1e-6 of it),
 profiles elementwise to rtol 2e-4 (atomic summation order), counts
 exact.
@@ -21,6 +24,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from baseband_tasks_tpu_torch.ops import dedisperse as dd  # noqa: E402
+from baseband_tasks_tpu_torch.ops import fft as ff  # noqa: E402
+from baseband_tasks_tpu_torch.ops import spectral_filter as sf  # noqa: E402
 from baseband_tasks_tpu_torch.ops import unpack  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -142,7 +147,8 @@ def test_public_entry_matches_cpu(dev):
     got = dd.dedisperse_fold_split_packed(*(w.to(dev) for w in words),
                                           *edges, *chirp, fold, scale, **kw)
     assert dd.launch_counts == {"k1_packed": 1, "k1_float": 0, "k2": 1,
-                                "k3_fold": 1}
+                                "k3_fold": 1, "k1_window": 0, "k2_fwd": 0,
+                                "k2_inv": 0, "k3_trim": 0}
     ref = dd.dedisperse_fold_split_packed(*words, *edges, *chirp, fold,
                                           scale, **kw)
     assert torch.equal(got[1].cpu(), ref[1])
@@ -187,3 +193,118 @@ def test_no_fallback_when_library_missing(dev, monkeypatch):
     _, planes, edges, scale = inputs(dev, 896, 32, 96, 128, 8)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         dd.stage_a(*planes, *edges, scale)
+
+
+# -- the four-step passes ---------------------------------------------------
+
+LANES = [8, 16, 128]
+WINDOWS = [1 << 9, 1 << 12, 1 << 15, 1 << 18]
+
+
+def randn(dev, shape, seed, count=2):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=dev) for _ in range(count)]
+
+
+@pytest.mark.parametrize("n", WINDOWS)
+@pytest.mark.parametrize("L", LANES)
+def test_k1_window(dev, L, n):
+    x = randn(dev, (n, L), 10)
+    assert_planes(ff.k1_window(*x), ff.k1_window_ref(*x))
+
+
+@pytest.mark.parametrize("ortho", [False, True])
+@pytest.mark.parametrize("n", WINDOWS)
+@pytest.mark.parametrize("L", LANES)
+def test_k2_fwd_inv(dev, L, n, ortho):
+    n1, n2 = dd.split_n(n)
+    y = randn(dev, (n2, n1, L), 11)
+    fwd = ff.fft_scale(n, inverse=False, ortho=ortho)
+    inv = ff.fft_scale(n, inverse=True, ortho=ortho) * n1
+    assert_planes(ff.k2_fwd(*y, fwd), ff.k2_fwd_ref(*y, fwd))
+    assert_planes(ff.k2_inv(*y, inv), ff.k2_inv_ref(*y, inv))
+
+
+@pytest.mark.parametrize("pads", [(0, 0), (1, 1), (2, 5)])
+@pytest.mark.parametrize("n", WINDOWS)
+@pytest.mark.parametrize("L", LANES)
+def test_k3_trim(dev, L, n, pads):
+    """pads in rows of N2: none, one each side, lopsided."""
+    n1, n2 = dd.split_n(n)
+    kw = dict(pad_start=pads[0] * n2, pad_end=pads[1] * n2)
+    z = randn(dev, (n2, n1, L), 12)
+    got = ff.k3_trim(*z, **kw)
+    assert got[0].shape == (n - (pads[0] + pads[1]) * n2, L)
+    assert_planes(got, ff.k3_trim_ref(*z, **kw))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", [1 << 10, 1 << 16])
+def test_fft_pow2_planes(dev, n, inverse):
+    x = randn(dev, (n, 16), 13)
+    dd.reset_launch_counts()
+    got = ff.fft_pow2_planes(*x, inverse=inverse)
+    names = ("k2_inv", "k3_trim") if inverse else ("k1_window", "k2_fwd")
+    assert all(dd.launch_counts[k] == 1 for k in names)
+    assert_planes(got, ff.fft_pow2_planes_ref(*x, inverse=inverse))
+    plain = ff.fft_pow2_planes(*x, inverse=inverse, kernels=False)
+    assert all(dd.launch_counts[k] == 1 for k in names)
+    assert_planes(got, plain)
+
+
+@pytest.mark.parametrize("n,L,pads", [(1 << 12, 8, (64, 128)),
+                                      (1 << 18, 128, (512, 512))])
+def test_spectral_filter(dev, n, L, pads):
+    n1, n2 = dd.split_n(n)
+    x = randn(dev, (n, L), 14)
+    ph = torch.rand((n2, n1, L), generator=torch.Generator(device=dev
+                                                           ).manual_seed(15),
+                    device=dev) * 6.283
+    g = (torch.cos(ph), torch.sin(ph))
+    kw = dict(pad_start=pads[0], pad_end=pads[1])
+    assert_planes(sf.spectral_filter_pow2(*x, *g, **kw),
+                  sf.spectral_filter_pow2_ref(*x, *g, **kw))
+
+
+def test_four_step_refusals(dev):
+    big = torch.zeros((1 << 25, 1), device=dev)
+    with pytest.raises(ValueError, match="outside the kernels' range"):
+        ff.k1_window(big, big)
+    with pytest.raises(ValueError, match="power of two"):
+        ff.k1_window(*randn(dev, (768, 8), 16))
+    z = randn(dev, (32, 16, 8), 17)
+    with pytest.raises(ValueError, match="multiple of N2"):
+        ff.k3_trim(*z, pad_start=16)
+    with pytest.raises(TypeError):
+        ff.k2_fwd(*[t.double() for t in z], 1.0)
+
+
+def test_tasks_on_card(dev):
+    """Dedisperse on both engines and the 'pallas' FFT engine, built on a
+    card stream: kernels against the plain versions."""
+    import baseband_tasks_tpu_torch as bt
+    from baseband_tasks_tpu_torch.fourier import fft_maker
+    u = bt.units
+    freq = (400 + (np.arange(16) - 8) * 0.25) * u.MHz
+    src = bt.SetAttribute(bt.NoiseGenerator(
+        shape=(1 << 16, 16), start_time=bt.Time.from_mjd(58000.0),
+        sample_rate=250 * u.kHz, samples_per_frame=4096, seed=3,
+        device=dev), frequency=freq, sideband=1)
+    outs = []
+    for kernels in (True, False):
+        ded = bt.Dedisperse(src, 2.0, samples_per_frame=1 << 13,
+                            use_kernels=kernels)
+        assert ded.engine == "pallas"
+        chain = bt.Dechannelize(ded)
+        with fft_maker.set("pallas", use_kernels=kernels):
+            # pads 385 + 387: a 2^13 window, on the four-step kernels
+            xla = bt.Dedisperse(src, 2.0, engine="xla",
+                                samples_per_frame=(1 << 13) - 772)
+            assert xla._padded_samples_per_frame == 1 << 13
+            assert fft_maker((1 << 13, 16), np.complex64)._use_pallas
+            outs.append((chain.read(3 * chain.samples_per_frame),
+                         xla.read(2 * xla.samples_per_frame)))
+    for got, ref in zip(*outs):
+        assert got.device == dev
+        assert_planes((got.real, got.imag), (ref.real, ref.imag))
