@@ -1,13 +1,16 @@
 """PyTorch/CUDA port of baseband_tasks_tpu.
 
-Two slices so far:
+Three slices so far:
 
 - the flagship: coherent dedispersion -> detection -> pulse-phase fold
   of channelized, plane-packed baseband (``WidebandPulsarPipeline``);
 - the lazy stream-task core (``Base``/``TaskBase``/``PaddedTaskBase``,
   generators, shaping, ``Channelize``/``Dechannelize``, ``Square``/
   ``Power``) on the three-engine ``fourier`` layer, with coherent
-  ``Disperse``/``Dedisperse``.
+  ``Disperse``/``Dedisperse``;
+- compiled chains (``CompiledPipeline``, ``stream.compile()``) with
+  their kernel fusions, and the polyphase filter bank and its Wiener
+  inversion (``PolyphaseFilterBank``, ``InversePolyphaseFilterBank``).
 
 Frames are torch tensors on the stream's device.  On a CUDA device the
 FFT and filter passes run hand-written CUDA kernels for NVIDIA Hopper
@@ -25,7 +28,9 @@ from .fourier import fft_maker
 from .functions import Square, Power
 from .generators import (StreamGenerator, EmptyStreamGenerator, Noise,
                          NoiseGenerator)
-from .models import WidebandPulsarPipeline
+from .models import CompiledPipeline, WidebandPulsarPipeline
+from .pfb import (InversePolyphaseFilterBank, PolyphaseFilterBank,
+                  PolyphaseFilterBankSamples, sinc_hamming)
 from .phases import Polyco, PolycoPhase
 from .shaping import (ChangeSampleShape, Reshape, Transpose,
                       ReshapeAndTranspose, GetItem, GetSlice)
@@ -37,5 +42,7 @@ __all__ = ["Base", "BaseTaskBase", "TaskBase", "PaddedTaskBase", "Task",
            "Square", "Power", "ChangeSampleShape", "Reshape", "Transpose",
            "ReshapeAndTranspose", "GetItem", "GetSlice", "Disperse",
            "Dedisperse", "DispersionMeasure", "fft_maker",
-           "WidebandPulsarPipeline", "Time", "units", "Polyco",
-           "PolycoPhase"]
+           "WidebandPulsarPipeline", "CompiledPipeline",
+           "PolyphaseFilterBank", "PolyphaseFilterBankSamples",
+           "InversePolyphaseFilterBank", "sinc_hamming", "Time", "units",
+           "Polyco", "PolycoPhase"]

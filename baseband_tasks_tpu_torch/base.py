@@ -18,8 +18,10 @@ frames on demand.
 - At a stream's end a padded task re-reads a full window at an offset,
   so its frame function always sees the same shape.
 
-The JAX package's ``compile()`` view and its TPU performance hint are not
-ported (ROADMAP.md, queue 1 item 8).
+``Base.compile()`` returns a read-compatible view that runs the chain
+through ``models/compiled.CompiledPipeline`` (``models/view.py``).  The
+JAX package's TPU performance hint has no counterpart: the class is
+ported, nothing emits it.
 """
 
 from __future__ import annotations
@@ -300,6 +302,22 @@ class Base:
 
     def _read_frame(self, frame_index):  # pragma: no cover - abstract
         raise NotImplementedError
+
+    def compile(self, *, block_samples=None, fuse=True, mesh=None):
+        """A read-compatible view backed by the compiled chain.
+
+        Same filehandle protocol (``seek``/``read``/``tell``/meta), but
+        frames come from a :class:`~.models.compiled.CompiledPipeline`
+        stepped over source blocks, with its kernel fusions.  Warmup and
+        the streaming delay are handled internally, so
+        ``stream.compile().read(n) == stream.read(n)`` over the whole
+        stream (head and tail edges are served eagerly; the midsection
+        matches to the streaming-exactness contract of
+        ``models/compiled.py``).  ``mesh`` is not ported yet.
+        """
+        from .models.view import compile_stream
+        return compile_stream(self, block_samples=block_samples, fuse=fuse,
+                              mesh=mesh)
 
     # -- conversions / niceties ------------------------------------------
     def __getitem__(self, item):

@@ -1,9 +1,10 @@
 """Channelization: block FFT into spectral channels and its inverse.
 
 Counterpart of ``baseband_tasks_tpu/channelize.py`` (``Channelize``,
-``Dechannelize``) through ``task``, on the current ``fft_maker`` engine.
-(The JAX package's planes forms, ``task_planes``, belong to the compiled
-pipelines and are not ported yet.)
+``Dechannelize``): ``task`` on the current ``fft_maker`` engine, and the
+planes forms ``task_planes`` that the compiled pipelines run (separate
+float32 re/im planes through ``ops/dft_matmul`` matrix products, for
+n <= ``MAX_MATMUL_N``).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import numpy as np
 
 from .base import TaskBase, getattr_if_none
 from .fourier import fft_maker
+from .ops.dft_matmul import MAX_MATMUL_N, dft_matmul_planes
 from .utils import units as u
 
 __all__ = ["Channelize", "Dechannelize"]
@@ -73,6 +75,17 @@ class Channelize(TaskBase):
 
     def task(self, data):
         return self._fft(data.reshape((-1, self._n) + tuple(data.shape[1:])))
+
+    def task_planes(self, pair):
+        """Planes-interchange form (models/compiled.py): the channel DFT
+        of separate re/im planes as four matrix products; NotImplemented
+        where it does not apply (real data, ortho, n > MAX_MATMUL_N)."""
+        xr, xi = pair
+        if xi is None or self._fft.ortho or self._n > MAX_MATMUL_N:
+            return NotImplemented
+        shape = (-1, self._n) + tuple(xr.shape[1:])
+        return dft_matmul_planes(xr.reshape(shape), xi.reshape(shape),
+                                 axis=1, direction="forward", n=self._n)
 
     def inverse(self, ih):
         """Build the Dechannelize that undoes this Channelize."""
@@ -134,6 +147,19 @@ class Dechannelize(TaskBase):
     def task(self, data):
         out = self._fft(data)
         return out.reshape((-1,) + tuple(out.shape[2:]))
+
+    def task_planes(self, pair):
+        """Planes-interchange form: the inverse channel DFT of separate
+        re/im planes as four matrix products, channel axis merged to
+        time."""
+        xr, xi = pair
+        if (xi is None or self._fft.ortho or self._n > MAX_MATMUL_N
+                or np.dtype(self.dtype).kind != "c"):
+            return NotImplemented
+        yr, yi = dft_matmul_planes(xr, xi, axis=1, direction="backward",
+                                   n=self._n)
+        out = (-1,) + tuple(xr.shape[2:])
+        return yr.reshape(out), yi.reshape(out)
 
     def inverse(self, ih):
         return Channelize(ih, n=self._n)

@@ -49,7 +49,11 @@ __device__ __forceinline__ float decode_field(unsigned f, int bits,
 // and no scale it is also `_k1_body` (:223, the plain window of
 // `_dedisperse_impl` and the forward `fft_pallas._fft_impl`) and
 // `spectral_filter._k1_filter_body` (:92) without `pre` or scale, launched
-// as k1_window (`bbt_k1_window`).
+// as k1_window (`bbt_k1_window`).  With the carry as the front edge, no
+// end edge and the scale on the block rows only (edge_scale = 0: the
+// carry holds already-scaled samples), it is `_k1_filter_body`'s
+// streaming form, launched as k1_stream (`bbt_k1_stream`); its `pre` mix
+// is fourstep.cu's lane_mix, run on the output.
 //
 // Block (lane tile, b) assembles window column b: rows c < kf from the
 // front edge (row c*N2+b), rows c >= kf+nm from the end edge, and main row
@@ -65,9 +69,10 @@ k1_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
           const unsigned* __restrict__ xpr, const unsigned* __restrict__ xpi,
           const float* __restrict__ fr, const float* __restrict__ fi,
           const float* __restrict__ er, const float* __restrict__ ei,
-          const float* __restrict__ scale, float* __restrict__ yr,
-          float* __restrict__ yi, int log_n1, int n2, int L, int log_tl,
-          int kf, int ke, int bits, float offset, float4 lv) {
+          const float* __restrict__ scale, float scale_value,
+          int edge_scale, float* __restrict__ yr, float* __restrict__ yi,
+          int log_n1, int n2, int L, int log_tl, int kf, int ke, int bits,
+          float offset, float4 lv) {
   extern __shared__ float2 smem[];
   const int n1 = 1 << log_n1;
   const int tl = 1 << log_tl;
@@ -76,22 +81,23 @@ k1_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   const int b = blockIdx.y;
   const int l0 = blockIdx.x << log_tl;
   const int nm = n1 - kf - ke;
-  const float s = scale ? *scale : 1.0f;
+  const float s = scale ? *scale : scale_value;
+  const float se = edge_scale ? s : 1.0f;   // the edges' scale
   fill_twiddles(tw, n1);
 
   // element idx of a tile of rows: (row, lane) of a (rows, N2, L) plane
   auto at = [&](int idx) {
     return (static_cast<long>(idx >> log_tl) * n2 + b) * L + l0 + (idx & (tl - 1));
   };
-  auto scaled = [&](float2* dst) {
-    return [=](int idx, float2 v) { dst[idx] = make_float2(v.x * s, v.y * s); };
+  auto scaled = [&](float2* dst, float f) {
+    return [=](int idx, float2 v) { dst[idx] = make_float2(v.x * f, v.y * f); };
   };
   batched(kf << log_tl,
           [&](int idx) { return make_float2(fr[at(idx)], fi[at(idx)]); },
-          scaled(x));
+          scaled(x, se));
   batched(ke << log_tl,
           [&](int idx) { return make_float2(er[at(idx)], ei[at(idx)]); },
-          scaled(x + ((kf + nm) << log_tl)));
+          scaled(x + ((kf + nm) << log_tl), se));
   if constexpr (PACKED) {
     const int per = 32 / bits;
     const int nmp = nm / per;
@@ -111,7 +117,7 @@ k1_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   } else {
     batched(nm << log_tl,
             [&](int idx) { return make_float2(xr[at(idx)], xi[at(idx)]); },
-            scaled(x + (kf << log_tl)));
+            scaled(x + (kf << log_tl), s));
   }
   __syncthreads();
 
@@ -305,8 +311,8 @@ extern "C" int bbt_k1_packed(const void* xpr, const void* xpi, const float* fr,
   bbt::k1_kernel<true><<<dim3(L >> log_tl, n2), kThreads, smem,
            static_cast<cudaStream_t>(stream)>>>(
       nullptr, nullptr, static_cast<const unsigned*>(xpr),
-      static_cast<const unsigned*>(xpi), fr, fi, er, ei, scale, yr, yi,
-      bbt::log2i(n1), n2, L, log_tl, kf, ke, bits, offset,
+      static_cast<const unsigned*>(xpi), fr, fi, er, ei, scale, 1.0f, 1, yr,
+      yi, bbt::log2i(n1), n2, L, log_tl, kf, ke, bits, offset,
       make_float4(lv0, lv1, lv2, lv3));
   return cudaGetLastError();
 }
@@ -323,8 +329,9 @@ extern "C" int bbt_k1_float(const float* xr, const float* xi, const float* fr,
   if (err != cudaSuccess) return err;
   bbt::k1_kernel<false><<<dim3(L >> log_tl, n2), kThreads, smem,
            static_cast<cudaStream_t>(stream)>>>(
-      xr, xi, nullptr, nullptr, fr, fi, er, ei, scale, yr, yi, bbt::log2i(n1),
-      n2, L, log_tl, kf, ke, 32, 0.0f, make_float4(0.f, 0.f, 0.f, 0.f));
+      xr, xi, nullptr, nullptr, fr, fi, er, ei, scale, 1.0f, 1, yr, yi,
+      bbt::log2i(n1), n2, L, log_tl, kf, ke, 32, 0.0f,
+      make_float4(0.f, 0.f, 0.f, 0.f));
   return cudaGetLastError();
 }
 
@@ -340,7 +347,27 @@ extern "C" int bbt_k1_window(const float* xr, const float* xi, float* yr,
   bbt::k1_kernel<false><<<dim3(L >> log_tl, n2), kThreads, smem,
            static_cast<cudaStream_t>(stream)>>>(
       xr, xi, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-      yr, yi, bbt::log2i(n1), n2, L, log_tl, 0, 0, 32, 0.0f,
+      1.0f, 1, yr, yi, bbt::log2i(n1), n2, L, log_tl, 0, 0, 32, 0.0f,
+      make_float4(0.f, 0.f, 0.f, 0.f));
+  return cudaGetLastError();
+}
+
+// k1_stream: stage A of the streaming window [carry | block], the carry
+// (kc rows of N2) as the front edge and unscaled, the block scaled by
+// *scale (or by scale_value when scale is null).
+extern "C" int bbt_k1_stream(const float* cr, const float* ci, const float* xr,
+                             const float* xi, const float* scale,
+                             float scale_value, float* yr, float* yi, int n1,
+                             int n2, int L, int kc, int device, void* stream) {
+  const int log_tl = bbt::choose_log_tl(n1, L, 0, 0);
+  if (log_tl < 0 || kc < 0 || kc >= n1) return cudaErrorInvalidValue;
+  const size_t smem = bbt::column_smem(n1, log_tl);
+  cudaError_t err = bbt::prepare(bbt::k1_kernel<false>, smem, device);
+  if (err != cudaSuccess) return err;
+  bbt::k1_kernel<false><<<dim3(L >> log_tl, n2), kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      xr, xi, nullptr, nullptr, cr, ci, nullptr, nullptr, scale, scale_value,
+      0, yr, yi, bbt::log2i(n1), n2, L, log_tl, kc, 0, 32, 0.0f,
       make_float4(0.f, 0.f, 0.f, 0.f));
   return cudaGetLastError();
 }

@@ -13,6 +13,8 @@
 //   k2_inv   inverse stage-B FFT, x scale, W_N^{+c b}           (N2, N1, L)
 //   k3_trim  inverse stage-A FFT over c (/N1), rows c in [kf, N1 - ke)
 //            stored in natural time order                       (N - pads, L)
+//   lane_mix (rows, L) planes times a complex (L, L) matrix: the
+//            spectral filter's `pre`/`post` mixes               (rows, L)
 //
 // What bounds them on an H100: bytes.  Each pass reads and writes two
 // float32 planes once (2 x 2 x 4 B x N x L: 537 MB at N = 2^18, L = 128,
@@ -28,6 +30,7 @@
 
 #include "common.cuh"
 #include "fft.cuh"
+#include "lanemix.cuh"
 
 namespace bbt {
 
@@ -136,6 +139,35 @@ k3_trim_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
   }
 }
 
+// ---------------------------------------------------------------------------
+// lane_mix: replaces `_lane_matmul` (spectral_filter.py:78) as the TPU
+// kernels apply it inside `_k1_filter_body` (:92, `pre`) and
+// `_k3_trim_body` (:129, `post`).  Those kernels hold all L lanes of a
+// row block; the passes here hold a column for a tile of <= 16 lanes, so
+// the mix runs as its own pass right after stage A (`pre`: a lane mix
+// commutes with the row FFT and twiddle, which act on every lane alike)
+// or after k3_trim (`post`).  Block i loads rows [16 i, 16 i + 16) of
+// all L lanes into shared memory and `mix_tile` multiplies them by W.
+// Bound: FP32 FMAs (8 L flops per element) above L ~ 64; below, bytes.
+__global__ void __launch_bounds__(kThreads)
+lane_mix_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                const float* __restrict__ wr, const float* __restrict__ wi,
+                float* __restrict__ yr, float* __restrict__ yi, int rows,
+                int L) {
+  extern __shared__ float2 tile[];
+  const long row0 = static_cast<long>(blockIdx.x) * kMixRows;
+  const int nr = min(kMixRows, static_cast<int>(rows - row0));
+  const long base = row0 * L;
+  batched(kMixRows * L,
+          [&](int idx) {
+            return idx < nr * L ? make_float2(xr[base + idx], xi[base + idx])
+                                : make_float2(0.0f, 0.0f);
+          },
+          [&](int idx, float2 v) { tile[idx] = v; });
+  __syncthreads();
+  mix_tile(tile, L, wr, wi, yr, yi, row0, nr);
+}
+
 }  // namespace bbt
 
 using bbt::kThreads;
@@ -186,5 +218,19 @@ extern "C" int bbt_k3_trim(const float* zr, const float* zi, float* outr,
   bbt::k3_trim_kernel<<<dim3(L >> log_tl, n2), kThreads, smem,
                         static_cast<cudaStream_t>(stream)>>>(
       zr, zi, outr, outi, bbt::log2i(n1), bbt::log2i(n2), L, log_tl, kf, ke);
+  return cudaGetLastError();
+}
+
+extern "C" int bbt_lane_mix(const float* xr, const float* xi, const float* wr,
+                            const float* wi, float* yr, float* yi, int rows,
+                            int L, int device, void* stream) {
+  if (rows < 1 || L < 1 || L > bbt::kMaxMixLanes) return cudaErrorInvalidValue;
+  const size_t smem = static_cast<size_t>(bbt::kMixRows) * L * sizeof(float2);
+  cudaError_t err = bbt::prepare(bbt::lane_mix_kernel, smem, device);
+  if (err != cudaSuccess) return err;
+  bbt::lane_mix_kernel<<<(rows + bbt::kMixRows - 1) / bbt::kMixRows,
+                         bbt::mix_threads(L), smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      xr, xi, wr, wi, yr, yi, rows, L);
   return cudaGetLastError();
 }

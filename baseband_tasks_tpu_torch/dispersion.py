@@ -13,7 +13,10 @@ cached on the stream's device as complex64.  Two engines:
   multiples of the four-step N2, filtered by
   ``ops/spectral_filter.spectral_filter_pow2`` with the chirp in storage
   order: three kernel passes on a CUDA device, the pads dropped by the
-  last one.
+  last one.  Its planes forms (``task_planes``, and ``task_stream`` with
+  the window assembled from the overlap-save carry inside stage A) serve
+  the compiled pipelines, which may fold a following Dechannelize in as
+  the filter's ``post`` lane mix.
 
 The incoherent ``DisperseSamples``/``DedisperseSamples`` wait for the
 port of ``sampling.py`` (ROADMAP.md, queue 1 item 7).
@@ -29,7 +32,8 @@ from .dm import DispersionMeasure
 from .fourier import fft_maker
 from .fourier.pallas import MIN_LANES
 from .ops.dedisperse import permute_to_storage_order, split_n
-from .ops.spectral_filter import geometry_ok, spectral_filter_pow2
+from .ops.spectral_filter import (geometry_ok, spectral_filter_pow2,
+                                  spectral_filter_stream)
 from .utils import units as u
 from .utils.dtypes import numpy_dtype
 
@@ -194,26 +198,92 @@ class Disperse(PaddedTaskBase):
             part.astype(np.float32)), device=self.device)
             for part in (stor.real, stor.imag))
 
-    def _task_pallas(self, data):
+    def _storage_chirp_planes(self):
         if self._storage_chirp_cache is None:
             self._storage_chirp_cache = self._storage_chirp()
+        return self._storage_chirp_cache
+
+    def _chirp_tensor(self):
+        """The complex chirp of the 'xla' task on the stream's device."""
+        if self._chirp_cache is None:
+            self._chirp_cache = torch.as_tensor(self._chirp(),
+                                                device=self.device)
+        return self._chirp_cache
+
+    def _prepare_device_caches(self):
+        """Build the engine's chirp on the device (compiled pipelines call
+        this before their first step)."""
+        if self.engine == "pallas":
+            self._storage_chirp_planes()
+        else:
+            self._chirp_tensor()
+
+    def _task_pallas(self, data):
         n = data.shape[0]
         sample_shape = tuple(data.shape[1:])
         x = data.to(torch.complex64).reshape(n, -1)
-        yr, yi = spectral_filter_pow2(
-            x.real.contiguous(), x.imag.contiguous(),
-            *self._storage_chirp_cache, pad_start=self._pad_start,
-            pad_end=self._pad_end, kernels=self.use_kernels)
+        yr, yi = self._task_pallas_planes(x.real.contiguous(),
+                                          x.imag.contiguous())
         return torch.complex(yr, yi).reshape(
             (self._samples_per_frame,) + sample_shape)
+
+    def _task_pallas_planes(self, xr, xi, post=None):
+        """Dedisperse padded float32 planes (N, lanes) -> trimmed planes;
+        ``post`` optionally folds a lane-mixing matrix in (a following
+        Dechannelize's inverse DFT, models/compiled.py)."""
+        return spectral_filter_pow2(
+            xr, xi, *self._storage_chirp_planes(),
+            pad_start=self._pad_start, pad_end=self._pad_end, post=post,
+            kernels=self.use_kernels)
+
+    def _task_pallas_stream(self, carry_pair, x_pair, scale=None,
+                            post=None):
+        """Streaming planes form: overlap-save carry + block planes in,
+        trimmed planes out, with the window assembled in stage A and the
+        optional per-iteration scale on the block rows."""
+        return spectral_filter_stream(
+            carry_pair[0], carry_pair[1], x_pair[0], x_pair[1],
+            *self._storage_chirp_planes(), pad_start=self._pad_start,
+            pad_end=self._pad_end, scale=scale, post=post,
+            kernels=self.use_kernels)
+
+    def task_planes(self, pair):
+        """Planes-interchange form for compiled pipelines: padded window
+        as (re, im) float32 planes in, trimmed planes out.  NotImplemented
+        where the 'pallas' geometry does not apply (the caller then goes
+        through ``task``)."""
+        xr, xi = pair
+        if (self.engine != "pallas" or xi is None
+                or xr.shape[0] != self._padded_samples_per_frame):
+            return NotImplemented
+        shape = tuple(xr.shape)
+        yr, yi = self._task_pallas_planes(xr.reshape(shape[0], -1),
+                                          xi.reshape(shape[0], -1))
+        out_shape = (self._samples_per_frame,) + shape[1:]
+        return yr.reshape(out_shape), yi.reshape(out_shape)
+
+    def task_stream(self, carry_pair, x_pair, scale=None):
+        """Streaming planes form: (pad, ...) carry planes + (spf, ...)
+        block planes -> trimmed planes (see models/compiled.py
+        planes_step)."""
+        pad = self._pad_start + self._pad_end
+        if (self.engine != "pallas" or carry_pair[0].shape[0] != pad
+                or x_pair[0].shape[0] + pad
+                != self._padded_samples_per_frame):
+            return NotImplemented
+        shape = tuple(x_pair[0].shape)
+        yr, yi = self._task_pallas_stream(
+            (carry_pair[0].reshape(pad, -1),
+             carry_pair[1].reshape(pad, -1)),
+            (x_pair[0].reshape(shape[0], -1),
+             x_pair[1].reshape(shape[0], -1)), scale=scale)
+        out_shape = (self._samples_per_frame,) + shape[1:]
+        return yr.reshape(out_shape), yi.reshape(out_shape)
 
     def task(self, data):
         if self.engine == "pallas" and \
                 data.shape[0] == self._padded_samples_per_frame:
             return self._task_pallas(data)
-        if self._chirp_cache is None:
-            self._chirp_cache = torch.as_tensor(self._chirp(),
-                                                device=self.device)
         squeeze = data.ndim == 1
         if squeeze:
             data = data[:, None]
@@ -221,7 +291,7 @@ class Disperse(PaddedTaskBase):
         fft = fft_maker((n,) + tuple(data.shape[1:]), numpy_dtype(data.dtype),
                         axis=0, sample_rate=self.ih.sample_rate)
         ft = fft(data)
-        ft = ft * self._chirp_cache
+        ft = ft * self._chirp_tensor()
         out = fft.inverse()(ft)
         out = out[self._pad_start:self._pad_start + self._samples_per_frame]
         if squeeze:

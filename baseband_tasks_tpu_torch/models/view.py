@@ -1,0 +1,175 @@
+"""Read-compatible compiled view of a task chain: ``stream.compile()``.
+
+Counterpart of ``baseband_tasks_tpu/models/view.py``.
+:class:`CompiledStreamView` wraps a :class:`~.compiled.CompiledPipeline`
+behind the filehandle protocol of the stream it compiles (``seek``/
+``read``/``tell``/``shape``/meta), so switching to the compiled path is one
+call::
+
+    view = chain.compile()
+    data = view.read(n)        # == chain.read(n), on the chain's device
+
+The compiled step's output index ``i`` is the eager chain's sample
+``i - delay``, and its first ``warmup`` outputs are affected by the
+zero-initialized overlap-save carries.  The view therefore serves
+
+- ``[0, warmup - delay)``       from the eager chain (exact),
+- the compiled midsection        from the compiled step (equal to eager to
+  the streaming-exactness contract of ``compiled.py``),
+- the final partial block        from the eager chain again,
+
+so ``view.read(n) == chain.read(n)`` over the whole stream.  Carries
+persist between reads, so sequential reads never recompute history;
+seeking back past retained output restarts from block 0.
+
+One device only: ``mesh=`` (the JAX package's time-sharded super-steps)
+waits for the multi-device layer (ROADMAP.md queue 1 item 11), and a
+trailing ``Integrate``/``Fold`` waits for ``integration.py``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..base import Base
+
+__all__ = ["CompiledStreamView", "compile_stream"]
+
+
+class CompiledStreamView(Base):
+    """A stream head with the eager chain's API and the compiled step's
+    execution (see module docstring).
+
+    Parameters
+    ----------
+    tail : task chain head
+        The chain to compile.
+    block_samples, fuse
+        Passed to :class:`~.compiled.CompiledPipeline`.
+    """
+
+    #: source samples per compiled step when nothing pins the block
+    _TARGET_BLOCK = 1 << 16
+
+    def __init__(self, tail, *, block_samples=None, fuse=True, mesh=None):
+        from .compiled import CompiledPipeline
+
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= (multi-device compiled views) is not ported yet "
+                "(ROADMAP.md, queue 1 item 11)")
+        cp = CompiledPipeline(tail, block_samples=block_samples, fuse=fuse)
+        if block_samples is None and cp.block_samples < self._TARGET_BLOCK:
+            # unpinned chains get the minimal legal block; a streamed view
+            # wants big steps, so scale up where the stream allows
+            B = cp.block_samples
+            avail = cp.source.shape[0] - cp.source_offsets[0]
+            big = -(-self._TARGET_BLOCK // B) * B
+            big = max(min(big, avail // B * B), B)
+            if big > B:
+                try:
+                    cp = CompiledPipeline(tail, block_samples=big, fuse=fuse)
+                except ValueError:
+                    pass  # a padded stage pins the block; keep the default
+        if cp.delay != int(cp.delay):
+            raise ValueError(
+                f"chain has fractional streaming delay {cp.delay}; choose "
+                "samples_per_frame values with an integral delay to "
+                "compile a read-compatible view")
+        self.cp = cp
+        self._tail = tail
+        self._delay = int(cp.delay)
+        self._wu = int(cp.warmup)
+        # full source blocks available from the source's folded offset
+        self._max_blocks = max(
+            (cp.source.shape[0] - cp.source_offsets[0]) // cp.block_samples,
+            0)
+        attrs = tail.meta.get("__attributes__", {})
+        super().__init__(
+            shape=tail.shape, start_time=tail.start_time,
+            sample_rate=tail.sample_rate,
+            samples_per_frame=cp.tail_block, dtype=tail.dtype,
+            frequency=attrs.get("frequency"),
+            sideband=attrs.get("sideband"),
+            polarization=attrs.get("polarization"), device=tail.device)
+        self._step = cp.step_fn()
+        self._reset_scan()
+
+    # -- streaming state ---------------------------------------------------
+    def _reset_scan(self):
+        self._carry = self.cp.init_carry()
+        self._next_step = 0      # compiled steps taken
+        self._bufs = []          # per-step outputs, compiled coordinates
+        self._buf_start = 0      # compiled index of _bufs[0][0]
+
+    def _read_next_source_block(self):
+        cp = self.cp
+        n = cp.block_samples
+        cp.source.seek(cp.source_offsets[0] + self._next_step * n)
+        self._next_step += 1
+        return cp.source.read(n)
+
+    def _compiled_read(self, c0, c1):
+        """Compiled outputs [c0, c1) (compiled coordinates)."""
+        tb = self.cp.tail_block
+        if c0 < self._buf_start:
+            self._reset_scan()
+        # drop whole retained step outputs that precede c0
+        while self._bufs and self._buf_start + tb <= c0:
+            self._bufs.pop(0)
+            self._buf_start += tb
+        if not self._bufs:
+            skip = c0 // tb
+            while self._next_step < skip:
+                self._carry, _ = self._step(self._carry,
+                                            self._read_next_source_block())
+            self._buf_start = self._next_step * tb
+        while self._next_step * tb < c1:
+            self._carry, y = self._step(self._carry,
+                                        self._read_next_source_block())
+            self._bufs.append(y)
+        buf = self._bufs[0] if len(self._bufs) == 1 \
+            else torch.cat(self._bufs, dim=0)
+        return buf[c0 - self._buf_start:c1 - self._buf_start]
+
+    def _eager_read(self, s0, s1):
+        self._tail.seek(s0)
+        return self._tail.read(s1 - s0)
+
+    # -- Base hook ---------------------------------------------------------
+    def _read_frame(self, frame_index):
+        spf = self._samples_per_frame
+        s0 = frame_index * spf
+        s1 = min(s0 + spf, self._shape[0])
+        d, w = self._delay, self._wu
+        lo = w - d                                  # >= 0: warmup >= delay
+        hi = self._max_blocks * self.cp.tail_block - d
+        pieces = []
+        i = s0
+        if i < lo:                                  # warmup head: eager
+            j = min(s1, lo)
+            pieces.append(self._eager_read(i, j))
+            i = j
+        if i < s1 and i < hi:                       # compiled midsection
+            j = min(s1, hi)
+            pieces.append(self._compiled_read(i + d, j + d))
+            i = j
+        if i < s1:                                  # partial last block
+            pieces.append(self._eager_read(i, s1))
+        return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=0)
+
+    def close(self):
+        self._bufs = []
+        super().close()
+
+    def __repr__(self):
+        return (f"CompiledStreamView({self._tail!r},\n"
+                f"    block_samples={self.cp.block_samples}, "
+                f"delay={self._delay}, warmup={self._wu})")
+
+
+def compile_stream(tail, *, block_samples=None, fuse=True, mesh=None):
+    """``tail.compile()``: a read-compatible compiled view of the chain
+    (see :class:`CompiledStreamView`)."""
+    return CompiledStreamView(tail, block_samples=block_samples, fuse=fuse,
+                              mesh=mesh)

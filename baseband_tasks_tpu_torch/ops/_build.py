@@ -47,12 +47,19 @@ _SIGNATURES = {
     "bbt_k2_fwd": [_P] * 4 + [_F] + [_I] * 3 + [_I, _P],
     "bbt_k2_inv": [_P] * 4 + [_F] + [_I] * 3 + [_I, _P],
     "bbt_k3_trim": [_P] * 4 + [_I] * 5 + [_I, _P],
+    "bbt_k1_stream": [_P] * 5 + [_F] + [_P] * 2 + [_I] * 4 + [_I, _P],
+    "bbt_lane_mix": [_P] * 6 + [_I] * 2 + [_I, _P],
+    "bbt_pfb_fwd": [_P] * 8 + [_F] + [_P] * 2 + [_I] * 3 + [_I, _P],
 }
 
 #: kernel launches since the last :func:`reset_launch_counts`, by launch
-#: name (the flagship's K1p/K1f/K2/K3 and the four-step passes)
+#: name (the flagship's K1p/K1f/K2/K3, the four-step passes, the
+#: streaming stage A, the lane mix, and the forward PFB without and with
+#: its DFT)
 launch_counts = {"k1_packed": 0, "k1_float": 0, "k2": 0, "k3_fold": 0,
-                 "k1_window": 0, "k2_fwd": 0, "k2_inv": 0, "k3_trim": 0}
+                 "k1_window": 0, "k2_fwd": 0, "k2_inv": 0, "k3_trim": 0,
+                 "k1_stream": 0, "lane_mix": 0, "pfb_fwd": 0,
+                 "pfb_fwd_dft": 0}
 
 _lib = None
 

@@ -7,6 +7,9 @@ order (N2, N1, L), row d and column c holding frequency k = d·N1 + c:
 
 - **k1_window**: stage-A FFT over c of the whole window, twiddle
   W_N^{-c b}, stored d-major (the flagship's K1 without edges or scale);
+- **k1_stream**: the same for the streaming window [carry | block], the
+  block rows (only) times a per-iteration scale (the same K1 with the
+  carry as its front edge);
 - **k2_fwd**: stage-B FFT over d's column, times a scale; the output
   reshaped to (N, L) is the spectrum in natural order;
 - **k2_inv**: inverse stage-B FFT of a natural-order spectrum seen as
@@ -34,9 +37,10 @@ from ._build import launch
 from .dedisperse import (_check, _check_kernel_geometry, _is_pow2,
                          _on_cuda, _twiddle, split_n)
 
-__all__ = ["k1_window", "k2_fwd", "k2_inv", "k3_trim", "k1_window_ref",
-           "k2_fwd_ref", "k2_inv_ref", "k3_trim_ref", "fft_pow2_planes",
-           "fft_pow2_planes_ref", "fft_scale"]
+__all__ = ["k1_window", "k1_stream", "k2_fwd", "k2_inv", "k3_trim",
+           "k1_window_ref", "k1_stream_ref", "k2_fwd_ref", "k2_inv_ref",
+           "k3_trim_ref", "fft_pow2_planes", "fft_pow2_planes_ref",
+           "fft_scale", "scale_arg"]
 
 
 def _planes(z):
@@ -70,6 +74,14 @@ def k1_window_ref(xr, xi):
     w = torch.complex(xr, xi).reshape(n1, n2, L)
     y = torch.fft.fft(w, dim=0) * _twiddle(n1, n2, -1, w.device)[:, :, None]
     return _planes(y.transpose(0, 1))
+
+
+def k1_stream_ref(cr, ci, xr, xi, scale=None):
+    """Plain stage A of the window [carry | scale · block] -> d-major
+    (N2, N1, L) planes; the carry is not scaled."""
+    if scale is not None:
+        xr, xi = xr * scale, xi * scale
+    return k1_window_ref(torch.cat([cr, xr]), torch.cat([ci, xi]))
 
 
 def k2_fwd_ref(yr, yi, scale):
@@ -133,6 +145,52 @@ def k1_window(xr, xi):
     yi = torch.empty_like(yr)
     launch("k1_window", "bbt_k1_window", dev, xr.data_ptr(), xi.data_ptr(),
            yr.data_ptr(), yi.data_ptr(), n1, n2, L)
+    return yr, yi
+
+
+def scale_arg(scale, device):
+    """A per-iteration scale as a kernel argument pair (device pointer,
+    value): None is (null, 1); a number is (null, its value); a
+    one-element float32 tensor on ``device`` is (its pointer, unused), so
+    a scale computed on the card never syncs the host.  Also returns the
+    tensor, which must live until the launch is enqueued."""
+    if scale is None:
+        return None, 1.0, None
+    if not torch.is_tensor(scale):
+        return None, float(scale), None
+    if scale.numel() != 1:
+        raise ValueError(f"scale must hold one value, got {scale.numel()}")
+    t = scale.to(device=device, dtype=torch.float32).reshape(1).contiguous()
+    return t.data_ptr(), 0.0, t
+
+
+def k1_stream(cr, ci, xr, xi, scale=None):
+    """Stage A of the streaming window [carry | scale · block]: k1_stream
+    on CUDA tensors, else :func:`k1_stream_ref`.
+
+    ``cr``/``ci`` : (pad, L) carry planes, already scaled; ``xr``/``xi``
+    : (N - pad, L) block planes, N a power of two and pad a multiple of
+    N2; ``scale`` : None, a number, or a one-element tensor multiplying
+    the block rows only.  Returns d-major (N2, N1, L) planes."""
+    if not _on_cuda(xr):
+        return k1_stream_ref(cr, ci, xr, xi, scale)
+    pad, L = cr.shape
+    m = xr.shape[0]
+    n1, n2 = _window_split(pad + m)
+    _check_kernel_geometry(n1, n2)
+    if pad % n2:
+        raise ValueError(f"carry of {pad} rows must be a multiple of "
+                         f"N2={n2}")
+    dev = _checked((("xr", xr), ("xi", xi)), (m, L))
+    _check(cr, "cr", torch.float32, (pad, L), dev)
+    _check(ci, "ci", torch.float32, (pad, L), dev)
+    yr = torch.empty((n2, n1, L), dtype=torch.float32, device=dev)
+    yi = torch.empty_like(yr)
+    ptr, value, keep = scale_arg(scale, dev)
+    launch("k1_stream", "bbt_k1_stream", dev, cr.data_ptr(), ci.data_ptr(),
+           xr.data_ptr(), xi.data_ptr(), ptr, value, yr.data_ptr(),
+           yi.data_ptr(), n1, n2, L, pad // n2)
+    del keep
     return yr, yi
 
 

@@ -32,7 +32,34 @@ around 1400 MHz, sideband +1, DM 29.7, noise from seed 1):
     ``fft_maker.set('pallas')``; reads a few frames of each, checks the
     geometry, that every kernel of each path was launched, and holds the
     output against the same chain on the plain versions on the card;
-(f) times one frame of the first path, kernels against plain.
+(f) times one frame of the first path, kernels against plain;
+
+and for the compiled pipelines (``models/compiled.py``), at the full
+width of ``BASELINE.json`` config 3 (``tools/bench_full.py`` ``config3``:
+a 2^24-sample dual-pol 4 MHz noise source, seed 2; an 8-tap x 256-channel
+sinc-Hamming PFB with 32256-spectrum frames and its Wiener inverse, sn 30,
+pads 128/128 rounded to 256/256 rows of a 2^15-row window, L = 512
+lanes) and of config 2:
+
+(g) holds the compiled slice's kernels against their plain versions at
+    the shapes those paths give them: pfb_fwd without and with its
+    in-kernel DFT (32256 x 512, 8 taps), k1_stream without and with the
+    ``pre`` lane mix (2^15 x 512), k3_trim with the ``post`` lane mix
+    (2^18 x 128); and times both;
+(h) drives four compiled paths through ``CompiledPipeline.planes_step``:
+    the config-3 round trip (the quad fusion), config 2 compiled
+    (``_FusedDisperseDechan``), and the two single fusions at config 3's
+    widths (the forward PFB with its DFT; Dechannelize -> inverse PFB on
+    a stream of spectra, with ``pre``).  For each: the fusion and the
+    geometry, that each of its kernels was launched, its output against
+    the same pipeline on the plain versions on the card (1e-4 of the
+    peak, with and without a per-block scale), and against the port's
+    eager chain: sample k against eager sample k - delay, held to rtol
+    1e-3, atol 2e-3 for the chain as built (config 2 only reported: its
+    frames sit off its pads, and the chirp's overlap-save leakage is
+    outside that bound in the JAX package too) and where the eager frames
+    fall on the compiled windows; then config 3 and config 2 timed in ms
+    per block over a block already on the card, in turns, and profiled.
 
 Any failure raises (non-zero exit).  Without a CUDA device it fails.  The
 second-to-last line is a JSON object of per-kernel results; the last line
@@ -57,8 +84,20 @@ PROFILE_RTOL = 2e-4       # elementwise, K3 and the end-to-end profiles
 N_ITER = 8
 
 N_FRAMES = 2               # frames read from each stream-task path
+# compiled output k against eager k - delay: the streaming windows sit
+# off the eager frames (frames do not divide the pads), so they agree to
+# the overlap-save leakage, not to roundoff (the JAX package's
+# `_compare_eager` bound, tests/test_compiled_fusion.py)
+EAGER_RTOL, EAGER_ATOL = 1e-3, 2e-3
+# the paths held to that bound as built; config 2's chirp leaks past its
+# 512-sample pads by more (~60 dB down by design, Disperse's pad_margin),
+# in the JAX package as in the port: tests/test_torch_compiled.py
+# test_config2_geometry_eager_gap
+EAGER_AS_BUILT = ("config3_quad", "pfb_forward", "dechan_inverse")
+N_STEPS = 8                # compiled steps per timed turn
 DEDISPERSE_CU = "baseband_tasks_tpu_torch/csrc/dedisperse.cu"
 FOURSTEP_CU = "baseband_tasks_tpu_torch/csrc/fourstep.cu"
+PFB_CU = "baseband_tasks_tpu_torch/csrc/pfb.cu"
 KERNELS = {   # launch-count name -> (TPU kernel it replaces, source)
     "k1_packed": ("baseband_tasks_tpu/ops/dedisperse_pallas.py:764",
                   DEDISPERSE_CU),
@@ -73,6 +112,12 @@ KERNELS = {   # launch-count name -> (TPU kernel it replaces, source)
     "k2_inv": ("baseband_tasks_tpu/ops/fft_pallas.py:44", FOURSTEP_CU),
     "k3_trim": ("baseband_tasks_tpu/ops/spectral_filter.py:129",
                 FOURSTEP_CU),
+    "k1_stream": ("baseband_tasks_tpu/ops/spectral_filter.py:92",
+                  DEDISPERSE_CU),
+    "lane_mix": ("baseband_tasks_tpu/ops/spectral_filter.py:78",
+                 FOURSTEP_CU),
+    "pfb_fwd": ("baseband_tasks_tpu/ops/pfb_pallas.py:66", PFB_CU),
+    "pfb_fwd_dft": ("baseband_tasks_tpu/ops/pfb_pallas.py:66", PFB_CU),
 }
 FLAGSHIP = ("k1_packed", "k1_float", "k2", "k3_fold")
 
@@ -470,6 +515,342 @@ def profile_frame(kern, frame, gpu):
               flush=True)
 
 
+# -- the compiled slice: phases (g) and (h) --------------------------------
+
+def randn(dev, shape, seed, count=2):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=dev) for _ in range(count)]
+
+
+def check_compiled_kernels(dev, gpu):
+    """Phase (g): the compiled slice's kernels against their plain
+    versions at the shapes of the config-3 and config-2 paths, timed."""
+    from baseband_tasks_tpu_torch import sinc_hamming
+    from baseband_tasks_tpu_torch.ops import fft as ff, pfb as opfb
+    from baseband_tasks_tpu_torch.ops import spectral_filter as sf
+    from baseband_tasks_tpu_torch.ops.dft_matmul import (_expanded_mats,
+                                                         device_mats)
+    m, L, n_tap = 32256, 512, 8
+    taps = torch.as_tensor(np.repeat(sinc_hamming(n_tap, 256), 2, axis=1),
+                           device=dev)
+    fwd = device_mats(_expanded_mats(256, 2, "forward"), dev)
+    pre = device_mats(sf.expand_lane_mats(sf.lane_dft_mats(256), 2), dev)
+    post = device_mats(sf.lane_dft_mats(128), dev)
+    carry, x = randn(dev, (n_tap - 1, L), 40), randn(dev, (m, L), 41)
+    scale = torch.tensor([0.75], device=dev)
+    pfb_kw = dict(n_tap=n_tap, scale=scale)
+    n, pad = 1 << 15, 512                 # the config-3 spectra window
+    sc, sx = randn(dev, (pad, L), 42), randn(dev, (n - pad, L), 43)
+
+    def with_pre(stage_a, mix):
+        def run():
+            y = stage_a(*sc, *sx, scale)
+            return mix(*(p.reshape(n, L) for p in y), *pre)
+        return run
+    n2c, n1c = 512, 512                   # the config-2 window, 2^18
+    z = randn(dev, (n2c, n1c, 128), 44)
+    trim = dict(pad_start=512, pad_end=512)
+    rows = randn(dev, (n, L), 45)
+    cases = {
+        "pfb_fwd": (lambda: opfb.pfb_forward_stream(*carry, *x, taps,
+                                                    **pfb_kw),
+                    lambda: opfb.pfb_forward_stream_ref(*carry, *x, taps,
+                                                        **pfb_kw)),
+        "pfb_fwd_dft": (lambda: opfb.pfb_forward_stream(*carry, *x, taps,
+                                                        *fwd, **pfb_kw),
+                        lambda: opfb.pfb_forward_stream_ref(*carry, *x, taps,
+                                                            *fwd, **pfb_kw)),
+        "k1_stream": (lambda: ff.k1_stream(*sc, *sx, scale),
+                      lambda: ff.k1_stream_ref(*sc, *sx, scale)),
+        "k1_stream+pre": (with_pre(ff.k1_stream, sf.lane_mix),
+                          with_pre(ff.k1_stream_ref, sf.lane_mix_ref)),
+        "lane_mix": (lambda: sf.lane_mix(*rows, *pre),
+                     lambda: sf.lane_mix_ref(*rows, *pre)),
+        "k3_trim+post": (lambda: sf.lane_mix(*ff.k3_trim(*z, **trim), *post),
+                         lambda: sf.lane_mix_ref(*ff.k3_trim_ref(*z, **trim),
+                                                 *post)),
+    }
+    results = {}
+    for name, (kern, plain) in cases.items():
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err, rel = compare(got, ref)
+        ok = rel <= FFT_TOL and all(bool(torch.isfinite(t).all())
+                                    for t in got)
+        print(f"(g) {name}: max_abs_err={err:.3e} rel={rel:.3e} "
+              f"({'ok' if ok else 'FAIL'})", flush=True)
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version")
+        del got, ref
+        ms, plain_ms = (cuda_ms(f, reps=10) for f in (kern, plain))
+        print(f"(g) {name}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain "
+              f"[{gpu}]", flush=True)
+        if "+" not in name:
+            results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    post_rows = randn(dev, (261120, 128), 46)
+    ms, plain_ms = (cuda_ms(lambda f=f: f(*post_rows, *post), reps=10)
+                    for f in (sf.lane_mix, sf.lane_mix_ref))
+    print(f"(g) lane_mix at the config-2 post shape 261120 x 128: "
+          f"{ms:.4f} ms kernel, {plain_ms:.4f} ms plain [{gpu}]", flush=True)
+    return results
+
+
+def compiled_tail(name, dev, kernels, offset=0):
+    """The tail of compiled path ``name`` on the card, on the kernels or
+    their plain versions, with ``offset`` samples sliced off its source.
+
+    config3_quad, pfb_forward, dechan_inverse: ``tools/bench_full.py``
+    config 3 (8 taps x 256 channels, frames of 32256 spectra, inverse
+    pads 128/128 spectra, sn 30): the round trip, the forward PFB alone,
+    and Dechannelize -> inverse PFB on a stream of spectra.  config2:
+    Dechannelize(Dedisperse(engine='pallas')) on config 2's source.
+    """
+    from baseband_tasks_tpu_torch import (
+        Dechannelize, Dedisperse, InversePolyphaseFilterBank, NoiseGenerator,
+        PolyphaseFilterBank, Time, sinc_hamming, units as u)
+
+    def sliced(src):
+        return src[offset:] if offset else src
+    if name == "config2":
+        return Dechannelize(Dedisperse(sliced(config2_source(dev)), 29.7,
+                                       samples_per_frame=2 ** 17,
+                                       engine="pallas", use_kernels=kernels))
+    h = sinc_hamming(8, 256)
+    inv_kw = dict(sn=30, pad_start=128, pad_end=128, samples_per_frame=32256,
+                  engine="pallas", use_kernels=kernels)
+    t0 = Time.from_mjd(58000.0)
+    if name == "dechan_inverse":
+        spectra = NoiseGenerator(shape=(1 << 17, 256, 2), start_time=t0,
+                                 sample_rate=4 * u.MHz / 256,
+                                 samples_per_frame=1 << 12, seed=3,
+                                 device=dev)
+        return InversePolyphaseFilterBank(sliced(spectra), h, **inv_kw)
+    src = NoiseGenerator(shape=(1 << 24, 2), start_time=t0,
+                         sample_rate=4 * u.MHz, samples_per_frame=1 << 16,
+                         seed=2, device=dev)
+    pfb = PolyphaseFilterBank(sliced(src), h, samples_per_frame=32256,
+                              use_kernels=kernels)
+    if name == "pfb_forward":
+        return pfb
+    return InversePolyphaseFilterBank(pfb, h, dtype=src.dtype, **inv_kw)
+
+
+# name -> (fused stage classes, kernels its main path launches, kernels it
+# must not launch)
+COMPILED = {
+    "config3_quad": (["_FusedPolyphaseFIR", "_FusedDechanInvPFB"],
+                     ("pfb_fwd", "k1_stream", "k2", "k3_trim"),
+                     ("lane_mix", "pfb_fwd_dft")),
+    "config2": (["_FusedDisperseDechan"],
+                ("k1_stream", "k2", "k3_trim", "lane_mix"), ("k1_window",)),
+    "pfb_forward": (["_FusedPFBForward"], ("pfb_fwd_dft",), ("pfb_fwd",)),
+    "dechan_inverse": (["_FusedDechanInvPFB"],
+                       ("k1_stream", "lane_mix", "k2", "k3_trim"),
+                       ("k1_window",)),
+}
+
+
+def check_compiled_geometry(name, cp):
+    fused = [st.fused for st in cp.stages if st.fused is not None]
+    names = [type(f).__name__ for f in fused]
+    tail = cp._tail
+    print(f"(h) {name}: fused {names}, block {cp.block_samples} source "
+          f"samples -> {cp.tail_block}, delay {cp.delay}, warmup "
+          f"{cp.warmup}", flush=True)
+    if names != COMPILED[name][0]:
+        raise AssertionError(f"{name}: fused {names}")
+    if name in ("config3_quad", "dechan_inverse"):
+        rows = tail._padded_samples_per_frame // 256
+        pads = (tail.pad_start // 256, tail.pad_end // 256)
+        lanes = 256 * 2
+        print(f"(h) {name}: engine {tail.engine}, window {rows} rows, pads "
+              f"{pads} rows, L {lanes}", flush=True)
+        want_pre = name == "dechan_inverse"
+        if (tail.engine != "pallas" or rows != 1 << 15 or pads != (256, 256)
+                or (fused[-1].pre is not None) != want_pre):
+            raise AssertionError(f"{name}: geometry or engine wrong")
+    if name == "pfb_forward" and (fused[0].L != 512 or not fused[0].with_dft):
+        raise AssertionError("pfb_forward: not the 512-lane DFT fusion")
+
+
+def run_planes(cp, blocks, scales):
+    """The compiled planes step over ``blocks`` from zeroed carries."""
+    step, carry = cp.planes_step(), cp.init_carry(planes=True)
+    outs = []
+    for x, s in zip(blocks, scales):
+        carry, y = step(carry, x, s)
+        outs.append(y)
+    torch.cuda.synchronize()
+    return outs
+
+
+def joined(outs):
+    return torch.complex(torch.cat([y[0] for y in outs]),
+                         torch.cat([y[1] for y in outs]))
+
+
+def eager_bound(name, what, got, eager, gpu):
+    """Max |got - eager| over the rtol/atol bound, printed with the SNR."""
+    diff = (got - eager).abs()
+    ratio = float((diff / (EAGER_ATOL + EAGER_RTOL * eager.abs())).max())
+    power = (eager.abs() ** 2).mean()
+    snr = float(10 * torch.log10(power / (diff ** 2).mean().clamp_min(
+        1e-30)))
+    print(f"(h) {name}: vs eager {what} ({got.shape[0]} samples): max |d| "
+          f"{float(diff.max()):.3e}, rms |eager| {float(power.sqrt()):.3e}, "
+          f"SNR {snr:.1f} dB, {ratio:.3f} of the rtol/atol bound [{gpu}]",
+          flush=True)
+    return ratio
+
+
+def check_against_eager(name, cp, got, dev, gpu):
+    """Compiled sample k >= warmup against the port's eager sample
+    k - delay, two ways.
+
+    As built: the eager chain's frames start at the stream start, so its
+    windows sit off the compiled ones (a frame does not divide the pads)
+    and the two agree to the overlap-save leakage: held to rtol 1e-3,
+    atol 2e-3 for the paths of EAGER_AS_BUILT, reported for config 2.  On
+    the compiled windows: the same eager chain on the source with one
+    block less the delay sliced off, whose frame 0 is the compiled window
+    of block 1 and whose sample i is eager sample k - delay for compiled
+    k = tail_block + i: held to rtol 1e-3, atol 2e-3.
+    """
+    delay, w, tb = int(cp.delay), cp.warmup, cp.tail_block
+    tail = cp._tail
+    tail.seek(0)
+    eager = tail.read(got.shape[0] - delay)
+    torch.cuda.synchronize()
+    if eager_bound(name, "as built, past warmup", got[w:], eager[w - delay:],
+                   gpu) > 1.0 and name in EAGER_AS_BUILT:
+        raise AssertionError(f"{name}: compiled disagrees with eager as "
+                             f"built")
+    del eager
+    offset = cp.block_samples - delay * cp.block_samples // tb
+    aligned = compiled_tail(name, dev, True, offset).read(tb)
+    torch.cuda.synchronize()
+    if eager_bound(name, "on the compiled windows (block 1)",
+                   got[tb:2 * tb], aligned, gpu) > 1.0:
+        raise AssertionError(f"{name}: compiled disagrees with eager")
+
+
+def drive_compiled(name, dev, gpu, n_blocks=2):
+    """One compiled path: geometry, counted kernel run, plain run, the
+    comparisons.  Returns the kernels' launch counts and the pipelines."""
+    from baseband_tasks_tpu_torch import CompiledPipeline
+    from baseband_tasks_tpu_torch.ops import dedisperse as dd
+    kern, plain = (CompiledPipeline(compiled_tail(name, dev, k))
+                   for k in (True, False))
+    check_compiled_geometry(name, kern)
+    blocks = kern.read_source_blocks(n_blocks)
+    torch.cuda.synchronize()
+    dd.reset_launch_counts()
+    outs = run_planes(kern, blocks, [None] * n_blocks)
+    counts = dict(dd.launch_counts)
+    print(f"(h) {name}: launches {counts}", flush=True)
+    _, needs, forbidden = COMPILED[name]
+    missing = [k for k in needs if counts[k] <= 0]
+    stray = [k for k in forbidden if counts[k]]
+    if missing or stray:
+        raise AssertionError(f"{name}: not launched {missing}, launched "
+                             f"{stray}")
+    dd.reset_launch_counts()
+    refs = run_planes(plain, blocks, [None] * n_blocks)
+    if any(dd.launch_counts.values()):
+        raise AssertionError(f"{name}: the plain pipeline launched kernels")
+    got, ref = joined(outs), joined(refs)
+    err, rel = compare((got.real, got.imag), (ref.real, ref.imag))
+    want = (n_blocks * kern.tail_block,) + tuple(kern._tail.sample_shape)
+    print(f"(h) {name}: {tuple(got.shape)}, kernels vs plain max abs err "
+          f"{err:.3e}, {rel:.3e} of the peak [{gpu}]", flush=True)
+    if tuple(got.shape) != want or rel > FFT_TOL or not torch.isfinite(
+            torch.view_as_real(got)).all():
+        raise AssertionError(f"{name}: output wrong")
+    del outs, refs, ref
+    scales = [0.5, 2.0][:n_blocks]
+    a, b = (joined(run_planes(cp, blocks, scales)) for cp in (kern, plain))
+    err, rel = compare((a.real, a.imag), (b.real, b.imag))
+    del a, b
+    print(f"(h) {name}: with per-block scales {scales}: {rel:.3e} of the "
+          f"peak", flush=True)
+    if rel > FFT_TOL:
+        raise AssertionError(f"{name}: scaled output wrong")
+    check_against_eager(name, kern, got, dev, gpu)
+    del got, blocks
+    return counts, kern, plain
+
+
+def time_compiled(name, kern, plain, gpu, eager_ms=None):
+    """ms per block of the compiled planes step over one block already on
+    the card, N_STEPS chained steps a turn, turns plain, kernels,
+    kernels, plain; then one profiled turn of the kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    block = kern.read_source_blocks(1)[0]
+    x = (block.real.contiguous(), block.imag.contiguous())
+    steps = {"kernels": kern.planes_step(), "plain": plain.planes_step()}
+    cps = {"kernels": kern, "plain": plain}
+
+    def turn(key):
+        carry = cps[key].init_carry(planes=True)
+        for i in range(N_STEPS):
+            carry, _ = steps[key](carry, x, 1.0 + 1e-6 * i)
+    best = {}
+    for key in ("plain", "kernels", "kernels", "plain"):
+        turn(key)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        turn(key)
+        torch.cuda.synchronize()
+        best[key] = min(best.get(key, np.inf), time.perf_counter() - t0)
+    samples = kern.tail_block * int(np.prod(kern._tail.sample_shape or (1,)))
+    for key, dt in best.items():
+        print(f"(h) {name} compiled {key}: {1e3 * dt / N_STEPS:.3f} ms/block, "
+              f"{samples * N_STEPS / dt:.4e} output samples/s [{gpu}]",
+              flush=True)
+    if eager_ms is not None:
+        print(f"(h) {name}: eager kernels frame (phase (f)) {eager_ms:.3f} "
+              f"ms for the same {kern.tail_block} samples, source included "
+              f"[{gpu}]", flush=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        turn("kernels")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        if ev.device_type == DeviceType.CUDA and dev_us > 0:
+            rows.append((dev_us, ev.count, ev.key))
+    busy = sum(r[0] for r in rows) / 1e3
+    print(f"(h) {name} profiled turn: {1e3 * wall / N_STEPS:.3f} ms/block "
+          f"wall, {busy / N_STEPS:.3f} ms/block device busy "
+          f"({busy / (1e3 * wall):.2f}) [{gpu}]", flush=True)
+    for dev_us, count, key in sorted(rows, reverse=True)[:8]:
+        print(f"(h)   {dev_us / 1e3 / N_STEPS:8.3f} ms/block  x{count:<3d} "
+              f"{key[:80]}", flush=True)
+
+
+def drive_compiled_paths(dev, gpu, eager_c2_ms):
+    """Phase (h): the four compiled paths, then config 3 and config 2
+    timed.  Returns the launch counts summed over the counted runs."""
+    launches, timed = {}, {}
+    for name in ("config3_quad", "pfb_forward", "dechan_inverse",
+                 "config2"):
+        counts, kcp, pcp = drive_compiled(name, dev, gpu)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        if name in ("config3_quad", "config2"):
+            timed[name] = (kcp, pcp)
+        torch.cuda.empty_cache()
+    time_compiled("config3_quad", *timed["config3_quad"], gpu)
+    time_compiled("config2", *timed["config2"], gpu, eager_ms=eager_c2_ms)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -493,10 +874,18 @@ def main():
     del kern, plain
     results.update(check_four_step(dev, gpu))
     task_launches, task_kern, task_plain = drive_task_paths(dev, gpu)
-    time_task_frame(task_kern, task_plain, gpu)
+    frame = time_task_frame(task_kern, task_plain, gpu)
+    del task_kern, task_plain
     print(f"(e) k2 launches on the task paths: {task_launches['k2']}")
     launches.update({k: task_launches[k] for k in KERNELS
                      if k not in FLAGSHIP})
+    results.update(check_compiled_kernels(dev, gpu))
+    torch.cuda.empty_cache()
+    compiled = drive_compiled_paths(dev, gpu, 1e3 * frame["kernels"])
+    for k in ("k1_stream", "lane_mix", "pfb_fwd", "pfb_fwd_dft"):
+        launches[k] = compiled[k]
+    print(f"(h) k2 / k3_trim launches on the compiled paths: "
+          f"{compiled['k2']} / {compiled['k3_trim']}")
     print(gpu)
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=source, replaces=replaces,

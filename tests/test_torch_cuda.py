@@ -11,8 +11,11 @@ depth, the float32 twin, small and lopsided windows, a fold whose
 partial profile does not fit shared memory (the global-atomic branch),
 the four-step passes (k1_window, k2_fwd, k2_inv, k3_trim) at 8, 16 and
 128 lanes and windows of 2^9 to 2^18 with and without pads, the FFT
-engine and the dispersion tasks on the card, and the wrappers'
-refusals.  Tolerances as in ``chip_smoke.py``: planes
+engine and the dispersion tasks on the card, the wrappers' refusals,
+the forward-PFB kernel (n_tap 2, 8, 9, with and without its DFT and a
+scale), the streaming stage A (with and without the ``pre`` mix) and
+k3_trim with the ``post`` mix (L 128 and 512, pads 0 and not), and the
+compiled fusions on the card.  Tolerances as in ``chip_smoke.py``: planes
 to 1e-4 of their largest element (float32 FFT roundoff is ~1e-6 of it),
 profiles elementwise to rtol 2e-4 (atomic summation order), counts
 exact.
@@ -25,6 +28,7 @@ torch = pytest.importorskip("torch")
 
 from baseband_tasks_tpu_torch.ops import dedisperse as dd  # noqa: E402
 from baseband_tasks_tpu_torch.ops import fft as ff  # noqa: E402
+from baseband_tasks_tpu_torch.ops import pfb as opfb  # noqa: E402
 from baseband_tasks_tpu_torch.ops import spectral_filter as sf  # noqa: E402
 from baseband_tasks_tpu_torch.ops import unpack  # noqa: E402
 
@@ -148,7 +152,9 @@ def test_public_entry_matches_cpu(dev):
                                           *edges, *chirp, fold, scale, **kw)
     assert dd.launch_counts == {"k1_packed": 1, "k1_float": 0, "k2": 1,
                                 "k3_fold": 1, "k1_window": 0, "k2_fwd": 0,
-                                "k2_inv": 0, "k3_trim": 0}
+                                "k2_inv": 0, "k3_trim": 0, "k1_stream": 0,
+                                "lane_mix": 0, "pfb_fwd": 0,
+                                "pfb_fwd_dft": 0}
     ref = dd.dedisperse_fold_split_packed(*words, *edges, *chirp, fold,
                                           scale, **kw)
     assert torch.equal(got[1].cpu(), ref[1])
@@ -308,3 +314,152 @@ def test_tasks_on_card(dev):
     for got, ref in zip(*outs):
         assert got.device == dev
         assert_planes((got.real, got.imag), (ref.real, ref.imag))
+
+
+# -- the compiled slice's kernels ---------------------------------------------
+
+def mats(dev, L, seed):
+    """A random complex (L, L) mixer scaled to keep outputs O(1)."""
+    return [t / L ** 0.5 for t in randn(dev, (L, L), seed)]
+
+
+@pytest.mark.parametrize("dft", [False, True])
+@pytest.mark.parametrize("scale", [None, 0.75])
+@pytest.mark.parametrize("n_tap", [2, 8, 9])
+@pytest.mark.parametrize("m,L", [(48, 128), (32256, 512)])
+def test_pfb_fwd(dev, m, L, n_tap, scale, dft):
+    k = n_tap - 1
+    carry = randn(dev, (k, L), 20)
+    x = randn(dev, (m, L), 21)
+    taps = randn(dev, (n_tap, L), 22, count=1)[0]
+    f = mats(dev, L, 23) if dft else [None, None]
+    sc = None if scale is None else torch.tensor([scale], device=dev)
+    dd.reset_launch_counts()
+    got = opfb.pfb_forward_stream(*carry, *x, taps, *f, n_tap=n_tap,
+                                  scale=sc)
+    name = "pfb_fwd_dft" if dft else "pfb_fwd"
+    assert dd.launch_counts[name] == 1
+    ref = opfb.pfb_forward_stream_ref(*carry, *x, taps, *f, n_tap=n_tap,
+                                      scale=sc)
+    assert_planes(got, ref)
+    # a number as the scale gives the same as the device scalar
+    if scale is not None:
+        assert_planes(opfb.pfb_forward_stream(*carry, *x, taps, *f,
+                                              n_tap=n_tap, scale=scale), ref)
+
+
+@pytest.mark.parametrize("pre", [False, True])
+@pytest.mark.parametrize("n,L,pad", [(1 << 12, 128, 256),
+                                     (1 << 15, 512, 512)])
+def test_stream_stage_a(dev, n, L, pad, pre):
+    c = randn(dev, (pad, L), 24)
+    x = randn(dev, (n - pad, L), 25)
+    sc = torch.tensor([1.25], device=dev)
+    got = ff.k1_stream(*c, *x, sc)
+    ref = ff.k1_stream_ref(*c, *x, sc)
+    if pre:
+        w = mats(dev, L, 26)
+        got = sf.lane_mix(*(p.reshape(n, L) for p in got), *w)
+        ref = sf.lane_mix_ref(*(p.reshape(n, L) for p in ref), *w)
+    assert_planes(got, ref)
+
+
+@pytest.mark.parametrize("pads", [(0, 0), (1, 1), (2, 5)])
+@pytest.mark.parametrize("n,L", [(1 << 12, 128), (1 << 15, 512)])
+def test_k3_trim_post(dev, n, L, pads):
+    n1, n2 = dd.split_n(n)
+    kw = dict(pad_start=pads[0] * n2, pad_end=pads[1] * n2)
+    z = randn(dev, (n2, n1, L), 27)
+    w = mats(dev, L, 28)
+    dd.reset_launch_counts()
+    got = sf.lane_mix(*ff.k3_trim(*z, **kw), *w)
+    assert dd.launch_counts["k3_trim"] == dd.launch_counts["lane_mix"] == 1
+    assert_planes(got, sf.lane_mix_ref(*ff.k3_trim_ref(*z, **kw), *w))
+
+
+@pytest.mark.parametrize("pre,post", [(True, False), (False, True)])
+def test_spectral_filter_stream(dev, pre, post):
+    n, L, p0, p1 = 1 << 12, 128, 256, 512
+    n1, n2 = dd.split_n(n)
+    c = randn(dev, (p0 + p1, L), 29)
+    x = randn(dev, (n - p0 - p1, L), 30)
+    ph = torch.rand((n2, n1, L), generator=torch.Generator(device=dev
+                                                           ).manual_seed(31),
+                    device=dev) * 6.283
+    g = (torch.cos(ph), torch.sin(ph))
+    kw = dict(pad_start=p0, pad_end=p1, scale=0.5,
+              pre=mats(dev, L, 32) if pre else None,
+              post=mats(dev, L, 33) if post else None)
+    assert_planes(sf.spectral_filter_stream(*c, *x, *g, **kw),
+                  sf.spectral_filter_stream_ref(*c, *x, *g, **kw))
+
+
+@pytest.mark.filterwarnings(
+    "ignore::baseband_tasks_tpu_torch.base.FrameSizeWarning")
+def test_compiled_fusions_on_card(dev):
+    """The four fusions' planes steps on the card: each chain fuses as the
+    JAX package fuses it, launches its kernels (and not the ones its
+    fusion removes), and agrees with the plain versions over three blocks
+    with a scale."""
+    import baseband_tasks_tpu_torch as bt
+    u = bt.units
+    h = bt.sinc_hamming(8, 64)
+
+    def noise(shape, seed):
+        return bt.NoiseGenerator(shape=shape, start_time=bt.Time.from_mjd(
+            58000.0), sample_rate=1 * u.MHz, samples_per_frame=8192,
+            seed=seed, device=dev)
+
+    def chains(kernels):
+        src = noise((1 << 17, 2), 1)
+        pfb = bt.PolyphaseFilterBank(src, h, samples_per_frame=416,
+                                     use_kernels=kernels)
+        inv = bt.InversePolyphaseFilterBank(
+            pfb, h, sn=1e3, pad_start=32, pad_end=32, samples_per_frame=352,
+            dtype=src.dtype, engine="pallas", use_kernels=kernels)
+        freq = (400 + (np.arange(16) - 8) * 0.25) * u.MHz
+        chan = bt.SetAttribute(noise((1 << 16, 16), 2), frequency=freq,
+                               sideband=1)
+        ded = bt.Dechannelize(bt.Dedisperse(chan, 2.0, engine="pallas",
+                                            samples_per_frame=1 << 13,
+                                            use_kernels=kernels))
+        spectra = bt.Channelize(noise((1 << 20, 2), 3), 64)
+        single = bt.InversePolyphaseFilterBank(
+            spectra, h, sn=1e3, pad_start=32, pad_end=32,
+            samples_per_frame=352, engine="pallas", use_kernels=kernels)
+        return [bt.CompiledPipeline(c) for c in (inv, pfb, ded, single)]
+
+    # per chain: the fused stage classes, the kernels it must launch, the
+    # kernels its fusion must not launch
+    expect = [
+        (["_FusedPolyphaseFIR", "_FusedDechanInvPFB"],
+         ("pfb_fwd", "k1_stream", "k2", "k3_trim"),
+         ("lane_mix", "pfb_fwd_dft", "k1_window")),
+        (["_FusedPFBForward"], ("pfb_fwd_dft",), ("pfb_fwd",)),
+        (["_FusedDisperseDechan"], ("k1_stream", "k2", "k3_trim", "lane_mix"),
+         ("k1_window",)),
+        (["_FusedDechanInvPFB"], ("k1_stream", "lane_mix", "k2", "k3_trim"),
+         ("k1_window",)),
+    ]
+    for kern, plain, (names, needs, forbidden) in zip(
+            chains(True), chains(False), expect):
+        assert [type(st.fused).__name__ for st in kern.stages
+                if st.fused is not None] == names
+        outs = []
+        for cp in (kern, plain):
+            blocks = cp.read_source_blocks(3)
+            step, carry = cp.planes_step(), cp.init_carry(planes=True)
+            dd.reset_launch_counts()
+            got = []
+            for k, s in enumerate((0.5, 2.0, 1.0)):
+                carry, y = step(carry, blocks[k], s)
+                got.append(y)
+            outs.append(got)
+            counts = dict(dd.launch_counts)
+            if cp is kern:
+                assert all(counts[k] >= 3 for k in needs), (names, counts)
+                assert not any(counts[k] for k in forbidden), (names, counts)
+            else:
+                assert not any(counts.values()), (names, counts)
+        for a, b in zip(*outs):
+            assert_planes(a, b)

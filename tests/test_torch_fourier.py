@@ -22,6 +22,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from baseband_tasks_tpu import fourier as jf  # noqa: E402
+from baseband_tasks_tpu.ops import dft_matmul as jdm  # noqa: E402
 from baseband_tasks_tpu.ops import fft_pallas as jfp  # noqa: E402
 from baseband_tasks_tpu.ops import spectral_filter as jsf  # noqa: E402
 from baseband_tasks_tpu.utils import units as ju  # noqa: E402
@@ -244,16 +245,23 @@ def test_lane_mats_bit_for_bit(n, reps, inverse):
 
 @pytest.mark.parametrize("which", ["pre", "post", "stream"])
 def test_lane_mix_and_stream_not_ported(which):
-    x = torch.zeros((512, 8))
-    g = torch.zeros((32, 16, 8))
-    mats = sf.lane_dft_mats(8)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        if which == "stream":
-            sf.spectral_filter_stream(x[:448], x[:448], x, x, g, g,
-                                      pad_start=32, pad_end=32)
-        else:
-            sf.spectral_filter_pow2(x, x, g, g, pad_start=32, pad_end=32,
-                                    **{which: mats})
+    """The lane mixes and the streaming form, once NotImplementedError,
+    match the JAX package's full-window filter (the stream form fed the
+    same window split into carry and block)."""
+    args = gain_case(512, 8, 10)
+    kw = dict(pad_start=32, pad_end=32)
+    mix = {} if which == "stream" else {which: sf.lane_dft_mats(8)}
+    with jdm.set_matmul_precision("highest"):
+        want = jsf.spectral_filter_pow2(*args, **kw, **mix)
+    x = [torch.from_numpy(a) for a in args]
+    if which == "stream":
+        got = sf.spectral_filter_stream(x[0][:64], x[1][:64], x[0][64:],
+                                        x[1][64:], x[2], x[3], **kw)
+    else:
+        got = sf.spectral_filter_pow2(*x, **kw, **mix)
+    assert got[0].shape == (448, 8)
+    assert_close(as_numpy(got[0]) + 1j * as_numpy(got[1]),
+                 np.asarray(want[0]) + 1j * np.asarray(want[1]))
 
 
 def test_import_loads_no_jax():
