@@ -9,7 +9,13 @@
 //
 //   K1  window -> stage-A FFT over c (length N1) -> W_N^{-c b} -> (N2, N1, L)
 //   K2  stage-B FFT over b (N2) -> x chirp -> inverse /N2 -> W_N^{+c b}, in place
-//   K3  inverse stage-A over c (/N1) -> |z|^2 -> fixed-point phase bin -> fold
+//   K3  inverse stage-A over c (/N1) -> |z|^2 (or full Stokes) ->
+//       fixed-point phase bin -> fold
+//
+// K1 reads the window as separate re/im planes, plane-packed words, or the
+// two halves of a planes-first (2, rows, L) array (k1_planes,
+// k1_stream_planes: on the card such an array is two contiguous planes);
+// K2 reads the chirp as cos/sin planes or as one phase plane (k2_theta).
 //
 // What bounds the chain on an H100: bytes.  Each pass moves about
 // 2 x 4 B x N x L per plane set (K1 writes it, K2 reads and writes it and
@@ -49,7 +55,12 @@ __device__ __forceinline__ float decode_field(unsigned f, int bits,
 // and no scale it is also `_k1_body` (:223, the plain window of
 // `_dedisperse_impl` and the forward `fft_pallas._fft_impl`) and
 // `spectral_filter._k1_filter_body` (:92) without `pre` or scale, launched
-// as k1_window (`bbt_k1_window`).  With the carry as the front edge, no
+// as k1_window (`bbt_k1_window`), and on the two halves of a planes-first
+// (2, N, L) window it is `_k1_body_planes` (:229), launched as k1_planes.
+// From planes-first block and edge arrays with the scale on every row it
+// is `_k1_body_stream` (:240), launched as k1_stream_planes; the
+// planes-first layout was a TPU layout choice (:574-577), and on the card
+// the halves are plain (rows, L) planes.  With the carry as the front edge, no
 // end edge and the scale on the block rows only (edge_scale = 0: the
 // carry holds already-scaled samples), it is `_k1_filter_body`'s
 // streaming form, launched as k1_stream (`bbt_k1_stream`); its `pre` mix
@@ -140,13 +151,19 @@ k1_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 
 // ---------------------------------------------------------------------------
 // K2: replaces `_k2_body` (dedisperse_pallas.py:259, launched by `_stage_b`
-// :429).  Block (lane tile, c) loads column c of the d-major planes (rows
-// b*N1+c), runs the forward FFT over b (DIF: the spectrum comes out in
-// bit-reversed order, so the chirp row is read at d = bitrev(position)),
-// multiplies by the chirp, runs the inverse FFT (DIT: back to natural
-// order), scales by 1/N2, applies W_N^{+c b} and writes the column back
-// in place, as the TPU kernel aliases input and output.
-// Bound: bytes (read two planes and two chirp planes, write two planes).
+// :429) and, with THETA, `_k2_body_theta` (:286, launched by
+// `_stage_b_theta` :460).  Block (lane tile, c) loads column c of the
+// d-major planes (rows b*N1+c), runs the forward FFT over b (DIF: the
+// spectrum comes out in bit-reversed order, so the chirp row is read at
+// d = bitrev(position)), multiplies by the chirp, runs the inverse FFT
+// (DIT: back to natural order), scales by 1/N2, applies W_N^{+c b} and
+// writes the column back in place, as the TPU kernel aliases input and
+// output.  The chirp is two planes (cos, sin) or, with THETA, one phase
+// plane in cycles whose cos/sin the block computes with sincospif (exact
+// argument scaling by pi), reading one chirp plane instead of two.
+// Bound: bytes (read two planes and two chirp planes, write two planes;
+// THETA: one chirp plane, five plane passes instead of six).
+template <bool THETA>
 __global__ void __launch_bounds__(kThreads)
 k2_kernel(float* __restrict__ yr, float* __restrict__ yi,
           const float* __restrict__ csr, const float* __restrict__ csi,
@@ -174,12 +191,22 @@ k2_kernel(float* __restrict__ yr, float* __restrict__ yi,
           [&](int idx, float2 v) { x[idx] = v; });
   __syncthreads();
   fft_dif<false>(x, tw, log_n2, log_tl);
-  batched(total,
-          [&](int idx) {
-            const long a = at(bitrev(idx >> log_tl, log_n2), idx);
-            return make_float2(csr[a], csi[a]);
-          },
-          [&](int idx, float2 w) { x[idx] = cmul(x[idx], w); });
+  if constexpr (THETA) {
+    batched(total,
+            [&](int idx) { return csr[at(bitrev(idx >> log_tl, log_n2), idx)]; },
+            [&](int idx, float th) {
+              float sn, cs;
+              sincospif(2.0f * th, &sn, &cs);
+              x[idx] = cmul(x[idx], make_float2(cs, sn));
+            });
+  } else {
+    batched(total,
+            [&](int idx) {
+              const long a = at(bitrev(idx >> log_tl, log_n2), idx);
+              return make_float2(csr[a], csi[a]);
+            },
+            [&](int idx, float2 w) { x[idx] = cmul(x[idx], w); });
+  }
   __syncthreads();
   fft_dit<true>(x, tw, log_n2, log_tl);
 
@@ -201,8 +228,8 @@ k2_kernel(float* __restrict__ yr, float* __restrict__ yi,
 
 // ---------------------------------------------------------------------------
 // K3: replaces `_k3_fold_body` (dedisperse_pallas.py:381, launched by
-// `_fold_pallas_call` :618) with the power branch of
-// `_detect_fold_accumulate` (:332).
+// `_fold_pallas_call` :618) with `_detect_fold_accumulate` (:332): the
+// power branch, and with STOKES the full-Stokes branch.
 //
 // Block (lane tile, group) walks columns b = group, group + groups, ...:
 // loads row b of the d-major planes, runs the inverse FFT over c (DIF: the
@@ -212,33 +239,46 @@ k2_kernel(float* __restrict__ yr, float* __restrict__ yi,
 //   where the TPU relied on int32 wrap), then
 //   bin = ((num>>16)*n + (((num&0xFFFF)*n)>>16)) >> 15     (n <= 2^15),
 // with rows outside [pad_start, pad_start+n_valid) in trash bin n_phase.
+// With STOKES the profile has three planes of L lanes, [|z_l|^2 |
+// Re z_l conj z_{l+1} | Im z_l conj z_{l+1}], lane l paired with lane
+// (l+1) mod L as the TPU's one-lane roll pairs them (the cross terms of a
+// dual-pol channel are those of its even, X, lane).  The partner of the
+// tile's last lane is lane (l0+tl) mod L, in the next tile: the block
+// loads that one lane's column too and transforms it beside the tile, for
+// 1/tl more reads and FFT work.
 // The TPU carried the profile across a sequential grid; here blocks run in
 // no order, so each block sums into shared-memory partials (float sums,
-// integer counts) and adds them to the global (n_phase+1, L) profile and
+// integer counts) and adds them to the global (n_phase+1, W*L) profile and
 // (n_phase+1,) counts with atomics once at its end.  Counts are taken by
 // the lane-tile-0 blocks only (the bin depends on t alone).  When the
 // partials do not fit shared memory (huge n_phase) every row goes to
 // global atomics directly.
-// Bound: bytes (read two planes); nothing but the profile is written.
+// Bound: bytes (read two planes, 1/tl more with STOKES); nothing but the
+// profile is written.
+template <bool STOKES>
 __global__ void __launch_bounds__(kThreads)
 k3_fold_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
                const int* __restrict__ fold, float* __restrict__ prof,
                unsigned* __restrict__ cnt, int log_n1, int log_n2, int L,
                int log_tl, int n_phase, int pad_start, int n_valid,
                int smem_acc) {
+  constexpr int W = STOKES ? 3 : 1;   // profile planes
   extern __shared__ float2 smem[];
   const int n1 = 1 << log_n1;
   const int n2 = 1 << log_n2;
   const int tl = 1 << log_tl;
   float2* x = smem;
-  float2* tw = smem + (n1 << log_tl);
+  float2* xp = smem + (n1 << log_tl);      // STOKES: the partner lane's column
+  float2* tw = xp + (STOKES ? n1 : 0);
   float* pprof = reinterpret_cast<float*>(tw + n1 / 2);
-  unsigned* pcnt = reinterpret_cast<unsigned*>(pprof + ((n_phase + 1) << log_tl));
+  const int acc_rows = (n_phase + 1) * W;
+  unsigned* pcnt = reinterpret_cast<unsigned*>(pprof + (acc_rows << log_tl));
   const int l0 = blockIdx.x << log_tl;
+  const int lp = (l0 + tl) % L;            // partner of the tile's last lane
   const bool counter = blockIdx.x == 0;
   fill_twiddles(tw, n1);
   if (smem_acc) {
-    for (int i = threadIdx.x; i < ((n_phase + 1) << log_tl); i += blockDim.x)
+    for (int i = threadIdx.x; i < (acc_rows << log_tl); i += blockDim.x)
       pprof[i] = 0.0f;
     for (int i = threadIdx.x; i <= n_phase; i += blockDim.x) pcnt[i] = 0u;
   }
@@ -247,6 +287,12 @@ k3_fold_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
   const unsigned nph = static_cast<unsigned>(n_phase);
   const float inv_n1 = 1.0f / static_cast<float>(n1);
   const int total = n1 << log_tl;
+  // add v to profile plane k of phase row `bin`, lane `lane` of the tile
+  auto add = [&](unsigned bin, int k, int lane, float v) {
+    const int row = static_cast<int>(bin) * W + k;
+    if (smem_acc) atomicAdd(&pprof[(row << log_tl) + lane], v);
+    else atomicAdd(&prof[static_cast<long>(row) * L + l0 + lane], v);
+  };
 
   for (int b = blockIdx.y; b < n2; b += gridDim.y) {
     batched(total,
@@ -256,33 +302,47 @@ k3_fold_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
               return make_float2(zr[a], zi[a]);
             },
             [&](int idx, float2 v) { x[idx] = v; });
+    if constexpr (STOKES) {
+      batched(n1,
+              [&](int r) {
+                const long a = (static_cast<long>(b) * n1 + r) * L + lp;
+                return make_float2(zr[a], zi[a]);
+              },
+              [&](int r, float2 v) { xp[r] = v; });
+    }
     __syncthreads();
     fft_dif<true>(x, tw, log_n1, log_tl);
+    if constexpr (STOKES) fft_dif<true>(xp, tw, log_n1, 0);
     for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
       const int lane = idx & (tl - 1);
-      const int c = bitrev(idx >> log_tl, log_n1);
+      const int r = idx >> log_tl;
+      const int c = bitrev(r, log_n1);
       const float2 v = x[idx];
       const float vr = v.x * inv_n1;
       const float vi = v.y * inv_n1;
-      const float power = vr * vr + vi * vi;
       const int t = c * n2 + b;
       unsigned bin = nph;
       if (t >= pad_start && t - pad_start < n_valid) {
         const unsigned num = (i0 + static_cast<unsigned>(t) * p) & 0x7FFFFFFFu;
         bin = ((num >> 16) * nph + (((num & 0xFFFFu) * nph) >> 16)) >> 15;
       }
-      if (smem_acc) {
-        atomicAdd(&pprof[(bin << log_tl) + lane], power);
-        if (counter && lane == 0) atomicAdd(&pcnt[bin], 1u);
-      } else {
-        atomicAdd(&prof[static_cast<long>(bin) * L + l0 + lane], power);
-        if (counter && lane == 0) atomicAdd(&cnt[bin], 1u);
+      add(bin, 0, lane, vr * vr + vi * vi);
+      if constexpr (STOKES) {
+        const float2 q = lane + 1 < tl ? x[idx + 1] : xp[r];
+        const float qr = q.x * inv_n1;
+        const float qi = q.y * inv_n1;
+        add(bin, 1, lane, vr * qr + vi * qi);
+        add(bin, 2, lane, vi * qr - vr * qi);
+      }
+      if (counter && lane == 0) {
+        if (smem_acc) atomicAdd(&pcnt[bin], 1u);
+        else atomicAdd(&cnt[bin], 1u);
       }
     }
     __syncthreads();
   }
   if (smem_acc) {
-    for (int i = threadIdx.x; i < ((n_phase + 1) << log_tl); i += blockDim.x)
+    for (int i = threadIdx.x; i < (acc_rows << log_tl); i += blockDim.x)
       atomicAdd(&prof[static_cast<long>(i >> log_tl) * L + l0 + (i & (tl - 1))],
                 pprof[i]);
     if (counter)
@@ -372,44 +432,104 @@ extern "C" int bbt_k1_stream(const float* cr, const float* ci, const float* xr,
   return cudaGetLastError();
 }
 
-extern "C" int bbt_k2(float* yr, float* yi, const float* csr, const float* csi,
-                      int n1, int n2, int L, int device, void* stream) {
+// k1_planes: stage A of a planes-first (2, N, L) window, the real plane
+// at x2 and the imaginary plane right after it: k1_window on the two.
+extern "C" int bbt_k1_planes(const float* x2, float* yr, float* yi, int n1,
+                             int n2, int L, int device, void* stream) {
+  const long plane = static_cast<long>(n1) * n2 * L;
+  return bbt_k1_window(x2, x2 + plane, yr, yi, n1, n2, L, device, stream);
+}
+
+// k1_stream_planes: stage A of [front | block | end] from planes-first
+// (2, rows, L) arrays, every row scaled by *scale: K1f on the six planes.
+extern "C" int bbt_k1_stream_planes(const float* x2, const float* front,
+                                    const float* end, const float* scale,
+                                    float* yr, float* yi, int n1, int n2,
+                                    int L, int kf, int ke, int device,
+                                    void* stream) {
+  const long row = static_cast<long>(n2) * L;
+  return bbt_k1_float(x2, x2 + (n1 - kf - ke) * row, front, front + kf * row,
+                      end, end + ke * row, scale, yr, yi, n1, n2, L, kf, ke,
+                      device, stream);
+}
+
+namespace {
+
+template <bool THETA>
+int launch_k2(float* yr, float* yi, const float* c0, const float* c1, int n1,
+              int n2, int L, int device, void* stream) {
   const int log_tl = bbt::choose_log_tl(n2, L, 0, 0);
   if (log_tl < 0) return cudaErrorInvalidValue;
   const size_t smem = bbt::column_smem(n2, log_tl);
-  cudaError_t err = bbt::prepare(bbt::k2_kernel, smem, device);
+  cudaError_t err = bbt::prepare(bbt::k2_kernel<THETA>, smem, device);
   if (err != cudaSuccess) return err;
-  bbt::k2_kernel<<<dim3(L >> log_tl, n1), kThreads, smem,
-                   static_cast<cudaStream_t>(stream)>>>(
-      yr, yi, csr, csi, bbt::log2i(n1), bbt::log2i(n2), L, log_tl);
+  bbt::k2_kernel<THETA><<<dim3(L >> log_tl, n1), kThreads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      yr, yi, c0, c1, bbt::log2i(n1), bbt::log2i(n2), L, log_tl);
   return cudaGetLastError();
 }
 
-extern "C" int bbt_k3_fold(const float* zr, const float* zi, const int* fold,
-                           float* prof, unsigned* cnt, int n1, int n2, int L,
-                           int n_phase, int pad_start, int n_valid, int device,
-                           void* stream) {
-  // shared partials: (n_phase+1) floats per lane plus (n_phase+1) counts
-  int log_tl = bbt::choose_log_tl(n1, L, (n_phase + 1) * 4, (n_phase + 1) * 4);
+template <bool STOKES>
+int launch_k3_fold(const float* zr, const float* zi, const int* fold,
+                   float* prof, unsigned* cnt, int n1, int n2, int L,
+                   int n_phase, int pad_start, int n_valid, int device,
+                   void* stream) {
+  constexpr int W = STOKES ? 3 : 1;
+  const int partner = STOKES ? n1 * 8 : 0;   // the partner lane's column
+  // shared partials: W (n_phase+1) floats per lane plus (n_phase+1) counts
+  int log_tl = bbt::choose_log_tl(n1, L, (n_phase + 1) * 4 * W,
+                                  (n_phase + 1) * 4 + partner);
   int smem_acc = 1;
   if (log_tl < 0) {
-    log_tl = bbt::choose_log_tl(n1, L, 0, 0);
+    log_tl = bbt::choose_log_tl(n1, L, 0, partner);
     smem_acc = 0;
   }
   if (log_tl < 0) return cudaErrorInvalidValue;
-  size_t smem = bbt::column_smem(n1, log_tl);
+  size_t smem = bbt::column_smem(n1, log_tl) + partner;
   if (smem_acc)
-    smem += (static_cast<size_t>(n_phase + 1) << log_tl) * 4 + (n_phase + 1) * 4;
-  cudaError_t err = bbt::prepare(bbt::k3_fold_kernel, smem, device);
+    smem += (static_cast<size_t>(n_phase + 1) * W << log_tl) * 4 +
+            (n_phase + 1) * 4;
+  cudaError_t err = bbt::prepare(bbt::k3_fold_kernel<STOKES>, smem, device);
   if (err != cudaSuccess) return err;
   // ~1024 blocks in all; each walks n2 / groups columns
   const int lane_tiles = L >> log_tl;
   int groups = 1024 / lane_tiles;
   if (groups < 1) groups = 1;
   if (groups > n2) groups = n2;
-  bbt::k3_fold_kernel<<<dim3(lane_tiles, groups), kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
+  bbt::k3_fold_kernel<STOKES><<<dim3(lane_tiles, groups), kThreads, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
       zr, zi, fold, prof, cnt, bbt::log2i(n1), bbt::log2i(n2), L, log_tl,
       n_phase, pad_start, n_valid, smem_acc);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int bbt_k2(float* yr, float* yi, const float* csr, const float* csi,
+                      int n1, int n2, int L, int device, void* stream) {
+  return launch_k2<false>(yr, yi, csr, csi, n1, n2, L, device, stream);
+}
+
+// k2_theta: K2 with the chirp as one phase plane (cycles).
+extern "C" int bbt_k2_theta(float* yr, float* yi, const float* theta, int n1,
+                            int n2, int L, int device, void* stream) {
+  return launch_k2<true>(yr, yi, theta, nullptr, n1, n2, L, device, stream);
+}
+
+extern "C" int bbt_k3_fold(const float* zr, const float* zi, const int* fold,
+                           float* prof, unsigned* cnt, int n1, int n2, int L,
+                           int n_phase, int pad_start, int n_valid, int device,
+                           void* stream) {
+  return launch_k3_fold<false>(zr, zi, fold, prof, cnt, n1, n2, L, n_phase,
+                               pad_start, n_valid, device, stream);
+}
+
+// k3_fold_stokes: K3 folding the (n_phase+1, 3L) full-Stokes profile.
+extern "C" int bbt_k3_fold_stokes(const float* zr, const float* zi,
+                                  const int* fold, float* prof, unsigned* cnt,
+                                  int n1, int n2, int L, int n_phase,
+                                  int pad_start, int n_valid, int device,
+                                  void* stream) {
+  return launch_k3_fold<true>(zr, zi, fold, prof, cnt, n1, n2, L, n_phase,
+                              pad_start, n_valid, device, stream);
 }

@@ -13,6 +13,7 @@
 //   k2_inv   inverse stage-B FFT, x scale, W_N^{+c b}           (N2, N1, L)
 //   k3_trim  inverse stage-A FFT over c (/N1), rows c in [kf, N1 - ke)
 //            stored in natural time order                       (N - pads, L)
+//   k3_power the same without pads, storing |.|^2               (N, L)
 //   lane_mix (rows, L) planes times a complex (L, L) matrix: the
 //            spectral filter's `pre`/`post` mixes               (rows, L)
 //
@@ -98,12 +99,15 @@ k2_pass_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 // `_spectral_filter_impl` :245) without `post`, and `_k3_body`
 // (dedisperse_pallas.py:314) in its re/im form, which is the case
 // kf = ke = 0 (launched by `_stages_bc` :490 and `fft_pallas._fft_impl`
-// :95).  Block (lane tile, b) loads row b of the d-major planes (rows
-// b*N1+c, contiguous in c), runs the inverse FFT over c (DIF: time
-// t = c*N2 + b at bit-reversed position c), scales by 1/N1 and stores only
-// the rows c in [kf, N1 - ke), as output row (c - kf)*N2 + b: the pad rows
-// never reach device memory.
-// Bound: bytes (read two planes, write the valid part of two planes).
+// :95).  With POWER it is `_k3_body`'s |.|^2 form, launched as k3_power
+// (no pads, one output plane).  Block (lane tile, b) loads row b of the
+// d-major planes (rows b*N1+c, contiguous in c), runs the inverse FFT
+// over c (DIF: time t = c*N2 + b at bit-reversed position c), scales by
+// 1/N1 and stores only the rows c in [kf, N1 - ke), as output row
+// (c - kf)*N2 + b: the pad rows never reach device memory.
+// Bound: bytes (read two planes, write the valid part of two planes, or
+// of one with POWER).
+template <bool POWER>
 __global__ void __launch_bounds__(kThreads)
 k3_trim_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
                float* __restrict__ outr, float* __restrict__ outi,
@@ -134,8 +138,14 @@ k3_trim_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
     const int j = idx >> log_tl;
     const float2 v = x[(bitrev(kf + j, log_n1) << log_tl) + lane];
     const long o = (static_cast<long>(j) * n2 + b) * L + l0 + lane;
-    outr[o] = v.x * inv_n1;
-    outi[o] = v.y * inv_n1;
+    const float vr = v.x * inv_n1;
+    const float vi = v.y * inv_n1;
+    if constexpr (POWER) {
+      outr[o] = vr * vr + vi * vi;
+    } else {
+      outr[o] = vr;
+      outi[o] = vi;
+    }
   }
 }
 
@@ -207,18 +217,38 @@ extern "C" int bbt_k2_inv(const float* xr, const float* xi, float* yr,
                               stream);
 }
 
-extern "C" int bbt_k3_trim(const float* zr, const float* zi, float* outr,
-                           float* outi, int n1, int n2, int L, int kf, int ke,
-                           int device, void* stream) {
+namespace {
+
+template <bool POWER>
+int launch_k3_trim(const float* zr, const float* zi, float* outr, float* outi,
+                   int n1, int n2, int L, int kf, int ke, int device,
+                   void* stream) {
   const int log_tl = bbt::choose_log_tl(n1, L, 0, 0);
   if (log_tl < 0) return cudaErrorInvalidValue;
   const size_t smem = bbt::column_smem(n1, log_tl);
-  cudaError_t err = bbt::prepare(bbt::k3_trim_kernel, smem, device);
+  cudaError_t err = bbt::prepare(bbt::k3_trim_kernel<POWER>, smem, device);
   if (err != cudaSuccess) return err;
-  bbt::k3_trim_kernel<<<dim3(L >> log_tl, n2), kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
+  bbt::k3_trim_kernel<POWER><<<dim3(L >> log_tl, n2), kThreads, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
       zr, zi, outr, outi, bbt::log2i(n1), bbt::log2i(n2), L, log_tl, kf, ke);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int bbt_k3_trim(const float* zr, const float* zi, float* outr,
+                           float* outi, int n1, int n2, int L, int kf, int ke,
+                           int device, void* stream) {
+  return launch_k3_trim<false>(zr, zi, outr, outi, n1, n2, L, kf, ke, device,
+                               stream);
+}
+
+// k3_power: inverse stage A and |.|^2 of a whole window, (N, L) in time
+// order.
+extern "C" int bbt_k3_power(const float* zr, const float* zi, float* out,
+                            int n1, int n2, int L, int device, void* stream) {
+  return launch_k3_trim<true>(zr, zi, out, nullptr, n1, n2, L, 0, 0, device,
+                              stream);
 }
 
 extern "C" int bbt_lane_mix(const float* xr, const float* xi, const float* wr,

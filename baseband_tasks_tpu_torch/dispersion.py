@@ -65,15 +65,11 @@ class Disperse(PaddedTaskBase):
     engine : {'auto', 'xla', 'pallas'}
         'auto' picks 'pallas' for complex data over >= 8 lanes on a CUDA
         device, else 'xla'.
-    use_kernels : bool
-        With the 'pallas' engine on a CUDA device, run the hand-written
-        kernels (default) or, if False, the plain PyTorch version of the
-        same filter (``spectral_filter_pow2_ref``).
     """
 
     def __init__(self, ih, dm, *, reference_frequency=None,
                  samples_per_frame=None, frequency=None, sideband=None,
-                 pad_margin=256, engine="auto", use_kernels=True):
+                 pad_margin=256, engine="auto"):
         frequency = getattr_if_none(ih, "frequency", frequency)
         sideband = getattr_if_none(ih, "sideband", sideband)
         if not isinstance(dm, u.Quantity):
@@ -93,7 +89,6 @@ class Disperse(PaddedTaskBase):
             raise ValueError("the pallas dedispersion engine requires "
                              "complex data")
         self.engine = engine
-        self.use_kernels = bool(use_kernels)
 
         sample_shape = ih.sample_shape if ih.sample_shape else (1,)
         freq = u.Quantity(np.broadcast_to(
@@ -233,8 +228,7 @@ class Disperse(PaddedTaskBase):
         Dechannelize's inverse DFT, models/compiled.py)."""
         return spectral_filter_pow2(
             xr, xi, *self._storage_chirp_planes(),
-            pad_start=self._pad_start, pad_end=self._pad_end, post=post,
-            kernels=self.use_kernels)
+            pad_start=self._pad_start, pad_end=self._pad_end, post=post)
 
     def _task_pallas_stream(self, carry_pair, x_pair, scale=None,
                             post=None):
@@ -244,8 +238,7 @@ class Disperse(PaddedTaskBase):
         return spectral_filter_stream(
             carry_pair[0], carry_pair[1], x_pair[0], x_pair[1],
             *self._storage_chirp_planes(), pad_start=self._pad_start,
-            pad_end=self._pad_end, scale=scale, post=post,
-            kernels=self.use_kernels)
+            pad_end=self._pad_end, scale=scale, post=post)
 
     def task_planes(self, pair):
         """Planes-interchange form for compiled pipelines: padded window
@@ -312,7 +305,7 @@ class Dedisperse(Disperse):
 
     def __init__(self, ih, dm, *, reference_frequency=None,
                  samples_per_frame=None, frequency=None, sideband=None,
-                 pad_margin=256, engine="auto", use_kernels=True):
+                 pad_margin=256, engine="auto"):
         if not isinstance(dm, u.Quantity):
             dm = DispersionMeasure(dm)
         negated = DispersionMeasure(-dm.to_value(u.DM), u.DM)
@@ -320,8 +313,7 @@ class Dedisperse(Disperse):
                          reference_frequency=reference_frequency,
                          samples_per_frame=samples_per_frame,
                          frequency=frequency, sideband=sideband,
-                         pad_margin=pad_margin, engine=engine,
-                         use_kernels=use_kernels)
+                         pad_margin=pad_margin, engine=engine)
 
     @property
     def dm(self):

@@ -245,8 +245,7 @@ class _FFTMakerState:
     ``fft_maker.set('numpy')`` (optionally as a context manager),
     ``fft_maker.get()``, and ``fft_maker(shape, dtype, ...)`` to build an
     FFT with the current default.  Keyword arguments of ``set`` go to the
-    named engine's constructor (``fft_maker.set('pallas',
-    use_kernels=False)``)."""
+    named engine's constructor."""
 
     def __init__(self):
         self._value = None

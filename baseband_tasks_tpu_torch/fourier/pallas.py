@@ -12,9 +12,8 @@ read under it plans transforms this way:
 * any other shape is the 'xla' engine's (``torch.fft``), as in the JAX
   package: that is the engine's definition, not a fallback.
 
-``PallasFFTMaker(use_kernels=False)`` (``fft_maker.set('pallas',
-use_kernels=False)``) runs the plain version ``fft_pow2_planes_ref`` for
-the shapes that qualify, to hold the kernels against it on a card.
+Tests hold the kernels against their plain versions on a card inside
+the test-only ``ops.dedisperse.plain_versions()``.
 """
 
 from __future__ import annotations
@@ -53,11 +52,9 @@ class PallasFFTBase(XLAFFTBase):
         n = x.shape[0]
         batch_shape = tuple(x.shape[1:])
         x2 = x.reshape(n, -1)
-        maker = getattr(self, "_maker", None)
         yr, yi = fft_pow2_planes(
             x2.real.contiguous(), x2.imag.contiguous(),
-            inverse=self._direction != "forward", ortho=self._ortho,
-            kernels=getattr(maker, "use_kernels", True))
+            inverse=self._direction != "forward", ortho=self._ortho)
         out = torch.complex(yr, yi).reshape((n,) + batch_shape)
         return torch.movedim(out, 0, self._axis)
 
@@ -66,9 +63,6 @@ class PallasFFTMaker(FFTMakerBase):
     """Engine factory for the four-step FFT (registered 'pallas')."""
 
     _fft_class = PallasFFTBase
-
-    def __init__(self, use_kernels=True):
-        self.use_kernels = bool(use_kernels)
 
     @staticmethod
     def next_fast_len(n):

@@ -228,7 +228,7 @@ class _FusedPFBForward:
             carry_pair[0].reshape(k, L), carry_pair[1].reshape(k, L),
             x_pair[0].reshape(m, L), x_pair[1].reshape(m, L),
             self._taps.on(dev)[0], fr, fi, n_tap=self.fir._n_tap,
-            scale=scale, kernels=self.fir.use_kernels)
+            scale=scale)
         return self._shape_out(yr), self._shape_out(yi)
 
 

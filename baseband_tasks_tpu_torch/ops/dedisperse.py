@@ -1,30 +1,44 @@
 """Fused coherent dedispersion -> detection -> fold for one window.
 
-Counterpart of the flagship path of
-``baseband_tasks_tpu/ops/dedisperse_pallas.py``.  The overlap-save window
-of N = N1·N2 samples (powers of two) over L lanes runs through a four-step
-FFT in three passes, with frequency bins in d-major storage order
-(d, c) <-> k = d·N1 + c between them, so no transpose reaches memory:
+Counterpart of ``baseband_tasks_tpu/ops/dedisperse_pallas.py``.  The
+overlap-save window of N = N1·N2 samples (powers of two) over L lanes runs
+through a four-step FFT in three passes, with frequency bins in d-major
+storage order (d, c) <-> k = d·N1 + c between them, so no transpose
+reaches memory:
 
 - **stage A** (K1): assemble the window from the front edge, the main
-  block (float32 planes, or plane-packed 1/2/4/8-bit words decoded in the
-  pass) and the end edge; scale; FFT over the N1 rows; twiddle
-  W_N^{-c b}; store d-major (N2, N1, L).
-- **stage B** (K2): FFT over N2, multiply by the chirp planes, inverse FFT
-  with 1/N2, twiddle W_N^{+c b}; in place.
-- **fold** (K3): inverse stage A with 1/N1, detect |z|², bin pulse phase
-  in 31-bit fixed point, fold into an (n_phase+1, L) profile whose last
-  row is the trash bin of the halo rows, with integer counts.
+  block (float32 planes, plane-packed 1/2/4/8-bit words decoded in the
+  pass, or the halves of planes-first (2, rows, L) arrays) and the end
+  edge; scale; FFT over the N1 rows; twiddle W_N^{-c b}; store d-major
+  (N2, N1, L).
+- **stage B** (K2): FFT over N2, multiply by the chirp (cos/sin planes, or
+  one phase plane in cycles), inverse FFT with 1/N2, twiddle W_N^{+c b};
+  in place.
+- **fold** (K3): inverse stage A with 1/N1, detect |z|² (or full Stokes:
+  lane l with lane l+1), bin pulse phase in 31-bit fixed point, fold into
+  an (n_phase+1, L or 3L) profile whose last row is the trash bin of the
+  halo rows, with integer counts.  Or, without the fold, the inverse
+  stage A as |z|² planes (k3_power) or re/im planes (``ops/fft.k3_trim``).
 
 Each stage has a wrapper and a plain PyTorch version (``*_ref``) that
 produces the same layout.  A wrapper given CUDA tensors launches its
-hand-written Hopper kernel (``csrc/dedisperse.cu``) or raises; given CPU
-tensors it runs the plain version.  Each launch adds one to
-:data:`launch_counts` (shared with ``ops/fft.py``, in ``ops/_build.py``).
+hand-written Hopper kernel (``csrc/dedisperse.cu``, ``csrc/fourstep.cu``)
+or raises; given CPU tensors it runs the plain version.  Each launch adds
+one to :data:`launch_counts` (shared with ``ops/fft.py``, in
+``ops/_build.py``).  :func:`plain_versions` is the tests' way to run the
+plain versions on a card.
+
+The public entry points are those of the JAX module, without its TPU
+tiling knobs (``block_b``, ``block_c``, ``interpret``):
+:func:`dedisperse_pow2`, :func:`dedisperse_pow2_planes`,
+:func:`dedisperse_fold_pow2`, :func:`dedisperse_fold_stream`,
+:func:`dedisperse_fold_split` and :func:`dedisperse_fold_split_packed`.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import numpy as np
@@ -35,11 +49,14 @@ from .fold import fold_accumulate
 from .unpack import decode_planes, default_levels, default_offset
 
 __all__ = ["split_n", "permute_to_storage_order", "fold_phase_vector",
-           "fold_bins_ref", "stage_a_packed", "stage_a", "stage_b",
-           "detect_fold", "stage_a_packed_ref", "stage_a_ref",
-           "stage_b_ref", "fold_ref", "dedisperse_fold_split",
-           "dedisperse_fold_split_packed", "fold_chain", "as_tensor",
-           "launch_counts", "reset_launch_counts"]
+           "fold_bins_ref", "stage_a_packed", "stage_a", "stage_a_planes",
+           "stage_a_stream_planes", "stage_b", "stage_b_theta",
+           "detect_fold", "k3_power", "stage_a_packed_ref", "stage_a_ref",
+           "stage_b_ref", "k2_theta_ref", "fold_ref", "k3_power_ref",
+           "dedisperse_pow2", "dedisperse_pow2_planes",
+           "dedisperse_fold_pow2", "dedisperse_fold_stream",
+           "dedisperse_fold_split", "dedisperse_fold_split_packed",
+           "fold_chain", "as_tensor", "launch_counts", "reset_launch_counts"]
 
 _FX_BITS = 31
 _FX_ONE = 1 << _FX_BITS          # one pulse cycle in fixed-point units
@@ -114,16 +131,22 @@ def _twiddle(n1, n2, sign, device):
     return torch.polar(torch.ones_like(ang), ang).to(torch.complex64)
 
 
-def stage_a_ref(xr, xi, fr, fi, er, ei, scale):
-    """Plain stage A: window -> FFT over c -> W_N^{-c b} -> d-major
-    (N2, N1, L) re/im planes."""
-    n1, n2 = _geometry(xr.shape[0], fr.shape[0], er.shape[0])
-    L = xr.shape[1]
-    w = torch.complex(torch.cat([fr, xr, er]) * scale,
-                      torch.cat([fi, xi, ei]) * scale).reshape(n1, n2, L)
-    y = torch.fft.fft(w, dim=0) * _twiddle(n1, n2, -1, w.device)[:, :, None]
+def stage_a_window_ref(w):
+    """Plain stage A of a complex (N, L) window -> FFT over c ->
+    W_N^{-c b} -> d-major (N2, N1, L) re/im planes."""
+    n, L = w.shape
+    n1, n2 = split_n(n)
+    y = torch.fft.fft(w.reshape(n1, n2, L), dim=0) \
+        * _twiddle(n1, n2, -1, w.device)[:, :, None]
     y = y.transpose(0, 1)
     return y.real.contiguous(), y.imag.contiguous()
+
+
+def stage_a_ref(xr, xi, fr, fi, er, ei, scale):
+    """Plain stage A of the window [front | block | end] times ``scale``."""
+    _geometry(xr.shape[0], fr.shape[0], er.shape[0])
+    return stage_a_window_ref(torch.complex(torch.cat([fr, xr, er]) * scale,
+                                            torch.cat([fi, xi, ei]) * scale))
 
 
 def stage_a_packed_ref(xpr, xpi, fr, fi, er, ei, scale, *, bits,
@@ -135,42 +158,94 @@ def stage_a_packed_ref(xpr, xpi, fr, fi, er, ei, scale, *, bits,
                        fr, fi, er, ei, scale)
 
 
-def stage_b_ref(yr, yi, csr, csi):
-    """Plain stage B, in place on the d-major (N2, N1, L) planes."""
+def _stage_b_ref(yr, yi, chirp):
     n2, n1, _ = yr.shape
-    y = torch.fft.fft(torch.complex(yr, yi), dim=0) * torch.complex(csr, csi)
+    y = torch.fft.fft(torch.complex(yr, yi), dim=0) * chirp
     z = torch.fft.ifft(y, dim=0) * _twiddle(n1, n2, +1, y.device).T[:, :, None]
     yr.copy_(z.real)
     yi.copy_(z.imag)
     return yr, yi
 
 
-def fold_ref(zr, zi, fold, *, n_phase, pad_start, n_valid):
-    """Plain fold: inverse stage A -> |z|² -> fixed-point bins (int64,
-    masked) -> one-hot fold.  Returns the (n_phase+1, L) float32 profile
-    and (n_phase+1,) int32 counts; row n_phase is the trash bin."""
+def stage_b_ref(yr, yi, csr, csi):
+    """Plain stage B, in place on the d-major (N2, N1, L) planes."""
+    return _stage_b_ref(yr, yi, torch.complex(csr, csi))
+
+
+def k2_theta_ref(yr, yi, theta):
+    """Plain stage B with the chirp as one phase plane in cycles
+    (exp(2πi θ), the angle in float64), in place."""
+    ang = theta.to(torch.float64) * (2.0 * math.pi)
+    return _stage_b_ref(yr, yi, torch.polar(torch.ones_like(ang), ang)
+                        .to(torch.complex64))
+
+
+def _inverse_stage_a(zr, zi):
+    """(N, L) complex time series of d-major planes (inverse, 1/N1)."""
     n2, n1, L = zr.shape
-    n = n1 * n2
     x = torch.fft.ifft(torch.complex(zr, zi).transpose(0, 1), dim=0)
-    x = x.reshape(n, L)
+    return x.reshape(n1 * n2, L)
+
+
+def _detect(x, stokes):
+    """|x|², or with ``stokes`` the (N, 3L) [|x_l|² | Re x_l conj x_{l+1}
+    | Im x_l conj x_{l+1}], lane l paired with lane (l+1) mod L."""
     power = x.real * x.real + x.imag * x.imag
+    if not stokes:
+        return power
+    q = torch.roll(x, -1, dims=1)
+    return torch.cat([power, x.real * q.real + x.imag * q.imag,
+                      x.imag * q.real - x.real * q.imag], dim=1)
+
+
+def k3_power_ref(zr, zi):
+    """Plain inverse stage A (1/N1) and |·|² of d-major planes: the (N, L)
+    detected power in time order."""
+    return _detect(_inverse_stage_a(zr, zi), False)
+
+
+def fold_ref(zr, zi, fold, *, n_phase, pad_start, n_valid, stokes=False):
+    """Plain fold: inverse stage A -> |z|² (or full Stokes) -> fixed-point
+    bins (int64, masked) -> one-hot fold.  Returns the (n_phase+1, L, or
+    3L with ``stokes``) float32 profile and (n_phase+1,) int32 counts; row
+    n_phase is the trash bin."""
+    x = _inverse_stage_a(zr, zi)
+    n = x.shape[0]
     t = torch.arange(n, dtype=torch.int64, device=zr.device)
     f = fold.to(torch.int64)
     num = (f[0] + t * f[1]) & _FX_MASK
     bins = (((num >> 16) * n_phase) + (((num & 0xFFFF) * n_phase) >> 16)) >> 15
     valid = (t >= pad_start) & (t < pad_start + n_valid)
     bins = torch.where(valid, bins, n_phase)
-    prof = fold_accumulate(power, bins, n_phase + 1, with_counts=False)
+    prof = fold_accumulate(_detect(x, stokes), bins, n_phase + 1,
+                           with_counts=False)
     cnt = torch.bincount(bins, minlength=n_phase + 1).to(torch.int32)
     return prof, cnt
 
 
 # -- kernel wrappers -----------------------------------------------------
 
+_plain = contextvars.ContextVar("plain_versions", default=False)
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Test-only: inside this context every kernel wrapper of the package
+    runs its plain PyTorch version, on a CUDA device too, and counts no
+    launch.  The tests and ``chip_smoke.py`` hold the kernels against it
+    on the card; nothing else uses it."""
+    token = _plain.set(True)
+    try:
+        yield
+    finally:
+        _plain.reset(token)
+
+
 def _on_cuda(x):
-    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    """True for a CUDA tensor (outside :func:`plain_versions`), False
+    for a CPU one; raises otherwise."""
     if x.device.type == "cuda":
-        return True
+        return not _plain.get()
     if x.device.type == "cpu":
         return False
     raise ValueError(f"no kernel for device {x.device}")
@@ -260,6 +335,51 @@ def stage_a(xr, xi, fr, fi, er, ei, scale):
     return yr, yi
 
 
+def stage_a_planes(x2):
+    """Stage A of a planes-first (2, N, L) window: k1_planes on a CUDA
+    tensor, else :func:`stage_a_window_ref` of ``x2[0] + i x2[1]``.
+    Returns d-major (N2, N1, L) planes."""
+    if not _on_cuda(x2):
+        return stage_a_window_ref(torch.complex(x2[0], x2[1]))
+    _, n, L = x2.shape
+    if not _is_pow2(n):
+        raise ValueError(f"N={n} must be a power of two")
+    n1, n2 = split_n(n)
+    _check_kernel_geometry(n1, n2)
+    dev = x2.device
+    _check(x2, "x2", torch.float32, (2, n, L), dev)
+    yr = torch.empty((n2, n1, L), dtype=torch.float32, device=dev)
+    yi = torch.empty_like(yr)
+    launch("k1_planes", "bbt_k1_planes", dev, x2.data_ptr(), yr.data_ptr(),
+           yi.data_ptr(), n1, n2, L)
+    return yr, yi
+
+
+def stage_a_stream_planes(x2, front, end, scale):
+    """Stage A of [front | block | end] · scale from planes-first arrays:
+    k1_stream_planes on CUDA tensors, else :func:`stage_a_ref` of the
+    halves.  ``x2`` : (2, T, L); ``front`` : (2, pad_start, L); ``end`` :
+    (2, pad_end, L); ``scale`` : (1,) float32 on every row, edges too."""
+    if not _on_cuda(x2):
+        return stage_a_ref(x2[0], x2[1], front[0], front[1], end[0],
+                           end[1], scale)
+    _, t_main, L = x2.shape
+    p0, p1 = front.shape[1], end.shape[1]
+    n1, n2 = _geometry(t_main, p0, p1)
+    _check_kernel_geometry(n1, n2)
+    dev = x2.device
+    for name, t, rows in (("x2", x2, t_main), ("front", front, p0),
+                          ("end", end, p1)):
+        _check(t, name, torch.float32, (2, rows, L), dev)
+    _check(scale, "scale", torch.float32, (1,), dev)
+    yr = torch.empty((n2, n1, L), dtype=torch.float32, device=dev)
+    yi = torch.empty_like(yr)
+    launch("k1_stream_planes", "bbt_k1_stream_planes", dev, x2.data_ptr(),
+           front.data_ptr(), end.data_ptr(), scale.data_ptr(), yr.data_ptr(),
+           yi.data_ptr(), n1, n2, L, p0 // n2, p1 // n2)
+    return yr, yi
+
+
 def stage_b(yr, yi, csr, csi):
     """Stage B in place on d-major (N2, N1, L) planes: K2 on CUDA
     tensors, else :func:`stage_b_ref`."""
@@ -271,30 +391,66 @@ def stage_b(yr, yi, csr, csi):
     for name, t in (("yr", yr), ("yi", yi), ("csr", csr), ("csi", csi)):
         _check(t, name, torch.float32, (n2, n1, L), dev)
     launch("k2", "bbt_k2", dev, yr.data_ptr(), yi.data_ptr(),
-            csr.data_ptr(), csi.data_ptr(), n1, n2, L)
+           csr.data_ptr(), csi.data_ptr(), n1, n2, L)
     return yr, yi
 
 
-def detect_fold(zr, zi, fold, *, n_phase, pad_start, n_valid):
-    """Inverse stage A, detection and fold: K3 on CUDA tensors, else
-    :func:`fold_ref`.  ``fold`` : (3,) int32 ``[i0_fx, p_fx, 0]`` on the
-    planes' device.  Returns (n_phase+1, L) float32 sums and
-    (n_phase+1,) int32 counts."""
-    if not _on_cuda(zr):
-        return fold_ref(zr, zi, fold, n_phase=n_phase, pad_start=pad_start,
-                        n_valid=n_valid)
+def stage_b_theta(yr, yi, theta):
+    """Stage B in place with the chirp as one d-major (N2, N1, L) phase
+    plane in cycles: k2_theta on CUDA tensors, else :func:`k2_theta_ref`."""
+    if not _on_cuda(yr):
+        return k2_theta_ref(yr, yi, theta)
+    n2, n1, L = yr.shape
+    _check_kernel_geometry(n1, n2)
+    dev = yr.device
+    for name, t in (("yr", yr), ("yi", yi), ("theta", theta)):
+        _check(t, name, torch.float32, (n2, n1, L), dev)
+    launch("k2_theta", "bbt_k2_theta", dev, yr.data_ptr(), yi.data_ptr(),
+           theta.data_ptr(), n1, n2, L)
+    return yr, yi
+
+
+def _check_planes(zr, zi):
     n2, n1, L = zr.shape
     _check_kernel_geometry(n1, n2)
-    n_phase = _check_n_phase(n_phase)
     dev = zr.device
     _check(zr, "zr", torch.float32, (n2, n1, L), dev)
     _check(zi, "zi", torch.float32, (n2, n1, L), dev)
+    return n1, n2, L, dev
+
+
+def k3_power(zr, zi):
+    """Inverse stage A (1/N1) and |·|² of d-major (N2, N1, L) planes:
+    k3_power on CUDA tensors, else :func:`k3_power_ref`.  Returns the
+    (N, L) power in time order."""
+    if not _on_cuda(zr):
+        return k3_power_ref(zr, zi)
+    n1, n2, L, dev = _check_planes(zr, zi)
+    out = torch.empty((n1 * n2, L), dtype=torch.float32, device=dev)
+    launch("k3_power", "bbt_k3_power", dev, zr.data_ptr(), zi.data_ptr(),
+           out.data_ptr(), n1, n2, L)
+    return out
+
+
+def detect_fold(zr, zi, fold, *, n_phase, pad_start, n_valid, stokes=False):
+    """Inverse stage A, detection and fold: K3 (k3_fold, or
+    k3_fold_stokes) on CUDA tensors, else :func:`fold_ref`.  ``fold`` :
+    (3,) int32 ``[i0_fx, p_fx, 0]`` on the planes' device.  Returns
+    (n_phase+1, L) float32 sums ((n_phase+1, 3L) with ``stokes``) and
+    (n_phase+1,) int32 counts."""
+    if not _on_cuda(zr):
+        return fold_ref(zr, zi, fold, n_phase=n_phase, pad_start=pad_start,
+                        n_valid=n_valid, stokes=stokes)
+    n1, n2, L, dev = _check_planes(zr, zi)
+    n_phase = _check_n_phase(n_phase)
     _check(fold, "fold", torch.int32, (3,), dev)
-    prof = torch.zeros((n_phase + 1, L), dtype=torch.float32, device=dev)
+    width = 3 * L if stokes else L
+    prof = torch.zeros((n_phase + 1, width), dtype=torch.float32, device=dev)
     cnt = torch.zeros((n_phase + 1,), dtype=torch.int32, device=dev)
-    launch("k3_fold", "bbt_k3_fold", dev, zr.data_ptr(), zi.data_ptr(),
-            fold.data_ptr(), prof.data_ptr(), cnt.data_ptr(), n1, n2, L,
-            n_phase, int(pad_start), int(n_valid))
+    name = "k3_fold_stokes" if stokes else "k3_fold"
+    launch(name, f"bbt_{name}", dev, zr.data_ptr(), zi.data_ptr(),
+           fold.data_ptr(), prof.data_ptr(), cnt.data_ptr(), n1, n2, L,
+           n_phase, int(pad_start), int(n_valid))
     return prof, cnt
 
 
@@ -306,13 +462,32 @@ def as_tensor(a):
     return t.view(torch.int32) if t.dtype == torch.uint32 else t
 
 
+def _device_of(a):
+    """The device of a tensor argument; the CPU for numpy."""
+    return a.device if torch.is_tensor(a) else torch.device("cpu")
+
+
 def _as_device(a, device, dtype):
-    return as_tensor(a).to(device=device, dtype=dtype).contiguous()
+    """``a`` as a ``dtype`` tensor on ``device``.  A tensor already there
+    keeps its strides, so a kernel wrapper refuses a non-contiguous one
+    rather than the op copying it; data from elsewhere is copied anyway,
+    into a contiguous tensor."""
+    t = as_tensor(a)
+    if t.device == device:
+        return t.to(dtype=dtype)
+    return t.to(device=device, dtype=dtype).contiguous()
 
 
-def _check_modes(n_phase, pad_start, front, stokes, inter_dtype):
-    if stokes:
-        raise NotImplementedError("Stokes detection is not ported yet")
+def _fold_vector(fold, device):
+    """The (3,) int32 ``[i0_fx, p_fx, 0]`` fold vector on ``device``."""
+    fold = _as_device(fold, device, torch.int32)
+    if tuple(fold.shape) != (3,):
+        raise ValueError("fold must be a (3,) [i0_fx, p_fx, 0] vector; "
+                         "build it with fold_phase_vector()")
+    return fold
+
+
+def _check_modes(n_phase, pad_start, front, inter_dtype="float32"):
     if str(inter_dtype) != "float32":
         raise NotImplementedError("only float32 intermediates are ported")
     if front != pad_start:
@@ -321,14 +496,101 @@ def _check_modes(n_phase, pad_start, front, stokes, inter_dtype):
 
 
 def fold_chain(y, chirp_storage_r, chirp_storage_i, fold, *, n_phase,
-               pad_start, n_valid, kernels=True):
-    """Stage B and fold of stage A's planes ``y``: the wrappers (which
-    dispatch by device) with ``kernels``, else the plain versions.
-    Returns the (n_phase+1, L) profile and int32 counts."""
-    sb, fd = (stage_b, detect_fold) if kernels else (stage_b_ref, fold_ref)
-    z = sb(*y, chirp_storage_r, chirp_storage_i)
-    return fd(*z, fold, n_phase=n_phase, pad_start=pad_start,
-              n_valid=n_valid)
+               pad_start, n_valid, stokes=False):
+    """Stage B and fold of stage A's planes ``y`` through the wrappers
+    (which dispatch by device); with ``chirp_storage_i`` None,
+    ``chirp_storage_r`` is the chirp phase plane in cycles.  Returns the
+    (n_phase+1, L or 3L) profile and int32 counts."""
+    if chirp_storage_i is None:
+        z = stage_b_theta(*y, chirp_storage_r)
+    else:
+        z = stage_b(*y, chirp_storage_r, chirp_storage_i)
+    return detect_fold(*z, fold, n_phase=n_phase, pad_start=pad_start,
+                       n_valid=n_valid, stokes=stokes)
+
+
+def _inverse_pass(y, csr, csi, power):
+    """Stage B, then the inverse stage A as |·|² or re/im (N, L)."""
+    from .fft import k3_trim        # ops/fft.py imports this module
+    z = stage_b(*y, csr, csi)
+    return k3_power(*z) if power else k3_trim(*z)
+
+
+def dedisperse_pow2(xr, xi, chirp_storage_r, chirp_storage_i, *,
+                    power=False):
+    """Dedispersion y = IFFT(FFT(x) · chirp) of one power-of-two window.
+
+    ``xr``/``xi`` : (N, L) float32 planes; ``chirp_storage_r/i`` : the
+    chirp in d-major (N2, N1, L) storage order.  Returns the (N, L)
+    power |y|² with ``power``, else the (re, im) planes.  Runs k1_window,
+    K2 and k3_power (or k3_trim without pads).
+    """
+    from .fft import k1_window      # ops/fft.py imports this module
+    dev = _device_of(xr)
+    n = xr.shape[0]
+    if not _is_pow2(n):
+        raise ValueError(f"N={n} must be a power of two")
+    f32 = [_as_device(a, dev, torch.float32)
+           for a in (xr, xi, chirp_storage_r, chirp_storage_i)]
+    return _inverse_pass(k1_window(*f32[:2]), f32[2], f32[3], power)
+
+
+def dedisperse_pow2_planes(x2, chirp_storage_r, chirp_storage_i, *,
+                           power=False):
+    """As :func:`dedisperse_pow2` from one planes-first (2, N, L) input
+    (``x2[0]`` real, ``x2[1]`` imaginary); stage A is k1_planes."""
+    dev = _device_of(x2)
+    n = x2.shape[1]
+    if not _is_pow2(n):
+        raise ValueError(f"N={n} must be a power of two")
+    f32 = [_as_device(a, dev, torch.float32)
+           for a in (x2, chirp_storage_r, chirp_storage_i)]
+    return _inverse_pass(stage_a_planes(f32[0]), f32[1], f32[2], power)
+
+
+def dedisperse_fold_pow2(x2, chirp_storage_r, chirp_storage_i, fold, *,
+                         n_phase, pad_start, n_valid, stokes=False):
+    """Dedisperse -> detect -> fold one padded planes-first (2, N, L)
+    window: k1_planes, K2, K3.  Rows [pad_start, pad_start + n_valid)
+    are folded, the others go to trash row n_phase.  Returns the
+    (n_phase+1, L, or 3L with ``stokes``) profile and (n_phase+1,) float32
+    counts."""
+    dev = _device_of(x2)
+    n = x2.shape[1]
+    if not _is_pow2(n):
+        raise ValueError(f"N={n} must be a power of two")
+    f32 = [_as_device(a, dev, torch.float32)
+           for a in (x2, chirp_storage_r, chirp_storage_i)]
+    prof, cnt = fold_chain(stage_a_planes(f32[0]), f32[1], f32[2],
+                           _fold_vector(fold, dev),
+                           n_phase=_check_n_phase(n_phase),
+                           pad_start=int(pad_start), n_valid=int(n_valid),
+                           stokes=stokes)
+    return prof, cnt.to(torch.float32)
+
+
+def dedisperse_fold_stream(x2, front, end, chirp_storage_r, chirp_storage_i,
+                           fold, scale, *, n_phase, pad_start, n_valid,
+                           stokes=False):
+    """As :func:`dedisperse_fold_pow2`, the window assembled in stage A
+    (k1_stream_planes) from the block ``x2`` : (2, T, L) and the edges
+    ``front`` : (2, pad_start, L) and ``end`` : (2, pad_end, L), all
+    times ``scale`` ((1,) float32).  Pads and T are non-zero multiples of
+    N2 and sum to a power of two.  With ``chirp_storage_i`` None,
+    ``chirp_storage_r`` is the chirp phase in cycles (d-major, float32)
+    and stage B is k2_theta."""
+    dev = _device_of(x2)
+    _geometry(x2.shape[1], front.shape[1], end.shape[1])
+    n_phase = _check_modes(n_phase, pad_start, front.shape[1])
+    csr = _as_device(chirp_storage_r, dev, torch.float32)
+    csi = (None if chirp_storage_i is None
+           else _as_device(chirp_storage_i, dev, torch.float32))
+    f32 = [_as_device(a, dev, torch.float32) for a in (x2, front, end, scale)]
+    prof, cnt = fold_chain(stage_a_stream_planes(*f32[:3], f32[3].reshape(1)),
+                           csr, csi, _fold_vector(fold, dev), n_phase=n_phase,
+                           pad_start=int(pad_start), n_valid=int(n_valid),
+                           stokes=stokes)
+    return prof, cnt.to(torch.float32)
 
 
 def dedisperse_fold_split(xr, xi, fr, fi, er, ei, chirp_storage_r,
@@ -342,21 +604,19 @@ def dedisperse_fold_split(xr, xi, fr, fi, er, ei, chirp_storage_r,
     ``fold`` : (3,) ``[i0_fx, p_fx, 0]`` (:func:`fold_phase_vector`);
     ``scale`` : (1,) float32 applied to the whole window.  Numpy inputs
     are taken to the device of ``xr`` (the CPU for numpy).  Returns the
-    (n_phase+1, L) profile and (n_phase+1,) float32 counts; row n_phase
-    holds the halo rows.  The TPU tiling knobs (``block_b``,
-    ``block_c``, ``interpret``) have no counterpart here.
+    (n_phase+1, L) profile ((n_phase+1, 3L) with ``stokes``: [|x_l|² | Re
+    x_l conj x_{l+1} | Im x_l conj x_{l+1}]) and (n_phase+1,) float32
+    counts; row n_phase holds the halo rows.
     """
-    dev = xr.device if torch.is_tensor(xr) else torch.device("cpu")
-    n_phase = _check_modes(n_phase, pad_start, fr.shape[0], stokes,
-                           inter_dtype)
+    dev = _device_of(xr)
+    n_phase = _check_modes(n_phase, pad_start, fr.shape[0], inter_dtype)
     f32 = [_as_device(a, dev, torch.float32)
            for a in (xr, xi, fr, fi, er, ei, chirp_storage_r,
                      chirp_storage_i, scale)]
     y = stage_a(*f32[:6], f32[8].reshape(1))
-    prof, cnt = fold_chain(y, f32[6], f32[7],
-                           _as_device(fold, dev, torch.int32),
+    prof, cnt = fold_chain(y, f32[6], f32[7], _fold_vector(fold, dev),
                            n_phase=n_phase, pad_start=int(pad_start),
-                           n_valid=int(n_valid))
+                           n_valid=int(n_valid), stokes=stokes)
     return prof, cnt.to(torch.float32)
 
 
@@ -378,9 +638,8 @@ def dedisperse_fold_split_packed(xpr, xpi, fr, fi, er, ei,
     """
     if bits not in (1, 2, 4, 8):
         raise ValueError("bits must be 1, 2, 4 or 8")
-    dev = xpr.device if torch.is_tensor(xpr) else torch.device("cpu")
-    n_phase = _check_modes(n_phase, pad_start, fr.shape[0], stokes,
-                           inter_dtype)
+    dev = _device_of(xpr)
+    n_phase = _check_modes(n_phase, pad_start, fr.shape[0], inter_dtype)
     f32 = [_as_device(a, dev, torch.float32)
            for a in (fr, fi, er, ei, chirp_storage_r, chirp_storage_i,
                      scale)]
@@ -388,8 +647,7 @@ def dedisperse_fold_split_packed(xpr, xpi, fr, fi, er, ei,
                        _as_device(xpi, dev, torch.int32), *f32[:4],
                        f32[6].reshape(1), bits=bits, offset=offset,
                        levels=levels)
-    prof, cnt = fold_chain(y, f32[4], f32[5],
-                           _as_device(fold, dev, torch.int32),
+    prof, cnt = fold_chain(y, f32[4], f32[5], _fold_vector(fold, dev),
                            n_phase=n_phase, pad_start=int(pad_start),
-                           n_valid=int(n_valid))
+                           n_valid=int(n_valid), stokes=stokes)
     return prof, cnt.to(torch.float32)

@@ -35,7 +35,7 @@ import torch
 
 from ._build import launch
 from .dedisperse import (_check, _check_kernel_geometry, _is_pow2,
-                         _on_cuda, _twiddle, split_n)
+                         _on_cuda, _twiddle, split_n, stage_a_window_ref)
 
 __all__ = ["k1_window", "k1_stream", "k2_fwd", "k2_inv", "k3_trim",
            "k1_window_ref", "k1_stream_ref", "k2_fwd_ref", "k2_inv_ref",
@@ -69,11 +69,8 @@ def _pad_rows(n2, n1, pad_start, pad_end):
 
 def k1_window_ref(xr, xi):
     """Plain stage A of an (N, L) window -> d-major (N2, N1, L) planes."""
-    n, L = xr.shape
-    n1, n2 = _window_split(n)
-    w = torch.complex(xr, xi).reshape(n1, n2, L)
-    y = torch.fft.fft(w, dim=0) * _twiddle(n1, n2, -1, w.device)[:, :, None]
-    return _planes(y.transpose(0, 1))
+    _window_split(xr.shape[0])
+    return stage_a_window_ref(torch.complex(xr, xi))
 
 
 def k1_stream_ref(cr, ci, xr, xi, scale=None):
@@ -240,20 +237,17 @@ def k3_trim(zr, zi, *, pad_start=0, pad_end=0):
 
 # -- public entry point --------------------------------------------------
 
-def fft_pow2_planes(xr, xi, *, inverse=False, ortho=False, kernels=True):
+def fft_pow2_planes(xr, xi, *, inverse=False, ortho=False):
     """Four-step FFT of float32 planes (N, L) along axis 0, natural order
     in and out; N a power of two.
 
     Forward is unscaled (1/sqrt(N) with ``ortho``); inverse is 1/N
     (1/sqrt(N)).  The passes dispatch by device (kernels on CUDA tensors,
-    plain versions on CPU ones); ``kernels=False`` runs
-    :func:`fft_pow2_planes_ref` instead, on any device.  Windows above
-    2^24 samples raise ``ValueError`` on a CUDA device.
+    plain versions on CPU ones).  Windows above 2^24 samples raise
+    ``ValueError`` on a CUDA device.
     """
     n, L = xr.shape
     n1, n2 = _window_split(n)
-    if not kernels:
-        return fft_pow2_planes_ref(xr, xi, inverse=inverse, ortho=ortho)
     scale = fft_scale(n, inverse=inverse, ortho=ortho)
     if not inverse:
         zr, zi = k2_fwd(*k1_window(xr, xi), scale)

@@ -17,11 +17,10 @@ in (channel major, trailing minor) lane order.
 
 :func:`pfb_forward_stream` launches ``csrc/pfb.cu`` on CUDA tensors (the
 DFT computed inside the kernel, from shared memory) and runs
-:func:`pfb_forward_stream_ref` on CPU ones; ``kernels=False`` runs the
-plain version on any device.  The geometry gates (``forward_geometry_ok``,
-``choose_block_rows``) are the JAX package's, so the compiled pipelines
-fuse exactly the stages that it fuses; the TPU's row-block tiling itself
-has no counterpart in the CUDA kernel.
+:func:`pfb_forward_stream_ref` on CPU ones.  The geometry gates
+(``forward_geometry_ok``, ``choose_block_rows``) are the JAX package's,
+so the compiled pipelines fuse exactly the stages that it fuses; the
+TPU's row-block tiling itself has no counterpart in the CUDA kernel.
 """
 
 from __future__ import annotations
@@ -82,7 +81,7 @@ def _as_f32(a, device):
 
 
 def pfb_forward_stream(carry_r, carry_i, xr, xi, taps, fr=None, fi=None,
-                       *, n_tap, scale=None, kernels=True):
+                       *, n_tap, scale=None):
     """Channelized spectra planes from streaming raw planes.
 
     Parameters
@@ -115,7 +114,7 @@ def pfb_forward_stream(carry_r, carry_i, xr, xi, taps, fr=None, fi=None,
     with_dft = fr is not None
     if with_dft:
         fr, fi = _as_f32(fr, dev), _as_f32(fi, dev)
-    if not kernels or not _on_cuda(xr):
+    if not _on_cuda(xr):
         return pfb_forward_stream_ref(carry_r, carry_i, xr, xi, taps, fr, fi,
                                       n_tap=n_tap, scale=scale)
     if not 2 <= n_tap <= MAX_TAPS:

@@ -27,7 +27,7 @@ kernel; the passes here hold a column for a tile of <= 16 lanes, so the
 mix is a pass of its own (``csrc/fourstep.cu`` lane_mix, ``csrc/
 lanemix.cuh``).  Each pass has a plain PyTorch version; a wrapper given
 CUDA tensors launches its kernel or raises, given CPU tensors it runs the
-plain version, and ``kernels=False`` runs the plain filter on any device.
+plain version.
 """
 
 from __future__ import annotations
@@ -165,7 +165,7 @@ def _filter(y, gr, gi, pre, post, pad_start, pad_end):
 
 
 def spectral_filter_pow2(xr, xi, gr, gi, *, pad_start, pad_end, pre=None,
-                         post=None, kernels=True):
+                         post=None):
     """trim(IFFT(FFT(x · pre) · G)) · post over a padded window.
 
     ``xr``, ``xi`` : (N, L) float32 window planes, N a power of two; the
@@ -177,22 +177,18 @@ def spectral_filter_pow2(xr, xi, gr, gi, *, pad_start, pad_end, pre=None,
     (N - pads, L) float32 planes.
 
     The passes dispatch by device (kernels on CUDA tensors, plain versions
-    on CPU ones); ``kernels=False`` runs :func:`spectral_filter_pow2_ref`
-    instead, on any device.
+    on CPU ones).
     """
     n, L = xr.shape
     n1, n2 = _window_split(n)
     _pad_rows(n2, n1, pad_start, pad_end)
     _check_gain(gr, n1, n2, L)
     pre, post = _mats(pre, xr.device), _mats(post, xr.device)
-    if not kernels:
-        return spectral_filter_pow2_ref(xr, xi, gr, gi, pad_start=pad_start,
-                                        pad_end=pad_end, pre=pre, post=post)
     return _filter(k1_window(xr, xi), gr, gi, pre, post, pad_start, pad_end)
 
 
 def spectral_filter_stream(cr, ci, xr, xi, gr, gi, *, pad_start, pad_end,
-                           scale=None, pre=None, post=None, kernels=True):
+                           scale=None, pre=None, post=None):
     """Streaming :func:`spectral_filter_pow2`: window = [carry | block].
 
     ``cr``/``ci`` : (pad_start + pad_end, L) carry planes (the last pad
@@ -215,10 +211,5 @@ def spectral_filter_stream(cr, ci, xr, xi, gr, gi, *, pad_start, pad_end,
                          f"rows, got {cr.shape[0]}")
     _check_gain(gr, n1, n2, L)
     pre, post = _mats(pre, xr.device), _mats(post, xr.device)
-    if not kernels:
-        return spectral_filter_stream_ref(cr, ci, xr, xi, gr, gi,
-                                          pad_start=pad_start,
-                                          pad_end=pad_end, scale=scale,
-                                          pre=pre, post=post)
     return _filter(k1_stream(cr, ci, xr, xi, scale), gr, gi, pre, post,
                    pad_start, pad_end)

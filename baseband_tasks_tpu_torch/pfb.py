@@ -68,17 +68,14 @@ class _PolyphaseFIR(PaddedTaskBase):
     """Blockwise FIR at the raw rate: z[k*n + j] = sum_t h[t, j] x[(k+t)*n + j].
 
     Padding is (n_tap - 1) * n samples, centred; windows stay multiples
-    of n so polyphase indices never shift.  ``use_kernels`` selects the
-    kernel or its plain version in compiled pipelines on a CUDA device.
+    of n so polyphase indices never shift.
     """
 
-    def __init__(self, ih, response, *, samples_per_frame=None,
-                 use_kernels=True):
+    def __init__(self, ih, response, *, samples_per_frame=None):
         response = np.asarray(response)
         n_tap, n = response.shape[:2]
         self._n = n
         self._n_tap = n_tap
-        self.use_kernels = bool(use_kernels)
         pad = (n_tap - 1) * n
         if samples_per_frame is not None:
             samples_per_frame *= n
@@ -126,16 +123,14 @@ class PolyphaseFilterBankSamples(Channelize):
 
     ``response`` has shape ``(n_tap, n)``; output channels are as for
     :class:`~baseband_tasks_tpu_torch.channelize.Channelize` of ``n``
-    samples.  ``use_kernels`` (a port option) selects, on a CUDA device,
-    the forward-PFB kernel or its plain version in compiled pipelines.
+    samples.
     """
 
     def __init__(self, ih, response, samples_per_frame=None, *,
-                 frequency=None, sideband=None, use_kernels=True):
+                 frequency=None, sideband=None):
         response = np.asarray(response)
         n = response.shape[1]
-        fir = _PolyphaseFIR(ih, response, samples_per_frame=samples_per_frame,
-                            use_kernels=use_kernels)
+        fir = _PolyphaseFIR(ih, response, samples_per_frame=samples_per_frame)
         self._response = response
         super().__init__(fir, n,
                          samples_per_frame=fir.samples_per_frame // n,
@@ -173,15 +168,11 @@ class InversePolyphaseFilterBank(PaddedTaskBase):
         Output dtype; pass float32 to reconstruct a real stream.
     engine : {'auto', 'xla', 'pallas'}
         See the module docstring.
-    use_kernels : bool
-        With the 'pallas' engine on a CUDA device, run the hand-written
-        kernels (default) or, if False, the plain PyTorch version of the
-        same filter.
     """
 
     def __init__(self, ih, response, *, sn=10.0, pad_start=128, pad_end=128,
                  samples_per_frame=None, dtype=None, frequency=None,
-                 sideband=None, engine="auto", use_kernels=True):
+                 sideband=None, engine="auto"):
         response = np.asarray(response)
         n_tap, n = response.shape[:2]
         self._n = n
@@ -198,7 +189,6 @@ class InversePolyphaseFilterBank(PaddedTaskBase):
         if engine not in ("xla", "pallas"):
             raise ValueError(f"unknown engine {engine!r}")
         self.engine = engine
-        self.use_kernels = bool(use_kernels)
         self._storage_gain_cache = None
 
         p0r = int(pad_start)
@@ -330,8 +320,7 @@ class InversePolyphaseFilterBank(PaddedTaskBase):
         gr, gi = self._storage_gain_planes()
         n = self._n
         kw = dict(pad_start=self._pad_start // n,
-                  pad_end=self._pad_end // n, pre=pre,
-                  kernels=self.use_kernels)
+                  pad_end=self._pad_end // n, pre=pre)
         if carry is not None:
             return spectral_filter_stream(carry[0], carry[1], zr, zi,
                                           gr, gi, scale=scale, **kw)

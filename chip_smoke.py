@@ -15,9 +15,9 @@ window N = 2^18, L = 128 lanes):
     same random input at the flagship shapes, and times both;
 (b) drives the pipeline's entry points, ``run_fn(8, ingest_bits=8)`` and
     the float32 twin ``run_fn(2)``, with ``use_kernels=True``, checks the
-    counts, checks the profiles against the plain path on the card, and
+    counts, checks the profiles against the plain versions on the card, and
     checks that every kernel was launched;
-(c) times one pipeline step, kernels against the plain path;
+(c) times one pipeline step, kernels against the plain versions;
 
 and at the coherent-dedispersion configuration of ``BASELINE.json``
 config 2 (``tools/bench_full.py`` ``config2``: 128 channels x 125 kHz
@@ -59,9 +59,31 @@ lanes) and of config 2:
     frames sit off its pads, and the chirp's overlap-save leakage is
     outside that bound in the JAX package too) and where the eager frames
     fall on the compiled windows; then config 3 and config 2 timed in ms
-    per block over a block already on the card, in turns, and profiled.
+    per block over a block already on the card, in turns, and profiled;
 
-Any failure raises (non-zero exit).  Without a CUDA device it fails.  The
+and for the flagship's variants, at the flagship configuration again:
+
+(i) holds the variants' kernels (the full-Stokes fold k3_fold_stokes,
+    k3_power, k2_theta on the chirp phase plane, k1_planes,
+    k1_stream_planes) against their plain versions on the same random
+    input at the shapes the flagship paths give them (N = 2^18, L = 128),
+    and times both;
+(j) drives the variants' entry points at full width, each with its
+    launches counted and asserted: ``run_fn(8, ingest_bits=8)`` with
+    ``detect='stokes'``, ``step_fn`` (power and Stokes) on a polyco fold
+    row, ``step_bins_fn`` on ``phase_bins`` from the polyco,
+    ``planes_step`` (``dedisperse_fold_stream`` with the cos/sin chirp;
+    with the phase-plane chirp and Stokes) and ``dedisperse_fold_pow2``;
+    holds each against the same call on the plain versions on the card
+    (counts exact, summing to steps x block) and times both in turns;
+    profiles one turn of ``run_fn`` Stokes (wall, device busy, time per
+    kernel) and times one call that also builds it; then holds
+    ``step_fn`` on the kernels against its torch.fft path (``use_kernels=False, fft_pow2=True``, no
+    kernel launched) to the JAX package's rtol 1e-3 / atol 1e-2.
+
+The plain versions run on the card inside the package's test-only
+switch ``ops.dedisperse.plain_versions()``.  Any failure raises (non-zero
+exit).  Without a CUDA device it fails.  The
 second-to-last line is a JSON object of per-kernel results; the last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -95,6 +117,10 @@ EAGER_RTOL, EAGER_ATOL = 1e-3, 2e-3
 # test_config2_geometry_eager_gap
 EAGER_AS_BUILT = ("config3_quad", "pfb_forward", "dechan_inverse")
 N_STEPS = 8                # compiled steps per timed turn
+# what bounds a kernel (`bound_ms`): the H100 SXM data sheet's HBM rate
+# and FP32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
 DEDISPERSE_CU = "baseband_tasks_tpu_torch/csrc/dedisperse.cu"
 FOURSTEP_CU = "baseband_tasks_tpu_torch/csrc/fourstep.cu"
 PFB_CU = "baseband_tasks_tpu_torch/csrc/pfb.cu"
@@ -118,8 +144,20 @@ KERNELS = {   # launch-count name -> (TPU kernel it replaces, source)
                  FOURSTEP_CU),
     "pfb_fwd": ("baseband_tasks_tpu/ops/pfb_pallas.py:66", PFB_CU),
     "pfb_fwd_dft": ("baseband_tasks_tpu/ops/pfb_pallas.py:66", PFB_CU),
+    "k3_fold_stokes": ("baseband_tasks_tpu/ops/dedisperse_pallas.py:345",
+                       DEDISPERSE_CU),
+    "k3_power": ("baseband_tasks_tpu/ops/dedisperse_pallas.py:314",
+                 FOURSTEP_CU),
+    "k2_theta": ("baseband_tasks_tpu/ops/dedisperse_pallas.py:286",
+                 DEDISPERSE_CU),
+    "k1_planes": ("baseband_tasks_tpu/ops/dedisperse_pallas.py:229",
+                  DEDISPERSE_CU),
+    "k1_stream_planes": ("baseband_tasks_tpu/ops/dedisperse_pallas.py:240",
+                         DEDISPERSE_CU),
 }
 FLAGSHIP = ("k1_packed", "k1_float", "k2", "k3_fold")
+VARIANTS = ("k3_fold_stokes", "k3_power", "k2_theta", "k1_planes",
+            "k1_stream_planes")
 
 
 def b1937_polyco():
@@ -134,7 +172,8 @@ def b1937_polyco():
     return PolycoPhase(Polyco(text))
 
 
-def flagship(use_kernels, device):
+def flagship(device, use_kernels=True, **extra):
+    """The flagship pipeline (kernel path unless told otherwise)."""
     from baseband_tasks_tpu_torch import Time, WidebandPulsarPipeline, units
     u = units
     return WidebandPulsarPipeline(
@@ -142,7 +181,41 @@ def flagship(use_kernels, device):
         chan_rate=250 * u.kHz, period_samples=(160000, 3), n_phase=64,
         block_samples=1 << 17, device=device, use_kernels=use_kernels,
         phase_model=b1937_polyco(), start_time=Time.from_mjd(58000.0),
-        ingest_bits=8)
+        ingest_bits=8, **extra)
+
+
+def plain(fn):
+    """``fn`` run on the plain PyTorch versions of the kernels, through
+    the package's test-only switch."""
+    from baseband_tasks_tpu_torch.ops import dedisperse as dd
+
+    def call(*args, **kwargs):
+        with dd.plain_versions():
+            return fn(*args, **kwargs)
+    return call
+
+
+def bound(reads, writes, flops):
+    """(bound_ms, bound_by): the least time of a kernel that reads each
+    tensor of ``reads`` once, writes each of ``writes`` once and does
+    ``flops`` FP32 operations, at the card's peak rates."""
+    nbytes = sum(t.numel() * t.element_size() for t in (*reads, *writes))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def fft_flops(planes, length, extra=6):
+    """FP32 operations of length-``length`` complex FFTs over the points
+    of ``planes`` (a re/im pair), plus ``extra`` per point (a twiddle or
+    chirp multiply is 6)."""
+    return planes[0].numel() * (5 * np.log2(length) + extra)
+
+
+def result(err, ms, plain_ms, cost, library_ms=None):
+    bound_ms, bound_by = bound(*cost)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
 
 
 def gpu_line():
@@ -214,10 +287,20 @@ def check_kernels(pipe, gpu):
     work = [p.clone() for p in y]
     timed = dict(cases, k2=(lambda: dd.stage_b(*work, csr, csi),
                             lambda: dd.stage_b_ref(*work, csr, csi)))
+    n1 = y[0].shape[1]
+    n2 = y[0].shape[0]
+    # sizes only: the profile and its counts
+    prof_out = torch.empty((pipe.n_phase + 1, L + 1), device="meta")
+    costs = {   # (reads, writes, FP32 operations) of each launch
+        "k1_packed": ((*words, *edges, scale), y, fft_flops(y, n1)),
+        "k1_float": ((*planes, *edges, scale), y, fft_flops(y, n1)),
+        "k2": ((*y, csr, csi), y, fft_flops(y, n2, 10 * np.log2(n2) + 12)),
+        "k3_fold": ((*z, fold), (prof_out,), fft_flops(z, n1, 5)),
+    }
 
     results = {}
-    for name, (kern, plain) in cases.items():
-        got, ref = kern(), plain()
+    for name, (kern, plain_fn) in cases.items():
+        got, ref = kern(), plain_fn()
         torch.cuda.synchronize()
         if name == "k3_fold":
             if not torch.equal(got[1], ref[1]):
@@ -234,15 +317,16 @@ def check_kernels(pipe, gpu):
         if not ok or not all(bool(torch.isfinite(t).all()) for t in got):
             raise AssertionError(f"{name} disagrees with its plain version")
         ms, plain_ms = (cuda_ms(f) for f in timed[name])
-        print(f"(a) {name}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain "
-              f"[{gpu}]", flush=True)
-        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        results[name] = result(err, ms, plain_ms, costs[name])
+        print(f"(a) {name}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
+              f"bound {results[name]['bound_ms']:.4f} ms "
+              f"({results[name]['bound_by']}) [{gpu}]", flush=True)
     return results
 
 
-def drive_main_path(kern, plain):
+def drive_main_path(kern):
     """Phase (b): the pipeline's entry points with the kernels, counted,
-    then held against the plain path on the card."""
+    then held against the plain versions on the card."""
     from baseband_tasks_tpu_torch.ops import dedisperse as dd
     dd.reset_launch_counts()
     runs = {"packed": kern.run_fn(N_ITER, ingest_bits=8)(seed=0),
@@ -254,8 +338,8 @@ def drive_main_path(kern, plain):
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
-    refs = {"packed": plain.run_fn(N_ITER, ingest_bits=8)(seed=0),
-            "float32": plain.run_fn(2)(seed=0)}
+    refs = {"packed": plain(kern.run_fn(N_ITER, ingest_bits=8))(seed=0),
+            "float32": plain(kern.run_fn(2))(seed=0)}
     for key, n in (("packed", N_ITER), ("float32", 2)):
         (prof, cnt), (rprof, rcnt) = runs[key], refs[key]
         want = n * kern.global_block
@@ -275,10 +359,10 @@ def drive_main_path(kern, plain):
     return launches
 
 
-def time_steps(kern, plain, gpu):
+def time_steps(kern, gpu):
     """Phase (c): one flagship step, kernels vs plain, in turns."""
     runs = {"kernels": kern.run_fn(N_ITER, ingest_bits=8),
-            "plain": plain.run_fn(N_ITER, ingest_bits=8)}
+            "plain": plain(kern.run_fn(N_ITER, ingest_bits=8))}
     best = {}
     for key in ("plain", "kernels", "kernels", "plain"):
         runs[key](seed=0)
@@ -330,11 +414,16 @@ def check_four_step(dev, gpu):
                                 lambda s=fwd: ff.k2_fwd_ref(*y, s)))
         cases["k2_inv"].append((lambda s=inv: ff.k2_inv(*y, s),
                                 lambda s=inv: ff.k2_inv_ref(*y, s)))
+    trimmed = [torch.empty((n - 1024, L), device="meta") for _ in (0, 1)]
+    costs = {"k1_window": (x, y, fft_flops(y, n1)),
+             "k3_trim": (y, trimmed, fft_flops(y, n1, 0)),
+             "k2_fwd": (y, y, fft_flops(y, n2, 1)),
+             "k2_inv": (y, y, fft_flops(y, n2, 7))}
     results = {}
     for name, pairs in cases.items():
         errs = []
-        for kern, plain in pairs:
-            got, ref = kern(), plain()
+        for kern, plain_fn in pairs:
+            got, ref = kern(), plain_fn()
             torch.cuda.synchronize()
             err, rel = compare(got, ref)
             ok = rel <= FFT_TOL and all(bool(torch.isfinite(t).all())
@@ -346,20 +435,26 @@ def check_four_step(dev, gpu):
                                      f"version")
             errs.append(err)
         ms, plain_ms = (cuda_ms(f) for f in pairs[0])
-        print(f"(d) {name}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain "
-              f"[{gpu}]", flush=True)
-        results[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
+        results[name] = result(max(errs), ms, plain_ms, costs[name])
+        print(f"(d) {name}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
+              f"bound {results[name]['bound_ms']:.4f} ms [{gpu}]", flush=True)
+    # the one library call computing the whole transform (k1_window then
+    # k2_fwd): cuFFT through torch.fft, on the same data as complex64
+    xc = torch.complex(*x)
+    fft_ms = cuda_ms(lambda: torch.fft.fft(xc, dim=0))
+    passes = results["k1_window"]["ms"] + results["k2_fwd"]["ms"]
+    print(f"(d) torch.fft.fft over time, {n} x {L} complex64: {fft_ms:.4f} "
+          f"ms; k1_window + k2_fwd {passes:.4f} ms [{gpu}]", flush=True)
     return results
 
 
-def task_paths(src, kernels):
-    """The two config-2 stream-task paths, kernels or plain versions:
-    (name, stream, FFT engine to read it under)."""
+def task_paths(src):
+    """The two config-2 stream-task paths: (name, stream, FFT engine to
+    read it under)."""
     from baseband_tasks_tpu_torch import Dechannelize, Dedisperse
     from baseband_tasks_tpu_torch.fourier import PallasFFTMaker, fft_maker
-    ded = Dedisperse(src, 29.7, samples_per_frame=2 ** 17, engine="pallas",
-                     use_kernels=kernels)
-    engine = PallasFFTMaker(use_kernels=kernels)
+    ded = Dedisperse(src, 29.7, samples_per_frame=2 ** 17, engine="pallas")
+    engine = PallasFFTMaker()
     with fft_maker.set(engine):
         xla = Dedisperse(src, 29.7, samples_per_frame=2 ** 18 - 693,
                          engine="xla")
@@ -405,16 +500,17 @@ def check_geometry(name, stream, engine):
 
 def drive_task_paths(dev, gpu):
     """Phase (e): both config-2 stream-task paths at full width with the
-    kernels, counted, then held against the plain versions on the card."""
+    kernels, counted, then held against the same paths read on the plain
+    versions on the card."""
     from baseband_tasks_tpu_torch.ops import dedisperse as dd
     src = config2_source(dev)
-    kern, plain = task_paths(src, True), task_paths(src, False)
+    kern, ref_paths = task_paths(src), task_paths(src)
     needs = {"dedisperse_dechannelize": ("k1_window", "k2", "k3_trim"),
              "xla_under_pallas_fft": ("k1_window", "k2_fwd", "k2_inv",
                                       "k3_trim")}
     launches = {}
-    for (name, stream, engine), (_, ref_stream, ref_engine) in zip(kern,
-                                                                   plain):
+    for (name, stream, engine), (_, ref_stream, ref_engine) in zip(
+            kern, ref_paths):
         check_geometry(name, stream, engine)
         dd.reset_launch_counts()
         got = read_frames(stream, engine, 0, N_FRAMES)
@@ -425,7 +521,7 @@ def drive_task_paths(dev, gpu):
             raise AssertionError(f"{name}: kernels not launched: {missing}")
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
-        ref = read_frames(ref_stream, ref_engine, 0, N_FRAMES)
+        ref = plain(read_frames)(ref_stream, ref_engine, 0, N_FRAMES)
         want = (N_FRAMES * stream.samples_per_frame,) + stream.sample_shape
         err, rel = compare((got.real, got.imag), (ref.real, ref.imag))
         print(f"(e) {name}: {tuple(got.shape)} {got.dtype}, max abs err "
@@ -435,21 +531,21 @@ def drive_task_paths(dev, gpu):
                 torch.view_as_real(got)).all() or rel > FFT_TOL:
             raise AssertionError(f"{name}: output wrong")
         del got, ref
-    return launches, kern[0], plain[0]
+    return launches, kern[0], ref_paths[0]
 
 
-def time_task_frame(kern, plain, gpu):
+def time_task_frame(kern, ref, gpu):
     """Phase (f): one frame of Dechannelize(Dedisperse(engine='pallas')),
     kernels against plain versions, in turns (plain, kernels, kernels,
     plain), each turn reading a frame not read before."""
-    runs = {"kernels": kern, "plain": plain}
+    runs = {"kernels": (kern, read_frames), "plain": (ref, plain(read_frames))}
     best = {}
     for frame, key in enumerate(("plain", "kernels", "kernels", "plain"),
                                 start=N_FRAMES):
-        _, stream, engine = runs[key]
+        (_, stream, engine), read = runs[key]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        read_frames(stream, engine, frame, 1)
+        read(stream, engine, frame, 1)
         best[key] = min(best.get(key, np.inf), time.perf_counter() - t0)
     samples = kern[1].samples_per_frame
     for key, dt in best.items():
@@ -490,16 +586,18 @@ def layer_times(kern, frame, gpu):
           flush=True)
 
 
-def profile_frame(kern, frame, gpu):
-    """Where a kernels frame's time goes: device time by kernel under
-    ``torch.profiler`` (which stretches the frame), and the busy share."""
+def device_profile(fn):
+    """One call of ``fn`` under ``torch.profiler`` (which stretches it):
+    (wall ms to the device's end, device-busy ms, [(device us, count,
+    kernel name)] by time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    _, stream, engine = kern
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        read_frames(stream, engine, frame, 1)
+        fn()
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
     for ev in prof.key_averages():
@@ -507,10 +605,19 @@ def profile_frame(kern, frame, gpu):
                          getattr(ev, "self_cuda_time_total", 0))
         if ev.device_type == DeviceType.CUDA and dev_us > 0:
             rows.append((dev_us, ev.count, ev.key))
-    busy = sum(r[0] for r in rows) / 1e3
-    print(f"(f) profiled frame: {1e3 * wall:.3f} ms wall, {busy:.3f} ms "
-          f"device busy ({busy / (1e3 * wall):.2f}) [{gpu}]", flush=True)
-    for dev_us, count, key in sorted(rows, reverse=True)[:12]:
+    return 1e3 * wall, sum(r[0] for r in rows) / 1e3, sorted(rows,
+                                                             reverse=True)
+
+
+def profile_frame(kern, frame, gpu):
+    """Where a kernels frame's time goes: device time by kernel under
+    ``torch.profiler``, and the busy share."""
+    _, stream, engine = kern
+    wall, busy, rows = device_profile(
+        lambda: read_frames(stream, engine, frame, 1))
+    print(f"(f) profiled frame: {wall:.3f} ms wall, {busy:.3f} ms "
+          f"device busy ({busy / wall:.2f}) [{gpu}]", flush=True)
+    for dev_us, count, key in rows[:12]:
         print(f"(f)   {dev_us / 1e3:8.3f} ms  x{count:<3d} {key[:90]}",
               flush=True)
 
@@ -529,6 +636,7 @@ def check_compiled_kernels(dev, gpu):
     from baseband_tasks_tpu_torch import sinc_hamming
     from baseband_tasks_tpu_torch.ops import fft as ff, pfb as opfb
     from baseband_tasks_tpu_torch.ops import spectral_filter as sf
+    from baseband_tasks_tpu_torch.ops.dedisperse import split_n
     from baseband_tasks_tpu_torch.ops.dft_matmul import (_expanded_mats,
                                                          device_mats)
     m, L, n_tap = 32256, 512, 8
@@ -571,9 +679,24 @@ def check_compiled_kernels(dev, gpu):
                          lambda: sf.lane_mix_ref(*ff.k3_trim_ref(*z, **trim),
                                                  *post)),
     }
+    out = [torch.empty((m, L), device="meta") for _ in (0, 1)]
+    spectra = [torch.empty((n, L), device="meta") for _ in (0, 1)]
+    tap_flops = 4 * m * L * n_tap
+    mix_flops = 8 * L                    # per output element
+    costs = {
+        "pfb_fwd": ((*carry, *x, taps), out, tap_flops),
+        "pfb_fwd_dft": ((*carry, *x, taps, *fwd), out,
+                        tap_flops + m * L * mix_flops),
+        "k1_stream": ((*sc, *sx, scale), spectra,
+                      fft_flops(spectra, split_n(n)[0])),
+        "lane_mix": ((*rows, *pre), rows, n * L * mix_flops),
+    }
+    wc = torch.complex(*pre)
+    rc = torch.complex(*rows)
+    library = {"lane_mix": lambda: torch.matmul(rc, wc)}   # one cgemm
     results = {}
-    for name, (kern, plain) in cases.items():
-        got, ref = kern(), plain()
+    for name, (kern, plain_fn) in cases.items():
+        got, ref = kern(), plain_fn()
         torch.cuda.synchronize()
         err, rel = compare(got, ref)
         ok = rel <= FFT_TOL and all(bool(torch.isfinite(t).all())
@@ -583,11 +706,17 @@ def check_compiled_kernels(dev, gpu):
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version")
         del got, ref
-        ms, plain_ms = (cuda_ms(f, reps=10) for f in (kern, plain))
+        ms, plain_ms = (cuda_ms(f, reps=10) for f in (kern, plain_fn))
         print(f"(g) {name}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain "
               f"[{gpu}]", flush=True)
         if "+" not in name:
-            results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            lib_ms = (cuda_ms(library[name], reps=10) if name in library
+                      else None)
+            results[name] = result(err, ms, plain_ms, costs[name], lib_ms)
+            print(f"(g) {name}: bound {results[name]['bound_ms']:.4f} ms "
+                  f"({results[name]['bound_by']}), library "
+                  f"{lib_ms if lib_ms is None else f'{lib_ms:.4f}'} ms "
+                  f"[{gpu}]", flush=True)
     post_rows = randn(dev, (261120, 128), 46)
     ms, plain_ms = (cuda_ms(lambda f=f: f(*post_rows, *post), reps=10)
                     for f in (sf.lane_mix, sf.lane_mix_ref))
@@ -596,9 +725,9 @@ def check_compiled_kernels(dev, gpu):
     return results
 
 
-def compiled_tail(name, dev, kernels, offset=0):
-    """The tail of compiled path ``name`` on the card, on the kernels or
-    their plain versions, with ``offset`` samples sliced off its source.
+def compiled_tail(name, dev, offset=0):
+    """The tail of compiled path ``name`` on the card, with ``offset``
+    samples sliced off its source.
 
     config3_quad, pfb_forward, dechan_inverse: ``tools/bench_full.py``
     config 3 (8 taps x 256 channels, frames of 32256 spectra, inverse
@@ -615,10 +744,10 @@ def compiled_tail(name, dev, kernels, offset=0):
     if name == "config2":
         return Dechannelize(Dedisperse(sliced(config2_source(dev)), 29.7,
                                        samples_per_frame=2 ** 17,
-                                       engine="pallas", use_kernels=kernels))
+                                       engine="pallas"))
     h = sinc_hamming(8, 256)
     inv_kw = dict(sn=30, pad_start=128, pad_end=128, samples_per_frame=32256,
-                  engine="pallas", use_kernels=kernels)
+                  engine="pallas")
     t0 = Time.from_mjd(58000.0)
     if name == "dechan_inverse":
         spectra = NoiseGenerator(shape=(1 << 17, 256, 2), start_time=t0,
@@ -629,8 +758,7 @@ def compiled_tail(name, dev, kernels, offset=0):
     src = NoiseGenerator(shape=(1 << 24, 2), start_time=t0,
                          sample_rate=4 * u.MHz, samples_per_frame=1 << 16,
                          seed=2, device=dev)
-    pfb = PolyphaseFilterBank(sliced(src), h, samples_per_frame=32256,
-                              use_kernels=kernels)
+    pfb = PolyphaseFilterBank(sliced(src), h, samples_per_frame=32256)
     if name == "pfb_forward":
         return pfb
     return InversePolyphaseFilterBank(pfb, h, dtype=src.dtype, **inv_kw)
@@ -728,7 +856,7 @@ def check_against_eager(name, cp, got, dev, gpu):
                              f"built")
     del eager
     offset = cp.block_samples - delay * cp.block_samples // tb
-    aligned = compiled_tail(name, dev, True, offset).read(tb)
+    aligned = compiled_tail(name, dev, offset).read(tb)
     torch.cuda.synchronize()
     if eager_bound(name, "on the compiled windows (block 1)",
                    got[tb:2 * tb], aligned, gpu) > 1.0:
@@ -736,12 +864,13 @@ def check_against_eager(name, cp, got, dev, gpu):
 
 
 def drive_compiled(name, dev, gpu, n_blocks=2):
-    """One compiled path: geometry, counted kernel run, plain run, the
-    comparisons.  Returns the kernels' launch counts and the pipelines."""
+    """One compiled path: geometry, counted kernel run, the same pipeline
+    built again and run on the plain versions, the comparisons.  Returns
+    the kernels' launch counts and the two pipelines."""
     from baseband_tasks_tpu_torch import CompiledPipeline
     from baseband_tasks_tpu_torch.ops import dedisperse as dd
-    kern, plain = (CompiledPipeline(compiled_tail(name, dev, k))
-                   for k in (True, False))
+    kern, ref_cp = (CompiledPipeline(compiled_tail(name, dev))
+                    for _ in range(2))
     check_compiled_geometry(name, kern)
     blocks = kern.read_source_blocks(n_blocks)
     torch.cuda.synchronize()
@@ -756,7 +885,7 @@ def drive_compiled(name, dev, gpu, n_blocks=2):
         raise AssertionError(f"{name}: not launched {missing}, launched "
                              f"{stray}")
     dd.reset_launch_counts()
-    refs = run_planes(plain, blocks, [None] * n_blocks)
+    refs = plain(run_planes)(ref_cp, blocks, [None] * n_blocks)
     if any(dd.launch_counts.values()):
         raise AssertionError(f"{name}: the plain pipeline launched kernels")
     got, ref = joined(outs), joined(refs)
@@ -769,7 +898,8 @@ def drive_compiled(name, dev, gpu, n_blocks=2):
         raise AssertionError(f"{name}: output wrong")
     del outs, refs, ref
     scales = [0.5, 2.0][:n_blocks]
-    a, b = (joined(run_planes(cp, blocks, scales)) for cp in (kern, plain))
+    a = joined(run_planes(kern, blocks, scales))
+    b = joined(plain(run_planes)(ref_cp, blocks, scales))
     err, rel = compare((a.real, a.imag), (b.real, b.imag))
     del a, b
     print(f"(h) {name}: with per-block scales {scales}: {rel:.3e} of the "
@@ -778,19 +908,18 @@ def drive_compiled(name, dev, gpu, n_blocks=2):
         raise AssertionError(f"{name}: scaled output wrong")
     check_against_eager(name, kern, got, dev, gpu)
     del got, blocks
-    return counts, kern, plain
+    return counts, kern, ref_cp
 
 
-def time_compiled(name, kern, plain, gpu, eager_ms=None):
+def time_compiled(name, kern, ref_cp, gpu, eager_ms=None):
     """ms per block of the compiled planes step over one block already on
     the card, N_STEPS chained steps a turn, turns plain, kernels,
     kernels, plain; then one profiled turn of the kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     block = kern.read_source_blocks(1)[0]
     x = (block.real.contiguous(), block.imag.contiguous())
-    steps = {"kernels": kern.planes_step(), "plain": plain.planes_step()}
-    cps = {"kernels": kern, "plain": plain}
+    steps = {"kernels": kern.planes_step(),
+             "plain": plain(ref_cp.planes_step())}
+    cps = {"kernels": kern, "plain": ref_cp}
 
     def turn(key):
         carry = cps[key].init_carry(planes=True)
@@ -813,23 +942,11 @@ def time_compiled(name, kern, plain, gpu, eager_ms=None):
         print(f"(h) {name}: eager kernels frame (phase (f)) {eager_ms:.3f} "
               f"ms for the same {kern.tail_block} samples, source included "
               f"[{gpu}]", flush=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        turn("kernels")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-        if ev.device_type == DeviceType.CUDA and dev_us > 0:
-            rows.append((dev_us, ev.count, ev.key))
-    busy = sum(r[0] for r in rows) / 1e3
-    print(f"(h) {name} profiled turn: {1e3 * wall / N_STEPS:.3f} ms/block "
+    wall, busy, rows = device_profile(lambda: turn("kernels"))
+    print(f"(h) {name} profiled turn: {wall / N_STEPS:.3f} ms/block "
           f"wall, {busy / N_STEPS:.3f} ms/block device busy "
-          f"({busy / (1e3 * wall):.2f}) [{gpu}]", flush=True)
-    for dev_us, count, key in sorted(rows, reverse=True)[:8]:
+          f"({busy / wall:.2f}) [{gpu}]", flush=True)
+    for dev_us, count, key in rows[:8]:
         print(f"(h)   {dev_us / 1e3 / N_STEPS:8.3f} ms/block  x{count:<3d} "
               f"{key[:80]}", flush=True)
 
@@ -851,6 +968,246 @@ def drive_compiled_paths(dev, gpu, eager_c2_ms):
     return launches
 
 
+# -- the flagship's variants: phases (i) and (j) ----------------------------
+
+def check_variant_kernels(pipe, gpu):
+    """Phase (i): the variants' launches against their plain versions at
+    the shapes the flagship paths give them, timed."""
+    from baseband_tasks_tpu_torch.ops import dedisperse as dd
+    dev = pipe.device
+    L = pipe.n_chan * pipe.n_pol
+    T, N = pipe.global_block, pipe._n_fft
+    n1, n2 = dd.split_n(N)
+    (x2w,) = randn(dev, (2, N, L), 50, count=1)        # a padded window
+    (x2,) = randn(dev, (2, T, L), 51, count=1)         # block + edges
+    front, end = (randn(dev, (2, p, L), 52 + p, count=1)[0]
+                  for p in (pipe.pad_start, pipe.pad_end))
+    scale = torch.tensor([1.0 + 1e-6 * 300], device=dev)
+    csr, csi = pipe._chirp_device()
+    theta = pipe._theta_device()
+    y = dd.stage_a_window_ref(torch.complex(x2w[0], x2w[1]))
+    z = dd.stage_b_ref(*[p.clone() for p in y], csr, csi)
+    fold = torch.as_tensor(pipe._shard_fold3(pipe.fold_model.table(
+        [0], T))[0].astype(np.int32), device=dev)
+    kw = dict(n_phase=pipe.n_phase, pad_start=pipe.pad_start, n_valid=T,
+              stokes=True)
+    cases = {
+        "k3_fold_stokes": (lambda: dd.detect_fold(*z, fold, **kw),
+                           lambda: dd.fold_ref(*z, fold, **kw)),
+        "k3_power": (lambda: dd.k3_power(*z), lambda: dd.k3_power_ref(*z)),
+        "k2_theta": (lambda: dd.stage_b_theta(*[p.clone() for p in y], theta),
+                     lambda: dd.k2_theta_ref(*[p.clone() for p in y], theta)),
+        "k1_planes": (lambda: dd.stage_a_planes(x2w),
+                      lambda: dd.stage_a_window_ref(torch.complex(x2w[0],
+                                                                  x2w[1]))),
+        "k1_stream_planes": (
+            lambda: dd.stage_a_stream_planes(x2, front, end, scale),
+            lambda: dd.stage_a_ref(x2[0], x2[1], front[0], front[1], end[0],
+                                   end[1], scale)),
+    }
+    # stage B timed in place on one scratch copy (unit-modulus chirp)
+    work = [p.clone() for p in y]
+    timed = dict(cases, k2_theta=(lambda: dd.stage_b_theta(*work, theta),
+                                  lambda: dd.k2_theta_ref(*work, theta)))
+    meta = dict(device="meta")
+    costs = {
+        "k3_fold_stokes": ((*z, fold),
+                           (torch.empty((pipe.n_phase + 1, 3 * L + 1),
+                                        **meta),),
+                           fft_flops(z, n1, 11)),
+        "k3_power": (z, (torch.empty((N, L), **meta),), fft_flops(z, n1, 3)),
+        "k2_theta": ((*y, theta), y,
+                     fft_flops(y, n2, 10 * np.log2(n2) + 12)),
+        "k1_planes": ((x2w,), y, fft_flops(y, n1)),
+        "k1_stream_planes": ((x2, front, end, scale), y, fft_flops(y, n1)),
+    }
+    results = {}
+    for name, (kern, plain_fn) in cases.items():
+        got, ref = kern(), plain_fn()
+        torch.cuda.synchronize()
+        if name == "k3_fold_stokes":
+            if not torch.equal(got[1], ref[1]):
+                raise AssertionError(f"{name}: counts differ")
+            err = float((got[0] - ref[0]).abs().max())
+            rel = float(((got[0][:, :L] - ref[0][:, :L]).abs()
+                         / ref[0][:, :L].abs().clamp_min(1e-30)).max())
+            cross = compare((got[0][:, L:],), (ref[0][:, L:],))[1]
+            print(f"(i) {name}: power plane rel {rel:.3e}, cross planes "
+                  f"{cross:.3e} of their peak", flush=True)
+            ok = rel <= PROFILE_RTOL and cross <= FFT_TOL
+            got = got[:1]
+        else:
+            got, ref = ((got,), (ref,)) if torch.is_tensor(got) else (got, ref)
+            err, rel = compare(got, ref)
+            ok = rel <= FFT_TOL
+        print(f"(i) {name}: max_abs_err={err:.3e} ({'ok' if ok else 'FAIL'})",
+              flush=True)
+        if not ok or not all(bool(torch.isfinite(t).all()) for t in got):
+            raise AssertionError(f"{name} disagrees with its plain version")
+        del got, ref
+        ms, plain_ms = (cuda_ms(f, reps=10) for f in timed[name])
+        results[name] = result(err, ms, plain_ms, costs[name])
+        print(f"(i) {name}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
+              f"bound {results[name]['bound_ms']:.4f} ms "
+              f"({results[name]['bound_by']}) [{gpu}]", flush=True)
+    return results
+
+
+def expect_launches(name, counts, want):
+    """The launches of one counted run are exactly ``want``."""
+    print(f"(j) {name}: launches {counts}", flush=True)
+    if counts != want:
+        raise AssertionError(f"{name}: launches {counts}, want {want}")
+
+
+def check_profile(name, got, ref, stokes, gpu):
+    """Counts exact; power-type planes elementwise within PROFILE_RTOL,
+    Stokes cross terms (which cross zero) within FFT_TOL of their peak."""
+    (prof, cnt), (rprof, rcnt) = got, ref
+    if not torch.equal(cnt, rcnt):
+        raise AssertionError(f"{name}: counts differ from plain")
+    if not torch.isfinite(prof).all():
+        raise AssertionError(f"{name}: profile not finite")
+    power = prof[..., :2] if stokes else prof
+    rpower = rprof[..., :2] if stokes else rprof
+    rel = float(((power - rpower).abs() / rpower.abs()).max())
+    cross = (compare((prof[..., 2:],), (rprof[..., 2:],))[1] if stokes
+             else 0.0)
+    print(f"(j) {name}: profile {tuple(prof.shape)} vs plain: power rel "
+          f"{rel:.3e}, cross {cross:.3e} of the peak [{gpu}]", flush=True)
+    if rel > PROFILE_RTOL or cross > FFT_TOL:
+        raise AssertionError(f"{name}: profile disagrees with plain")
+
+
+def drive_variants(dev, gpu):
+    """Phase (j): the variants' entry points at the flagship's full
+    width, counted, against the plain versions, timed; step_fn on the
+    kernels against its torch.fft path.  Returns the launch counts summed
+    over the counted runs."""
+    from baseband_tasks_tpu_torch import Time
+    from baseband_tasks_tpu_torch.ops import dedisperse as dd
+    power, stokes = flagship(dev), flagship(dev, detect="stokes")
+    T, ps, n_phase = power.global_block, power.pad_start, power.n_phase
+    L = power.n_chan * power.n_pol
+    (xf,) = randn(dev, (T, power.n_chan, power.n_pol, 2), 60, count=1)
+    x2 = torch.movedim(xf, -1, 0).contiguous()
+    window = torch.zeros((2, power._n_fft, L), device=dev)
+    window[:, ps:ps + T] = x2.reshape(2, T, L)
+    row = power.fold_model.foldv(3 * T, T)      # the polyco's (3,) row
+    fold3 = torch.as_tensor(power._shard_fold3(row).astype(np.int32),
+                            device=dev)
+    t0 = time.perf_counter()
+    bins = power.phase_bins(b1937_polyco(), Time.from_mjd(58000.0), 3 * T)
+    print(f"(j) phase_bins of {T} samples from the polyco: "
+          f"{time.perf_counter() - t0:.3f} s on the host", flush=True)
+    csr, csi = power._chirp_device()
+    theta = stokes._theta_device()
+    fold_pow2 = dd.dedisperse_fold_pow2
+    # run_fn's set-up (the polyco's fold rows on the host, then on the
+    # card) is made once, as phase (c) does; its payload on first call
+    t0 = time.perf_counter()
+    run_stokes = stokes.run_fn(N_ITER, ingest_bits=8)
+    print(f"(j) run_fn Stokes set-up ({N_ITER} fold rows): "
+          f"{1e3 * (time.perf_counter() - t0):.3f} ms on the host", flush=True)
+    # name -> (call, steps, detect, launches it must make, one each step)
+    paths = {
+        "run_fn_stokes": (lambda: run_stokes(seed=0), N_ITER, "stokes",
+                          ("k1_packed", "k2", "k3_fold_stokes")),
+        "step_fn": (lambda: power.step_fn()(xf, row), 1, "power",
+                    ("k1_window", "k2", "k3_power")),
+        "step_fn_stokes": (lambda: stokes.step_fn()(xf, row), 1, "stokes",
+                           ("k1_window", "k2", "k3_trim")),
+        "step_bins_fn": (lambda: power.step_bins_fn()(xf, bins), 1, "power",
+                         ("k1_window", "k2", "k3_power")),
+        "planes_step": (lambda: power.planes_step(x2, csr, csi, 300, row), 1,
+                        "power", ("k1_stream_planes", "k2", "k3_fold")),
+        "planes_step_theta_stokes": (
+            lambda: stokes.planes_step(x2, theta, None, 300, row), 1,
+            "stokes", ("k1_stream_planes", "k2_theta", "k3_fold_stokes")),
+        "dedisperse_fold_pow2": (
+            lambda: fold_pow2(window, csr, csi, fold3, n_phase=n_phase,
+                              pad_start=ps, n_valid=T), 1, "raw",
+            ("k1_planes", "k2", "k3_fold")),
+    }
+    launches = dict.fromkeys(dd.launch_counts, 0)
+    for name, (call, steps, detect, needs) in paths.items():
+        torch.cuda.synchronize()
+        dd.reset_launch_counts()
+        got = call()
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in dd.launch_counts.items() if v}
+        expect_launches(name, counts, dict.fromkeys(needs, steps))
+        for k, v in counts.items():
+            launches[k] += v
+        ref = plain(call)()
+        if detect == "raw":        # the op's (n_phase+1, L) profile
+            got = (got[0][:n_phase], got[1][:n_phase])
+            ref = (ref[0][:n_phase], ref[1][:n_phase])
+        total = int(got[1].sum())
+        if total != steps * T:
+            raise AssertionError(f"{name}: counts sum {total}, want "
+                                 f"{steps * T}")
+        check_profile(name, got, ref, detect == "stokes", gpu)
+        best = {}
+        for key in ("plain", "kernels", "kernels", "plain"):
+            fn = plain(call) if key == "plain" else call
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best[key] = min(best.get(key, np.inf), time.perf_counter() - t0)
+        print(f"(j) {name}: {1e3 * best['kernels'] / steps:.3f} ms/step "
+              f"kernels, {1e3 * best['plain'] / steps:.3f} ms/step plain "
+              f"[{gpu}]", flush=True)
+    # where run_fn Stokes' step goes: one profiled turn, and one call that
+    # also builds run_fn (fold rows, payload) as a fresh caller would
+    wall, busy, rows = device_profile(lambda: run_stokes(seed=0))
+    print(f"(j) run_fn Stokes profiled turn: {wall / N_ITER:.3f} ms/step "
+          f"wall, {busy / N_ITER:.3f} ms/step device busy "
+          f"({busy / wall:.2f}) [{gpu}]", flush=True)
+    for dev_us, count, key in rows[:8]:
+        print(f"(j)   {dev_us / 1e3 / N_ITER:8.3f} ms/step  x{count:<3d} "
+              f"{key[:80]}", flush=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stokes.run_fn(N_ITER, ingest_bits=8)(seed=0)
+    torch.cuda.synchronize()
+    print(f"(j) run_fn Stokes built and run in one call: "
+          f"{1e3 * (time.perf_counter() - t0) / N_ITER:.3f} ms/step [{gpu}]",
+          flush=True)
+    # step_fn's XLA path: torch.fft on the same power-of-two window
+    for detect, kern in (("power", power), ("stokes", stokes)):
+        xla = flagship(dev, use_kernels=False, fft_pow2=True, detect=detect)
+        if (xla._n_fft, xla.pad_start, xla.global_block) != (
+                kern._n_fft, ps, T):
+            raise AssertionError("the torch.fft path's geometry differs")
+        dd.reset_launch_counts()
+        prof, cnt = xla.step_fn()(xf, row)
+        torch.cuda.synchronize()
+        expect_launches(f"step_fn {detect} on torch.fft",
+                        {k: v for k, v in dd.launch_counts.items() if v}, {})
+        kprof, kcnt = kern.step_fn()(xf, row)
+        worst = float(((kprof - prof).abs() / (1e-2 + 1e-3 * prof.abs())
+                       ).max())
+        best = {}
+        for key, fn in (("xla", xla), ("kernels", kern), ("kernels", kern),
+                        ("xla", xla)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn.step_fn()(xf, row)
+            torch.cuda.synchronize()
+            best[key] = min(best.get(key, np.inf), time.perf_counter() - t0)
+        print(f"(j) step_fn {detect}: kernels vs torch.fft path {worst:.3f} "
+              f"of the rtol 1e-3 / atol 1e-2 bound; "
+              f"{1e3 * best['kernels']:.3f} ms/step kernels, {1e3 * best['xla']:.3f} ms/step torch.fft "
+              f"[{gpu}]", flush=True)
+        if not torch.equal(cnt, kcnt) or worst > 1.0:
+            raise AssertionError(f"step_fn {detect}: kernels disagree with "
+                                 f"the torch.fft path")
+        del xla
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -864,14 +1221,16 @@ def main():
             print(f"  {line.strip()}")
     gpu = gpu_line()
     dev = torch.device("cuda", 0)
-    kern, plain = flagship(True, dev), flagship(False, dev)
+    kern = flagship(dev)
     print(f"flagship: N={kern._n_fft} pads=({kern.pad_start}, "
           f"{kern.pad_end}) block={kern.block_samples} L="
           f"{kern.n_chan * kern.n_pol}", flush=True)
     results = check_kernels(kern, gpu)
-    launches = drive_main_path(kern, plain)
-    time_steps(kern, plain, gpu)
-    del kern, plain
+    launches = drive_main_path(kern)
+    time_steps(kern, gpu)
+    results.update(check_variant_kernels(kern, gpu))
+    del kern
+    torch.cuda.empty_cache()
     results.update(check_four_step(dev, gpu))
     task_launches, task_kern, task_plain = drive_task_paths(dev, gpu)
     frame = time_task_frame(task_kern, task_plain, gpu)
@@ -886,6 +1245,13 @@ def main():
         launches[k] = compiled[k]
     print(f"(h) k2 / k3_trim launches on the compiled paths: "
           f"{compiled['k2']} / {compiled['k3_trim']}")
+    torch.cuda.empty_cache()
+    variants = drive_variants(dev, gpu)
+    for k in VARIANTS:
+        launches[k] = variants[k]
+    missing = [k for k in KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on a path: {missing}")
     print(gpu)
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=source, replaces=replaces,

@@ -15,11 +15,17 @@ engine and the dispersion tasks on the card, the wrappers' refusals,
 the forward-PFB kernel (n_tap 2, 8, 9, with and without its DFT and a
 scale), the streaming stage A (with and without the ``pre`` mix) and
 k3_trim with the ``post`` mix (L 128 and 512, pads 0 and not), and the
-compiled fusions on the card.  Tolerances as in ``chip_smoke.py``: planes
+compiled fusions on the card, and the flagship's variants (the
+full-Stokes fold k3_fold_stokes, k3_power, k2_theta, k1_planes,
+k1_stream_planes, and the pipeline's step_fn, step_bins_fn and planes
+step on the kernels, against the plain versions and the torch.fft path).
+Tolerances as in ``chip_smoke.py``: planes
 to 1e-4 of their largest element (float32 FFT roundoff is ~1e-6 of it),
 profiles elementwise to rtol 2e-4 (atomic summation order), counts
 exact.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -150,11 +156,8 @@ def test_public_entry_matches_cpu(dev):
     dd.reset_launch_counts()
     got = dd.dedisperse_fold_split_packed(*(w.to(dev) for w in words),
                                           *edges, *chirp, fold, scale, **kw)
-    assert dd.launch_counts == {"k1_packed": 1, "k1_float": 0, "k2": 1,
-                                "k3_fold": 1, "k1_window": 0, "k2_fwd": 0,
-                                "k2_inv": 0, "k3_trim": 0, "k1_stream": 0,
-                                "lane_mix": 0, "pfb_fwd": 0,
-                                "pfb_fwd_dft": 0}
+    assert dd.launch_counts == dict(dict.fromkeys(dd.launch_counts, 0),
+                                    k1_packed=1, k2=1, k3_fold=1)
     ref = dd.dedisperse_fold_split_packed(*words, *edges, *chirp, fold,
                                           scale, **kw)
     assert torch.equal(got[1].cpu(), ref[1])
@@ -169,10 +172,10 @@ def test_pipeline_kernels_match_plain(dev):
               chan_rate=250 * u.kHz, period_samples=(512, 1), n_phase=8,
               block_samples=1024, device=dev)
     kern = bt.WidebandPulsarPipeline(use_kernels=True, **kw)
-    plain = bt.WidebandPulsarPipeline(use_kernels=False, **kw)
     for bits in (8, None):
         prof, cnt = kern.run_fn(3, ingest_bits=bits)(seed=1)
-        rprof, rcnt = plain.run_fn(3, ingest_bits=bits)(seed=1)
+        with dd.plain_versions():
+            rprof, rcnt = kern.run_fn(3, ingest_bits=bits)(seed=1)
         assert torch.equal(cnt, rcnt)
         assert int(cnt.sum()) == 3 * kern.global_block
         torch.testing.assert_close(prof, rprof, rtol=PROFILE_RTOL, atol=0.0)
@@ -254,7 +257,8 @@ def test_fft_pow2_planes(dev, n, inverse):
     names = ("k2_inv", "k3_trim") if inverse else ("k1_window", "k2_fwd")
     assert all(dd.launch_counts[k] == 1 for k in names)
     assert_planes(got, ff.fft_pow2_planes_ref(*x, inverse=inverse))
-    plain = ff.fft_pow2_planes(*x, inverse=inverse, kernels=False)
+    with dd.plain_versions():
+        plain = ff.fft_pow2_planes(*x, inverse=inverse)
     assert all(dd.launch_counts[k] == 1 for k in names)
     assert_planes(got, plain)
 
@@ -298,12 +302,11 @@ def test_tasks_on_card(dev):
         sample_rate=250 * u.kHz, samples_per_frame=4096, seed=3,
         device=dev), frequency=freq, sideband=1)
     outs = []
-    for kernels in (True, False):
-        ded = bt.Dedisperse(src, 2.0, samples_per_frame=1 << 13,
-                            use_kernels=kernels)
+    for plain in (contextlib.nullcontext, dd.plain_versions):
+        ded = bt.Dedisperse(src, 2.0, samples_per_frame=1 << 13)
         assert ded.engine == "pallas"
         chain = bt.Dechannelize(ded)
-        with fft_maker.set("pallas", use_kernels=kernels):
+        with fft_maker.set("pallas"), plain():
             # pads 385 + 387: a 2^13 window, on the four-step kernels
             xla = bt.Dedisperse(src, 2.0, engine="xla",
                                 samples_per_frame=(1 << 13) - 772)
@@ -410,23 +413,21 @@ def test_compiled_fusions_on_card(dev):
             58000.0), sample_rate=1 * u.MHz, samples_per_frame=8192,
             seed=seed, device=dev)
 
-    def chains(kernels):
+    def chains():
         src = noise((1 << 17, 2), 1)
-        pfb = bt.PolyphaseFilterBank(src, h, samples_per_frame=416,
-                                     use_kernels=kernels)
+        pfb = bt.PolyphaseFilterBank(src, h, samples_per_frame=416)
         inv = bt.InversePolyphaseFilterBank(
             pfb, h, sn=1e3, pad_start=32, pad_end=32, samples_per_frame=352,
-            dtype=src.dtype, engine="pallas", use_kernels=kernels)
+            dtype=src.dtype, engine="pallas")
         freq = (400 + (np.arange(16) - 8) * 0.25) * u.MHz
         chan = bt.SetAttribute(noise((1 << 16, 16), 2), frequency=freq,
                                sideband=1)
         ded = bt.Dechannelize(bt.Dedisperse(chan, 2.0, engine="pallas",
-                                            samples_per_frame=1 << 13,
-                                            use_kernels=kernels))
+                                            samples_per_frame=1 << 13))
         spectra = bt.Channelize(noise((1 << 20, 2), 3), 64)
         single = bt.InversePolyphaseFilterBank(
             spectra, h, sn=1e3, pad_start=32, pad_end=32,
-            samples_per_frame=352, engine="pallas", use_kernels=kernels)
+            samples_per_frame=352, engine="pallas")
         return [bt.CompiledPipeline(c) for c in (inv, pfb, ded, single)]
 
     # per chain: the fused stage classes, the kernels it must launch, the
@@ -442,7 +443,7 @@ def test_compiled_fusions_on_card(dev):
          ("k1_window",)),
     ]
     for kern, plain, (names, needs, forbidden) in zip(
-            chains(True), chains(False), expect):
+            chains(), chains(), expect):
         assert [type(st.fused).__name__ for st in kern.stages
                 if st.fused is not None] == names
         outs = []
@@ -451,9 +452,11 @@ def test_compiled_fusions_on_card(dev):
             step, carry = cp.planes_step(), cp.init_carry(planes=True)
             dd.reset_launch_counts()
             got = []
-            for k, s in enumerate((0.5, 2.0, 1.0)):
-                carry, y = step(carry, blocks[k], s)
-                got.append(y)
+            with (dd.plain_versions() if cp is plain
+                  else contextlib.nullcontext()):
+                for k, s in enumerate((0.5, 2.0, 1.0)):
+                    carry, y = step(carry, blocks[k], s)
+                    got.append(y)
             outs.append(got)
             counts = dict(dd.launch_counts)
             if cp is kern:
@@ -463,3 +466,111 @@ def test_compiled_fusions_on_card(dev):
                 assert not any(counts.values()), (names, counts)
         for a, b in zip(*outs):
             assert_planes(a, b)
+
+
+# -- the flagship's variants --------------------------------------------------
+
+@pytest.mark.parametrize("n_phase", [8, 64, 32768])
+@pytest.mark.parametrize("geom", GEOMS[:2] + [(896, 32, 96, 2)])
+def test_k3_fold_stokes(dev, geom, n_phase):
+    """Every lane's partner, the tile's last lane and the wrap included;
+    the global-atomic branch at n_phase 2^15."""
+    t_main, p0, p1, L = geom
+    n1, n2 = dd.split_n(t_main + p0 + p1)
+    z = randn(dev, (n2, n1, L), 40)
+    fold = torch.as_tensor(dd.fold_phase_vector(0.3, 1.0 / 97.0), device=dev)
+    kw = dict(n_phase=n_phase, pad_start=p0, n_valid=t_main, stokes=True)
+    dd.reset_launch_counts()
+    prof, cnt = dd.detect_fold(*z, fold, **kw)
+    assert dd.launch_counts["k3_fold_stokes"] == 1
+    rprof, rcnt = dd.fold_ref(*z, fold, **kw)
+    assert prof.shape == (n_phase + 1, 3 * L) and torch.equal(cnt, rcnt)
+    hit = rcnt > 0
+    rel = ((prof[:, :L] - rprof[:, :L]).abs()[hit]
+           / rprof[:, :L].abs()[hit]).max()
+    assert float(rel) <= PROFILE_RTOL
+    assert_planes((prof[:, L:],), (rprof[:, L:],))
+    assert not prof[~hit].any()
+
+
+@pytest.mark.parametrize("n", [1 << 10, 1 << 18])
+@pytest.mark.parametrize("L", [16, 128])
+def test_k3_power_and_k2_theta(dev, L, n):
+    n1, n2 = dd.split_n(n)
+    z = randn(dev, (n2, n1, L), 41)
+    dd.reset_launch_counts()
+    assert_planes((dd.k3_power(*z),), (dd.k3_power_ref(*z),))
+    theta = torch.rand((n2, n1, L), generator=torch.Generator(
+        device=dev).manual_seed(42), device=dev) - 0.5
+    got = dd.stage_b_theta(*[p.clone() for p in z], theta)
+    ref = dd.k2_theta_ref(*[p.clone() for p in z], theta)
+    assert_planes(got, ref)
+    assert dd.launch_counts["k3_power"] == dd.launch_counts["k2_theta"] == 1
+
+
+@pytest.mark.parametrize("geom", GEOMS)
+def test_k1_planes_and_stream_planes(dev, geom):
+    t_main, p0, p1, L = geom
+    n = t_main + p0 + p1
+    (x2,) = randn(dev, (2, n, L), 43, count=1)
+    assert_planes(dd.stage_a_planes(x2),
+                  dd.stage_a_window_ref(torch.complex(x2[0], x2[1])))
+    front, end = (randn(dev, (2, p, L), 44 + p, count=1)[0]
+                  for p in (p0, p1))
+    scale = torch.tensor([0.75], device=dev)
+    block = x2[:, :t_main].contiguous()
+    got = dd.stage_a_stream_planes(block, front, end, scale)
+    assert_planes(got, dd.stage_a_ref(x2[0, :t_main], x2[1, :t_main],
+                                      front[0], front[1], end[0], end[1],
+                                      scale))
+    with pytest.raises(ValueError, match="contiguous"):
+        dd.stage_a_planes(x2.transpose(1, 2).contiguous().transpose(1, 2))
+    # the public op passes a strided card tensor on uncopied: refused
+    n1, n2 = dd.split_n(n)
+    chirp = randn(dev, (n2, n1, L), 46)
+    view = block.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        dd.dedisperse_fold_stream(view, front, end, *chirp,
+                                  dd.fold_phase_vector(0.3, 1.0 / 97.0),
+                                  scale, n_phase=8, pad_start=p0,
+                                  n_valid=t_main)
+
+
+@pytest.mark.parametrize("detect", ["power", "stokes"])
+def test_pipeline_variants_on_card(dev, detect):
+    """step_fn, step_bins_fn and the planes step on the kernels against
+    the plain versions, and step_fn against the torch.fft path on the
+    same power-of-two window (the JAX package's
+    test_pallas_stokes_matches_xla bound)."""
+    import baseband_tasks_tpu_torch as bt
+    u = bt.units
+    kw = dict(n_chan=8, n_pol=2, dm=1.0, freq_center=600 * u.MHz,
+              chan_rate=250 * u.kHz, period_samples=(800, 1), n_phase=16,
+              block_samples=1024, device=dev, detect=detect)
+    kern = bt.WidebandPulsarPipeline(use_kernels=True, **kw)
+    xla = bt.WidebandPulsarPipeline(fft_pow2=True, **kw)
+    T = kern.global_block
+    xf = torch.randn((T, 8, 2, 2), generator=torch.Generator(
+        device=dev).manual_seed(45), device=dev)
+    bins = (torch.arange(T, device=dev) % 16).float()
+    x2 = torch.movedim(xf, -1, 0).contiguous()
+    calls = [lambda: kern.step_fn()(xf, 300),
+             lambda: kern.step_bins_fn()(xf, bins),
+             lambda: kern.planes_step(x2, *kern._chirp_device(), 300, 300),
+             lambda: kern.planes_step(x2, kern._theta_device(), None, 300,
+                                      300)]
+    for call in calls:
+        dd.reset_launch_counts()
+        prof, cnt = call()
+        assert any(dd.launch_counts.values())
+        with dd.plain_versions():
+            rprof, rcnt = call()
+        assert torch.equal(cnt, rcnt)
+        torch.testing.assert_close(prof, rprof, rtol=PROFILE_RTOL,
+                                   atol=1e-6 * float(rprof.abs().max()))
+    dd.reset_launch_counts()
+    prof, cnt = xla.step_fn()(xf, 300)
+    assert not any(dd.launch_counts.values())
+    kprof, kcnt = kern.step_fn()(xf, 300)
+    assert torch.equal(cnt, kcnt)
+    torch.testing.assert_close(kprof, prof, rtol=1e-3, atol=1e-2)

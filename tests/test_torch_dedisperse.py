@@ -185,7 +185,8 @@ def test_wrappers_reject_other_devices():
 
 
 @pytest.mark.parametrize("kw, exc", [
-    (dict(stokes=True), NotImplementedError),
+    # Stokes is ported; bf16 intermediates are not, in either detection
+    (dict(stokes=True, inter_dtype="bfloat16"), NotImplementedError),
     (dict(inter_dtype="bfloat16"), NotImplementedError),
     (dict(n_phase=1 << 16), ValueError),
     (dict(pad_start=64), ValueError)])

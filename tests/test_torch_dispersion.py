@@ -129,7 +129,7 @@ def test_chirps_identical(name):
 
 
 @pytest.mark.parametrize("name", CONFIGS)
-def test_pallas_dedisperse_dechannelize(name):
+def test_pallas_dedisperse_dechannelize(name, monkeypatch):
     p, j = dedispersers(name, "pallas")
     pc, jc = pb.Dechannelize(p), jb.Dechannelize(j)
     assert pc.shape == jc.shape and pc.sample_shape == jc.sample_shape
@@ -139,9 +139,14 @@ def test_pallas_dedisperse_dechannelize(name):
     got = pc.read()   # the last frame re-reads a full window at an offset
     assert_close(got, jc.read())
     _, _, _, dm, margin, _ = CONFIGS[name]
+    # the same task on the plain whole-window filter (torch.fft)
+    from baseband_tasks_tpu_torch import dispersion as pdisp
+    from baseband_tasks_tpu_torch.ops import spectral_filter as psf
+    monkeypatch.setattr(pdisp, "spectral_filter_pow2",
+                        psf.spectral_filter_pow2_ref)
     plain = pb.Dechannelize(pb.Dedisperse(
-        p.ih, dm, engine="pallas", samples_per_frame=2048, pad_margin=margin,
-        use_kernels=False)).read()
+        p.ih, dm, engine="pallas", samples_per_frame=2048,
+        pad_margin=margin)).read()
     assert_close(got, plain.numpy())
 
 

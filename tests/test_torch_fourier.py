@@ -73,11 +73,18 @@ def test_registry_and_fft_maker_state():
     assert set(pf.FFT_MAKER_CLASSES) == set(jf.FFT_MAKER_CLASSES) \
         == set(ENGINES)
     assert type(pf.fft_maker.get()).__name__ == "XLAFFTMaker"
-    with pf.fft_maker.set("pallas", use_kernels=False) as maker:
-        assert pf.fft_maker.get() is maker and not maker.use_kernels
+    with pf.fft_maker.set("pallas") as maker:
+        assert pf.fft_maker.get() is maker
+        assert type(maker).__name__ == "PallasFFTMaker"
         with pf.fft_maker.set("numpy"):
             assert type(pf.fft_maker.get()).__name__ == "NumpyFFTMaker"
         assert pf.fft_maker.get() is maker
+    assert type(pf.fft_maker.get()).__name__ == "XLAFFTMaker"
+    # keywords go to a named engine's constructor; the 'pallas' engine
+    # takes none, in both packages, and a refused set leaves the state
+    for state in (pf.fft_maker, jf.fft_maker):
+        with pytest.raises(TypeError):
+            state.set("pallas", use_kernels=False)
     assert type(pf.fft_maker.get()).__name__ == "XLAFFTMaker"
     with pytest.raises(TypeError):
         pf.fft_maker.set(pf.NumpyFFTMaker(), use_kernels=False)
@@ -169,8 +176,9 @@ def test_fft_pow2_planes_matches_pallas(n, L, inverse, ortho):
     want = jfp.fft_pow2_planes(xr, xi, inverse=inverse, ortho=ortho)
     assert_close(as_numpy(got[0]) + 1j * as_numpy(got[1]),
                  np.asarray(want[0]) + 1j * np.asarray(want[1]))
-    plain = ff.fft_pow2_planes(torch.from_numpy(xr), torch.from_numpy(xi),
-                               inverse=inverse, ortho=ortho, kernels=False)
+    plain = ff.fft_pow2_planes_ref(torch.from_numpy(xr),
+                                   torch.from_numpy(xi), inverse=inverse,
+                                   ortho=ortho)
     assert_close(as_numpy(got[0]), as_numpy(plain[0]))
 
 

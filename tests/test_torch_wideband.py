@@ -31,6 +31,7 @@ from baseband_tasks_tpu import utils as jutils  # noqa: E402
 from baseband_tasks_tpu.ops import unpack_device as jun  # noqa: E402
 
 import baseband_tasks_tpu_torch as bt  # noqa: E402
+from baseband_tasks_tpu_torch.ops import dedisperse as dd  # noqa: E402
 from baseband_tasks_tpu_torch.ops import unpack  # noqa: E402
 
 RTOL, ATOL = 1e-5, 1e-3
@@ -192,14 +193,28 @@ def test_run_fn_seeded_smoke(bits):
     assert torch.isfinite(prof).all()
     again = run(seed=3)                       # the cached block is reused
     assert torch.equal(prof, again[0])
-    plain = bt.WidebandPulsarPipeline(
-        **dict(port_kwargs(bits=bits), use_kernels=False))
-    assert torch.equal(plain.run_fn(2, ingest_bits=bits)(seed=3)[0], prof)
+    # the test-only switch runs the kernel path on the plain versions
+    # (on the CPU the wrappers take them anyway: the same numbers)
+    with dd.plain_versions():
+        plain = bt.WidebandPulsarPipeline(**port_kwargs(bits=bits))
+        assert torch.equal(plain.run_fn(2, ingest_bits=bits)(seed=3)[0],
+                           prof)
 
 
 def test_rejects_unported_options():
+    # Stokes pairs the (X, Y) lanes of a channel: dual polarization only
+    with pytest.raises(ValueError, match="dual polarization"):
+        bt.WidebandPulsarPipeline(**dict(port_kwargs(), n_pol=4,
+                                         detect="stokes"))
+    # bf16 intermediates are not ported, Stokes or not
     with pytest.raises(NotImplementedError):
-        bt.WidebandPulsarPipeline(**dict(port_kwargs(), detect="stokes"))
+        dd.dedisperse_fold_split(
+            *(np.zeros((896, 16), np.float32),) * 2,
+            *(np.zeros((32, 16), np.float32),) * 2,
+            *(np.zeros((96, 16), np.float32),) * 2,
+            *(np.zeros((32, 32, 16), np.float32),) * 2,
+            dd.fold_phase_vector(0.0, 0.01), np.float32([1.0]), n_phase=8,
+            pad_start=32, n_valid=896, stokes=True, inter_dtype="bfloat16")
     pp = bt.WidebandPulsarPipeline(**port_kwargs())
     with pytest.raises(ValueError, match="ingest_bits"):
         pp.run_fn(1, ingest_bits=3)
