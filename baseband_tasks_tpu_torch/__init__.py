@@ -1,6 +1,6 @@
 """PyTorch/CUDA port of baseband_tasks_tpu.
 
-Three slices so far:
+The slices so far:
 
 - the flagship: coherent dedispersion -> detection -> pulse-phase fold
   of channelized, plane-packed baseband (``WidebandPulsarPipeline``);
@@ -10,9 +10,14 @@ Three slices so far:
   ``Disperse``/``Dedisperse``;
 - compiled chains (``CompiledPipeline``, ``stream.compile()``) with
   their kernel fusions, and the polyphase filter bank and its Wiener
-  inversion (``PolyphaseFilterBank``, ``InversePolyphaseFilterBank``).
+  inversion (``PolyphaseFilterBank``, ``InversePolyphaseFilterBank``);
+- the period searches: the Fourier-domain acceleration search
+  (``FourierDomainAccelSearch``) and the fast folding algorithm
+  (``FastFoldingSearch``), and the single-pass resident dedisperse ->
+  fold op (``ops.dedisperse_fold_resident``).
 
-Frames are torch tensors on the stream's device.  On a CUDA device the
+Frames are torch tensors on the stream's device (the card when there is
+one, unless a source is given another).  On a CUDA device the
 FFT and filter passes run hand-written CUDA kernels for NVIDIA Hopper
 (``csrc/``); on the CPU their plain PyTorch versions.  Importing the
 package imports torch and numpy only; the kernels are built with
@@ -28,7 +33,8 @@ from .fourier import fft_maker
 from .functions import Square, Power
 from .generators import (StreamGenerator, EmptyStreamGenerator, Noise,
                          NoiseGenerator)
-from .models import CompiledPipeline, WidebandPulsarPipeline
+from .models import (CompiledPipeline, FastFoldingSearch,
+                     FourierDomainAccelSearch, WidebandPulsarPipeline)
 from .pfb import (InversePolyphaseFilterBank, PolyphaseFilterBank,
                   PolyphaseFilterBankSamples, sinc_hamming)
 from .phases import Polyco, PolycoPhase
@@ -45,4 +51,5 @@ __all__ = ["Base", "BaseTaskBase", "TaskBase", "PaddedTaskBase", "Task",
            "WidebandPulsarPipeline", "CompiledPipeline",
            "PolyphaseFilterBank", "PolyphaseFilterBankSamples",
            "InversePolyphaseFilterBank", "sinc_hamming", "Time", "units",
-           "Polyco", "PolycoPhase"]
+           "Polyco", "PolycoPhase", "FourierDomainAccelSearch",
+           "FastFoldingSearch"]

@@ -8,7 +8,8 @@ underlying handle ``ih``, so a pipeline is a lazy chain that computes
 frames on demand.
 
 - Frames are **torch tensors on the stream's device** (``device``, given
-  to the sources and inherited by every task); ``read()`` assembles
+  to the sources and inherited by every task; a source built without one
+  is on the card when there is one, else on the CPU); ``read()`` assembles
   outputs by slicing and concatenating them on that device, so a chain
   never bounces through host memory between stages.
 - The ``dtype`` metadata stays a numpy dtype (it compares equal to the
@@ -81,6 +82,8 @@ class Base:
 
     Subclasses implement ``_read_frame(frame_index)`` returning a tensor
     of ``(samples_per_frame,) + sample_shape`` on :attr:`device`.
+    ``device=None`` means CUDA when ``torch.cuda.is_available()``, else
+    the CPU; pass ``device="cpu"`` to keep a stream on the host.
     """
 
     def __init__(self, shape, start_time, sample_rate, *,
@@ -93,7 +96,9 @@ class Base:
         self._sample_rate = sample_rate
         self._samples_per_frame = operator.index(samples_per_frame)
         self._dtype = np.dtype(dtype)
-        self._device = torch.device("cpu" if device is None else device)
+        if device is None:
+            device = "cuda" if torch.cuda.is_available() else "cpu"
+        self._device = torch.device(device)
         self._meta = {"__attributes__": {}}
         if (frequency is None) != (sideband is None):
             # one without the other is meaningless

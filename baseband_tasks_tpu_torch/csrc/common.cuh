@@ -14,16 +14,17 @@ constexpr int kThreads = 256;
 constexpr int kMaxSmem = 200 * 1024;  // of the 227 KB a block may use
 constexpr int kMaxTileLanes = 16;
 
-// Largest power-of-two lane tile <= 16 that divides L and whose shared
-// tile (n rows of float2, plus `extra_per_lane` bytes per lane and
-// `fixed` bytes) fits the budget; returns log2 of it, or -1.
-inline int choose_log_tl(int n, int L, int extra_per_lane, int fixed) {
-  for (int log_tl = 4; log_tl >= 0; --log_tl) {
+// Largest power-of-two lane tile <= 16 (and >= 2^min_log_tl) that divides
+// L and whose shared tile (n rows of float2, plus `extra_per_lane` bytes
+// per lane and `fixed` bytes) fits `budget`; returns log2 of it, or -1.
+inline int choose_log_tl(int n, int L, int extra_per_lane, int fixed,
+                         long budget = kMaxSmem, int min_log_tl = 0) {
+  for (int log_tl = 4; log_tl >= min_log_tl; --log_tl) {
     const int tl = 1 << log_tl;
     if (tl > kMaxTileLanes || L % tl) continue;
     const long bytes = static_cast<long>(n) * tl * 8 + (n / 2) * 8 +
                        static_cast<long>(extra_per_lane) * tl + fixed;
-    if (bytes <= kMaxSmem) return log_tl;
+    if (bytes <= budget) return log_tl;
   }
   return -1;
 }

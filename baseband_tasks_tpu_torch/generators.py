@@ -31,7 +31,8 @@ class StreamGenerator(Base):
     The function is called with the handle itself (positioned at the frame
     start, so ``tell()``/``time`` give the frame location) and must return
     an array of ``(samples_per_frame,) + sample_shape``; a numpy result
-    moves to the stream's ``device``.
+    moves to the stream's ``device`` (by default the card when there is
+    one, else the CPU; see :class:`~.base.Base`).
     """
 
     def __init__(self, function, shape, start_time, sample_rate, *,

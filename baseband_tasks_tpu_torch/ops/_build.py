@@ -55,18 +55,24 @@ _SIGNATURES = {
     "bbt_k2_theta": [_P] * 3 + [_I] * 3 + [_I, _P],
     "bbt_k3_fold_stokes": [_P] * 5 + [_I] * 6 + [_I, _P],
     "bbt_k3_power": [_P] * 3 + [_I] * 3 + [_I, _P],
+    "bbt_bank_power": [_P] * 6 + [_I] * 3 + [_I, _P],
+    "bbt_accel_corr": [_P] * 4 + [_I] * 4 + [_I, _P],
+    "bbt_resident": [_P] * 12 + [_I] * 7 + [_I, _P],
 }
 
 #: kernel launches since the last :func:`reset_launch_counts`, by launch
 #: name (the flagship's K1p/K1f/K2/K3, the four-step passes, the
 #: streaming stage A, the lane mix, the forward PFB without and with its
-#: DFT, and the flagship's variants: full-Stokes K3, K3 as |.|^2, K2 on
-#: a phase-plane chirp, K1 from planes-first windows and edges)
+#: DFT, the flagship's variants: full-Stokes K3, K3 as |.|^2, K2 on a
+#: phase-plane chirp, K1 from planes-first windows and edges; the accel
+#: search's bank product and bank correlation, and the single-pass
+#: resident dedisperse -> fold)
 launch_counts = {"k1_packed": 0, "k1_float": 0, "k2": 0, "k3_fold": 0,
                  "k1_window": 0, "k2_fwd": 0, "k2_inv": 0, "k3_trim": 0,
                  "k1_stream": 0, "lane_mix": 0, "pfb_fwd": 0,
                  "pfb_fwd_dft": 0, "k3_fold_stokes": 0, "k3_power": 0,
-                 "k2_theta": 0, "k1_planes": 0, "k1_stream_planes": 0}
+                 "k2_theta": 0, "k1_planes": 0, "k1_stream_planes": 0,
+                 "bank_power": 0, "accel_corr": 0, "resident": 0}
 
 _lib = None
 

@@ -49,7 +49,8 @@ from .fold import fold_accumulate
 from .unpack import decode_planes, default_levels, default_offset
 
 __all__ = ["split_n", "permute_to_storage_order", "fold_phase_vector",
-           "fold_bins_ref", "stage_a_packed", "stage_a", "stage_a_planes",
+           "fold_bins_ref", "fold_bins", "fold_detected", "stage_a_packed",
+           "stage_a", "stage_a_planes",
            "stage_a_stream_planes", "stage_b", "stage_b_theta",
            "detect_fold", "k3_power", "stage_a_packed_ref", "stage_a_ref",
            "stage_b_ref", "k2_theta_ref", "fold_ref", "k3_power_ref",
@@ -212,13 +213,25 @@ def fold_ref(zr, zi, fold, *, n_phase, pad_start, n_valid, stokes=False):
     x = _inverse_stage_a(zr, zi)
     n = x.shape[0]
     t = torch.arange(n, dtype=torch.int64, device=zr.device)
+    valid = (t >= pad_start) & (t < pad_start + n_valid)
+    return fold_detected(_detect(x, stokes), fold_bins(fold, t, valid,
+                                                       n_phase), n_phase)
+
+
+def fold_bins(fold, t, valid, n_phase):
+    """The kernels' fixed-point bin map of int64 times ``t`` (int64,
+    masked to 31 bits), rows where ``valid`` is False to trash bin
+    n_phase."""
     f = fold.to(torch.int64)
     num = (f[0] + t * f[1]) & _FX_MASK
     bins = (((num >> 16) * n_phase) + (((num & 0xFFFF) * n_phase) >> 16)) >> 15
-    valid = (t >= pad_start) & (t < pad_start + n_valid)
-    bins = torch.where(valid, bins, n_phase)
-    prof = fold_accumulate(_detect(x, stokes), bins, n_phase + 1,
-                           with_counts=False)
+    return torch.where(valid, bins, n_phase)
+
+
+def fold_detected(detected, bins, n_phase):
+    """One-hot fold of (T, W) detected rows into (n_phase+1, W) float32
+    sums and (n_phase+1,) int32 counts."""
+    prof = fold_accumulate(detected, bins, n_phase + 1, with_counts=False)
     cnt = torch.bincount(bins, minlength=n_phase + 1).to(torch.int32)
     return prof, cnt
 

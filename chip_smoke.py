@@ -79,7 +79,36 @@ and for the flagship's variants, at the flagship configuration again:
     profiles one turn of ``run_fn`` Stokes (wall, device busy, time per
     kernel) and times one call that also builds it; then holds
     ``step_fn`` on the kernels against its torch.fft path (``use_kernels=False, fft_pow2=True``, no
-    kernel launched) to the JAX package's rtol 1e-3 / atol 1e-2.
+    kernel launched) to the JAX package's rtol 1e-3 / atol 1e-2;
+
+and for the searches and the single-pass resident op, at the acceleration
+search of ``tools/bench_full.py`` ``accel()`` (a 2^22-sample series at
+1 MHz, z_max 64 step 2: 65 trials) and at the flagship's width for the
+resident op (L = 128, 64 phase bins, the DM-500 chirp within a channel,
+pads 256/256, the 261,120-row block of ``tools/bench_resident.py``):
+
+(k) holds bank_power (8448 x 512 segments against the 512 x 16896
+    Karatsuba operator of the mx engine), accel_corr (547 segments of
+    4096 against the 128-lane bank) and resident (windows 2048 and 4096,
+    power and Stokes) against their plain versions, and times them
+    beside the one PyTorch call computing the same function (a complex
+    ``matmul`` and ``|.|^2``; cuFFT's inverse FFT of the bank product and
+    ``|.|^2``);
+(l) runs ``FourierDomainAccelSearch.search`` on a seeded series (noise, a
+    mid-band tone drifting 12 bins, a pulse train) with 'auto' (which
+    must be 'mx' on the card), 'pallas' (seg_len 4096) and 'xla' (8192),
+    asserts each engine's launches, holds mx and pallas against xla at
+    the JAX package's bounds, finds the tone with the map,
+    ``harmonic_sum`` and ``candidates``, times each engine against its
+    plain versions in turns, then runs ``FastFoldingSearch`` (base period
+    1000, 4096 trials) on the card against the same call on the CPU;
+(m) calls ``ops.dedisperse_fold_resident`` on both engines, power and
+    Stokes, against its plain versions on the card, and against the
+    three-pass ``dedisperse_fold_split`` on the same block (one 2^18
+    window) to 5e-4 of the peak, on an FIR inside the pads (where
+    overlap-save is exact at both window sizes) and on the DM-500 chirp
+    (whose tails leak past the 256-row pads, ~1e-4 of the peak); then
+    both timed in turns.
 
 The plain versions run on the card inside the package's test-only
 switch ``ops.dedisperse.plain_versions()``.  Any failure raises (non-zero
@@ -89,6 +118,7 @@ is ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -124,6 +154,8 @@ FP32_FLOPS = 67e12
 DEDISPERSE_CU = "baseband_tasks_tpu_torch/csrc/dedisperse.cu"
 FOURSTEP_CU = "baseband_tasks_tpu_torch/csrc/fourstep.cu"
 PFB_CU = "baseband_tasks_tpu_torch/csrc/pfb.cu"
+ACCEL_CU = "baseband_tasks_tpu_torch/csrc/accel.cu"
+RESIDENT_CU = "baseband_tasks_tpu_torch/csrc/resident.cu"
 KERNELS = {   # launch-count name -> (TPU kernel it replaces, source)
     "k1_packed": ("baseband_tasks_tpu/ops/dedisperse_pallas.py:764",
                   DEDISPERSE_CU),
@@ -154,6 +186,10 @@ KERNELS = {   # launch-count name -> (TPU kernel it replaces, source)
                   DEDISPERSE_CU),
     "k1_stream_planes": ("baseband_tasks_tpu/ops/dedisperse_pallas.py:240",
                          DEDISPERSE_CU),
+    "bank_power": ("baseband_tasks_tpu/ops/accel_correlate.py:134", ACCEL_CU),
+    "accel_corr": ("baseband_tasks_tpu/ops/accel_correlate.py:54", ACCEL_CU),
+    "resident": ("baseband_tasks_tpu/ops/dedisperse_resident.py:191",
+                 RESIDENT_CU),
 }
 FLAGSHIP = ("k1_packed", "k1_float", "k2", "k3_fold")
 VARIANTS = ("k3_fold_stokes", "k3_power", "k2_theta", "k1_planes",
@@ -182,6 +218,13 @@ def flagship(device, use_kernels=True, **extra):
         block_samples=1 << 17, device=device, use_kernels=use_kernels,
         phase_model=b1937_polyco(), start_time=Time.from_mjd(58000.0),
         ingest_bits=8, **extra)
+
+
+@functools.lru_cache(maxsize=1)
+def flagship_on_host():
+    """The flagship configuration (dm, channel frequencies, rate), built
+    once on the CPU for its host tables."""
+    return flagship("cpu")
 
 
 def plain(fn):
@@ -1208,6 +1251,413 @@ def drive_variants(dev, gpu):
     return launches
 
 
+# -- the searches and the resident op: phases (k), (l) and (m) --------------
+
+SEARCH_N = 1 << 22           # tools/bench_full.py accel(): 2^22 samples,
+SEARCH_KW = dict(z_max=64, z_step=2)   # 1 MHz, z_max 64 step 2: 65 trials
+SEG_LEN = {"auto": 4096, "mx": 4096, "pallas": 4096, "xla": 8192}
+TONE_F0, TONE_Z = (1 << 20) + 1234, 12.0   # mid-band bin, drift in bins
+TONE_AMP = 0.05              # ~2600 in the noise-normalized map at 2^22
+FFA_BASE, FFA_TRUE = 1000, 1024            # base period, trial injected
+FFA_AMP = 0.2                # a 10-sample pulse: S/N ~40 over 4096 turns
+RESIDENT_T = 261120          # tools/bench_resident.py's block (2^18 - 1024)
+RESIDENT_PAD = 256           # covers the ~95-sample DM-500 channel smear
+RESIDENT_WINDOWS = (2048, 4096)
+# the three-pass chain on the same block: one window of SPLIT_N rows
+SPLIT_N = 1 << 18
+
+
+def accel_search(dev, engine):
+    from baseband_tasks_tpu_torch import FourierDomainAccelSearch, units as u
+    return FourierDomainAccelSearch(SEARCH_N, 1 * u.MHz, seg_len=SEG_LEN[engine],
+                                    engine=engine, device=dev, **SEARCH_KW)
+
+
+def ffa_trials():
+    """The FFA's trial count m over the search series at FFA_BASE."""
+    return 1 << ((SEARCH_N // FFA_BASE).bit_length() - 1)
+
+
+def search_series(dev):
+    """The smoke's search input on the card: unit noise (numpy seed 21) plus
+    a tone at bin TONE_F0 drifting TONE_Z bins, amplitude TONE_AMP, and a pulse
+    train of period FFA_BASE + FFA_TRUE/(m-1) samples, 10 samples wide,
+    amplitude FFA_AMP (for the FFA; its harmonics stay under the accel
+    candidates' threshold)."""
+    rng = np.random.default_rng(21)
+    t = np.arange(SEARCH_N) / SEARCH_N
+    x = rng.standard_normal(SEARCH_N)
+    x += TONE_AMP * np.cos(2 * np.pi * (TONE_F0 * t + 0.5 * TONE_Z * t ** 2))
+    period = FFA_BASE + FFA_TRUE / (ffa_trials() - 1)
+    x[(np.arange(SEARCH_N) % period) < 10] += FFA_AMP
+    return torch.as_tensor(x.astype(np.float32), device=dev)
+
+
+def chirp_planes(dev, n, fir_seed=None):
+    """d-major (N2, N1, L) float32 planes at the flagship's width (64
+    channels x 2 pols) of the dedispersion chirp at window length ``n``:
+    the flagship's DM-500 chirp (``WidebandPulsarPipeline._build_chirp``
+    at ``n``) referred to each channel's own centre, so that it holds the
+    ~95-sample smear within a channel and not the bulk delays between
+    channels (up to ~3000 samples, which the flagship's 3584/4608-row pads
+    cover and 256-row pads cannot), or, with ``fir_seed``, the response of a random FIR with
+    support [-100, 200] inside the pads (``make_case`` of
+    tests/test_dedisperse_resident.py), the same taps at every ``n``, at
+    which overlap-save is exact for every window size."""
+    from baseband_tasks_tpu_torch import units as u
+    from baseband_tasks_tpu_torch.ops import dedisperse as dd
+    pipe = flagship_on_host()
+    L = pipe.n_chan * pipe.n_pol
+    if fir_seed is not None:
+        rng = np.random.default_rng(fir_seed)
+        taps = (rng.normal(size=(301, L)) + 1j * rng.normal(size=(301, L))
+                ) / np.sqrt(301.0)
+        h = torch.zeros((n, L), dtype=torch.complex64, device=dev)
+        h[:201] = torch.as_tensor(taps[:201].astype(np.complex64), device=dev)
+        h[-100:] = torch.as_tensor(taps[201:].astype(np.complex64),
+                                   device=dev)
+        chirp = torch.fft.fft(h, dim=0)
+    else:
+        offsets = np.fft.fftfreq(n) * pipe.chan_rate.to_value(u.MHz)
+        f_sky = pipe.freqs.to_value(u.MHz)[None, :] + offsets[:, None]
+        cyc = np.asarray(pipe.dm.phase_delay(
+            u.Quantity(f_sky, u.MHz), pipe.freqs[None, :]
+        ).to_value(u.cycle), np.float64)
+        cyc -= np.round(cyc)
+        chirp = torch.as_tensor(np.repeat(np.exp(-2j * np.pi * cyc).astype(
+            np.complex64), pipe.n_pol, axis=1), device=dev)
+    n1, n2 = dd.split_n(n)
+    chirp = chirp.reshape(n2, n1, L)         # permute_to_storage_order
+    return [chirp.real.contiguous(), chirp.imag.contiguous()]
+
+
+def resident_case(dev, n_window, seed, fir_seed=None):
+    """The resident op's inputs at the flagship's width (L = 128, 64 phase
+    bins) on a block of RESIDENT_T rows cut to a multiple of hop: random
+    planes and halos, the chirp at the window length (:func:`chirp_planes`)
+    and a fold row."""
+    from baseband_tasks_tpu_torch.ops import dedisperse as dd
+    from baseband_tasks_tpu_torch.ops.dedisperse_resident import (
+        resident_geometry)
+    L = 128
+    hop, _, _ = resident_geometry(n_window, RESIDENT_PAD, RESIDENT_PAD)
+    T = RESIDENT_T // hop * hop
+    fold = torch.as_tensor(dd.fold_phase_vector(0.123, 1.0 / 1607.3),
+                           device=dev)
+    return dict(x=randn(dev, (T, L), seed),
+                front=randn(dev, (RESIDENT_PAD, L), seed + 1),
+                end=randn(dev, (RESIDENT_PAD, L), seed + 2),
+                chirp=chirp_planes(dev, n_window, fir_seed), fold=fold,
+                scale=torch.tensor([0.5], device=dev), n_window=n_window,
+                n_phase=64, T=T, L=L, fir_seed=fir_seed)
+
+
+def resident_call(case, stokes, engine="stockham"):
+    from baseband_tasks_tpu_torch.ops.dedisperse_resident import (
+        dedisperse_fold_resident)
+    c = case
+    return lambda: dedisperse_fold_resident(
+        *c["x"], *c["front"], *c["end"], *c["chirp"], c["fold"], c["scale"],
+        n_window=c["n_window"], n_phase=c["n_phase"], pad_start=RESIDENT_PAD,
+        pad_end=RESIDENT_PAD, stokes=stokes, engine=engine)
+
+
+def split_call(case, stokes, chirp):
+    """The port's three-pass dedisperse_fold_split on the same block: one
+    SPLIT_N-row window, the pads (SPLIT_N - T)/2 each, the halos zero-extended
+    and i0 shifted in fixed point to the later resident t = 0 (the
+    construction of tests/test_dedisperse_resident.py); ``chirp`` its
+    d-major planes at SPLIT_N."""
+    from baseband_tasks_tpu_torch.ops import dedisperse as dd
+    c = case
+    T, L, dev = c["T"], c["L"], c["x"][0].device
+    pad = (SPLIT_N - T) // 2
+    shift = pad - RESIDENT_PAD
+    fr, er = (torch.zeros((2, pad, L), device=dev) for _ in (0, 1))
+    fr[:, shift:] = torch.stack(c["front"])
+    er[:, :RESIDENT_PAD] = torch.stack(c["end"])
+    fold = c["fold"].cpu().numpy().astype(np.int64)
+    i0 = (fold[0] - shift * fold[1]) & dd._FX_MASK
+    fold = torch.tensor([i0, fold[1], 0], dtype=torch.int32, device=dev)
+    return lambda: dd.dedisperse_fold_split(
+        *c["x"], fr[0], fr[1], er[0], er[1], *chirp, fold, c["scale"],
+        n_phase=c["n_phase"], pad_start=pad, n_valid=T, stokes=stokes)
+
+
+def check_resident(tag, got, ref, L, gpu):
+    """A resident profile against another of the same op: counts exact,
+    the power plane elementwise within PROFILE_RTOL, the Stokes cross
+    planes (which cross zero) within FFT_TOL of their peak.  Returns the
+    max abs error."""
+    (prof, cnt), (rprof, rcnt) = got, ref
+    torch.cuda.synchronize()
+    if not torch.equal(cnt, rcnt) or not torch.isfinite(prof).all():
+        raise AssertionError(f"{tag}: counts differ or profile not finite")
+    rel = float(((prof[:, :L] - rprof[:, :L]).abs()
+                 / rprof[:, :L].abs()).max())
+    cross = (compare((prof[:, L:],), (rprof[:, L:],))[1]
+             if prof.shape[1] > L else 0.0)
+    print(f"{tag}: profile {tuple(prof.shape)} vs plain: power rel "
+          f"{rel:.3e}, cross {cross:.3e} of the peak, counts exact [{gpu}]",
+          flush=True)
+    if rel > PROFILE_RTOL or cross > FFT_TOL:
+        raise AssertionError(f"{tag}: profile disagrees")
+    return float((prof - rprof).abs().max())
+
+
+def check_search_kernels(dev, gpu):
+    """Phase (k): bank_power, accel_corr and resident against their plain
+    versions at the shapes of the search and resident paths, timed with
+    CUDA events, with the one PyTorch call computing the same function
+    where there is one."""
+    from baseband_tasks_tpu_torch.ops import accel_correlate as ac
+    mx = accel_search(dev, "mx")
+    ka, kb, kc = mx._mx_fused_planes()
+    n_seg = -(-mx.n_freq // mx.m)
+    n_seg = -(-n_seg // 256) * 256           # padded to the 256-row tile
+    fr, fi = randn(dev, (n_seg, 2 * mx.m), 80)
+    pal = accel_search(dev, "pallas")
+    (tr, ti), _ = pal._lane_banks()[0]
+    sr, si = randn(dev, (pal._n_seg, pal.seg_len), 81)
+    segs = torch.complex(sr, si)
+    valid = pal._valid
+    # the library yardsticks: one complex matmul and |.|^2; one cuFFT
+    # inverse FFT of the bank product, lanes outer, and |.|^2
+    op = torch.complex(ka, kb - ka)
+    sc = torch.complex(fr, fi)
+    prod = (segs[:, None, :] * torch.complex(tr, ti).T[None]).contiguous()
+    cases = {
+        "bank_power": (lambda: ac.bank_matmul_power(fr, fi, ka, kb, kc),
+                       lambda: ac.bank_matmul_power_ref(fr, fi, ka, kb, kc),
+                       lambda: (sc @ op).abs() ** 2,
+                       ((fr, fi, ka, kb, kc),
+                        (torch.empty((n_seg, ka.shape[1]), device="meta"),),
+                        3 * 2 * n_seg * ka.shape[0] * ka.shape[1])),
+        "accel_corr": (lambda: ac.accel_correlate_bank(segs, tr, ti,
+                                                       valid=valid),
+                       lambda: ac.accel_correlate_bank_ref(segs, tr, ti,
+                                                           valid=valid),
+                       lambda: torch.fft.ifft(prod, dim=-1).abs() ** 2,
+                       ((segs, tr, ti),
+                        (torch.empty((pal._n_seg, valid, ac.LANES),
+                                     device="meta"),),
+                        pal._n_seg * pal.seg_len * ac.LANES
+                        * (5 * np.log2(pal.seg_len) + 6))),
+    }
+    results = {}
+    for name, (kern, plain_fn, lib, cost) in cases.items():
+        got, ref = kern(), plain_fn()
+        torch.cuda.synchronize()
+        err, rel = compare((got,), (ref,))
+        ok = rel <= FFT_TOL and bool(torch.isfinite(got).all())
+        print(f"(k) {name}: {tuple(got.shape)} max_abs_err={err:.3e} "
+              f"rel={rel:.3e} ({'ok' if ok else 'FAIL'})", flush=True)
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version")
+        del got, ref
+        ms, plain_ms, lib_ms = (cuda_ms(f, reps=5) for f in (kern, plain_fn,
+                                                             lib))
+        results[name] = result(err, ms, plain_ms, cost, lib_ms)
+        print(f"(k) {name}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
+              f"{lib_ms:.4f} ms library, bound "
+              f"{results[name]['bound_ms']:.4f} ms "
+              f"({results[name]['bound_by']}) [{gpu}]", flush=True)
+    del mx, pal, ka, kb, kc, fr, fi, op, sc, prod, segs
+    torch.cuda.empty_cache()
+    for n_window in RESIDENT_WINDOWS:
+        case = resident_case(dev, n_window, 82)
+        T, L = case["T"], case["L"]
+        for stokes in (False, True):
+            kern, plain_fn = resident_call(case, stokes), plain(
+                resident_call(case, stokes))
+            tag = f"resident N={n_window} {'stokes' if stokes else 'power'}"
+            (prof, cnt), ref = kern(), plain_fn()
+            err = check_resident(f"(k) {tag}", (prof, cnt), ref, L, gpu)
+            if int(cnt.sum()) != T // (n_window - 2 * RESIDENT_PAD) * n_window:
+                raise AssertionError(f"{tag}: counts do not sum to the rows")
+            ms, plain_ms = (cuda_ms(f, reps=10) for f in (kern, plain_fn))
+            # the function needs the block, both halos and the chirp once
+            # (the kernel reads the pads twice: not counted); per element
+            # of every window's rows two FFTs, the scale and chirp,
+            # detection
+            rows = T // (n_window - 2 * RESIDENT_PAD) * n_window
+            cost = ((*case["x"], *case["front"], *case["end"], *case["chirp"],
+                     case["fold"], case["scale"]),
+                    (prof, cnt), rows * L * (10 * np.log2(n_window) + 8
+                                             + (12 if stokes else 3)))
+            res = result(err, ms, plain_ms, cost)
+            print(f"(k) {tag}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
+                  f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}), "
+                  f"{T} rows [{gpu}]", flush=True)
+            if n_window == RESIDENT_WINDOWS[0] and not stokes:
+                results["resident"] = res
+        del case
+    return results
+
+
+def drive_search(dev, gpu):
+    """Phase (l): the acceleration search at full width on 'auto' (which
+    must be 'mx'), 'pallas' and 'xla', launches counted, held against each
+    other at the JAX package's engine bounds, the tone found by the map,
+    harmonic_sum and candidates; each engine timed against its plain
+    versions in turns; then the FFA on the card against the same call on
+    the CPU.  Returns the launch counts summed over the counted runs."""
+    from baseband_tasks_tpu_torch import FastFoldingSearch, units as u
+    from baseband_tasks_tpu_torch.ops import dedisperse as dd
+    x = search_series(dev)
+    searches = {e: accel_search(dev, e) for e in ("auto", "pallas", "xla")}
+    if not searches["auto"]._use_mx():
+        raise AssertionError("'auto' did not pick 'mx' on the card")
+    expect = {"auto": {"bank_power": 1}, "pallas": {"accel_corr": 1},
+              "xla": {}}
+    launches, maps = dict.fromkeys(dd.launch_counts, 0), {}
+    for engine, s in searches.items():
+        torch.cuda.synchronize()
+        dd.reset_launch_counts()
+        maps[engine] = s.search(x)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in dd.launch_counts.items() if v}
+        print(f"(l) search '{engine}': map {tuple(maps[engine].shape)}, "
+              f"launches {counts}", flush=True)
+        if counts != expect[engine]:
+            raise AssertionError(f"search '{engine}': launches {counts}")
+        for k, v in counts.items():
+            launches[k] += v
+    ref = maps["xla"]
+    for engine, tol in (("auto", 2e-4), ("pallas", 2e-3)):
+        got = maps[engine]
+        ratio = float(((got - ref).abs() / (tol + tol * ref.abs())).max())
+        print(f"(l) '{engine}' vs 'xla': {ratio:.3f} of the rtol/atol "
+              f"{tol:g} bound [{gpu}]", flush=True)
+        if ratio > 1.0 or got.shape != ref.shape or not torch.isfinite(
+                got).all():
+            raise AssertionError(f"search '{engine}' disagrees with 'xla'")
+    s = searches["auto"]
+    zmap = maps["auto"].cpu().numpy()
+    i, j = np.unravel_index(np.argmax(zmap[16:]), zmap[16:].shape)
+    hmap = s.harmonic_sum(zmap, n_harm=4)
+    hi, hj = np.unravel_index(np.argmax(hmap[16:]), hmap[16:].shape)
+    cands = s.candidates(x)
+    print(f"(l) tone at bin {TONE_F0}, z {TONE_Z}: map peak ({i + 16}, "
+          f"{s.z_values[j]}) power {zmap[i + 16, j]:.1f}; harmonic sum peak "
+          f"({hi + 16}, {s.z_values[hj]}); candidates "
+          f"{[(round(f.to_value(u.Hz) * SEARCH_N / 1e6), z, round(p, 1)) for f, z, p in cands[:3]]}",
+          flush=True)
+    found = cands and abs(cands[0][0].to_value(u.Hz) * SEARCH_N / 1e6
+                          - TONE_F0) <= 1
+    # a pure tone also lights the sums at its sub-harmonics f0/k, z/k
+    sub = any(abs((hi + 16) * k - TONE_F0) <= k
+              and abs(s.z_values[hj] * k - TONE_Z) <= 2 * k for k in (1, 2, 3, 4))
+    if (abs(i + 16 - TONE_F0) > 1 or abs(s.z_values[j] - TONE_Z) > 2
+            or not sub or not found or abs(cands[0][1] - TONE_Z) > 2):
+        raise AssertionError("the search did not recover the tone")
+    del maps, zmap, hmap
+    samples = SEARCH_N * len(s.zs)
+    for engine, srch in searches.items():
+        best = {}
+        for key in ("plain", "kernels", "kernels", "plain"):
+            fn = plain(srch.search) if key == "plain" else srch.search
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(x)
+            torch.cuda.synchronize()
+            best[key] = min(best.get(key, np.inf), time.perf_counter() - t0)
+        print(f"(l) search '{engine}': {1e3 * best['kernels']:.3f} ms kernels, "
+              f"{1e3 * best['plain']:.3f} ms plain, "
+              f"{samples / best['kernels']:.4e} sample-trials/s [{gpu}]",
+              flush=True)
+    del searches
+    torch.cuda.empty_cache()
+    ffa = FastFoldingSearch(FFA_BASE, SEARCH_N)
+    if ffa.device.type != dev.type or ffa.m != ffa_trials():
+        raise AssertionError("FastFoldingSearch: not on the card / m wrong")
+    snr = ffa.snr(x)
+    cpu = FastFoldingSearch(FFA_BASE, SEARCH_N, device="cpu").snr(x.cpu())
+    torch.cuda.synchronize()
+    worst = float(((snr.cpu() - cpu).abs() / (1e-3 + 1e-4 * cpu.abs())).max())
+    best = int(snr.argmax())
+    cands = ffa.candidates(x, threshold=20.0)
+    print(f"(l) FFA p {FFA_BASE}, {ffa.m} trials: best trial {best} "
+          f"(injected {FFA_TRUE}) S/N {float(snr[best]):.1f}; card vs CPU "
+          f"{worst:.3f} of the rtol 1e-4 / atol 1e-3 bound; "
+          f"{len(cands)} candidates over S/N 20", flush=True)
+    # trial s drifts the pulse s/(m-1) samples per turn; the ladder's
+    # rounded shifts may put the peak a few trials off (within the widest
+    # 16-bin boxcar over the series)
+    if (worst > 1.0 or abs(best - FFA_TRUE) > 8 or not cands
+            or cands[0]["trial"] != best):
+        raise AssertionError("FFA wrong on the card")
+    ms = cuda_ms(lambda: ffa.snr(x), reps=5)
+    fold_ms = cuda_ms(lambda: ffa.fold(x), reps=5)
+    print(f"(l) FFA on the card: snr {ms:.3f} ms, fold {fold_ms:.3f} ms "
+          f"[{gpu}]", flush=True)
+    return launches
+
+
+def drive_resident(dev, gpu):
+    """Phase (m): dedisperse_fold_resident at the flagship's width, both
+    engines, power and Stokes, against the plain versions on the card and
+    against the port's three-pass dedisperse_fold_split on the same block
+    (to 5e-4 of the peak, the JAX test's bound, on an FIR inside the pads,
+    where overlap-save is exact at both window sizes, and on the DM-500
+    chirp, whose tails past the pads the bound covers at this block's
+    ~4000 samples per bin), and timed against it in turns.  Returns the
+    resident launches."""
+    from baseband_tasks_tpu_torch.ops import dedisperse as dd
+    launches = 0
+    dm_big = chirp_planes(dev, SPLIT_N)
+    fir_big = chirp_planes(dev, SPLIT_N, fir_seed=3)
+    for n_window in RESIDENT_WINDOWS:
+        case = resident_case(dev, n_window, 90)
+        fir = resident_case(dev, n_window, 90, fir_seed=3)
+        for stokes in (False, True):
+            tag = f"N={n_window} {'stokes' if stokes else 'power'}"
+            for engine in ("stockham", "mxu"):
+                call = resident_call(case, stokes, engine)
+                torch.cuda.synchronize()
+                dd.reset_launch_counts()
+                got = call()
+                torch.cuda.synchronize()
+                counts = {k: v for k, v in dd.launch_counts.items() if v}
+                if counts != {"resident": 1}:
+                    raise AssertionError(f"resident {tag} {engine}: "
+                                         f"launches {counts}")
+                launches += 1
+                check_resident(f"(m) resident {tag} {engine}", got,
+                               plain(call)(), case["L"], gpu)
+                del got
+            n_phase = case["n_phase"]
+            for name, c, big in (("FIR", fir, fir_big),
+                                 ("DM-500", case, dm_big)):
+                (rp, rc), (sp, sc) = (resident_call(c, stokes)(),
+                                      split_call(c, stokes, big)())
+                torch.cuda.synchronize()
+                exact = torch.equal(rc[:n_phase], sc[:n_phase])
+                rel = compare((rp[:n_phase],), (sp[:n_phase],))[1]
+                print(f"(m) resident {tag} vs three-pass, {name} chirp: "
+                      f"counts {'exact' if exact else 'DIFFER'}, profile "
+                      f"{rel:.3e} of the peak [{gpu}]", flush=True)
+                if not exact or rel > 5e-4:
+                    raise AssertionError(f"resident {tag} disagrees with "
+                                         f"the three-pass chain")
+            calls = {"three-pass": split_call(case, stokes, dm_big),
+                     "resident": resident_call(case, stokes)}
+            best = {}
+            for key in ("three-pass", "resident", "resident", "three-pass"):
+                best[key] = min(best.get(key, np.inf),
+                                cuda_ms(calls[key], reps=10))
+            samples = case["T"] * case["L"]
+            print(f"(m) {tag}: resident {best['resident']:.4f} ms, "
+                  f"three-pass {best['three-pass']:.4f} ms on the same "
+                  f"{case['T']} x {case['L']} block: "
+                  f"{1e3 * samples / best['resident']:.4e} vs "
+                  f"{1e3 * samples / best['three-pass']:.4e} samples/s "
+                  f"[{gpu}]", flush=True)
+        del case, fir
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -1249,6 +1699,14 @@ def main():
     variants = drive_variants(dev, gpu)
     for k in VARIANTS:
         launches[k] = variants[k]
+    torch.cuda.empty_cache()
+    results.update(check_search_kernels(dev, gpu))
+    torch.cuda.empty_cache()
+    search = drive_search(dev, gpu)
+    for k in ("bank_power", "accel_corr"):
+        launches[k] = search[k]
+    torch.cuda.empty_cache()
+    launches["resident"] = drive_resident(dev, gpu)
     missing = [k for k in KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on a path: {missing}")

@@ -574,3 +574,127 @@ def test_pipeline_variants_on_card(dev, detect):
     kprof, kcnt = kern.step_fn()(xf, 300)
     assert torch.equal(cnt, kcnt)
     torch.testing.assert_close(kprof, prof, rtol=1e-3, atol=1e-2)
+
+
+# -- the search and resident slice ------------------------------------------
+
+def _peak_close(got, ref, tol=FFT_TOL):
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    assert err <= tol * float(ref.abs().max()), err
+
+
+@pytest.mark.parametrize("n_seg,L,n_cols", [(256, 64, 512), (512, 256, 1024),
+                                            (256, 512, 16896)])
+def test_bank_power(dev, n_seg, L, n_cols):
+    from baseband_tasks_tpu_torch.ops import accel_correlate as ac
+    fr, fi = randn(dev, (n_seg, L), 70)
+    ka, kb, kc = randn(dev, (L, n_cols), 71, count=3)
+    dd.reset_launch_counts()
+    got = ac.bank_matmul_power(fr, fi, ka, kb, kc)
+    assert dd.launch_counts["bank_power"] == 1
+    _peak_close(got, ac.bank_matmul_power_ref(fr, fi, ka, kb, kc))
+    with pytest.raises(ValueError, match="tiles"):
+        ac.bank_matmul_power(fr[:, :L - 4].contiguous(),
+                             fi[:, :L - 4].contiguous(), ka[4:], kb[4:],
+                             kc[4:], seg_tile=64, col_tile=128)
+
+
+@pytest.mark.parametrize("seg_len,valid", [(512, 384), (4096, 3840),
+                                           (2, 1)])
+def test_accel_corr(dev, seg_len, valid):
+    from baseband_tasks_tpu_torch.ops import accel_correlate as ac
+    sr, si = randn(dev, (5, seg_len), 72)
+    tr, ti = randn(dev, (seg_len, ac.LANES), 73)
+    segs = torch.complex(sr, si)
+    dd.reset_launch_counts()
+    got = ac.accel_correlate_bank(segs, tr, ti, valid=valid)
+    assert dd.launch_counts["accel_corr"] == 1
+    assert got.shape == (5, valid, ac.LANES)
+    _peak_close(got, ac.accel_correlate_bank_ref(segs, tr, ti, valid=valid))
+
+
+def test_accel_corr_many_segments(dev):
+    """More segments than a grid has rows (65535): the blocks walk them."""
+    from baseband_tasks_tpu_torch.ops import accel_correlate as ac
+    sr, si = randn(dev, (70001, 8), 74)
+    tr, ti = randn(dev, (8, ac.LANES), 75)
+    segs = torch.complex(sr, si)
+    dd.reset_launch_counts()
+    got = ac.accel_correlate_bank(segs, tr, ti, valid=5)
+    assert dd.launch_counts["accel_corr"] == 1
+    ref = ac.accel_correlate_bank_ref(segs, tr, ti, valid=5)
+    _peak_close(got, ref)
+    _peak_close(got[65535:], ref[65535:])
+
+
+@pytest.mark.parametrize("engine", ["mx", "pallas", "xla"])
+def test_accel_search_on_card(dev, engine):
+    """The search on the card (kernels) against the same search on the
+    CPU (plain versions), and 'auto' is 'mx' on the card."""
+    from baseband_tasks_tpu_torch.models import accelsearch as acc
+    u = pytest.importorskip("baseband_tasks_tpu_torch").units
+    n = 1 << 15
+    t = np.arange(n) / n
+    x = (np.cos(2 * np.pi * (3000 * t + 0.5 * 12.0 * t ** 2))
+         + np.random.default_rng(1).standard_normal(n) * 0.5).astype(
+             np.float32)
+    kw = dict(z_max=24, z_step=2, seg_len=1024, engine=engine)
+    card = acc.FourierDomainAccelSearch(n, 1 * u.kHz, **kw)
+    assert card.device.type == "cuda"
+    dd.reset_launch_counts()
+    got = card.search(x)
+    want = {"mx": "bank_power", "pallas": "accel_corr", "xla": None}[engine]
+    assert {k for k, v in dd.launch_counts.items() if v} == (
+        {want} if want else set())
+    ref = acc.FourierDomainAccelSearch(n, 1 * u.kHz, device="cpu",
+                                       **kw).search(x)
+    torch.testing.assert_close(got.cpu(), ref, rtol=2e-4, atol=2e-4)
+    assert acc.FourierDomainAccelSearch(n, 1 * u.kHz, z_max=24,
+                                        seg_len=1024)._use_mx()
+
+
+def test_sources_default_to_card(dev):
+    import baseband_tasks_tpu_torch as bt
+    ng = bt.NoiseGenerator(shape=(1000, 2), start_time=bt.Time.from_mjd(
+        58000.0), sample_rate=1 * bt.units.kHz, samples_per_frame=100, seed=1)
+    assert ng.device.type == "cuda" and ng.read(10).device.type == "cuda"
+
+
+@pytest.mark.parametrize("n_phase", [16, 32768])
+@pytest.mark.parametrize("stokes", [False, True])
+@pytest.mark.parametrize("n_window,L", [(2048, 128), (4096, 8), (512, 2)])
+def test_resident(dev, n_window, L, stokes, n_phase):
+    from baseband_tasks_tpu_torch.ops import dedisperse_resident as dr
+    ps = pe = n_window // 8
+    hop, n1, n2 = dr.resident_geometry(n_window, ps, pe)
+    T = 3 * hop
+    xr, xi = randn(dev, (T, L), 74)
+    fr, fi = randn(dev, (ps, L), 75)
+    er, ei = randn(dev, (pe, L), 76)
+    ph = torch.rand((n2, n1, L), generator=torch.Generator(
+        device=dev).manual_seed(77), device=dev)
+    cr, ci = torch.cos(2 * np.pi * ph), torch.sin(2 * np.pi * ph)
+    fold = torch.as_tensor(dd.fold_phase_vector(0.3, 1.0 / 97.3), device=dev)
+    scale = torch.tensor([0.5], device=dev)
+    kw = dict(n_window=n_window, n_phase=n_phase, pad_start=ps, pad_end=pe,
+              stokes=stokes)
+    args = (xr, xi, fr, fi, er, ei, cr, ci, fold, scale)
+    for engine in ("stockham", "mxu"):
+        dd.reset_launch_counts()
+        prof, cnt = dr.dedisperse_fold_resident(*args, engine=engine, **kw)
+        assert dd.launch_counts["resident"] == 1
+        with dd.plain_versions():
+            rprof, rcnt = dr.dedisperse_fold_resident(*args, engine=engine,
+                                                      **kw)
+        assert torch.equal(cnt, rcnt) and int(cnt.sum()) == 3 * n_window
+        _peak_close(prof, rprof)
+    with pytest.raises(ValueError, match="shared-memory"):
+        big = 1 << 15
+        hop, n1, n2 = dr.resident_geometry(big, 4096, 4096)
+        z = torch.zeros((hop, L), device=dev)
+        e = torch.zeros((4096, L), device=dev)
+        c = torch.zeros((n2, n1, L), device=dev)
+        dr.dedisperse_fold_resident(z, z, e, e, e, e, c, c, fold, scale,
+                                    n_window=big, n_phase=8, pad_start=4096,
+                                    pad_end=4096)

@@ -259,6 +259,27 @@ def test_empty_generator_device():
     assert pb.Square(sh).device == torch.device("cpu")
 
 
+def test_sources_default_to_the_card(monkeypatch):
+    """A source built without ``device`` is on the card when there is one
+    (construction allocates nothing, so this runs without a card), and
+    the tasks built on it follow; ``device="cpu"`` keeps it on the host."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    ng = pb.NoiseGenerator(shape=(1000, 2), start_time=PTime(START),
+                           sample_rate=1 * pu.kHz, samples_per_frame=100,
+                           seed=4)
+    assert ng.device == torch.device("cuda")
+    assert pb.Square(ng).device == torch.device("cuda")
+    gen = pb.StreamGenerator(lambda sh: np.zeros((100, 2)), (1000, 2),
+                             PTime(START), 1 * pu.kHz, samples_per_frame=100)
+    assert gen.device == torch.device("cuda")
+    cpu = pb.EmptyStreamGenerator((100, 3), PTime(START), 1 * pu.kHz,
+                                  device="cpu")
+    assert cpu.device == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert pb.EmptyStreamGenerator((100, 3), PTime(START),
+                                   1 * pu.kHz).device == torch.device("cpu")
+
+
 # -- the port's own noise ------------------------------------------------
 
 def noise(seed=4, dtype=np.complex64, shape=(4096, 4), spf=512):
