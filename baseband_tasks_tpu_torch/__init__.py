@@ -3,7 +3,8 @@
 The slices so far:
 
 - the flagship: coherent dedispersion -> detection -> pulse-phase fold
-  of channelized, plane-packed baseband (``WidebandPulsarPipeline``);
+  of channelized, plane-packed baseband (``WidebandPulsarPipeline``),
+  and its split ops' bf16-intermediate mode;
 - the lazy stream-task core (``Base``/``TaskBase``/``PaddedTaskBase``,
   generators, shaping, ``Channelize``/``Dechannelize``, ``Square``/
   ``Power``) on the three-engine ``fourier`` layer, with coherent
@@ -14,7 +15,9 @@ The slices so far:
 - the period searches: the Fourier-domain acceleration search
   (``FourierDomainAccelSearch``) and the fast folding algorithm
   (``FastFoldingSearch``), and the single-pass resident dedisperse ->
-  fold op (``ops.dedisperse_fold_resident``).
+  fold op (``ops.dedisperse_fold_resident``);
+- integration over time or pulse phase (``Integrate``, ``Fold``,
+  ``PulseStack``), eager and absorbed into compiled chains.
 
 Frames are torch tensors on the stream's device (the card when there is
 one, unless a source is given another).  On a CUDA device the
@@ -33,6 +36,7 @@ from .fourier import fft_maker
 from .functions import Square, Power
 from .generators import (StreamGenerator, EmptyStreamGenerator, Noise,
                          NoiseGenerator)
+from .integration import Fold, Integrate, PulseStack, Stack
 from .models import (CompiledPipeline, FastFoldingSearch,
                      FourierDomainAccelSearch, WidebandPulsarPipeline)
 from .pfb import (InversePolyphaseFilterBank, PolyphaseFilterBank,
@@ -52,4 +56,5 @@ __all__ = ["Base", "BaseTaskBase", "TaskBase", "PaddedTaskBase", "Task",
            "PolyphaseFilterBank", "PolyphaseFilterBankSamples",
            "InversePolyphaseFilterBank", "sinc_hamming", "Time", "units",
            "Polyco", "PolycoPhase", "FourierDomainAccelSearch",
-           "FastFoldingSearch"]
+           "FastFoldingSearch", "Integrate", "Fold", "PulseStack",
+           "Stack"]

@@ -291,6 +291,9 @@ class Base:
                                device=self._device)
         if len(pieces) == 1:
             return pieces[0]
+        if not torch.is_tensor(pieces[0]):
+            # frames of another type join themselves (integration.Integrated)
+            return type(pieces[0]).cat(pieces)
         return torch.cat(pieces, dim=0)
 
     def _get_frame_cached(self, frame_index):

@@ -33,13 +33,98 @@
 // bytes are in flight to cover device-memory latency.  The FFT is the
 // shared-memory radix-2 of fft.cuh, three stages per pass; wgmma, TMA
 // loads and fusing the passes are later work.
+//
+// bf16 intermediates (the JAX module's inter_dtype='bfloat16', whose K1
+// stores y in the output's dtype, K2 casts y and the chirp to f32 on load
+// and stores z in y's dtype, in place, and K3 casts z on load): each pass
+// is templated on the storage type T of the planes between the passes,
+// float or __nv_bfloat16, and K2 also on the chirp's type C.  Arithmetic
+// stays float32 everywhere: loads are widened where they enter shared
+// memory (Raw), stores round to nearest even with __floats2bfloat162_rn
+// or __float2bfloat16_rn (JAX's astype).  Traffic per
+// sample falls from 48 to 32 bytes over the three passes (28 with a bf16
+// chirp).  The lane tile is the float32 one (up to 16 lanes; the column
+// in shared memory stays float2); what changes is the global access: a
+// thread moves V = 2 neighbouring bf16 lanes as one __nv_bfloat162, the 4
+// bytes a float32 thread moves as one lane, so a warp still reads whole
+// 32-byte sectors per row of a 16-lane tile.  Wider 16-byte bf16 vectors
+// (8 lanes a thread) would make each thread write 64 contiguous bytes of
+// the float2 column: 8-way shared-memory bank conflicts on every store, for
+// no fewer bytes from device memory.  Tiles of one lane (odd L) take V = 1.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "fft.cuh"
 
 namespace bbt {
+
+template <typename T>
+constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// Store lanes [a, a+V) of plane p, rounded to T (nearest even for bf16).
+template <int V, typename T>
+__device__ __forceinline__ void store_lanes(T* __restrict__ p, long a,
+                                            const float (&v)[V]) {
+  if constexpr (!kBf16<T>) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) p[a + i] = v[i];
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<__nv_bfloat162*>(p + a) = __floats2bfloat162_rn(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) p[a + i] = __float2bfloat16_rn(v[i]);
+  }
+}
+
+// V lanes of an (re, im) plane pair as stored: what a batched load holds
+// in registers until its store widens it, so kBatch bf16 lane pairs in
+// flight take the registers of kBatch float32 lanes (widened at load
+// time they took twice as many: 107 against 80 registers in K3, two
+// blocks per SM instead of three).
+template <int V, typename T>
+struct Raw {
+  T re[V], im[V];
+  __device__ __forceinline__ float2 at(int i) const {
+    return make_float2(to_float(re[i]), to_float(im[i]));
+  }
+};
+
+template <>
+struct Raw<2, __nv_bfloat16> {
+  __nv_bfloat162 re, im;
+  __device__ __forceinline__ float2 at(int i) const {
+    return i ? make_float2(__high2float(re), __high2float(im))
+             : make_float2(__low2float(re), __low2float(im));
+  }
+};
+
+// V lanes of the (re, im) plane pair at offset a.
+template <int V, typename T>
+__device__ __forceinline__ Raw<V, T> load_raw(const T* __restrict__ re,
+                                              const T* __restrict__ im,
+                                              long a) {
+  Raw<V, T> w;
+  if constexpr (kBf16<T> && V == 2) {
+    w.re = *reinterpret_cast<const __nv_bfloat162*>(re + a);
+    w.im = *reinterpret_cast<const __nv_bfloat162*>(im + a);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      w.re[i] = re[a + i];
+      w.im[i] = im[a + i];
+    }
+  }
+  return w;
+}
 
 __device__ __forceinline__ float decode_field(unsigned f, int bits,
                                               float offset, float4 lv) {
@@ -73,15 +158,18 @@ __device__ __forceinline__ float decode_field(unsigned f, int bits,
 // and all its fields are decoded together.  Then scale, FFT over c, the
 // W_N^{-c b} twiddle, and the store into row b of the d-major output.
 // Bound: bytes (1/4 of a float plane's read for 8-bit input, plus the full
-// float32 write); one read and one write per element.
-template <bool PACKED>
+// write of y: float32, or bf16 with T = __nv_bfloat16, the bf16 K1 of
+// `_stage_a_stream2(_packed)`'s out_dtype, :587/:787); one read and one
+// write per element.  The twiddle depends on (k, b) only, so each
+// thread's V lanes share one sincospif.
+template <bool PACKED, typename T, int V>
 __global__ void __launch_bounds__(kThreads)
 k1_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
           const unsigned* __restrict__ xpr, const unsigned* __restrict__ xpi,
           const float* __restrict__ fr, const float* __restrict__ fi,
           const float* __restrict__ er, const float* __restrict__ ei,
           const float* __restrict__ scale, float scale_value,
-          int edge_scale, float* __restrict__ yr, float* __restrict__ yi,
+          int edge_scale, T* __restrict__ yr, T* __restrict__ yi,
           int log_n1, int n2, int L, int log_tl, int kf, int ke, int bits,
           float offset, float4 lv) {
   extern __shared__ float2 smem[];
@@ -136,16 +224,22 @@ k1_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   fft_dif<false>(x, tw, log_n1, log_tl);
 
   const float nf = static_cast<float>(n1) * static_cast<float>(n2);
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int lane = idx & (tl - 1);
-    const int k = idx >> log_tl;
-    const float2 v = x[(bitrev(k, log_n1) << log_tl) + lane];
+  for (int e = threadIdx.x * V; e < total; e += blockDim.x * V) {
+    const int lane = e & (tl - 1);
+    const int k = e >> log_tl;
+    const float2* v = x + (bitrev(k, log_n1) << log_tl) + lane;
     float sn, cs;
     sincospif(-2.0f * static_cast<float>(k * b) / nf, &sn, &cs);
-    const float2 out = cmul(v, make_float2(cs, sn));
+    float re[V], im[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const float2 out = cmul(v[i], make_float2(cs, sn));
+      re[i] = out.x;
+      im[i] = out.y;
+    }
     const long o = (static_cast<long>(b) * n1 + k) * L + l0 + lane;
-    yr[o] = out.x;
-    yi[o] = out.y;
+    store_lanes<V>(yr, o, re);
+    store_lanes<V>(yi, o, im);
   }
 }
 
@@ -162,11 +256,13 @@ k1_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 // plane in cycles whose cos/sin the block computes with sincospif (exact
 // argument scaling by pi), reading one chirp plane instead of two.
 // Bound: bytes (read two planes and two chirp planes, write two planes;
-// THETA: one chirp plane, five plane passes instead of six).
-template <bool THETA>
+// THETA: one chirp plane, five plane passes instead of six).  With T =
+// __nv_bfloat16 the planes are bf16 (`_k2_body`'s casts, :267-270, and its
+// stores in y's dtype, :282-283), and the chirp C float32 or bf16.
+template <bool THETA, typename T, typename C, int V>
 __global__ void __launch_bounds__(kThreads)
-k2_kernel(float* __restrict__ yr, float* __restrict__ yi,
-          const float* __restrict__ csr, const float* __restrict__ csi,
+k2_kernel(T* __restrict__ yr, T* __restrict__ yi,
+          const C* __restrict__ csr, const C* __restrict__ csi,
           int log_n1, int log_n2, int L, int log_tl) {
   extern __shared__ float2 smem[];
   const int n1 = 1 << log_n1;
@@ -183,15 +279,20 @@ k2_kernel(float* __restrict__ yr, float* __restrict__ yi,
   auto at = [&](int row, int idx) {
     return (static_cast<long>(row) * n1 + c) * L + l0 + (idx & (tl - 1));
   };
-  batched(total,
-          [&](int idx) {
-            const long a = at(idx >> log_tl, idx);
-            return make_float2(yr[a], yi[a]);
+  // element e of the column, V lanes at a time (e a multiple of V)
+  batched(total / V,
+          [&](int g) {
+            const int e = g * V;
+            return load_raw<V>(yr, yi, at(e >> log_tl, e));
           },
-          [&](int idx, float2 v) { x[idx] = v; });
+          [&](int g, const Raw<V, T>& w) {
+#pragma unroll
+            for (int i = 0; i < V; ++i) x[g * V + i] = w.at(i);
+          });
   __syncthreads();
   fft_dif<false>(x, tw, log_n2, log_tl);
   if constexpr (THETA) {
+    static_assert(V == 1 && !kBf16<T>, "k2_theta takes float32 planes");
     batched(total,
             [&](int idx) { return csr[at(bitrev(idx >> log_tl, log_n2), idx)]; },
             [&](int idx, float th) {
@@ -200,29 +301,38 @@ k2_kernel(float* __restrict__ yr, float* __restrict__ yi,
               x[idx] = cmul(x[idx], make_float2(cs, sn));
             });
   } else {
-    batched(total,
-            [&](int idx) {
-              const long a = at(bitrev(idx >> log_tl, log_n2), idx);
-              return make_float2(csr[a], csi[a]);
+    batched(total / V,
+            [&](int g) {
+              const int e = g * V;
+              return load_raw<V>(csr, csi, at(bitrev(e >> log_tl, log_n2), e));
             },
-            [&](int idx, float2 w) { x[idx] = cmul(x[idx], w); });
+            [&](int g, const Raw<V, C>& w) {
+#pragma unroll
+              for (int i = 0; i < V; ++i) x[g * V + i] = cmul(x[g * V + i], w.at(i));
+            });
   }
   __syncthreads();
   fft_dit<true>(x, tw, log_n2, log_tl);
 
   const float inv_n2 = 1.0f / static_cast<float>(n2);
   const float nf = static_cast<float>(n1) * static_cast<float>(n2);
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int lane = idx & (tl - 1);
-    const int b = idx >> log_tl;
-    const float2 v = x[idx];
+  for (int e = threadIdx.x * V; e < total; e += blockDim.x * V) {
+    const int lane = e & (tl - 1);
+    const int b = e >> log_tl;
     float sn, cs;
     sincospif(2.0f * static_cast<float>(c * b) / nf, &sn, &cs);
-    const float2 out =
-        cmul(make_float2(v.x * inv_n2, v.y * inv_n2), make_float2(cs, sn));
+    float re[V], im[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const float2 v = x[e + i];
+      const float2 out =
+          cmul(make_float2(v.x * inv_n2, v.y * inv_n2), make_float2(cs, sn));
+      re[i] = out.x;
+      im[i] = out.y;
+    }
     const long o = at(b, lane);
-    yr[o] = out.x;
-    yi[o] = out.y;
+    store_lanes<V>(yr, o, re);
+    store_lanes<V>(yi, o, im);
   }
 }
 
@@ -253,11 +363,12 @@ k2_kernel(float* __restrict__ yr, float* __restrict__ yi,
 // the lane-tile-0 blocks only (the bin depends on t alone).  When the
 // partials do not fit shared memory (huge n_phase) every row goes to
 // global atomics directly.
-// Bound: bytes (read two planes, 1/tl more with STOKES); nothing but the
-// profile is written.
-template <bool STOKES>
+// Bound: bytes (read two planes, 1/tl more with STOKES: float32, or bf16
+// with T = __nv_bfloat16, widened on load as `_k3_fold_body` casts,
+// :412-413); nothing but the profile is written.
+template <bool STOKES, typename T, int V>
 __global__ void __launch_bounds__(kThreads)
-k3_fold_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
+k3_fold_kernel(const T* __restrict__ zr, const T* __restrict__ zi,
                const int* __restrict__ fold, float* __restrict__ prof,
                unsigned* __restrict__ cnt, int log_n1, int log_n2, int L,
                int log_tl, int n_phase, int pad_start, int n_valid,
@@ -295,20 +406,25 @@ k3_fold_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
   };
 
   for (int b = blockIdx.y; b < n2; b += gridDim.y) {
-    batched(total,
-            [&](int idx) {
-              const long a = (static_cast<long>(b) * n1 + (idx >> log_tl)) * L +
-                             l0 + (idx & (tl - 1));
-              return make_float2(zr[a], zi[a]);
+    batched(total / V,
+            [&](int g) {
+              const int e = g * V;
+              return load_raw<V>(
+                  zr, zi,
+                  (static_cast<long>(b) * n1 + (e >> log_tl)) * L + l0 +
+                      (e & (tl - 1)));
             },
-            [&](int idx, float2 v) { x[idx] = v; });
+            [&](int g, const Raw<V, T>& w) {
+#pragma unroll
+              for (int i = 0; i < V; ++i) x[g * V + i] = w.at(i);
+            });
     if constexpr (STOKES) {
       batched(n1,
               [&](int r) {
-                const long a = (static_cast<long>(b) * n1 + r) * L + lp;
-                return make_float2(zr[a], zi[a]);
+                return load_raw<1>(zr, zi,
+                                   (static_cast<long>(b) * n1 + r) * L + lp);
               },
-              [&](int r, float2 v) { xp[r] = v; });
+              [&](int r, const Raw<1, T>& w) { xp[r] = w.at(0); });
     }
     __syncthreads();
     fft_dif<true>(x, tw, log_n1, log_tl);
@@ -354,62 +470,182 @@ k3_fold_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
 }  // namespace bbt
 
 using bbt::kThreads;
+using bf16 = __nv_bfloat16;
 
-// --- C entry points: each returns the cudaGetLastError() of its launch. ---
+namespace {
 
-extern "C" int bbt_k1_packed(const void* xpr, const void* xpi, const float* fr,
-                             const float* fi, const float* er, const float* ei,
-                             const float* scale, float* yr, float* yi, int n1,
-                             int n2, int L, int kf, int ke, int bits,
-                             float offset, float lv0, float lv1, float lv2,
-                             float lv3, int device, void* stream) {
+// Run go(V) with the lanes per global access for planes of type T at a
+// tile of 2^log_tl lanes: V = 2 (one __nv_bfloat162) for bf16 tiles of
+// two or more lanes, else 1.
+template <typename T, typename Go>
+cudaError_t by_lanes(int log_tl, Go go) {
+  if constexpr (bbt::kBf16<T>) {
+    if (log_tl >= 1) return go(std::integral_constant<int, 2>{});
+  }
+  return go(std::integral_constant<int, 1>{});
+}
+
+template <bool PACKED, typename T>
+int launch_k1(const float* xr, const float* xi, const void* xpr,
+              const void* xpi, const float* fr, const float* fi,
+              const float* er, const float* ei, const float* scale,
+              float scale_value, int edge_scale, T* yr, T* yi, int n1, int n2,
+              int L, int kf, int ke, int bits, float offset, float4 lv,
+              int device, void* stream) {
   const int log_tl = bbt::choose_log_tl(n1, L, 0, 0);
   if (log_tl < 0) return cudaErrorInvalidValue;
   const size_t smem = bbt::column_smem(n1, log_tl);
-  cudaError_t err = bbt::prepare(bbt::k1_kernel<true>, smem, device);
-  if (err != cudaSuccess) return err;
-  bbt::k1_kernel<true><<<dim3(L >> log_tl, n2), kThreads, smem,
-           static_cast<cudaStream_t>(stream)>>>(
-      nullptr, nullptr, static_cast<const unsigned*>(xpr),
-      static_cast<const unsigned*>(xpi), fr, fi, er, ei, scale, 1.0f, 1, yr,
-      yi, bbt::log2i(n1), n2, L, log_tl, kf, ke, bits, offset,
-      make_float4(lv0, lv1, lv2, lv3));
-  return cudaGetLastError();
+  return by_lanes<T>(log_tl, [&](auto v) -> cudaError_t {
+    auto kernel = bbt::k1_kernel<PACKED, T, decltype(v)::value>;
+    cudaError_t err = bbt::prepare(kernel, smem, device);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(L >> log_tl, n2), kThreads, smem,
+             static_cast<cudaStream_t>(stream)>>>(
+        xr, xi, static_cast<const unsigned*>(xpr),
+        static_cast<const unsigned*>(xpi), fr, fi, er, ei, scale, scale_value,
+        edge_scale, yr, yi, bbt::log2i(n1), n2, L, log_tl, kf, ke, bits,
+        offset, lv);
+    return cudaGetLastError();
+  });
+}
+
+constexpr float4 kNoLevels = {0.f, 0.f, 0.f, 0.f};
+
+template <typename T>
+int k1_packed(const void* xpr, const void* xpi, const float* fr,
+              const float* fi, const float* er, const float* ei,
+              const float* scale, void* yr, void* yi, int n1, int n2, int L,
+              int kf, int ke, int bits, float offset, float lv0, float lv1,
+              float lv2, float lv3, int device, void* stream) {
+  return launch_k1<true, T>(nullptr, nullptr, xpr, xpi, fr, fi, er, ei, scale,
+                            1.0f, 1, static_cast<T*>(yr), static_cast<T*>(yi),
+                            n1, n2, L, kf, ke, bits, offset,
+                            make_float4(lv0, lv1, lv2, lv3), device, stream);
+}
+
+template <typename T>
+int k1_float(const float* xr, const float* xi, const float* fr,
+             const float* fi, const float* er, const float* ei,
+             const float* scale, void* yr, void* yi, int n1, int n2, int L,
+             int kf, int ke, int device, void* stream) {
+  return launch_k1<false, T>(xr, xi, nullptr, nullptr, fr, fi, er, ei, scale,
+                             1.0f, 1, static_cast<T*>(yr), static_cast<T*>(yi),
+                             n1, n2, L, kf, ke, 32, 0.0f, kNoLevels, device,
+                             stream);
+}
+
+template <bool THETA, typename T, typename C>
+int launch_k2(void* yr, void* yi, const void* c0, const void* c1, int n1,
+              int n2, int L, int device, void* stream) {
+  const int log_tl = bbt::choose_log_tl(n2, L, 0, 0);
+  if (log_tl < 0) return cudaErrorInvalidValue;
+  const size_t smem = bbt::column_smem(n2, log_tl);
+  return by_lanes<T>(log_tl, [&](auto v) -> cudaError_t {
+    auto kernel = bbt::k2_kernel<THETA, T, C, decltype(v)::value>;
+    cudaError_t err = bbt::prepare(kernel, smem, device);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(L >> log_tl, n1), kThreads, smem,
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<T*>(yr), static_cast<T*>(yi), static_cast<const C*>(c0),
+        static_cast<const C*>(c1), bbt::log2i(n1), bbt::log2i(n2), L, log_tl);
+    return cudaGetLastError();
+  });
+}
+
+template <bool STOKES, typename T>
+int launch_k3_fold(const void* zr, const void* zi, const int* fold,
+                   float* prof, unsigned* cnt, int n1, int n2, int L,
+                   int n_phase, int pad_start, int n_valid, int device,
+                   void* stream) {
+  constexpr int W = STOKES ? 3 : 1;
+  const int partner = STOKES ? n1 * 8 : 0;   // the partner lane's column
+  // shared partials: W (n_phase+1) floats per lane plus (n_phase+1) counts
+  int log_tl = bbt::choose_log_tl(n1, L, (n_phase + 1) * 4 * W,
+                                  (n_phase + 1) * 4 + partner);
+  int smem_acc = 1;
+  if (log_tl < 0) {
+    log_tl = bbt::choose_log_tl(n1, L, 0, partner);
+    smem_acc = 0;
+  }
+  if (log_tl < 0) return cudaErrorInvalidValue;
+  size_t smem = bbt::column_smem(n1, log_tl) + partner;
+  if (smem_acc)
+    smem += (static_cast<size_t>(n_phase + 1) * W << log_tl) * 4 +
+            (n_phase + 1) * 4;
+  // ~1024 blocks in all; each walks n2 / groups columns
+  const int lane_tiles = L >> log_tl;
+  int groups = 1024 / lane_tiles;
+  if (groups < 1) groups = 1;
+  if (groups > n2) groups = n2;
+  return by_lanes<T>(log_tl, [&](auto v) -> cudaError_t {
+    auto kernel = bbt::k3_fold_kernel<STOKES, T, decltype(v)::value>;
+    cudaError_t err = bbt::prepare(kernel, smem, device);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(lane_tiles, groups), kThreads, smem,
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(zr), static_cast<const T*>(zi), fold, prof, cnt,
+        bbt::log2i(n1), bbt::log2i(n2), L, log_tl, n_phase, pad_start,
+        n_valid, smem_acc);
+    return cudaGetLastError();
+  });
+}
+
+}  // namespace
+
+// --- C entry points: each returns the cudaGetLastError() of its launch. ---
+// The `_bf16` entries take and give bf16 intermediate planes (y, z).
+
+extern "C" int bbt_k1_packed(const void* xpr, const void* xpi, const float* fr,
+                             const float* fi, const float* er, const float* ei,
+                             const float* scale, void* yr, void* yi, int n1,
+                             int n2, int L, int kf, int ke, int bits,
+                             float offset, float lv0, float lv1, float lv2,
+                             float lv3, int device, void* stream) {
+  return k1_packed<float>(xpr, xpi, fr, fi, er, ei, scale, yr, yi, n1, n2, L,
+                          kf, ke, bits, offset, lv0, lv1, lv2, lv3, device,
+                          stream);
+}
+
+extern "C" int bbt_k1_packed_bf16(const void* xpr, const void* xpi,
+                                  const float* fr, const float* fi,
+                                  const float* er, const float* ei,
+                                  const float* scale, void* yr, void* yi,
+                                  int n1, int n2, int L, int kf, int ke,
+                                  int bits, float offset, float lv0, float lv1,
+                                  float lv2, float lv3, int device,
+                                  void* stream) {
+  return k1_packed<bf16>(xpr, xpi, fr, fi, er, ei, scale, yr, yi, n1, n2, L,
+                         kf, ke, bits, offset, lv0, lv1, lv2, lv3, device,
+                         stream);
 }
 
 extern "C" int bbt_k1_float(const float* xr, const float* xi, const float* fr,
                             const float* fi, const float* er, const float* ei,
-                            const float* scale, float* yr, float* yi, int n1,
+                            const float* scale, void* yr, void* yi, int n1,
                             int n2, int L, int kf, int ke, int device,
                             void* stream) {
-  const int log_tl = bbt::choose_log_tl(n1, L, 0, 0);
-  if (log_tl < 0) return cudaErrorInvalidValue;
-  const size_t smem = bbt::column_smem(n1, log_tl);
-  cudaError_t err = bbt::prepare(bbt::k1_kernel<false>, smem, device);
-  if (err != cudaSuccess) return err;
-  bbt::k1_kernel<false><<<dim3(L >> log_tl, n2), kThreads, smem,
-           static_cast<cudaStream_t>(stream)>>>(
-      xr, xi, nullptr, nullptr, fr, fi, er, ei, scale, 1.0f, 1, yr, yi,
-      bbt::log2i(n1), n2, L, log_tl, kf, ke, 32, 0.0f,
-      make_float4(0.f, 0.f, 0.f, 0.f));
-  return cudaGetLastError();
+  return k1_float<float>(xr, xi, fr, fi, er, ei, scale, yr, yi, n1, n2, L, kf,
+                         ke, device, stream);
+}
+
+extern "C" int bbt_k1_float_bf16(const float* xr, const float* xi,
+                                 const float* fr, const float* fi,
+                                 const float* er, const float* ei,
+                                 const float* scale, void* yr, void* yi,
+                                 int n1, int n2, int L, int kf, int ke,
+                                 int device, void* stream) {
+  return k1_float<bf16>(xr, xi, fr, fi, er, ei, scale, yr, yi, n1, n2, L, kf,
+                        ke, device, stream);
 }
 
 // k1_window: stage A of a whole (N, L) window, no edges, no scale.
 extern "C" int bbt_k1_window(const float* xr, const float* xi, float* yr,
                              float* yi, int n1, int n2, int L, int device,
                              void* stream) {
-  const int log_tl = bbt::choose_log_tl(n1, L, 0, 0);
-  if (log_tl < 0) return cudaErrorInvalidValue;
-  const size_t smem = bbt::column_smem(n1, log_tl);
-  cudaError_t err = bbt::prepare(bbt::k1_kernel<false>, smem, device);
-  if (err != cudaSuccess) return err;
-  bbt::k1_kernel<false><<<dim3(L >> log_tl, n2), kThreads, smem,
-           static_cast<cudaStream_t>(stream)>>>(
-      xr, xi, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-      1.0f, 1, yr, yi, bbt::log2i(n1), n2, L, log_tl, 0, 0, 32, 0.0f,
-      make_float4(0.f, 0.f, 0.f, 0.f));
-  return cudaGetLastError();
+  return launch_k1<false, float>(xr, xi, nullptr, nullptr, nullptr, nullptr,
+                                 nullptr, nullptr, nullptr, 1.0f, 1, yr, yi,
+                                 n1, n2, L, 0, 0, 32, 0.0f, kNoLevels, device,
+                                 stream);
 }
 
 // k1_stream: stage A of the streaming window [carry | block], the carry
@@ -419,17 +655,11 @@ extern "C" int bbt_k1_stream(const float* cr, const float* ci, const float* xr,
                              const float* xi, const float* scale,
                              float scale_value, float* yr, float* yi, int n1,
                              int n2, int L, int kc, int device, void* stream) {
-  const int log_tl = bbt::choose_log_tl(n1, L, 0, 0);
-  if (log_tl < 0 || kc < 0 || kc >= n1) return cudaErrorInvalidValue;
-  const size_t smem = bbt::column_smem(n1, log_tl);
-  cudaError_t err = bbt::prepare(bbt::k1_kernel<false>, smem, device);
-  if (err != cudaSuccess) return err;
-  bbt::k1_kernel<false><<<dim3(L >> log_tl, n2), kThreads, smem,
-           static_cast<cudaStream_t>(stream)>>>(
-      xr, xi, nullptr, nullptr, cr, ci, nullptr, nullptr, scale, scale_value,
-      0, yr, yi, bbt::log2i(n1), n2, L, log_tl, kc, 0, 32, 0.0f,
-      make_float4(0.f, 0.f, 0.f, 0.f));
-  return cudaGetLastError();
+  if (kc < 0 || kc >= n1) return cudaErrorInvalidValue;
+  return launch_k1<false, float>(xr, xi, nullptr, nullptr, cr, ci, nullptr,
+                                 nullptr, scale, scale_value, 0, yr, yi, n1,
+                                 n2, L, kc, 0, 32, 0.0f, kNoLevels, device,
+                                 stream);
 }
 
 // k1_planes: stage A of a planes-first (2, N, L) window, the real plane
@@ -453,83 +683,71 @@ extern "C" int bbt_k1_stream_planes(const float* x2, const float* front,
                       device, stream);
 }
 
-namespace {
-
-template <bool THETA>
-int launch_k2(float* yr, float* yi, const float* c0, const float* c1, int n1,
-              int n2, int L, int device, void* stream) {
-  const int log_tl = bbt::choose_log_tl(n2, L, 0, 0);
-  if (log_tl < 0) return cudaErrorInvalidValue;
-  const size_t smem = bbt::column_smem(n2, log_tl);
-  cudaError_t err = bbt::prepare(bbt::k2_kernel<THETA>, smem, device);
-  if (err != cudaSuccess) return err;
-  bbt::k2_kernel<THETA><<<dim3(L >> log_tl, n1), kThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      yr, yi, c0, c1, bbt::log2i(n1), bbt::log2i(n2), L, log_tl);
-  return cudaGetLastError();
-}
-
-template <bool STOKES>
-int launch_k3_fold(const float* zr, const float* zi, const int* fold,
-                   float* prof, unsigned* cnt, int n1, int n2, int L,
-                   int n_phase, int pad_start, int n_valid, int device,
-                   void* stream) {
-  constexpr int W = STOKES ? 3 : 1;
-  const int partner = STOKES ? n1 * 8 : 0;   // the partner lane's column
-  // shared partials: W (n_phase+1) floats per lane plus (n_phase+1) counts
-  int log_tl = bbt::choose_log_tl(n1, L, (n_phase + 1) * 4 * W,
-                                  (n_phase + 1) * 4 + partner);
-  int smem_acc = 1;
-  if (log_tl < 0) {
-    log_tl = bbt::choose_log_tl(n1, L, 0, partner);
-    smem_acc = 0;
-  }
-  if (log_tl < 0) return cudaErrorInvalidValue;
-  size_t smem = bbt::column_smem(n1, log_tl) + partner;
-  if (smem_acc)
-    smem += (static_cast<size_t>(n_phase + 1) * W << log_tl) * 4 +
-            (n_phase + 1) * 4;
-  cudaError_t err = bbt::prepare(bbt::k3_fold_kernel<STOKES>, smem, device);
-  if (err != cudaSuccess) return err;
-  // ~1024 blocks in all; each walks n2 / groups columns
-  const int lane_tiles = L >> log_tl;
-  int groups = 1024 / lane_tiles;
-  if (groups < 1) groups = 1;
-  if (groups > n2) groups = n2;
-  bbt::k3_fold_kernel<STOKES><<<dim3(lane_tiles, groups), kThreads, smem,
-                                static_cast<cudaStream_t>(stream)>>>(
-      zr, zi, fold, prof, cnt, bbt::log2i(n1), bbt::log2i(n2), L, log_tl,
-      n_phase, pad_start, n_valid, smem_acc);
-  return cudaGetLastError();
-}
-
-}  // namespace
-
-extern "C" int bbt_k2(float* yr, float* yi, const float* csr, const float* csi,
+extern "C" int bbt_k2(void* yr, void* yi, const void* csr, const void* csi,
                       int n1, int n2, int L, int device, void* stream) {
-  return launch_k2<false>(yr, yi, csr, csi, n1, n2, L, device, stream);
+  return launch_k2<false, float, float>(yr, yi, csr, csi, n1, n2, L, device,
+                                        stream);
+}
+
+// k2_bf16: K2 on bf16 planes with a float32 chirp; k2_bf16_chirp with a
+// bf16 chirp.
+extern "C" int bbt_k2_bf16(void* yr, void* yi, const void* csr,
+                           const void* csi, int n1, int n2, int L, int device,
+                           void* stream) {
+  return launch_k2<false, bf16, float>(yr, yi, csr, csi, n1, n2, L, device,
+                                       stream);
+}
+
+extern "C" int bbt_k2_bf16_chirp(void* yr, void* yi, const void* csr,
+                                 const void* csi, int n1, int n2, int L,
+                                 int device, void* stream) {
+  return launch_k2<false, bf16, bf16>(yr, yi, csr, csi, n1, n2, L, device,
+                                      stream);
 }
 
 // k2_theta: K2 with the chirp as one phase plane (cycles).
-extern "C" int bbt_k2_theta(float* yr, float* yi, const float* theta, int n1,
+extern "C" int bbt_k2_theta(void* yr, void* yi, const void* theta, int n1,
                             int n2, int L, int device, void* stream) {
-  return launch_k2<true>(yr, yi, theta, nullptr, n1, n2, L, device, stream);
+  return launch_k2<true, float, float>(yr, yi, theta, nullptr, n1, n2, L,
+                                       device, stream);
 }
 
-extern "C" int bbt_k3_fold(const float* zr, const float* zi, const int* fold,
+extern "C" int bbt_k3_fold(const void* zr, const void* zi, const int* fold,
                            float* prof, unsigned* cnt, int n1, int n2, int L,
                            int n_phase, int pad_start, int n_valid, int device,
                            void* stream) {
-  return launch_k3_fold<false>(zr, zi, fold, prof, cnt, n1, n2, L, n_phase,
-                               pad_start, n_valid, device, stream);
+  return launch_k3_fold<false, float>(zr, zi, fold, prof, cnt, n1, n2, L,
+                                      n_phase, pad_start, n_valid, device,
+                                      stream);
 }
 
 // k3_fold_stokes: K3 folding the (n_phase+1, 3L) full-Stokes profile.
-extern "C" int bbt_k3_fold_stokes(const float* zr, const float* zi,
+extern "C" int bbt_k3_fold_stokes(const void* zr, const void* zi,
                                   const int* fold, float* prof, unsigned* cnt,
                                   int n1, int n2, int L, int n_phase,
                                   int pad_start, int n_valid, int device,
                                   void* stream) {
-  return launch_k3_fold<true>(zr, zi, fold, prof, cnt, n1, n2, L, n_phase,
-                              pad_start, n_valid, device, stream);
+  return launch_k3_fold<true, float>(zr, zi, fold, prof, cnt, n1, n2, L,
+                                     n_phase, pad_start, n_valid, device,
+                                     stream);
+}
+
+extern "C" int bbt_k3_fold_bf16(const void* zr, const void* zi,
+                                const int* fold, float* prof, unsigned* cnt,
+                                int n1, int n2, int L, int n_phase,
+                                int pad_start, int n_valid, int device,
+                                void* stream) {
+  return launch_k3_fold<false, bf16>(zr, zi, fold, prof, cnt, n1, n2, L,
+                                     n_phase, pad_start, n_valid, device,
+                                     stream);
+}
+
+extern "C" int bbt_k3_fold_stokes_bf16(const void* zr, const void* zi,
+                                       const int* fold, float* prof,
+                                       unsigned* cnt, int n1, int n2, int L,
+                                       int n_phase, int pad_start, int n_valid,
+                                       int device, void* stream) {
+  return launch_k3_fold<true, bf16>(zr, zi, fold, prof, cnt, n1, n2, L,
+                                    n_phase, pad_start, n_valid, device,
+                                    stream);
 }

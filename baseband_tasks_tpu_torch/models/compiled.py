@@ -15,9 +15,16 @@ Power, Task, Disperse/Dedisperse, the PFBs...), with ``SetAttribute``
 relabels and ``GetSlice`` time slices (a slice is a pure shift of the
 timeline, folded into the source's read offset, ``source_offsets``).  Not
 ported yet (each raises NotImplementedError; ROADMAP.md queue 1):
-``CombineStreamsBase`` joins (with ``combining.py``), the absorbed
-``Integrate``/``Fold`` reduction (with ``integration.py``) and packed
-ingest (``packed=True``, with I/O).
+``CombineStreamsBase`` joins (with ``combining.py``) and packed ingest
+(``packed=True``, with I/O).
+
+A trailing ``Integrate``, ``Fold`` or ``PulseStack`` is split off and
+absorbed as a reduction: the step's output is summed into the node's bins
+on the device (``index_add_`` by segment id), with the ids computed on the
+host at two-double phase precision (:meth:`CompiledPipeline.segment_ids_np`)
+and carried as one int64 tensor; :meth:`CompiledPipeline.run_reduced`
+returns the averages and counts, :meth:`CompiledPipeline.run_fn` the sums
+and counts.
 
 Streaming semantics: each padded stage carries its last ``pad`` input
 samples, so it needs one window of history before its output matches the
@@ -58,13 +65,16 @@ import numpy as np
 import torch
 
 from ..base import BaseTaskBase, PaddedTaskBase, SetAttribute, TaskBase
+from ..integration import Fold, Integrate, PulseStack, _phase_bins
 from ..ops.dedisperse import _is_pow2, split_n
 from ..ops.dft_matmul import DeviceMats, _expanded_mats
 from ..ops.pfb import choose_block_rows, forward_geometry_ok
 from ..shaping import GetSlice
+from ..utils import units as u
 from ..utils.dtypes import as_tensor, torch_dtype
 
-__all__ = ["CompiledPipeline", "carry_from_numpy"]
+__all__ = ["CompiledPipeline", "carry_from_numpy", "init_reduction_acc",
+           "make_reduction_update"]
 
 _NOT_PORTED = "not ported yet (ROADMAP.md, queue 1 item {}: {})"
 
@@ -83,6 +93,37 @@ class _Stage:
         self.in_dtype = node.ih.dtype
         self.fused = None   # execution-override object (pair fusions)
         self.skip = False   # stage absorbed into a neighbour's fusion
+
+
+def init_reduction_acc(red, sample_shape, n_seg, device):
+    """Zeroed (sums, counts) accumulators of an absorbed reduction, with a
+    trash segment ``n_seg`` at the end: sums in the node's accumulation
+    dtype, int64 counts (per cell, with the sample shape, when masked)."""
+    cells = tuple(sample_shape) if red._masked else ()
+    return (torch.zeros((n_seg + 1,) + tuple(sample_shape),
+                        dtype=red._acc_dtype(), device=device),
+            torch.zeros((n_seg + 1,) + cells, dtype=torch.int64,
+                        device=device))
+
+
+def make_reduction_update(red):
+    """``update(sums, counts, y, seg)``: add the tail block ``y`` into the
+    accumulators by segment id ``seg`` (int64, one per sample), in place.
+    With a masked reduction, non-finite cells drop out per cell."""
+    acc_dtype = red._acc_dtype()
+
+    def update(sums, counts, y, seg):
+        if red._masked:
+            valid = torch.isfinite(y)
+            y = torch.where(valid, y, torch.zeros((), dtype=y.dtype,
+                                                  device=y.device))
+            counts.index_add_(0, seg, valid.to(torch.int64))
+        else:
+            counts += torch.bincount(seg, minlength=counts.shape[0])
+        sums.index_add_(0, seg, y.to(acc_dtype))
+        return sums, counts
+
+    return update
 
 
 def _lcm(a, b):
@@ -361,6 +402,9 @@ class CompiledPipeline:
         Apply the kernel fusions (module docstring).
     packed : bool
         Packed-payload ingest: not ported yet (raises).
+
+    A trailing ``Integrate``/``Fold``/``PulseStack`` is absorbed as a
+    reduction (:attr:`reduction`; module docstring).
     """
 
     def __init__(self, tail, *, block_samples=None, fuse=True,
@@ -369,8 +413,11 @@ class CompiledPipeline:
             raise NotImplementedError("packed ingest is " + _NOT_PORTED
                                       .format(9, "I/O, io/vdif.py"))
         self._run_cache = {}
-        # the absorbed Integrate/Fold reduction waits for integration.py
+        # split off a trailing reduction (Integrate and its subclasses)
         self.reduction = None
+        if isinstance(tail, Integrate):
+            self.reduction = tail
+            tail = tail.ih
         self._tail = tail
 
         # -- walk the chain into a post-order program ---------------------
@@ -711,17 +758,75 @@ class CompiledPipeline:
 
         return step
 
+    # -- reduction (Integrate / Fold / PulseStack) --------------------------
+    def _segment_ids(self, start, n):
+        """Flat segment id of each eager-timeline tail sample in [start,
+        start + n), on the host at two-double phase precision.  Samples
+        outside every bin (negative warmup indices included) get id
+        ``n_seg``, the trash segment.  Returns (int64 ids, n_seg)."""
+        red = self.reduction
+        rel = np.arange(start, start + n, dtype=np.int64) - red._ih_start
+        fine = red.n_phase if isinstance(red, PulseStack) else 1
+        edges = red._get_offsets(np.arange(red.shape[0] * fine + 1))
+        n_time = len(edges) - 1
+        valid = (rel >= edges[0]) & (rel < edges[-1])
+        ids = np.clip(np.searchsorted(edges, rel, side="right") - 1, 0,
+                      n_time - 1)
+        n_seg = n_time
+        if isinstance(red, Fold):
+            ih_rate = red.ih.sample_rate.to_value(u.Hz)
+            t = (red.ih._tell_time(red._ih_start)
+                 + u.Quantity(rel / ih_rate, u.s))
+            ids = ids * red.n_phase + _phase_bins(red._phase, t, red.n_phase)
+            n_seg = n_time * red.n_phase
+        return np.where(valid, ids, n_seg), n_seg
+
+    def segment_ids_np(self, n_blocks, tail_offset=0):
+        """The reduction's segment ids of ``n_blocks`` compiled blocks, on
+        the host: ``(ids, n_seg)`` with ``ids`` an (n_blocks, tail_block)
+        int64 array (compiled sample k is eager sample k - delay; the
+        carries' warmup samples go to the trash segment ``n_seg``).
+        ``tail_offset`` shifts the eager timeline by whole tail samples,
+        for a run resumed with fresh carries."""
+        if self.delay != int(self.delay):
+            raise ValueError(
+                "cannot absorb a reduction after a fractional-delay "
+                "chain; choose frame sizes with integral delay")
+        ids, n_seg = self._segment_ids(tail_offset - int(self.delay),
+                                       n_blocks * self.tail_block)
+        # from tail_offset 0 the first ``delay`` samples already land at
+        # negative eager indices; a resumed run's whole warmup is garbage
+        w_extra = (self.warmup - int(self.delay) if tail_offset == 0
+                   else self.warmup)
+        if w_extra > 0:
+            ids[:w_extra] = n_seg
+        return ids.reshape(n_blocks, self.tail_block), n_seg
+
+    def _shape_reduced(self, acc):
+        """Sums or counts without the trash segment, in the eager node's
+        bin layout ((bins, n_phase, ...) for Fold and PulseStack)."""
+        acc = acc[:-1]
+        if isinstance(self.reduction, (Fold, PulseStack)):
+            return acc.reshape((-1, self.reduction.n_phase)
+                               + tuple(acc.shape[1:]))
+        return acc
+
     # -- running ----------------------------------------------------------
     def run_fn(self, n_blocks):
         """``run(blocks) -> out``: the step over ``n_blocks`` stacked
         source blocks (``(n_blocks, block_samples) + sample_shape``) from
         zeroed carries, a plain Python loop; ``out`` is the concatenated
-        tail-rate output.  Cached per ``n_blocks``."""
+        tail-rate output.  With an absorbed reduction ``run(blocks) ->
+        (sums, counts)`` in the eager node's bin layout (its non-averaged
+        read; :meth:`run_reduced` averages).  Cached per ``n_blocks``,
+        with the segment ids on the device."""
         n_blocks = int(n_blocks)
         fn = self._run_cache.get(n_blocks)
-        if fn is None:
-            step = self.step_fn()
-
+        if fn is not None:
+            return fn
+        step = self.step_fn()
+        red = self.reduction
+        if red is None:
             def fn(blocks):
                 carry = self.init_carry()
                 outs = []
@@ -729,15 +834,40 @@ class CompiledPipeline:
                     carry, y = step(carry, blocks[k])
                     outs.append(y)
                 return torch.cat(outs, dim=0)
+        else:
+            ids, n_seg = self.segment_ids_np(n_blocks)
+            ids = torch.as_tensor(ids, device=self.device)
+            update = make_reduction_update(red)
 
-            self._run_cache[n_blocks] = fn
+            def fn(blocks):
+                carry = self.init_carry()
+                sums, counts = init_reduction_acc(
+                    red, self._tail.sample_shape, n_seg, self.device)
+                for k in range(n_blocks):
+                    carry, y = step(carry, blocks[k])
+                    update(sums, counts, y, ids[k])
+                return self._shape_reduced(sums), self._shape_reduced(counts)
+
+        self._run_cache[n_blocks] = fn
         return fn
 
     def run_reduced(self, blocks):
-        """The absorbed reduction's run: not ported yet."""
-        raise NotImplementedError(
-            "the absorbed Integrate/Fold reduction is "
-            + _NOT_PORTED.format(7, "integration.py"))
+        """The absorbed reduction over stacked source blocks (a tensor or
+        numpy array, taken to the source's device): ``(averages,
+        counts)``, the averages in the node's accumulation dtype.  A
+        masked reduction's fully flagged cells average to NaN, as the
+        eager node's do."""
+        if self.reduction is None:
+            raise ValueError("no reduction to run")
+        blocks = as_tensor(blocks, device=self.device)
+        sums, counts = self.run_fn(blocks.shape[0])(blocks)
+        shaped = counts.reshape(tuple(counts.shape)
+                                + (1,) * (sums.ndim - counts.ndim))
+        out = sums / shaped.clamp_min(1)
+        if self.reduction._masked:
+            out = torch.where(shaped > 0, out, torch.full(
+                (), float("nan"), dtype=out.dtype, device=out.device))
+        return out, counts
 
     def run_blocks(self, blocks):
         """Run the compiled chain over stacked source blocks (a tensor or

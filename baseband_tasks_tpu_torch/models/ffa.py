@@ -34,13 +34,14 @@ __all__ = ["FastFoldingSearch", "ffa_fold", "ffa_survey"]
 
 
 def _as_tensor(x, device=None):
-    """A tensor of ``x``; numpy float64 becomes float32, as the JAX
-    package's ``jnp.asarray`` makes it."""
-    if torch.is_tensor(x):
-        return x
-    a = np.asarray(x)
-    return torch.tensor(a.astype(np.float32) if a.dtype == np.float64 else a,
-                        device=device)
+    """A tensor of ``x``: a tensor keeps its device, numpy goes to
+    ``device`` (None: the card when there is one, else the CPU); float64
+    becomes float32, as the JAX package's ``jnp.asarray`` makes it."""
+    if not torch.is_tensor(x):
+        if device is None:
+            device = "cuda" if torch.cuda.is_available() else "cpu"
+        x = torch.as_tensor(np.asarray(x), device=device)
+    return x.to(torch.float32) if x.dtype == torch.float64 else x
 
 
 def _ffa(x):
@@ -66,15 +67,15 @@ def _ffa(x):
     return s[..., 0, :, :]
 
 
-def ffa_fold(x, p):
+def ffa_fold(x, p, device=None):
     """Fold ``x`` (..., n) at all periods in [p, p+1) samples.
 
     The last axis is cropped to ``m*p`` with ``m`` the largest power of
     two (the FFA stage structure needs pow2 segment counts); returns
     ``(..., m, p)`` profiles, trial ``s`` = period ``p + s/(m-1)``.
-    A numpy input is taken to the CPU.
+    A numpy ``x`` goes to ``device`` (:func:`_as_tensor`).
     """
-    x = _as_tensor(x)
+    x = _as_tensor(x, device)
     p = int(p)
     n = x.shape[-1]
     m = n // p
@@ -217,21 +218,21 @@ class FastFoldingSearch:
 
 
 def ffa_survey(x, p_min, p_max, *, sample_rate=None, threshold=7.0,
-               widths=(1, 2, 4, 8, 16)):
+               widths=(1, 2, 4, 8, 16), device=None):
     """Survey all trial periods in ``[p_min, p_max)`` samples.
 
     The standard FFA survey loop: one :class:`FastFoldingSearch` per
     integer base period within an octave, downsampling the series by 2
     between octaves so the per-octave work stays ~constant (time
     resolution halves per octave, which the trial periods and reported
-    candidate periods account for).  A numpy ``x`` is surveyed on the
-    CPU, a tensor on its device.
+    candidate periods account for).  A numpy ``x`` goes to ``device``
+    (:func:`_as_tensor`), a tensor stays on its own.
 
     Returns all candidates across the range, sorted by descending S/N,
     each ``{period, snr, trial, base_period, octave}`` with ``period`` in
     *original* samples (or a time Quantity with ``sample_rate``).
     """
-    x = _as_tensor(x)
+    x = _as_tensor(x, device)
     if x.ndim != 1:
         raise ValueError("ffa_survey wants a single time series")
     p_min, p_max = int(p_min), int(p_max)

@@ -20,25 +20,12 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..integration import _phase_to_cycles
 from ..ops.dedisperse import fold_phase_vector
 from ..utils import units as u
 from ..utils.time import TimeDelta
 
 __all__ = ["FoldModel"]
-
-
-def _phase_to_cycles(ph):
-    """Coerce a phase callable's result to float64 cycles as a
-    ``(hi, lo)`` pair of host arrays (counterpart of
-    ``baseband_tasks_tpu/integration.py`` ``_phase_to_cycles``)."""
-    from ..phases import Phase
-    if isinstance(ph, Phase):
-        return ph.cycle_pair
-    if isinstance(ph, u.Quantity):
-        val = np.asarray(ph.to_value(u.cycle), dtype=np.float64)
-        return val, np.zeros_like(val)
-    val = np.asarray(ph, dtype=np.float64)
-    return val, np.zeros_like(val)
 
 
 class FoldModel:

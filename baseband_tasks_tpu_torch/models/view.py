@@ -22,16 +22,24 @@ so ``view.read(n) == chain.read(n)`` over the whole stream.  Carries
 persist between reads, so sequential reads never recompute history;
 seeking back past retained output restarts from block 0.
 
+A trailing ``Integrate``/``Fold``/``PulseStack`` keeps its host bin
+bookkeeping and rebinds over a compiled view of its input chain
+(:func:`compile_stream`), so the per-sample work runs in the compiled
+step; :meth:`~.compiled.CompiledPipeline.run_reduced` also sums on the
+device.
+
 One device only: ``mesh=`` (the JAX package's time-sharded super-steps)
-waits for the multi-device layer (ROADMAP.md queue 1 item 11), and a
-trailing ``Integrate``/``Fold`` waits for ``integration.py``.
+waits for the multi-device layer (ROADMAP.md queue 1 item 11).
 """
 
 from __future__ import annotations
 
+import copy
+
 import torch
 
 from ..base import Base
+from ..integration import Integrate
 
 __all__ = ["CompiledStreamView", "compile_stream"]
 
@@ -42,8 +50,9 @@ class CompiledStreamView(Base):
 
     Parameters
     ----------
-    tail : task chain head
-        The chain to compile.
+    tail : task chain head (not a reduction)
+        The chain to compile; a trailing ``Integrate``/``Fold``/
+        ``PulseStack`` is handled by :func:`compile_stream`.
     block_samples, fuse
         Passed to :class:`~.compiled.CompiledPipeline`.
     """
@@ -170,6 +179,15 @@ class CompiledStreamView(Base):
 
 def compile_stream(tail, *, block_samples=None, fuse=True, mesh=None):
     """``tail.compile()``: a read-compatible compiled view of the chain
-    (see :class:`CompiledStreamView`)."""
+    (see :class:`CompiledStreamView`).  A trailing reduction is a copy of
+    the node reading from a compiled view of its input."""
+    if isinstance(tail, Integrate):
+        new = copy.copy(tail)
+        new.ih = compile_stream(tail.ih, block_samples=block_samples,
+                                fuse=fuse, mesh=mesh)
+        new._frame = None
+        new._frame_index = None
+        new._offset = 0
+        return new
     return CompiledStreamView(tail, block_samples=block_samples, fuse=fuse,
                               mesh=mesh)

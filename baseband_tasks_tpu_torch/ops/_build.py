@@ -59,20 +59,29 @@ _SIGNATURES = {
     "bbt_accel_corr": [_P] * 4 + [_I] * 4 + [_I, _P],
     "bbt_resident": [_P] * 12 + [_I] * 7 + [_I, _P],
 }
+# the bf16-intermediate passes take the arguments of their float32 twins
+_SIGNATURES.update({f"{name}_bf16": _SIGNATURES[name] for name in (
+    "bbt_k1_packed", "bbt_k1_float", "bbt_k2", "bbt_k3_fold",
+    "bbt_k3_fold_stokes")})
+_SIGNATURES["bbt_k2_bf16_chirp"] = _SIGNATURES["bbt_k2"]
 
 #: kernel launches since the last :func:`reset_launch_counts`, by launch
 #: name (the flagship's K1p/K1f/K2/K3, the four-step passes, the
 #: streaming stage A, the lane mix, the forward PFB without and with its
 #: DFT, the flagship's variants: full-Stokes K3, K3 as |.|^2, K2 on a
 #: phase-plane chirp, K1 from planes-first windows and edges; the accel
-#: search's bank product and bank correlation, and the single-pass
-#: resident dedisperse -> fold)
+#: search's bank product and bank correlation, the single-pass resident
+#: dedisperse -> fold, and the flagship passes on bf16 intermediates:
+#: K1p, K1f, K2 with a float32 or a bf16 chirp, K3 power and Stokes)
 launch_counts = {"k1_packed": 0, "k1_float": 0, "k2": 0, "k3_fold": 0,
                  "k1_window": 0, "k2_fwd": 0, "k2_inv": 0, "k3_trim": 0,
                  "k1_stream": 0, "lane_mix": 0, "pfb_fwd": 0,
                  "pfb_fwd_dft": 0, "k3_fold_stokes": 0, "k3_power": 0,
                  "k2_theta": 0, "k1_planes": 0, "k1_stream_planes": 0,
-                 "bank_power": 0, "accel_corr": 0, "resident": 0}
+                 "bank_power": 0, "accel_corr": 0, "resident": 0,
+                 "k1_packed_bf16": 0, "k1_float_bf16": 0, "k2_bf16": 0,
+                 "k2_bf16_chirp": 0, "k3_fold_bf16": 0,
+                 "k3_fold_stokes_bf16": 0}
 
 _lib = None
 

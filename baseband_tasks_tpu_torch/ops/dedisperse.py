@@ -20,6 +20,13 @@ reaches memory:
   halo rows, with integer counts.  Or, without the fold, the inverse
   stage A as |z|² planes (k3_power) or re/im planes (``ops/fft.k3_trim``).
 
+With ``inter_dtype='bfloat16'`` the planes between the passes (y after
+stage A, z after stage B, in place) are stored as bfloat16, rounded to
+nearest even; every pass computes in float32 and widens its bf16 loads
+(the JAX module's bandwidth mode).  The bf16 passes are kernels of their
+own (``k1_packed_bf16``, ``k1_float_bf16``, ``k2_bf16``, ``k2_bf16_chirp``
+with a bf16 chirp, ``k3_fold_bf16``, ``k3_fold_stokes_bf16``).
+
 Each stage has a wrapper and a plain PyTorch version (``*_ref``) that
 produces the same layout.  A wrapper given CUDA tensors launches its
 hand-written Hopper kernel (``csrc/dedisperse.cu``, ``csrc/fourstep.cu``)
@@ -29,7 +36,9 @@ one to :data:`launch_counts` (shared with ``ops/fft.py``, in
 plain versions on a card.
 
 The public entry points are those of the JAX module, without its TPU
-tiling knobs (``block_b``, ``block_c``, ``interpret``):
+tiling knobs (``block_b``, ``block_c``, ``interpret``).  Given numpy,
+they run on the card when there is one, else on the CPU; a tensor keeps
+its device:
 :func:`dedisperse_pow2`, :func:`dedisperse_pow2_planes`,
 :func:`dedisperse_fold_pow2`, :func:`dedisperse_fold_stream`,
 :func:`dedisperse_fold_split` and :func:`dedisperse_fold_split_packed`.
@@ -132,45 +141,57 @@ def _twiddle(n1, n2, sign, device):
     return torch.polar(torch.ones_like(ang), ang).to(torch.complex64)
 
 
-def stage_a_window_ref(w):
+def _complex(re, im):
+    """complex64 of two planes, bf16 planes widened to float32 first."""
+    return torch.complex(re.to(torch.float32), im.to(torch.float32))
+
+
+def stage_a_window_ref(w, out_dtype=torch.float32):
     """Plain stage A of a complex (N, L) window -> FFT over c ->
-    W_N^{-c b} -> d-major (N2, N1, L) re/im planes."""
+    W_N^{-c b} -> d-major (N2, N1, L) re/im planes (rounded to
+    ``out_dtype``)."""
     n, L = w.shape
     n1, n2 = split_n(n)
     y = torch.fft.fft(w.reshape(n1, n2, L), dim=0) \
         * _twiddle(n1, n2, -1, w.device)[:, :, None]
     y = y.transpose(0, 1)
-    return y.real.contiguous(), y.imag.contiguous()
+    return (y.real.to(out_dtype).contiguous(),
+            y.imag.to(out_dtype).contiguous())
 
 
-def stage_a_ref(xr, xi, fr, fi, er, ei, scale):
-    """Plain stage A of the window [front | block | end] times ``scale``."""
+def stage_a_ref(xr, xi, fr, fi, er, ei, scale, out_dtype=torch.float32):
+    """Plain stage A of the window [front | block | end] times ``scale``;
+    the planes rounded to ``out_dtype`` (float32 or bfloat16)."""
     _geometry(xr.shape[0], fr.shape[0], er.shape[0])
     return stage_a_window_ref(torch.complex(torch.cat([fr, xr, er]) * scale,
-                                            torch.cat([fi, xi, ei]) * scale))
+                                            torch.cat([fi, xi, ei]) * scale),
+                              out_dtype)
 
 
 def stage_a_packed_ref(xpr, xpi, fr, fi, er, ei, scale, *, bits,
-                       offset=None, levels=None):
+                       offset=None, levels=None, out_dtype=torch.float32):
     """Plain stage A from plane-packed int32 words (decode, then
     :func:`stage_a_ref`)."""
     return stage_a_ref(decode_planes(xpr, bits, offset, levels),
                        decode_planes(xpi, bits, offset, levels),
-                       fr, fi, er, ei, scale)
+                       fr, fi, er, ei, scale, out_dtype)
 
 
 def _stage_b_ref(yr, yi, chirp):
     n2, n1, _ = yr.shape
-    y = torch.fft.fft(torch.complex(yr, yi), dim=0) * chirp
+    y = torch.fft.fft(_complex(yr, yi), dim=0) * chirp
     z = torch.fft.ifft(y, dim=0) * _twiddle(n1, n2, +1, y.device).T[:, :, None]
+    # in place, rounded to the planes' dtype
     yr.copy_(z.real)
     yi.copy_(z.imag)
     return yr, yi
 
 
 def stage_b_ref(yr, yi, csr, csi):
-    """Plain stage B, in place on the d-major (N2, N1, L) planes."""
-    return _stage_b_ref(yr, yi, torch.complex(csr, csi))
+    """Plain stage B, in place on the d-major (N2, N1, L) planes (float32,
+    or bfloat16 widened on load and rounded on store; the chirp float32
+    or bfloat16)."""
+    return _stage_b_ref(yr, yi, _complex(csr, csi))
 
 
 def k2_theta_ref(yr, yi, theta):
@@ -184,7 +205,7 @@ def k2_theta_ref(yr, yi, theta):
 def _inverse_stage_a(zr, zi):
     """(N, L) complex time series of d-major planes (inverse, 1/N1)."""
     n2, n1, L = zr.shape
-    x = torch.fft.ifft(torch.complex(zr, zi).transpose(0, 1), dim=0)
+    x = torch.fft.ifft(_complex(zr, zi).transpose(0, 1), dim=0)
     return x.reshape(n1 * n2, L)
 
 
@@ -274,6 +295,34 @@ def _check(t, name, dtype, shape, device):
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if dtype == torch.bfloat16 and t.data_ptr() % 4:
+        # the bf16 kernels move lane pairs as 4-byte words
+        raise ValueError(f"{name} must start on a 4-byte boundary")
+
+
+_PLANE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _pair_dtype(a, b, names, allowed=_PLANE_DTYPES):
+    """The common dtype of a plane pair: one of ``allowed``, the same for
+    both (a mixed pair is refused: stage B runs in place)."""
+    if a.dtype not in allowed:
+        raise TypeError(f"{names[0]} has dtype {a.dtype}, expected one of "
+                        f"{allowed}")
+    if b.dtype != a.dtype:
+        raise TypeError(f"{names[1]} has dtype {b.dtype}, {names[0]} "
+                        f"{a.dtype}: the planes must share one dtype")
+    return a.dtype
+
+
+def _bf16_suffix(dtype):
+    return "_bf16" if dtype == torch.bfloat16 else ""
+
+
+def _out_dtype(dtype):
+    if dtype not in _PLANE_DTYPES:
+        raise TypeError(f"out_dtype {dtype} must be one of {_PLANE_DTYPES}")
+    return dtype
 
 
 def _check_kernel_geometry(n1, n2):
@@ -293,17 +342,21 @@ def _check_edges(fr, fi, er, ei, scale, L, device):
 
 
 def stage_a_packed(xpr, xpi, fr, fi, er, ei, scale, *, bits, offset=None,
-                   levels=None):
-    """Stage A from plane-packed words: K1p on CUDA tensors, else
+                   levels=None, out_dtype=torch.float32):
+    """Stage A from plane-packed words: K1p (``k1_packed``, or
+    ``k1_packed_bf16`` for bfloat16 ``out_dtype``) on CUDA tensors, else
     :func:`stage_a_packed_ref`.
 
     ``xpr``/``xpi`` : (T·bits/32, L) int32 words; ``fr``/``fi`` :
     (pad_start, L) and ``er``/``ei`` : (pad_end, L) float32 decoded edges;
-    ``scale`` : (1,) float32.  Returns d-major (N2, N1, L) planes.
+    ``scale`` : (1,) float32.  Returns d-major (N2, N1, L) planes of
+    ``out_dtype``.
     """
+    name = "k1_packed" + _bf16_suffix(_out_dtype(out_dtype))
     if not _on_cuda(xpr):
         return stage_a_packed_ref(xpr, xpi, fr, fi, er, ei, scale,
-                                  bits=bits, offset=offset, levels=levels)
+                                  bits=bits, offset=offset, levels=levels,
+                                  out_dtype=out_dtype)
     per = 32 // bits
     tq, L = xpr.shape
     n1, n2 = _geometry(tq * per, fr.shape[0], er.shape[0])
@@ -318,20 +371,22 @@ def stage_a_packed(xpr, xpi, fr, fi, er, ei, scale, *, bits, offset=None,
     _check_edges(fr, fi, er, ei, scale, L, dev)
     offset = default_offset(bits) if offset is None else offset
     lv = default_levels(bits) if levels is None else levels
-    yr = torch.empty((n2, n1, L), dtype=torch.float32, device=dev)
+    yr = torch.empty((n2, n1, L), dtype=out_dtype, device=dev)
     yi = torch.empty_like(yr)
-    launch("k1_packed", "bbt_k1_packed", dev, xpr.data_ptr(),
+    launch(name, f"bbt_{name}", dev, xpr.data_ptr(),
             xpi.data_ptr(), fr.data_ptr(), fi.data_ptr(), er.data_ptr(),
             ei.data_ptr(), scale.data_ptr(), yr.data_ptr(), yi.data_ptr(),
             n1, n2, L, kf, ke, bits, float(offset), *map(float, lv))
     return yr, yi
 
 
-def stage_a(xr, xi, fr, fi, er, ei, scale):
-    """Stage A from float32 (T, L) planes: K1f on CUDA tensors, else
+def stage_a(xr, xi, fr, fi, er, ei, scale, out_dtype=torch.float32):
+    """Stage A from float32 (T, L) planes: K1f (``k1_float``, or
+    ``k1_float_bf16`` for bfloat16 ``out_dtype``) on CUDA tensors, else
     :func:`stage_a_ref`."""
+    name = "k1_float" + _bf16_suffix(_out_dtype(out_dtype))
     if not _on_cuda(xr):
-        return stage_a_ref(xr, xi, fr, fi, er, ei, scale)
+        return stage_a_ref(xr, xi, fr, fi, er, ei, scale, out_dtype)
     t_main, L = xr.shape
     n1, n2 = _geometry(t_main, fr.shape[0], er.shape[0])
     _check_kernel_geometry(n1, n2)
@@ -339,9 +394,9 @@ def stage_a(xr, xi, fr, fi, er, ei, scale):
     _check(xr, "xr", torch.float32, (t_main, L), dev)
     _check(xi, "xi", torch.float32, (t_main, L), dev)
     _check_edges(fr, fi, er, ei, scale, L, dev)
-    yr = torch.empty((n2, n1, L), dtype=torch.float32, device=dev)
+    yr = torch.empty((n2, n1, L), dtype=out_dtype, device=dev)
     yi = torch.empty_like(yr)
-    launch("k1_float", "bbt_k1_float", dev, xr.data_ptr(), xi.data_ptr(),
+    launch(name, f"bbt_{name}", dev, xr.data_ptr(), xi.data_ptr(),
             fr.data_ptr(), fi.data_ptr(), er.data_ptr(), ei.data_ptr(),
             scale.data_ptr(), yr.data_ptr(), yi.data_ptr(), n1, n2, L,
             fr.shape[0] // n2, er.shape[0] // n2)
@@ -395,15 +450,24 @@ def stage_a_stream_planes(x2, front, end, scale):
 
 def stage_b(yr, yi, csr, csi):
     """Stage B in place on d-major (N2, N1, L) planes: K2 on CUDA
-    tensors, else :func:`stage_b_ref`."""
+    tensors, else :func:`stage_b_ref`.  float32 planes take a float32
+    chirp (``k2``); bfloat16 planes a float32 chirp (``k2_bf16``) or a
+    bfloat16 one (``k2_bf16_chirp``)."""
+    dt = _pair_dtype(yr, yi, ("yr", "yi"))
+    ct = _pair_dtype(csr, csi, ("csr", "csi"),
+                     _PLANE_DTYPES if dt == torch.bfloat16
+                     else (torch.float32,))
     if not _on_cuda(yr):
         return stage_b_ref(yr, yi, csr, csi)
     n2, n1, L = yr.shape
     _check_kernel_geometry(n1, n2)
     dev = yr.device
-    for name, t in (("yr", yr), ("yi", yi), ("csr", csr), ("csi", csi)):
-        _check(t, name, torch.float32, (n2, n1, L), dev)
-    launch("k2", "bbt_k2", dev, yr.data_ptr(), yi.data_ptr(),
+    for name, t, d in (("yr", yr, dt), ("yi", yi, dt), ("csr", csr, ct),
+                       ("csi", csi, ct)):
+        _check(t, name, d, (n2, n1, L), dev)
+    name = "k2" + _bf16_suffix(dt) + (
+        "_chirp" if ct == torch.bfloat16 else "")
+    launch(name, f"bbt_{name}", dev, yr.data_ptr(), yi.data_ptr(),
            csr.data_ptr(), csi.data_ptr(), n1, n2, L)
     return yr, yi
 
@@ -423,13 +487,16 @@ def stage_b_theta(yr, yi, theta):
     return yr, yi
 
 
-def _check_planes(zr, zi):
+def _check_planes(zr, zi, allowed=(torch.float32,)):
+    """(n1, n2, L, device, dtype) of a d-major plane pair the kernel
+    takes: one dtype of ``allowed`` for both."""
     n2, n1, L = zr.shape
     _check_kernel_geometry(n1, n2)
     dev = zr.device
-    _check(zr, "zr", torch.float32, (n2, n1, L), dev)
-    _check(zi, "zi", torch.float32, (n2, n1, L), dev)
-    return n1, n2, L, dev
+    dt = _pair_dtype(zr, zi, ("zr", "zi"), allowed)
+    _check(zr, "zr", dt, (n2, n1, L), dev)
+    _check(zi, "zi", dt, (n2, n1, L), dev)
+    return n1, n2, L, dev, dt
 
 
 def k3_power(zr, zi):
@@ -438,7 +505,7 @@ def k3_power(zr, zi):
     (N, L) power in time order."""
     if not _on_cuda(zr):
         return k3_power_ref(zr, zi)
-    n1, n2, L, dev = _check_planes(zr, zi)
+    n1, n2, L, dev, _ = _check_planes(zr, zi)
     out = torch.empty((n1 * n2, L), dtype=torch.float32, device=dev)
     launch("k3_power", "bbt_k3_power", dev, zr.data_ptr(), zi.data_ptr(),
            out.data_ptr(), n1, n2, L)
@@ -447,20 +514,21 @@ def k3_power(zr, zi):
 
 def detect_fold(zr, zi, fold, *, n_phase, pad_start, n_valid, stokes=False):
     """Inverse stage A, detection and fold: K3 (k3_fold, or
-    k3_fold_stokes) on CUDA tensors, else :func:`fold_ref`.  ``fold`` :
-    (3,) int32 ``[i0_fx, p_fx, 0]`` on the planes' device.  Returns
-    (n_phase+1, L) float32 sums ((n_phase+1, 3L) with ``stokes``) and
-    (n_phase+1,) int32 counts."""
+    k3_fold_stokes; ``*_bf16`` for bfloat16 planes) on CUDA tensors, else
+    :func:`fold_ref`.  ``fold`` : (3,) int32 ``[i0_fx, p_fx, 0]`` on the
+    planes' device.  Returns (n_phase+1, L) float32 sums ((n_phase+1, 3L)
+    with ``stokes``) and (n_phase+1,) int32 counts."""
+    _pair_dtype(zr, zi, ("zr", "zi"))
     if not _on_cuda(zr):
         return fold_ref(zr, zi, fold, n_phase=n_phase, pad_start=pad_start,
                         n_valid=n_valid, stokes=stokes)
-    n1, n2, L, dev = _check_planes(zr, zi)
+    n1, n2, L, dev, dt = _check_planes(zr, zi, _PLANE_DTYPES)
     n_phase = _check_n_phase(n_phase)
     _check(fold, "fold", torch.int32, (3,), dev)
     width = 3 * L if stokes else L
     prof = torch.zeros((n_phase + 1, width), dtype=torch.float32, device=dev)
     cnt = torch.zeros((n_phase + 1,), dtype=torch.int32, device=dev)
-    name = "k3_fold_stokes" if stokes else "k3_fold"
+    name = ("k3_fold_stokes" if stokes else "k3_fold") + _bf16_suffix(dt)
     launch(name, f"bbt_{name}", dev, zr.data_ptr(), zi.data_ptr(),
            fold.data_ptr(), prof.data_ptr(), cnt.data_ptr(), n1, n2, L,
            n_phase, int(pad_start), int(n_valid))
@@ -476,8 +544,12 @@ def as_tensor(a):
 
 
 def _device_of(a):
-    """The device of a tensor argument; the CPU for numpy."""
-    return a.device if torch.is_tensor(a) else torch.device("cpu")
+    """Where an op runs: a tensor argument's device; for numpy, the card
+    when there is one, else the CPU (the entry-point rule of
+    :class:`~..base.Base`)."""
+    if torch.is_tensor(a):
+        return a.device
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
 def _as_device(a, device, dtype):
@@ -500,12 +572,33 @@ def _fold_vector(fold, device):
     return fold
 
 
+def _inter_dtype(inter_dtype):
+    """The torch dtype of the planes between the passes: 'float32' or
+    'bfloat16', as a string or a torch dtype; anything else raises
+    ValueError."""
+    key = str(inter_dtype).removeprefix("torch.")
+    if key not in ("float32", "bfloat16"):
+        raise ValueError(f"inter_dtype={inter_dtype!r} must be 'float32' "
+                         f"or 'bfloat16'")
+    return getattr(torch, key)
+
+
 def _check_modes(n_phase, pad_start, front, inter_dtype="float32"):
-    if str(inter_dtype) != "float32":
-        raise NotImplementedError("only float32 intermediates are ported")
+    """(n_phase, intermediate torch dtype) of a split op's arguments."""
+    inter = _inter_dtype(inter_dtype)
     if front != pad_start:
         raise ValueError("front buffer length must equal pad_start")
-    return _check_n_phase(n_phase)
+    return _check_n_phase(n_phase), inter
+
+
+def _chirp_planes(csr, csi, device, inter):
+    """The chirp's cos/sin planes on ``device``: a bfloat16 pair stays
+    bfloat16 in bf16 mode (stage B widens it on load), anything else is
+    float32 (widening a bf16 chirp is exact)."""
+    keep = inter == torch.bfloat16 and all(
+        torch.is_tensor(c) and c.dtype == torch.bfloat16 for c in (csr, csi))
+    dt = torch.bfloat16 if keep else torch.float32
+    return _as_device(csr, device, dt), _as_device(csi, device, dt)
 
 
 def fold_chain(y, chirp_storage_r, chirp_storage_i, fold, *, n_phase,
@@ -594,7 +687,7 @@ def dedisperse_fold_stream(x2, front, end, chirp_storage_r, chirp_storage_i,
     and stage B is k2_theta."""
     dev = _device_of(x2)
     _geometry(x2.shape[1], front.shape[1], end.shape[1])
-    n_phase = _check_modes(n_phase, pad_start, front.shape[1])
+    n_phase, _ = _check_modes(n_phase, pad_start, front.shape[1])
     csr = _as_device(chirp_storage_r, dev, torch.float32)
     csi = (None if chirp_storage_i is None
            else _as_device(chirp_storage_i, dev, torch.float32))
@@ -616,18 +709,21 @@ def dedisperse_fold_split(xr, xi, fr, fi, er, ei, chirp_storage_r,
     : (pad_end, L); ``chirp_storage_r/i`` : (N2, N1, L) d-major chirp;
     ``fold`` : (3,) ``[i0_fx, p_fx, 0]`` (:func:`fold_phase_vector`);
     ``scale`` : (1,) float32 applied to the whole window.  Numpy inputs
-    are taken to the device of ``xr`` (the CPU for numpy).  Returns the
-    (n_phase+1, L) profile ((n_phase+1, 3L) with ``stokes``: [|x_l|² | Re
-    x_l conj x_{l+1} | Im x_l conj x_{l+1}]) and (n_phase+1,) float32
-    counts; row n_phase holds the halo rows.
+    go where ``xr`` goes (:func:`_device_of`).  ``inter_dtype``
+    'bfloat16' stores the planes between the passes as bfloat16 (a
+    bfloat16 chirp pair is then kept as such).  Returns the (n_phase+1,
+    L) profile ((n_phase+1, 3L) with ``stokes``: [|x_l|² | Re x_l conj
+    x_{l+1} | Im x_l conj x_{l+1}]) and (n_phase+1,) float32 counts; row
+    n_phase holds the halo rows.
     """
     dev = _device_of(xr)
-    n_phase = _check_modes(n_phase, pad_start, fr.shape[0], inter_dtype)
+    n_phase, inter = _check_modes(n_phase, pad_start, fr.shape[0],
+                                  inter_dtype)
     f32 = [_as_device(a, dev, torch.float32)
-           for a in (xr, xi, fr, fi, er, ei, chirp_storage_r,
-                     chirp_storage_i, scale)]
-    y = stage_a(*f32[:6], f32[8].reshape(1))
-    prof, cnt = fold_chain(y, f32[6], f32[7], _fold_vector(fold, dev),
+           for a in (xr, xi, fr, fi, er, ei, scale)]
+    chirp = _chirp_planes(chirp_storage_r, chirp_storage_i, dev, inter)
+    y = stage_a(*f32[:6], f32[6].reshape(1), out_dtype=inter)
+    prof, cnt = fold_chain(y, *chirp, _fold_vector(fold, dev),
                            n_phase=n_phase, pad_start=int(pad_start),
                            n_valid=int(n_valid), stokes=stokes)
     return prof, cnt.to(torch.float32)
@@ -643,7 +739,7 @@ def dedisperse_fold_split_packed(xpr, xpi, fr, fi, er, ei,
 
     ``xpr``/``xpi`` : (T·bits/32, L) int32 words holding the uint32 bit
     patterns (:func:`~.unpack.pack_time_planes`; numpy uint32 is
-    accepted).  The edges are decoded float32 in the units the in-kernel
+    accepted).  ``inter_dtype`` as for :func:`dedisperse_fold_split`.  The edges are decoded float32 in the units the in-kernel
     decode produces (``field - offset``, or table levels); a common
     normalization belongs in ``scale``.  8/4-bit use ``offset`` (default
     127.5/7.5); 2-bit maps crumbs through ``levels`` (default VDIF);
@@ -652,15 +748,15 @@ def dedisperse_fold_split_packed(xpr, xpi, fr, fi, er, ei,
     if bits not in (1, 2, 4, 8):
         raise ValueError("bits must be 1, 2, 4 or 8")
     dev = _device_of(xpr)
-    n_phase = _check_modes(n_phase, pad_start, fr.shape[0], inter_dtype)
-    f32 = [_as_device(a, dev, torch.float32)
-           for a in (fr, fi, er, ei, chirp_storage_r, chirp_storage_i,
-                     scale)]
+    n_phase, inter = _check_modes(n_phase, pad_start, fr.shape[0],
+                                  inter_dtype)
+    f32 = [_as_device(a, dev, torch.float32) for a in (fr, fi, er, ei, scale)]
+    chirp = _chirp_planes(chirp_storage_r, chirp_storage_i, dev, inter)
     y = stage_a_packed(_as_device(xpr, dev, torch.int32),
                        _as_device(xpi, dev, torch.int32), *f32[:4],
-                       f32[6].reshape(1), bits=bits, offset=offset,
-                       levels=levels)
-    prof, cnt = fold_chain(y, f32[4], f32[5], _fold_vector(fold, dev),
+                       f32[4].reshape(1), bits=bits, offset=offset,
+                       levels=levels, out_dtype=inter)
+    prof, cnt = fold_chain(y, *chirp, _fold_vector(fold, dev),
                            n_phase=n_phase, pad_start=int(pad_start),
                            n_valid=int(n_valid), stokes=stokes)
     return prof, cnt.to(torch.float32)

@@ -191,7 +191,8 @@ def dedisperse_fold_resident(xr, xi, fr, fi, er, ei, chirp_storage_r,
         The JAX module's window-FFT forms; on the card both run the one
         kernel, on the CPU each its own plain version.
 
-    Numpy inputs go to the device of ``xr`` (the CPU for numpy).  Returns
+    Numpy inputs go where ``xr`` goes (the card when there is one, a
+    tensor's own device).  Returns
     ``(profile (n_phase+1, L or 3L), counts (n_phase+1,))`` as float32;
     row ``n_phase`` is the pad trash bin.
     """

@@ -110,6 +110,29 @@ pads 256/256, the 261,120-row block of ``tools/bench_resident.py``):
     (whose tails leak past the 256-row pads, ~1e-4 of the peak); then
     both timed in turns.
 
+and for the bf16-intermediate mode of the flagship's split ops and the
+integration layer:
+
+(n) holds each bf16 pass (k1_packed_bf16, k1_float_bf16, k2_bf16 with a
+    float32 chirp, k2_bf16_chirp with a bf16 one, k3_fold_bf16,
+    k3_fold_stokes_bf16) against its plain bf16 version at the flagship
+    shapes (planes within one bf16 ulp plus 1e-6 of the peak, counts
+    exact, profiles as in (a) and within 1e-3 of the peak of the float32
+    kernel), times each beside its float32 twin; then drives
+    ``dedisperse_fold_split`` and ``dedisperse_fold_split_packed`` with
+    ``inter_dtype='bfloat16'`` (power and Stokes, float32 and bf16
+    chirps), counted, against the plain bf16 path and the float32 op
+    (1e-3 of the peak), and times float32 against bf16 per window;
+(o) runs BASELINE config 1 (``tools/bench_full.py`` config1:
+    Channelize(256) -> Square -> Integrate(16) of 16 MHz noise, seed 7)
+    eagerly on the card over 2^22 samples and compiled through
+    ``CompiledPipeline.run_reduced`` under ``fft_maker.set('pallas')`` in
+    2^23-sample blocks, compiled against eager (rtol 1e-5, counts exact),
+    both timed; then the masked fold of ``_fold_chain_rate`` (16 float32
+    blocks of 2^14 x 128 -> Square -> Fold(64)) through ``run_reduced``,
+    masked on blocks with NaN cells and unmasked, each against the eager
+    Fold (counts and NaN cells exact), timed against each other.
+
 The plain versions run on the card inside the package's test-only
 switch ``ops.dedisperse.plain_versions()``.  Any failure raises (non-zero
 exit).  Without a CUDA device it fails.  The
@@ -190,6 +213,19 @@ KERNELS = {   # launch-count name -> (TPU kernel it replaces, source)
     "accel_corr": ("baseband_tasks_tpu/ops/accel_correlate.py:54", ACCEL_CU),
     "resident": ("baseband_tasks_tpu/ops/dedisperse_resident.py:191",
                  RESIDENT_CU),
+    # the bf16-intermediate passes (inter_dtype='bfloat16')
+    "k1_packed_bf16": ("baseband_tasks_tpu/ops/dedisperse_pallas.py:764",
+                       DEDISPERSE_CU),
+    "k1_float_bf16": ("baseband_tasks_tpu/ops/dedisperse_pallas.py:570",
+                      DEDISPERSE_CU),
+    "k2_bf16": ("baseband_tasks_tpu/ops/dedisperse_pallas.py:259",
+                DEDISPERSE_CU),
+    "k2_bf16_chirp": ("baseband_tasks_tpu/ops/dedisperse_pallas.py:259",
+                      DEDISPERSE_CU),
+    "k3_fold_bf16": ("baseband_tasks_tpu/ops/dedisperse_pallas.py:381",
+                     DEDISPERSE_CU),
+    "k3_fold_stokes_bf16": ("baseband_tasks_tpu/ops/dedisperse_pallas.py:345",
+                            DEDISPERSE_CU),
 }
 FLAGSHIP = ("k1_packed", "k1_float", "k2", "k3_fold")
 VARIANTS = ("k3_fold_stokes", "k3_power", "k2_theta", "k1_planes",
@@ -290,9 +326,11 @@ def compare(got, ref):
     return err, err / peak
 
 
-def check_kernels(pipe, gpu):
-    """Phase (a): each kernel against its plain version, then timed."""
-    from baseband_tasks_tpu_torch.ops import dedisperse as dd
+def flagship_inputs(pipe):
+    """One flagship window's kernel inputs on the card: 8-bit packed words
+    (the pipeline's own payload) and random float32 planes of the block,
+    random edges, the scale, the DM-500 chirp in storage order and the
+    polyco's first fold vector."""
     dev = pipe.device
     L = pipe.n_chan * pipe.n_pol
     T = pipe.global_block
@@ -304,9 +342,17 @@ def check_kernels(pipe, gpu):
     edges = [torch.randn((n, L), generator=g, device=dev) for n in
              (pipe.pad_start, pipe.pad_start, pipe.pad_end, pipe.pad_end)]
     scale = torch.tensor([1.0 / 64], device=dev)
-    csr, csi = pipe._chirp_device()
     fold = torch.as_tensor(pipe._shard_fold3(pipe.fold_model.table(
         [0], T))[0].astype(np.int32), device=dev)
+    return words, planes, edges, scale, pipe._chirp_device(), fold
+
+
+def check_kernels(pipe, gpu):
+    """Phase (a): each kernel against its plain version, then timed."""
+    from baseband_tasks_tpu_torch.ops import dedisperse as dd
+    L = pipe.n_chan * pipe.n_pol
+    T = pipe.global_block
+    words, planes, edges, scale, (csr, csi), fold = flagship_inputs(pipe)
     fold_kw = dict(n_phase=pipe.n_phase, pad_start=pipe.pad_start,
                    n_valid=T)
 
@@ -1658,6 +1704,386 @@ def drive_resident(dev, gpu):
     return launches
 
 
+# -- bf16 intermediates and integration: phases (n) and (o) ----------------
+
+BF16_KERNELS = ("k1_packed_bf16", "k1_float_bf16", "k2_bf16", "k2_bf16_chirp",
+                "k3_fold_bf16", "k3_fold_stokes_bf16")
+# the bf16 profile bar of TestBF16Intermediates (tests/test_pallas_kernels.py)
+BF16_PROFILE_TOL = 1e-3
+
+
+def check_bf16_planes(name, got, ref):
+    """bf16 planes of a kernel against its plain version's: within one bf16
+    ulp of the plain value plus 1e-6 of the peak (the float32 values
+    before rounding differ by FFT roundoff, so a rounding may land on the
+    neighbouring bf16 value).  Returns the max abs error."""
+    torch.cuda.synchronize()
+    peak = max(float(r.float().abs().max()) for r in ref)
+    err, worst, flips = 0.0, 0.0, 0
+    for g, r in zip(got, ref):
+        if g.dtype != torch.bfloat16 or r.dtype != torch.bfloat16:
+            raise AssertionError(f"{name}: planes are not bf16")
+        g, r = g.float(), r.float()
+        d = (g - r).abs()
+        ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(1e-30)))
+                         - 7)
+        err = max(err, float(d.max()))
+        worst = max(worst, float((d / (ulp + 1e-6 * peak)).max()))
+        flips += int((d > 0).sum())
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{name}: planes not finite")
+    print(f"(n) {name}: max_abs_err={err:.3e}, {worst:.3f} of the 1-ulp "
+          f"bound, {flips} of {2 * got[0].numel()} roundings differ "
+          f"({'ok' if worst <= 1.0 else 'FAIL'})", flush=True)
+    if worst > 1.0:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return err
+
+
+def check_bf16_kernels(pipe, gpu):
+    """Phase (n), kernels: each bf16 pass against its plain bf16 version
+    at the flagship shapes, timed beside its float32 kernel."""
+    from baseband_tasks_tpu_torch.ops import dedisperse as dd
+    bf = torch.bfloat16
+    L = pipe.n_chan * pipe.n_pol
+    T = pipe.global_block
+    words, planes, edges, scale, (csr, csi), fold = flagship_inputs(pipe)
+    chirp16 = (csr.to(bf), csi.to(bf))
+    kw = dict(n_phase=pipe.n_phase, pad_start=pipe.pad_start, n_valid=T)
+    y16 = dd.stage_a_packed_ref(*words, *edges, scale, bits=8, out_dtype=bf)
+    y32 = dd.stage_a_packed_ref(*words, *edges, scale, bits=8)
+    z16 = dd.stage_b_ref(*[p.clone() for p in y16], csr, csi)
+    z32 = dd.stage_b_ref(*[p.clone() for p in y32], csr, csi)
+    n2, n1 = y16[0].shape[:2]
+    # name -> (kernel, plain bf16 version, float32 kernel)
+    cases = {
+        "k1_packed_bf16": (
+            lambda: dd.stage_a_packed(*words, *edges, scale, bits=8,
+                                      out_dtype=bf),
+            lambda: dd.stage_a_packed_ref(*words, *edges, scale, bits=8,
+                                          out_dtype=bf),
+            lambda: dd.stage_a_packed(*words, *edges, scale, bits=8)),
+        "k1_float_bf16": (
+            lambda: dd.stage_a(*planes, *edges, scale, out_dtype=bf),
+            lambda: dd.stage_a_ref(*planes, *edges, scale, out_dtype=bf),
+            lambda: dd.stage_a(*planes, *edges, scale)),
+        "k2_bf16": (
+            lambda: dd.stage_b(*[p.clone() for p in y16], csr, csi),
+            lambda: dd.stage_b_ref(*[p.clone() for p in y16], csr, csi),
+            None),
+        "k2_bf16_chirp": (
+            lambda: dd.stage_b(*[p.clone() for p in y16], *chirp16),
+            lambda: dd.stage_b_ref(*[p.clone() for p in y16], *chirp16),
+            None),
+        "k3_fold_bf16": (lambda: dd.detect_fold(*z16, fold, **kw),
+                         lambda: dd.fold_ref(*z16, fold, **kw),
+                         lambda: dd.detect_fold(*z32, fold, **kw)),
+        "k3_fold_stokes_bf16": (
+            lambda: dd.detect_fold(*z16, fold, stokes=True, **kw),
+            lambda: dd.fold_ref(*z16, fold, stokes=True, **kw),
+            lambda: dd.detect_fold(*z32, fold, stokes=True, **kw)),
+    }
+    # stage B timed in place on scratch copies (unit-modulus chirp)
+    w16, w32 = [p.clone() for p in y16], [p.clone() for p in y32]
+    timed = dict(cases)
+    timed["k2_bf16"] = (lambda: dd.stage_b(*w16, csr, csi),
+                        lambda: dd.stage_b_ref(*w16, csr, csi),
+                        lambda: dd.stage_b(*w32, csr, csi))
+    timed["k2_bf16_chirp"] = (lambda: dd.stage_b(*w16, *chirp16),
+                              lambda: dd.stage_b_ref(*w16, *chirp16),
+                              lambda: dd.stage_b(*w32, csr, csi))
+    meta = dict(device="meta")
+    prof_out = torch.empty((pipe.n_phase + 1, L + 1), **meta)
+    stokes_out = torch.empty((pipe.n_phase + 1, 3 * L + 1), **meta)
+    k2_ops = fft_flops(y16, n2, 10 * np.log2(n2) + 12)
+    costs = {   # (reads, writes, FP32 operations), from the planes' dtypes
+        "k1_packed_bf16": ((*words, *edges, scale), y16, fft_flops(y16, n1)),
+        "k1_float_bf16": ((*planes, *edges, scale), y16, fft_flops(y16, n1)),
+        "k2_bf16": ((*y16, csr, csi), y16, k2_ops),
+        "k2_bf16_chirp": ((*y16, *chirp16), y16, k2_ops),
+        "k3_fold_bf16": ((*z16, fold), (prof_out,), fft_flops(z16, n1, 5)),
+        "k3_fold_stokes_bf16": ((*z16, fold), (stokes_out,),
+                                fft_flops(z16, n1, 11)),
+    }
+    results = {}
+    for name, (kern, plain_fn, _) in cases.items():
+        got, ref = kern(), plain_fn()
+        if name.startswith("k3"):
+            torch.cuda.synchronize()
+            if not torch.equal(got[1], ref[1]):
+                raise AssertionError(f"{name}: counts differ")
+            err = float((got[0] - ref[0]).abs().max())
+            rel = float(((got[0][:, :L] - ref[0][:, :L]).abs()
+                         / ref[0][:, :L].abs().clamp_min(1e-30)).max())
+            cross = (compare((got[0][:, L:],), (ref[0][:, L:],))[1]
+                     if got[0].shape[1] > L else 0.0)
+            f32 = cases[name][2]()[0]
+            vs32 = compare((got[0],), (f32,))[1]
+            ok = (rel <= PROFILE_RTOL and cross <= FFT_TOL
+                  and vs32 <= BF16_PROFILE_TOL
+                  and bool(torch.isfinite(got[0]).all()))
+            print(f"(n) {name}: counts exact, power rel {rel:.3e}, cross "
+                  f"{cross:.3e} of the peak vs plain; {vs32:.3e} of the peak "
+                  f"vs the float32 kernel on float32 planes "
+                  f"({'ok' if ok else 'FAIL'})", flush=True)
+            if not ok:
+                raise AssertionError(f"{name} disagrees")
+        else:
+            err = check_bf16_planes(name, got, ref)
+        del got, ref
+        kern_t, plain_t, f32_t = timed[name]
+        ms, plain_ms, f32_ms = (cuda_ms(f, reps=10)
+                                for f in (kern_t, plain_t, f32_t))
+        results[name] = result(err, ms, plain_ms, costs[name])
+        print(f"(n) {name}: {ms:.4f} ms kernel, {f32_ms:.4f} ms its float32 "
+              f"twin, {plain_ms:.4f} ms plain, bound "
+              f"{results[name]['bound_ms']:.4f} ms "
+              f"({results[name]['bound_by']}) [{gpu}]", flush=True)
+    return results
+
+
+def drive_bf16_ops(pipe, gpu):
+    """Phase (n), the path: ``dedisperse_fold_split`` and
+    ``dedisperse_fold_split_packed`` with ``inter_dtype='bfloat16'``, power
+    and Stokes, float32 and bf16 chirps, at the flagship window, counted
+    (every bf16 kernel must launch), against the plain bf16 path and the
+    float32 op (counts exact, profiles within 1e-3 of the peak), then each
+    op timed in turns: float32, bf16, bf16 with a bf16 chirp.  Returns the
+    launch counts."""
+    from baseband_tasks_tpu_torch.ops import dedisperse as dd
+    bf = torch.bfloat16
+    T = pipe.global_block
+    words, planes, edges, scale, chirp, fold = flagship_inputs(pipe)
+    chirp16 = tuple(c.to(bf) for c in chirp)
+    ops = {"split": (dd.dedisperse_fold_split, planes),
+           "split_packed": (dd.dedisperse_fold_split_packed, words)}
+
+    def call(op, stokes, inter, c):
+        fn, x = ops[op]
+        kw = dict(n_phase=pipe.n_phase, pad_start=pipe.pad_start, n_valid=T,
+                  stokes=stokes, inter_dtype=inter)
+        return lambda: fn(*x, *edges, *c, fold, scale, **kw)
+
+    runs = [(op, stokes, c) for op in ops for stokes in (False, True)
+            for c in ("float32", "bfloat16")]
+    torch.cuda.synchronize()
+    dd.reset_launch_counts()
+    got = {r: call(r[0], r[1], "bfloat16",
+                   chirp16 if r[2] == "bfloat16" else chirp)() for r in runs}
+    torch.cuda.synchronize()
+    launches = dict(dd.launch_counts)
+    print(f"(n) launches of the bf16 ops: "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    missing = [k for k in BF16_KERNELS if launches[k] <= 0]
+    other = [k for k, v in launches.items() if v and k not in BF16_KERNELS]
+    if missing or other:
+        raise AssertionError(f"bf16 ops: not launched {missing}, float32 "
+                             f"kernels launched {other}")
+    for (op, stokes, c), (prof, cnt) in got.items():
+        chirp_in = chirp16 if c == "bfloat16" else chirp
+        rprof, rcnt = plain(call(op, stokes, "bfloat16", chirp_in))()
+        fprof, fcnt = call(op, stokes, "float32", chirp)()
+        torch.cuda.synchronize()
+        vs_plain = compare((prof,), (rprof,))[1]
+        vs_f32 = compare((prof,), (fprof,))[1]
+        tag = f"{op} {'stokes' if stokes else 'power'}, {c} chirp"
+        print(f"(n) {tag}: counts {int(cnt.sum())} exact; profile "
+              f"{vs_plain:.3e} of the peak vs plain bf16, {vs_f32:.3e} vs "
+              f"the float32 op [{gpu}]", flush=True)
+        if (not torch.equal(cnt, rcnt) or not torch.equal(cnt, fcnt)
+                or int(cnt.sum()) != pipe._n_fft
+                or vs_plain > BF16_PROFILE_TOL or vs_f32 > BF16_PROFILE_TOL
+                or not bool(torch.isfinite(prof).all())):
+            raise AssertionError(f"bf16 {tag} disagrees")
+    del got
+    samples = T * pipe.n_chan * pipe.n_pol
+    for op in ops:
+        calls = {"float32": call(op, False, "float32", chirp),
+                 "bf16": call(op, False, "bfloat16", chirp),
+                 "bf16 + bf16 chirp": call(op, False, "bfloat16", chirp16)}
+        best = {}
+        for key in ("float32", "bf16", "bf16 + bf16 chirp",
+                    "bf16 + bf16 chirp", "bf16", "float32"):
+            best[key] = min(best.get(key, np.inf), cuda_ms(calls[key]))
+        print(f"(n) {op} per window: " + ", ".join(
+            f"{k} {v:.4f} ms ({samples / v * 1e3:.4e} samples/s)"
+            for k, v in best.items()) + f" [{gpu}]", flush=True)
+    return launches
+
+
+C1_SAMPLES, C1_BLOCK = 1 << 22, 1 << 23   # eager source; compiled block
+
+
+def config1_chain(dev, n):
+    """BASELINE config 1 (``tools/bench_full.py`` config1): noise (seed 7,
+    16 MHz, frames of 2^16) -> Channelize(256) -> Square -> Integrate(16),
+    ``n`` source samples."""
+    from baseband_tasks_tpu_torch import (Channelize, Integrate,
+                                          NoiseGenerator, Square, Time)
+    from baseband_tasks_tpu_torch import units as u
+    src = NoiseGenerator(shape=(n,), start_time=Time.from_mjd(58000.0),
+                         sample_rate=16 * u.MHz, samples_per_frame=1 << 16,
+                         seed=7, device=dev)
+    return Integrate(Square(Channelize(src, 256)), 16)
+
+
+def host_s(fn, turns=2):
+    """Best host time of ``fn`` over ``turns`` calls, each synchronised."""
+    best = np.inf
+    for _ in range(turns):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def drive_config1(dev, gpu):
+    """Phase (o), config 1: read eagerly on the card (2^22 samples, 1024
+    bins), then compiled through ``run_reduced`` under
+    ``fft_maker.set('pallas')`` with blocks of lcm(block_samples, 2^23)
+    samples (the bench's block), on the same noise extended to two blocks;
+    compiled against eager (rtol 1e-5, counts exact), both timed."""
+    from baseband_tasks_tpu_torch import fft_maker
+    from baseband_tasks_tpu_torch.models.compiled import CompiledPipeline
+    eager = config1_chain(dev, C1_SAMPLES)
+    eager.seek(0)
+    eager.read(64)                            # warm the frame caches
+    out = {}
+
+    def read_all():
+        eager.seek(0)
+        out["ref"] = eager.read()
+    eager_s = host_s(read_all, turns=1)
+    ref = out["ref"]
+    with fft_maker.set("pallas"):
+        tail = config1_chain(dev, 2 * C1_BLOCK)
+        block = int(np.lcm(CompiledPipeline(tail).block_samples, C1_BLOCK))
+        cp = CompiledPipeline(tail, block_samples=block)
+    blocks = cp.read_source_blocks(2)
+    avg, cnt = cp.run_reduced(blocks)
+    torch.cuda.synchronize()
+    n = ref.shape[0]
+    rel = float(((avg[:n] - ref).abs() / ref.abs()).max())
+    print(f"(o) config 1: eager {tuple(ref.shape)} bins, compiled "
+          f"{tuple(avg.shape)} from 2 blocks of {block} samples "
+          f"({blocks[0].numel() * blocks.element_size() / 2 ** 20:.0f} MB "
+          f"each); compiled vs eager max rel {rel:.3e}, counts "
+          f"{sorted(set(cnt.tolist()))} [{gpu}]", flush=True)
+    if (rel > 1e-5 or not bool((cnt == 16).all())
+            or not bool(torch.isfinite(avg).all())
+            or tuple(avg.shape) != (2 * C1_BLOCK // 4096, 256)):
+        raise AssertionError("config 1: compiled disagrees with eager")
+    run = cp.run_fn(2)
+    dt = host_s(lambda: run(blocks), turns=5)
+    print(f"(o) config 1 compiled: {1e3 * dt / 2:.3f} ms per {block}-sample "
+          f"block, {2 * block / dt:.4e} source samples/s; eager read "
+          f"{1e3 * eager_s:.1f} ms for {C1_SAMPLES} samples "
+          f"({1e3 * eager_s * block / C1_SAMPLES:.1f} ms per block), "
+          f"{C1_SAMPLES / eager_s:.4e} source samples/s [{gpu}]", flush=True)
+
+    def eager_bins():
+        eager.seek(0)
+        eager.read(64)
+    for name, fn, per in (("compiled, per block", lambda: run(blocks), 2),
+                          ("eager, per 64 bins", eager_bins, 1)):
+        print_profile(f"(o) config 1 {name}", fn, per, gpu)
+
+
+def print_profile(tag, fn, per, gpu):
+    """One profiled call of ``fn``: wall and device-busy ms over ``per``,
+    the busy share, and the kernels taking the most device time."""
+    wall, busy, rows = device_profile(fn)
+    top = ", ".join(f"{name[:48]} x{n} {us / 1e3 / per:.3f}"
+                    for us, n, name in rows[:4])
+    print(f"{tag}: {wall / per:.3f} ms wall, {busy / per:.3f} ms device "
+          f"busy ({busy / wall:.2f} of the wall); {top} [{gpu}]", flush=True)
+
+
+MF_BLOCK, MF_BLOCKS, MF_CHAN, MF_PHASE = 1 << 14, 16, 128, 64
+
+
+def masked_fold_chain(dev, blocks, masked):
+    """``tools/bench_full.py`` ``_fold_chain_rate``: float32 (2^14, 128)
+    blocks -> Square -> Fold(64, masked, average=False) stepping one block,
+    the phase of a 12345.6 Hz pulsar; the source serves ``blocks``."""
+    from baseband_tasks_tpu_torch import Fold, Square, StreamGenerator, Time
+    from baseband_tasks_tpu_torch import units as u
+    from baseband_tasks_tpu_torch.models.compiled import CompiledPipeline
+    t0 = Time.from_mjd(58000.0)
+    src = StreamGenerator(lambda sh: blocks[sh.tell() // MF_BLOCK],
+                          shape=(MF_BLOCKS * MF_BLOCK, MF_CHAN), start_time=t0,
+                          sample_rate=1 * u.MHz, samples_per_frame=MF_BLOCK,
+                          dtype=np.float32, device=dev)
+    phase = (lambda t: u.Quantity((t - t0).sec * 12345.6, u.cycle))
+    tail = Fold(Square(src), MF_PHASE, phase,
+                u.Quantity(MF_BLOCK / 1e6, u.s), samples_per_frame=1,
+                masked=masked, average=False)
+    return tail, CompiledPipeline(tail, block_samples=MF_BLOCK)
+
+
+def drive_masked_fold(dev, gpu):
+    """Phase (o), the masked fold: 16 float32 (2^14, 128) blocks on the
+    card through ``run_reduced``, masked on blocks with NaN cells (block 3
+    of channel 5 fully flagged, ~1 % of the samples scattered) and
+    unmasked on clean ones; each against the eager Fold (counts and NaN
+    cells exact, averages rtol 1e-5); the flagged samples drop out of
+    their cells only; masked and unmasked timed in turns."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(31)
+    clean = torch.randn((MF_BLOCKS, MF_BLOCK, MF_CHAN), generator=g,
+                        device=dev)
+    flagged = clean.clone()
+    flagged[torch.rand(flagged.shape, generator=g, device=dev) < 0.01] = \
+        float("nan")
+    flagged[3, :, 5] = float("nan")
+    cps = {}
+    for masked, blocks in ((False, clean), (True, flagged)):
+        tail, cp = masked_fold_chain(dev, blocks, masked)
+        avg, cnt = cp.run_reduced(blocks)
+        tail.seek(0)
+        eager = tail.read()
+        torch.cuda.synchronize()
+        want = eager.data / eager.count.clamp_min(1)
+        nan_cells = eager.count == 0
+        want = torch.where(nan_cells, torch.full_like(want, float("nan")),
+                           want)
+        fin = ~nan_cells
+        rel = float(((avg[fin] - want[fin]).abs() / want[fin].abs()).max())
+        # unmasked counts are per (bin, phase), the eager read's broadcast
+        cells = cnt if masked else cnt[..., None].expand(eager.count.shape)
+        ok = (torch.equal(cells, eager.count)
+              and torch.equal(avg.isnan(), nan_cells) and rel <= 1e-5)
+        if masked:
+            finite = torch.isfinite(blocks).sum(dim=1)       # (block, chan)
+            ok = (ok and torch.equal(cnt.sum(dim=1), finite)
+                  and bool(avg[3, :, 5].isnan().all())
+                  and int(nan_cells.sum()) == MF_PHASE)
+        print(f"(o) masked fold, masked={masked}: {tuple(avg.shape)}, counts "
+              f"exact, {int(nan_cells.sum())} NaN cells, {int(cells.sum())} "
+              f"samples counted of {blocks.numel()}, vs eager rel {rel:.3e} "
+              f"({'ok' if ok else 'FAIL'}) [{gpu}]", flush=True)
+        if not ok:
+            raise AssertionError(f"masked fold (masked={masked}) wrong")
+        cps[masked] = (cp.run_fn(MF_BLOCKS), blocks)
+    best = {}
+    for masked in (False, True, True, False):
+        run, blocks = cps[masked]
+        best[masked] = min(best.get(masked, np.inf),
+                           host_s(lambda: run(blocks), turns=5))
+    for masked in (False, True):
+        run, blocks = cps[masked]
+        print_profile(f"(o) masked fold run, masked={masked}",
+                      lambda: run(blocks), 1, gpu)
+    n = MF_BLOCKS * MF_BLOCK * MF_CHAN
+    print(f"(o) masked fold run of {MF_BLOCKS} blocks: unmasked "
+          f"{1e3 * best[False]:.3f} ms ({n / best[False]:.4e} samples/s), "
+          f"masked {1e3 * best[True]:.3f} ms ({n / best[True]:.4e} "
+          f"samples/s), overhead {best[True] / best[False] - 1:.3f} [{gpu}]",
+          flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -1707,6 +2133,17 @@ def main():
         launches[k] = search[k]
     torch.cuda.empty_cache()
     launches["resident"] = drive_resident(dev, gpu)
+    torch.cuda.empty_cache()
+    pipe = flagship(dev)
+    results.update(check_bf16_kernels(pipe, gpu))
+    bf16 = drive_bf16_ops(pipe, gpu)
+    for k in BF16_KERNELS:
+        launches[k] = bf16[k]
+    del pipe
+    torch.cuda.empty_cache()
+    drive_config1(dev, gpu)
+    torch.cuda.empty_cache()
+    drive_masked_fold(dev, gpu)
     missing = [k for k in KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on a path: {missing}")

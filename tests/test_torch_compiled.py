@@ -342,8 +342,14 @@ def test_refusals():
     ps, _ = sources(1 << 12, (2,), 1.0, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PCompiled(pb.Channelize(ps, 16), packed=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PCompiled(pb.Channelize(ps, 16)).run_reduced(None)
+    # a reduction after a chain of fractional delay: refused, as in JAX
+    ded = pb.Dedisperse(pb.SetAttribute(
+        ps, frequency=400 * pu.MHz, sideband=1), 0.5,
+        samples_per_frame=2048, pad_margin=32)
+    frac = pb.Integrate(pb.Square(pb.Channelize(ded, 64)), 2)
+    assert PCompiled(frac).delay.denominator != 1
+    with pytest.raises(ValueError, match="fractional-delay"):
+        PCompiled(frac).run_reduced(np.zeros((1, 2048, 2), np.complex64))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pb.Channelize(ps, 16).compile(mesh=object())
     with pytest.raises(ValueError, match="no task nodes"):

@@ -18,7 +18,11 @@ k3_trim with the ``post`` mix (L 128 and 512, pads 0 and not), and the
 compiled fusions on the card, and the flagship's variants (the
 full-Stokes fold k3_fold_stokes, k3_power, k2_theta, k1_planes,
 k1_stream_planes, and the pipeline's step_fn, step_bins_fn and planes
-step on the kernels, against the plain versions and the torch.fft path).
+step on the kernels, against the plain versions and the torch.fft path),
+the bf16 passes (K1p, K1f, K2 with a float32 or a bf16 chirp, K3 power
+and Stokes) and the split ops in bf16 mode, their refusals (mixed y/z
+dtypes, strided or misaligned bf16 planes), and the absorbed reduction
+(masked fold, config 1) on the card.
 Tolerances as in ``chip_smoke.py``: planes
 to 1e-4 of their largest element (float32 FFT roundoff is ~1e-6 of it),
 profiles elementwise to rtol 2e-4 (atomic summation order), counts
@@ -698,3 +702,168 @@ def test_resident(dev, n_window, L, stokes, n_phase):
         dr.dedisperse_fold_resident(z, z, e, e, e, e, c, c, fold, scale,
                                     n_window=big, n_phase=8, pad_start=4096,
                                     pad_end=4096)
+
+
+# -- the bf16-intermediate passes and the absorbed reduction ---------------
+
+def assert_bf16_planes(got, ref):
+    """bf16 planes of a kernel against the plain version's: within one
+    bf16 ulp of the plain value plus 1e-6 of the peak (the float32 values
+    before rounding differ by FFT roundoff, so a rounding may flip)."""
+    torch.cuda.synchronize()
+    peak = max(float(r.float().abs().max()) for r in ref)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype == torch.bfloat16
+        g, r = g.float(), r.float()
+        ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(1e-30)))
+                         - 7)
+        assert bool(((g - r).abs() <= ulp + 1e-6 * peak).all())
+
+
+def _peak_rel(got, ref):
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+@pytest.mark.parametrize("geom", GEOMS[:2])
+def test_bf16_passes(dev, geom):
+    """K1p, K1f, K2 (float32 and bf16 chirp) and K3 (power, Stokes) on
+    bf16 planes against their plain versions, each launching its own
+    bf16 kernel."""
+    t_main, p0, p1, L = geom
+    words, planes, edges, scale = inputs(dev, t_main, p0, p1, L, 8, seed=9)
+    bf16 = torch.bfloat16
+    dd.reset_launch_counts()
+    y = dd.stage_a(*planes, *edges, scale, out_dtype=bf16)
+    assert_bf16_planes(y, dd.stage_a_ref(*planes, *edges, scale,
+                                         out_dtype=bf16))
+    yp = dd.stage_a_packed(*words, *edges, scale, bits=8, out_dtype=bf16)
+    assert_bf16_planes(yp, dd.stage_a_packed_ref(*words, *edges, scale,
+                                                 bits=8, out_dtype=bf16))
+    g = torch.Generator(device=dev)
+    g.manual_seed(10)
+    ph = torch.rand(y[0].shape, generator=g, device=dev) * 6.283
+    chirp = (torch.cos(ph), torch.sin(ph))
+    for c in (chirp, tuple(p.to(bf16) for p in chirp)):
+        z = dd.stage_b(*[p.clone() for p in y], *c)
+        assert_bf16_planes(z, dd.stage_b_ref(*[p.clone() for p in y], *c))
+    fold = torch.as_tensor(dd.fold_phase_vector(0.3, 1.0 / 97.0), device=dev)
+    kw = dict(n_phase=64, pad_start=p0, n_valid=t_main)
+    for stokes in (False, True):
+        prof, cnt = dd.detect_fold(*z, fold, stokes=stokes, **kw)
+        rprof, rcnt = dd.fold_ref(*z, fold, stokes=stokes, **kw)
+        assert torch.equal(cnt, rcnt)
+        assert _peak_rel(prof, rprof) <= 1e-5
+    assert {k: v for k, v in dd.launch_counts.items() if v} == dict(
+        k1_float_bf16=1, k1_packed_bf16=1, k2_bf16=1, k2_bf16_chirp=1,
+        k3_fold_bf16=1, k3_fold_stokes_bf16=1)
+
+
+@pytest.mark.parametrize("stokes", [False, True])
+def test_bf16_split_op_on_card(dev, stokes):
+    """dedisperse_fold_split(_packed) in bf16 mode on the card: the bf16
+    kernels, against the plain bf16 path and the float32 kernels (1e-3 of
+    the peak, the bar of TestBF16Intermediates, which holds where a bin
+    averages a few hundred samples: 896 here), counts exact."""
+    t_main, p0, p1, L = 7168, 512, 512, 128
+    words, planes, edges, scale = inputs(dev, t_main, p0, p1, L, 8, seed=11)
+    n1, n2 = dd.split_n(8192)
+    ph = torch.rand((n2, n1, L), generator=torch.Generator(
+        device=dev).manual_seed(12), device=dev) * 6.283
+    chirp = (torch.cos(ph), torch.sin(ph))
+    fold = torch.as_tensor(dd.fold_phase_vector(0.1, 1.0 / 97.0), device=dev)
+    kw = dict(n_phase=8, pad_start=p0, n_valid=t_main, stokes=stokes)
+    for op, x in ((dd.dedisperse_fold_split, planes),
+                  (dd.dedisperse_fold_split_packed, words)):
+        for c in (chirp, tuple(p.to(torch.bfloat16) for p in chirp)):
+            dd.reset_launch_counts()
+            prof, cnt = op(*x, *edges, *c, fold, scale,
+                           inter_dtype="bfloat16", **kw)
+            launched = {k for k, v in dd.launch_counts.items() if v}
+            assert all(k.endswith(("_bf16", "_bf16_chirp"))
+                       for k in launched) and len(launched) == 3
+            with dd.plain_versions():
+                rprof, rcnt = op(*x, *edges, *c, fold, scale,
+                                 inter_dtype="bfloat16", **kw)
+            f32 = op(*x, *edges, *chirp, fold, scale, **kw)
+            assert torch.equal(cnt, rcnt) and torch.equal(cnt, f32[1])
+            assert _peak_rel(prof, rprof) < 1e-3
+            assert _peak_rel(prof, f32[0]) < 1e-3
+
+
+def test_bf16_refusals(dev):
+    bf16 = torch.bfloat16
+    y = [torch.randn((32, 32, 128), device=dev).to(bf16) for _ in (0, 1)]
+    c = [torch.randn((32, 32, 128), device=dev) for _ in (0, 1)]
+    fold = torch.as_tensor(dd.fold_phase_vector(0.1, 0.01), device=dev)
+    # stage B works in place: y and z planes of one dtype only
+    with pytest.raises(TypeError, match="share one dtype"):
+        dd.stage_b(y[0], y[1].float(), *c)
+    with pytest.raises(TypeError, match="share one dtype"):
+        dd.detect_fold(y[0].float(), y[1], fold, n_phase=8, pad_start=0,
+                       n_valid=1024)
+    with pytest.raises(TypeError, match="expected one of"):
+        dd.stage_b(y[0].float(), y[1].float(), c[0].to(bf16), c[1].to(bf16))
+    strided = torch.randn((32, 32, 256), device=dev).to(bf16)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        dd.stage_b(strided, y[1], *c)
+    odd = torch.empty(32 * 32 * 128 + 1, dtype=bf16, device=dev)[1:]
+    with pytest.raises(ValueError, match="4-byte"):
+        dd.detect_fold(odd.view(32, 32, 128), y[1], fold, n_phase=8,
+                       pad_start=0, n_valid=1024)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_reduction_on_card(dev, masked):
+    """The absorbed reduction on the card (Square -> Fold, and config 1's
+    Channelize -> Square -> Integrate) against the same runs on the
+    CPU: counts and NaN cells exact, sums rtol 1e-5."""
+    import baseband_tasks_tpu_torch as bt
+    from baseband_tasks_tpu_torch.models.compiled import CompiledPipeline
+    u = bt.units
+    t0 = bt.Time.from_mjd(58000.0)
+    rng = np.random.default_rng(13)
+    data = rng.standard_normal((1 << 14, 8)).astype(np.float32) + 2.0
+    data[:, 3] = np.nan
+    data[100:300, 5] = np.nan
+    if not masked:
+        data = np.nan_to_num(data, nan=1.0)
+
+    def chain(device):
+        src = bt.StreamGenerator(
+            lambda sh: data[sh.tell():sh.tell() + 4096], shape=data.shape,
+            start_time=t0, sample_rate=1 * u.MHz, samples_per_frame=4096,
+            dtype=np.float32, device=device)
+        phase = (lambda t: u.Quantity((t - t0).sec * 12345.6, u.cycle))
+        return bt.Fold(bt.Square(src), 8, phase, u.Quantity(4096e-6, u.s),
+                       samples_per_frame=1, masked=masked)
+
+    outs = {}
+    for device in ("cpu", dev):
+        tail = chain(device)
+        cp = CompiledPipeline(tail, block_samples=4096)
+        outs[str(device)] = cp.run_reduced(cp.read_source_blocks(4))
+        tail.seek(0)
+        eager = tail.read(4)
+    (avg, cnt), (ravg, rcnt) = outs[str(dev)], outs["cpu"]
+    assert avg.device.type == "cuda"
+    assert torch.equal(cnt.cpu(), rcnt)
+    assert torch.equal(avg.isnan().cpu(), ravg.isnan())
+    torch.testing.assert_close(avg.cpu(), ravg, rtol=1e-5, atol=0,
+                               equal_nan=True)
+    torch.testing.assert_close(avg, eager, rtol=1e-5, atol=0, equal_nan=True)
+    if masked:
+        assert bool(avg[..., 3].isnan().all())
+        assert bool(avg[..., :3].isfinite().all())
+    # config 1 at a small size: compiled on the card against eager there
+    noise = bt.NoiseGenerator(shape=(1 << 16,), start_time=t0,
+                              sample_rate=16 * u.MHz, samples_per_frame=4096,
+                              seed=7, device=dev)
+    tail = bt.Integrate(bt.Square(bt.Channelize(noise, 256)), 16,
+                        masked=masked)
+    cp = CompiledPipeline(tail, block_samples=1 << 14)
+    avg, cnt = cp.run_reduced(cp.read_source_blocks(4))
+    tail.seek(0)
+    eager = tail.read()
+    assert avg.device.type == "cuda" and tuple(avg.shape) == (16, 256)
+    assert bool((cnt == 16).all())
+    torch.testing.assert_close(avg, eager, rtol=1e-5, atol=0)

@@ -170,10 +170,40 @@ def test_dedisperse_fold_split():
 def test_cpu_wrappers_count_no_launch():
     c = make_case(8, seed=6)
     dd.reset_launch_counts()
-    dd.dedisperse_fold_split(*c["dec"], *c["edges"], *c["chirp"], c["fold"],
-                             c["scale"], n_phase=N_PHASE,
+    # CPU tensors: the plain versions, whether or not there is a card
+    dd.dedisperse_fold_split(*tensors(*c["dec"], *c["edges"], *c["chirp"],
+                                      c["fold"], c["scale"]),
+                             n_phase=N_PHASE,
                              pad_start=c["pad_start"], n_valid=c["n_valid"])
     assert all(v == 0 for v in dd.launch_counts.values())
+
+
+class _Stop(Exception):
+    """Raised by a spy once it has seen where the data would go."""
+
+
+def test_numpy_input_goes_to_the_card(monkeypatch):
+    """The public ops given numpy run on the card when there is one (a
+    spy stops the call where the inputs are moved); a tensor keeps its
+    device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert dd._device_of(np.zeros(3)) == torch.device("cuda")
+    assert dd._device_of(torch.zeros(3)) == torch.device("cpu")
+    seen = []
+
+    def spy(a, device, dtype):
+        seen.append(device)
+        raise _Stop
+
+    monkeypatch.setattr(dd, "_as_device", spy)
+    c = make_case(8, seed=6)
+    for inter_dtype in ("float32", "bfloat16"):
+        with pytest.raises(_Stop):
+            dd.dedisperse_fold_split(
+                *c["dec"], *c["edges"], *c["chirp"], c["fold"], c["scale"],
+                n_phase=N_PHASE, pad_start=c["pad_start"],
+                n_valid=c["n_valid"], inter_dtype=inter_dtype)
+    assert seen == [torch.device("cuda")] * 2
 
 
 def test_wrappers_reject_other_devices():
@@ -185,9 +215,10 @@ def test_wrappers_reject_other_devices():
 
 
 @pytest.mark.parametrize("kw, exc", [
-    # Stokes is ported; bf16 intermediates are not, in either detection
-    (dict(stokes=True, inter_dtype="bfloat16"), NotImplementedError),
-    (dict(inter_dtype="bfloat16"), NotImplementedError),
+    # Stokes and bf16 intermediates are ported; another intermediate dtype
+    # is refused, and so are y planes of two dtypes (stage B works in place)
+    (dict(stokes=True, inter_dtype="float16"), ValueError),
+    (dict(inter_dtype="bfloat16", mixed_y=True), TypeError),
     (dict(n_phase=1 << 16), ValueError),
     (dict(pad_start=64), ValueError)])
 def test_rejects_unported_modes(kw, exc):
@@ -195,9 +226,18 @@ def test_rejects_unported_modes(kw, exc):
     args = dict(n_phase=N_PHASE, pad_start=c["pad_start"],
                 n_valid=c["n_valid"])
     args.update(kw)
+    mixed_y = args.pop("mixed_y", False)
     with pytest.raises(exc):
-        dd.dedisperse_fold_split(*c["dec"], *c["edges"], *c["chirp"],
-                                 c["fold"], c["scale"], **args)
+        if mixed_y:
+            # the op's own chain after stage A, given a mixed pair
+            yr, yi = dd.stage_a(*tensors(*c["dec"], *c["edges"], c["scale"]),
+                                out_dtype=torch.bfloat16)
+            dd.fold_chain((yr, yi.float()), *tensors(*c["chirp"]),
+                          torch.as_tensor(c["fold"]), n_phase=N_PHASE,
+                          pad_start=c["pad_start"], n_valid=c["n_valid"])
+        else:
+            dd.dedisperse_fold_split(*c["dec"], *c["edges"], *c["chirp"],
+                                     c["fold"], c["scale"], **args)
 
 
 def test_fold_accumulate_matches_jax():

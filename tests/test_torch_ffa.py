@@ -150,3 +150,40 @@ def test_sharded_not_ported():
 def test_default_device_is_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert pffa.FastFoldingSearch(16, 256).device == torch.device("cuda")
+
+
+class _Stop(Exception):
+    """Raised by a spy once it has seen where the data would go."""
+
+
+def test_numpy_input_goes_to_the_card(monkeypatch):
+    """ffa_fold and ffa_survey given numpy: the card when there is one
+    (numpy is converted there; a spy stops the call at the conversion)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    seen = []
+
+    def spy(data, dtype=None, device=None):
+        seen.append(torch.device(device))
+        raise _Stop
+
+    monkeypatch.setattr(torch, "as_tensor", spy)
+    x = pulse_train(1 << 10, 23)
+    with pytest.raises(_Stop):
+        pffa.ffa_fold(x, 16)
+    with pytest.raises(_Stop):
+        pffa.ffa_survey(x, 8, 40)
+    assert seen == [torch.device("cuda")] * 2
+
+
+def test_input_dtype_and_device():
+    """float64 folds in float32, as the JAX package's jnp.asarray makes it;
+    a tensor keeps its device, and device='cpu' keeps numpy on the host."""
+    x = pulse_train(1 << 10, 23).astype(np.float64)
+    got = pffa.ffa_fold(x, 16, device="cpu")
+    assert got.dtype == torch.float32 and got.device.type == "cpu"
+    want = np.asarray(jffa.ffa_fold(x, 16))
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL)
+    again = pffa.ffa_fold(torch.from_numpy(x), 16)
+    assert again.dtype == torch.float32 and torch.equal(again, got)
+    cands = pffa.ffa_survey(torch.from_numpy(x), 8, 40, threshold=6.0)
+    assert cands == pffa.ffa_survey(x, 8, 40, threshold=6.0, device="cpu")

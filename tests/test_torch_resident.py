@@ -173,3 +173,23 @@ def test_call_errors_match_jax(case):
     assert got.split()[0] == want.split()[0]
     if case != "n_phase":      # the port words its limit as the kernel's
         assert got == want
+
+
+class _Stop(Exception):
+    """Raised by a spy once it has seen where the data would go."""
+
+
+def test_numpy_input_goes_to_the_card(monkeypatch):
+    """dedisperse_fold_resident given numpy runs on the card when there is
+    one (a spy stops the call where the inputs are moved)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    seen = []
+
+    def spy(a, device, dtype):
+        seen.append(device)
+        raise _Stop
+
+    monkeypatch.setattr(pres, "_as_device", spy)
+    with pytest.raises(_Stop):
+        _call(pres)
+    assert seen == [torch.device("cuda")]

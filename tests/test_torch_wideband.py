@@ -206,15 +206,18 @@ def test_rejects_unported_options():
     with pytest.raises(ValueError, match="dual polarization"):
         bt.WidebandPulsarPipeline(**dict(port_kwargs(), n_pol=4,
                                          detect="stokes"))
-    # bf16 intermediates are not ported, Stokes or not
-    with pytest.raises(NotImplementedError):
-        dd.dedisperse_fold_split(
-            *(np.zeros((896, 16), np.float32),) * 2,
-            *(np.zeros((32, 16), np.float32),) * 2,
-            *(np.zeros((96, 16), np.float32),) * 2,
-            *(np.zeros((32, 32, 16), np.float32),) * 2,
-            dd.fold_phase_vector(0.0, 0.01), np.float32([1.0]), n_phase=8,
-            pad_start=32, n_valid=896, stokes=True, inter_dtype="bfloat16")
+    # bf16 intermediates are a mode of the split ops, Stokes or not (the
+    # pipeline has no such option, in either package)
+    rng = np.random.default_rng(5)
+    prof, cnt = dd.dedisperse_fold_split(
+        *(torch.tensor(rng.standard_normal(shape).astype(np.float32))
+          for shape in ((896, 16),) * 2 + ((32, 16),) * 2 + ((96, 16),) * 2),
+        *(torch.ones((32, 32, 16)), torch.zeros((32, 32, 16))),
+        torch.as_tensor(dd.fold_phase_vector(0.0, 0.01)),
+        torch.tensor([1.0]), n_phase=8, pad_start=32, n_valid=896,
+        stokes=True, inter_dtype="bfloat16")
+    assert prof.shape == (9, 48) and bool(torch.isfinite(prof).all())
+    assert cnt.tolist()[-1] == 128 and int(cnt.sum()) == 1024
     pp = bt.WidebandPulsarPipeline(**port_kwargs())
     with pytest.raises(ValueError, match="ingest_bits"):
         pp.run_fn(1, ingest_bits=3)
