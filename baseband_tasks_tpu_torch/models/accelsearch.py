@@ -28,11 +28,13 @@ The template bank, the operator planes and the lane banks are built in
 numpy exactly as the JAX package builds them and moved to the device
 once.  The spectrum (``_spectrum``) is plain torch on every engine;
 :meth:`~FourierDomainAccelSearch.harmonic_sum` and the candidate
-extraction are host numpy.  ``search_sharded`` waits for the multi-device
-layer.
+extraction are host numpy.  ``search_sharded`` splits the bank over the
+devices of a mesh axis (``parallel.make_mesh`` or ``parallel.Mesh``).
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -40,6 +42,8 @@ import torch
 from ..ops.accel_correlate import (LANES, MAX_SEG_LEN, accel_correlate_bank,
                                    bank_matmul_power)
 from ..utils import units as u
+from .meshtools import (axis_devices, mesh_cache_key, pad_to_multiple,
+                        require_mesh_axis)
 
 __all__ = ["FourierDomainAccelSearch", "accel_template"]
 
@@ -328,11 +332,58 @@ class FourierDomainAccelSearch:
         return self._search_impl(x, *self._tf_device)
 
     def search_sharded(self, x, mesh, *, axis_name="z"):
-        """Not ported yet: the template bank sharded across devices comes
-        with the multi-device layer (ROADMAP queue 1 item 11)."""
-        raise NotImplementedError(
-            "search_sharded needs the multi-device layer, not ported yet "
-            "(ROADMAP queue 1 item 11); use search() on one device")
+        """:meth:`search` with the template bank sharded across the devices
+        of a mesh axis (``parallel.Mesh``).
+
+        The z axis is a pure batch axis of the whole computation: each
+        device holds ``n_z / shards`` templates and correlates the
+        (replicated) spectrum against its own slice, with no
+        communication, each on the engine :meth:`search` would use there.
+        A bank whose size does not divide the shard count is zero-padded
+        (padded templates give zero power) and the pad is trimmed.
+        Returns the (n_freq, n_z) map of :meth:`search`, joined on the
+        first device of the axis.
+        """
+        n_shards = require_mesh_axis(mesh, axis_name)
+        if not torch.is_tensor(x):
+            x = torch.tensor(np.asarray(x))
+        if tuple(x.shape) != (self.n_time,):
+            raise ValueError(f"expected shape ({self.n_time},), got "
+                             f"{tuple(x.shape)}")
+        key = mesh_cache_key(mesh, axis_name)
+        cache = self.__dict__.setdefault("_sharded_cache", {})
+        if key not in cache:
+            cache[key] = self._shard_bank(axis_devices(mesh, axis_name),
+                                          n_shards)
+        shards = cache[key]
+        maps = [s.search(x.to(s.device)) for s in shards]
+        n_z = len(self.zs)
+        zmap = torch.cat([m.to(shards[0].device) for m in maps], dim=1)
+        return zmap[:, :n_z] if zmap.shape[1] != n_z else zmap
+
+    def _shard_bank(self, devices, n_shards):
+        """One search per device over its zero-padded slice of the bank
+        (the same engine, planes built from the slice)."""
+        n_z = len(self.zs)
+        per = (n_z + pad_to_multiple(n_z, n_shards)) // n_shards
+
+        def part(a, k):
+            out = np.zeros((per,) + a.shape[1:], np.float32)
+            rows = a[k * per:(k + 1) * per]
+            out[:len(rows)] = rows
+            return out
+
+        shards = []
+        for k, dev in enumerate(devices):
+            s = copy.copy(self)
+            s.__dict__.pop("_sharded_cache", None)
+            s.device = torch.device(dev)
+            s.zs = np.zeros(per)            # only the bank's size is read
+            s._set_bank(*(part(a, k) for a in (self._tf_r, self._tf_i,
+                                               self._taps_r,
+                                               self._taps_i)))
+            shards.append(s)
+        return shards
 
     # -- host post-processing ---------------------------------------------
     def harmonic_sum(self, zmap, n_harm=4):

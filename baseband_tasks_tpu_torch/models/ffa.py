@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..utils import units as u
+from .meshtools import axis_devices, pad_to_multiple, require_mesh_axis
 
 __all__ = ["FastFoldingSearch", "ffa_fold", "ffa_survey"]
 
@@ -195,11 +196,31 @@ class FastFoldingSearch:
 
     def snr_sharded(self, x, mesh, *, axis_name="batch",
                     widths=(1, 2, 4, 8, 16)):
-        """Not ported yet: a batch of series sharded across devices comes
-        with the multi-device layer (ROADMAP queue 1 item 11)."""
-        raise NotImplementedError(
-            "snr_sharded needs the multi-device layer, not ported yet "
-            "(ROADMAP queue 1 item 11); use snr() on one device")
+        """:meth:`snr` of a BATCH of series, sharded across the devices of
+        a mesh axis (``parallel.Mesh``).
+
+        The FFA's trial axis couples across segment halves at every stage
+        of the recursion; the batch (DM trials, beams, polarizations) is
+        the axis with no communication, so each device runs the whole
+        recursion on its own rows.  ``x`` is ``(n_batch, n_time)``; a batch
+        that does not divide the shard count is zero-padded (zero rows
+        have zero MAD and score S/N 0) and trimmed from the ``(n_batch,
+        m)`` result, joined on the first device of the axis.
+        """
+        n_shards = require_mesh_axis(mesh, axis_name)
+        x = self._check_block(x)
+        if x.ndim != 2:
+            raise ValueError("snr_sharded wants a (n_batch, n_time) "
+                             "stack of series")
+        n_batch = x.shape[0]
+        pad = pad_to_multiple(n_batch, n_shards)
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+        devices = axis_devices(mesh, axis_name)
+        parts = [self.snr(rows.to(dev), widths)
+                 for rows, dev in zip(x.chunk(n_shards), devices)]
+        s = torch.cat([p.to(devices[0]) for p in parts])
+        return s[:n_batch] if pad else s
 
     def candidates(self, x, threshold=7.0, widths=(1, 2, 4, 8, 16)):
         """Trials whose best S/N exceeds ``threshold``, as a list of

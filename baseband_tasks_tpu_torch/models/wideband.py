@@ -1,10 +1,20 @@
 """Flagship model: wideband coherent-dedispersion + fold pipeline.
 
-Counterpart of ``baseband_tasks_tpu/models/wideband.py`` on one device: a
-block of channelized complex baseband -> per-channel coherent dedispersion
-(overlap-save chirp) -> detection -> phase-binned fold.  Detection is
-power per channel and polarization, or, for dual polarization, full
-Stokes [XX, YY, Re XY*, Im XY*] per channel.
+Counterpart of ``baseband_tasks_tpu/models/wideband.py``: a block of
+channelized complex baseband -> per-channel coherent dedispersion
+(overlap-save chirp) -> detection -> phase-binned fold, over a (time,
+chan) mesh (``parallel.make_mesh``).  Detection is power per channel and
+polarization, or, for dual polarization, full Stokes [XX, YY, Re XY*,
+Im XY*] per channel.
+
+The mesh is the JAX pipeline's, driven by one process: every entry point
+shards its input over the mesh, runs each shard's step on that shard's
+device, sums the profiles over time shards and joins them over channel
+shards.  The 'chan' axis needs no communication; along 'time' each shard
+takes its overlap-save pads from its neighbours (``halo='ppermute'``:
+copies between the shards' devices, ``parallel.halo``; ``halo='remote'``:
+the ``halo_remote`` kernel, ``parallel.halo_remote``), zeros at the
+stream's two ends.  ``device`` is the one-shard mesh.
 
 ``use_kernels`` means what the JAX pipeline's ``use_pallas`` means:
 
@@ -22,17 +32,19 @@ the caller's voltages and a fold offset or fold row), ``step_bins_fn``
 with ``phase_bins`` (folding on host-computed, full-precision phase
 bins), ``planes_step`` (the planes-first kernel step, with the chirp as
 cos/sin planes or one phase plane) and ``run_fn`` (a loop of steps).
-Compared with the JAX pipeline: ``mesh`` is ``device`` and there is one
-time shard (its halo edges are zeros, as the JAX halo exchange gives a
-single shard); fold rows are int64 ``[i0_fx, p_fx, 0]`` (the JAX (4,)
-16-bit halves were a TPU transfer workaround); bf16 intermediates are not
-ported.  Tests run the kernel path on the plain versions on a card inside
-:func:`..ops.dedisperse.plain_versions`.
+Fold rows are int64 ``[i0_fx, p_fx, 0]`` (the JAX (4,) 16-bit halves
+were a TPU transfer workaround).  The pipeline keeps its planes in
+float32: the bf16 intermediates are a mode of the split ops
+(``ops.dedisperse_fold_split(..., inter_dtype='bfloat16')``), an option
+of neither package's pipeline.  Tests run the kernel path on the plain
+versions on a card inside :func:`..ops.dedisperse.plain_versions`.
 """
 
 from __future__ import annotations
 
 from fractions import Fraction
+
+import functools
 
 import numpy as np
 import torch
@@ -44,8 +56,13 @@ from ..ops.dedisperse import (_FX_MASK, _FX_ONE, as_tensor, dedisperse_pow2,
                               permute_to_storage_order, split_n, stage_a,
                               stage_a_packed)
 from ..ops.fold import fold_accumulate
+from ..ops.unpack import plane_edges
+from ..parallel.halo import halo_edges, halo_exchange, ppermute
+from ..parallel.halo_remote import halo_edges_remote, halo_exchange_remote
+from ..parallel.mesh import Mesh, grid_indices, shard
 from ..utils import units as u
 from .foldmodel import FoldModel, _phase_to_cycles
+from .meshtools import require_mesh_axis
 
 __all__ = ["WidebandPulsarPipeline"]
 
@@ -71,7 +88,7 @@ class _TableFoldModel:
 
 
 class WidebandPulsarPipeline:
-    """Fused dedisperse→detect→fold steps on one device.
+    """Fused dedisperse→detect→fold steps over a (time, chan) mesh.
 
     Parameters
     ----------
@@ -89,9 +106,14 @@ class WidebandPulsarPipeline:
     n_phase : int
         Phase bins per profile.
     block_samples : int
-        Requested samples per step; grown so the window is FFT-fast.
+        Requested samples per time shard per step; grown so the window
+        is FFT-fast.
     device : torch.device or str, optional
-        Where the step runs (default: the CUDA device if there is one).
+        The one device of a one-shard mesh (default: the CUDA device if
+        there is one); not with ``mesh``.
+    mesh : parallel.Mesh, optional
+        A (time, chan) mesh (``parallel.make_mesh``); n_chan must divide
+        over its 'chan' axis.
     fft_pow2 : bool
         A power-of-two window on the plain path too.
     use_kernels : bool
@@ -106,14 +128,18 @@ class WidebandPulsarPipeline:
     detect : str
         'power' (|x|² per channel and polarization) or 'stokes' (n_pol=2:
         [XX, YY, Re XY*, Im XY*] per channel).
+    halo : str
+        'ppermute' (the time shards' edges copied between their devices)
+        or 'remote' (the ``halo_remote`` kernel on a CUDA mesh).
     """
 
     def __init__(self, *, n_chan=1024, n_pol=4, dm=500.0,
                  freq_center=None, chan_rate=None,
                  period_samples=(16000, 3), n_phase=64,
-                 block_samples=16384, device=None, fft_pow2=False,
-                 use_kernels=False, phase_model=None, start_time=None,
-                 ingest_bits=8, detect="power"):
+                 block_samples=16384, device=None, mesh=None,
+                 fft_pow2=False, use_kernels=False, phase_model=None,
+                 start_time=None, ingest_bits=8, detect="power",
+                 halo="ppermute"):
         if freq_center is None:
             freq_center = 1400 * u.MHz
         if chan_rate is None:
@@ -124,12 +150,33 @@ class WidebandPulsarPipeline:
             raise ValueError("detect='stokes' needs dual polarization "
                              "(n_pol=2): lanes pair (X, Y) per channel")
         self.detect = detect
+        if halo not in ("ppermute", "remote"):
+            raise ValueError(f"halo={halo!r}: 'ppermute' or 'remote'")
+        self.halo = halo
         self.n_chan = n_chan
         self.n_pol = n_pol
         self.n_phase = n_phase
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        if mesh is None:
+            if device is None:
+                device = "cuda" if torch.cuda.is_available() else "cpu"
+            mesh = Mesh([[device]], ("time", "chan"))
+        elif device is not None:
+            raise ValueError("give mesh or device, not both (device is the "
+                             "one-shard mesh)")
+        if mesh.axis_names != ("time", "chan"):
+            for axis in ("time", "chan"):
+                require_mesh_axis(mesh, axis)
+            raise ValueError(f"mesh axes must be ('time', 'chan'), got "
+                             f"{mesh.axis_names}")
+        self.mesh = mesh
+        self.device = mesh.devices[0, 0]   # where results are joined
+        self.n_time_shards = mesh.shape["time"]
+        self.n_chan_shards = mesh.shape["chan"]
+        if n_chan % self.n_chan_shards:
+            raise ValueError("n_chan must divide over the chan mesh axis")
+        self._c_local = n_chan // self.n_chan_shards
+        self._cells = [(t, c) for t in range(self.n_time_shards)
+                       for c in range(self.n_chan_shards)]
         self.use_kernels = bool(use_kernels)
         frac = (period_samples if isinstance(period_samples, Fraction)
                 else Fraction(*period_samples))
@@ -291,12 +338,74 @@ class WidebandPulsarPipeline:
             *(torch.from_numpy(c) for c in self._chirp_np))[:, :, None]
             .to(self.device))
 
+    # -- the mesh -------------------------------------------------------------
+    def _lanes(self, t, c, device, axis=2, width=None):
+        """Chan shard ``c``'s part of ``t`` (its lanes along ``axis``, by
+        default the last of a (N2, N1, L) plane) on ``device``: ``t``
+        itself with one chan shard, else a contiguous copy."""
+        if t is None:
+            return None
+        if self.n_chan_shards == 1:
+            return t.to(device)
+        width = width or self._c_local * self.n_pol
+        return t.narrow(axis, c * width, width).to(
+            device, copy=True, memory_format=torch.contiguous_format)
+
+    def _shard_chirp(self, key, c, device):
+        """Chan shard ``c``'s chirp table ``key`` on ``device`` (cached):
+        'planes' (cos/sin storage planes) or 'natural'."""
+        def make():
+            if key == "natural":
+                return self._lanes(self._chirp_natural(), c, device, axis=1,
+                                   width=self._c_local)
+            return tuple(self._lanes(p, c, device)
+                         for p in self._chirp_device())
+        return self._on_device((key, c, device), make)
+
+    def _halo_edges(self, grid, axis=0):
+        """Each shard's (front, end) edges of a (time, chan) grid of
+        blocks, by the pipeline's halo backend."""
+        if self.halo == "remote":
+            if axis != 0:
+                raise NotImplementedError(
+                    "halo='remote' moves axis-0 halos; reshape first")
+            return halo_edges_remote(grid, self.pad_start, self.pad_end)
+        return halo_edges(grid, self.pad_start, self.pad_end, axis=axis)
+
+    def _halo_exchange(self, grid):
+        """Each shard's overlap-save window [front | block | end] along
+        time, by the pipeline's halo backend."""
+        if self.halo == "remote":
+            return halo_exchange_remote(grid, self.pad_start, self.pad_end)
+        return halo_exchange(grid, self.pad_start, self.pad_end)
+
+    def _reduce(self, profs, cnts):
+        """Per-shard (profile, counts) grids -> the profile summed over
+        time shards and joined over chan shards, and the counts summed over
+        time shards only (every chan shard counts the same samples), on
+        the pipeline's device."""
+        if profs.size == 1:
+            return profs[0, 0], cnts[0, 0]
+        dev = self.device
+
+        def over_time(grid, c):
+            return functools.reduce(torch.add, (grid[t, c].to(dev) for t in
+                                                range(self.n_time_shards)))
+        cols = [over_time(profs, c) for c in range(self.n_chan_shards)]
+        prof = cols[0] if len(cols) == 1 else torch.cat(cols, dim=1)
+        return prof, over_time(cnts, 0)
+
     # -- fold rows and bins ---------------------------------------------------
-    def _shard_fold3(self, foldv):
-        """Kernel fold rows from block rows: local time 0 of the kernel is
-        the start of the front halo, so subtract pad_start samples of
-        phase (int64 arithmetic, then the 31-bit mask: exact)."""
-        base = (foldv[..., 0] - self.pad_start * foldv[..., 1]) & _FX_MASK
+    def _shard_fold3(self, foldv, shard=0, include_pad=True):
+        """Fold rows of time shard ``shard`` from block rows (whose i0_fx
+        is the phase at the block's first valid sample): add the shard's
+        offset and, for the kernel path whose local time 0 is the start of
+        the front halo, subtract pad_start samples of phase (int64
+        arithmetic, then the 31-bit mask: exact, as the JAX int32 wrap is,
+        since 2^31 divides 2^32)."""
+        t_off = shard * self.block_samples - (self.pad_start if include_pad
+                                              else 0)
+        base = (foldv[..., 0] + t_off * foldv[..., 1]) & _FX_MASK
         if torch.is_tensor(foldv):
             return torch.stack([base, foldv[..., 1],
                                 torch.zeros_like(base)], -1)
@@ -333,11 +442,20 @@ class WidebandPulsarPipeline:
 
     def _fold_bins(self, fold3, T):
         """Phase bins of T valid samples: the kernels' exact fixed-point
-        map (``ops.dedisperse.fold_bins_ref``), in int64."""
-        t = torch.arange(T, dtype=torch.int64, device=self.device)
+        map (``ops.dedisperse.fold_bins_ref``), in int64, on the fold
+        row's device."""
+        t = torch.arange(T, dtype=torch.int64, device=fold3.device)
         num = (fold3[0] + t * fold3[1]) & _FX_MASK
         n = self.n_phase
         return (((num >> 16) * n) + (((num & 0xFFFF) * n) >> 16)) >> 15
+
+    def _shard_bins(self, foldv):
+        """``bins_of(t, device)`` for :meth:`_pairs_step`: time shard t's
+        bins from the block's fold row."""
+        def bins_of(t, device):
+            return self._fold_bins(self._shard_fold3(
+                foldv, t, include_pad=False).to(device), self.block_samples)
+        return bins_of
 
     # -- detection ----------------------------------------------------------
     def _detect_xla(self, y):
@@ -350,25 +468,19 @@ class WidebandPulsarPipeline:
         return torch.stack([x0.abs() ** 2, x1.abs() ** 2, cross.real,
                             cross.imag], dim=-1)
 
-    def _window(self, x):
-        """The one shard's overlap-save window: zeros, x, zeros in time."""
-        def zeros(n):
-            return torch.zeros((n,) + tuple(x.shape[1:]), dtype=x.dtype,
-                               device=x.device)
-        return torch.cat([zeros(self.pad_start), x, zeros(self.pad_end)])
-
-    def _dedisperse_detect(self, xf):
-        """(T, C, P, 2) float32 pairs -> detected (T, C, P or 4): the
-        kernel chain (``dedisperse_pow2``) or torch.fft along time."""
-        T = xf.shape[0]
-        ps, C, P = self.pad_start, self.n_chan, self.n_pol
+    def _detect_window(self, w, c):
+        """Chan shard ``c``'s overlap-save window -> detected power of its
+        valid rows: a complex (N, C, P) window through torch.fft (plain
+        path), or its (re, im) float32 (N, C, P) planes through the kernel
+        chain (``dedisperse_pow2``)."""
+        ps, T = self.pad_start, self.block_samples
         if not self.use_kernels:
-            w = self._window(torch.complex(xf[..., 0], xf[..., 1]))
-            y = torch.fft.ifft(torch.fft.fft(w, dim=0) * self._chirp_natural(),
-                               dim=0)
+            y = torch.fft.ifft(torch.fft.fft(w, dim=0) * self._shard_chirp(
+                "natural", c, w.device), dim=0)
             return self._detect_xla(y[ps:ps + T])
-        wr, wi = (self._window(xf[..., k].reshape(T, C * P)) for k in (0, 1))
-        csr, csi = self._chirp_device()
+        n, C, P = w[0].shape
+        wr, wi = (p.reshape(n, C * P) for p in w)
+        csr, csi = self._shard_chirp("planes", c, wr.device)
         if self.detect == "power":
             power = dedisperse_pow2(wr, wi, csr, csi, power=True)
             return power[ps:ps + T].reshape(T, C, P)
@@ -376,27 +488,48 @@ class WidebandPulsarPipeline:
         return self._detect_xla(torch.complex(yr[ps:ps + T],
                                               yi[ps:ps + T]).reshape(T, C, P))
 
-    def _fold_block(self, xf, bins):
-        """Dedisperse, detect and fold one block on the given bins."""
-        return fold_accumulate(self._dedisperse_detect(xf), bins,
-                               self.n_phase)
+    def _pairs_step(self, grid, bins_of):
+        """One step over a (time, chan) grid of (T, C, P, 2) float32 pair
+        blocks (the JAX ``_local_step`` / ``_local_step_pallas``): halo
+        exchange, dedisperse and detect each shard's window, fold it on
+        ``bins_of(t, device)``, reduce over the mesh.  The kernel path
+        exchanges the pairs' edges, as JAX does, and assembles each plane
+        of the window in one copy."""
+        if self.use_kernels:
+            front, end = self._halo_edges(grid)
+        else:
+            windows = self._halo_exchange(_map(
+                grid, lambda b: torch.complex(b[..., 0], b[..., 1])))
+        profs = np.empty(grid.shape, dtype=object)
+        cnts = np.empty(grid.shape, dtype=object)
+        for t, c in self._cells:
+            if self.use_kernels:
+                parts = (front[t, c], grid[t, c], end[t, c])
+                w = [torch.cat([p[..., k] for p in parts]) for k in (0, 1)]
+                dev = w[0].device
+            else:
+                w = windows[t, c]
+                dev = w.device
+            profs[t, c], cnts[t, c] = fold_accumulate(
+                self._detect_window(w, c), bins_of(t, dev), self.n_phase)
+        return self._reduce(profs, cnts)
 
     def _assemble_stokes(self, prof3):
         """(n_phase, 3·C·P) kernel profile -> (n_phase, C, 4): plane 0
         holds XX/YY on the pol lanes, planes 1/2 the cross terms on the
         even (X) lanes."""
-        p = prof3.reshape(self.n_phase, 3, self.n_chan, self.n_pol)
+        p = prof3.reshape(self.n_phase, 3, self._c_local, self.n_pol)
         return torch.stack([p[:, 0, :, 0], p[:, 0, :, 1], p[:, 1, :, 0],
                             p[:, 2, :, 0]], dim=-1)
 
     def _profile_epilogue(self, prof, cnt):
-        """Fused-kernel epilogue: drop the trash bin, lay the lanes out as
-        (n_phase, C, P), or (n_phase, C, 4) for Stokes."""
+        """Fused-kernel epilogue of one shard: drop the trash bin, lay the
+        lanes out as (n_phase, C, P), or (n_phase, C, 4) for Stokes."""
         prof = prof[:self.n_phase]
         if self.detect == "stokes":
             prof = self._assemble_stokes(prof)
         else:
-            prof = prof.reshape(self.n_phase, self.n_chan, self.n_pol)
+            prof = prof.reshape(self.n_phase, self._c_local, self.n_pol)
         return prof, cnt[:self.n_phase]
 
     def _as_input(self, block, shape, dtype):
@@ -404,27 +537,28 @@ class WidebandPulsarPipeline:
         if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(f"block must be {dtype} of shape {shape}, got "
                              f"{t.dtype} {tuple(t.shape)}")
-        return t.to(self.device).contiguous()
+        return t
 
     # -- entry points ---------------------------------------------------------
     def step_fn(self):
         """The step ``(xf, offset_mod) -> (profile, counts)``.
 
         ``xf`` : (global_block, n_chan, n_pol, 2) float32 voltages as
-        trailing (re, im) pairs, a tensor or numpy, taken to the device;
-        ``offset_mod`` : a scalar sample offset (fixed-period mode) or a
-        (3,) ``[i0_fx, p_fx, 0]`` row for the block's first valid sample
-        (``FoldModel.foldv``).  Returns the (n_phase, n_chan, n_pol)
-        profile, (n_phase, n_chan, 4) for Stokes, and (n_phase,) float32
-        counts.
+        trailing (re, im) pairs, a tensor or numpy, sharded over the mesh
+        (time on axis 0, channels on axis 1); ``offset_mod`` : a scalar
+        sample offset (fixed-period mode) or a (3,) ``[i0_fx, p_fx, 0]``
+        row for the block's first valid sample (``FoldModel.foldv``).
+        Returns the (n_phase, n_chan, n_pol) profile, (n_phase, n_chan, 4)
+        for Stokes, and (n_phase,) float32 counts, on the pipeline's
+        device.
         """
-        T = self.global_block
-        shape = (T, self.n_chan, self.n_pol, 2)
+        shape = (self.global_block, self.n_chan, self.n_pol, 2)
 
         def step(xf, offset_mod):
-            x = self._as_input(xf, shape, torch.float32)
-            return self._fold_block(x, self._fold_bins(
-                self._foldv(offset_mod), T))
+            grid = shard(self._as_input(xf, shape, torch.float32), self.mesh,
+                         ("time", "chan"))
+            return self._pairs_step(grid, self._shard_bins(
+                self._foldv(offset_mod)))
         return step
 
     def step_bins_fn(self):
@@ -433,15 +567,18 @@ class WidebandPulsarPipeline:
         floats, cast to int and clipped to [0, n_phase - 1]."""
         T = self.global_block
         shape = (T, self.n_chan, self.n_pol, 2)
+        Tl = self.block_samples
 
         def step(xf, bins_f):
-            x = self._as_input(xf, shape, torch.float32)
+            grid = shard(self._as_input(xf, shape, torch.float32), self.mesh,
+                         ("time", "chan"))
             b = torch.as_tensor(bins_f, device=self.device)
             if tuple(b.shape) != (T,):
                 raise ValueError(f"bins must have shape ({T},), got "
                                  f"{tuple(b.shape)}")
-            return self._fold_block(x, b.to(torch.int64).clamp(
-                0, self.n_phase - 1))
+            b = b.to(torch.int64).clamp(0, self.n_phase - 1)
+            return self._pairs_step(
+                grid, lambda t, dev: b[t * Tl:(t + 1) * Tl].to(dev))
         return step
 
     def phase_bins(self, phase, start_time, offset=0):
@@ -464,59 +601,110 @@ class WidebandPulsarPipeline:
         ``_local_step_pallas_planes``) on ``dedisperse_fold_stream``.
 
         ``x2`` : (2, global_block, n_chan, n_pol) float32, real then
-        imaginary plane; ``csr``/``csi`` : the chirp's cos/sin storage
-        planes on the device (``_chirp_device()``), or its phase plane
-        (``_theta_device()``) and None, which runs stage B as k2_theta;
-        ``off`` : the sample offset whose ``1 + 1e-6 off`` scales the
-        whole window (edges included); ``fold_in`` : as :meth:`step_fn`'s.
+        imaginary plane, sharded over time on axis 1; ``csr``/``csi`` :
+        the chirp's cos/sin storage planes (``_chirp_device()``), or its
+        phase plane (``_theta_device()``) and None, which runs stage B as
+        k2_theta; ``off`` : the sample offset whose ``1 + 1e-6 off``
+        scales the whole window (edges included); ``fold_in`` : as
+        :meth:`step_fn`'s.  The edges move along axis 1, so ``halo=
+        'remote'`` (an axis-0 exchange) raises, as in the JAX pipeline.
         Returns the profile and counts of :meth:`step_fn`.
         """
         if not self.use_kernels:
             raise ValueError("planes_step is the kernel path: "
                              "use_kernels=True")
-        T, L = self.global_block, self.n_chan * self.n_pol
-        x = self._as_input(x2, (2, T, self.n_chan, self.n_pol),
-                           torch.float32).reshape(2, T, L)
-        front, end = (torch.zeros((2, n, L), device=self.device)
-                      for n in (self.pad_start, self.pad_end))
+        T, Tl = self.global_block, self.block_samples
+        L = self._c_local * self.n_pol
+        grid = shard(self._as_input(x2, (2, T, self.n_chan, self.n_pol),
+                                    torch.float32), self.mesh,
+                     (None, "time", "chan"))
+        front, end = self._halo_edges(grid, axis=1)
+        foldv = self._foldv(fold_in)
         off = torch.as_tensor(off, dtype=torch.float32, device=self.device)
-        prof, cnt = dedisperse_fold_stream(
-            x, front, end, csr, csi,
-            self._shard_fold3(self._foldv(fold_in)).to(torch.int32),
-            (1.0 + 1e-6 * off).reshape(1), n_phase=self.n_phase,
-            pad_start=self.pad_start, n_valid=T,
-            stokes=self.detect == "stokes")
-        return self._profile_epilogue(prof, cnt)
+        scale = (1.0 + 1e-6 * off).reshape(1)
+        profs = np.empty(grid.shape, dtype=object)
+        cnts = np.empty(grid.shape, dtype=object)
+        for t, c in self._cells:
+            dev = grid[t, c].device
+            prof, cnt = dedisperse_fold_stream(
+                grid[t, c].reshape(2, Tl, L),
+                front[t, c].reshape(2, self.pad_start, L),
+                end[t, c].reshape(2, self.pad_end, L),
+                self._lanes(csr, c, dev), self._lanes(csi, c, dev),
+                self._shard_fold3(foldv, t).to(device=dev,
+                                               dtype=torch.int32),
+                scale.to(dev), n_phase=self.n_phase,
+                pad_start=self.pad_start, n_valid=Tl,
+                stokes=self.detect == "stokes")
+            profs[t, c], cnts[t, c] = self._profile_epilogue(prof, cnt)
+        return self._reduce(profs, cnts)
 
     # -- the run loop ---------------------------------------------------------
-    def _halo_edges(self, L):
-        """(front_r, front_i, end_r, end_i) edges of the one time shard:
-        zeros, as a halo exchange over one shard delivers."""
-        front = torch.zeros((self.pad_start, L), dtype=torch.float32,
-                            device=self.device)
-        end = torch.zeros((self.pad_end, L), dtype=torch.float32,
-                          device=self.device)
-        return front, front, end, end
+    def _packed_edges(self, grid, bits):
+        """Each shard's decoded (front, end) edges of plane-packed (rows, L)
+        words: every shard decodes only its own leading pad_end and
+        trailing pad_start samples, and they move to the neighbours as
+        float32 (by copies, with either halo backend, as the JAX pipeline
+        moves them by ppermute)."""
+        n = self.n_time_shards
+        lead = np.empty(grid.shape, dtype=object)
+        tail = np.empty(grid.shape, dtype=object)
+        for t, c in self._cells:
+            w = grid[t, c]
+            # plane_edges(words, a, b) decodes the first a and last b
+            # samples: the leading pad_end go left, the trailing
+            # pad_start right; an edge nobody receives is not decoded
+            # (its buffer only gives ppermute the shape of the zeros)
+            lead[t, c], tail[t, c] = plane_edges(
+                w, self.pad_end if t > 0 else 0,
+                self.pad_start if t < n - 1 else 0, bits)
+            if t == 0:
+                lead[t, c] = w.new_empty((self.pad_end, w.shape[1]),
+                                         dtype=torch.float32)
+            if t == n - 1:
+                tail[t, c] = w.new_empty((self.pad_start, w.shape[1]),
+                                         dtype=torch.float32)
+        front = ppermute(tail, [(i, i + 1) for i in range(n - 1)])
+        end = ppermute(lead, [(i + 1, i) for i in range(n - 1)])
+        return front, end
 
-    def _kernel_step(self, bits, cr, ci, edges, off, fold3):
-        """One window on the kernel path: (T·bits/32, C, P) int32 words
-        (bits) or (T, C, P) float32 planes, with the kernel fold row
-        ``fold3`` -> :meth:`_profile_epilogue`'s profile and int32
-        counts.  The per-step scale is (1 + 1e-6·off)·norm, in float32."""
-        L = self.n_chan * self.n_pol
+    def _run_edges(self, bits, bases):
+        """The (re, im) blocks' edges, per shard in cell order as
+        (front_r, front_i, end_r, end_i): decoded and moved by copies for
+        packed words, by the halo backend for float planes."""
+        (fr, er), (fi, ei) = (self._packed_edges(b, bits) if bits
+                              else self._halo_edges(b) for b in bases)
+        return [(fr[cell], fi[cell], er[cell], ei[cell])
+                for cell in self._cells]
+
+    def _kernel_step(self, bits, bases, chirps, off, folds, edges=None):
+        """One window per shard on the kernel path, from the (rows, L)
+        blocks ``bases`` (plane-packed int32 words with ``bits``, else
+        float32 planes), each shard's chirp planes and kernel fold row in
+        cell order, and the edges of :meth:`_run_edges` if given (else
+        exchanged here); returns :meth:`_reduce`'s profile and int32
+        counts.  The per-step scale is (1 + 1e-6·off)·norm, float32."""
+        scale = 1.0 + 1e-6 * off
         if bits:
-            scale = ((1.0 + 1e-6 * off) * _NORM[bits]).reshape(1)
-            y = stage_a_packed(cr.reshape(-1, L), ci.reshape(-1, L), *edges,
-                               scale, bits=bits)
-        else:
-            scale = (1.0 + 1e-6 * off).reshape(1)
-            y = stage_a(cr.reshape(-1, L), ci.reshape(-1, L), *edges, scale)
-        prof, cnt = fold_chain(y, *self._chirp_device(), fold3,
-                               n_phase=self.n_phase,
-                               pad_start=self.pad_start,
-                               n_valid=self.block_samples,
-                               stokes=self.detect == "stokes")
-        return self._profile_epilogue(prof, cnt)
+            scale = scale * _NORM[bits]
+        scale = scale.reshape(1)
+        edges = edges or self._run_edges(bits, bases)
+        profs = np.empty(bases[0].shape, dtype=object)
+        cnts = np.empty(bases[0].shape, dtype=object)
+        for i, (t, c) in enumerate(self._cells):
+            cr, ci = bases[0][t, c], bases[1][t, c]
+            s = scale if cr.device == scale.device else scale.to(cr.device)
+            if bits:
+                y = stage_a_packed(cr, ci, *edges[i], s, bits=bits)
+            else:
+                y = stage_a(cr, ci, *edges[i], s)
+            prof, cnt = fold_chain(y, *chirps[i], folds[i],
+                                   n_phase=self.n_phase,
+                                   pad_start=self.pad_start,
+                                   n_valid=self.block_samples,
+                                   stokes=self.detect == "stokes")
+            profs[t, c], cnts[t, c] = self._profile_epilogue(prof, cnt)
+        return self._reduce(profs, cnts)
 
     def _payload(self, seed, shape, bits):
         """Random input made on the device from ``seed``: uniform words
@@ -532,6 +720,25 @@ class WidebandPulsarPipeline:
         return tuple(torch.randn(shape, generator=g, device=self.device)
                      for _ in range(2 if self.use_kernels else 1))
 
+    def _kernel_folds(self, rows):
+        """``folds(k, off)``: step k's int32 kernel fold rows, one per
+        shard in cell order on its device, from block rows (an (n_iter,
+        3) table put on the devices once) or from the fixed period's
+        carry."""
+        devs = [self.mesh.devices[cell] for cell in self._cells]
+        if rows is not None:
+            tables = [torch.as_tensor(self._shard_fold3(rows, t).astype(
+                np.int32), device=dev) for (t, _), dev in zip(self._cells,
+                                                               devs)]
+            return lambda k, off: [table[k] for table in tables]
+
+        def folds(k, off):
+            foldv = self._fixed_foldv(off)
+            return [self._shard_fold3(foldv, t).to(device=dev,
+                                                   dtype=torch.int32)
+                    for (t, _), dev in zip(self._cells, devs)]
+        return folds
+
     def run_fn(self, n_iter, offset0=0, ingest_bits=None):
         """A loop of ``n_iter`` pipeline steps over one input block.
 
@@ -539,7 +746,7 @@ class WidebandPulsarPipeline:
         the (n_phase, n_chan, n_pol) profile, (n_phase, n_chan, 4) for
         Stokes, float32, and (n_phase,) float32 counts.  Every step
         reuses the input block, scaled by ``1 + 1e-6·off`` where the
-        float32 offset carry advances by one block mod the period
+        float32 offset carry advances by one global block mod the period
         numerator; the fold row of step k comes from the phase model
         (block at ``offset0 + k·T``) or from the fixed rational period.
 
@@ -548,7 +755,10 @@ class WidebandPulsarPipeline:
         path ``(re, im)``, each (T·bits/32, n_chan, n_pol) int32/uint32
         words with ``ingest_bits``, else (T, n_chan, n_pol) float32; on
         the plain path ``(xf,)``, one (T, n_chan, n_pol, 2) float32
-        array of pairs (packed ingest needs the kernel path).
+        array of pairs (packed ingest needs the kernel path).  Blocks are
+        sharded over the mesh on axes 0 (time) and 1 (channels); packed
+        words are packed per time shard (``pack_time_planes`` of each
+        shard's samples, concatenated), since each shard decodes its own.
         """
         T = self.global_block
         per_q = float(self._per_q)
@@ -570,24 +780,40 @@ class WidebandPulsarPipeline:
             shape = (T, self.n_chan, self.n_pol)
         else:
             shape = (T, self.n_chan, self.n_pol, 2)
-        fold_rows = None
+        rows = None
         if self.fold_model is not None:
             rows = self.fold_model.table(offset0 + np.arange(n_iter) * T, T)
-            if self.use_kernels:
-                rows = self._shard_fold3(rows).astype(np.int32)
-            fold_rows = torch.as_tensor(rows, device=self.device)
+        if self.use_kernels:
+            folds = self._kernel_folds(rows)
+        elif rows is not None:
+            rows = torch.as_tensor(rows, device=self.device)
+        L = self._c_local * self.n_pol
         cache = {}
+
+        def blocks_of(arrays):
+            """The shards' blocks: (rows, L) on the kernel path."""
+            grids = [shard(a, self.mesh, ("time", "chan")) for a in arrays]
+            if self.use_kernels:
+                grids = [_map(g, lambda b: b.reshape(-1, L)) for g in grids]
+            return tuple(grids)
 
         def run(seed=0, blocks=None):
             if blocks is None:
                 if seed not in cache:
-                    cache[seed] = self._payload(seed, shape, ingest_bits)
+                    cache[seed] = blocks_of(self._payload(seed, shape,
+                                                          ingest_bits))
                 bases = cache[seed]
             else:
                 dtype = torch.int32 if ingest_bits else torch.float32
-                bases = tuple(self._as_input(b, shape, dtype) for b in blocks)
+                bases = blocks_of([self._as_input(b, shape, dtype)
+                                   for b in blocks])
             if self.use_kernels:
-                edges = self._halo_edges(self.n_chan * self.n_pol)
+                chirps = [self._shard_chirp("planes", c, self.mesh.devices[
+                    t, c]) for t, c in self._cells]
+                # one time shard: its edges are zeros whatever the step,
+                # so they are made once (no neighbour to read)
+                edges = (self._run_edges(ingest_bits, bases)
+                         if self.n_time_shards == 1 else None)
             off = torch.tensor(float(offset0) % per_q, dtype=torch.float32,
                                device=self.device)
             width = 4 if self.detect == "stokes" else self.n_pol
@@ -596,19 +822,16 @@ class WidebandPulsarPipeline:
             cnt_acc = torch.zeros((self.n_phase,), dtype=torch.int64,
                                   device=self.device)
             for k in range(n_iter):
-                if fold_rows is not None:
-                    fold = fold_rows[k]
-                else:
-                    fold = self._fixed_foldv(off)
-                    if self.use_kernels:
-                        fold = self._shard_fold3(fold).to(torch.int32)
                 if self.use_kernels:
-                    prof, cnt = self._kernel_step(ingest_bits, *bases, edges,
-                                                  off, fold)
+                    prof, cnt = self._kernel_step(ingest_bits, bases, chirps,
+                                                  off, folds(k, off), edges)
                 else:
-                    prof, cnt = self._fold_block(
-                        bases[0] * (1.0 + 1e-6 * off),
-                        self._fold_bins(fold, T))
+                    foldv = rows[k] if rows is not None \
+                        else self._fixed_foldv(off)
+                    scale = 1.0 + 1e-6 * off
+                    prof, cnt = self._pairs_step(
+                        _map(bases[0], lambda b: b * scale.to(b.device)),
+                        self._shard_bins(foldv))
                 off = torch.remainder(off + T, per_q)
                 acc += prof
                 cnt_acc += cnt.to(torch.int64)
@@ -618,5 +841,13 @@ class WidebandPulsarPipeline:
 
     @property
     def global_block(self):
-        """Samples consumed per step."""
-        return self.block_samples
+        """Samples consumed per step across the whole mesh."""
+        return self.block_samples * self.n_time_shards
+
+
+def _map(grid, fn):
+    """``fn`` of every block of an object grid."""
+    out = np.empty(grid.shape, dtype=object)
+    for idx in grid_indices(grid.shape):
+        out[idx] = fn(grid[idx])
+    return out

@@ -36,6 +36,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.c_longlong
+_PLL = ctypes.POINTER(_LL)          # a host array of device addresses
 # C entry points of csrc/*.cu and their argument types (each ends with
 # the device index and the stream)
 _SIGNATURES = {
@@ -58,6 +60,8 @@ _SIGNATURES = {
     "bbt_bank_power": [_P] * 6 + [_I] * 3 + [_I, _P],
     "bbt_accel_corr": [_P] * 4 + [_I] * 4 + [_I, _P],
     "bbt_resident": [_P] * 12 + [_I] * 7 + [_I, _P],
+    "bbt_halo_edges": [_PLL] * 3 + [_I] * 5 + [_LL, _I] + [_I, _P],
+    "bbt_enable_peer": [_I, _I],
 }
 # the bf16-intermediate passes take the arguments of their float32 twins
 _SIGNATURES.update({f"{name}_bf16": _SIGNATURES[name] for name in (
@@ -72,7 +76,8 @@ _SIGNATURES["bbt_k2_bf16_chirp"] = _SIGNATURES["bbt_k2"]
 #: phase-plane chirp, K1 from planes-first windows and edges; the accel
 #: search's bank product and bank correlation, the single-pass resident
 #: dedisperse -> fold, and the flagship passes on bf16 intermediates:
-#: K1p, K1f, K2 with a float32 or a bf16 chirp, K3 power and Stokes)
+#: K1p, K1f, K2 with a float32 or a bf16 chirp, K3 power and Stokes;
+#: and the halo edges of a time-sharded mesh)
 launch_counts = {"k1_packed": 0, "k1_float": 0, "k2": 0, "k3_fold": 0,
                  "k1_window": 0, "k2_fwd": 0, "k2_inv": 0, "k3_trim": 0,
                  "k1_stream": 0, "lane_mix": 0, "pfb_fwd": 0,
@@ -81,7 +86,7 @@ launch_counts = {"k1_packed": 0, "k1_float": 0, "k2": 0, "k3_fold": 0,
                  "bank_power": 0, "accel_corr": 0, "resident": 0,
                  "k1_packed_bf16": 0, "k1_float_bf16": 0, "k2_bf16": 0,
                  "k2_bf16_chirp": 0, "k3_fold_bf16": 0,
-                 "k3_fold_stokes_bf16": 0}
+                 "k3_fold_stokes_bf16": 0, "halo_remote": 0}
 
 _lib = None
 

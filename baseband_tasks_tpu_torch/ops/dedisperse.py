@@ -277,7 +277,10 @@ def plain_versions():
 
 def _on_cuda(x):
     """True for a CUDA tensor (outside :func:`plain_versions`), False
-    for a CPU one; raises otherwise."""
+    for a CPU one or anything not a tensor (a public op converts numpy
+    with :func:`_as_device` first); raises for another device."""
+    if not torch.is_tensor(x):
+        return False
     if x.device.type == "cuda":
         return not _plain.get()
     if x.device.type == "cpu":

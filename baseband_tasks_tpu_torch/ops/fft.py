@@ -34,8 +34,9 @@ import math
 import torch
 
 from ._build import launch
-from .dedisperse import (_check, _check_kernel_geometry, _is_pow2,
-                         _on_cuda, _twiddle, split_n, stage_a_window_ref)
+from .dedisperse import (_as_device, _check, _check_kernel_geometry,
+                         _device_of, _is_pow2, _on_cuda, _twiddle, split_n,
+                         stage_a_window_ref)
 
 __all__ = ["k1_window", "k1_stream", "k2_fwd", "k2_inv", "k3_trim",
            "k1_window_ref", "k1_stream_ref", "k2_fwd_ref", "k2_inv_ref",
@@ -243,9 +244,12 @@ def fft_pow2_planes(xr, xi, *, inverse=False, ortho=False):
 
     Forward is unscaled (1/sqrt(N) with ``ortho``); inverse is 1/N
     (1/sqrt(N)).  The passes dispatch by device (kernels on CUDA tensors,
-    plain versions on CPU ones).  Windows above 2^24 samples raise
+    plain versions on CPU ones); numpy goes to the card when there is
+    one, else to the CPU.  Windows above 2^24 samples raise
     ``ValueError`` on a CUDA device.
     """
+    dev = _device_of(xr)
+    xr, xi = (_as_device(a, dev, torch.float32) for a in (xr, xi))
     n, L = xr.shape
     n1, n2 = _window_split(n)
     scale = fft_scale(n, inverse=inverse, ortho=ortho)

@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from ._build import launch
-from .dedisperse import _check, _on_cuda
+from .dedisperse import _check, _device_of, _on_cuda
 from .fft import scale_arg
 from .spectral_filter import MAX_MIX_LANES
 
@@ -99,7 +99,8 @@ def pfb_forward_stream(carry_r, carry_i, xr, xi, taps, fr=None, fi=None,
     scale : None, a number or a one-element tensor
         Multiplies the block rows only.
 
-    Array arguments may be numpy (taken to the device of ``xr``).
+    Array arguments may be numpy, taken to the device of ``xr``: its own
+    for a tensor, else the card when there is one.
     Returns (yr, yi) of shape (m, L).
     """
     m, L = xr.shape
@@ -108,7 +109,7 @@ def pfb_forward_stream(carry_r, carry_i, xr, xi, taps, fr=None, fi=None,
         # the JAX package's refusal; the CUDA kernel tiles rows its own way
         raise ValueError(f"no usable row-block split for m={m}, "
                          f"n_tap={n_tap}")
-    dev = xr.device if torch.is_tensor(xr) else torch.device("cpu")
+    dev = _device_of(xr)
     carry_r, carry_i, xr, xi, taps = (_as_f32(a, dev) for a in
                                       (carry_r, carry_i, xr, xi, taps))
     with_dft = fr is not None

@@ -36,7 +36,8 @@ import numpy as np
 import torch
 
 from ._build import launch
-from .dedisperse import _check, _is_pow2, _on_cuda, split_n, stage_b
+from .dedisperse import (_as_device, _check, _device_of, _is_pow2, _on_cuda,
+                         split_n, stage_b)
 from .dft_matmul import device_mats
 from .fft import _pad_rows, _window_split, k1_stream, k1_window, k3_trim
 
@@ -177,13 +178,16 @@ def spectral_filter_pow2(xr, xi, gr, gi, *, pad_start, pad_end, pre=None,
     (N - pads, L) float32 planes.
 
     The passes dispatch by device (kernels on CUDA tensors, plain versions
-    on CPU ones).
+    on CPU ones); numpy goes to the card when there is one.
     """
+    dev = _device_of(xr)
+    xr, xi, gr, gi = (_as_device(a, dev, torch.float32)
+                      for a in (xr, xi, gr, gi))
     n, L = xr.shape
     n1, n2 = _window_split(n)
     _pad_rows(n2, n1, pad_start, pad_end)
     _check_gain(gr, n1, n2, L)
-    pre, post = _mats(pre, xr.device), _mats(post, xr.device)
+    pre, post = _mats(pre, dev), _mats(post, dev)
     return _filter(k1_window(xr, xi), gr, gi, pre, post, pad_start, pad_end)
 
 
@@ -199,8 +203,11 @@ def spectral_filter_stream(cr, ci, xr, xi, gr, gi, *, pad_start, pad_end,
     iteration's scale).  The window is assembled inside stage A, so the
     padded array never exists in device memory.  Returns rows
     [pad_start, N - pad_end) of the filtered window: one block of valid
-    samples.
+    samples.  Numpy goes where :func:`spectral_filter_pow2` sends it.
     """
+    dev = _device_of(xr)
+    cr, ci, xr, xi, gr, gi = (_as_device(a, dev, torch.float32)
+                              for a in (cr, ci, xr, xi, gr, gi))
     pad = pad_start + pad_end
     n = pad + xr.shape[0]
     L = xr.shape[-1]
@@ -210,6 +217,6 @@ def spectral_filter_stream(cr, ci, xr, xi, gr, gi, *, pad_start, pad_end,
         raise ValueError(f"carry must hold pad_start + pad_end = {pad} "
                          f"rows, got {cr.shape[0]}")
     _check_gain(gr, n1, n2, L)
-    pre, post = _mats(pre, xr.device), _mats(post, xr.device)
+    pre, post = _mats(pre, dev), _mats(post, dev)
     return _filter(k1_stream(cr, ci, xr, xi, scale), gr, gi, pre, post,
                    pad_start, pad_end)

@@ -133,6 +133,28 @@ integration layer:
     masked on blocks with NaN cells and unmasked, each against the eager
     Fold (counts and NaN cells exact), timed against each other.
 
+and for the mesh (``parallel``), on meshes whose every shard lives on
+the one card (``make_mesh(..., devices=[cuda:0] * k)``), so that reads
+between cards are neither made nor timed here:
+
+(p) holds halo_remote (``csrc/halo.cu``) against its plain version, the
+    copies of ``halo='ppermute'``, on four shards at the flagship's
+    shapes (float planes of 253,952 x 128, (T, 64, 2, 2) float32 pairs,
+    complex64; pads 3584/4608), non-periodic and periodic, bit for bit,
+    and times both beside the bound;
+(q) drives the sharded flagship at full width (64 ch x 2 pol, DM 500,
+    the polyco, N = 2^18 a shard): ``run_fn(8, ingest_bits=8)`` on
+    (time=4, chan=1) and (2, 2), launches counted, against the plain
+    versions; the halo kernel's path, float ``run_fn(2)`` with
+    ``halo='remote'`` (two halo_remote launches a step), its edges bit
+    for bit and its profiles against ``halo='ppermute'``; ``step_fn`` on
+    both paths, 'remote' bit for bit against 'ppermute' (one launch a
+    step); a dm=0 step against the closed-form numpy fold (rtol 2e-3,
+    atol 0.05); (4, 2) against (4, 1) (rtol 1e-6, atol 1e-3);
+    ``search_sharded`` ('pallas', 'mx') and ``snr_sharded`` on four shards
+    against ``search()`` / ``snr()``; then the sharded packed step timed
+    against one shard's, and the float step with each halo backend.
+
 The plain versions run on the card inside the package's test-only
 switch ``ops.dedisperse.plain_versions()``.  Any failure raises (non-zero
 exit).  Without a CUDA device it fails.  The
@@ -179,6 +201,7 @@ FOURSTEP_CU = "baseband_tasks_tpu_torch/csrc/fourstep.cu"
 PFB_CU = "baseband_tasks_tpu_torch/csrc/pfb.cu"
 ACCEL_CU = "baseband_tasks_tpu_torch/csrc/accel.cu"
 RESIDENT_CU = "baseband_tasks_tpu_torch/csrc/resident.cu"
+HALO_CU = "baseband_tasks_tpu_torch/csrc/halo.cu"
 KERNELS = {   # launch-count name -> (TPU kernel it replaces, source)
     "k1_packed": ("baseband_tasks_tpu/ops/dedisperse_pallas.py:764",
                   DEDISPERSE_CU),
@@ -226,6 +249,8 @@ KERNELS = {   # launch-count name -> (TPU kernel it replaces, source)
                      DEDISPERSE_CU),
     "k3_fold_stokes_bf16": ("baseband_tasks_tpu/ops/dedisperse_pallas.py:345",
                             DEDISPERSE_CU),
+    # the halo edges of a time-sharded mesh (halo='remote')
+    "halo_remote": ("baseband_tasks_tpu/parallel/halo_pallas.py:73", HALO_CU),
 }
 FLAGSHIP = ("k1_packed", "k1_float", "k2", "k3_fold")
 VARIANTS = ("k3_fold_stokes", "k3_power", "k2_theta", "k1_planes",
@@ -245,7 +270,8 @@ def b1937_polyco():
 
 
 def flagship(device, use_kernels=True, **extra):
-    """The flagship pipeline (kernel path unless told otherwise)."""
+    """The flagship pipeline (kernel path unless told otherwise) on
+    ``device``, or on ``mesh=`` with ``device`` None."""
     from baseband_tasks_tpu_torch import Time, WidebandPulsarPipeline, units
     u = units
     return WidebandPulsarPipeline(
@@ -1149,7 +1175,7 @@ def expect_launches(name, counts, want):
         raise AssertionError(f"{name}: launches {counts}, want {want}")
 
 
-def check_profile(name, got, ref, stokes, gpu):
+def check_profile(name, got, ref, stokes, gpu, phase="(j)"):
     """Counts exact; power-type planes elementwise within PROFILE_RTOL,
     Stokes cross terms (which cross zero) within FFT_TOL of their peak."""
     (prof, cnt), (rprof, rcnt) = got, ref
@@ -1162,7 +1188,7 @@ def check_profile(name, got, ref, stokes, gpu):
     rel = float(((power - rpower).abs() / rpower.abs()).max())
     cross = (compare((prof[..., 2:],), (rprof[..., 2:],))[1] if stokes
              else 0.0)
-    print(f"(j) {name}: profile {tuple(prof.shape)} vs plain: power rel "
+    print(f"{phase} {name}: profile {tuple(prof.shape)} vs plain: power rel "
           f"{rel:.3e}, cross {cross:.3e} of the peak [{gpu}]", flush=True)
     if rel > PROFILE_RTOL or cross > FFT_TOL:
         raise AssertionError(f"{name}: profile disagrees with plain")
@@ -2084,6 +2110,309 @@ def drive_masked_fold(dev, gpu):
           flush=True)
 
 
+# -- the mesh: phases (p) and (q) ---------------------------------------------
+
+N_SHARDS = 4                 # virtual shards of the one card
+
+
+def virtual_mesh(dev, time, chan):
+    """A (time, chan) mesh whose every shard lives on ``dev``."""
+    from baseband_tasks_tpu_torch.parallel import make_mesh
+    return make_mesh(time=time, chan=chan, devices=[dev] * (time * chan))
+
+
+def same_edges(got, ref):
+    """Every (front, end) buffer bit-identical, on the same device (the
+    buffers of a list of shards, or of an object grid)."""
+    def flat(bufs):
+        return list(bufs.flat) if isinstance(bufs, np.ndarray) else bufs
+    pairs = [p for k in (0, 1) for p in zip(flat(got[k]), flat(ref[k]))]
+    return all(a.device == b.device and a.dtype == b.dtype
+               and torch.equal(a, b) for a, b in pairs)
+
+
+def check_halo_kernel(dev, gpu):
+    """Phase (p): halo_remote against halo_edges_remote_ref (the copies
+    of halo='ppermute') on four virtual shards of the card, at the
+    flagship's shapes: its float planes (253,952 x 128, one plane a call
+    on the float run_fn path), step_fn's (T, 64, 2, 2) float32 pairs and
+    complex64 (T, 64, 2), non-periodic and periodic, bit-identical; then
+    both timed on the planes beside the bound."""
+    from baseband_tasks_tpu_torch.parallel import halo_remote as hr
+    host = flagship_on_host()
+    ps, pe, T = host.pad_start, host.pad_end, host.block_samples
+    C, P = host.n_chan, host.n_pol
+    g = torch.Generator(device=dev)
+    g.manual_seed(70)
+    cases = {
+        "planes": [torch.randn((T, C * P), generator=g, device=dev)
+                   for _ in range(N_SHARDS)],
+        "pairs": [torch.randn((T, C, P, 2), generator=g, device=dev)
+                  for _ in range(N_SHARDS)],
+        "complex64": [torch.randn((T, C, P), generator=g, device=dev,
+                                  dtype=torch.complex64)
+                      for _ in range(N_SHARDS)],
+    }
+    for name, blocks in cases.items():
+        for periodic in (False, True):
+            got = hr.halo_edges_remote(blocks, ps, pe, periodic)
+            ref = hr.halo_edges_remote_ref(blocks, ps, pe, periodic)
+            torch.cuda.synchronize()
+            ok = same_edges(got, ref)
+            print(f"(p) halo_remote {name} {tuple(blocks[0].shape)} x "
+                  f"{N_SHARDS}, pads ({ps}, {pe}), periodic={periodic}: "
+                  f"{'bit-identical' if ok else 'DIFFERS'} to the plain "
+                  f"copies", flush=True)
+            if not ok:
+                raise AssertionError(f"halo_remote {name} differs")
+    out = {}
+    for name in ("planes", "pairs"):
+        blocks = cases[name]
+        front, end = hr.halo_edges_remote(blocks, ps, pe)
+        fns = {"kernel": lambda: hr.halo_edges_remote(blocks, ps, pe),
+               "plain": lambda: hr.halo_edges_remote_ref(blocks, ps, pe)}
+        # a call is a few microseconds of device work behind tens of
+        # microseconds of host work: the device time per call (profiled)
+        # is the kernel's, the back-to-back call time the caller's
+        dev_ms = {k: device_ms(f) for k, f in fns.items()}
+        call_ms = {k: cuda_ms(f) for k, f in fns.items()}
+        # the bytes it must move: the interior edges read once, every
+        # edge (the zero ends too) written once
+        out[name] = result(0.0, dev_ms["kernel"], dev_ms["plain"],
+                           (front[1:] + end[:-1], front + end, 0))
+        print(f"(p) halo_remote {name}: device {dev_ms['kernel']:.4f} ms a "
+              f"call kernel, {dev_ms['plain']:.4f} ms plain; a call "
+              f"back to back {call_ms['kernel']:.4f} ms kernel, "
+              f"{call_ms['plain']:.4f} ms plain; bound "
+              f"{out[name]['bound_ms']:.4f} ms ({out[name]['bound_by']}) "
+              f"[{gpu}]", flush=True)
+    del cases
+    return {"halo_remote": out["planes"]}
+
+
+def device_ms(fn, reps=20):
+    """Device time of one call of ``fn``: the device time of every kernel
+    and copy it launches, under ``torch.profiler`` over ``reps`` calls,
+    per call (the host's gaps between launches left out)."""
+    fn()
+    _, busy, _ = device_profile(lambda: [fn() for _ in range(reps)])
+    return busy / reps
+
+
+def nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def best_ms(runs, order, per):
+    """Best host ms of each run over ``order`` (its keys in turns), each
+    call synchronised, divided by ``per``."""
+    best = {}
+    for key in order:
+        best[key] = min(best.get(key, np.inf), host_s(runs[key], turns=1))
+    return {k: 1e3 * v / per for k, v in best.items()}
+
+
+def drive_sharded(dev, gpu):
+    """Phase (q): the sharded flagship at full width on virtual meshes of
+    the card.  ``run_fn(8, ingest_bits=8)`` on (4, 1) and (2, 2) against
+    the plain versions; the halo kernel's path (float ``run_fn(2)`` with
+    halo='remote', its launches counted) and ``step_fn`` on both paths,
+    'remote' against 'ppermute'; a dm=0 step against the closed-form
+    numpy fold; (4, 2) against (4, 1); ``search_sharded`` and
+    ``snr_sharded`` on four shards against the unsharded calls; then the
+    sharded step and the two halo backends timed.  Returns the launch
+    counts of the halo kernel's path."""
+    from baseband_tasks_tpu_torch import (FastFoldingSearch,
+                                          WidebandPulsarPipeline, units as u)
+    from baseband_tasks_tpu_torch.ops import dedisperse as dd
+    from baseband_tasks_tpu_torch.parallel import Mesh
+    meshes = {"4x1": virtual_mesh(dev, 4, 1), "2x2": virtual_mesh(dev, 2, 2)}
+    for name, mesh in meshes.items():
+        pipe = flagship(None, mesh=mesh)
+        run = pipe.run_fn(N_ITER, ingest_bits=8)
+        dd.reset_launch_counts()
+        got = run(seed=0)
+        torch.cuda.synchronize()
+        counts = nonzero(dd.launch_counts)
+        want = {k: N_ITER * N_SHARDS for k in ("k1_packed", "k2", "k3_fold")}
+        print(f"(q) run_fn({N_ITER}, ingest_bits=8) on {name} (shard L "
+              f"{pipe._c_local * pipe.n_pol}): launches {counts}",
+              flush=True)
+        if counts != want:
+            raise AssertionError(f"{name}: launches {counts}, want {want}")
+        ref = plain(run)(seed=0)
+        total = int(got[1].sum())
+        print(f"(q) {name}: counts sum {total} (want "
+              f"{N_ITER * pipe.global_block})", flush=True)
+        if total != N_ITER * pipe.global_block:
+            raise AssertionError(f"{name}: counts wrong")
+        check_profile(f"run_fn on {name}", got, ref, False, gpu, "(q)")
+        del pipe, run, got, ref
+        torch.cuda.empty_cache()
+
+    # the halo kernel's main path: float run_fn(2) with halo='remote'
+    pipes = {h: flagship(None, mesh=meshes["4x1"], halo=h)
+             for h in ("ppermute", "remote")}
+    runs = {h: p.run_fn(2) for h, p in pipes.items()}
+    runs["remote"](seed=0)               # the payload, made once per seed
+    torch.cuda.synchronize()
+    dd.reset_launch_counts()
+    got = runs["remote"](seed=0)
+    torch.cuda.synchronize()
+    launches = dict(dd.launch_counts)
+    want = {"k1_float": 2 * N_SHARDS, "k2": 2 * N_SHARDS,
+            "k3_fold": 2 * N_SHARDS, "halo_remote": 2 * 2}
+    print(f"(q) run_fn(2) halo='remote' on 4x1: launches "
+          f"{nonzero(launches)}", flush=True)
+    if nonzero(launches) != want:
+        raise AssertionError(f"run_fn(2) remote: launches, want {want}")
+    ref = runs["ppermute"](seed=0)
+    # the edges themselves bit for bit; the profiles to the fold's
+    # run-dependent atomic order
+    shape = (pipes["remote"].global_block, 64, 2)
+    grid = [shard_grid(b, meshes["4x1"]) for b in
+            pipes["remote"]._payload(0, shape, None)]
+    for plane in grid:
+        if not same_edges(pipes["remote"]._halo_edges(plane),
+                          pipes["ppermute"]._halo_edges(plane)):
+            raise AssertionError("remote edges differ from ppermute")
+    print("(q) run_fn(2) 'remote' edges bit-identical to 'ppermute'",
+          flush=True)
+    check_profile("run_fn(2) 'remote' vs 'ppermute'", got, ref, False, gpu,
+                  "(q)")
+    del grid, got, ref
+
+    for kernels in (True, False):
+        step = {h: flagship(None, mesh=meshes["4x1"], halo=h,
+                            use_kernels=kernels)
+                for h in ("ppermute", "remote")}
+        T = step["remote"].global_block
+        (xf,) = randn(dev, (T, 64, 2, 2), 72, count=1)
+        row = step["remote"].fold_model.foldv(3 * T, T)
+        dd.reset_launch_counts()
+        a = step["remote"].step_fn()(xf, row)
+        torch.cuda.synchronize()
+        halo = dd.launch_counts["halo_remote"]
+        b = step["ppermute"].step_fn()(xf, row)
+        same = torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        print(f"(q) step_fn ({'kernel' if kernels else 'plain'} path) on "
+              f"4x1: halo_remote launches {halo}; 'remote' "
+              f"{'bit-identical' if same else 'DIFFERS'} to 'ppermute'; "
+              f"counts {int(a[1].sum())} (want {T})", flush=True)
+        if halo != 1 or not same or int(a[1].sum()) != T:
+            raise AssertionError("step_fn remote vs ppermute")
+        if kernels:
+            check_profile("step_fn kernels", a,
+                          plain(step["remote"].step_fn())(xf, row), False,
+                          gpu, "(q)")
+        del step, xf, a, b
+        torch.cuda.empty_cache()
+
+    # dm = 0: a unit chirp, so the profile is a direct fold of |x|^2
+    zero = WidebandPulsarPipeline(
+        n_chan=64, n_pol=2, dm=0.0, freq_center=1400 * u.MHz,
+        chan_rate=250 * u.kHz, period_samples=(16384, 3), n_phase=64,
+        block_samples=1 << 15, mesh=meshes["2x2"], use_kernels=True)
+    T = zero.global_block
+    (xf,) = randn(dev, (T, 64, 2, 2), 73, count=1)
+    prof, cnt = zero.step_fn()(xf, 0)
+    x = xf.double().cpu().numpy()
+    power = x[..., 0] ** 2 + x[..., 1] ** 2
+    bins = (np.arange(T) * 3 % 16384) * 64 // 16384
+    expect = np.stack([power[bins == k].sum(0) for k in range(64)])
+    err = np.abs(prof.cpu().numpy() - expect)
+    ratio = float((err / (0.05 + 2e-3 * np.abs(expect))).max())
+    exact = np.array_equal(cnt.cpu().numpy(), np.bincount(bins, minlength=64))
+    print(f"(q) dm=0 step_fn on 2x2 ({T} samples): {ratio:.3f} of the "
+          f"closed-form rtol 2e-3 / atol 0.05 bound, counts "
+          f"{'exact' if exact else 'WRONG'}", flush=True)
+    if ratio > 1.0 or not exact:
+        raise AssertionError("dm=0 sharded step disagrees with numpy")
+    del zero, xf, x, power
+
+    # the chan axis needs no communication: (4, 2) against (4, 1)
+    wide = flagship(None, mesh=virtual_mesh(dev, 4, 2))
+    T = wide.global_block
+    (xf,) = randn(dev, (T, 64, 2, 2), 74, count=1)
+    row = wide.fold_model.foldv(0, T)
+    a = wide.step_fn()(xf, row)
+    b = flagship(None, mesh=meshes["4x1"]).step_fn()(xf, row)
+    ratio = float(((a[0] - b[0]).abs() / (1e-3 + 1e-6 * b[0].abs())).max())
+    same = torch.equal(a[1], b[1])
+    print(f"(q) step_fn 4x2 vs 4x1: {ratio:.3f} of the rtol 1e-6 / atol "
+          f"1e-3 bound, counts {'equal' if same else 'DIFFER'}", flush=True)
+    if ratio > 1.0 or not same:
+        raise AssertionError("chan resharding changed the profile")
+    del wide, xf, a, b
+    torch.cuda.empty_cache()
+
+    # the searches' banks and batches over four shards
+    x = search_series(dev)
+    zmesh = Mesh([dev] * N_SHARDS, ("z",))
+    for engine, kernel in (("pallas", "accel_corr"), ("mx", "bank_power")):
+        s = accel_search(dev, engine)
+        ref = s.search(x)
+        s.search_sharded(x, zmesh)            # builds the shards' banks
+        torch.cuda.synchronize()
+        dd.reset_launch_counts()
+        got = s.search_sharded(x, zmesh)
+        torch.cuda.synchronize()
+        counts = nonzero(dd.launch_counts)
+        _, rel = compare((got,), (ref,))
+        ms = cuda_ms(lambda: s.search_sharded(x, zmesh), reps=3)
+        one_ms = cuda_ms(lambda: s.search(x), reps=3)
+        print(f"(q) search_sharded '{engine}' over {N_SHARDS} shards: "
+              f"launches {counts}, vs search() {rel:.3e} of the peak; "
+              f"{ms:.3f} ms against {one_ms:.3f} ms unsharded [{gpu}]",
+              flush=True)
+        if counts != {kernel: N_SHARDS} or rel > FFT_TOL:
+            raise AssertionError(f"search_sharded '{engine}' wrong")
+        del s, ref, got
+    ffa = FastFoldingSearch(FFA_BASE, SEARCH_N, device=dev)
+    rows = torch.stack([x] + randn(dev, (SEARCH_N,), 75, count=3))
+    got = ffa.snr_sharded(rows, Mesh([dev] * N_SHARDS, ("batch",)))
+    ref = ffa.snr(rows)
+    worst = float(((got - ref).abs() / (1e-4 + 1e-4 * ref.abs())).max())
+    print(f"(q) snr_sharded of {tuple(rows.shape)} over {N_SHARDS} shards "
+          f"vs snr(): {worst:.3f} of the rtol/atol 1e-4 bound", flush=True)
+    if worst > 1.0 or got.shape != ref.shape:
+        raise AssertionError("snr_sharded disagrees with snr")
+    del rows, got, ref, x
+    torch.cuda.empty_cache()
+
+    # time: the sharded step against one shard's, and the halo backends
+    steps = {"1 shard": flagship(dev).run_fn(N_ITER, ingest_bits=8)}
+    steps.update({name: flagship(None, mesh=mesh).run_fn(
+        N_ITER, ingest_bits=8) for name, mesh in meshes.items()})
+    for run in steps.values():
+        run(seed=0)
+    ms = best_ms({k: functools.partial(r, seed=0) for k, r in steps.items()},
+                 ("1 shard", "4x1", "2x2", "2x2", "4x1", "1 shard"), N_ITER)
+    # a step of a (t, c) mesh folds t windows: against t one-shard steps
+    ratio = {name: ms[name] / (mesh.shape["time"] * ms["1 shard"])
+             for name, mesh in meshes.items()}
+    print(f"(q) packed step: 4x1 {ms['4x1']:.3f} ms/step (4 windows, "
+          f"{ratio['4x1']:.3f} of 4 one-shard steps), 2x2 {ms['2x2']:.3f} "
+          f"(2 windows, {ratio['2x2']:.3f} of 2), one shard "
+          f"{ms['1 shard']:.3f} [{gpu}]", flush=True)
+    del steps
+    floats = {h: p.run_fn(N_ITER) for h, p in pipes.items()}
+    for run in floats.values():
+        run(seed=0)
+    ms = best_ms({k: functools.partial(r, seed=0) for k, r in floats.items()},
+                 ("remote", "ppermute", "ppermute", "remote"), N_ITER)
+    print(f"(q) float step on 4x1: halo='remote' {ms['remote']:.3f} ms/step, "
+          f"'ppermute' {ms['ppermute']:.3f} ms/step [{gpu}]", flush=True)
+    print_profile("(q) profiled float step, 4x1, halo='remote'",
+                  functools.partial(floats["remote"], seed=0), N_ITER, gpu)
+    return launches
+
+
+def shard_grid(x, mesh):
+    from baseband_tasks_tpu_torch.parallel import shard
+    return shard(x, mesh, ("time", "chan"))
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -2144,6 +2473,10 @@ def main():
     drive_config1(dev, gpu)
     torch.cuda.empty_cache()
     drive_masked_fold(dev, gpu)
+    torch.cuda.empty_cache()
+    results.update(check_halo_kernel(dev, gpu))
+    torch.cuda.empty_cache()
+    launches["halo_remote"] = drive_sharded(dev, gpu)["halo_remote"]
     missing = [k for k in KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on a path: {missing}")

@@ -204,10 +204,15 @@ def test_engine_choice():
         1 << 12, 1 * pu.kHz, device="cpu", **kw)._use_mx()
     assert pacc.FourierDomainAccelSearch(
         1 << 12, 1 * pu.kHz, engine="mx", device="cpu", **kw)._use_mx()
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        pacc.FourierDomainAccelSearch(
-            1 << 12, 1 * pu.kHz, device="cpu", **kw).search_sharded(
-                np.zeros(1 << 12), None)
+    # the sharded search runs the engine of each shard's device: 'auto'
+    # is 'xla' on CPU shards
+    from baseband_tasks_tpu_torch.parallel import Mesh
+    s = pacc.FourierDomainAccelSearch(1 << 12, 1 * pu.kHz, device="cpu",
+                                      **kw)
+    s.search_sharded(np.zeros(1 << 12, np.float32), Mesh(["cpu"] * 2, ("z",)))
+    shards = next(iter(s._sharded_cache.values()))
+    assert [sh._use_mx() for sh in shards] == [False, False]
+    assert [len(sh.zs) for sh in shards] == [33, 33]
 
 
 def test_default_device_is_the_card(monkeypatch):

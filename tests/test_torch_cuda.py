@@ -21,8 +21,13 @@ k1_stream_planes, and the pipeline's step_fn, step_bins_fn and planes
 step on the kernels, against the plain versions and the torch.fft path),
 the bf16 passes (K1p, K1f, K2 with a float32 or a bf16 chirp, K3 power
 and Stokes) and the split ops in bf16 mode, their refusals (mixed y/z
-dtypes, strided or misaligned bf16 planes), and the absorbed reduction
-(masked fold, config 1) on the card.
+dtypes, strided or misaligned bf16 planes), the absorbed reduction
+(masked fold, config 1) on the card, and the mesh: the halo_remote
+kernel against its plain copies on virtual shards of one card (any
+dtype, several rings a launch), its refusals, the sharded flagship
+('remote' against 'ppermute', launches counted) and the sharded
+searches on one card, and the peer reads between two cards (skipped
+with fewer than two).
 Tolerances as in ``chip_smoke.py``: planes
 to 1e-4 of their largest element (float32 FFT roundoff is ~1e-6 of it),
 profiles elementwise to rtol 2e-4 (atomic summation order), counts
@@ -867,3 +872,178 @@ def test_reduction_on_card(dev, masked):
     assert avg.device.type == "cuda" and tuple(avg.shape) == (16, 256)
     assert bool((cnt == 16).all())
     torch.testing.assert_close(avg, eager, rtol=1e-5, atol=0)
+
+
+# -- the mesh layer and the halo_remote kernel -------------------------------
+
+def _halo_case(dev, shape, dtype, rows, seed):
+    """A (time, ring) grid of random blocks of ``rows`` rows on ``dev``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    grid = np.empty(shape, dtype=object)
+    for idx in np.ndindex(shape):
+        if dtype.is_complex:
+            b = torch.randn((rows, 3, 2), generator=g, device=dev,
+                            dtype=torch.complex64)
+        elif dtype.is_floating_point:
+            b = torch.randn((rows, 3, 5), generator=g, device=dev
+                            ).to(dtype)
+        else:
+            b = torch.randint(-99, 99, (rows, 7), generator=g, device=dev,
+                              dtype=dtype)
+        grid[idx] = b
+    return grid
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("pads", [(6, 4), (5, 0), (0, 3), (16, 16)])
+@pytest.mark.parametrize("shape", [(4, 1), (2, 2), (1, 3), (8, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64,
+                                   torch.bfloat16, torch.int8])
+def test_halo_remote(dev, dtype, shape, pads, periodic):
+    """The kernel against its plain version on virtual shards of one
+    card, bit for bit, one launch for every ring of the grid, with rows
+    of 48 B (complex64), 60 B (float32), 30 B (bf16) and 7 B (int8): the
+    16-byte, 4-byte and 1-byte moves, as the byte counts allow."""
+    from baseband_tasks_tpu_torch.parallel import halo_remote as hr
+    grid = _halo_case(dev, shape, dtype, 16, seed=sum(pads) + 7)
+    dd.reset_launch_counts()
+    front, end = hr.halo_edges_remote(grid, *pads, periodic=periodic)
+    assert dd.launch_counts["halo_remote"] == (1 if any(pads) else 0)
+    rfront, rend = hr.halo_edges_remote_ref(grid, *pads, periodic=periodic)
+    torch.cuda.synchronize()
+    for got, ref in zip((*front.flat, *end.flat), (*rfront.flat, *rend.flat)):
+        assert got.device == ref.device and got.dtype == ref.dtype
+        assert torch.equal(got, ref)
+
+
+def test_halo_remote_flagship_planes(dev):
+    """The flagship float path's shapes: four shards of (253,952, 128)
+    float32 planes, pads 3584 / 4608."""
+    from baseband_tasks_tpu_torch import parallel as par
+    x = torch.randn((4 * 253952, 128), device=dev)
+    blocks = list(x.chunk(4))
+    front, end = par.halo_edges_remote(blocks, 3584, 4608)
+    rfront, rend = par.halo_edges_remote_ref(blocks, 3584, 4608)
+    for got, ref in zip(front + end, rfront + rend):
+        assert torch.equal(got, ref)
+    assert not front[0].any() and not end[3].any()
+    assert torch.equal(front[1], blocks[0][-3584:])
+
+
+def test_halo_remote_refuses_rather_than_falls_back(dev, monkeypatch):
+    """On the card halo='remote' launches its kernel or raises: with the
+    kernel library broken it raises; shards split between the card and
+    the CPU are refused; the pipeline's planes step refuses it."""
+    import baseband_tasks_tpu_torch as bt
+    from baseband_tasks_tpu_torch import parallel as par
+    from baseband_tasks_tpu_torch.ops import _build
+    blocks = [torch.randn((16, 4), device=dev) for _ in range(2)]
+    with pytest.raises(ValueError, match="CUDA device"):
+        par.halo_edges_remote([blocks[0], blocks[1].cpu()], 2, 2)
+
+    def broken():
+        raise RuntimeError("nvcc failed")
+    monkeypatch.setattr(_build, "library", broken)
+    from baseband_tasks_tpu_torch.parallel import halo_remote as hr
+    monkeypatch.setattr(hr, "library", broken)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        par.halo_edges_remote(blocks, 2, 2)
+    u = bt.units
+    pipe = bt.WidebandPulsarPipeline(
+        n_chan=8, n_pol=2, dm=0.5, freq_center=600 * u.MHz,
+        chan_rate=250 * u.kHz, period_samples=(512, 1), n_phase=8,
+        block_samples=1024, use_kernels=True, halo="remote",
+        mesh=par.make_mesh(2, 1, devices=[dev] * 2))
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        pipe.run_fn(1)(seed=0)
+
+
+@pytest.mark.parametrize("detect", ["power", "stokes"])
+@pytest.mark.parametrize("shape", [(4, 1), (2, 2)])
+def test_sharded_pipeline_on_card(dev, shape, detect):
+    """The sharded flagship with every shard on one card: 'remote'
+    against 'ppermute' (step_fn on both paths bit for bit, run_fn's
+    profiles to the fold's atomic-order bound, counts exact), the
+    halo_remote launches (one per step_fn step, two per float run_fn
+    step, none for packed ingest), and the kernels against the plain
+    versions."""
+    import baseband_tasks_tpu_torch as bt
+    from baseband_tasks_tpu_torch import parallel as par
+    u = bt.units
+    mesh = par.make_mesh(*shape, devices=[dev] * 4)
+    kw = dict(n_chan=8, n_pol=2, dm=1.0, freq_center=600 * u.MHz,
+              chan_rate=250 * u.kHz, period_samples=(800, 1), n_phase=16,
+              block_samples=1024, mesh=mesh, detect=detect)
+    pipes = {(k, h): bt.WidebandPulsarPipeline(use_kernels=k, halo=h, **kw)
+             for k in (False, True) for h in ("ppermute", "remote")}
+    for kernels in (False, True):
+        T = pipes[kernels, "remote"].global_block
+        xf = torch.randn((T, 8, 2, 2), generator=torch.Generator(
+            device=dev).manual_seed(46), device=dev)
+        dd.reset_launch_counts()
+        got = pipes[kernels, "remote"].step_fn()(xf, 300)
+        assert dd.launch_counts["halo_remote"] == 1
+        want = pipes[kernels, "ppermute"].step_fn()(xf, 300)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert int(got[1].sum()) == T
+    T = pipes[True, "remote"].global_block
+    for bits, halo_launches in ((None, 2 * 3), (8, 0)):
+        dd.reset_launch_counts()
+        prof, cnt = pipes[True, "remote"].run_fn(3, ingest_bits=bits)(seed=1)
+        assert dd.launch_counts["halo_remote"] == halo_launches
+        rprof, rcnt = pipes[True, "ppermute"].run_fn(3, ingest_bits=bits)(
+            seed=1)
+        assert torch.equal(cnt, rcnt) and int(cnt.sum()) == 3 * T
+        torch.testing.assert_close(prof, rprof, rtol=PROFILE_RTOL, atol=0.0)
+        with dd.plain_versions():
+            pprof, pcnt = pipes[True, "remote"].run_fn(
+                3, ingest_bits=bits)(seed=1)
+        assert torch.equal(cnt, pcnt)
+        torch.testing.assert_close(prof, pprof, rtol=PROFILE_RTOL,
+                                   atol=1e-6 * float(pprof.abs().max()))
+
+
+def test_sharded_searches_on_card(dev):
+    import baseband_tasks_tpu_torch as bt
+    from baseband_tasks_tpu_torch import parallel as par
+    from baseband_tasks_tpu_torch.models import accelsearch as pacc
+    from baseband_tasks_tpu_torch.models import ffa as pffa
+    n = 1 << 13
+    t = np.arange(n) / n
+    x = (np.cos(2 * np.pi * (700 * t + 5.0 * t ** 2))
+         + np.random.default_rng(3).standard_normal(n) * 0.3
+         ).astype(np.float32)
+    mesh = par.Mesh([dev] * 4, ("z",))
+    for engine, launched in (("mx", "bank_power"), ("pallas", "accel_corr")):
+        s = pacc.FourierDomainAccelSearch(n, 1 * bt.units.kHz,
+                                          engine=engine, z_max=24,
+                                          z_step=2, seg_len=512, device=dev)
+        dd.reset_launch_counts()
+        got = s.search_sharded(x, mesh)
+        assert dd.launch_counts[launched] == 4
+        _peak_close(got, s.search(x))
+    f = pffa.FastFoldingSearch(20, 4096, device=dev)
+    rows = np.random.default_rng(4).standard_normal((6, 4096)).astype(
+        np.float32)
+    got = f.snr_sharded(rows, par.Mesh([dev] * 4, ("batch",)))
+    torch.testing.assert_close(got, f.snr(rows), rtol=1e-5, atol=1e-5)
+
+
+def test_halo_remote_two_cards():
+    """Shards on two cards: the kernel reads the neighbour's block through
+    a peer pointer after the streams are fenced.  Needs two cards with
+    peer access; skips otherwise."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    if not torch.cuda.can_device_access_peer(0, 1):
+        pytest.skip("cuda:0 cannot read cuda:1")
+    from baseband_tasks_tpu_torch import parallel as par
+    devs = [torch.device("cuda", i % 2) for i in range(4)]
+    blocks = [torch.randn((4096, 128), device=d) for d in devs]
+    for periodic in (False, True):
+        dd.reset_launch_counts()
+        front, end = par.halo_edges_remote(blocks, 512, 768, periodic)
+        assert dd.launch_counts["halo_remote"] == 2      # one per card
+        rfront, rend = par.halo_edges_remote_ref(blocks, 512, 768, periodic)
+        for got, ref in zip(front + end, rfront + rend):
+            assert got.device == ref.device and torch.equal(got, ref)

@@ -142,9 +142,16 @@ def test_errors_match_jax(case):
 
 
 def test_sharded_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        pffa.FastFoldingSearch(16, 256, device="cpu").snr_sharded(
-            np.zeros((2, 256), np.float32), None)
+    """Once not ported: ``snr_sharded`` over one shard is ``snr``, and a
+    zero row scores 0 (tests/test_torch_parallel.py holds it against
+    the JAX package)."""
+    from baseband_tasks_tpu_torch.parallel import Mesh
+    f = pffa.FastFoldingSearch(16, 256, device="cpu")
+    x = np.zeros((2, 256), np.float32)
+    x[1] = pulse_train(256, 16)
+    got = f.snr_sharded(x, Mesh(["cpu"], ("batch",)))
+    assert torch.equal(got, f.snr(x))
+    assert not got[0].any()
 
 
 def test_default_device_is_the_card(monkeypatch):

@@ -272,6 +272,65 @@ def test_lane_mix_and_stream_not_ported(which):
                  np.asarray(want[0]) + 1j * np.asarray(want[1]))
 
 
+def test_numpy_planes_match_jax():
+    """numpy planes on a machine without a card run on the CPU and equal
+    the JAX ops (the four-step FFT and both spectral-filter forms once
+    failed on numpy: ``x.device`` of a numpy 2 array is the string 'cpu')."""
+    x = cplx((1024, 8), 11)
+    xr, xi = x.real.copy(), x.imag.copy()
+    got = ff.fft_pow2_planes(xr, xi)
+    want = jfp.fft_pow2_planes(xr, xi)
+    assert got[0].device == torch.device("cpu")
+    assert_close(as_numpy(got[0]) + 1j * as_numpy(got[1]),
+                 np.asarray(want[0]) + 1j * np.asarray(want[1]))
+    args = gain_case(512, 8, 12)
+    kw = dict(pad_start=32, pad_end=32)
+    want = jsf.spectral_filter_pow2(*args, **kw)
+    want = np.asarray(want[0]) + 1j * np.asarray(want[1])
+    for got in (sf.spectral_filter_pow2(*args, **kw),
+                sf.spectral_filter_stream(args[0][:64], args[1][:64],
+                                          args[0][64:], args[1][64:],
+                                          *args[2:], **kw)):
+        assert_close(as_numpy(got[0]) + 1j * as_numpy(got[1]), want)
+    assert dd._on_cuda(xr) is False
+
+
+class _Stop(Exception):
+    """Raised by a spy once it has seen where the data would go."""
+
+
+def test_numpy_input_goes_to_the_card(monkeypatch):
+    """With a card, numpy given to the FFT and spectral-filter ops goes
+    there (a spy stops each call where the inputs are moved); a tensor
+    keeps its device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    seen = []
+
+    def spy(a, device, dtype):
+        seen.append(device)
+        raise _Stop
+
+    x = cplx((512, 8), 13)
+    args = gain_case(512, 8, 13)
+    kw = dict(pad_start=32, pad_end=32)
+    calls = [lambda: ff.fft_pow2_planes(x.real, x.imag),
+             lambda: sf.spectral_filter_pow2(*args, **kw),
+             lambda: sf.spectral_filter_stream(
+                 args[0][:64], args[1][:64], args[0][64:], args[1][64:],
+                 *args[2:], **kw)]
+    for module in (ff, sf):
+        monkeypatch.setattr(module, "_as_device", spy)
+    for call in calls:
+        with pytest.raises(_Stop):
+            call()
+    assert seen == [torch.device("cuda")] * 3
+    monkeypatch.undo()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    got = ff.fft_pow2_planes(torch.from_numpy(x.real.copy()),
+                             torch.from_numpy(x.imag.copy()))
+    assert got[0].device == torch.device("cpu")
+
+
 def test_import_loads_no_jax():
     code = ("import sys, baseband_tasks_tpu_torch, "
             "baseband_tasks_tpu_torch.ops.fft, "

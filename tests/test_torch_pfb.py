@@ -160,6 +160,32 @@ def test_pfb_forward_two_steps_with_scale(dft):
         carry = [xr[-k:] * s, xi[-k:] * s]
 
 
+class _Stop(Exception):
+    """Raised by a spy once it has seen where the data would go."""
+
+
+def test_pfb_numpy_input_goes_to_the_card(monkeypatch):
+    """With a card, numpy given to ``pfb_forward_stream`` goes there (it
+    once stayed on the CPU); a spy stops the call where the inputs are
+    moved.  A tensor keeps its device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    rng, taps, (fr, fi) = pfb_inputs(8, seed=4)
+    carry = planes(rng, (7, L))
+    xr, xi = planes(rng, (48, L))
+    seen = []
+
+    def spy(a, device):
+        seen.append(device)
+        raise _Stop
+
+    monkeypatch.setattr(ppfb, "_as_f32", spy)
+    with pytest.raises(_Stop):
+        ppfb.pfb_forward_stream(*carry, xr, xi, taps, fr, fi, n_tap=8)
+    with pytest.raises(_Stop):
+        ppfb.pfb_forward_stream(*t(*carry, xr, xi), taps, fr, fi, n_tap=8)
+    assert seen == [torch.device("cuda"), torch.device("cpu")]
+
+
 @pytest.mark.parametrize("n_tap", [2, 9])
 def test_pfb_forward_tap_counts(n_tap):
     rng, taps, (fr, fi) = pfb_inputs(n_tap, seed=3)
