@@ -3,22 +3,23 @@
 // bank_power: replaces `_bank_kernel` (baseband_tasks_tpu/ops/
 // accel_correlate.py:134, launched by `_bank_matmul_impl` :165), the mx
 // engine.  out = (t - u)^2 + (t + v)^2 with t = (fr + fi) @ ka, u = fi @ kb,
-// v = fr @ kc: an FP32 GEMM of (n_seg, L) segment planes against (L, n_cols)
-// banded operator planes, three products sharing one pass over the inputs,
-// with the Karatsuba epilogue in registers.  Only the power map is written;
-// t, u and v never reach device memory.
+// v = fr @ kc: three GEMMs of (n_seg, L) segment planes against (L, n_cols)
+// banded operator planes sharing one pass over the inputs, with the
+// Karatsuba epilogue in registers.  Only the power map is written; t, u
+// and v never reach device memory.
 // What bounds it on an H100: operations.  At the search's full width
 // (n_seg 8448, L 512, n_cols 16896) it does 3 x 2 x 8448 x 512 x 16896 =
-// 438 GFLOP (6.5 ms at the 67 TFLOP/s FP32 rate of the CUDA cores) against
-// 0.71 GB of traffic (0.21 ms).  The design is a classic shared-memory
-// SGEMM: a 64 x 128 output tile per 256-thread block, 8-deep slices of the
-// contraction double-buffered in shared memory (the next slice is fetched
-// into registers while the current one is multiplied), and a 4 x 8
-// microtile per thread with three accumulators per output (96 registers)
-// so each (s, f, c) costs the three FMAs of the Karatsuba form and no
-// more.  Each thread reads its eight columns as two float4 runs 64 columns
-// apart, so a warp's shared-memory reads are conflict-free.  Tensor cores
-// (3xTF32 or wgmma) are later work.
+// 438 GFLOP against 0.71 GB of traffic (0.21 ms).  The products run in
+// 3xTF32 on the tensor cores (tf32mma.cuh: 3 x 438 GFLOP of passes, 2.66
+// ms at 495 TFLOP/s, against 6.5 ms for float32 on the CUDA cores).  A
+// block of two warpgroups holds a 128 x BN output tile in three
+// accumulator sets (3 BN / 2 registers a thread: BN 96 keeps the block
+// under 255 registers with the double-buffered fragments); each k8 step
+// splits its fr and fi fragments and fr + fi (summed in float32) in
+// registers and issues 3 x 3 MMAs against the operator planes, which the
+// wrapper splits and stages once per operator (ops/tf32.py).  Blocks walk
+// the row tiles fastest, so the blocks in flight share a few operator
+// column tiles and the segment planes (35 MB) stay in L2.
 //
 // accel_corr: replaces `_kernel` (accel_correlate.py:54, launched by
 // `_accel_correlate_impl` :81), the 'pallas' engine.  Block (lane tile,
@@ -39,119 +40,128 @@
 
 #include "common.cuh"
 #include "fft.cuh"
+#include "tf32mma.cuh"
 
 namespace bbt {
 
-constexpr int kBM = 64, kBN = 128, kBK = 8;   // block tile (rows, cols, depth)
-constexpr int kTM = 4, kTN = 8;               // per-thread microtile
-
-__global__ void __launch_bounds__(kThreads)
+template <int BN, int STAGES>
+__global__ void __launch_bounds__(tc::kThreads, 1)
 bank_power_kernel(const float* __restrict__ fr, const float* __restrict__ fi,
-                  const float* __restrict__ ka, const float* __restrict__ kb,
-                  const float* __restrict__ kc, float* __restrict__ out,
-                  int L, int n_cols) {
-  // [buffer][depth][row or column]; A planes stored transposed
-  __shared__ __align__(16) float s_r[2][kBK][kBM];
-  __shared__ __align__(16) float s_i[2][kBK][kBM];
-  __shared__ __align__(16) float s_a[2][kBK][kBN];
-  __shared__ __align__(16) float s_b[2][kBK][kBN];
-  __shared__ __align__(16) float s_c[2][kBK][kBN];
+                  const float* __restrict__ kp, float* __restrict__ out,
+                  int n_seg, int L, int n_cols, int m_tiles, int k_tiles) {
+  constexpr int kA = tc::kBM * tc::kAStride;   // one staged plane
+  constexpr int kHalf = BN * tc::kBK;          // one half of one operator
+  constexpr int kB = 6 * kHalf;                // ka, kb, kc: big, small
+  constexpr int kStage = 2 * kA + kB;
+  extern __shared__ __align__(128) float stages[];
   const int tid = threadIdx.x;
-  const int tx = tid & 15;          // column group: cols tx*4 and 64+tx*4
-  const int ty = tid >> 4;          // row group: rows ty*4 .. ty*4+3
-  const long m0 = static_cast<long>(blockIdx.y) * kBM;
-  const long n0 = static_cast<long>(blockIdx.x) * kBN;
+  const long m0 = static_cast<long>(blockIdx.x % m_tiles) * tc::kBM;
+  const int n_tile = blockIdx.x / m_tiles;
+  const float* ktile = kp + static_cast<long>(n_tile) * k_tiles * kB;
 
-  // global -> register fetch of one depth slice: threads 0..127 take a
-  // float4 of fr, 128..255 of fi (64 rows x 8 deep each); every thread one
-  // float4 of each operator plane (8 deep x 128 columns)
-  const int ta = tid & 127;
-  const int a_row = ta >> 1, a_col = (ta & 1) * 4;
-  const float* a_src = (tid < 128 ? fr : fi) + (m0 + a_row) * L + a_col;
-  const int b_row = tid >> 5, b_col = (tid & 31) * 4;
-  const long b_off = static_cast<long>(b_row) * n_cols + n0 + b_col;
-  float4 pa, pb0, pb1, pb2;
-  auto fetch = [&](int k0) {
-    pa = *reinterpret_cast<const float4*>(a_src + k0);
-    const long o = b_off + static_cast<long>(k0) * n_cols;
-    pb0 = *reinterpret_cast<const float4*>(ka + o);
-    pb1 = *reinterpret_cast<const float4*>(kb + o);
-    pb2 = *reinterpret_cast<const float4*>(kc + o);
-  };
-  auto stash = [&](int buf) {
-    float* a = tid < 128 ? &s_r[buf][0][0] : &s_i[buf][0][0];
-    a[(a_col + 0) * kBM + a_row] = pa.x;
-    a[(a_col + 1) * kBM + a_row] = pa.y;
-    a[(a_col + 2) * kBM + a_row] = pa.z;
-    a[(a_col + 3) * kBM + a_row] = pa.w;
-    *reinterpret_cast<float4*>(&s_a[buf][b_row][b_col]) = pb0;
-    *reinterpret_cast<float4*>(&s_b[buf][b_row][b_col]) = pb1;
-    *reinterpret_cast<float4*>(&s_c[buf][b_row][b_col]) = pb2;
-  };
-
-  float t[kTM][kTN], u[kTM][kTN], v[kTM][kTN];
+  auto load = [&](int kt) {
+    float* sa = stages + (kt % STAGES) * kStage;
+    const int k0 = kt * tc::kBK;
+    // fr then fi: 128 rows x 4 chunks of 4 floats each
 #pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) t[i][j] = u[i][j] = v[i][j] = 0.0f;
-
-  fetch(0);
-  stash(0);
-  __syncthreads();
-  for (int k0 = 0, buf = 0; k0 < L; k0 += kBK, buf ^= 1) {
-    const bool more = k0 + kBK < L;
-    if (more) fetch(k0 + kBK);
-#pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      const float4 r4 = *reinterpret_cast<const float4*>(&s_r[buf][k][ty * 4]);
-      const float4 i4 = *reinterpret_cast<const float4*>(&s_i[buf][k][ty * 4]);
-      const float ar[kTM] = {r4.x, r4.y, r4.z, r4.w};
-      const float ai[kTM] = {i4.x, i4.y, i4.z, i4.w};
-      float ba[kTN], bb[kTN], bc[kTN];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c = h * 64 + tx * 4;
-        const float4 a4 = *reinterpret_cast<const float4*>(&s_a[buf][k][c]);
-        const float4 b4 = *reinterpret_cast<const float4*>(&s_b[buf][k][c]);
-        const float4 c4 = *reinterpret_cast<const float4*>(&s_c[buf][k][c]);
-        ba[h * 4 + 0] = a4.x; ba[h * 4 + 1] = a4.y;
-        ba[h * 4 + 2] = a4.z; ba[h * 4 + 3] = a4.w;
-        bb[h * 4 + 0] = b4.x; bb[h * 4 + 1] = b4.y;
-        bb[h * 4 + 2] = b4.z; bb[h * 4 + 3] = b4.w;
-        bc[h * 4 + 0] = c4.x; bc[h * 4 + 1] = c4.y;
-        bc[h * 4 + 2] = c4.z; bc[h * 4 + 3] = c4.w;
-      }
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) {
-        const float as = ar[i] + ai[i];
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) {
-          t[i][j] = fmaf(as, ba[j], t[i][j]);
-          u[i][j] = fmaf(ai[i], bb[j], u[i][j]);
-          v[i][j] = fmaf(ar[i], bc[j], v[i][j]);
-        }
-      }
+    for (int u = 0; u < 2 * tc::kBM * 4 / tc::kThreads; ++u) {
+      const int idx = tid + u * tc::kThreads;
+      const int plane = idx / (tc::kBM * 4);
+      const int r = (idx / 4) % tc::kBM;
+      const int c = 4 * (idx % 4);
+      const long row = m0 + r;
+      const bool ok = row < n_seg && k0 + c < L;
+      const float* src = plane ? fi : fr;
+      tc::cp_async16(sa + plane * kA + r * tc::kAStride + c,
+                     ok ? src + row * L + k0 + c : src, ok);
     }
-    // the other buffer was last read before the previous barrier
-    if (more) stash(buf ^ 1);
-    __syncthreads();
-  }
+    const float* bsrc = ktile + static_cast<long>(kt) * kB;
+    float* sb = sa + 2 * kA;
+    static_assert(kB % (4 * tc::kThreads) == 0, "whole 16-byte copies");
+#pragma unroll
+    for (int u = 0; u < kB / 4 / tc::kThreads; ++u) {
+      const int idx = 4 * (tid + u * tc::kThreads);
+      tc::cp_async16(sb + idx, bsrc + idx, true);
+    }
+  };
+
+  // t, u, v of the Karatsuba form; fragments of fr + fi, fi, fr
+  float t[BN / 2], uu[BN / 2], v[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) t[i] = uu[i] = v[i] = 0.0f;
+  tc::Frag s0, i0, r0, s1, i1, r1;
+  auto frags = [&](const float* sa, int j, tc::Frag& fs, tc::Frag& fim,
+                   tc::Frag& fre) {
+    float xr[4], xi[4], xs[4];
+    tc::load_raw(tc::frag_base(sa), j, xr);
+    tc::load_raw(tc::frag_base(sa + kA), j, xi);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) xs[q] = xr[q] + xi[q];
+    tc::split4(xs, fs);
+    tc::split4(xi, fim);
+    tc::split4(xr, fre);
+  };
+  auto step = [&](const float* sa, int j, const tc::Frag& fs,
+                  const tc::Frag& fim, const tc::Frag& fre) {
+    const float* ka = sa + 2 * kA;
+    tc::wgmma_fence();
+    tc::mma3<BN>(t, fs, ka, ka + kHalf, j);
+    tc::mma3<BN>(uu, fim, ka + 2 * kHalf, ka + 3 * kHalf, j);
+    tc::mma3<BN>(v, fre, ka + 4 * kHalf, ka + 5 * kHalf, j);
+    tc::wgmma_commit();
+  };
 
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    float* row = out + (m0 + ty * 4 + i) * n_cols + n0;
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < k_tiles) load(s);
+    tc::cp_async_commit();
+  }
+  tc::cp_async_wait<STAGES - 2>();
+  tc::fence_proxy_async();
+  __syncthreads();
+  frags(stages, 0, s0, i0, r0);
+  tc::pin(t);
+  tc::pin(uu);
+  tc::pin(v);
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    const float* sa = stages + (kt % STAGES) * kStage;
+    step(sa, 0, s0, i0, r0);
+    tc::wgmma_wait<1>();                       // step-1 fragments free
+    frags(sa, 1, s1, i1, r1);
+    step(sa, 1, s1, i1, r1);
+    tc::wgmma_wait<1>();                       // step-0 fragments, stage kt - 1
+    tc::cp_async_wait<STAGES - 3>();           // stage kt + 1 arrived
+    tc::fence_proxy_async();
+    __syncthreads();
+    if (kt + STAGES - 1 < k_tiles) load(kt + STAGES - 1);
+    tc::cp_async_commit();
+    if (kt + 1 < k_tiles)
+      frags(stages + ((kt + 1) % STAGES) * kStage, 0, s0, i0, r0);
+  }
+  tc::wgmma_wait<0>();
+  tc::pin(t);
+  tc::pin(uu);
+  tc::pin(v);
+
+  const int c0 = n_tile * BN;
+#pragma unroll
+  for (int i = 0; i < BN / 2; i += 2) {
+    const long row = m0 + tc::acc_row(i);
+    const int col = c0 + tc::acc_col(i);
+    if (row >= n_seg || col >= n_cols) continue;
+    float p[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      float p[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int j = h * 4 + q;
-        const float cr = t[i][j] - u[i][j];
-        const float ci = t[i][j] + v[i][j];
-        p[q] = cr * cr + ci * ci;
-      }
-      *reinterpret_cast<float4*>(row + h * 64 + tx * 4) =
-          make_float4(p[0], p[1], p[2], p[3]);
+      const float cr = t[i + h] - uu[i + h];
+      const float ci = t[i + h] + v[i + h];
+      p[h] = cr * cr + ci * ci;
+    }
+    float* dst = out + row * n_cols + col;
+    if (n_cols % 2 == 0) {                     // col even: an aligned pair
+      *reinterpret_cast<float2*>(dst) = make_float2(p[0], p[1]);
+    } else {
+      dst[0] = p[0];
+      if (col + 1 < n_cols) dst[1] = p[1];
     }
   }
 }
@@ -206,19 +216,36 @@ using bbt::kThreads;
 
 // --- C entry points: each returns the cudaGetLastError() of its launch. ---
 
-// bank_power: n_seg a multiple of 64, n_cols of 128, L of 8 (the wrapper
-// checks); 16-byte aligned, contiguous planes.
-extern "C" int bbt_bank_power(const float* fr, const float* fi, const float* ka,
-                              const float* kb, const float* kc, float* out,
-                              int n_seg, int L, int n_cols, int device,
-                              void* stream) {
-  if (n_seg % bbt::kBM || n_cols % bbt::kBN || L % bbt::kBK || L <= 0)
+namespace {
+
+constexpr int kBankBN = 96, kBankStages = 4;
+
+}  // namespace
+
+// bank_power: kp is the operator (ka, kb, kc) staged by ops/tf32.py
+// `pack_operand` for column tiles of bn (which must be this kernel's,
+// 96); L a multiple of 4 and fr, fi 16-byte aligned (the wrapper checks).
+extern "C" int bbt_bank_power(const float* fr, const float* fi, const float* kp,
+                              float* out, int n_seg, int L, int n_cols, int bn,
+                              int device, void* stream) {
+  using bbt::tc::kBK;
+  using bbt::tc::kBM;
+  if (n_seg <= 0 || n_cols <= 0 || L <= 0 || L % 4 || bn != kBankBN)
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  constexpr size_t smem =
+      static_cast<size_t>(kBankStages) *
+      (2 * kBM * bbt::tc::kAStride + 6 * kBankBN * kBK) * sizeof(float);
+  auto kernel = bbt::bank_power_kernel<kBankBN, kBankStages>;
+  cudaError_t err = bbt::prepare(kernel, smem, device);
   if (err != cudaSuccess) return err;
-  bbt::bank_power_kernel<<<dim3(n_cols / bbt::kBN, n_seg / bbt::kBM), kThreads,
-                           0, static_cast<cudaStream_t>(stream)>>>(
-      fr, fi, ka, kb, kc, out, L, n_cols);
+  const int m_tiles = (n_seg + kBM - 1) / kBM;
+  const int k_tiles = (L + kBK - 1) / kBK;
+  const long blocks =
+      static_cast<long>(m_tiles) * ((n_cols + kBankBN - 1) / kBankBN);
+  if (blocks > 0x7fffffffL) return cudaErrorInvalidValue;
+  kernel<<<static_cast<unsigned>(blocks), bbt::tc::kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(fr, fi, kp, out, n_seg, L,
+                                                n_cols, m_tiles, k_tiles);
   return cudaGetLastError();
 }
 

@@ -15,9 +15,10 @@
 //            stored in natural time order                       (N - pads, L)
 //   k3_power the same without pads, storing |.|^2               (N, L)
 //   lane_mix (rows, L) planes times a complex (L, L) matrix: the
-//            spectral filter's `pre`/`post` mixes               (rows, L)
+//            spectral filter's `pre`/`post` mixes, in 3xTF32 on the
+//            tensor cores (tf32mma.cuh)                         (rows, L)
 //
-// What bounds them on an H100: bytes.  Each pass reads and writes two
+// What bounds the FFT passes on an H100: bytes.  Each pass reads and writes two
 // float32 planes once (2 x 2 x 4 B x N x L: 537 MB at N = 2^18, L = 128,
 // ~0.16 ms at 3.35 TB/s) against ~N L log2(N2) x 5 flops of FFT work.
 // As in dedisperse.cu, one block holds one column for a tile of up to 16
@@ -31,7 +32,8 @@
 
 #include "common.cuh"
 #include "fft.cuh"
-#include "lanemix.cuh"
+#include "lanemix.cuh"   // kMaxMixLanes
+#include "tf32mma.cuh"
 
 namespace bbt {
 
@@ -156,26 +158,136 @@ k3_trim_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
 // row block; the passes here hold a column for a tile of <= 16 lanes, so
 // the mix runs as its own pass right after stage A (`pre`: a lane mix
 // commutes with the row FFT and twiddle, which act on every lane alike)
-// or after k3_trim (`post`).  Block i loads rows [16 i, 16 i + 16) of
-// all L lanes into shared memory and `mix_tile` multiplies them by W.
-// Bound: FP32 FMAs (8 L flops per element) above L ~ 64; below, bytes.
-__global__ void __launch_bounds__(kThreads)
+// or after k3_trim (`post`).
+//
+// The complex product is one real GEMM, [xr | xi] (rows, 2L) @
+// [[wr, wi], [-wi, wr]] (2L, 2L) -> [yr | yi], in 3xTF32 on the tensor
+// cores (tf32mma.cuh): one accumulator a thread per output, where four
+// real products into two accumulators would need the data operand twice
+// per step.  The block matrix is built, split and staged once per mixer
+// by the wrapper (ops/tf32.py).  A block computes 128 rows x BN columns
+// of [yr | yi]; the A loader reads xr for k < L and xi above, and
+// zero-fills rows past `rows` and depth past 2L (VEC: 16-byte copies when
+// L % 4 == 0 and the planes are 16-byte aligned; else 4-byte copies).
+// Bound: tensor-core operations, 3 passes x 8 L flops per complex output
+// element (0.42 ms at 2^15 x 512, 0.21 ms at 261,120 x 128 at 495
+// TFLOP/s), above the bytes (0.08 / 0.16 ms).
+template <int BN, int STAGES, bool VEC>
+__global__ void __launch_bounds__(tc::kThreads, 1)
 lane_mix_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-                const float* __restrict__ wr, const float* __restrict__ wi,
-                float* __restrict__ yr, float* __restrict__ yi, int rows,
-                int L) {
-  extern __shared__ float2 tile[];
-  const long row0 = static_cast<long>(blockIdx.x) * kMixRows;
-  const int nr = min(kMixRows, static_cast<int>(rows - row0));
-  const long base = row0 * L;
-  batched(kMixRows * L,
-          [&](int idx) {
-            return idx < nr * L ? make_float2(xr[base + idx], xi[base + idx])
-                                : make_float2(0.0f, 0.0f);
-          },
-          [&](int idx, float2 v) { tile[idx] = v; });
+                const float* __restrict__ wp, float* __restrict__ yr,
+                float* __restrict__ yi, int rows, int L, int n_tiles,
+                int k_tiles) {
+  constexpr int kA = tc::kBM * tc::kAStride;   // floats of a staged A tile
+  constexpr int kB = 2 * BN * tc::kBK;         // big + small B halves
+  constexpr int kStage = kA + kB;
+  extern __shared__ __align__(128) float stages[];
+  const int tid = threadIdx.x;
+  const int n_tile = blockIdx.x % n_tiles;     // column tiles of a row block
+  const long m0 = static_cast<long>(blockIdx.x / n_tiles) * tc::kBM;
+  const int K = 2 * L;
+  const float* wtile = wp + static_cast<long>(n_tile) * k_tiles * kB;
+
+  auto load = [&](int kt) {
+    float* sa = stages + (kt % STAGES) * kStage;
+    const int k0 = kt * tc::kBK;
+    constexpr int kPer = VEC ? 4 : 1;          // floats a copy
+    constexpr int kCopies = tc::kBM * tc::kBK / kPer / tc::kThreads;
+#pragma unroll
+    for (int u = 0; u < kCopies; ++u) {
+      const int idx = tid + u * tc::kThreads;
+      const int r = idx / (tc::kBK / kPer);
+      const int c = (idx % (tc::kBK / kPer)) * kPer;
+      const int k = k0 + c;
+      const long row = m0 + r;
+      const bool ok = row < rows && k < K;
+      const float* src = xr;
+      if (ok) src = k < L ? xr + row * L + k : xi + row * L + (k - L);
+      if constexpr (VEC) {
+        tc::cp_async16(sa + r * tc::kAStride + c, src, ok);
+      } else {
+        tc::cp_async4(sa + r * tc::kAStride + c, src, ok);
+      }
+    }
+    const float* bsrc = wtile + static_cast<long>(kt) * kB;
+    float* sb = sa + kA;
+    static_assert(kB % (4 * tc::kThreads) == 0, "whole 16-byte copies");
+#pragma unroll
+    for (int u = 0; u < kB / 4 / tc::kThreads; ++u) {
+      const int idx = 4 * (tid + u * tc::kThreads);
+      tc::cp_async16(sb + idx, bsrc + idx, true);
+    }
+  };
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+  tc::Frag f0, f1;
+  float raw[4];
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < k_tiles) load(s);
+    tc::cp_async_commit();
+  }
+  tc::cp_async_wait<STAGES - 2>();
+  tc::fence_proxy_async();
   __syncthreads();
-  mix_tile(tile, L, wr, wi, yr, yi, row0, nr);
+  tc::load_raw(tc::frag_base(stages), 0, raw);
+  tc::split4(raw, f0);
+  tc::pin(acc);
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    const float* sa = stages + (kt % STAGES) * kStage;
+    const float* bb = sa + kA;
+    const float* bs = bb + BN * tc::kBK;
+    tc::wgmma_fence();
+    tc::mma3<BN>(acc, f0, bb, bs, 0);
+    tc::wgmma_commit();
+    tc::wgmma_wait<1>();                       // f1 free
+    tc::load_raw(tc::frag_base(sa), 1, raw);
+    tc::split4(raw, f1);
+    tc::wgmma_fence();
+    tc::mma3<BN>(acc, f1, bb, bs, 1);
+    tc::wgmma_commit();
+    tc::wgmma_wait<1>();                       // f0 and stage kt - 1 free
+    tc::cp_async_wait<STAGES - 3>();           // stage kt + 1 arrived
+    tc::fence_proxy_async();
+    __syncthreads();
+    if (kt + STAGES - 1 < k_tiles) load(kt + STAGES - 1);
+    tc::cp_async_commit();
+    if (kt + 1 < k_tiles) {
+      tc::load_raw(tc::frag_base(stages + ((kt + 1) % STAGES) * kStage), 0,
+                   raw);
+      tc::split4(raw, f0);
+    }
+  }
+  tc::wgmma_wait<0>();
+  tc::pin(acc);
+
+  // column c of the tile is yr[., c] below L, yi[., c - L] below 2 L
+  const int c0 = n_tile * BN;
+#pragma unroll
+  for (int i = 0; i < BN / 2; i += 2) {
+    const long row = m0 + tc::acc_row(i);
+    const int col = c0 + tc::acc_col(i);
+    if (row >= rows) continue;
+    if constexpr (VEC) {                       // L even: a pair stays in a plane
+      if (col < K) {
+        float* dst = col < L ? yr + row * L + col : yi + row * L + (col - L);
+        *reinterpret_cast<float2*>(dst) = make_float2(acc[i], acc[i + 1]);
+      }
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = col + h;
+        if (c < L) {
+          yr[row * L + c] = acc[i + h];
+        } else if (c < K) {
+          yi[row * L + (c - L)] = acc[i + h];
+        }
+      }
+    }
+  }
 }
 
 }  // namespace bbt
@@ -251,16 +363,44 @@ extern "C" int bbt_k3_power(const float* zr, const float* zi, float* out,
                               stream);
 }
 
-extern "C" int bbt_lane_mix(const float* xr, const float* xi, const float* wr,
-                            const float* wi, float* yr, float* yi, int rows,
-                            int L, int device, void* stream) {
-  if (rows < 1 || L < 1 || L > bbt::kMaxMixLanes) return cudaErrorInvalidValue;
-  const size_t smem = static_cast<size_t>(bbt::kMixRows) * L * sizeof(float2);
-  cudaError_t err = bbt::prepare(bbt::lane_mix_kernel, smem, device);
+namespace {
+
+constexpr int kMixBN = 256, kMixStages = 4;
+
+template <bool VEC>
+int launch_lane_mix(const float* xr, const float* xi, const float* wp,
+                    float* yr, float* yi, int rows, int L, int device,
+                    cudaStream_t stream) {
+  using bbt::tc::kBK;
+  using bbt::tc::kBM;
+  constexpr size_t smem = static_cast<size_t>(kMixStages) *
+                          (kBM * bbt::tc::kAStride + 2 * kMixBN * kBK) *
+                          sizeof(float);
+  auto kernel = bbt::lane_mix_kernel<kMixBN, kMixStages, VEC>;
+  cudaError_t err = bbt::prepare(kernel, smem, device);
   if (err != cudaSuccess) return err;
-  bbt::lane_mix_kernel<<<(rows + bbt::kMixRows - 1) / bbt::kMixRows,
-                         bbt::mix_threads(L), smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      xr, xi, wr, wi, yr, yi, rows, L);
+  const int n_tiles = (2 * L + kMixBN - 1) / kMixBN;
+  const int k_tiles = (2 * L + kBK - 1) / kBK;
+  const long blocks = static_cast<long>(n_tiles) * ((rows + kBM - 1) / kBM);
+  if (blocks > 0x7fffffffL) return cudaErrorInvalidValue;
+  kernel<<<static_cast<unsigned>(blocks), bbt::tc::kThreads, smem, stream>>>(
+      xr, xi, wp, yr, yi, rows, L, n_tiles, k_tiles);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// lane_mix: wp is the mixer staged by ops/tf32.py `pack_operand` for
+// column tiles of bn (which must be this kernel's, 256); vec = L % 4 == 0
+// with 16-byte aligned planes.
+extern "C" int bbt_lane_mix(const float* xr, const float* xi, const float* wp,
+                            float* yr, float* yi, int rows, int L, int bn,
+                            int vec, int device, void* stream) {
+  if (rows < 1 || L < 1 || L > bbt::kMaxMixLanes || bn != kMixBN ||
+      (vec && L % 4))
+    return cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  return vec ? launch_lane_mix<true>(xr, xi, wp, yr, yi, rows, L, device, st)
+             : launch_lane_mix<false>(xr, xi, wp, yr, yi, rows, L, device,
+                                      st);
 }

@@ -1,11 +1,13 @@
 // A tile of rows times a complex (L, L) lane-mixing matrix, in FP32.
 //
-// Replaces the lane matmuls that the JAX package runs on the TPU's MXU
-// inside its kernels: `_lane_matmul` (baseband_tasks_tpu/ops/
-// spectral_filter.py:78, the `pre`/`post` mixes) and the F (x) I_reps DFT
-// of `_fwd_body` (ops/pfb_pallas.py:111-114).  A block holds kMixRows
-// rows of all L lanes in shared memory, as float2 a[r * L + k], and
-// computes y[row0 + r, j] = sum_k a[r, k] * W[k, j] with W = wr + i wi
+// Replaces the lane matmul that the JAX package runs on the TPU's MXU
+// inside the forward PFB kernel: the F (x) I_reps DFT of `_fwd_body`
+// (baseband_tasks_tpu/ops/pfb_pallas.py:111-114, pfb.cu).  The spectral
+// filter's `pre`/`post` mixes (`_lane_matmul`, ops/spectral_filter.py:78)
+// left this tile for a 3xTF32 tensor-core GEMM (fourstep.cu lane_mix,
+// tf32mma.cuh); moving the PFB's DFT there too is open.  A block holds
+// kMixRows rows of all L lanes in shared memory, as float2 a[r * L + k],
+// and computes y[row0 + r, j] = sum_k a[r, k] * W[k, j] with W = wr + i wi
 // read from device memory (the whole matrix, 2 L^2 floats, stays in L2).
 // Each thread owns one output column j at a time and keeps its kMixRows
 // complex sums in registers; a[r, k] is the same word for every thread of

@@ -50,14 +50,14 @@ _SIGNATURES = {
     "bbt_k2_inv": [_P] * 4 + [_F] + [_I] * 3 + [_I, _P],
     "bbt_k3_trim": [_P] * 4 + [_I] * 5 + [_I, _P],
     "bbt_k1_stream": [_P] * 5 + [_F] + [_P] * 2 + [_I] * 4 + [_I, _P],
-    "bbt_lane_mix": [_P] * 6 + [_I] * 2 + [_I, _P],
+    "bbt_lane_mix": [_P] * 5 + [_I] * 4 + [_I, _P],
     "bbt_pfb_fwd": [_P] * 8 + [_F] + [_P] * 2 + [_I] * 3 + [_I, _P],
     "bbt_k1_planes": [_P] * 3 + [_I] * 3 + [_I, _P],
     "bbt_k1_stream_planes": [_P] * 6 + [_I] * 5 + [_I, _P],
     "bbt_k2_theta": [_P] * 3 + [_I] * 3 + [_I, _P],
     "bbt_k3_fold_stokes": [_P] * 5 + [_I] * 6 + [_I, _P],
     "bbt_k3_power": [_P] * 3 + [_I] * 3 + [_I, _P],
-    "bbt_bank_power": [_P] * 6 + [_I] * 3 + [_I, _P],
+    "bbt_bank_power": [_P] * 4 + [_I] * 4 + [_I, _P],
     "bbt_accel_corr": [_P] * 4 + [_I] * 4 + [_I, _P],
     "bbt_resident": [_P] * 12 + [_I] * 7 + [_I, _P],
     "bbt_halo_edges": [_PLL] * 3 + [_I] * 5 + [_LL, _I] + [_I, _P],

@@ -8,7 +8,8 @@ plain PyTorch version (``*_ref``) of the same function.
   every spectrum segment with every template as one bank product against
   the banded Karatsuba operator planes, ``t = (fr+fi)@ka``, ``u = fi@kb``,
   ``v = fr@kc``, and the power ``(t-u)² + (t+v)²``; the three products
-  never reach device memory.  Launch ``bank_power`` (``csrc/accel.cu``).
+  never reach device memory.  Launch ``bank_power`` (``csrc/accel.cu``,
+  3xTF32 on the tensor cores).
 - :func:`accel_correlate_bank` (engine 'pallas'): per segment spectrum,
   ``|IFFT(spec · tf[:, z])|²`` over a 128-lane z bank, trimmed to the
   first ``valid`` lags; the complex products stay in shared memory.
@@ -30,6 +31,7 @@ import torch
 
 from ._build import launch
 from .dedisperse import _as_device, _check, _device_of, _is_pow2, _on_cuda
+from .tf32 import cached, pack_operand
 
 __all__ = ["accel_correlate_bank", "accel_correlate_bank_ref",
            "bank_matmul_power", "bank_matmul_power_ref", "LANES",
@@ -44,8 +46,9 @@ LANES = 128
 #: tile and its twiddle table take 144 KB of the 227 KB a block may use.
 MAX_SEG_LEN = 4096
 
-# bank_power's block tile (csrc/accel.cu kBM, kBN, kBK)
-_BM, _BN, _BK = 64, 128, 8
+# bank_power's contraction step (one k8 MMA) and column tile (csrc/
+# accel.cu kBankBN)
+_BK, _BANK_BN = 8, 96
 
 
 def accel_correlate_bank_ref(segs, tf_r, tf_i, *, valid):
@@ -127,8 +130,11 @@ def bank_matmul_power(fr, fi, ka, kb, kc, *, seg_tile=256, col_tile=512):
 
     Returns the (n_seg, n_cols) power ``|sum_f seg[s, f] M[f, kz]|²``.
     ``seg_tile``/``col_tile`` are the JAX package's tiles, kept as the
-    shape contract; the kernel tiles by 64 x 128 inside and needs ``L`` a
-    multiple of 8.
+    shape contract; the kernel (3xTF32 on the tensor cores: ~1e-5 of the
+    peak at L = 512, ``ops/tf32.py``) masks its own tile edges and needs
+    ``L`` a multiple of 8.  The
+    operator is split and staged once per (ka, kb, kc) tensors
+    (``ops/tf32.py``).
     """
     dev = _device_of(fr)
     fr, fi, ka, kb, kc = (_as_device(t, dev, torch.float32)
@@ -142,16 +148,19 @@ def bank_matmul_power(fr, fi, ka, kb, kc, *, seg_tile=256, col_tile=512):
         raise ValueError(f"operator planes must be ({L}, {n_cols})")
     if not _on_cuda(fr):
         return bank_matmul_power_ref(fr, fi, ka, kb, kc)
-    if n_seg % _BM or n_cols % _BN or L % _BK:
-        raise ValueError(f"the bank_power kernel tiles ({n_seg}, {L}) x "
-                         f"({L}, {n_cols}) by ({_BM}, {_BK}) x ({_BK}, "
-                         f"{_BN}): pick tiles that are multiples of them")
+    if L % _BK:
+        raise ValueError(f"the bank_power kernel tiles the contraction by "
+                         f"{_BK}: L={L} must be a multiple of it")
     for name, t, shape in (("fr", fr, (n_seg, L)), ("fi", fi, (n_seg, L)),
                            ("ka", ka, (L, n_cols)), ("kb", kb, (L, n_cols)),
                            ("kc", kc, (L, n_cols))):
         _check(t, name, torch.float32, shape, dev)
+    for name, t in (("fr", fr), ("fi", fi)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+    kp = cached((ka, kb, kc),
+                lambda: pack_operand([ka, kb, kc], _BANK_BN))
     out = torch.empty((n_seg, n_cols), dtype=torch.float32, device=dev)
     launch("bank_power", "bbt_bank_power", dev, fr.data_ptr(), fi.data_ptr(),
-           ka.data_ptr(), kb.data_ptr(), kc.data_ptr(), out.data_ptr(),
-           n_seg, L, n_cols)
+           kp.data_ptr(), out.data_ptr(), n_seg, L, n_cols, _BANK_BN)
     return out

@@ -24,10 +24,11 @@ and ``lane_mix`` for ``pre`` (right after stage A: a lane mix commutes
 with the row FFT and twiddle) and ``post`` (after k3_trim).  The TPU
 kernels hold all L lanes of a row block and mix inside the first and last
 kernel; the passes here hold a column for a tile of <= 16 lanes, so the
-mix is a pass of its own (``csrc/fourstep.cu`` lane_mix, ``csrc/
-lanemix.cuh``).  Each pass has a plain PyTorch version; a wrapper given
-CUDA tensors launches its kernel or raises, given CPU tensors it runs the
-plain version.
+mix is a pass of its own (``csrc/fourstep.cu`` lane_mix: one real GEMM
+in 3xTF32 on the tensor cores, ``csrc/tf32mma.cuh``, against the mixer
+staged once per mixer tensor by ``ops/tf32.py``).  Each pass has a plain
+PyTorch version; a wrapper given CUDA tensors launches its kernel or
+raises, given CPU tensors it runs the plain version.
 """
 
 from __future__ import annotations
@@ -40,15 +41,19 @@ from .dedisperse import (_as_device, _check, _device_of, _is_pow2, _on_cuda,
                          split_n, stage_b)
 from .dft_matmul import device_mats
 from .fft import _pad_rows, _window_split, k1_stream, k1_window, k3_trim
+from .tf32 import cached, mix_operand, pack_operand
 
 __all__ = ["spectral_filter_pow2", "spectral_filter_pow2_ref",
            "spectral_filter_stream", "spectral_filter_stream_ref",
            "lane_mix", "lane_mix_ref", "geometry_ok", "lane_dft_mats",
            "expand_lane_mats"]
 
-#: widest lane axis the lane_mix kernel takes (a 16-row tile of it in
-#: shared memory)
+#: widest lane axis the lane mixes take (the forward PFB's DFT holds a
+#: 16-row tile of it in shared memory)
 MAX_MIX_LANES = 1600
+
+# lane_mix's column tile (csrc/fourstep.cu kMixBN)
+_MIX_BN = 256
 
 
 def lane_dft_mats(n, *, inverse=True):
@@ -102,7 +107,8 @@ def lane_mix_ref(xr, xi, wr, wi):
 
 def lane_mix(xr, xi, wr, wi):
     """(rows, L) float32 planes times the complex (L, L) matrix wr + i·wi:
-    lane_mix on CUDA tensors, else :func:`lane_mix_ref`."""
+    lane_mix on CUDA tensors (3xTF32 on the tensor cores: ~1e-5 of the
+    peak at L = 512, ``ops/tf32.py``), else :func:`lane_mix_ref`."""
     if not _on_cuda(xr):
         return lane_mix_ref(xr, xi, wr, wi)
     rows, L = xr.shape
@@ -112,11 +118,14 @@ def lane_mix(xr, xi, wr, wi):
     for name, t, shape in (("xr", xr, (rows, L)), ("xi", xi, (rows, L)),
                            ("wr", wr, (L, L)), ("wi", wi, (L, L))):
         _check(t, name, torch.float32, shape, dev)
+    wp = cached((wr, wi), lambda: pack_operand([mix_operand(wr, wi)],
+                                               _MIX_BN))
+    vec = L % 4 == 0 and xr.data_ptr() % 16 == 0 and xi.data_ptr() % 16 == 0
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xr)
     launch("lane_mix", "bbt_lane_mix", dev, xr.data_ptr(), xi.data_ptr(),
-           wr.data_ptr(), wi.data_ptr(), yr.data_ptr(), yi.data_ptr(), rows,
-           L)
+           wp.data_ptr(), yr.data_ptr(), yi.data_ptr(), rows, L, _MIX_BN,
+           int(vec))
     return yr, yi
 
 

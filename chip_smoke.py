@@ -45,7 +45,10 @@ lanes) and of config 2:
     the shapes those paths give them: pfb_fwd without and with its
     in-kernel DFT (32256 x 512, 8 taps), k1_stream without and with the
     ``pre`` lane mix (2^15 x 512), k3_trim with the ``post`` lane mix
-    (2^18 x 128); and times both;
+    (2^18 x 128), lane_mix (3xTF32 on the tensor cores) alone at the
+    ``pre`` shape and at config 2's ``post`` shape (261,120 x 128); and
+    times both, lane_mix beside one complex ``matmul`` at both shapes
+    and beside its 3xTF32 tensor-core and FP32-core bounds;
 (h) drives four compiled paths through ``CompiledPipeline.planes_step``:
     the config-3 round trip (the quad fusion), config 2 compiled
     (``_FusedDisperseDechan``), and the two single fusions at config 3's
@@ -58,8 +61,9 @@ lanes) and of config 2:
     1e-3, atol 2e-3 for the chain as built (config 2 only reported: its
     frames sit off its pads, and the chirp's overlap-save leakage is
     outside that bound in the JAX package too) and where the eager frames
-    fall on the compiled windows; then config 3 and config 2 timed in ms
-    per block over a block already on the card, in turns, and profiled;
+    fall on the compiled windows; then config 3, config 2 and
+    Dechannelize -> inverse PFB timed in ms per block over a block
+    already on the card, in turns, and profiled;
 
 and for the flagship's variants, at the flagship configuration again:
 
@@ -88,12 +92,13 @@ resident op (L = 128, 64 phase bins, the DM-500 chirp within a channel,
 pads 256/256, the 261,120-row block of ``tools/bench_resident.py``):
 
 (k) holds bank_power (8448 x 512 segments against the 512 x 16896
-    Karatsuba operator of the mx engine), accel_corr (547 segments of
-    4096 against the 128-lane bank) and resident (windows 2048 and 4096,
-    power and Stokes) against their plain versions, and times them
-    beside the one PyTorch call computing the same function (a complex
-    ``matmul`` and ``|.|^2``; cuFFT's inverse FFT of the bank product and
-    ``|.|^2``);
+    Karatsuba operator of the mx engine; 3xTF32 on the tensor cores),
+    accel_corr (547 segments of 4096 against the 128-lane bank) and
+    resident (windows 2048 and 4096, power and Stokes) against their
+    plain versions, and times them beside the one PyTorch call computing
+    the same function (a complex ``matmul`` and ``|.|^2``; cuFFT's
+    inverse FFT of the bank product and ``|.|^2``), bank_power beside its
+    3xTF32 tensor-core and FP32-core bounds;
 (l) runs ``FourierDomainAccelSearch.search`` on a seeded series (noise, a
     mid-band tone drifting 12 bins, a pulse train) with 'auto' (which
     must be 'mx' on the card), 'pallas' (seg_len 4096) and 'xla' (8192),
@@ -156,7 +161,9 @@ between cards are neither made nor timed here:
     against one shard's, and the float step with each halo backend.
 
 The plain versions run on the card inside the package's test-only
-switch ``ops.dedisperse.plain_versions()``.  Any failure raises (non-zero
+switch ``ops.dedisperse.plain_versions()``, with every float32 matmul
+in full float32 (``allow_tf32 = False``, precision 'highest', set and
+printed before the comparisons).  Any failure raises (non-zero
 exit).  Without a CUDA device it fails.  The
 second-to-last line is a JSON object of per-kernel results; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -192,10 +199,12 @@ EAGER_RTOL, EAGER_ATOL = 1e-3, 2e-3
 # test_config2_geometry_eager_gap
 EAGER_AS_BUILT = ("config3_quad", "pfb_forward", "dechan_inverse")
 N_STEPS = 8                # compiled steps per timed turn
-# what bounds a kernel (`bound_ms`): the H100 SXM data sheet's HBM rate
-# and FP32 rate outside the tensor cores
+# what bounds a kernel (`bound_ms`): the H100 SXM data sheet's HBM rate,
+# FP32 rate outside the tensor cores and dense TF32 tensor-core rate (the
+# 3xTF32 kernels, lane_mix and bank_power, do 3 TF32 passes per product)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 DEDISPERSE_CU = "baseband_tasks_tpu_torch/csrc/dedisperse.cu"
 FOURSTEP_CU = "baseband_tasks_tpu_torch/csrc/fourstep.cu"
 PFB_CU = "baseband_tasks_tpu_torch/csrc/pfb.cu"
@@ -300,14 +309,41 @@ def plain(fn):
     return call
 
 
-def bound(reads, writes, flops):
+def bound(reads, writes, flops, rate=FP32_FLOPS):
     """(bound_ms, bound_by): the least time of a kernel that reads each
     tensor of ``reads`` once, writes each of ``writes`` once and does
-    ``flops`` FP32 operations, at the card's peak rates."""
+    ``flops`` operations at ``rate`` (FP32 on the CUDA cores unless
+    given), at the card's peak rates."""
     nbytes = sum(t.numel() * t.element_size() for t in (*reads, *writes))
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def tf32x3_cost(reads, writes, flops):
+    """The cost of a 3xTF32 kernel doing the work of ``flops`` FP32
+    operations: three TF32 tensor-core passes of it."""
+    return reads, writes, 3 * flops, TF32_FLOPS
+
+
+def both_bounds(cost):
+    """'3xTF32 tensor-core bound ... ms, FP32-core bound ... ms' of a
+    :func:`tf32x3_cost`."""
+    reads, writes, flops, _ = cost
+    tc = bound(*cost)[0]
+    fp32 = bound(reads, writes, flops // 3)[0]
+    return (f"3xTF32 tensor-core bound {tc:.4f} ms, FP32-core bound "
+            f"{fp32:.4f} ms")
+
+
+def full_fp32():
+    """Run every float32 matmul of the plain versions and the library
+    calls in full float32 (no TF32), and say so."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    print(f"references: allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+          f"matmul precision {torch.get_float32_matmul_precision()!r}",
+          flush=True)
 
 
 def fft_flops(planes, length, extra=6):
@@ -804,12 +840,13 @@ def check_compiled_kernels(dev, gpu):
                         tap_flops + m * L * mix_flops),
         "k1_stream": ((*sc, *sx, scale), spectra,
                       fft_flops(spectra, split_n(n)[0])),
-        "lane_mix": ((*rows, *pre), rows, n * L * mix_flops),
+        "lane_mix": tf32x3_cost((*rows, *pre), rows, n * L * mix_flops),
     }
     wc = torch.complex(*pre)
     rc = torch.complex(*rows)
     library = {"lane_mix": lambda: torch.matmul(rc, wc)}   # one cgemm
     results = {}
+    full_fp32()
     for name, (kern, plain_fn) in cases.items():
         got, ref = kern(), plain_fn()
         torch.cuda.synchronize()
@@ -832,11 +869,42 @@ def check_compiled_kernels(dev, gpu):
                   f"({results[name]['bound_by']}), library "
                   f"{lib_ms if lib_ms is None else f'{lib_ms:.4f}'} ms "
                   f"[{gpu}]", flush=True)
+            if name == "lane_mix":
+                print(f"(g) lane_mix 2^15 x 512: {both_bounds(costs[name])}",
+                      flush=True)
+    del rows, rc, wc
+    # 3xTF32 against the float64 product by depth 2L (the tensor cores'
+    # accumulation sets the error; one TF32 pass is ~3e-4 of the peak)
+    for L_mix in (128, 512, 1600):
+        x, w = randn(dev, (4096, L_mix), 47), randn(dev, (L_mix, L_mix), 48)
+        got = sf.lane_mix(*x, *w)
+        ref = sf.lane_mix_ref(*(t.double() for t in (*x, *w)))
+        print(f"(g) lane_mix 4096 x {L_mix} against float64: rel "
+              f"{compare(got, ref)[1]:.3e}", flush=True)
+        del x, w, got, ref
     post_rows = randn(dev, (261120, 128), 46)
-    ms, plain_ms = (cuda_ms(lambda f=f: f(*post_rows, *post), reps=10)
-                    for f in (sf.lane_mix, sf.lane_mix_ref))
+    got = sf.lane_mix(*post_rows, *post)
+    err, rel = compare(got, sf.lane_mix_ref(*post_rows, *post))
+    ok = rel <= FFT_TOL and all(bool(torch.isfinite(t).all()) for t in got)
     print(f"(g) lane_mix at the config-2 post shape 261120 x 128: "
-          f"{ms:.4f} ms kernel, {plain_ms:.4f} ms plain [{gpu}]", flush=True)
+          f"max_abs_err={err:.3e} rel={rel:.3e} ({'ok' if ok else 'FAIL'})",
+          flush=True)
+    if not ok:
+        raise AssertionError("lane_mix disagrees with its plain version at "
+                             "the config-2 post shape")
+    del got
+    pc = torch.complex(*post_rows)
+    wc = torch.complex(*post)
+    ms, plain_ms, lib_ms = (cuda_ms(f, reps=10) for f in (
+        lambda: sf.lane_mix(*post_rows, *post),
+        lambda: sf.lane_mix_ref(*post_rows, *post),
+        lambda: torch.matmul(pc, wc)))
+    cost = tf32x3_cost((*post_rows, *post), post_rows,
+                       post_rows[0].numel() * 8 * 128)
+    print(f"(g) lane_mix at the config-2 post shape 261120 x 128: "
+          f"{ms:.4f} ms kernel, {plain_ms:.4f} ms plain, {lib_ms:.4f} ms "
+          f"library (one complex matmul), {both_bounds(cost)} [{gpu}]",
+          flush=True)
     return results
 
 
@@ -1067,19 +1135,22 @@ def time_compiled(name, kern, ref_cp, gpu, eager_ms=None):
 
 
 def drive_compiled_paths(dev, gpu, eager_c2_ms):
-    """Phase (h): the four compiled paths, then config 3 and config 2
-    timed.  Returns the launch counts summed over the counted runs."""
+    """Phase (h): the four compiled paths, then config 3, config 2 and
+    Dechannelize -> inverse PFB timed.  Returns the launch counts summed
+    over the counted runs."""
     launches, timed = {}, {}
+    full_fp32()
     for name in ("config3_quad", "pfb_forward", "dechan_inverse",
                  "config2"):
         counts, kcp, pcp = drive_compiled(name, dev, gpu)
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
-        if name in ("config3_quad", "config2"):
+        if name in ("config3_quad", "config2", "dechan_inverse"):
             timed[name] = (kcp, pcp)
         torch.cuda.empty_cache()
     time_compiled("config3_quad", *timed["config3_quad"], gpu)
     time_compiled("config2", *timed["config2"], gpu, eager_ms=eager_c2_ms)
+    time_compiled("dechan_inverse", *timed["dechan_inverse"], gpu)
     return launches
 
 
@@ -1502,9 +1573,10 @@ def check_search_kernels(dev, gpu):
         "bank_power": (lambda: ac.bank_matmul_power(fr, fi, ka, kb, kc),
                        lambda: ac.bank_matmul_power_ref(fr, fi, ka, kb, kc),
                        lambda: (sc @ op).abs() ** 2,
-                       ((fr, fi, ka, kb, kc),
-                        (torch.empty((n_seg, ka.shape[1]), device="meta"),),
-                        3 * 2 * n_seg * ka.shape[0] * ka.shape[1])),
+                       tf32x3_cost(
+                           (fr, fi, ka, kb, kc),
+                           (torch.empty((n_seg, ka.shape[1]), device="meta"),),
+                           3 * 2 * n_seg * ka.shape[0] * ka.shape[1])),
         "accel_corr": (lambda: ac.accel_correlate_bank(segs, tr, ti,
                                                        valid=valid),
                        lambda: ac.accel_correlate_bank_ref(segs, tr, ti,
@@ -1517,6 +1589,7 @@ def check_search_kernels(dev, gpu):
                         * (5 * np.log2(pal.seg_len) + 6))),
     }
     results = {}
+    full_fp32()
     for name, (kern, plain_fn, lib, cost) in cases.items():
         got, ref = kern(), plain_fn()
         torch.cuda.synchronize()
@@ -1534,6 +1607,14 @@ def check_search_kernels(dev, gpu):
               f"{lib_ms:.4f} ms library, bound "
               f"{results[name]['bound_ms']:.4f} ms "
               f"({results[name]['bound_by']}) [{gpu}]", flush=True)
+        if name == "bank_power":
+            print(f"(k) bank_power: {both_bounds(cost)}", flush=True)
+            got = ac.bank_matmul_power(fr[:256], fi[:256], ka, kb, kc)
+            ref = ac.bank_matmul_power_ref(*(t.double() for t in (
+                fr[:256], fi[:256], ka, kb, kc)))
+            print(f"(k) bank_power 256 rows against float64: rel "
+                  f"{compare((got,), (ref,))[1]:.3e}", flush=True)
+            del got, ref
     del mx, pal, ka, kb, kc, fr, fi, op, sc, prod, segs
     torch.cuda.empty_cache()
     for n_window in RESIDENT_WINDOWS:
@@ -1576,6 +1657,7 @@ def drive_search(dev, gpu):
     the CPU.  Returns the launch counts summed over the counted runs."""
     from baseband_tasks_tpu_torch import FastFoldingSearch, units as u
     from baseband_tasks_tpu_torch.ops import dedisperse as dd
+    full_fp32()
     x = search_series(dev)
     searches = {e: accel_search(dev, e) for e in ("auto", "pallas", "xla")}
     if not searches["auto"]._use_mx():
@@ -2422,9 +2504,11 @@ def main():
     print(f"build: {[p.name for p in paths]} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for line in log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if any(k in line for k in ("registers", "Compiling entry", "spill",
+                                   "wgmma")):
             print(f"  {line.strip()}")
     gpu = gpu_line()
+    full_fp32()
     dev = torch.device("cuda", 0)
     kern = flagship(dev)
     print(f"flagship: N={kern._n_fft} pads=({kern.pad_start}, "

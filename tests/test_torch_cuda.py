@@ -14,7 +14,9 @@ the four-step passes (k1_window, k2_fwd, k2_inv, k3_trim) at 8, 16 and
 engine and the dispersion tasks on the card, the wrappers' refusals,
 the forward-PFB kernel (n_tap 2, 8, 9, with and without its DFT and a
 scale), the streaming stage A (with and without the ``pre`` mix) and
-k3_trim with the ``post`` mix (L 128 and 512, pads 0 and not), and the
+k3_trim with the ``post`` mix (L 128 and 512, pads 0 and not), lane_mix
+at ragged shapes, and lane_mix and bank_power (3xTF32 on the tensor
+cores) against float64 products at 1e-5 of the peak, and the
 compiled fusions on the card, and the flagship's variants (the
 full-Stokes fold k3_fold_stokes, k3_power, k2_theta, k1_planes,
 k1_stream_planes, and the pipeline's step_fn, step_bins_fn and planes
@@ -389,6 +391,32 @@ def test_k3_trim_post(dev, n, L, pads):
     assert_planes(got, sf.lane_mix_ref(*ff.k3_trim_ref(*z, **kw), *w))
 
 
+@pytest.mark.parametrize("L", [1, 3, 100, 1600])
+@pytest.mark.parametrize("rows", [1, 63, 65])
+def test_lane_mix_ragged(dev, rows, L):
+    """Rows off the 64-row MMA tile, depth 2L off the 16-deep stage and
+    the 256-column tile, odd L (4-byte copies)."""
+    x = randn(dev, (rows, L), 32)
+    w = mats(dev, L, 33)
+    dd.reset_launch_counts()
+    got = sf.lane_mix(*x, *w)
+    assert dd.launch_counts["lane_mix"] == 1
+    assert_planes(got, sf.lane_mix_ref(*x, *w))
+
+
+# 3xTF32 against the float64 product: one TF32 pass is ~3e-4 of the peak
+# (tests/test_torch_tf32_split.py), 3xTF32 ~8e-6 at depth 1024 on the card
+TF32X3_TOL = 1e-5
+
+
+def test_lane_mix_precision_guard(dev):
+    x = randn(dev, (4096, 512), 34)
+    w = mats(dev, 512, 35)
+    got = sf.lane_mix(*x, *w)
+    ref = sf.lane_mix_ref(*(t.double() for t in (*x, *w)))
+    _peak_close(torch.cat(got).double(), torch.cat(ref), TF32X3_TOL)
+
+
 @pytest.mark.parametrize("pre,post", [(True, False), (False, True)])
 def test_spectral_filter_stream(dev, pre, post):
     n, L, p0, p1 = 1 << 12, 128, 256, 512
@@ -607,6 +635,16 @@ def test_bank_power(dev, n_seg, L, n_cols):
         ac.bank_matmul_power(fr[:, :L - 4].contiguous(),
                              fi[:, :L - 4].contiguous(), ka[4:], kb[4:],
                              kc[4:], seg_tile=64, col_tile=128)
+
+
+def test_bank_power_precision_guard(dev):
+    from baseband_tasks_tpu_torch.ops import accel_correlate as ac
+    fr, fi = randn(dev, (256, 512), 74)
+    ka, kb, kc = randn(dev, (512, 16896), 75, count=3)
+    got = ac.bank_matmul_power(fr, fi, ka, kb, kc)
+    ref = ac.bank_matmul_power_ref(*(t.double() for t in (fr, fi, ka, kb,
+                                                          kc)))
+    _peak_close(got.double(), ref, TF32X3_TOL)
 
 
 @pytest.mark.parametrize("seg_len,valid", [(512, 384), (4096, 3840),
