@@ -12,14 +12,19 @@
 // 438 GFLOP against 0.71 GB of traffic (0.21 ms).  The products run in
 // 3xTF32 on the tensor cores (tf32mma.cuh: 3 x 438 GFLOP of passes, 2.66
 // ms at 495 TFLOP/s, against 6.5 ms for float32 on the CUDA cores).  A
-// block of two warpgroups holds a 128 x BN output tile in three
-// accumulator sets (3 BN / 2 registers a thread: BN 96 keeps the block
-// under 255 registers with the double-buffered fragments); each k8 step
-// splits its fr and fi fragments and fr + fi (summed in float32) in
-// registers and issues 3 x 3 MMAs against the operator planes, which the
-// wrapper splits and stages once per operator (ops/tf32.py).  Blocks walk
-// the row tiles fastest, so the blocks in flight share a few operator
-// column tiles and the segment planes (35 MB) stay in L2.
+// block of two warpgroups holds a 128 x BN output tile in three partial
+// accumulator sets and the float32 totals of t - u and t + v (5 BN / 2
+// registers a thread: BN 64, promoted every stage, keeps the block at 255
+// registers with the double-buffered fragments and no spill; every second
+// stage spills); each k8 step splits its fr and fi fragments
+// and fr + fi (summed in float32) in registers and issues 3 x 3 MMAs
+// against the operator planes, which the wrapper splits and stages once
+// per operator (ops/tf32.py).  Blocks walk the row tiles fastest, so the
+// blocks in flight share a few operator column tiles and the segment
+// planes (35 MB) stay in L2.  What holds it back is staging: a block
+// reads 16 KB of segments and 24 KB of split operator per stage from L2,
+// 22 GB in all, which alone takes 3.4 ms (tools/tf32_sweep.py's "staging
+// only") and overlaps little with the MMAs.
 //
 // accel_corr: replaces `_kernel` (accel_correlate.py:54, launched by
 // `_accel_correlate_impl` :81), the 'pallas' engine.  Block (lane tile,
@@ -44,28 +49,30 @@
 
 namespace bbt {
 
-template <int BN, int STAGES>
-__global__ void __launch_bounds__(tc::kThreads, 1)
-bank_power_kernel(const float* __restrict__ fr, const float* __restrict__ fi,
-                  const float* __restrict__ kp, float* __restrict__ out,
-                  int n_seg, int L, int n_cols, int m_tiles, int k_tiles) {
-  constexpr int kA = tc::kBM * tc::kAStride;   // one staged plane
-  constexpr int kHalf = BN * tc::kBK;          // one half of one operator
-  constexpr int kB = 6 * kHalf;                // ka, kb, kc: big, small
-  constexpr int kStage = 2 * kA + kB;
-  extern __shared__ __align__(128) float stages[];
-  const int tid = threadIdx.x;
-  const long m0 = static_cast<long>(blockIdx.x % m_tiles) * tc::kBM;
-  const int n_tile = blockIdx.x / m_tiles;
-  const float* ktile = kp + static_cast<long>(n_tile) * k_tiles * kB;
+template <int BN>
+struct BankTile {
+  static constexpr int kA = tc::kBM * tc::kAStride;   // one staged plane
+  static constexpr int kHalf = BN * tc::kBK;          // one operator half
+  static constexpr int kB = 6 * kHalf;                // ka, kb, kc
+  static constexpr int kStage = 2 * kA + kB;
 
-  auto load = [&](int kt) {
-    float* sa = stages + (kt % STAGES) * kStage;
+  const float* fr;
+  const float* fi;
+  const float* ktile;                 // this column tile's staged operator
+  long m0;
+  int n_seg, L, k_tiles;
+  // partials t, u, v of the Karatsuba form; the float32 totals of t - u
+  // and t + v; fragments of fr + fi, fi and fr
+  float t[BN / 2], u[BN / 2], v[BN / 2], re[BN / 2], im[BN / 2];
+  tc::Frag fs[2], fim[2], fre[2];
+
+  __device__ __forceinline__ void load(int kt, float* sa) const {
+    const int tid = threadIdx.x;
     const int k0 = kt * tc::kBK;
     // fr then fi: 128 rows x 4 chunks of 4 floats each
 #pragma unroll
-    for (int u = 0; u < 2 * tc::kBM * 4 / tc::kThreads; ++u) {
-      const int idx = tid + u * tc::kThreads;
+    for (int q = 0; q < 2 * tc::kBM * 4 / tc::kThreads; ++q) {
+      const int idx = tid + q * tc::kThreads;
       const int plane = idx / (tc::kBM * 4);
       const int r = (idx / 4) % tc::kBM;
       const int c = 4 * (idx % 4);
@@ -75,73 +82,62 @@ bank_power_kernel(const float* __restrict__ fr, const float* __restrict__ fi,
       tc::cp_async16(sa + plane * kA + r * tc::kAStride + c,
                      ok ? src + row * L + k0 + c : src, ok);
     }
-    const float* bsrc = ktile + static_cast<long>(kt) * kB;
-    float* sb = sa + 2 * kA;
-    static_assert(kB % (4 * tc::kThreads) == 0, "whole 16-byte copies");
+    const bool in = kt < k_tiles;              // not a stage padding a period
+    const float* bsrc = ktile + static_cast<long>(in ? kt : 0) * kB;
 #pragma unroll
-    for (int u = 0; u < kB / 4 / tc::kThreads; ++u) {
-      const int idx = 4 * (tid + u * tc::kThreads);
-      tc::cp_async16(sb + idx, bsrc + idx, true);
-    }
-  };
+    for (int idx = 4 * tid; idx < kB; idx += 4 * tc::kThreads)
+      tc::cp_async16(sa + 2 * kA + idx, bsrc + idx, in);
+  }
 
-  // t, u, v of the Karatsuba form; fragments of fr + fi, fi, fr
-  float t[BN / 2], uu[BN / 2], v[BN / 2];
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) t[i] = uu[i] = v[i] = 0.0f;
-  tc::Frag s0, i0, r0, s1, i1, r1;
-  auto frags = [&](const float* sa, int j, tc::Frag& fs, tc::Frag& fim,
-                   tc::Frag& fre) {
+  template <int S>
+  __device__ __forceinline__ void frags(const float* sa, int j) {
     float xr[4], xi[4], xs[4];
     tc::load_raw(tc::frag_base(sa), j, xr);
     tc::load_raw(tc::frag_base(sa + kA), j, xi);
 #pragma unroll
     for (int q = 0; q < 4; ++q) xs[q] = xr[q] + xi[q];
-    tc::split4(xs, fs);
-    tc::split4(xi, fim);
-    tc::split4(xr, fre);
-  };
-  auto step = [&](const float* sa, int j, const tc::Frag& fs,
-                  const tc::Frag& fim, const tc::Frag& fre) {
+    tc::split4(xs, fs[S]);
+    tc::split4(xi, fim[S]);
+    tc::split4(xr, fre[S]);
+  }
+
+  template <int S>
+  __device__ __forceinline__ void mma(const float* sa, int j, bool fresh) {
     const float* ka = sa + 2 * kA;
     tc::wgmma_fence();
-    tc::mma3<BN>(t, fs, ka, ka + kHalf, j);
-    tc::mma3<BN>(uu, fim, ka + 2 * kHalf, ka + 3 * kHalf, j);
-    tc::mma3<BN>(v, fre, ka + 4 * kHalf, ka + 5 * kHalf, j);
+    tc::mma3<BN>(t, fs[S], ka, ka + kHalf, j, fresh);
+    tc::mma3<BN>(u, fim[S], ka + 2 * kHalf, ka + 3 * kHalf, j, fresh);
+    tc::mma3<BN>(v, fre[S], ka + 4 * kHalf, ka + 5 * kHalf, j, fresh);
     tc::wgmma_commit();
-  };
+  }
 
+  __device__ __forceinline__ void promote() {
+    tc::pin(t);
+    tc::pin(u);
+    tc::pin(v);
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < k_tiles) load(s);
-    tc::cp_async_commit();
+    for (int i = 0; i < BN / 2; ++i) {
+      re[i] += t[i] - u[i];
+      im[i] += t[i] + v[i];
+    }
   }
-  tc::cp_async_wait<STAGES - 2>();
-  tc::fence_proxy_async();
-  __syncthreads();
-  frags(stages, 0, s0, i0, r0);
-  tc::pin(t);
-  tc::pin(uu);
-  tc::pin(v);
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    const float* sa = stages + (kt % STAGES) * kStage;
-    step(sa, 0, s0, i0, r0);
-    tc::wgmma_wait<1>();                       // step-1 fragments free
-    frags(sa, 1, s1, i1, r1);
-    step(sa, 1, s1, i1, r1);
-    tc::wgmma_wait<1>();                       // step-0 fragments, stage kt - 1
-    tc::cp_async_wait<STAGES - 3>();           // stage kt + 1 arrived
-    tc::fence_proxy_async();
-    __syncthreads();
-    if (kt + STAGES - 1 < k_tiles) load(kt + STAGES - 1);
-    tc::cp_async_commit();
-    if (kt + 1 < k_tiles)
-      frags(stages + ((kt + 1) % STAGES) * kStage, 0, s0, i0, r0);
-  }
-  tc::wgmma_wait<0>();
-  tc::pin(t);
-  tc::pin(uu);
-  tc::pin(v);
+};
+
+template <int BN, int STAGES, int PERIOD>
+__global__ void __launch_bounds__(tc::kThreads, 1)
+bank_power_kernel(const float* __restrict__ fr, const float* __restrict__ fi,
+                  const float* __restrict__ kp, float* __restrict__ out,
+                  int n_seg, int L, int n_cols, int m_tiles, int k_tiles) {
+  using Tile = BankTile<BN>;
+  extern __shared__ __align__(128) float stages[];
+  const long m0 = static_cast<long>(blockIdx.x % m_tiles) * tc::kBM;
+  const int n_tile = blockIdx.x / m_tiles;
+  Tile k{fr, fi, kp + static_cast<long>(n_tile) * k_tiles * Tile::kB, m0,
+         n_seg, L, k_tiles};
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i)
+    k.t[i] = k.u[i] = k.v[i] = k.re[i] = k.im[i] = 0.0f;
+  tc::run_pipeline<STAGES, Tile::kStage, PERIOD>(k, stages, k_tiles);
 
   const int c0 = n_tile * BN;
 #pragma unroll
@@ -149,19 +145,14 @@ bank_power_kernel(const float* __restrict__ fr, const float* __restrict__ fi,
     const long row = m0 + tc::acc_row(i);
     const int col = c0 + tc::acc_col(i);
     if (row >= n_seg || col >= n_cols) continue;
-    float p[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float cr = t[i + h] - uu[i + h];
-      const float ci = t[i + h] + v[i + h];
-      p[h] = cr * cr + ci * ci;
-    }
+    const float p0 = k.re[i] * k.re[i] + k.im[i] * k.im[i];
+    const float p1 = k.re[i + 1] * k.re[i + 1] + k.im[i + 1] * k.im[i + 1];
     float* dst = out + row * n_cols + col;
     if (n_cols % 2 == 0) {                     // col even: an aligned pair
-      *reinterpret_cast<float2*>(dst) = make_float2(p[0], p[1]);
+      *reinterpret_cast<float2*>(dst) = make_float2(p0, p1);
     } else {
-      dst[0] = p[0];
-      if (col + 1 < n_cols) dst[1] = p[1];
+      dst[0] = p0;
+      if (col + 1 < n_cols) dst[1] = p1;
     }
   }
 }
@@ -218,24 +209,23 @@ using bbt::kThreads;
 
 namespace {
 
-constexpr int kBankBN = 96, kBankStages = 4;
+constexpr int kBankBN = 64, kBankStages = 4, kBankPeriod = 1;
 
 }  // namespace
 
 // bank_power: kp is the operator (ka, kb, kc) staged by ops/tf32.py
-// `pack_operand` for column tiles of bn (which must be this kernel's,
-// 96); L a multiple of 4 and fr, fi 16-byte aligned (the wrapper checks).
+// `pack_operand` for this kernel's tile (`bbt_bank_power_tile`); L a
+// multiple of 4 and fr, fi 16-byte aligned (the wrapper checks).
 extern "C" int bbt_bank_power(const float* fr, const float* fi, const float* kp,
-                              float* out, int n_seg, int L, int n_cols, int bn,
+                              float* out, int n_seg, int L, int n_cols,
                               int device, void* stream) {
   using bbt::tc::kBK;
   using bbt::tc::kBM;
-  if (n_seg <= 0 || n_cols <= 0 || L <= 0 || L % 4 || bn != kBankBN)
+  if (n_seg <= 0 || n_cols <= 0 || L <= 0 || L % 4)
     return cudaErrorInvalidValue;
-  constexpr size_t smem =
-      static_cast<size_t>(kBankStages) *
-      (2 * kBM * bbt::tc::kAStride + 6 * kBankBN * kBK) * sizeof(float);
-  auto kernel = bbt::bank_power_kernel<kBankBN, kBankStages>;
+  constexpr size_t smem = static_cast<size_t>(kBankStages) *
+                          bbt::BankTile<kBankBN>::kStage * sizeof(float);
+  auto kernel = bbt::bank_power_kernel<kBankBN, kBankStages, kBankPeriod>;
   cudaError_t err = bbt::prepare(kernel, smem, device);
   if (err != cudaSuccess) return err;
   const int m_tiles = (n_seg + kBM - 1) / kBM;
@@ -247,6 +237,13 @@ extern "C" int bbt_bank_power(const float* fr, const float* fi, const float* kp,
            static_cast<cudaStream_t>(stream)>>>(fr, fi, kp, out, n_seg, L,
                                                 n_cols, m_tiles, k_tiles);
   return cudaGetLastError();
+}
+
+// The (columns, depth) tile bank_power's staged operator is laid out for.
+extern "C" int bbt_bank_power_tile(int* tile) {
+  tile[0] = kBankBN;
+  tile[1] = bbt::tc::kBK;
+  return 0;
 }
 
 // accel_corr: spec is (n_seg, seg_len) complex64 (float2 pairs), the bank

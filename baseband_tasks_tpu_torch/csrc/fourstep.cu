@@ -162,35 +162,40 @@ k3_trim_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
 //
 // The complex product is one real GEMM, [xr | xi] (rows, 2L) @
 // [[wr, wi], [-wi, wr]] (2L, 2L) -> [yr | yi], in 3xTF32 on the tensor
-// cores (tf32mma.cuh): one accumulator a thread per output, where four
-// real products into two accumulators would need the data operand twice
-// per step.  The block matrix is built, split and staged once per mixer
-// by the wrapper (ops/tf32.py).  A block computes 128 rows x BN columns
+// cores (tf32mma.cuh): one partial and one float32 total a thread per
+// output, where four real products into two would need the data operand
+// twice per step.  The partial and the total take BN registers a thread:
+// BN 128 (the 256-column tile of a single accumulator would need 256).
+// The block matrix is built, split and staged once per mixer by the
+// wrapper (ops/tf32.py).  A block computes 128 rows x BN columns
 // of [yr | yi]; the A loader reads xr for k < L and xi above, and
 // zero-fills rows past `rows` and depth past 2L (VEC: 16-byte copies when
 // L % 4 == 0 and the planes are 16-byte aligned; else 4-byte copies).
 // Bound: tensor-core operations, 3 passes x 8 L flops per complex output
 // element (0.42 ms at 2^15 x 512, 0.21 ms at 261,120 x 128 at 495
-// TFLOP/s), above the bytes (0.08 / 0.16 ms).
-template <int BN, int STAGES, bool VEC>
-__global__ void __launch_bounds__(tc::kThreads, 1)
-lane_mix_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-                const float* __restrict__ wp, float* __restrict__ yr,
-                float* __restrict__ yi, int rows, int L, int n_tiles,
-                int k_tiles) {
-  constexpr int kA = tc::kBM * tc::kAStride;   // floats of a staged A tile
-  constexpr int kB = 2 * BN * tc::kBK;         // big + small B halves
-  constexpr int kStage = kA + kB;
-  extern __shared__ __align__(128) float stages[];
-  const int tid = threadIdx.x;
-  const int n_tile = blockIdx.x % n_tiles;     // column tiles of a row block
-  const long m0 = static_cast<long>(blockIdx.x / n_tiles) * tc::kBM;
-  const int K = 2 * L;
-  const float* wtile = wp + static_cast<long>(n_tile) * k_tiles * kB;
+// TFLOP/s), above the bytes (0.08 / 0.16 ms).  What holds it back is
+// staging: each block reads its 8 KB of x and 16 KB of split mixer per
+// stage from L2, which alone takes about as long as the MMAs (0.47 ms at
+// 2^15 x 512, tools/tf32_sweep.py's "staging only"), and the two overlap
+// little.
+template <int BN, bool VEC>
+struct MixTile {
+  static constexpr int kA = tc::kBM * tc::kAStride;   // a staged A tile
+  static constexpr int kB = 2 * BN * tc::kBK;         // big + small B
+  static constexpr int kStage = kA + kB;
 
-  auto load = [&](int kt) {
-    float* sa = stages + (kt % STAGES) * kStage;
+  const float* xr;
+  const float* xi;
+  const float* wtile;                 // this column tile's staged mixer
+  long m0;
+  int rows, L, k_tiles;
+  float total[BN / 2], part[BN / 2];   // float32 totals, the partial
+  tc::Frag f[2];
+
+  __device__ __forceinline__ void load(int kt, float* sa) const {
+    const int tid = threadIdx.x;
     const int k0 = kt * tc::kBK;
+    const int K = 2 * L;
     constexpr int kPer = VEC ? 4 : 1;          // floats a copy
     constexpr int kCopies = tc::kBM * tc::kBK / kPer / tc::kThreads;
 #pragma unroll
@@ -209,60 +214,53 @@ lane_mix_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
         tc::cp_async4(sa + r * tc::kAStride + c, src, ok);
       }
     }
-    const float* bsrc = wtile + static_cast<long>(kt) * kB;
-    float* sb = sa + kA;
+    const bool in = kt < k_tiles;              // not a stage padding a period
+    const float* bsrc = wtile + static_cast<long>(in ? kt : 0) * kB;
     static_assert(kB % (4 * tc::kThreads) == 0, "whole 16-byte copies");
 #pragma unroll
     for (int u = 0; u < kB / 4 / tc::kThreads; ++u) {
       const int idx = 4 * (tid + u * tc::kThreads);
-      tc::cp_async16(sb + idx, bsrc + idx, true);
-    }
-  };
-
-  float acc[BN / 2];
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
-  tc::Frag f0, f1;
-  float raw[4];
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < k_tiles) load(s);
-    tc::cp_async_commit();
-  }
-  tc::cp_async_wait<STAGES - 2>();
-  tc::fence_proxy_async();
-  __syncthreads();
-  tc::load_raw(tc::frag_base(stages), 0, raw);
-  tc::split4(raw, f0);
-  tc::pin(acc);
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    const float* sa = stages + (kt % STAGES) * kStage;
-    const float* bb = sa + kA;
-    const float* bs = bb + BN * tc::kBK;
-    tc::wgmma_fence();
-    tc::mma3<BN>(acc, f0, bb, bs, 0);
-    tc::wgmma_commit();
-    tc::wgmma_wait<1>();                       // f1 free
-    tc::load_raw(tc::frag_base(sa), 1, raw);
-    tc::split4(raw, f1);
-    tc::wgmma_fence();
-    tc::mma3<BN>(acc, f1, bb, bs, 1);
-    tc::wgmma_commit();
-    tc::wgmma_wait<1>();                       // f0 and stage kt - 1 free
-    tc::cp_async_wait<STAGES - 3>();           // stage kt + 1 arrived
-    tc::fence_proxy_async();
-    __syncthreads();
-    if (kt + STAGES - 1 < k_tiles) load(kt + STAGES - 1);
-    tc::cp_async_commit();
-    if (kt + 1 < k_tiles) {
-      tc::load_raw(tc::frag_base(stages + ((kt + 1) % STAGES) * kStage), 0,
-                   raw);
-      tc::split4(raw, f0);
+      tc::cp_async16(sa + kA + idx, bsrc + idx, in);
     }
   }
-  tc::wgmma_wait<0>();
-  tc::pin(acc);
+
+  template <int S>
+  __device__ __forceinline__ void frags(const float* sa, int j) {
+    float raw[4];
+    tc::load_raw(tc::frag_base(sa), j, raw);
+    tc::split4(raw, f[S]);
+  }
+
+  template <int S>
+  __device__ __forceinline__ void mma(const float* sa, int j, bool fresh) {
+    tc::wgmma_fence();
+    tc::mma3<BN>(part, f[S], sa + kA, sa + kA + BN * tc::kBK, j, fresh);
+    tc::wgmma_commit();
+  }
+
+  __device__ __forceinline__ void promote() {
+    tc::pin(part);
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) total[i] += part[i];
+  }
+};
+
+template <int BN, int STAGES, int PERIOD, bool VEC>
+__global__ void __launch_bounds__(tc::kThreads, 1)
+lane_mix_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                const float* __restrict__ wp, float* __restrict__ yr,
+                float* __restrict__ yi, int rows, int L, int n_tiles,
+                int k_tiles) {
+  using Tile = MixTile<BN, VEC>;
+  extern __shared__ __align__(128) float stages[];
+  const int n_tile = blockIdx.x % n_tiles;     // column tiles of a row block
+  const long m0 = static_cast<long>(blockIdx.x / n_tiles) * tc::kBM;
+  Tile t{xr, xi, wp + static_cast<long>(n_tile) * k_tiles * Tile::kB, m0,
+         rows, L, k_tiles};
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) t.total[i] = t.part[i] = 0.0f;
+  tc::run_pipeline<STAGES, Tile::kStage, PERIOD>(t, stages, k_tiles);
+  const int K = 2 * L;
 
   // column c of the tile is yr[., c] below L, yi[., c - L] below 2 L
   const int c0 = n_tile * BN;
@@ -271,19 +269,20 @@ lane_mix_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     const long row = m0 + tc::acc_row(i);
     const int col = c0 + tc::acc_col(i);
     if (row >= rows) continue;
+    const float y[2] = {t.total[i], t.total[i + 1]};
     if constexpr (VEC) {                       // L even: a pair stays in a plane
       if (col < K) {
         float* dst = col < L ? yr + row * L + col : yi + row * L + (col - L);
-        *reinterpret_cast<float2*>(dst) = make_float2(acc[i], acc[i + 1]);
+        *reinterpret_cast<float2*>(dst) = make_float2(y[0], y[1]);
       }
     } else {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int c = col + h;
         if (c < L) {
-          yr[row * L + c] = acc[i + h];
+          yr[row * L + c] = y[h];
         } else if (c < K) {
-          yi[row * L + (c - L)] = acc[i + h];
+          yi[row * L + (c - L)] = y[h];
         }
       }
     }
@@ -365,7 +364,7 @@ extern "C" int bbt_k3_power(const float* zr, const float* zi, float* out,
 
 namespace {
 
-constexpr int kMixBN = 256, kMixStages = 4;
+constexpr int kMixBN = 128, kMixStages = 4, kMixPeriod = 2;
 
 template <bool VEC>
 int launch_lane_mix(const float* xr, const float* xi, const float* wp,
@@ -374,9 +373,8 @@ int launch_lane_mix(const float* xr, const float* xi, const float* wp,
   using bbt::tc::kBK;
   using bbt::tc::kBM;
   constexpr size_t smem = static_cast<size_t>(kMixStages) *
-                          (kBM * bbt::tc::kAStride + 2 * kMixBN * kBK) *
-                          sizeof(float);
-  auto kernel = bbt::lane_mix_kernel<kMixBN, kMixStages, VEC>;
+                          bbt::MixTile<kMixBN, VEC>::kStage * sizeof(float);
+  auto kernel = bbt::lane_mix_kernel<kMixBN, kMixStages, kMixPeriod, VEC>;
   cudaError_t err = bbt::prepare(kernel, smem, device);
   if (err != cudaSuccess) return err;
   const int n_tiles = (2 * L + kMixBN - 1) / kMixBN;
@@ -391,16 +389,22 @@ int launch_lane_mix(const float* xr, const float* xi, const float* wp,
 }  // namespace
 
 // lane_mix: wp is the mixer staged by ops/tf32.py `pack_operand` for
-// column tiles of bn (which must be this kernel's, 256); vec = L % 4 == 0
-// with 16-byte aligned planes.
+// this kernel's tile (`bbt_lane_mix_tile`); vec = L % 4 == 0 with 16-byte
+// aligned planes.
 extern "C" int bbt_lane_mix(const float* xr, const float* xi, const float* wp,
-                            float* yr, float* yi, int rows, int L, int bn,
-                            int vec, int device, void* stream) {
-  if (rows < 1 || L < 1 || L > bbt::kMaxMixLanes || bn != kMixBN ||
-      (vec && L % 4))
+                            float* yr, float* yi, int rows, int L, int vec,
+                            int device, void* stream) {
+  if (rows < 1 || L < 1 || L > bbt::kMaxMixLanes || (vec && L % 4))
     return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   return vec ? launch_lane_mix<true>(xr, xi, wp, yr, yi, rows, L, device, st)
              : launch_lane_mix<false>(xr, xi, wp, yr, yi, rows, L, device,
                                       st);
+}
+
+// The (columns, depth) tile lane_mix's staged mixer is laid out for.
+extern "C" int bbt_lane_mix_tile(int* tile) {
+  tile[0] = kMixBN;
+  tile[1] = bbt::tc::kBK;
+  return 0;
 }

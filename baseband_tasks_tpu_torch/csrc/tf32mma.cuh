@@ -19,19 +19,21 @@
 //   stage is filled by contiguous 16-byte cp.async copies.
 //
 // Each k8 step issues small(a)·big(b), big(a)·small(b), then big(a)·big(b)
-// into the same accumulators: the dropped small·small term is ~2^-22 of
-// each product, against ~2^-11 for one TF32 pass.  What sets the error
-// is the tensor cores' accumulation, which adds each MMA into the float32
-// accumulator without rounding to nearest: on an H100 SXM (700 W) the
-// error grows with the depth, ~2e-6 of the peak at K = 256, ~8e-6 at
-// 1024, ~2.5e-5 at 3200 (chip_smoke.py phase (g)), against ~3e-4 for one
-// TF32 pass.  Adding partial sums into a second accumulator set on the
-// CUDA cores every few stages brings it to float32 class, but takes twice
-// the accumulator registers: lane_mix ran markedly slower with it and
-// bank_power's three sets spilled, so neither kernel does it.
-// One __syncthreads per 16-deep stage publishes the stage that arrived
-// and frees the one read two steps before; the fragments of the next
-// step load while the current step's three MMAs run (wait_group 1).
+// (`mma3`): the dropped small·small term is ~2^-22 of each product,
+// against ~2^-11 for one TF32 pass.  The tensor cores add each MMA into
+// its float32 accumulator without rounding to nearest, so an accumulator
+// that runs the whole depth loses low bits at every step: on an H100 that
+// error grew with the depth, ~2e-6 of the peak at K = 256, ~8e-6 at 1024
+// and ~2.5e-5 at 3200.  So the MMAs run into partial accumulators that
+// start anew (scale-d 0) every PERIOD stages, and each partial is added
+// into float32 totals on the CUDA cores (rounded to nearest): ~2e-7 to
+// ~6e-7 of the peak at every depth with PERIOD 1 or 2 (16 or 32 deep),
+// the class of float32 on the CUDA cores.  The totals cost a second set of registers,
+// and each promotion waits for the warpgroup's MMAs in flight (`Pipeline`
+// below; tools/tf32_sweep.py times the periods).
+// One __syncthreads per stage publishes the stage that arrived and frees
+// the one read two steps before; the fragments of the next step load
+// while the current step's three MMAs run (wait_group 1).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -173,55 +175,93 @@ __device__ __forceinline__ int acc_col(int i) {
   return 8 * (i >> 2) + 2 * (threadIdx.x & 3) + (i & 1);
 }
 
-// One m64nNk8 MMA with A from registers and B from shared memory,
-// accumulating into d (N / 2 floats a thread).  The operand lists are
-// written out per N.
+// One m64nNk8 MMA with A from registers and B from shared memory: d =
+// A·B + (scale_d ? d : 0), d being N / 2 floats a thread.  The operand
+// lists are written out per N.
 template <int N>
 struct Mma;
 
 template <>
-struct Mma<96> {
-  static __device__ __forceinline__ void run(float (&d)[48],
+struct Mma<56> {
+  static __device__ __forceinline__ void run(float (&d)[28],
                                             const uint32_t (&a)[4],
-                                            uint64_t b) {
+                                            uint64_t b, int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %53, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+        "setp.ne.b32 p, %33, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n56k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27"
+        "}, {%28, %29, %30, %31}, %32, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Mma<64> {
+  static __device__ __forceinline__ void run(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Mma<80> {
+  static __device__ __forceinline__ void run(float (&d)[40],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
-        "}, {%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+        "%32, %33, %34, %35, %36, %37, %38, %39"
+        "}, {%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
 };
 
 template <>
-struct Mma<256> {
-  static __device__ __forceinline__ void run(float (&d)[128],
+struct Mma<128> {
+  static __device__ __forceinline__ void run(float (&d)[64],
                                             const uint32_t (&a)[4],
-                                            uint64_t b) {
+                                            uint64_t b, int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %133, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 {"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-        "}, {%128, %129, %130, %131}, %132, p, 1, 1;\n}\n"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -232,30 +272,93 @@ struct Mma<256> {
           "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-          "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
-          "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
-          "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
-          "+f"(d[126]), "+f"(d[127])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
 };
 
-// The three passes of one k8 step into d.
+// The three passes of one k8 step into d; `fresh` starts d anew.
 template <int N>
 __device__ __forceinline__ void mma3(float (&d)[N / 2], const Frag& a,
                                      const float* b_big, const float* b_small,
-                                     int j) {
-  Mma<N>::run(d, a.small, b_desc(b_big, j));
-  Mma<N>::run(d, a.big, b_desc(b_small, j));
-  Mma<N>::run(d, a.big, b_desc(b_big, j));
+                                     int j, bool fresh = false) {
+  Mma<N>::run(d, a.small, b_desc(b_big, j), !fresh);
+  Mma<N>::run(d, a.big, b_desc(b_small, j), 1);
+  Mma<N>::run(d, a.big, b_desc(b_big, j), 1);
+}
+
+// The main loop of both kernels over the stages of the depth.  The
+// kernel's tile T supplies
+//   load(kt, stage): issue stage kt's cp.async copies (zeros past the
+//                    depth, also for the stages that pad the last period)
+//   frags<S>(stage, j): load and split the A fragments of k8 step j into
+//                    fragment buffer S
+//   mma<S>(stage, j, fresh): issue step j's MMAs from buffer S into the
+//                    partials and commit them (`fresh` starts them anew)
+//   promote():       add the partials into the float32 totals
+// Each PERIOD stages the partials are promoted: the warpgroup waits for
+// its MMAs and adds them on the CUDA cores.  Which stages promote is fixed
+// at compile time: `wgmma_wait` under a run-time branch makes ptxas
+// serialize the MMAs.
+template <int STAGES, int STAGE_FLOATS, int PERIOD, class T>
+struct Pipeline {
+  T& t;
+  float* stages;
+  int k_tiles;                         // stages, padded to whole periods
+
+  __device__ __forceinline__ float* slot(int kt) const {
+    return stages + (kt % STAGES) * STAGE_FLOATS;
+  }
+
+  template <bool FRESH, bool PROMOTE>
+  __device__ __forceinline__ void stage(int kt) {
+    float* sa = slot(kt);
+    t.template mma<0>(sa, 0, FRESH);
+    wgmma_wait<1>();                   // step-1 fragments free
+    t.template frags<1>(sa, 1);
+    t.template mma<1>(sa, 1, false);
+    if constexpr (PROMOTE) {
+      wgmma_wait<0>();
+      t.promote();
+    } else {
+      wgmma_wait<1>();                 // step-0 fragments free
+    }
+    cp_async_wait<STAGES - 3>();       // stage kt + 1 arrived
+    fence_proxy_async();
+    __syncthreads();                   // stage kt - 1 free
+    if (kt + STAGES - 1 < k_tiles) t.load(kt + STAGES - 1, slot(kt + STAGES - 1));
+    cp_async_commit();
+    if (kt + 1 < k_tiles) t.template frags<0>(slot(kt + 1), 0);
+  }
+
+  template <int P>
+  __device__ __forceinline__ void period(int kt) {
+    stage<P == 0, P == PERIOD - 1>(kt + P);
+    if constexpr (P + 1 < PERIOD) period<P + 1>(kt);
+  }
+
+  __device__ __forceinline__ void run() {
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < k_tiles) t.load(s, slot(s));
+      cp_async_commit();
+    }
+    cp_async_wait<STAGES - 2>();
+    fence_proxy_async();
+    __syncthreads();
+    t.template frags<0>(slot(0), 0);
+    for (int kt = 0; kt < k_tiles; kt += PERIOD) period<0>(kt);
+  }
+};
+
+// Runs the pipeline over k_tiles stages, rounded up to whole periods (the
+// tile's loads zero-fill past the depth).
+template <int STAGES, int STAGE_FLOATS, int PERIOD, class T>
+__device__ __forceinline__ void run_pipeline(T& t, float* stages,
+                                             int k_tiles) {
+  Pipeline<STAGES, STAGE_FLOATS, PERIOD, T> p{
+      t, stages, (k_tiles + PERIOD - 1) / PERIOD * PERIOD};
+  p.run();
 }
 
 }  // namespace tc

@@ -27,7 +27,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["library", "build", "nvcc_path", "launch", "launch_counts",
-           "reset_launch_counts"]
+           "reset_launch_counts", "kernel_tile"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -38,8 +38,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LL = ctypes.c_longlong
 _PLL = ctypes.POINTER(_LL)          # a host array of device addresses
-# C entry points of csrc/*.cu and their argument types (each ends with
-# the device index and the stream)
+_PI = ctypes.POINTER(_I)
+# C entry points of csrc/*.cu and their argument types (each launch ends
+# with the device index and the stream)
 _SIGNATURES = {
     "bbt_k1_packed": [_P] * 9 + [_I] * 6 + [_F] * 5 + [_I, _P],
     "bbt_k1_float": [_P] * 9 + [_I] * 5 + [_I, _P],
@@ -50,14 +51,16 @@ _SIGNATURES = {
     "bbt_k2_inv": [_P] * 4 + [_F] + [_I] * 3 + [_I, _P],
     "bbt_k3_trim": [_P] * 4 + [_I] * 5 + [_I, _P],
     "bbt_k1_stream": [_P] * 5 + [_F] + [_P] * 2 + [_I] * 4 + [_I, _P],
-    "bbt_lane_mix": [_P] * 5 + [_I] * 4 + [_I, _P],
+    "bbt_lane_mix": [_P] * 5 + [_I] * 3 + [_I, _P],
+    "bbt_lane_mix_tile": [_PI],
     "bbt_pfb_fwd": [_P] * 8 + [_F] + [_P] * 2 + [_I] * 3 + [_I, _P],
     "bbt_k1_planes": [_P] * 3 + [_I] * 3 + [_I, _P],
     "bbt_k1_stream_planes": [_P] * 6 + [_I] * 5 + [_I, _P],
     "bbt_k2_theta": [_P] * 3 + [_I] * 3 + [_I, _P],
     "bbt_k3_fold_stokes": [_P] * 5 + [_I] * 6 + [_I, _P],
     "bbt_k3_power": [_P] * 3 + [_I] * 3 + [_I, _P],
-    "bbt_bank_power": [_P] * 4 + [_I] * 4 + [_I, _P],
+    "bbt_bank_power": [_P] * 4 + [_I] * 3 + [_I, _P],
+    "bbt_bank_power_tile": [_PI],
     "bbt_accel_corr": [_P] * 4 + [_I] * 4 + [_I, _P],
     "bbt_resident": [_P] * 12 + [_I] * 7 + [_I, _P],
     "bbt_halo_edges": [_PLL] * 3 + [_I] * 5 + [_LL, _I] + [_I, _P],
@@ -179,6 +182,14 @@ def library():
             fns[name] = fn
         _lib = types.SimpleNamespace(**fns)
     return _lib
+
+
+def kernel_tile(fn):
+    """(columns, depth): the tile a 3xTF32 kernel's staged operand is laid
+    out for, from its C entry point ``fn`` (``ops/tf32.py``)."""
+    tile = (_I * 2)()
+    getattr(library(), fn)(tile)
+    return tuple(tile)
 
 
 def launch(name, fn, device, *args):

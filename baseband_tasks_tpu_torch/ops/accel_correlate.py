@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from ._build import launch
+from ._build import kernel_tile, launch
 from .dedisperse import _as_device, _check, _device_of, _is_pow2, _on_cuda
 from .tf32 import cached, pack_operand
 
@@ -46,9 +46,8 @@ LANES = 128
 #: tile and its twiddle table take 144 KB of the 227 KB a block may use.
 MAX_SEG_LEN = 4096
 
-# bank_power's contraction step (one k8 MMA) and column tile (csrc/
-# accel.cu kBankBN)
-_BK, _BANK_BN = 8, 96
+# bank_power's contraction step (one k8 MMA)
+_BK = 8
 
 
 def accel_correlate_bank_ref(segs, tf_r, tf_i, *, valid):
@@ -130,10 +129,9 @@ def bank_matmul_power(fr, fi, ka, kb, kc, *, seg_tile=256, col_tile=512):
 
     Returns the (n_seg, n_cols) power ``|sum_f seg[s, f] M[f, kz]|²``.
     ``seg_tile``/``col_tile`` are the JAX package's tiles, kept as the
-    shape contract; the kernel (3xTF32 on the tensor cores: ~1e-5 of the
-    peak at L = 512, ``ops/tf32.py``) masks its own tile edges and needs
-    ``L`` a multiple of 8.  The
-    operator is split and staged once per (ka, kb, kc) tensors
+    shape contract; the kernel (3xTF32 on the tensor cores, float32-class,
+    ``ops/tf32.py``) masks its own tile edges and needs ``L`` a multiple
+    of 8.  The operator is split and staged once per (ka, kb, kc) tensors
     (``ops/tf32.py``).
     """
     dev = _device_of(fr)
@@ -158,9 +156,9 @@ def bank_matmul_power(fr, fi, ka, kb, kc, *, seg_tile=256, col_tile=512):
     for name, t in (("fr", fr), ("fi", fi)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
-    kp = cached((ka, kb, kc),
-                lambda: pack_operand([ka, kb, kc], _BANK_BN))
+    tile = kernel_tile("bbt_bank_power_tile")
+    kp = cached((ka, kb, kc), lambda: pack_operand([ka, kb, kc], *tile))
     out = torch.empty((n_seg, n_cols), dtype=torch.float32, device=dev)
     launch("bank_power", "bbt_bank_power", dev, fr.data_ptr(), fi.data_ptr(),
-           kp.data_ptr(), out.data_ptr(), n_seg, L, n_cols, _BANK_BN)
+           kp.data_ptr(), out.data_ptr(), n_seg, L, n_cols)
     return out

@@ -15,12 +15,13 @@ the forward PFB kernel's DFT).
 port leaves PyTorch's default ('highest', full FP32) in place: the JAX
 default 'high' is a TPU choice (three bf16 MXU passes, ~2^-16 relative),
 while PyTorch's 'high' on a CUDA device means TF32 (10-bit mantissa).  The
-hand-written kernels ignore the setting: the FFT and fold passes compute
-in FP32 on the CUDA cores, and the two matrix products, lane_mix and
+hand-written kernels compute in FP32 whatever the setting: the FFT and
+fold passes on the CUDA cores, and the two matrix products, lane_mix and
 bank_power, in 3xTF32 on the tensor cores (``ops/tf32.py``: operands
-split into two TF32 halves, three passes; ~1e-5 of the peak at a depth
-of 1024, the counterpart of ``kernel_dot``'s bf16x3 on the TPU, which is
-Mosaic-only).
+split into two TF32 halves, three passes, partial sums promoted into
+float32 totals; ~3e-7 to ~6e-7 of the peak against float64 at any
+depth).  The JAX package's in-kernel bf16x3 emulation (``kernel_dot``)
+is Mosaic-only and has no counterpart.
 """
 
 from __future__ import annotations

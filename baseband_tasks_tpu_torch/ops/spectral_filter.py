@@ -36,7 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ._build import launch
+from ._build import kernel_tile, launch
 from .dedisperse import (_as_device, _check, _device_of, _is_pow2, _on_cuda,
                          split_n, stage_b)
 from .dft_matmul import device_mats
@@ -51,9 +51,6 @@ __all__ = ["spectral_filter_pow2", "spectral_filter_pow2_ref",
 #: widest lane axis the lane mixes take (the forward PFB's DFT holds a
 #: 16-row tile of it in shared memory)
 MAX_MIX_LANES = 1600
-
-# lane_mix's column tile (csrc/fourstep.cu kMixBN)
-_MIX_BN = 256
 
 
 def lane_dft_mats(n, *, inverse=True):
@@ -107,8 +104,8 @@ def lane_mix_ref(xr, xi, wr, wi):
 
 def lane_mix(xr, xi, wr, wi):
     """(rows, L) float32 planes times the complex (L, L) matrix wr + i·wi:
-    lane_mix on CUDA tensors (3xTF32 on the tensor cores: ~1e-5 of the
-    peak at L = 512, ``ops/tf32.py``), else :func:`lane_mix_ref`."""
+    lane_mix on CUDA tensors (3xTF32 on the tensor cores, float32-class,
+    ``ops/tf32.py``), else :func:`lane_mix_ref`."""
     if not _on_cuda(xr):
         return lane_mix_ref(xr, xi, wr, wi)
     rows, L = xr.shape
@@ -118,14 +115,14 @@ def lane_mix(xr, xi, wr, wi):
     for name, t, shape in (("xr", xr, (rows, L)), ("xi", xi, (rows, L)),
                            ("wr", wr, (L, L)), ("wi", wi, (L, L))):
         _check(t, name, torch.float32, shape, dev)
+    tile = kernel_tile("bbt_lane_mix_tile")
     wp = cached((wr, wi), lambda: pack_operand([mix_operand(wr, wi)],
-                                               _MIX_BN))
+                                               *tile))
     vec = L % 4 == 0 and xr.data_ptr() % 16 == 0 and xi.data_ptr() % 16 == 0
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xr)
     launch("lane_mix", "bbt_lane_mix", dev, xr.data_ptr(), xi.data_ptr(),
-           wp.data_ptr(), yr.data_ptr(), yi.data_ptr(), rows, L, _MIX_BN,
-           int(vec))
+           wp.data_ptr(), yr.data_ptr(), yi.data_ptr(), rows, L, int(vec))
     return yr, yi
 
 

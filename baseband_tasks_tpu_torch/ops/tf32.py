@@ -6,15 +6,18 @@ TF32 (10-bit mantissa), which alone keeps ~5e-4 relative.  Each operand
 is split as ``x ≈ big + small`` with ``big = tf32(x)`` and ``small =
 tf32(x - big)`` (round to nearest, ties away from zero, as ``cvt.rna``),
 and a product takes three passes, ``small·big + big·small + big·big``:
-the dropped ``small·small`` term is ~2^-22 of each product.  On the card
-the tensor cores' truncating accumulation sets the error instead: ~8e-6
-of the peak at a depth of 1024 (``csrc/tf32mma.cuh``), against ~3e-4 for
-one TF32 pass, whatever ``torch``'s matmul precision setting.
+the dropped ``small·small`` term is ~2^-22 of each product.  The kernels
+add each 16- or 32-deep partial product into float32 totals on the CUDA
+cores, so the tensor cores' truncating accumulation does not build up
+with the depth (``csrc/tf32mma.cuh``): float32-class, against ~3e-4 of
+the peak for one TF32 pass, whatever ``torch``'s matmul precision
+setting.
 
 The kernels split the data operand in registers.  The constant operand
 (a lane mixer, the search's Karatsuba operator) is split once here and
 stored in the layout a pipeline stage copies as one contiguous run
-(:func:`pack_operand`), cached per operand tensor (:func:`cached`).
+(:func:`pack_operand`, for the tile the kernel reports, ``_build.
+kernel_tile``), cached per operand tensor (:func:`cached`).
 :func:`round_tf32` and :func:`split_tf32` are the plain arithmetic, on
 any device.
 """
@@ -26,11 +29,8 @@ import weakref
 import torch
 import torch.nn.functional as F
 
-__all__ = ["BK", "round_tf32", "split_tf32", "pack_operand", "mix_operand",
+__all__ = ["round_tf32", "split_tf32", "pack_operand", "mix_operand",
            "cached"]
-
-#: contraction depth of a kernel stage (csrc/tf32mma.cuh kBK)
-BK = 16
 
 
 def round_tf32(x):
@@ -48,18 +48,19 @@ def split_tf32(x):
     return big, round_tf32(x - big)
 
 
-def pack_operand(planes, bn):
+def pack_operand(planes, bn, bk):
     """Stage (K, N) float32 planes for a kernel with column tiles of
-    ``bn``: padded with zeros to multiples of (BK, bn), split, and laid
-    out as [N tile][K tile][plane][big, small][8-column group][4-deep
-    chunk][column][4 depths], a 1-D tensor: one stage of the kernel is one
-    contiguous run, each half a K-major grid of 8 x 4 core matrices."""
+    ``bn`` and stages ``bk`` deep: padded with zeros to multiples of (bk,
+    bn), split, and laid out as [N tile][K tile][plane][big, small]
+    [8-column group][4-deep chunk][column][4 depths], a 1-D tensor: one
+    stage of the kernel is one contiguous run, each half a K-major grid of
+    8 x 4 core matrices."""
     K, N = planes[0].shape
-    kp, np_ = -(-K // BK) * BK, -(-N // bn) * bn
+    kp, np_ = -(-K // bk) * bk, -(-N // bn) * bn
     halves = []
     for p in planes:
         halves.extend(split_tf32(F.pad(p, (0, np_ - N, 0, kp - K))))
-    x = torch.stack(halves).reshape(len(planes), 2, kp // BK, BK // 4, 4,
+    x = torch.stack(halves).reshape(len(planes), 2, kp // bk, bk // 4, 4,
                                     np_ // bn, bn // 8, 8)
     # (plane, half, kt, chunk, depth, nt, group, col) ->
     # (nt, kt, plane, half, group, chunk, col, depth)

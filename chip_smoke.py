@@ -46,9 +46,10 @@ lanes) and of config 2:
     in-kernel DFT (32256 x 512, 8 taps), k1_stream without and with the
     ``pre`` lane mix (2^15 x 512), k3_trim with the ``post`` lane mix
     (2^18 x 128), lane_mix (3xTF32 on the tensor cores) alone at the
-    ``pre`` shape and at config 2's ``post`` shape (261,120 x 128); and
-    times both, lane_mix beside one complex ``matmul`` at both shapes
-    and beside its 3xTF32 tensor-core and FP32-core bounds;
+    ``pre`` shape and at config 2's ``post`` shape (261,120 x 128), and
+    against float64 at 4096 x L for L 128, 512, 1600 (within 1e-5 of
+    the peak); and times both, lane_mix beside one complex ``matmul`` at
+    both shapes and beside its 3xTF32 tensor-core and FP32-core bounds;
 (h) drives four compiled paths through ``CompiledPipeline.planes_step``:
     the config-3 round trip (the quad fusion), config 2 compiled
     (``_FusedDisperseDechan``), and the two single fusions at config 3's
@@ -98,7 +99,8 @@ pads 256/256, the 261,120-row block of ``tools/bench_resident.py``):
     plain versions, and times them beside the one PyTorch call computing
     the same function (a complex ``matmul`` and ``|.|^2``; cuFFT's
     inverse FFT of the bank product and ``|.|^2``), bank_power beside its
-    3xTF32 tensor-core and FP32-core bounds;
+    3xTF32 tensor-core and FP32-core bounds and against float64 on 256
+    rows (within 1e-5 of the peak);
 (l) runs ``FourierDomainAccelSearch.search`` on a seeded series (noise, a
     mid-band tone drifting 12 bins, a pulse train) with 'auto' (which
     must be 'mx' on the card), 'pallas' (seg_len 4096) and 'xla' (8192),
@@ -182,6 +184,7 @@ import torch
 # float32 FFT roundoff over log2(512) radix-2 stages is ~1e-6 of the
 # largest element; an indexing or decode fault gives errors of order 1.
 FFT_TOL = 1e-4            # max |kernel - plain| / max |plain|, K1/K2
+TF32X3_TOL = 1e-5         # lane_mix, bank_power against float64, of the peak
 # profile bins sum ~4000 detected samples per lane in a run-dependent
 # (atomic) order; float32 summation noise is ~1e-6 relative
 PROFILE_RTOL = 2e-4       # elementwise, K3 and the end-to-end profiles
@@ -873,14 +876,19 @@ def check_compiled_kernels(dev, gpu):
                 print(f"(g) lane_mix 2^15 x 512: {both_bounds(costs[name])}",
                       flush=True)
     del rows, rc, wc
-    # 3xTF32 against the float64 product by depth 2L (the tensor cores'
-    # accumulation sets the error; one TF32 pass is ~3e-4 of the peak)
+    # 3xTF32 against the float64 product by depth 2L: float32-class at
+    # every depth (the kernel promotes its partial sums; one TF32 pass is
+    # ~3e-4 of the peak)
     for L_mix in (128, 512, 1600):
         x, w = randn(dev, (4096, L_mix), 47), randn(dev, (L_mix, L_mix), 48)
         got = sf.lane_mix(*x, *w)
         ref = sf.lane_mix_ref(*(t.double() for t in (*x, *w)))
-        print(f"(g) lane_mix 4096 x {L_mix} against float64: rel "
-              f"{compare(got, ref)[1]:.3e}", flush=True)
+        rel = compare(got, ref)[1]
+        print(f"(g) lane_mix 4096 x {L_mix} against float64: rel {rel:.3e} "
+              f"(limit {TF32X3_TOL:g})", flush=True)
+        if not rel <= TF32X3_TOL:
+            raise AssertionError(f"lane_mix at L = {L_mix} is not "
+                                 f"float32-class against float64")
         del x, w, got, ref
     post_rows = randn(dev, (261120, 128), 46)
     got = sf.lane_mix(*post_rows, *post)
@@ -1612,8 +1620,12 @@ def check_search_kernels(dev, gpu):
             got = ac.bank_matmul_power(fr[:256], fi[:256], ka, kb, kc)
             ref = ac.bank_matmul_power_ref(*(t.double() for t in (
                 fr[:256], fi[:256], ka, kb, kc)))
-            print(f"(k) bank_power 256 rows against float64: rel "
-                  f"{compare((got,), (ref,))[1]:.3e}", flush=True)
+            rel = compare((got,), (ref,))[1]
+            print(f"(k) bank_power 256 rows against float64: rel {rel:.3e} "
+                  f"(limit {TF32X3_TOL:g})", flush=True)
+            if not rel <= TF32X3_TOL:
+                raise AssertionError("bank_power is not float32-class "
+                                     "against float64")
             del got, ref
     del mx, pal, ka, kb, kc, fr, fi, op, sc, prod, segs
     torch.cuda.empty_cache()

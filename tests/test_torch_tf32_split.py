@@ -6,9 +6,12 @@ round-to-nearest by float32 bit arithmetic and the big + small split of
 ``ops/tf32.py``, and the three-term product) at small versions of the
 kernels' shapes: the 3xTF32 product stays within 1e-5 of the float64
 product's peak, one TF32 pass does not stay within 1e-4 (the card's
-``FFT_TOL``).  (On the card the tensor cores' accumulation adds to the
-error; tests/test_torch_cuda.py holds the kernels to 1e-5 against
-float64.)  They also hold the wrappers' operand preparation (the block
+``FFT_TOL``).  A model of the tensor cores' accumulation (each MMA added
+into its float32 accumulator rounded toward zero) shows why the kernels
+add each 16- or 32-deep partial into float32 totals: a truncating
+accumulator that runs the whole depth drifts with it
+(tests/test_torch_cuda.py holds the kernels to 1e-5 against float64 on
+the card).  They also hold the wrappers' operand preparation (the block
 mixer, the staged split layout, the per-tensor cache) to
 ``lane_mix_ref`` and ``bank_matmul_power_ref``.
 """
@@ -26,6 +29,7 @@ from baseband_tasks_tpu_torch.ops import tf32  # noqa: E402
 
 SPLIT_TOL = 1e-5      # 3xTF32 against float64, of the peak
 ONE_PASS_TOL = 1e-4   # what one TF32 pass fails (chip_smoke.py FFT_TOL)
+BK = 16               # the kernels' stage depth (bbt_*_tile)
 
 
 def matmul_3xtf32(a, b, passes=3):
@@ -42,7 +46,6 @@ def matmul_3xtf32(a, b, passes=3):
 def unpack_operand(packed, n_planes, K, N, bn):
     """Inverse of ``tf32.pack_operand``: [(big, small)] per plane, each
     (K, N)."""
-    BK = tf32.BK
     kp, np_ = -(-K // BK) * BK, -(-N // bn) * bn
     x = packed.reshape(np_ // bn, kp // BK, n_planes, 2, bn // 8, BK // 4,
                        8, 4).permute(2, 3, 1, 5, 7, 0, 4, 6)
@@ -129,13 +132,64 @@ def test_one_pass_misses_fft_tol(case):
     assert peak_rel(run(1), ref) > ONE_PASS_TOL
 
 
+def _round_to_zero(s):
+    """float64 ``s`` rounded to float32 toward zero."""
+    r = s.float()
+    over = r.double().abs() > s.abs()
+    return torch.where(over, torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def mma_3xtf32(a, b, period=None):
+    """``a @ b`` as the kernels' k8 MMAs, in a model of the tensor cores'
+    accumulation: each pass's k8 product (exact) is added into a float32
+    partial rounded toward zero.  ``period``: the partial starts anew
+    every ``period`` k8 steps, added into a float32 total rounded to
+    nearest (the kernels' promotion: 2 or 4 steps, one or two 16-deep
+    stages); None: one partial runs the whole depth."""
+    ab, asm = tf32.split_tf32(a)
+    bb, bs = tf32.split_tf32(b)
+    total = torch.zeros(a.shape[0], b.shape[1])
+    part = torch.zeros_like(total)
+    for j, k0 in enumerate(range(0, a.shape[1], 8)):
+        k = slice(k0, k0 + 8)
+        for x, y in ((asm, bb), (ab, bs), (ab, bb)):
+            part = _round_to_zero(part.double() + x[:, k].double()
+                                  @ y[k].double())
+        if period and (j + 1) % period == 0:
+            total, part = total + part, torch.zeros_like(part)
+    return total + part
+
+
+def _mix_depth_case(L):
+    """64 rows of a lane mix at depth 2L, 128 of its output columns."""
+    xr, xi, wr, wi = planes(20 + L, (64, L), (64, L), (L, L), (L, L))
+    a = torch.cat([xr, xi], dim=1)
+    b = tf32.mix_operand(wr / L ** 0.5, wi / L ** 0.5)[:, :128]
+    return a, b, a.double() @ b.double()
+
+
+@pytest.mark.parametrize("period", [2, 4])
+@pytest.mark.parametrize("L", [128, 512, 1600])
+def test_promoted_partials_float32_class(L, period):
+    a, b, ref = _mix_depth_case(L)
+    assert peak_rel(mma_3xtf32(a, b, period=period), ref) <= 1e-6
+
+
+def test_truncating_accumulator_drifts_with_depth():
+    """One partial over the whole depth: within 1e-5 at 2L = 256, not at
+    2L = 3200 (lane_mix's widest)."""
+    errs = [peak_rel(mma_3xtf32(a, b), ref)
+            for a, b, ref in (_mix_depth_case(L) for L in (128, 1600))]
+    assert errs[0] <= SPLIT_TOL < errs[1]
+
+
 @pytest.mark.parametrize("bn", [64, 96, 128, 256])
 @pytest.mark.parametrize("K,N,n", [(16, 96, 1), (200, 200, 1), (6, 2, 1),
                                    (64, 512, 3)])
 def test_pack_operand_roundtrip(K, N, n, bn):
     ps = planes(13, *[(K, N)] * n)
-    packed = tf32.pack_operand(ps, bn)
-    kp, np_ = -(-K // tf32.BK) * tf32.BK, -(-N // bn) * bn
+    packed = tf32.pack_operand(ps, bn, BK)
+    kp, np_ = -(-K // BK) * BK, -(-N // bn) * bn
     assert packed.numel() == n * 2 * kp * np_
     for (big, small), p in zip(unpack_operand(packed, n, K, N, bn), ps):
         want_big, want_small = tf32.split_tf32(p)
@@ -153,13 +207,13 @@ def test_pack_operand_stage_layout():
     K, N, bn = 32, 16, 8
     # distinct values exact in TF32 (< 2^11)
     p = (torch.arange(K)[:, None] * N + torch.arange(N)[None]).float()
-    packed = tf32.pack_operand([p], bn)
-    stage = 2 * bn * tf32.BK
+    packed = tf32.pack_operand([p], bn, BK)
+    stage = 2 * bn * BK
     for nt, kt, g, c, r, e in [(0, 0, 0, 0, 0, 0), (1, 0, 0, 1, 3, 2),
                                (0, 1, 0, 3, 7, 3), (1, 1, 0, 2, 5, 1)]:
-        k = kt * tf32.BK + 4 * c + e
+        k = kt * BK + 4 * c + e
         n = nt * bn + 8 * g + r
-        at = (nt * (K // tf32.BK) + kt) * stage + (g * tf32.BK // 4 + c) \
+        at = (nt * (K // BK) + kt) * stage + (g * BK // 4 + c) \
             * 32 + 4 * r + e
         assert float(packed[at]) == float(p[k, n])
 
@@ -168,8 +222,8 @@ def test_pack_operand_stage_layout():
 def test_mix_operand_rebuilds_lane_mix_ref(rows, L):
     xr, xi, wr, wi = planes(14, (rows, L), (rows, L), (L, L), (L, L))
     (big, small), = unpack_operand(
-        tf32.pack_operand([tf32.mix_operand(wr, wi)], 256), 1, 2 * L, 2 * L,
-        256)
+        tf32.pack_operand([tf32.mix_operand(wr, wi)], 128, BK), 1, 2 * L,
+        2 * L, 128)
     y = torch.cat([xr, xi], dim=1) @ (big + small)
     ref = torch.cat(sf.lane_mix_ref(xr, xi, wr, wi), dim=1)
     # the block form and the split planes: float32 rounding only
@@ -181,7 +235,7 @@ def test_bank_operand_rebuilds_ref():
     fr, fi, ka, kb, kc = planes(15, (n_seg, L), (n_seg, L), (L, n_cols),
                                 (L, n_cols), (L, n_cols))
     ops = [b + s for b, s in unpack_operand(
-        tf32.pack_operand([ka, kb, kc], 96), 3, L, n_cols, 96)]
+        tf32.pack_operand([ka, kb, kc], 64, BK), 3, L, n_cols, 64)]
     got = ac.bank_matmul_power_ref(fr, fi, *ops)
     ref = ac.bank_matmul_power_ref(fr, fi, ka, kb, kc)
     assert peak_rel(got, ref.double()) <= 2e-6
