@@ -27,24 +27,34 @@
 // only") and overlaps little with the MMAs.
 //
 // accel_corr: replaces `_kernel` (accel_correlate.py:54, launched by
-// `_accel_correlate_impl` :81), the 'pallas' engine.  Block (lane tile,
-// segment s) multiplies the segment spectrum by its tile of the resident
-// z bank, runs the inverse FFT over seg_len in shared memory (fft.cuh, DIF:
-// natural order in, bit-reversed out, so the trim reads row bitrev(r)),
-// scales by 1/seg_len, squares and writes only the first `valid` lags of
-// the (n_seg, valid, 128) map.
+// `_accel_correlate_impl` :81), the 'pallas' engine.  Block (tile of
+// `lanes` z lanes, segment s) keeps its rows of the segment spectrum in
+// registers and, a lane per team of seg_len/16 threads, multiplies them by
+// the lane's templates (read lane-major: one contiguous run a lane, from
+// the bank the wrapper transposes once), runs the inverse FFT over
+// seg_len in registers (fft_reg.cuh: three radix-16 passes at 4096, two
+// exchanges through the team's padded shared column, per-pass twiddle
+// tables), scales by 1/seg_len, squares, and stages the first `valid`
+// lags in shared memory; the tile's rows then go out lane-fastest, each
+// row of the (n_seg, valid, n_out) map one run of whole 32-byte sectors
+// when the wrapper pads n_out to a multiple of 8 (n_used lanes computed,
+// zeros after them: the search's 65 of 128 at z_max 64).
 // What bounds it on an H100: bytes, almost all of them the power map
-// (4 x n_seg x valid x 128 B: 1.07 GB at n = 2^22, seg_len 4096, 0.32 ms),
-// against ~20 GFLOP of FFT work.  The segment spectrum is read once per
-// lane tile (from L2 after the first) and the bank (4 MB) stays in L2.
-// A 4096-row column takes 32 KB per lane, so the tile is 4 lanes there
-// (16 lanes at 512), and each output row is a 16-byte run.  Writing only
-// the used z lanes (65 of 128 at z_max 64) is later work.
+// (4 x n_seg x valid x n_used B: 0.55 GB at n = 2^22, seg_len 4096, 65
+// lanes, 0.17 ms; 1.07 GB, 0.33 ms, at 128), against ~10 GFLOP of FFT
+// work (0.15 ms on the FP32 cores).  The bank (2 MB) stays in L2 and is
+// read once per segment and lane; the spectrum once per block.  Two teams
+// of 256 threads (own named barriers) share a block of ~227 KB (the
+// exchanges, the twiddle tables and the 8-lane power stage): one block,
+// 16 warps, per SM.  kCorrNext 1 loads the next lane's templates into
+// registers during this lane's FFT.  What holds it back
+// (tools/fft_sweep.py): the FFT alone and the loads and stores alone each
+// take about half the kernel's time, and overlap little in one block.
 
 #include <cuda_runtime.h>
 
 #include "common.cuh"
-#include "fft.cuh"
+#include "fft_reg.cuh"
 #include "tf32mma.cuh"
 
 namespace bbt {
@@ -157,53 +167,148 @@ bank_power_kernel(const float* __restrict__ fr, const float* __restrict__ fi,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-accel_corr_kernel(const float2* __restrict__ spec, const float* __restrict__ tr,
-                  const float* __restrict__ ti, float* __restrict__ out,
-                  int log_n, int lanes, int log_tl, int valid, int n_seg) {
-  extern __shared__ float2 smem[];
-  const int n = 1 << log_n;
-  const int tl = 1 << log_tl;
-  float2* x = smem;
-  float2* tw = smem + (n << log_tl);
-  const int l0 = blockIdx.x << log_tl;
-  const float inv_n = 1.0f / static_cast<float>(n);
-  fill_twiddles(tw, n);
+// accel_corr constants: threads a block, z lanes a tile (staged power
+// rows), 0 / 1 (no FFT: load and store only) / 2 (no trim: FFT only),
+// and whether the next round's bank is loaded into registers during this
+// round's FFT (1) or at its own round's start (0) (tools/fft_sweep.py
+// varies this line)
+constexpr int kCorrThreads = 512, kCorrLanes = 8, kCorrMode = 0, kCorrNext = 1;
+constexpr int kCorrLogR = 4;           // radix-16 register passes
 
+// Shared-memory carve of an accel_corr block (host and device): one
+// exchange per team (the threads of one lane's column), the twiddle
+// table, and the power stage of the tile's lanes for `valid` rows.
+struct CorrSmem {
+  int log_t, teams, lanes, ex_slots, ex, tw, stage;
+  __host__ __device__ CorrSmem(int log_n, int valid) {
+    log_t = log_n > kCorrLogR ? log_n - kCorrLogR : 0;
+    teams = kCorrThreads >> log_t;
+    lanes = teams > kCorrLanes ? teams : kCorrLanes;
+    ex_slots = reg::padded_size<1>(1 << log_n);
+    ex = teams * ex_slots * 8;
+    tw = reg::twiddle_slots(log_n, kCorrLogR) * 8;
+    // the widest tile whose power stage fits beside them
+    while (ex + tw + valid * lanes * 4 > kMaxBlockSmem && lanes > teams)
+      lanes >>= 1;
+    stage = valid * lanes * 4;
+  }
+  __host__ __device__ int bytes() const { return ex + tw + stage; }
+};
+
+// LOG_N fixes log2(seg_len) at compile time for the search's 4096 (-1:
+// the launch's argument).
+template <int LOG_N>
+__global__ void __launch_bounds__(kCorrThreads, kCorrThreads > 256 ? 1 : 2)
+accel_corr_kernel(const float2* __restrict__ spec,
+                  const float2* __restrict__ bank, float* __restrict__ out,
+                  int log_n_arg, int n_seg, int valid, int n_used,
+                  int n_out) {
+  constexpr int R = 1 << kCorrLogR;
+  using Plan = reg::Plan<kCorrLogR, LOG_N>;
+  extern __shared__ __align__(16) unsigned char corr_smem[];
+  const int log_n = LOG_N >= 0 ? LOG_N : log_n_arg;
+  const Plan plan(log_n);
+  const CorrSmem lay(log_n, valid);
+  const int n = 1 << log_n;
+  float2* ex = reinterpret_cast<float2*>(corr_smem);
+  float2* tw = reinterpret_cast<float2*>(corr_smem + lay.ex);
+  float* stage = reinterpret_cast<float*>(corr_smem + lay.ex + lay.tw);
+  const int team = threadIdx.x >> lay.log_t;
+  const int t = threadIdx.x & ((1 << lay.log_t) - 1);
+  const int l0 = blockIdx.x * lay.lanes;
+  const int g_here = max(0, min(lay.lanes, n_used - l0));
+  const int g_out = min(lay.lanes, n_out - l0);   // lanes past n_used: 0
+  // rounds of `teams` lanes, the tile's dead lanes skipped a round at a time
+  const int rounds = (g_here + lay.teams - 1) / lay.teams;
+  const float inv_n = 1.0f / static_cast<float>(n);
+  float2* my_ex = ex + team * lay.ex_slots;
+  reg::fill_twiddle_tables(tw, log_n, kCorrLogR);
+  __syncthreads();                     // the table, before any team reads it
+  // the power stage, (valid, lanes) floats with the lane index swizzled
+  // by the row so that a warp's stores of 32 rows of one lane, and its
+  // loads of whole stage rows, fall on distinct banks
+  const int log_g = __ffs(lay.lanes) - 1;
+  const int sw_shift = log_g < 5 ? 5 - log_g : 0;
+  const int sw_mask = (lay.lanes < 32 ? lay.lanes : 32) - 1;
+  auto st = [&](int r, int g) {
+    return (r << log_g) + (g ^ ((r >> sw_shift) & sw_mask));
+  };
+  // the (lane, row) coefficients of the bank this thread multiplies in
+  // round rd: its rows of the team's lane, one contiguous lane-major run
+  auto load_bank = [&](int rd, float2 (&b)[R]) {
+    const int l = l0 + rd * lay.teams + team;
+#pragma unroll
+    for (int q = 0; q < R; ++q)
+      b[q] = l < n_used && q < plan.used
+                 ? bank[static_cast<long>(l) * n + plan.row_in(0, q, t)]
+                 : make_float2(0.0f, 0.0f);
+  };
+  // a team's exchange is its own: whole-warp teams (at most 15) wait for
+  // each other only at the power stage
+  const bool own_bar = lay.log_t >= 5 && lay.teams <= 15;
+  auto sync = [&] {
+    if (own_bar) team_sync(team + 1, 1 << lay.log_t);
+    else __syncthreads();
+  };
+  auto slot = [&](int, int row) { return my_ex + reg::pad_slot<1>(row); };
+  const int tt[1] = {t};
+  const bool live_ex[1] = {true};      // dead lanes transform zeros
+  float keep = 0.0f;                   // kCorrMode 2: the FFT's results
+
+  // kCorrNext: bk holds this round's bank, loaded during the last
+  // round's FFT; otherwise it is loaded at the round's start
+  float2 bk[R];
+  if (kCorrNext) load_bank(0, bk);
   // the grid's rows walk the segments (at most 65535 rows)
   for (long s = blockIdx.y; s < n_seg; s += gridDim.y) {
-    const float2* f = spec + s * n;
-    // x[row, lane] = spec[s, row] * (tr + i ti)[row, l0 + lane]
-    batched(n << log_tl,
-            [&](int idx) {
-              const long b = static_cast<long>(idx >> log_tl) * lanes + l0 +
-                             (idx & (tl - 1));
-              const float2 a = f[idx >> log_tl];
-              return make_float4(a.x, a.y, tr[b], ti[b]);
-            },
-            [&](int idx, float4 v) {
-              x[idx] = cmul(make_float2(v.x, v.y), make_float2(v.z, v.w));
-            });
-    __syncthreads();
-    fft_dif<true>(x, tw, log_n, log_tl);
-
-    float* o = out + s * valid * lanes + l0;
-    for (int idx = threadIdx.x; idx < (valid << log_tl); idx += blockDim.x) {
-      const int r = idx >> log_tl;
-      const int lane = idx & (tl - 1);
-      const float2 v = x[(bitrev(r, log_n) << log_tl) + lane];
-      const float vr = v.x * inv_n;
-      const float vi = v.y * inv_n;
-      o[static_cast<long>(r) * lanes + lane] = vr * vr + vi * vi;
+    // this thread's rows of the segment spectrum, kept for every lane
+    float2 sp[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q)
+      sp[q] = q < plan.used ? spec[s * n + plan.row_in(0, q, t)]
+                            : make_float2(0.0f, 0.0f);
+    for (int rd = 0; rd < rounds; ++rd) {
+      const int g = rd * lay.teams + team;
+      if (!kCorrNext) load_bank(rd, bk);
+      float2 v[1][R];
+#pragma unroll
+      for (int q = 0; q < R; ++q) v[0][q] = cmul(sp[q], bk[q]);
+      // the next round's lane (the first again for the next segment)
+      if (kCorrNext) load_bank(rd + 1 < rounds ? rd + 1 : 0, bk);
+      if (kCorrMode != 1)
+        plan.template run<true>(v, tt, live_ex, tw, slot, sync);
+      if (l0 + g < n_used) {
+#pragma unroll
+        for (int q = 0; q < R; ++q) {
+          if (q >= plan.used) continue;
+          const int r = plan.rows_final(q, t);
+          const float vr = v[0][q].x * inv_n;
+          const float vi = v[0][q].y * inv_n;
+          if (kCorrMode == 2) keep += vr * vr + vi * vi;
+          else if (r < valid) stage[st(r, g)] = vr * vr + vi * vi;
+        }
+      }
     }
-    // the next segment overwrites x
+    __syncthreads();
+    // the tile's rows, lane-fastest: each output row's lanes in one run
+    if (kCorrMode != 2) {
+      float* o = out + s * valid * n_out + l0;
+#pragma unroll 4
+      for (int i = threadIdx.x; i < (valid << log_g); i += kCorrThreads) {
+        const int r = i >> log_g, g = i & (lay.lanes - 1);
+        if (g < g_out)
+          o[static_cast<long>(r) * n_out + g] =
+              g < g_here ? stage[st(r, g)] : 0.0f;
+      }
+    }
+    // the next segment overwrites the stage
     __syncthreads();
   }
+  if (kCorrMode == 2 && keep == -1.0f) out[0] = keep;
 }
 
 }  // namespace bbt
 
-using bbt::kThreads;
 
 // --- C entry points: each returns the cudaGetLastError() of its launch. ---
 
@@ -246,21 +351,32 @@ extern "C" int bbt_bank_power_tile(int* tile) {
   return 0;
 }
 
-// accel_corr: spec is (n_seg, seg_len) complex64 (float2 pairs), the bank
-// planes (seg_len, lanes), out (n_seg, valid, lanes).
-extern "C" int bbt_accel_corr(const void* spec, const float* tr, const float* ti,
-                              float* out, int n_seg, int seg_len, int lanes,
-                              int valid, int device, void* stream) {
-  const int log_tl = bbt::choose_log_tl(seg_len, lanes, 0, 0);
-  if (log_tl < 0 || seg_len < 2 || valid <= 0 || valid > seg_len || n_seg <= 0)
+// accel_corr: spec is (n_seg, seg_len) complex64 (float2 pairs), bank the
+// z-template transfer functions lane-major, (lanes, seg_len) complex64
+// (ops/accel_correlate.py transposes the (seg_len, lanes) planes once per
+// bank), out (n_seg, valid, n_out): the power of the first n_used lanes,
+// then zeros up to n_out (>= n_used; a multiple of 8 makes every row of a
+// tile whole 32-byte sectors).
+extern "C" int bbt_accel_corr(const void* spec, const void* bank, float* out,
+                              int n_seg, int seg_len, int lanes, int n_used,
+                              int n_out, int valid, int device, void* stream) {
+  using bbt::kCorrThreads;
+  if (seg_len < 2 || (seg_len & (seg_len - 1)) || valid <= 0 ||
+      valid > seg_len || n_seg <= 0 || n_used <= 0 || n_used > lanes ||
+      n_out < n_used || (seg_len >> bbt::kCorrLogR) > kCorrThreads)
     return cudaErrorInvalidValue;
-  const size_t smem = bbt::column_smem(seg_len, log_tl);
-  cudaError_t err = bbt::prepare(bbt::accel_corr_kernel, smem, device);
+  const int log_n = bbt::log2i(seg_len);
+  const bbt::CorrSmem lay(log_n, valid);
+  const size_t smem = lay.bytes();
+  auto kernel = log_n == 12 ? bbt::accel_corr_kernel<12>
+                            : bbt::accel_corr_kernel<-1>;
+  cudaError_t err = bbt::prepare(kernel, smem, device);
   if (err != cudaSuccess) return err;
+  const int tiles = (n_out + lay.lanes - 1) / lay.lanes;
   const int rows = n_seg < 65535 ? n_seg : 65535;
-  bbt::accel_corr_kernel<<<dim3(lanes >> log_tl, rows), kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(spec), tr, ti, out, bbt::log2i(seg_len), lanes,
-      log_tl, valid, n_seg);
+  kernel<<<dim3(tiles, rows), kCorrThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(spec), static_cast<const float2*>(bank),
+      out, log_n, n_seg, valid, n_used, n_out);
   return cudaGetLastError();
 }

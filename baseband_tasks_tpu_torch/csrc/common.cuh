@@ -12,6 +12,7 @@ namespace bbt {
 
 constexpr int kThreads = 256;
 constexpr int kMaxSmem = 200 * 1024;  // of the 227 KB a block may use
+constexpr int kMaxBlockSmem = 232448;  // the 227 KB themselves
 constexpr int kMaxTileLanes = 16;
 
 // Largest power-of-two lane tile <= 16 (and >= 2^min_log_tl) that divides
@@ -55,7 +56,40 @@ __device__ __forceinline__ void batched(int total, Load load, Store store) {
   }
 }
 
-inline int log2i(int n) {
+// Asynchronous copies into shared memory (cp.async): `bytes` is 16, 8 or
+// 4, and dst and src are aligned to it.  A thread's copies since its last
+// cp_async_commit() form one group; cp_async_wait<N>() waits until at
+// most N of its groups are in flight (a barrier then publishes them).
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src) : "memory");
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+                 "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Barrier `id` (1..15; 0 is __syncthreads) for the `count` threads (a
+// multiple of 32) that name it: the warps of one team of a block.
+__device__ __forceinline__ void team_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__host__ __device__ constexpr int log2i(int n) {
   int k = 0;
   while ((1 << k) < n) ++k;
   return k;

@@ -30,9 +30,11 @@
 // flight together cover whole rows and device memory is read in full
 // rows rather than in scattered tl-float pieces.  Each thread issues
 // kBatch global loads before it stores any to shared memory, so enough
-// bytes are in flight to cover device-memory latency.  The FFT is the
-// shared-memory radix-2 of fft.cuh, three stages per pass; wgmma, TMA
-// loads and fusing the passes are later work.
+// bytes are in flight to cover device-memory latency.  K1 and K2 run
+// the shared-memory radix-2 of fft.cuh, three stages per pass; K3 runs
+// its column in registers (fft_reg.cuh) and stages the next column by
+// cp.async while it transforms and folds this one (see K3 below); wgmma,
+// TMA loads and fusing the passes are later work.
 //
 // bf16 intermediates (the JAX module's inter_dtype='bfloat16', whose K1
 // stores y in the output's dtype, K2 casts y and the chirp to f32 on load
@@ -55,10 +57,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <type_traits>
 
 #include "common.cuh"
 #include "fft.cuh"
+#include "fft_reg.cuh"
 
 namespace bbt {
 
@@ -341,10 +345,11 @@ k2_kernel(T* __restrict__ yr, T* __restrict__ yi,
 // `_fold_pallas_call` :618) with `_detect_fold_accumulate` (:332): the
 // power branch, and with STOKES the full-Stokes branch.
 //
-// Block (lane tile, group) walks columns b = group, group + groups, ...:
-// loads row b of the d-major planes, runs the inverse FFT over c (DIF: the
-// sample of time t = c*N2 + b sits at bit-reversed position c), scales by
-// 1/N1, detects |z|^2 and bins pulse phase in 31-bit fixed point:
+// Block (lane tile, group) walks a run of consecutive columns b (about one
+// block per resident slot of the card, so each walks many): row b of the
+// d-major planes for a tile of tl lanes, the inverse FFT over c
+// (fft_reg.cuh, natural order in and out: the sample of time t = c*N2 + b
+// sits at row c), 1/N1, |z|^2, and the phase bin in 31-bit fixed point:
 //   num = (i0 + t*p) & 0x7FFFFFFF in uint32 (wraps mod 2^32 by definition,
 //   where the TPU relied on int32 wrap), then
 //   bin = ((num>>16)*n + (((num&0xFFFF)*n)>>16)) >> 15     (n <= 2^15),
@@ -352,117 +357,388 @@ k2_kernel(T* __restrict__ yr, T* __restrict__ yi,
 // With STOKES the profile has three planes of L lanes, [|z_l|^2 |
 // Re z_l conj z_{l+1} | Im z_l conj z_{l+1}], lane l paired with lane
 // (l+1) mod L as the TPU's one-lane roll pairs them (the cross terms of a
-// dual-pol channel are those of its even, X, lane).  The partner of the
-// tile's last lane is lane (l0+tl) mod L, in the next tile: the block
-// loads that one lane's column too and transforms it beside the tile, for
-// 1/tl more reads and FFT work.
-// The TPU carried the profile across a sequential grid; here blocks run in
-// no order, so each block sums into shared-memory partials (float sums,
-// integer counts) and adds them to the global (n_phase+1, W*L) profile and
-// (n_phase+1,) counts with atomics once at its end.  Counts are taken by
-// the lane-tile-0 blocks only (the bin depends on t alone).  When the
-// partials do not fit shared memory (huge n_phase) every row goes to
-// global atomics directly.
-// Bound: bytes (read two planes, 1/tl more with STOKES: float32, or bf16
-// with T = __nv_bfloat16, widened on load as `_k3_fold_body` casts,
-// :412-413); nothing but the profile is written.
-template <bool STOKES, typename T, int V>
-__global__ void __launch_bounds__(kThreads)
+// dual-pol channel are those of its even, X, lane).  The tile's last
+// lane pairs with lane (l0+tl) mod L of the next tile, so the block loads
+// that lane too and transforms it beside the tile in the same register
+// passes (threads of their own: 1/tl more work); a lane's partner is the
+// next thread's item (a shuffle), the last lane's comes from the partner
+// threads through shared memory.
+// Design (what bounds it on an H100: bytes, the two planes read once,
+// 1/tl more with STOKES; nothing but the profile is written):
+// - The column's butterflies run in registers (reg::Plan, radix 8: three
+//   passes and two shared-memory exchanges at N1 = 512, against fft.cuh's
+//   three shared passes of three stages), each thread holding 8 rows of
+//   one lane for fold_items (lane, row group) items; the flagship's
+//   shape (N1 = 512, the 8-lane tile) is compiled for its sizes.
+// - The next column is staged while this one is transformed and folded:
+//   kFoldStages buffers filled by cp.async (16-byte copies of a tile row
+//   of a plane, as stored: bf16 stays bf16 until it is read into
+//   registers and widened, as `_k3_fold_body` casts, :412-413), each
+//   reused as its column's exchange once read.  Power: two blocks, 16
+//   warps, per SM; Stokes (one item a thread, 576 threads): one.
+// - Shared float atomics are compare-and-swap loops on this card, and a
+//   row's bin moves by one sample from one column to the next, so each
+//   register slot sums its run of equal bins over the block's columns
+//   and adds the run to the shared partials only when the bin changes
+//   (kFoldRuns; 0: one atomic per value); a Stokes run's two cross sums
+//   go in one 64-bit compare-and-swap.  The partials (float sums,
+//   integer counts) go to the global (n_phase+1, W*L) profile and
+//   (n_phase+1,) counts with one atomic per entry at the block's end.
+//   Counts are taken by the lane-0 items of the lane-tile-0 blocks only
+//   (the bin depends on t alone), once per row.  When the partials do not
+//   fit shared memory (huge n_phase) the runs go to global atomics.
+// - A row's 8 lanes are 8 neighbouring threads with the same bins: each
+//   computes one of the row group's 8 bins and shuffles it to the others.
+// What holds it back (tools/fft_sweep.py, which times the tile width,
+// one stage against two or three, the runs against an atomic per value,
+// and the kernel without its FFT or without its fold, kFoldMode 1, 2): the staged loads and the fold alone, and
+// the FFT alone, each take about 0.14 ms of the power form's ~0.19, and
+// overlap only in part.
+constexpr int kFoldLanes = 8, kFoldStages = 2, kFoldMode = 0, kFoldRuns = 1;
+constexpr int kFoldLogR = 3;           // radix-8 register passes
+
+// (lane, row group) items a thread holds: one with STOKES (whose run
+// sums take three registers a row) on tiles of up to 8 lanes, else two
+template <bool STOKES>
+__host__ __device__ constexpr int fold_items() {
+  return STOKES && kFoldLanes <= 8 ? 1 : 2;
+}
+
+// threads of a block at N1 = 512 (64 row groups): the tile's items, then
+// with STOKES the partner column's, each in whole warps
+template <bool STOKES>
+__host__ __device__ constexpr int fold_threads(int tl = kFoldLanes) {
+  return (64 * tl / fold_items<STOKES>() + 31) / 32 * 32 +
+         (STOKES ? (64 / fold_items<STOKES>() + 31) / 32 * 32 : 0);
+}
+
+// p[0] += a, p[1] += b as one 64-bit compare-and-swap loop (p 8-byte
+// aligned): the card has no float add among its shared-memory atomics, so
+// atomicAdd on a shared float is such a loop of its own.
+__device__ __forceinline__ void add_pair(float* p, float a, float b) {
+  auto* w = reinterpret_cast<unsigned long long*>(p);
+  unsigned long long old = *w, seen;
+  do {
+    seen = old;
+    const float x = __uint_as_float(static_cast<unsigned>(seen)) + a;
+    const float y = __uint_as_float(static_cast<unsigned>(seen >> 32)) + b;
+    old = atomicCAS(w, seen,
+                    static_cast<unsigned long long>(__float_as_uint(x)) |
+                        static_cast<unsigned long long>(__float_as_uint(y))
+                            << 32);
+  } while (old != seen);
+}
+
+// Shared-memory carve of a K3 block (host and device): kFoldStages
+// buffers, each a column's staged planes and then, once they are read
+// into registers, that column's exchange (the tile's lanes, then the
+// Stokes partner's column and its transform's rows); the twiddles; the
+// partials.
+template <bool STOKES, typename T>
+struct FoldSmem {
+  // bf16 partners are staged as the aligned 4-byte lane pair they open
+  static constexpr int kPartnerWords = kBf16<T> ? 2 : 1;
+  int ex_main, buf, tw, acc;   // ex_main in float2 slots, the rest bytes
+  __host__ __device__ FoldSmem(int n1, int tl, int n_phase, int smem_acc) {
+    const int elems = 2 * n1 * tl + (STOKES ? 2 * n1 * kPartnerWords : 0);
+    const int stage = elems * static_cast<int>(sizeof(T));
+    ex_main = reg::padded_size<2>(n1 * tl);
+    const int ex = (ex_main + (STOKES ? 2 * reg::padded_size<1>(n1) : 0)) * 8;
+    buf = ((stage > ex ? stage : ex) + 15) / 16 * 16;
+    tw = reg::twiddle_slots(log2i(n1), kFoldLogR) * 8;
+    acc = smem_acc ? ((n_phase + 1) * (STOKES ? 3 : 1) * tl + n_phase + 1) * 4
+                   : 0;
+  }
+  __host__ __device__ int bytes() const { return kFoldStages * buf + tw + acc; }
+};
+
+// LOG_N1 and LOG_TL fix log2(N1) and the tile at compile time for the
+// flagship's shape (-1: the launch's arguments).  Threads [0, n_main)
+// hold the tile's lanes, lane fastest; with STOKES threads [n_main,
+// blockDim.x) hold the partner lane's column.
+template <bool STOKES, typename T, int LOG_N1, int LOG_TL>
+__global__ void __launch_bounds__(fold_threads<STOKES>())
 k3_fold_kernel(const T* __restrict__ zr, const T* __restrict__ zi,
                const int* __restrict__ fold, float* __restrict__ prof,
-               unsigned* __restrict__ cnt, int log_n1, int log_n2, int L,
-               int log_tl, int n_phase, int pad_start, int n_valid,
-               int smem_acc) {
+               unsigned* __restrict__ cnt, int log_n1_arg, int log_n2, int L,
+               int log_tl_arg, int n_phase, int pad_start, int n_valid,
+               int smem_acc, int n_main, int chunk) {
   constexpr int W = STOKES ? 3 : 1;   // profile planes
-  extern __shared__ float2 smem[];
+  constexpr int R = 1 << kFoldLogR;
+  constexpr int I = fold_items<STOKES>();
+  constexpr int PW = FoldSmem<STOKES, T>::kPartnerWords;
+  constexpr unsigned kNoBin = 0xffffffffu;
+  using Plan = reg::Plan<kFoldLogR, LOG_N1>;
+  extern __shared__ __align__(16) unsigned char k3_smem[];
+  const int log_n1 = LOG_N1 >= 0 ? LOG_N1 : log_n1_arg;
+  const int log_tl = LOG_TL >= 0 ? LOG_TL : log_tl_arg;
+  const Plan plan(log_n1);
   const int n1 = 1 << log_n1;
   const int n2 = 1 << log_n2;
   const int tl = 1 << log_tl;
-  float2* x = smem;
-  float2* xp = smem + (n1 << log_tl);      // STOKES: the partner lane's column
-  float2* tw = xp + (STOKES ? n1 : 0);
-  float* pprof = reinterpret_cast<float*>(tw + n1 / 2);
+  const FoldSmem<STOKES, T> lay(n1, tl, n_phase, smem_acc);
+  T* stages = reinterpret_cast<T*>(k3_smem);
+  float2* tw = reinterpret_cast<float2*>(k3_smem + kFoldStages * lay.buf);
+  float* pprof = reinterpret_cast<float*>(k3_smem + kFoldStages * lay.buf +
+                                          lay.tw);
   const int acc_rows = (n_phase + 1) * W;
-  unsigned* pcnt = reinterpret_cast<unsigned*>(pprof + (acc_rows << log_tl));
+  unsigned* pcnt = reinterpret_cast<unsigned*>(pprof + acc_rows * tl);
   const int l0 = blockIdx.x << log_tl;
   const int lp = (l0 + tl) % L;            // partner of the tile's last lane
   const bool counter = blockIdx.x == 0;
-  fill_twiddles(tw, n1);
+  const int nthreads = blockDim.x;
+  reg::fill_twiddle_tables(tw, log_n1, kFoldLogR);
   if (smem_acc) {
-    for (int i = threadIdx.x; i < (acc_rows << log_tl); i += blockDim.x)
+    for (int i = threadIdx.x; i < acc_rows * tl; i += nthreads)
       pprof[i] = 0.0f;
-    for (int i = threadIdx.x; i <= n_phase; i += blockDim.x) pcnt[i] = 0u;
+    for (int i = threadIdx.x; i <= n_phase; i += nthreads) pcnt[i] = 0u;
   }
   const unsigned i0 = static_cast<unsigned>(fold[0]);
   const unsigned p = static_cast<unsigned>(fold[1]);
   const unsigned nph = static_cast<unsigned>(n_phase);
   const float inv_n1 = 1.0f / static_cast<float>(n1);
-  const int total = n1 << log_tl;
-  // add v to profile plane k of phase row `bin`, lane `lane` of the tile
-  auto add = [&](unsigned bin, int k, int lane, float v) {
-    const int row = static_cast<int>(bin) * W + k;
-    if (smem_acc) atomicAdd(&pprof[(row << log_tl) + lane], v);
-    else atomicAdd(&prof[static_cast<long>(row) * L + l0 + lane], v);
+  // add the W sums v to phase row `bin`, lane `lane` of the tile.  The
+  // shared partials hold a bin's power sums for the tile's lanes, then
+  // with STOKES each lane's (Re, Im) cross sums side by side, which one
+  // 64-bit compare-and-swap adds together
+  auto add = [&](unsigned bin, int lane, const float (&v)[W]) {
+    if (!smem_acc) {
+#pragma unroll
+      for (int k = 0; k < W; ++k)
+        atomicAdd(&prof[(static_cast<long>(bin) * W + k) * L + l0 + lane],
+                  v[k]);
+      return;
+    }
+    float* row = pprof + static_cast<int>(bin) * W * tl;
+    atomicAdd(&row[lane], v[0]);
+    if constexpr (STOKES) {
+      float* pair = row + tl + 2 * lane;
+      if (tl & 1) {                  // pairs not 8-byte aligned
+        atomicAdd(pair, v[1]);
+        atomicAdd(pair + 1, v[2]);
+      } else {
+        add_pair(pair, v[1], v[2]);
+      }
+    }
   };
 
-  for (int b = blockIdx.y; b < n2; b += gridDim.y) {
-    batched(total / V,
-            [&](int g) {
-              const int e = g * V;
-              return load_raw<V>(
-                  zr, zi,
-                  (static_cast<long>(b) * n1 + (e >> log_tl)) * L + l0 +
-                      (e & (tl - 1)));
-            },
-            [&](int g, const Raw<V, T>& w) {
+  // item i of this thread: lane `lane[i]` of the tile (tl: the Stokes
+  // partner), row group t[i] of the column's 2^log_t
+  const bool partner = STOKES && static_cast<int>(threadIdx.x) >= n_main;
+  const int stride = partner ? nthreads - n_main : n_main;
+  const int first = partner ? threadIdx.x - n_main : threadIdx.x;
+  int t[I], lane[I];
+  bool live[I];
 #pragma unroll
-              for (int i = 0; i < V; ++i) x[g * V + i] = w.at(i);
-            });
-    if constexpr (STOKES) {
-      batched(n1,
-              [&](int r) {
-                return load_raw<1>(zr, zi,
-                                   (static_cast<long>(b) * n1 + r) * L + lp);
-              },
-              [&](int r, const Raw<1, T>& w) { xp[r] = w.at(0); });
-    }
-    __syncthreads();
-    fft_dif<true>(x, tw, log_n1, log_tl);
-    if constexpr (STOKES) fft_dif<true>(xp, tw, log_n1, 0);
-    for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-      const int lane = idx & (tl - 1);
-      const int r = idx >> log_tl;
-      const int c = bitrev(r, log_n1);
-      const float2 v = x[idx];
-      const float vr = v.x * inv_n1;
-      const float vi = v.y * inv_n1;
-      const int t = c * n2 + b;
-      unsigned bin = nph;
-      if (t >= pad_start && t - pad_start < n_valid) {
-        const unsigned num = (i0 + static_cast<unsigned>(t) * p) & 0x7FFFFFFFu;
-        bin = ((num >> 16) * nph + (((num & 0xFFFFu) * nph) >> 16)) >> 15;
+  for (int i = 0; i < I; ++i) {
+    const int item = first + i * stride;
+    live[i] = item < (partner ? 1 : tl) << plan.log_t;
+    lane[i] = partner ? tl : item & (tl - 1);
+    t[i] = live[i] ? (partner ? item : item >> log_tl) : 0;
+  }
+  float2* ex;                          // the current column's exchange
+  auto slot = [&](int i, int row) {
+    return partner ? ex + lay.ex_main + reg::pad_slot<1>(row)
+                   : ex + reg::pad_slot<2>(row * tl + lane[i]);
+  };
+  auto sync = [] { __syncthreads(); };
+
+  // column b of both planes (and the partner lane) into stage buffer s
+  auto stage_column = [&](int b, T* s) {
+    T* pr = s + 2 * n1 * tl;           // partner planes, PW words a row
+    const long base = static_cast<long>(b) * n1 * L;
+    if (chunk) {
+      const int per = chunk / static_cast<int>(sizeof(T));
+      const int log_cpr = log_tl - (__ffs(per) - 1);   // copies a plane row
+      const int total = (2 * n1) << log_cpr;
+      for (int i = threadIdx.x; i < total; i += nthreads) {
+        const int c = i & ((1 << log_cpr) - 1);
+        const int row = (i >> log_cpr) & (n1 - 1);
+        const int plane = i >> (log_cpr + log_n1);
+        cp_async(s + (plane * n1 + row) * tl + c * per,
+                 (plane ? zi : zr) + base + static_cast<long>(row) * L + l0 +
+                     c * per,
+                 chunk);
       }
-      add(bin, 0, lane, vr * vr + vi * vi);
       if constexpr (STOKES) {
-        const float2 q = lane + 1 < tl ? x[idx + 1] : xp[r];
-        const float qr = q.x * inv_n1;
-        const float qi = q.y * inv_n1;
-        add(bin, 1, lane, vr * qr + vi * qi);
-        add(bin, 2, lane, vi * qr - vr * qi);
+        for (int i = threadIdx.x; i < 2 * n1; i += nthreads) {
+          const int plane = i >> log_n1, row = i & (n1 - 1);
+          cp_async(pr + (plane * n1 + row) * PW,
+                   (plane ? zi : zr) + base + static_cast<long>(row) * L + lp,
+                   4);
+        }
       }
-      if (counter && lane == 0) {
-        if (smem_acc) atomicAdd(&pcnt[bin], 1u);
-        else atomicAdd(&cnt[bin], 1u);
+    } else {
+      for (int i = threadIdx.x; i < (2 * n1) << log_tl; i += nthreads) {
+        const int ln = i & (tl - 1), row = (i >> log_tl) & (n1 - 1);
+        const int plane = i >> (log_tl + log_n1);
+        s[i] = (plane ? zi : zr)[base + static_cast<long>(row) * L + l0 + ln];
+      }
+      if constexpr (STOKES) {
+        for (int i = threadIdx.x; i < 2 * n1; i += nthreads) {
+          const int plane = i >> log_n1, row = i & (n1 - 1);
+          pr[(plane * n1 + row) * PW] =
+              (plane ? zi : zr)[base + static_cast<long>(row) * L + lp];
+        }
       }
     }
+  };
+  auto stage_buf = [&](int k) {
+    return stages + (k % kFoldStages) * (lay.buf / static_cast<int>(sizeof(T)));
+  };
+
+  // the run of equal bins each register slot is summing
+  float run[I][R][W];
+  unsigned run_bin[I][R];
+#pragma unroll
+  for (int i = 0; i < I; ++i)
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      run_bin[i][q] = kNoBin;
+#pragma unroll
+      for (int k = 0; k < W; ++k) run[i][q][k] = 0.0f;
+    }
+  auto flush = [&](int i, int q) {
+    if (run_bin[i][q] == kNoBin) return;
+    add(run_bin[i][q], lane[i], run[i][q]);
+#pragma unroll
+    for (int k = 0; k < W; ++k) run[i][q][k] = 0.0f;
+  };
+
+  // this block's run of columns
+  const int per_group = (n2 + gridDim.y - 1) / gridDim.y;
+  const int b0 = blockIdx.y * per_group;
+  const int n_cols = max(0, min(per_group, n2 - b0));
+  // columns b0 .. b0 + kFoldStages - 2 in flight before the first
+  for (int k = 0; k + 1 < kFoldStages; ++k) {
+    if (k < n_cols) stage_column(b0 + k, stage_buf(k));
+    cp_async_commit();
+  }
+  float keep = 0.0f;                   // kFoldMode 2: the FFT's results
+  for (int k = 0; k < n_cols; ++k) {
+    const int b = b0 + k;
+    // column b + kFoldStages - 1 into the buffer column b - 1 left
+    const int ahead = k + kFoldStages - 1;
+    if (ahead < n_cols) stage_column(b0 + ahead, stage_buf(ahead));
+    cp_async_commit();
+    cp_async_wait<kFoldStages - 1>();  // column b arrived
+    __syncthreads();
+    const T* s = stage_buf(k);
+    ex = reinterpret_cast<float2*>(stage_buf(k));
+    float2 v[I][R];
+#pragma unroll
+    for (int i = 0; i < I; ++i) {
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        v[i][q] = make_float2(0.0f, 0.0f);
+        if (!live[i] || q >= plan.used) continue;
+        const int row = plan.row_in(0, q, t[i]);
+        const int a = partner ? 2 * n1 * tl + row * PW : row * tl + lane[i];
+        const int im = partner ? n1 * PW : n1 * tl;
+        v[i][q] = make_float2(to_float(s[a]), to_float(s[a + im]));
+      }
+    }
+    if (kFoldMode != 1) plan.template run<true>(v, t, live, tw, slot, sync);
+    // STOKES: the partner column's transform, for the tile's last lane
+    // (every other lane's partner is the next thread's item), in a region
+    // of its own past the partner's exchange
+    float2* pfin = ex + lay.ex_main + reg::padded_size<1>(n1);
+    if constexpr (STOKES) {
+      if (partner) {
+#pragma unroll
+        for (int i = 0; i < I; ++i) {
+          if (!live[i]) continue;
+#pragma unroll
+          for (int q = 0; q < R; ++q)
+            if (q < plan.used)
+              pfin[reg::pad_slot<1>(plan.rows_final(q, t[i]))] = v[i][q];
+        }
+      }
+      __syncthreads();
+    }
+    // the phase bin of row c of this column
+    auto bin_of = [&](int c) {
+      const int tt = c * n2 + b;
+      if (tt < pad_start || tt - pad_start >= n_valid) return nph;
+      const unsigned num = (i0 + static_cast<unsigned>(tt) * p) & 0x7FFFFFFFu;
+      return ((num >> 16) * nph + (((num & 0xFFFFu) * nph) >> 16)) >> 15;
+    };
+    // the flagship's tile: a row's 8 lanes are 8 neighbouring threads that
+    // share its bins, so each computes the bin of one slot (its lane's)
+    // and the others take it by shuffle
+    constexpr bool kShareBins = LOG_TL == kFoldLogR;
+#pragma unroll
+    for (int i = 0; i < I; ++i) {
+      unsigned own = 0;
+      if constexpr (kShareBins) own = bin_of(plan.rows_final(lane[i] & (R - 1),
+                                                             t[i]));
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        float2 w = make_float2(0.0f, 0.0f);
+        if constexpr (STOKES) {        // the whole warp shuffles
+          w.x = __shfl_down_sync(0xffffffffu, v[i][q].x, 1);
+          w.y = __shfl_down_sync(0xffffffffu, v[i][q].y, 1);
+        }
+        unsigned shared_bin = 0;
+        if constexpr (kShareBins)
+          shared_bin = __shfl_sync(0xffffffffu, own,
+                                   (threadIdx.x & 31 & ~(R - 1)) | q);
+        if (!live[i] || partner || q >= plan.used) continue;
+        const int c = plan.rows_final(q, t[i]);
+        const float vr = v[i][q].x * inv_n1;
+        const float vi = v[i][q].y * inv_n1;
+        if (kFoldMode == 2) {
+          keep += vr * vr + vi * vi;
+          continue;
+        }
+        const unsigned bin = kShareBins ? shared_bin : bin_of(c);
+        if (counter && lane[i] == 0) {
+          if (smem_acc) atomicAdd(&pcnt[bin], 1u);
+          else atomicAdd(&cnt[bin], 1u);
+        }
+        float val[W];
+        val[0] = vr * vr + vi * vi;
+        if constexpr (STOKES) {
+          if (lane[i] == tl - 1) w = pfin[reg::pad_slot<1>(c)];
+          const float qr = w.x * inv_n1;
+          const float qi = w.y * inv_n1;
+          val[1] = vr * qr + vi * qi;
+          val[2] = vi * qr - vr * qi;
+        }
+        if (kFoldRuns) {
+          if (bin != run_bin[i][q]) {
+            flush(i, q);
+            run_bin[i][q] = bin;
+          }
+#pragma unroll
+          for (int k = 0; k < W; ++k) run[i][q][k] += val[k];
+        } else {
+          add(bin, lane[i], val);
+        }
+      }
+    }
+    // the next column's copies go to the buffer this one was staged and
+    // exchanged in: every thread must be done reading it
     __syncthreads();
   }
+#pragma unroll
+  for (int i = 0; i < I; ++i)
+#pragma unroll
+    for (int q = 0; q < R; ++q)
+      if (live[i] && !partner) flush(i, q);
+  if (kFoldMode == 2 && keep == -1.0f) prof[0] = keep;
   if (smem_acc) {
-    for (int i = threadIdx.x; i < (acc_rows << log_tl); i += blockDim.x)
-      atomicAdd(&prof[static_cast<long>(i >> log_tl) * L + l0 + (i & (tl - 1))],
+    __syncthreads();
+    for (int i = threadIdx.x; i < acc_rows * tl; i += nthreads) {
+      if (pprof[i] == 0.0f) continue;
+      const int bin = i / (W * tl), j = i - bin * W * tl;
+      const int k = j < tl ? 0 : 1 + ((j - tl) & 1);
+      const int ln = j < tl ? j : (j - tl) >> 1;
+      atomicAdd(&prof[(static_cast<long>(bin) * W + k) * L + l0 + ln],
                 pprof[i]);
+    }
     if (counter)
-      for (int i = threadIdx.x; i <= n_phase; i += blockDim.x)
+      for (int i = threadIdx.x; i <= n_phase; i += nthreads)
         if (pcnt[i]) atomicAdd(&cnt[i], pcnt[i]);
   }
 }
@@ -557,37 +833,72 @@ int launch_k3_fold(const void* zr, const void* zi, const int* fold,
                    float* prof, unsigned* cnt, int n1, int n2, int L,
                    int n_phase, int pad_start, int n_valid, int device,
                    void* stream) {
-  constexpr int W = STOKES ? 3 : 1;
-  const int partner = STOKES ? n1 * 8 : 0;   // the partner lane's column
-  // shared partials: W (n_phase+1) floats per lane plus (n_phase+1) counts
-  int log_tl = bbt::choose_log_tl(n1, L, (n_phase + 1) * 4 * W,
-                                  (n_phase + 1) * 4 + partner);
-  int smem_acc = 1;
-  if (log_tl < 0) {
-    log_tl = bbt::choose_log_tl(n1, L, 0, partner);
-    smem_acc = 0;
+  using Smem = bbt::FoldSmem<STOKES, T>;
+  // the widest power-of-two tile <= kFoldLanes dividing L whose stages,
+  // exchange and shared partials fit; else the widest without partials
+  // (the runs go to global atomics)
+  int log_tl = -1, smem_acc = 1;
+  for (int acc = 1; acc >= 0 && log_tl < 0; --acc) {
+    for (int lt = bbt::log2i(bbt::kFoldLanes); lt >= 0; --lt) {
+      if (L % (1 << lt)) continue;
+      if (Smem(n1, 1 << lt, n_phase, acc).bytes() <= bbt::kMaxSmem) {
+        log_tl = lt;
+        smem_acc = acc;
+        break;
+      }
+    }
   }
   if (log_tl < 0) return cudaErrorInvalidValue;
-  size_t smem = bbt::column_smem(n1, log_tl) + partner;
-  if (smem_acc)
-    smem += (static_cast<size_t>(n_phase + 1) * W << log_tl) * 4 +
-            (n_phase + 1) * 4;
-  // ~1024 blocks in all; each walks n2 / groups columns
+  const int tl = 1 << log_tl;
+  const size_t smem = Smem(n1, tl, n_phase, smem_acc).bytes();
+  // threads: the tile's (lane, row group) items, fold_items a thread,
+  // then with STOKES the partner column's row groups, in whole warps
+  constexpr int items = bbt::fold_items<STOKES>();
+  const int row_groups = n1 > (1 << bbt::kFoldLogR) ? n1 >> bbt::kFoldLogR
+                                                    : 1;
+  const auto warps_for = [](int n) {
+    return (n + 32 * items - 1) / (32 * items) * 32;
+  };
+  const int n_main = warps_for(tl * row_groups);
+  const int threads = n_main + (STOKES ? warps_for(row_groups) : 0);
+  if (threads > bbt::fold_threads<STOKES>()) return cudaErrorInvalidValue;
+  // 16-byte (or smaller) cp.async copies of a tile row, when the rows
+  // and the planes are aligned to them; else plain loads
+  const int row_bytes = tl * static_cast<int>(sizeof(T));
+  int chunk = row_bytes < 16 ? row_bytes : 16;
+  const auto aligned = [&](const void* ptr) {
+    return reinterpret_cast<uintptr_t>(ptr) % chunk == 0;
+  };
+  if (chunk < 4 || (L * static_cast<int>(sizeof(T))) % chunk ||
+      !aligned(zr) || !aligned(zi))
+    chunk = 0;
+  // the flagship's column (N1 = 512, the full tile) compiled for its
+  // shape; any other through the general kernel
+  constexpr int kHotTile = bbt::kFoldLanes == 16 ? 4
+                           : bbt::kFoldLanes == 8 ? 3
+                           : bbt::kFoldLanes == 4 ? 2 : -1;
+  auto kernel = n1 == 512 && log_tl == kHotTile
+                    ? bbt::k3_fold_kernel<STOKES, T, 9, kHotTile>
+                    : bbt::k3_fold_kernel<STOKES, T, -1, -1>;
+  cudaError_t err = bbt::prepare(kernel, smem, device);
+  if (err != cudaSuccess) return err;
+  // about one block per resident slot; each walks n2 / groups columns
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
   const int lane_tiles = L >> log_tl;
-  int groups = 1024 / lane_tiles;
+  int groups = per_sm * sms / lane_tiles;
   if (groups < 1) groups = 1;
   if (groups > n2) groups = n2;
-  return by_lanes<T>(log_tl, [&](auto v) -> cudaError_t {
-    auto kernel = bbt::k3_fold_kernel<STOKES, T, decltype(v)::value>;
-    cudaError_t err = bbt::prepare(kernel, smem, device);
-    if (err != cudaSuccess) return err;
-    kernel<<<dim3(lane_tiles, groups), kThreads, smem,
-             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(zr), static_cast<const T*>(zi), fold, prof, cnt,
-        bbt::log2i(n1), bbt::log2i(n2), L, log_tl, n_phase, pad_start,
-        n_valid, smem_acc);
-    return cudaGetLastError();
-  });
+  kernel<<<dim3(lane_tiles, groups), threads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(zr), static_cast<const T*>(zi), fold, prof, cnt,
+      bbt::log2i(n1), bbt::log2i(n2), L, log_tl, n_phase, pad_start, n_valid,
+      smem_acc, n_main, chunk);
+  return cudaGetLastError();
 }
 
 }  // namespace

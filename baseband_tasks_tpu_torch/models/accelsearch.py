@@ -20,7 +20,8 @@ Engines, as in the JAX package:
 - ``'pallas'``: overlap-save segments, their forward FFT (``torch.fft``,
   as the JAX package computes it outside its kernel), then the fused
   bank correlation (:func:`~..ops.accel_correlate.accel_correlate_bank`,
-  the ``accel_corr`` kernel on the card) over 128-lane chunks of the bank.
+  the ``accel_corr`` kernel on the card) over 128-lane chunks of the bank,
+  each computed and written for its real templates only.
 - ``'xla'``: the same overlap-save correlation on ``torch.fft``
   (broadcast multiply, batched inverse FFT); ``'auto'`` on the CPU.
 
@@ -39,8 +40,8 @@ import copy
 import numpy as np
 import torch
 
-from ..ops.accel_correlate import (LANES, MAX_SEG_LEN, accel_correlate_bank,
-                                   bank_matmul_power)
+from ..ops.accel_correlate import (LANES, MAX_SEG_LEN,
+                                   _accel_correlate_lanes, bank_matmul_power)
 from ..utils import units as u
 from .meshtools import (axis_devices, mesh_cache_key, pad_to_multiple,
                         require_mesh_axis)
@@ -299,12 +300,16 @@ class FourierDomainAccelSearch:
 
     def _search_impl_pallas(self, x, banks):
         """The forward segment FFT (torch.fft, shared by every z lane),
-        then the fused bank correlation per 128-lane chunk."""
+        then the fused bank correlation per 128-lane chunk, computed and
+        written for the chunk's real templates only (its pad lanes hold
+        zero templates, as in the JAX package, which computes and drops
+        them)."""
         F = torch.fft.fft(self._segments(x), dim=1)
         cols = []
         for (tr, ti), n_here in banks:
-            pmap = accel_correlate_bank(F, tr, ti, valid=self._valid)
-            cols.append(pmap.reshape(-1, LANES)[:self.n_freq, :n_here])
+            pmap = _accel_correlate_lanes(F, tr, ti, valid=self._valid,
+                                          n_used=n_here)
+            cols.append(pmap.reshape(-1, n_here)[:self.n_freq])
         return cols[0] if len(cols) == 1 else torch.cat(cols, dim=1)
 
     # -- dispatch ---------------------------------------------------------

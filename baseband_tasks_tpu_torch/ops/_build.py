@@ -61,7 +61,7 @@ _SIGNATURES = {
     "bbt_k3_power": [_P] * 3 + [_I] * 3 + [_I, _P],
     "bbt_bank_power": [_P] * 4 + [_I] * 3 + [_I, _P],
     "bbt_bank_power_tile": [_PI],
-    "bbt_accel_corr": [_P] * 4 + [_I] * 4 + [_I, _P],
+    "bbt_accel_corr": [_P] * 3 + [_I] * 6 + [_I, _P],
     "bbt_resident": [_P] * 12 + [_I] * 7 + [_I, _P],
     "bbt_halo_edges": [_PLL] * 3 + [_I] * 5 + [_LL, _I] + [_I, _P],
     "bbt_enable_peer": [_I, _I],

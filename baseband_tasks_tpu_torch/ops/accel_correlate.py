@@ -12,8 +12,11 @@ plain PyTorch version (``*_ref``) of the same function.
   3xTF32 on the tensor cores).
 - :func:`accel_correlate_bank` (engine 'pallas'): per segment spectrum,
   ``|IFFT(spec · tf[:, z])|²`` over a 128-lane z bank, trimmed to the
-  first ``valid`` lags; the complex products stay in shared memory.
-  Launch ``accel_corr`` (``csrc/accel.cu``).
+  first ``valid`` lags; the complex products stay on chip (registers and
+  shared memory).  Launch ``accel_corr`` (``csrc/accel.cu``), which reads
+  the bank lane-major (:func:`_lane_major`, built once per bank) and can
+  stop at the used lanes (:func:`_accel_correlate_lanes`, the search's
+  path: its pad lanes hold zero templates, so their power is zero).
 
 A wrapper given CUDA tensors launches its kernel or raises; given CPU
 tensors it runs the plain version (as does every wrapper inside the
@@ -41,9 +44,10 @@ __all__ = ["accel_correlate_bank", "accel_correlate_bank_ref",
 LANES = 128
 
 #: largest segment :func:`accel_correlate_bank` takes: the JAX package's
-#: limit, kept so both packages accept the same arguments.  On the card
-#: a 4096-row column takes 32 KB of shared memory per lane, so a 4-lane
-#: tile and its twiddle table take 144 KB of the 227 KB a block may use.
+#: limit, kept so both packages accept the same arguments.  On the card a
+#: block holds the exchanges of two 4096-row columns (70 KB), their
+#: twiddle tables (35 KB) and the power of eight lanes' rows (up to 120
+#: KB; four lanes' when more rows are kept) in the 227 KB a block may use.
 MAX_SEG_LEN = 4096
 
 # bank_power's contraction step (one k8 MMA)
@@ -55,6 +59,20 @@ def accel_correlate_bank_ref(segs, tf_r, tf_i, *, valid):
     prod = segs[:, :, None] * torch.complex(tf_r, tf_i)[None]
     corr = torch.fft.ifft(prod, dim=1)[:, :valid]
     return corr.real * corr.real + corr.imag * corr.imag
+
+
+def _accel_correlate_lanes_ref(segs, tf_r, tf_i, *, valid, n_used):
+    """Plain version of :func:`_accel_correlate_lanes`."""
+    return accel_correlate_bank_ref(segs, tf_r[:, :n_used], tf_i[:, :n_used],
+                                    valid=valid)
+
+
+def _lane_major(tf_r, tf_i):
+    """The bank as ``accel_corr`` reads it: (LANES, seg_len) complex64,
+    each lane's coefficients one contiguous run; built once per pair of
+    bank tensors (and again after either is changed in place)."""
+    return cached((tf_r, tf_i),
+                  lambda: torch.complex(tf_r, tf_i).T.contiguous())
 
 
 def accel_correlate_bank(segs, tf_r, tf_i, *, valid):
@@ -74,7 +92,17 @@ def accel_correlate_bank(segs, tf_r, tf_i, *, valid):
     Returns the (n_seg, valid, LANES) float32 power map
     ``|IFFT(segs[s] · tf[:, z])|²``, the inverse FFT scaled by 1/seg_len.
     ``seg_len`` must be a power of two no larger than ``MAX_SEG_LEN``.
+    The kernel computes every lane (zero templates give zero power).
     """
+    return _accel_correlate_lanes(segs, tf_r, tf_i, valid=valid,
+                                  n_used=LANES)
+
+
+def _accel_correlate_lanes(segs, tf_r, tf_i, *, valid, n_used):
+    """:func:`accel_correlate_bank` for the first ``n_used`` lanes only:
+    the (n_seg, valid, n_used) power map, the search's path (the lanes
+    past its templates hold zero templates, so their power is zero and
+    is neither computed nor written)."""
     dev = _device_of(segs)
     segs = _as_device(segs, dev, torch.complex64)
     tf_r, tf_i = (_as_device(t, dev, torch.float32) for t in (tf_r, tf_i))
@@ -84,27 +112,41 @@ def accel_correlate_bank(segs, tf_r, tf_i, *, valid):
     if seg_len > MAX_SEG_LEN:
         raise ValueError(
             f"seg_len {seg_len} exceeds the kernel's shared-memory budget "
-            f"(max {MAX_SEG_LEN}: a block holds its segment's column for a "
-            f"tile of z lanes in shared memory, 32 KB per lane at "
-            f"{MAX_SEG_LEN}). Use a seg_len <= {MAX_SEG_LEN} window — the "
-            "trimmed-output traffic is the same.")
+            f"(max {MAX_SEG_LEN}: a block holds the exchanges of its "
+            f"columns and the power of a tile of z lanes in shared memory). "
+            f"Use a seg_len <= {MAX_SEG_LEN} window — the trimmed-output "
+            "traffic is the same.")
     if tuple(tf_r.shape) != (seg_len, LANES):
         raise ValueError(f"bank planes must be ({seg_len}, {LANES}), "
                          f"got {tuple(tf_r.shape)}")
     if not 0 < valid <= seg_len:
         raise ValueError(f"valid {valid} out of range")
+    if not 0 < n_used <= LANES:
+        raise ValueError(f"n_used {n_used} out of range (1..{LANES})")
     if not _on_cuda(segs):
-        return accel_correlate_bank_ref(segs, tf_r, tf_i, valid=valid)
+        return _accel_correlate_lanes_ref(segs, tf_r, tf_i, valid=valid,
+                                          n_used=n_used)
     if seg_len < 2:
         raise ValueError("the kernel needs seg_len >= 2")
     _check(segs, "segs", torch.complex64, (n_seg, seg_len), dev)
     _check(tf_r, "tf_r", torch.float32, (seg_len, LANES), dev)
     _check(tf_i, "tf_i", torch.float32, (seg_len, LANES), dev)
-    out = torch.empty((n_seg, valid, LANES), dtype=torch.float32, device=dev)
+    bank = _lane_major(tf_r, tf_i)
+    # rows padded to whole 32-byte sectors (zeros past n_used): the map
+    # is a view of them, and its (n_seg * valid, n_used) reshape too
+    n_out = _sector_lanes(n_used)
+    out = torch.empty((n_seg, valid, n_out), dtype=torch.float32,
+                      device=dev)
     launch("accel_corr", "bbt_accel_corr", dev, segs.data_ptr(),
-           tf_r.data_ptr(), tf_i.data_ptr(), out.data_ptr(), n_seg, seg_len,
-           LANES, int(valid))
-    return out
+           bank.data_ptr(), out.data_ptr(), n_seg, seg_len, LANES,
+           int(n_used), n_out, int(valid))
+    return out[..., :n_used]
+
+
+def _sector_lanes(n_used):
+    """Lanes of a stored map row: ``n_used`` rounded up to a multiple of
+    8 (one 32-byte sector of float32)."""
+    return -(-int(n_used) // 8) * 8
 
 
 def bank_matmul_power_ref(fr, fi, ka, kb, kc):

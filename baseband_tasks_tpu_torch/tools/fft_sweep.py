@@ -1,0 +1,355 @@
+"""Time variants of the two register-FFT kernels, accel_corr (``csrc/
+accel.cu``) and the K3 detect-fold (``csrc/dedisperse.cu``), on one CUDA
+card, at the main paths' shapes.
+
+Each variant is the checkout's own source with the kernel's constants
+line replaced:
+
+- accel_corr (``kCorrThreads``, ``kCorrLanes``, ``kCorrMode``,
+  ``kCorrNext``): threads a block, lanes a tile (the power rows staged
+  for lane-fastest stores), mode 0 (the kernel), 1 (no FFT: the loads,
+  the products and the stores alone) or 2 (the FFT without the trim and
+  the stores), and whether the next lane's bank is loaded into registers
+  during this lane's FFT (1) or after it (0);
+- K3 (``kFoldLanes``, ``kFoldStages``, ``kFoldMode``, ``kFoldRuns``):
+  the widest lane tile, one stage buffer or two (the next column's copies
+  in flight during this column's FFT and fold, or issued after it), mode
+  0 (the kernel), 1 (no FFT: the staged loads and the fold) or 2 (the FFT
+  without the fold), and whether each register slot sums its run of
+  equal bins over the block's columns before one shared-memory atomic
+  (1) or adds every value with its own atomic (0).
+
+With ``--old DIR`` the sources of another checkout's ``csrc`` (the
+kernels before the redesign) are built and timed too.  The variants are
+built in parallel into ``build/fft_sweep/``, their ``-Xptxas -v``
+register and spill lines and the shared-memory atomic instructions of
+their SASS printed, each variant of mode 0 held against
+the plain version (accel_corr within 1e-4 of the peak; K3 counts exact,
+the power plane within rtol 2e-4, the Stokes cross planes within 1e-4 of
+their peak), and timed with CUDA events: accel_corr at 547 segments of
+4096 with 3840 valid lags for 65 and 128 lanes, K3 at N1 = N2 = 512, L =
+128, 64 phase bins, in power and Stokes, float32 and bf16, each beside
+its bytes bound.  The first of each list is the kernel as the package
+builds it.
+
+    python -m baseband_tasks_tpu_torch.tools.fft_sweep [--reps N] [--old DIR]
+
+Prints one line per measurement and ends with a JSON object of them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+from ..ops import _build
+from ..ops import dedisperse as dd
+from ..ops.accel_correlate import accel_correlate_bank_ref
+
+SWEEP_DIR = _build.BUILD_DIR.parent / "fft_sweep"
+HBM_BYTES_PER_S = 3.35e12      # the H100 SXM data sheet's HBM rate
+
+CORR_RE = (r"constexpr int kCorrThreads = \d+, kCorrLanes = \d+, "
+           r"kCorrMode = \d+, kCorrNext = \d+;")
+FOLD_RE = (r"constexpr int kFoldLanes = \d+, kFoldStages = \d+, "
+           r"kFoldMode = \d+, kFoldRuns = \d+;")
+# (threads, lanes, mode, next)
+CORR_VARIANTS = [(512, 8, 0, 1), (512, 8, 0, 0), (256, 4, 0, 1),
+                 (256, 4, 0, 0), (512, 8, 1, 1), (512, 8, 2, 1)]
+# (lanes, stages, mode, runs)
+FOLD_VARIANTS = [(8, 2, 0, 1), (8, 1, 0, 1), (8, 3, 0, 1), (8, 2, 0, 0),
+                 (4, 2, 0, 1), (16, 2, 0, 1), (8, 2, 1, 1), (8, 2, 2, 1)]
+# the search's path: 2^22 samples, seg_len 4096, 547 segments, 3840 lags
+N_SEG, SEG_LEN, VALID = 547, 4096, 3840
+# the flagship's window: N = 2^18 as 512 x 512, L = 128, pads 3584/4608
+N1 = N2 = 512
+L = 128
+N_PHASE, PAD_START, N_VALID = 64, 3584, (1 << 18) - 3584 - 4608
+# cycles per sample: the flagship's B1937-like pulsar (641.93 Hz) at the
+# channel rate of 250 kHz, ~389 samples a turn (chip_smoke.py's polyco)
+FOLD_RATE = 641.928123 / 250e3
+
+
+def corr_label(v):
+    mode = ("", " no FFT", " no trim")[v[2]]
+    return (f"{v[0]} threads, {v[1]} lanes a tile, next lane "
+            f"{'staged' if v[3] else 'after'}{mode}")
+
+
+def fold_label(v):
+    mode = ("", " no FFT", " no fold")[v[2]]
+    return (f"tile {v[0]} lanes, {v[1]} stage buffer(s), "
+            f"{'runs summed' if v[3] else 'an atomic a value'}{mode}")
+
+
+def build_one(name, unit_src, headers_dir, pattern, line):
+    d = SWEEP_DIR / name
+    if d.exists():
+        shutil.rmtree(d)
+    d.mkdir(parents=True)
+    for h in headers_dir.glob("*.cuh"):
+        shutil.copy(h, d / h.name)
+    src = unit_src.read_text()
+    if pattern is not None:
+        if len(re.findall(pattern, src)) != 1:
+            raise RuntimeError(f"{unit_src.name}: no single line to vary")
+        src = re.sub(pattern, line, src)
+    (d / unit_src.name).write_text(src)
+    so = d / "lib.so"
+    proc = subprocess.Popen([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+                             str(so), str(d / unit_src.name)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return so, proc
+
+
+def ptxas_lines(out, kernel):
+    """The register and spill lines of ``kernel``'s entries."""
+    lines, keep = [], False
+    for ln in out.splitlines():
+        if "Compiling entry function" in ln:
+            keep = kernel in ln
+            if keep:      # the instantiation's template arguments
+                lines.append(ln.split(kernel)[-1].split("EEv")[0] + "E")
+        elif keep and ("registers" in ln or "spill" in ln):
+            lines.append(ln.split("ptxas info    :")[-1].strip())
+    return lines
+
+
+def atomics(so, kernel):
+    """The shared-memory atomic instructions in the SASS of ``kernel``'s
+    entries, by opcode (a float add to shared memory is a CAS loop)."""
+    sass = subprocess.run(
+        [str(Path(_build.nvcc_path()).parent / "cuobjdump"), "-sass",
+         str(so)], capture_output=True, text=True, check=True).stdout
+    ops = {}
+    for fn in sass.split("Function : ")[1:]:
+        if kernel not in fn.split()[0]:
+            continue
+        for m in re.finditer(r"\b(ATOMS\.\S+)", fn):
+            op = m.group(1).rstrip(";")
+            ops[op] = ops.get(op, 0) + 1
+    return [f"SASS shared atomics: {ops}"] if ops else []
+
+
+# the entry points whose arguments the redesign changed, as they were
+_OLD_SIGNATURES = {"bbt_accel_corr": [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 4 + [ctypes.c_int, ctypes.c_void_p]}
+
+
+def load(so, old=False):
+    lib = ctypes.CDLL(str(so))
+    sigs = dict(_build._SIGNATURES, **(_OLD_SIGNATURES if old else {}))
+    for name, argtypes in sigs.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return lib
+
+
+def build_variants(old):
+    """{key: (library, ptxas lines)}: key ('corr', v), ('fold', v), or
+    ('corr', 'old') / ('fold', 'old') for ``old``'s sources."""
+    csrc = _build.CSRC
+    jobs = []
+    for v in CORR_VARIANTS:
+        line = (f"constexpr int kCorrThreads = {v[0]}, kCorrLanes = {v[1]}, "
+                f"kCorrMode = {v[2]}, kCorrNext = {v[3]};")
+        jobs.append((("corr", v), "accel_corr",
+                     build_one(f"accel_{'_'.join(map(str, v))}",
+                               csrc / "accel.cu", csrc, CORR_RE, line)))
+    for v in FOLD_VARIANTS:
+        line = (f"constexpr int kFoldLanes = {v[0]}, kFoldStages = {v[1]}, "
+                f"kFoldMode = {v[2]}, kFoldRuns = {v[3]};")
+        jobs.append((("fold", v), "k3_fold",
+                     build_one(f"dedisperse_{'_'.join(map(str, v))}",
+                               csrc / "dedisperse.cu", csrc, FOLD_RE, line)))
+    if old is not None:
+        old = Path(old)
+        jobs.append((("corr", "old"), "accel_corr",
+                     build_one("accel_old", old / "accel.cu", old, None, "")))
+        jobs.append((("fold", "old"), "k3_fold",
+                     build_one("dedisperse_old", old / "dedisperse.cu", old,
+                               None, "")))
+    libs = {}
+    for key, kernel, (so, proc) in jobs:
+        out = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc {key}:\n{out}")
+        libs[key] = (load(so, key[1] == "old"),
+                     ptxas_lines(out, kernel) + atomics(so, kernel))
+    return libs
+
+
+def call(fn, dev, *args):
+    err = fn(*args, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"launch failed with CUDA error {err}")
+
+
+def cuda_ms(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def randn(dev, shape, seed, count):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=dev) for _ in range(count)]
+
+
+def bytes_ms(*tensors_or_bytes):
+    n = sum(t if isinstance(t, int) else t.numel() * t.element_size()
+            for t in tensors_or_bytes)
+    return 1e3 * n / HBM_BYTES_PER_S
+
+
+def sweep_corr(libs, dev, reps, out):
+    sr, si = randn(dev, (N_SEG, SEG_LEN), 81, 2)
+    segs = torch.complex(sr, si)
+    tr, ti = randn(dev, (SEG_LEN, 128), 82, 2)
+    bank = torch.complex(tr, ti).T.contiguous()
+    ref = accel_correlate_bank_ref(segs, tr, ti, valid=VALID)
+    keys = [k for k in libs if k[0] == "corr"]
+    for key in keys:
+        lib, lines = libs[key]
+        v = key[1]
+        name = ("accel_corr old kernel" if v == "old"
+                else f"accel_corr {corr_label(v)}")
+        rec = {"kernel": "accel_corr", "variant": v, "ptxas": lines}
+        print(name, *lines, sep="\n  ", flush=True)
+        for n_used, n_out in ((65, 72), (65, 65), (128, 128)):
+            got = torch.empty((N_SEG, VALID, n_out), device=dev)
+            if v == "old":
+                if n_used != 128:
+                    continue
+                kern = lambda: call(lib.bbt_accel_corr, dev, segs.data_ptr(),
+                                    tr.data_ptr(), ti.data_ptr(),
+                                    got.data_ptr(), N_SEG, SEG_LEN, 128,
+                                    VALID)
+            else:
+                kern = lambda: call(lib.bbt_accel_corr, dev, segs.data_ptr(),
+                                    bank.data_ptr(), got.data_ptr(), N_SEG,
+                                    SEG_LEN, 128, n_used, n_out, VALID)
+            kern()
+            torch.cuda.synchronize()
+            rel = None
+            if v == "old" or v[2] == 0:
+                r = ref[..., :n_used]
+                rel = float((got[..., :n_used] - r).abs().max()
+                            / r.abs().max())
+                if got[..., n_used:].any():
+                    raise AssertionError(f"{name}: padding lanes not zero")
+                if not rel <= 1e-4:
+                    raise AssertionError(f"{name}: {rel} of the peak")
+            ms = cuda_ms(kern, reps)
+            bound = bytes_ms(segs, 8 * SEG_LEN * n_used,
+                             4 * N_SEG * VALID * n_used)
+            rec[f"{n_used} lanes, rows of {n_out}"] = {
+                "ms": ms, "bound_ms": bound, "rel": rel}
+            print(f"{name}, {n_used} lanes, rows of {n_out}: {ms:.4f} ms, "
+                  f"bound {bound:.4f} "
+                  f"ms (bytes), vs plain "
+                  f"{'-' if rel is None else f'{rel:.2e}'}", flush=True)
+            del got
+        out.append(rec)
+
+
+def sweep_fold(libs, dev, reps, out):
+    zf = randn(dev, (N2, N1, L), 83, 2)
+    zb = [p.to(torch.bfloat16) for p in zf]
+    fold = torch.as_tensor(dd.fold_phase_vector(0.3, FOLD_RATE), device=dev)
+    refs = {}
+    keys = [k for k in libs if k[0] == "fold"]
+    for key in keys:
+        lib, lines = libs[key]
+        v = key[1]
+        name = ("K3 old kernel" if v == "old" else f"K3 {fold_label(v)}")
+        rec = {"kernel": "k3_fold", "variant": v, "ptxas": lines}
+        print(name, *lines, sep="\n  ", flush=True)
+        for stokes in (False, True):
+            for z in (zf, zb):
+                form = (("k3_fold_stokes" if stokes else "k3_fold")
+                        + ("_bf16" if z is zb else ""))
+                W = 3 if stokes else 1
+                prof = torch.zeros((N_PHASE + 1, W * L), device=dev)
+                cnt = torch.zeros((N_PHASE + 1,), dtype=torch.int32,
+                                  device=dev)
+                fn = getattr(lib, f"bbt_{form}")
+                kern = lambda: call(fn, dev, z[0].data_ptr(), z[1].data_ptr(),
+                                    fold.data_ptr(), prof.data_ptr(),
+                                    cnt.data_ptr(), N1, N2, L, N_PHASE,
+                                    PAD_START, N_VALID)
+                kern()
+                torch.cuda.synchronize()
+                rel = cross = None
+                if v == "old" or v[2] == 0:
+                    if form not in refs:
+                        refs[form] = dd.fold_ref(
+                            *z, fold, n_phase=N_PHASE, pad_start=PAD_START,
+                            n_valid=N_VALID, stokes=stokes)
+                    rprof, rcnt = refs[form]
+                    if not torch.equal(cnt, rcnt):
+                        raise AssertionError(f"{name} {form}: counts")
+                    hit = rcnt > 0
+                    rel = float(((prof[:, :L] - rprof[:, :L]).abs()[hit]
+                                 / rprof[:, :L].abs()[hit]).max())
+                    cross = (float((prof[:, L:] - rprof[:, L:]).abs().max()
+                                   / rprof[:, L:].abs().max())
+                             if stokes else 0.0)
+                    if not (rel <= 2e-4 and cross <= 1e-4):
+                        raise AssertionError(f"{name} {form}: {rel} {cross}")
+                ms = cuda_ms(lambda: (prof.zero_(), cnt.zero_(), kern()),
+                             reps)
+                zero_ms = cuda_ms(lambda: (prof.zero_(), cnt.zero_()), reps)
+                bound = bytes_ms(*z, fold, prof, cnt)
+                rec[form] = {"ms": ms - zero_ms, "bound_ms": bound,
+                             "rel": rel, "cross": cross}
+                print(f"{name}, {form}: {ms - zero_ms:.4f} ms, bound "
+                      f"{bound:.4f} ms (bytes), vs plain "
+                      f"{'-' if rel is None else f'{rel:.2e} / {cross:.2e}'}",
+                      flush=True)
+        out.append(rec)
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--reps", type=int, default=20)
+    p.add_argument("--old", default=None,
+                   help="another checkout's csrc directory to time too")
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    gpu = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(gpu, flush=True)
+    dev = torch.device("cuda", 0)
+    libs = build_variants(args.old)
+    out = []
+    sweep_corr(libs, dev, args.reps, out)
+    sweep_fold(libs, dev, args.reps, out)
+    print(json.dumps({"gpu": gpu, "variants": out}, default=str))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

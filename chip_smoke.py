@@ -94,7 +94,8 @@ pads 256/256, the 261,120-row block of ``tools/bench_resident.py``):
 
 (k) holds bank_power (8448 x 512 segments against the 512 x 16896
     Karatsuba operator of the mx engine; 3xTF32 on the tensor cores),
-    accel_corr (547 segments of 4096 against the 128-lane bank) and
+    accel_corr (547 segments of 4096 against the search's 65 used lanes,
+    and the public op at its 128 lanes beside both lane counts' bounds) and
     resident (windows 2048 and 4096, power and Stokes) against their
     plain versions, and times them beside the one PyTorch call computing
     the same function (a complex ``matmul`` and ``|.|^2``; cuFFT's
@@ -107,7 +108,8 @@ pads 256/256, the 261,120-row block of ``tools/bench_resident.py``):
     asserts each engine's launches, holds mx and pallas against xla at
     the JAX package's bounds, finds the tone with the map,
     ``harmonic_sum`` and ``candidates``, times each engine against its
-    plain versions in turns, then runs ``FastFoldingSearch`` (base period
+    plain versions in turns and ``search_sharded`` 'pallas' over four
+    virtual shards of the card, then runs ``FastFoldingSearch`` (base period
     1000, 4096 trials) on the card against the same call on the CPU;
 (m) calls ``ops.dedisperse_fold_resident`` on both engines, power and
     Stokes, against its plain versions on the card, and against the
@@ -1556,6 +1558,46 @@ def check_resident(tag, got, ref, L, gpu):
     return float((prof - rprof).abs().max())
 
 
+def accel_cost(segs, valid, lanes):
+    """accel_corr's (reads, writes, FP32 operations) for ``lanes`` lanes:
+    the segment spectra and the lanes' templates read, the (n_seg, valid,
+    lanes) map written, a seg_len-point FFT, the product and |.|^2 per
+    (segment, lane) point."""
+    n_seg, seg_len = segs.shape
+    meta = dict(device="meta")
+    return ((segs, torch.empty((seg_len, lanes), dtype=torch.complex64,
+                               **meta)),
+            (torch.empty((n_seg, valid, lanes), **meta),),
+            n_seg * seg_len * lanes * (5 * np.log2(seg_len) + 6))
+
+
+def time_public_accel(segs, tr, ti, valid, n_used, res, gpu):
+    """The public accel_correlate_bank at its 128 lanes (zero templates
+    past the search's), against its plain version and timed beside the
+    library call and its own bound; the bounds of both lane counts."""
+    from baseband_tasks_tpu_torch.ops import accel_correlate as ac
+    got = ac.accel_correlate_bank(segs, tr, ti, valid=valid)
+    ref = ac.accel_correlate_bank_ref(segs, tr, ti, valid=valid)
+    err, rel = compare((got,), (ref,))
+    pad = float(got[..., n_used:].abs().max())
+    print(f"(k) accel_corr public op {tuple(got.shape)}: rel {rel:.3e}, "
+          f"zero-template lanes max {pad:.1e}", flush=True)
+    if rel > FFT_TOL or pad != 0.0:
+        raise AssertionError("accel_correlate_bank disagrees")
+    del got, ref
+    prod = (segs[:, None, :] * torch.complex(tr, ti).T[None]).contiguous()
+    ms, lib_ms = (cuda_ms(f, reps=5) for f in (
+        lambda: ac.accel_correlate_bank(segs, tr, ti, valid=valid),
+        lambda: torch.fft.ifft(prod, dim=-1).abs() ** 2))
+    del prod
+    full = bound(*accel_cost(segs, valid, ac.LANES))[0]
+    print(f"(k) accel_corr: {n_used} used lanes {res['ms']:.4f} ms, bound "
+          f"{res['bound_ms']:.4f} ms (bytes), library "
+          f"{res['library_ms']:.4f} ms; public op at {ac.LANES} lanes "
+          f"{ms:.4f} ms, bound {full:.4f} ms (bytes), library {lib_ms:.4f} "
+          f"ms [{gpu}]", flush=True)
+
+
 def check_search_kernels(dev, gpu):
     """Phase (k): bank_power, accel_corr and resident against their plain
     versions at the shapes of the search and resident paths, timed with
@@ -1568,15 +1610,17 @@ def check_search_kernels(dev, gpu):
     n_seg = -(-n_seg // 256) * 256           # padded to the 256-row tile
     fr, fi = randn(dev, (n_seg, 2 * mx.m), 80)
     pal = accel_search(dev, "pallas")
-    (tr, ti), _ = pal._lane_banks()[0]
+    (tr, ti), n_used = pal._lane_banks()[0]   # the search's used lanes
     sr, si = randn(dev, (pal._n_seg, pal.seg_len), 81)
     segs = torch.complex(sr, si)
     valid = pal._valid
     # the library yardsticks: one complex matmul and |.|^2; one cuFFT
-    # inverse FFT of the bank product, lanes outer, and |.|^2
+    # inverse FFT of the bank product (the used lanes), lanes outer, and
+    # |.|^2
     op = torch.complex(ka, kb - ka)
     sc = torch.complex(fr, fi)
-    prod = (segs[:, None, :] * torch.complex(tr, ti).T[None]).contiguous()
+    prod = (segs[:, None, :]
+            * torch.complex(tr, ti).T[None, :n_used]).contiguous()
     cases = {
         "bank_power": (lambda: ac.bank_matmul_power(fr, fi, ka, kb, kc),
                        lambda: ac.bank_matmul_power_ref(fr, fi, ka, kb, kc),
@@ -1585,16 +1629,13 @@ def check_search_kernels(dev, gpu):
                            (fr, fi, ka, kb, kc),
                            (torch.empty((n_seg, ka.shape[1]), device="meta"),),
                            3 * 2 * n_seg * ka.shape[0] * ka.shape[1])),
-        "accel_corr": (lambda: ac.accel_correlate_bank(segs, tr, ti,
-                                                       valid=valid),
-                       lambda: ac.accel_correlate_bank_ref(segs, tr, ti,
-                                                           valid=valid),
+        # the search's path: the used lanes only
+        "accel_corr": (lambda: ac._accel_correlate_lanes(
+                           segs, tr, ti, valid=valid, n_used=n_used),
+                       lambda: ac._accel_correlate_lanes_ref(
+                           segs, tr, ti, valid=valid, n_used=n_used),
                        lambda: torch.fft.ifft(prod, dim=-1).abs() ** 2,
-                       ((segs, tr, ti),
-                        (torch.empty((pal._n_seg, valid, ac.LANES),
-                                     device="meta"),),
-                        pal._n_seg * pal.seg_len * ac.LANES
-                        * (5 * np.log2(pal.seg_len) + 6))),
+                       accel_cost(segs, valid, n_used)),
     }
     results = {}
     full_fp32()
@@ -1615,6 +1656,9 @@ def check_search_kernels(dev, gpu):
               f"{lib_ms:.4f} ms library, bound "
               f"{results[name]['bound_ms']:.4f} ms "
               f"({results[name]['bound_by']}) [{gpu}]", flush=True)
+        if name == "accel_corr":
+            time_public_accel(segs, tr, ti, valid, n_used, res=results[name],
+                              gpu=gpu)
         if name == "bank_power":
             print(f"(k) bank_power: {both_bounds(cost)}", flush=True)
             got = ac.bank_matmul_power(fr[:256], fi[:256], ka, kb, kc)
@@ -1732,7 +1776,16 @@ def drive_search(dev, gpu):
               f"{1e3 * best['plain']:.3f} ms plain, "
               f"{samples / best['kernels']:.4e} sample-trials/s [{gpu}]",
               flush=True)
-    del searches
+    # 'pallas' with the bank over four virtual shards of the card: each
+    # shard's chunk computes only its own templates
+    from baseband_tasks_tpu_torch.parallel import Mesh
+    srch, zmesh = searches["pallas"], Mesh([dev] * 4, ("z",))
+    srch.search_sharded(x, zmesh)             # builds the shards' banks
+    best = min(cuda_ms(lambda: srch.search_sharded(x, zmesh), reps=3)
+               for _ in range(2))
+    print(f"(l) search_sharded 'pallas' over 4 shards: {best:.3f} ms "
+          f"[{gpu}]", flush=True)
+    del searches, srch
     torch.cuda.empty_cache()
     ffa = FastFoldingSearch(FFA_BASE, SEARCH_N)
     if ffa.device.type != dev.type or ffa.m != ffa_trials():

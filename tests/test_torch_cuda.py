@@ -22,7 +22,10 @@ full-Stokes fold k3_fold_stokes, k3_power, k2_theta, k1_planes,
 k1_stream_planes, and the pipeline's step_fn, step_bins_fn and planes
 step on the kernels, against the plain versions and the torch.fft path),
 the bf16 passes (K1p, K1f, K2 with a float32 or a bf16 chirp, K3 power
-and Stokes) and the split ops in bf16 mode, their refusals (mixed y/z
+and Stokes) and the split ops in bf16 mode, K3's four launch names on
+one- and two-lane tiles and the flagship's column (the register FFT's
+compiled shape), accel_corr's used-lane entry (seg_len 2 to 4096, 1 to
+128 lanes, rows padded to whole sectors), their refusals (mixed y/z
 dtypes, strided or misaligned bf16 planes), the absorbed reduction
 (masked fold, config 1) on the card, and the mesh: the halo_remote
 kernel against its plain copies on virtual shards of one card (any
@@ -675,6 +678,78 @@ def test_accel_corr_many_segments(dev):
     ref = ac.accel_correlate_bank_ref(segs, tr, ti, valid=5)
     _peak_close(got, ref)
     _peak_close(got[65535:], ref[65535:])
+
+
+@pytest.mark.parametrize("n_used", [1, 17, 65, 128])
+@pytest.mark.parametrize("full", [False, True], ids=["valid1", "validN"])
+@pytest.mark.parametrize("seg_len", [2, 8, 512, 4096])
+def test_accel_corr_lanes(dev, seg_len, full, n_used):
+    """The search's used-lane entry: the first n_used lanes of the public
+    op, its rows padded to whole sectors underneath (the map and its
+    (-1, n_used) reshape are views of them), one launch."""
+    from baseband_tasks_tpu_torch.ops import accel_correlate as ac
+    valid = seg_len if full else 1
+    sr, si = randn(dev, (5, seg_len), 76)
+    tr, ti = randn(dev, (seg_len, ac.LANES), 77)
+    segs = torch.complex(sr, si)
+    dd.reset_launch_counts()
+    got = ac._accel_correlate_lanes(segs, tr, ti, valid=valid, n_used=n_used)
+    assert dd.launch_counts["accel_corr"] == 1
+    assert got.shape == (5, valid, n_used)
+    assert got.reshape(-1, n_used).data_ptr() == got.data_ptr()
+    _peak_close(got, ac._accel_correlate_lanes_ref(segs, tr, ti, valid=valid,
+                                                   n_used=n_used))
+    _peak_close(got, ac.accel_correlate_bank(segs, tr, ti,
+                                             valid=valid)[..., :n_used])
+
+
+def test_accel_corr_lanes_many_segments(dev):
+    """More segments than a grid has rows, on the used-lane entry."""
+    from baseband_tasks_tpu_torch.ops import accel_correlate as ac
+    sr, si = randn(dev, (70001, 8), 78)
+    tr, ti = randn(dev, (8, ac.LANES), 79)
+    segs = torch.complex(sr, si)
+    got = ac._accel_correlate_lanes(segs, tr, ti, valid=5, n_used=17)
+    ref = ac._accel_correlate_lanes_ref(segs, tr, ti, valid=5, n_used=17)
+    _peak_close(got, ref)
+    _peak_close(got[65535:], ref[65535:])
+
+
+@pytest.mark.parametrize("n_phase", [8, 64, 32768])
+@pytest.mark.parametrize("stokes", [False, True])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(32, 32, 1), (32, 32, 2), (32, 32, 3),
+                                   (16, 512, 24), (16, 512, 128)])
+def test_k3_fold_tiles(dev, shape, bf16, stokes, n_phase):
+    """K3's four launch names on one-lane tiles (L 1 and 3), two-lane
+    tiles, and the flagship's column (N1 = 512, 8-lane tiles: three of
+    them at L 24, sixteen at 128): every Stokes partner, across each tile
+    edge and from lane L-1 to lane 0; the global-atomic path at n_phase
+    2^15; counts exact, the power plane within PROFILE_RTOL, the cross
+    planes within FFT_TOL of their peak."""
+    n2, n1, L = shape
+    z = randn(dev, (n2, n1, L), 80)
+    if bf16:
+        z = [p.to(torch.bfloat16) for p in z]
+    pad = n1 * n2 // 8
+    fold = torch.as_tensor(dd.fold_phase_vector(0.3, 1.0 / 97.0), device=dev)
+    kw = dict(n_phase=n_phase, pad_start=pad, n_valid=n1 * n2 - 2 * pad,
+              stokes=stokes)
+    dd.reset_launch_counts()
+    prof, cnt = dd.detect_fold(*z, fold, **kw)
+    name = ("k3_fold_stokes" if stokes else "k3_fold") + (
+        "_bf16" if bf16 else "")
+    assert {k: v for k, v in dd.launch_counts.items() if v} == {name: 1}
+    rprof, rcnt = dd.fold_ref(*z, fold, **kw)
+    assert torch.equal(cnt, rcnt)
+    assert int(cnt.sum()) == n1 * n2
+    hit = rcnt > 0
+    rel = ((prof[:, :L] - rprof[:, :L]).abs()[hit]
+           / rprof[:, :L].abs()[hit]).max()
+    assert float(rel) <= PROFILE_RTOL
+    if stokes:
+        assert_planes((prof[:, L:],), (rprof[:, L:],))
+    assert not prof[~hit].any()
 
 
 @pytest.mark.parametrize("engine", ["mx", "pallas", "xla"])
