@@ -8,6 +8,9 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+#include <initializer_list>
+
 namespace bbt {
 
 constexpr int kThreads = 256;
@@ -89,10 +92,41 @@ __device__ __forceinline__ void team_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
+// p[0] += a, p[1] += b as one 64-bit compare-and-swap loop (p 8-byte
+// aligned): the card has no float add among its shared-memory atomics, so
+// atomicAdd on a shared float is such a loop of its own.
+__device__ __forceinline__ void add_pair(float* p, float a, float b) {
+  auto* w = reinterpret_cast<unsigned long long*>(p);
+  unsigned long long old = *w, seen;
+  do {
+    seen = old;
+    const float x = __uint_as_float(static_cast<unsigned>(seen)) + a;
+    const float y = __uint_as_float(static_cast<unsigned>(seen >> 32)) + b;
+    old = atomicCAS(w, seen,
+                    static_cast<unsigned long long>(__float_as_uint(x)) |
+                        static_cast<unsigned long long>(__float_as_uint(y))
+                            << 32);
+  } while (old != seen);
+}
+
 __host__ __device__ constexpr int log2i(int n) {
   int k = 0;
   while ((1 << k) < n) ++k;
   return k;
+}
+
+// cp.async copy size for tile rows of tl elements of `elem` bytes in
+// planes of row stride L elements starting at `planes` (null ones
+// ignored): the row's bytes up to 16, or 0 (plain loads) when below 4 or
+// when a row or a plane is not aligned to it.
+inline int copy_chunk(int tl, int L, int elem,
+                      std::initializer_list<const void*> planes) {
+  const int row_bytes = tl * elem;
+  const int chunk = row_bytes < 16 ? row_bytes : 16;
+  if (chunk < 4 || (L * elem) % chunk) return 0;
+  for (const void* p : planes)
+    if (p && reinterpret_cast<uintptr_t>(p) % chunk) return 0;
+  return chunk;
 }
 
 // Select the device (this library's runtime keeps its own current device)

@@ -30,11 +30,12 @@
 // flight together cover whole rows and device memory is read in full
 // rows rather than in scattered tl-float pieces.  Each thread issues
 // kBatch global loads before it stores any to shared memory, so enough
-// bytes are in flight to cover device-memory latency.  K1 and K2 run
-// the shared-memory radix-2 of fft.cuh, three stages per pass; K3 runs
-// its column in registers (fft_reg.cuh) and stages the next column by
-// cp.async while it transforms and folds this one (see K3 below); wgmma,
-// TMA loads and fusing the passes are later work.
+// bytes are in flight to cover device-memory latency.  K1 runs the
+// shared-memory radix-2 of fft.cuh, three stages per pass; K2 and K3 run
+// their columns in registers (fft_reg.cuh) and stage the next column by
+// cp.async while they transform this one (see k2_reg_kernel and K3 below;
+// K2 keeps the shared-memory k2_kernel for columns longer than 4096);
+// wgmma, TMA loads and fusing the passes are later work.
 //
 // bf16 intermediates (the JAX module's inter_dtype='bfloat16', whose K1
 // stores y in the output's dtype, K2 casts y and the chirp to f32 on load
@@ -250,7 +251,10 @@ k1_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 // ---------------------------------------------------------------------------
 // K2: replaces `_k2_body` (dedisperse_pallas.py:259, launched by `_stage_b`
 // :429) and, with THETA, `_k2_body_theta` (:286, launched by
-// `_stage_b_theta` :460).  Block (lane tile, c) loads column c of the
+// `_stage_b_theta` :460).  Two forms under each launch name: the register
+// kernel k2_reg_kernel below for columns of up to 4096 rows (the paths'
+// 512), and this shared-memory kernel for longer ones (launch_k2 picks;
+// bbt_k2_form says which).  Block (lane tile, c) loads column c of the
 // d-major planes (rows b*N1+c), runs the forward FFT over b (DIF: the
 // spectrum comes out in bit-reversed order, so the chirp row is read at
 // d = bitrev(position)), multiplies by the chirp, runs the inverse FFT
@@ -340,6 +344,274 @@ k2_kernel(T* __restrict__ yr, T* __restrict__ yi,
   }
 }
 
+// K2 in registers: the same function as k2_kernel, for every stage-B
+// column the register budget below holds (N2 up to 4096; larger columns
+// keep k2_kernel).  Block (lane tile, group) walks a run of consecutive
+// columns c (about one block per resident slot of the card).  For each:
+// - column c + kK2Stages - 1 is staged by cp.async while this one is
+//   transformed: 16-byte (or smaller) copies of a tile row of each plane
+//   as stored (y re, y im, the chirp's two planes or THETA's one), so bf16
+//   stays bf16 until it is read into registers and widened, as `_k2_body`
+//   casts (:267-270); each stage buffer then serves as its column's
+//   exchange;
+// - each thread reads its R = 8 rows of one lane and the chirp at the
+//   rows it will hold after the forward FFT (the Stockham output is in
+//   natural frequency order, so chirp row d is flat row d of the d-major
+//   storage: no bit-reversed gather), then runs the forward FFT over b in
+//   registers (reg::Plan, radix 8: three passes, two exchanges at
+//   N2 = 512), multiplies by the chirp, and runs the inverse FFT on the
+//   same registers: at a compiled size a thread ends the forward FFT with
+//   the rows it began with, so the inverse takes its inputs by renamed
+//   registers (Plan::to_inputs), with no exchange between the two;
+// - 1/N2 and W_N^{+c b}: one sincospif per row on the exact argument,
+//   shared by the tile's lanes (each computes its share of the rows and
+//   shuffles), then the column is stored in place, a tile row a run.
+// What bounds it: bytes (six plane passes; five with THETA).  A column's
+// rows lie N1 x L elements apart, so each tile row is a separate run of
+// device memory: the tile is 16 lanes (64-byte float32 rows), with which
+// the kernel moves its bytes about 1.3x faster than with 8 (32-byte rows,
+// tools/fft_sweep.py), and two (lane, row group) items a thread keep the
+// 16-lane block at 512 threads.  What holds it back is device memory: the
+// sweep's variant without FFTs takes about as long as the kernel.  The
+// flagship's column (N2 = 512, the 16- and 8-lane tiles) is compiled for
+// its size, as is the compiled PFB chains' (N2 = 256, 512 lanes).  Sweep
+// knobs (tools/fft_sweep.py): the widest tile, the stage buffers, the
+// items a thread, where the chirp comes from, and mode 1 (no FFT: the
+// staged loads, the products and the stores) or 2 (no stores).  The
+// chirp is staged with the planes when the stage buffers hold it at the
+// widest tile; else float32 k2 reads it from device memory into registers
+// at the column's start (kK2Chirp 0: N2 = 512's 16-lane float32 column
+// and chirp do not fit twice; N2 = 256's do).  The bf16 and theta forms
+// always stage theirs, whose widening or sincospif at the load would
+// stall it.  kK2Chirp 1: float32 k2 always into registers; 2: always
+// staged, on a narrower tile if it must.
+constexpr int kK2Lanes = 16, kK2Stages = 2, kK2Items = 2, kK2Chirp = 0,
+              kK2Mode = 0;
+constexpr int kK2LogR = 3;             // radix-8 register passes
+constexpr int kK2MaxThreads = 512;
+
+// Shared-memory carve of a register-K2 block: kK2Stages buffers, each a
+// column's staged planes (y re, y im as T, then, when `staged`, the
+// chirp's planes as C) and then that column's exchange; then the twiddle
+// tables.
+template <bool THETA, typename T, typename C>
+struct K2Smem {
+  int buf, tw;   // bytes
+  __host__ __device__ K2Smem(int n2, int tl, bool staged) {
+    const int row = 2 * static_cast<int>(sizeof(T)) +
+                    (staged ? (THETA ? 1 : 2) * static_cast<int>(sizeof(C))
+                            : 0);
+    const int stage = n2 * tl * row;
+    const int ex = reg::padded_size<2>(n2 * tl) * 8;
+    buf = ((stage > ex ? stage : ex) + 15) / 16 * 16;
+    tw = reg::twiddle_slots(log2i(n2), kK2LogR) * 8;
+  }
+  __host__ __device__ int bytes() const { return kK2Stages * buf + tw; }
+};
+
+// LOG_N2 and LOG_TL fix log2(N2) and the tile at compile time for the
+// paths' columns (-1: the launch's arguments).  chunk_y / chunk_c: the
+// cp.async copy size of the planes / the chirp (0: plain loads); staged:
+// the chirp comes with the planes (else from device memory, float32 k2).
+template <bool THETA, typename T, typename C, int LOG_N2, int LOG_TL>
+__global__ void __launch_bounds__(kK2MaxThreads)
+k2_reg_kernel(T* __restrict__ yr, T* __restrict__ yi,
+              const C* __restrict__ csr, const C* __restrict__ csi,
+              int log_n1, int log_n2_arg, int L, int log_tl_arg, int chunk_y,
+              int chunk_c, int staged) {
+  constexpr int R = 1 << kK2LogR;
+  constexpr int I = kK2Items;
+  using Plan = reg::Plan<kK2LogR, LOG_N2>;
+  extern __shared__ __align__(16) unsigned char k2_smem[];
+  const int log_n2 = LOG_N2 >= 0 ? LOG_N2 : log_n2_arg;
+  const int log_tl = LOG_TL >= 0 ? LOG_TL : log_tl_arg;
+  const Plan plan(log_n2);
+  const int n1 = 1 << log_n1;
+  const int n2 = 1 << log_n2;
+  const int tl = 1 << log_tl;
+  const int plane = n2 << log_tl;      // elements of one staged plane
+  const K2Smem<THETA, T, C> lay(n2, tl, staged);
+  float2* tw = reinterpret_cast<float2*>(k2_smem + kK2Stages * lay.buf);
+  const int l0 = blockIdx.x << log_tl;
+  const int nthreads = blockDim.x;
+  reg::fill_twiddle_tables(tw, log_n2, kK2LogR);
+
+  // item i of this thread: lane `lane[i]` of the tile, row group t[i]
+  int t[I], lane[I];
+  bool live[I];
+#pragma unroll
+  for (int i = 0; i < I; ++i) {
+    const int item = threadIdx.x + i * nthreads;
+    live[i] = item < tl << plan.log_t;
+    lane[i] = item & (tl - 1);
+    t[i] = live[i] ? item >> log_tl : 0;
+  }
+  float2* ex;                          // the current column's exchange
+  auto slot = [&](int i, int row) {
+    return ex + reg::pad_slot<2>(row * tl + lane[i]);
+  };
+  auto sync = [] { __syncthreads(); };
+
+  // np planes (p0, then p1) of column c, rows b = 0 .. N2-1 of the tile,
+  // into dst as [plane][row][lane]
+  auto stage_planes = [&](auto* dst, const auto* p0, const auto* p1, int np,
+                          int c, int chunk) {
+    using U = std::remove_pointer_t<decltype(dst)>;
+    const long col = static_cast<long>(c) * L + l0;   // + b * n1 * L
+    const long row_stride = static_cast<long>(n1) * L;
+    if (chunk) {
+      const int per = chunk / static_cast<int>(sizeof(U));
+      const int log_cpr = log_tl - (__ffs(per) - 1);   // copies a tile row
+      const int total = (np * n2) << log_cpr;
+      for (int i = threadIdx.x; i < total; i += nthreads) {
+        const int k = i & ((1 << log_cpr) - 1);
+        const int row = (i >> log_cpr) & (n2 - 1);
+        const int pl = i >> (log_cpr + log_n2);
+        cp_async(dst + (pl * n2 + row) * tl + k * per,
+                 (pl ? p1 : p0) + row * row_stride + col + k * per, chunk);
+      }
+    } else {
+      for (int i = threadIdx.x; i < (np * n2) << log_tl; i += nthreads) {
+        const int row = (i >> log_tl) & (n2 - 1);
+        const int pl = i >> (log_tl + log_n2);
+        dst[i] = (pl ? p1 : p0)[row * row_stride + col + (i & (tl - 1))];
+      }
+    }
+  };
+  auto buf_of = [&](int k) { return k2_smem + (k % kK2Stages) * lay.buf; };
+  auto stage_column = [&](int c, unsigned char* s) {
+    stage_planes(reinterpret_cast<T*>(s), yr, yi, 2, c, chunk_y);
+    if (staged)
+      stage_planes(reinterpret_cast<C*>(s + 2 * plane * sizeof(T)), csr, csi,
+                   THETA ? 1 : 2, c, chunk_c);
+  };
+
+  // this block's run of columns
+  const int per_group = (n1 + gridDim.y - 1) / gridDim.y;
+  const int cb = blockIdx.y * per_group;
+  const int n_cols = max(0, min(per_group, n1 - cb));
+  for (int k = 0; k + 1 < kK2Stages; ++k) {
+    if (k < n_cols) stage_column(cb + k, buf_of(k));
+    cp_async_commit();
+  }
+  const float inv_n2 = 1.0f / static_cast<float>(n2);
+  const float nf = static_cast<float>(n1) * static_cast<float>(n2);
+  // the flagship's tile: a row's lanes are neighbouring threads that share
+  // its twiddle, so each of the first P = min(tl, R) computes the
+  // twiddles of R / P rows and the others take them by shuffle
+  constexpr bool kShareTw = LOG_TL >= 1;
+  constexpr int kLogP = LOG_TL < kK2LogR ? LOG_TL : kK2LogR;
+  constexpr int kOwn = kShareTw ? R >> kLogP : 1;
+  float keep = 0.0f;                   // kK2Mode 2: the results
+  for (int k = 0; k < n_cols; ++k) {
+    const int c = cb + k;
+    const int ahead = k + kK2Stages - 1;
+    if (ahead < n_cols) stage_column(cb + ahead, buf_of(ahead));
+    cp_async_commit();
+    cp_async_wait<kK2Stages - 1>();    // column c arrived
+    __syncthreads();
+    const unsigned char* s = buf_of(k);
+    const T* sy = reinterpret_cast<const T*>(s);
+    const C* sc = reinterpret_cast<const C*>(s + 2 * plane * sizeof(T));
+    ex = reinterpret_cast<float2*>(buf_of(k));
+    // this thread's rows of y, and the chirp at the frequency rows it
+    // holds after the forward FFT
+    float2 v[I][R], ch[I][R];
+#pragma unroll
+    for (int i = 0; i < I; ++i) {
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        v[i][q] = make_float2(0.0f, 0.0f);
+        ch[i][q] = make_float2(1.0f, 0.0f);
+        if (!live[i] || q >= plan.used) continue;
+        const int a = plan.row_in(0, q, t[i]) * tl + lane[i];
+        v[i][q] = make_float2(to_float(sy[a]), to_float(sy[a + plane]));
+        const int row = plan.rows_final(q, t[i]);
+        const int d = row * tl + lane[i];
+        if constexpr (THETA) {
+          float sn, cs;
+          sincospif(2.0f * to_float(sc[d]), &sn, &cs);
+          ch[i][q] = make_float2(cs, sn);
+        } else if (staged) {
+          ch[i][q] = make_float2(to_float(sc[d]), to_float(sc[d + plane]));
+        } else {
+          const long g = (static_cast<long>(row) * n1 + c) * L + l0 + lane[i];
+          ch[i][q] = make_float2(to_float(csr[g]), to_float(csi[g]));
+        }
+      }
+    }
+    if (kK2Mode != 1) plan.template run<false>(v, t, live, tw, slot, sync);
+#pragma unroll
+    for (int i = 0; i < I; ++i)
+#pragma unroll
+      for (int q = 0; q < R; ++q) v[i][q] = cmul(v[i][q], ch[i][q]);
+    if constexpr (LOG_N2 >= 1) {
+#pragma unroll
+      for (int i = 0; i < I; ++i) Plan::to_inputs(v[i]);
+    } else {                           // natural order back to row_in(0)
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < I; ++i) {
+        if (!live[i]) continue;
+#pragma unroll
+        for (int q = 0; q < R; ++q)
+          if (q < plan.used) *slot(i, plan.rows_final(q, t[i])) = v[i][q];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < I; ++i) {
+        if (!live[i]) continue;
+#pragma unroll
+        for (int q = 0; q < R; ++q)
+          if (q < plan.used) v[i][q] = *slot(i, plan.row_in(0, q, t[i]));
+      }
+    }
+    if (kK2Mode != 1) plan.template run<true>(v, t, live, tw, slot, sync);
+    // 1/N2, W_N^{+c b} and the store of row b = rows_final(q, t)
+    auto twiddle = [&](int b) {
+      float sn, cs;
+      sincospif(2.0f * static_cast<float>(c * b) / nf, &sn, &cs);
+      return make_float2(cs * inv_n2, sn * inv_n2);
+    };
+#pragma unroll
+    for (int i = 0; i < I; ++i) {
+      float2 own[kOwn];
+      if constexpr (kShareTw) {
+#pragma unroll
+        for (int j = 0; j < kOwn; ++j)
+          own[j] = twiddle(plan.rows_final(
+              (j << kLogP) + (lane[i] & ((1 << kLogP) - 1)), t[i]));
+      }
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        float2 w = make_float2(0.0f, 0.0f);
+        if constexpr (kShareTw) {
+          const int src = (threadIdx.x & 31 & ~((1 << LOG_TL) - 1)) |
+                          (q & ((1 << kLogP) - 1));
+          w.x = __shfl_sync(0xffffffffu, own[q >> kLogP].x, src);
+          w.y = __shfl_sync(0xffffffffu, own[q >> kLogP].y, src);
+        }
+        if (!live[i] || q >= plan.used) continue;
+        const int b = plan.rows_final(q, t[i]);
+        if constexpr (!kShareTw) w = twiddle(b);
+        const float2 out = cmul(v[i][q], w);
+        if (kK2Mode == 2) {
+          keep += out.x + out.y;
+          continue;
+        }
+        const long o = (static_cast<long>(b) * n1 + c) * L + l0 + lane[i];
+        const float re[1] = {out.x}, im[1] = {out.y};
+        store_lanes<1>(yr, o, re);
+        store_lanes<1>(yi, o, im);
+      }
+    }
+    // the next column's copies go to the buffer this one was staged and
+    // exchanged in: every thread must be done reading it
+    __syncthreads();
+  }
+  if (kK2Mode == 2 && keep == -1.0f) yr[0] = yr[1];
+}
+
 // ---------------------------------------------------------------------------
 // K3: replaces `_k3_fold_body` (dedisperse_pallas.py:381, launched by
 // `_fold_pallas_call` :618) with `_detect_fold_accumulate` (:332): the
@@ -410,23 +682,6 @@ template <bool STOKES>
 __host__ __device__ constexpr int fold_threads(int tl = kFoldLanes) {
   return (64 * tl / fold_items<STOKES>() + 31) / 32 * 32 +
          (STOKES ? (64 / fold_items<STOKES>() + 31) / 32 * 32 : 0);
-}
-
-// p[0] += a, p[1] += b as one 64-bit compare-and-swap loop (p 8-byte
-// aligned): the card has no float add among its shared-memory atomics, so
-// atomicAdd on a shared float is such a loop of its own.
-__device__ __forceinline__ void add_pair(float* p, float a, float b) {
-  auto* w = reinterpret_cast<unsigned long long*>(p);
-  unsigned long long old = *w, seen;
-  do {
-    seen = old;
-    const float x = __uint_as_float(static_cast<unsigned>(seen)) + a;
-    const float y = __uint_as_float(static_cast<unsigned>(seen >> 32)) + b;
-    old = atomicCAS(w, seen,
-                    static_cast<unsigned long long>(__float_as_uint(x)) |
-                        static_cast<unsigned long long>(__float_as_uint(y))
-                            << 32);
-  } while (old != seen);
 }
 
 // Shared-memory carve of a K3 block (host and device): kFoldStages
@@ -810,10 +1065,84 @@ int k1_float(const float* xr, const float* xi, const float* fr,
                              stream);
 }
 
+// The register K2's block for an N2-row column: the widest power-of-two
+// tile <= kK2Lanes dividing L whose block (threads, stage buffers) fits,
+// with the chirp staged when it fits there too (kK2Chirp); log2 of the
+// tile, the block's threads and whether the chirp is staged, or false
+// (the column is too long: k2_kernel takes it).
+template <bool THETA, typename T, typename C>
+bool k2_register_tile(int n2, int L, int* log_tl, int* threads,
+                      bool* staged) {
+  const int row_groups = n2 > (1 << bbt::kK2LogR) ? n2 >> bbt::kK2LogR : 1;
+  constexpr bool kCanLoad = !THETA && !bbt::kBf16<T> && !bbt::kBf16<C>;
+  for (int lt = bbt::log2i(bbt::kK2Lanes); lt >= 0; --lt) {
+    if (L % (1 << lt)) continue;
+    const int items = row_groups << lt;
+    const int n = (items + 32 * bbt::kK2Items - 1) / (32 * bbt::kK2Items) * 32;
+    if (n > bbt::kK2MaxThreads) continue;
+    const auto fits = [&](bool st) {
+      return bbt::K2Smem<THETA, T, C>(n2, 1 << lt, st).bytes() <=
+             bbt::kMaxSmem;
+    };
+    const bool load = kCanLoad && bbt::kK2Chirp != 2 && fits(false);
+    if (bbt::kK2Chirp == 1 && load) {
+      *staged = false;
+    } else if (fits(true)) {
+      *staged = true;
+    } else if (load) {
+      *staged = false;
+    } else {
+      continue;
+    }
+    *log_tl = lt;
+    *threads = n;
+    return true;
+  }
+  return false;
+}
+
 template <bool THETA, typename T, typename C>
 int launch_k2(void* yr, void* yi, const void* c0, const void* c1, int n1,
               int n2, int L, int device, void* stream) {
-  const int log_tl = bbt::choose_log_tl(n2, L, 0, 0);
+  int log_tl = -1, threads = 0;
+  bool staged = true;
+  if (k2_register_tile<THETA, T, C>(n2, L, &log_tl, &threads, &staged)) {
+    const int tl = 1 << log_tl;
+    const size_t smem = bbt::K2Smem<THETA, T, C>(n2, tl, staged).bytes();
+    // the paths' columns compiled for their sizes (a run-time pass plan
+    // is several times slower): the flagship's N2 = 512 at the two widest
+    // tiles, the compiled PFB chains' N2 = 256 (2^15-row windows, 512
+    // lanes) at the widest
+    constexpr int kHotTile = bbt::log2i(bbt::kK2Lanes);
+    auto kernel = n2 == 512 && log_tl == kHotTile
+                      ? bbt::k2_reg_kernel<THETA, T, C, 9, kHotTile>
+                  : n2 == 512 && log_tl == kHotTile - 1
+                      ? bbt::k2_reg_kernel<THETA, T, C, 9, kHotTile - 1>
+                  : n2 == 256 && log_tl == kHotTile
+                      ? bbt::k2_reg_kernel<THETA, T, C, 8, kHotTile>
+                      : bbt::k2_reg_kernel<THETA, T, C, -1, -1>;
+    cudaError_t err = bbt::prepare(kernel, smem, device);
+    if (err != cudaSuccess) return err;
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+    if (err != cudaSuccess) return err;
+    const int lane_tiles = L >> log_tl;
+    int groups = per_sm * sms / lane_tiles;
+    if (groups < 1) groups = 1;
+    if (groups > n1) groups = n1;
+    kernel<<<dim3(lane_tiles, groups), threads, smem,
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<T*>(yr), static_cast<T*>(yi), static_cast<const C*>(c0),
+        static_cast<const C*>(c1), bbt::log2i(n1), bbt::log2i(n2), L, log_tl,
+        bbt::copy_chunk(tl, L, sizeof(T), {yr, yi}),
+        bbt::copy_chunk(tl, L, sizeof(C), {c0, c1}), staged);
+    return cudaGetLastError();
+  }
+  log_tl = bbt::choose_log_tl(n2, L, 0, 0);
   if (log_tl < 0) return cudaErrorInvalidValue;
   const size_t smem = bbt::column_smem(n2, log_tl);
   return by_lanes<T>(log_tl, [&](auto v) -> cudaError_t {
@@ -864,14 +1193,7 @@ int launch_k3_fold(const void* zr, const void* zi, const int* fold,
   if (threads > bbt::fold_threads<STOKES>()) return cudaErrorInvalidValue;
   // 16-byte (or smaller) cp.async copies of a tile row, when the rows
   // and the planes are aligned to them; else plain loads
-  const int row_bytes = tl * static_cast<int>(sizeof(T));
-  int chunk = row_bytes < 16 ? row_bytes : 16;
-  const auto aligned = [&](const void* ptr) {
-    return reinterpret_cast<uintptr_t>(ptr) % chunk == 0;
-  };
-  if (chunk < 4 || (L * static_cast<int>(sizeof(T))) % chunk ||
-      !aligned(zr) || !aligned(zi))
-    chunk = 0;
+  const int chunk = bbt::copy_chunk(tl, L, sizeof(T), {zr, zi});
   // the flagship's column (N1 = 512, the full tile) compiled for its
   // shape; any other through the general kernel
   constexpr int kHotTile = bbt::kFoldLanes == 16 ? 4
@@ -1021,6 +1343,31 @@ extern "C" int bbt_k2_theta(void* yr, void* yi, const void* theta, int n1,
                             int n2, int L, int device, void* stream) {
   return launch_k2<true, float, float>(yr, yi, theta, nullptr, n1, n2, L,
                                        device, stream);
+}
+
+// k2_form: 1 when a K2 launch (kind 0 k2, 1 k2_bf16, 2 k2_bf16_chirp,
+// 3 k2_theta) of this shape runs the register kernel, 0 when it keeps the
+// shared-memory k2_kernel (columns longer than the register block holds),
+// -1 for a kind it does not know.
+extern "C" int bbt_k2_form(int n2, int L, int kind) {
+  int log_tl, threads;
+  bool staged;
+  switch (kind) {
+    case 0:
+      return k2_register_tile<false, float, float>(n2, L, &log_tl, &threads,
+                                                   &staged);
+    case 1:
+      return k2_register_tile<false, bf16, float>(n2, L, &log_tl, &threads,
+                                                  &staged);
+    case 2:
+      return k2_register_tile<false, bf16, bf16>(n2, L, &log_tl, &threads,
+                                                 &staged);
+    case 3:
+      return k2_register_tile<true, float, float>(n2, L, &log_tl, &threads,
+                                                  &staged);
+    default:
+      return -1;
+  }
 }
 
 extern "C" int bbt_k3_fold(const void* zr, const void* zi, const int* fold,

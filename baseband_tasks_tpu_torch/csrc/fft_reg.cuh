@@ -230,6 +230,36 @@ struct Plan {
     return passes ? row_out(passes - 1, s, t) : s;
   }
 
+  // LOG_N fixed: the pass-0 input slot of the row that slot s holds when
+  // the transform is done, rows_final(s, t) == row_in(0, final_slot(s), t)
+  // for every t.  A thread ends with the rows it began with, in another
+  // order (the last pass's bit reversal), so a second transform of the
+  // result takes its inputs by renaming registers, with no exchange
+  // (`to_inputs`).
+  __host__ __device__ static constexpr int final_slot(int s) {
+    static_assert(LOG_N >= 1, "final_slot needs log2(n) at compile time");
+    constexpr int pn = passes_of(LOG_N, LOG_R);
+    constexpr int lr = log_radix_of(LOG_N, LOG_R, pn - 1);
+    const int m = s & ((1 << lr) - 1);
+    int b = 0;
+    for (int i = 0; i < lr; ++i) b |= ((m >> i) & 1) << (lr - 1 - i);
+    return pn == 1 ? b : (s >> lr) + (b << (LOG_R - lr));
+  }
+
+  // v[s] (row rows_final(s, t)) moved to slot final_slot(s): the inputs
+  // of another transform of the same rows, in registers
+  __device__ __forceinline__ static void to_inputs(float2 (&v)[R]) {
+    float2 u[R];
+    static_for<R>([&](auto sc) {
+      constexpr int s = decltype(sc)::value;
+      u[final_slot(s)] = v[s];
+    });
+    static_for<R>([&](auto sc) {
+      constexpr int s = decltype(sc)::value;
+      v[s] = u[s];
+    });
+  }
+
   // pass p's twiddles and butterflies on thread t's registers
   template <bool INVERSE>
   __device__ __forceinline__ void butterflies(float2 (&v)[R], int p, int t,

@@ -27,7 +27,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["library", "build", "nvcc_path", "launch", "launch_counts",
-           "reset_launch_counts", "kernel_tile"]
+           "reset_launch_counts", "kernel_tile", "kernel_form"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -63,6 +63,8 @@ _SIGNATURES = {
     "bbt_bank_power_tile": [_PI],
     "bbt_accel_corr": [_P] * 3 + [_I] * 6 + [_I, _P],
     "bbt_resident": [_P] * 12 + [_I] * 7 + [_I, _P],
+    "bbt_resident_form": [_I] * 4,
+    "bbt_k2_form": [_I] * 3,
     "bbt_halo_edges": [_PLL] * 3 + [_I] * 5 + [_LL, _I] + [_I, _P],
     "bbt_enable_peer": [_I, _I],
 }
@@ -182,6 +184,17 @@ def library():
             fns[name] = fn
         _lib = types.SimpleNamespace(**fns)
     return _lib
+
+
+def kernel_form(fn, *args):
+    """Which form of a kernel a launch of this shape runs, from its C
+    query ``fn`` (``bbt_k2_form``, ``bbt_resident_form``): 'register'
+    (the column in registers) or 'shared' (the shared-memory body kept
+    for columns the register block cannot hold)."""
+    form = getattr(library(), fn)(*args)
+    if form not in (0, 1):
+        raise ValueError(f"{fn}{args}: no kernel takes this shape")
+    return "register" if form else "shared"
 
 
 def kernel_tile(fn):

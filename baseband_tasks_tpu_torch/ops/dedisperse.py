@@ -53,7 +53,7 @@ import math
 import numpy as np
 import torch
 
-from ._build import launch, launch_counts, reset_launch_counts
+from ._build import kernel_form, launch, launch_counts, reset_launch_counts
 from .fold import fold_accumulate
 from .unpack import decode_planes, default_levels, default_offset
 
@@ -66,7 +66,8 @@ __all__ = ["split_n", "permute_to_storage_order", "fold_phase_vector",
            "dedisperse_pow2", "dedisperse_pow2_planes",
            "dedisperse_fold_pow2", "dedisperse_fold_stream",
            "dedisperse_fold_split", "dedisperse_fold_split_packed",
-           "fold_chain", "as_tensor", "launch_counts", "reset_launch_counts"]
+           "fold_chain", "as_tensor", "launch_counts", "reset_launch_counts",
+           "k2_form"]
 
 _FX_BITS = 31
 _FX_ONE = 1 << _FX_BITS          # one pulse cycle in fixed-point units
@@ -473,6 +474,16 @@ def stage_b(yr, yi, csr, csi):
     launch(name, f"bbt_{name}", dev, yr.data_ptr(), yi.data_ptr(),
            csr.data_ptr(), csi.data_ptr(), n1, n2, L)
     return yr, yi
+
+
+_K2_KINDS = {"k2": 0, "k2_bf16": 1, "k2_bf16_chirp": 2, "k2_theta": 3}
+
+
+def k2_form(name, n2, L):
+    """'register' or 'shared': the form of K2 launch ``name`` (k2,
+    k2_bf16, k2_bf16_chirp, k2_theta) on (n2, n1, L) planes (needs the
+    kernels' library, so a CUDA machine)."""
+    return kernel_form("bbt_k2_form", int(n2), int(L), _K2_KINDS[name])
 
 
 def stage_b_theta(yr, yi, theta):

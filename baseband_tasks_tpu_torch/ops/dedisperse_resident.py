@@ -34,17 +34,26 @@ import functools
 import numpy as np
 import torch
 
-from ._build import launch
+from ._build import kernel_form, launch
 from .dedisperse import (_as_device, _check, _check_n_phase, _detect,
                          _device_of, _fold_vector, _is_pow2, _on_cuda,
                          _twiddle, fold_bins, fold_detected)
 
 __all__ = ["dedisperse_fold_resident", "dedisperse_fold_resident_ref",
-           "resident_geometry"]
+           "resident_geometry", "resident_form"]
 
 #: largest window the kernel takes: one lane's 2^14-row column and its
 #: twiddles fill ~190 KB of shared memory
 MAX_WINDOW = 1 << 14
+
+
+def resident_form(n_window, L, n_phase, stokes=False):
+    """'register' (the window in registers from load to fold, every
+    window up to 4096 rows) or 'shared' (the shared-memory body kept for
+    longer windows): the form of the ``resident`` kernel a launch of this
+    shape runs (needs the kernels' library, so a CUDA machine)."""
+    return kernel_form("bbt_resident_form", int(n_window), int(L),
+                       int(n_phase), int(bool(stokes)))
 
 
 def resident_geometry(n_window, pad_start, pad_end):

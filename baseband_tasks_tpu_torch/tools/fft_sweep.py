@@ -1,6 +1,7 @@
-"""Time variants of the two register-FFT kernels, accel_corr (``csrc/
-accel.cu``) and the K3 detect-fold (``csrc/dedisperse.cu``), on one CUDA
-card, at the main paths' shapes.
+"""Time variants of the register-FFT kernels, accel_corr (``csrc/
+accel.cu``), the K3 detect-fold and K2 (``csrc/dedisperse.cu``) and the
+resident dedisperse -> fold (``csrc/resident.cu``), on one CUDA card, at
+the main paths' shapes.
 
 Each variant is the checkout's own source with the kernel's constants
 line replaced:
@@ -17,22 +18,44 @@ line replaced:
   0 (the kernel), 1 (no FFT: the staged loads and the fold) or 2 (the FFT
   without the fold), and whether each register slot sums its run of
   equal bins over the block's columns before one shared-memory atomic
-  (1) or adds every value with its own atomic (0).
+  (1) or adds every value with its own atomic (0);
+- K2 (``kK2Lanes``, ``kK2Stages``, ``kK2Items``, ``kK2Chirp``,
+  ``kK2Mode``): the widest lane tile, the stage buffers, the (lane, row
+  group) items a thread, the chirp staged with the planes where the
+  buffers hold it, else float32 k2's read into registers (0), float32
+  k2's always into registers (1) or always staged (2; the other forms
+  stage theirs), and mode 0 (the kernel), 1 (no FFT: the staged loads,
+  the chirp and twiddle products and the stores) or 2 (the FFTs without
+  the stores);
+- resident (``kResTile2048``, ``kResStages2048``, ... ``kResStages4096S``,
+  ``kResChirpRegs4096S``; ``kResStages``, ``kResMode``, ``kResRuns``,
+  ``kResChirp``): the lane tile and stage buffers of each compiled case
+  (N 2048 power and Stokes, 4096 power and Stokes), the chirp slots a
+  thread of the 4096-row Stokes case holds in registers (the rest in
+  shared memory), the general instantiation's stage buffers, mode
+  0, 1 (no FFT) or 2 (no fold), runs of equal bins summed (1) or an
+  atomic a value (0), and the chirp held in registers for the block's
+  life (1) or read from L2 every window (0).
 
 With ``--old DIR`` the sources of another checkout's ``csrc`` (the
-kernels before the redesign) are built and timed too.  The variants are
-built in parallel into ``build/fft_sweep/``, their ``-Xptxas -v``
-register and spill lines and the shared-memory atomic instructions of
-their SASS printed, each variant of mode 0 held against
-the plain version (accel_corr within 1e-4 of the peak; K3 counts exact,
-the power plane within rtol 2e-4, the Stokes cross planes within 1e-4 of
-their peak), and timed with CUDA events: accel_corr at 547 segments of
-4096 with 3840 valid lags for 65 and 128 lanes, K3 at N1 = N2 = 512, L =
-128, 64 phase bins, in power and Stokes, float32 and bf16, each beside
-its bytes bound.  The first of each list is the kernel as the package
-builds it.
+kernels before the redesign) are built and timed too.  ``--only`` picks
+the kernels (default all).  The variants are built in parallel into
+``build/fft_sweep/``, their ``-Xptxas -v`` register and spill lines and
+the shared-memory atomic instructions of their SASS printed, each
+variant of mode 0 held against the plain version (accel_corr and K2
+float32 planes within 1e-4 of the peak, bf16 planes within one bf16 ulp
+plus 1e-6 of it; K3 and resident counts exact, the power plane within
+rtol 2e-4, the Stokes cross planes within 1e-4 of their peak), and timed
+with CUDA events: accel_corr at 547 segments of 4096 with 3840 valid lags
+for 65 and 128 lanes; K3 and K2 at N1 = N2 = 512, L = 128 (K3 with 64
+phase bins, power and Stokes, float32 and bf16; K2 in its four launch
+forms, and k2 at the compiled PFB chains' N2 = 256, N1 = 128, L = 512);
+resident on a 261,120-row, 128-lane block at windows 2048 and
+4096, pads 256/256, 64 phase bins, power and Stokes; each beside its
+bound.  The first of each list is the kernel as the package builds it.
 
-    python -m baseband_tasks_tpu_torch.tools.fft_sweep [--reps N] [--old DIR]
+    python -m baseband_tasks_tpu_torch.tools.fft_sweep [--reps N] \
+        [--old DIR] [--only corr,fold,k2,resident]
 
 Prints one line per measurement and ends with a JSON object of them.
 """
@@ -42,6 +65,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -52,15 +76,50 @@ import torch
 
 from ..ops import _build
 from ..ops import dedisperse as dd
+from ..ops import dedisperse_resident as dr
 from ..ops.accel_correlate import accel_correlate_bank_ref
 
 SWEEP_DIR = _build.BUILD_DIR.parent / "fft_sweep"
 HBM_BYTES_PER_S = 3.35e12      # the H100 SXM data sheet's HBM rate
+FP32_FLOPS = 67e12             # its FP32 rate outside the tensor cores
 
 CORR_RE = (r"constexpr int kCorrThreads = \d+, kCorrLanes = \d+, "
            r"kCorrMode = \d+, kCorrNext = \d+;")
 FOLD_RE = (r"constexpr int kFoldLanes = \d+, kFoldStages = \d+, "
            r"kFoldMode = \d+, kFoldRuns = \d+;")
+K2_RE = r"constexpr int kK2Lanes = [^;]*;"
+RES_RE = (r"constexpr int kResTile2048 = [^;]*;\n"
+          r"constexpr int kResStages = [^;]*;")
+K2_KNOBS = ("kK2Lanes", "kK2Stages", "kK2Items", "kK2Chirp", "kK2Mode")
+RES_KNOBS = (("kResTile2048", "kResStages2048", "kResTile2048S",
+              "kResStages2048S", "kResTile4096", "kResStages4096",
+              "kResTile4096S", "kResStages4096S", "kResChirpRegs4096S"),
+             ("kResStages", "kResMode", "kResRuns", "kResChirp"))
+# (lanes, stages, items, chirp, mode): chirp 0 staged where it fits, else
+# float32 k2's into registers; 1 float32 k2's always into registers; 2
+# always staged
+K2_VARIANTS = [(16, 2, 2, 0, 0), (16, 2, 2, 1, 0), (16, 2, 2, 2, 0),
+               (16, 1, 2, 0, 0), (8, 2, 2, 0, 0), (8, 2, 1, 0, 0),
+               (16, 2, 2, 0, 1), (16, 2, 2, 0, 2)]
+# ((tile, stages) of 2048 power, 2048 Stokes, 4096 power, 4096 Stokes,
+# chirp slots in registers at 4096 Stokes), (general stages, mode, runs,
+# chirp in registers)
+_RES = (4, 2, 4, 1, 2, 1, 2, 1, 8)
+RES_VARIANTS = [(_RES, (2, 0, 1, 1)),
+                ((4, 2, 4, 1, 2, 1, 2, 1, 16), (2, 0, 1, 1)),
+                ((4, 2, 4, 2, 2, 2, 1, 2, 8), (2, 0, 1, 1)),
+                ((4, 1, 4, 1, 2, 1, 1, 1, 8), (2, 0, 1, 1)),
+                ((2, 1, 2, 1, 1, 1, 1, 1, 8), (2, 0, 1, 1)),
+                (_RES, (2, 0, 0, 1)), (_RES, (2, 0, 1, 0)),
+                (_RES, (2, 1, 1, 1)), (_RES, (2, 2, 1, 1))]
+
+
+def knob_lines(names, values):
+    """``constexpr int a = 1, b = 2;`` for the names and values."""
+    return ("constexpr int "
+            + ", ".join(f"{k} = {v}" for k, v in zip(names, values)) + ";")
+
+
 # (threads, lanes, mode, next)
 CORR_VARIANTS = [(512, 8, 0, 1), (512, 8, 0, 0), (256, 4, 0, 1),
                  (256, 4, 0, 0), (512, 8, 1, 1), (512, 8, 2, 1)]
@@ -73,6 +132,14 @@ N_SEG, SEG_LEN, VALID = 547, 4096, 3840
 N1 = N2 = 512
 L = 128
 N_PHASE, PAD_START, N_VALID = 64, 3584, (1 << 18) - 3584 - 4608
+# K2 at the paths' shapes: the flagship's planes in the four launch forms,
+# and the compiled PFB chains' (config 3: 2^15-row windows, 512 lanes)
+K2_SHAPES = [(N2, N1, L, ("k2", "k2_bf16", "k2_bf16_chirp", "k2_theta")),
+             (256, 128, 512, ("k2",))]
+# the resident path (chip_smoke.py phase (k), tools/bench_resident.py's
+# block): 261,120 rows cut to whole hops, 128 lanes, pads 256/256
+RES_T, RES_PAD, RES_WINDOWS = 261120, 256, (2048, 4096)
+RES_RATE = 1.0 / 1607.3
 # cycles per sample: the flagship's B1937-like pulsar (641.93 Hz) at the
 # channel rate of 250 kHz, ~389 samples a turn (chip_smoke.py's polyco)
 FOLD_RATE = 641.928123 / 250e3
@@ -88,6 +155,23 @@ def fold_label(v):
     mode = ("", " no FFT", " no fold")[v[2]]
     return (f"tile {v[0]} lanes, {v[1]} stage buffer(s), "
             f"{'runs summed' if v[3] else 'an atomic a value'}{mode}")
+
+
+def k2_label(v):
+    mode = ("", " no FFT", " no stores")[v[4]]
+    chirp = ("chirp staged where it fits", "k2's chirp to registers",
+             "chirp staged")[v[3]]
+    return (f"tile {v[0]} lanes, {v[1]} stage buffer(s), {v[2]} item(s) a "
+            f"thread, {chirp}{mode}")
+
+
+def res_label(v):
+    (t2, s2, t2s, s2s, t4, s4, t4s, s4s, cr), (_, mode, runs, chirp) = v
+    return (f"tile/stages {t2}/{s2} {t2s}/{s2s} {t4}/{s4} {t4s}/{s4s} "
+            f"({cr} chirp registers), "
+            f"{'runs summed' if runs else 'an atomic a value'}, chirp "
+            f"{'in registers' if chirp else 'from L2'}"
+            f"{('', ' no FFT', ' no fold')[mode]}")
 
 
 def build_one(name, unit_src, headers_dir, pattern, line):
@@ -112,13 +196,16 @@ def build_one(name, unit_src, headers_dir, pattern, line):
 
 
 def ptxas_lines(out, kernel):
-    """The register and spill lines of ``kernel``'s entries."""
+    """The register and spill lines of the entries of ``kernel`` (a name
+    or a tuple of names)."""
+    names = (kernel,) if isinstance(kernel, str) else kernel
     lines, keep = [], False
     for ln in out.splitlines():
         if "Compiling entry function" in ln:
-            keep = kernel in ln
+            name = next((k for k in names if k in ln), None)
+            keep = name is not None
             if keep:      # the instantiation's template arguments
-                lines.append(ln.split(kernel)[-1].split("EEv")[0] + "E")
+                lines.append(name + ln.split(name)[-1].split("EEv")[0] + "E")
         elif keep and ("registers" in ln or "spill" in ln):
             lines.append(ln.split("ptxas info    :")[-1].strip())
     return lines
@@ -130,9 +217,10 @@ def atomics(so, kernel):
     sass = subprocess.run(
         [str(Path(_build.nvcc_path()).parent / "cuobjdump"), "-sass",
          str(so)], capture_output=True, text=True, check=True).stdout
+    names = (kernel,) if isinstance(kernel, str) else kernel
     ops = {}
     for fn in sass.split("Function : ")[1:]:
-        if kernel not in fn.split()[0]:
+        if not any(k in fn.split()[0] for k in names):
             continue
         for m in re.finditer(r"\b(ATOMS\.\S+)", fn):
             op = m.group(1).rstrip(";")
@@ -155,30 +243,47 @@ def load(so, old=False):
     return lib
 
 
-def build_variants(old):
-    """{key: (library, ptxas lines)}: key ('corr', v), ('fold', v), or
-    ('corr', 'old') / ('fold', 'old') for ``old``'s sources."""
+def build_variants(old, only):
+    """{key: (library, ptxas lines)}: key (kind, v) for kind 'corr',
+    'fold', 'k2', 'res', or (kind, 'old') for ``old``'s sources."""
     csrc = _build.CSRC
     jobs = []
-    for v in CORR_VARIANTS:
+    for v in CORR_VARIANTS if "corr" in only else ():
         line = (f"constexpr int kCorrThreads = {v[0]}, kCorrLanes = {v[1]}, "
                 f"kCorrMode = {v[2]}, kCorrNext = {v[3]};")
         jobs.append((("corr", v), "accel_corr",
                      build_one(f"accel_{'_'.join(map(str, v))}",
                                csrc / "accel.cu", csrc, CORR_RE, line)))
-    for v in FOLD_VARIANTS:
+    for v in FOLD_VARIANTS if "fold" in only else ():
         line = (f"constexpr int kFoldLanes = {v[0]}, kFoldStages = {v[1]}, "
                 f"kFoldMode = {v[2]}, kFoldRuns = {v[3]};")
         jobs.append((("fold", v), "k3_fold",
                      build_one(f"dedisperse_{'_'.join(map(str, v))}",
                                csrc / "dedisperse.cu", csrc, FOLD_RE, line)))
+    for v in K2_VARIANTS if "k2" in only else ():
+        jobs.append((("k2", v), "k2_reg",
+                     build_one(f"k2_{'_'.join(map(str, v))}",
+                               csrc / "dedisperse.cu", csrc, K2_RE,
+                               knob_lines(K2_KNOBS, v))))
+    for v in RES_VARIANTS if "resident" in only else ():
+        lines = "\n".join(knob_lines(k, x) for k, x in zip(RES_KNOBS, v))
+        jobs.append((("res", v), "resident_reg",
+                     build_one("resident_" + "_".join(map(str, v[0] + v[1])),
+                               csrc / "resident.cu", csrc, RES_RE, lines)))
     if old is not None:
         old = Path(old)
-        jobs.append((("corr", "old"), "accel_corr",
-                     build_one("accel_old", old / "accel.cu", old, None, "")))
-        jobs.append((("fold", "old"), "k3_fold",
-                     build_one("dedisperse_old", old / "dedisperse.cu", old,
-                               None, "")))
+        if "corr" in only:
+            jobs.append((("corr", "old"), "accel_corr",
+                         build_one("accel_old", old / "accel.cu", old, None,
+                                   "")))
+        if {"fold", "k2"} & set(only):
+            jobs.append((("fold", "old"), ("k3_fold", "k2_kernel"),
+                         build_one("dedisperse_old", old / "dedisperse.cu",
+                                   old, None, "")))
+        if "resident" in only:
+            jobs.append((("res", "old"), "resident_kernel",
+                         build_one("resident_old", old / "resident.cu", old,
+                                   None, "")))
     libs = {}
     for key, kernel, (so, proc) in jobs:
         out = proc.communicate()[0]
@@ -186,6 +291,11 @@ def build_variants(old):
             raise RuntimeError(f"nvcc {key}:\n{out}")
         libs[key] = (load(so, key[1] == "old"),
                      ptxas_lines(out, kernel) + atomics(so, kernel))
+    if ("fold", "old") in libs:   # the parent's K2 is in its dedisperse.cu
+        if "k2" in only:
+            libs[("k2", "old")] = libs[("fold", "old")]
+        if "fold" not in only:
+            del libs[("fold", "old")]
     return libs
 
 
@@ -328,12 +438,157 @@ def sweep_fold(libs, dev, reps, out):
         out.append(rec)
 
 
+def check_k2_planes(name, got, ref):
+    """float32 planes within 1e-4 of the peak, bf16 within one bf16 ulp
+    plus 1e-6 of it; returns the error relative to the peak."""
+    peak = max(float(r.float().abs().max()) for r in ref)
+    rel = max(float((g.float() - r.float()).abs().max()) for g, r in
+              zip(got, ref)) / peak
+    for g, r in zip(got, ref):
+        if r.dtype == torch.bfloat16:
+            r, g = r.float(), g.float()
+            ulp = torch.exp2(torch.floor(torch.log2(
+                r.abs().clamp_min(1e-30))) - 7)
+            if not bool(((g - r).abs() <= ulp + 1e-6 * peak).all()):
+                raise AssertionError(f"{name}: beyond one bf16 ulp")
+        elif not rel <= 1e-4:
+            raise AssertionError(f"{name}: {rel} of the peak")
+    return rel
+
+
+def sweep_k2(libs, dev, reps, out):
+    cases = {}          # (shape, form) -> (planes, chirp planes)
+    for n2, n1, lanes, forms in K2_SHAPES:
+        y32 = randn(dev, (n2, n1, lanes), 84, 2)
+        y16 = [p.to(torch.bfloat16) for p in y32]
+        g = torch.Generator(device=dev)
+        g.manual_seed(85)
+        theta = torch.rand((n2, n1, lanes), generator=g, device=dev)
+        c32 = [torch.cos(2 * torch.pi * theta),
+               torch.sin(2 * torch.pi * theta)]
+        c16 = [c.to(torch.bfloat16) for c in c32]
+        every = {"k2": (y32, c32), "k2_bf16": (y16, c32),
+                 "k2_bf16_chirp": (y16, c16), "k2_theta": (y32, [theta])}
+        for form in forms:
+            cases[((n2, n1, lanes), form)] = every[form]
+    refs = {}
+    for key in [k for k in libs if k[0] == "k2"]:
+        lib, lines = libs[key]
+        v = key[1]
+        name = "K2 old kernel" if v == "old" else f"K2 {k2_label(v)}"
+        rec = {"kernel": "k2", "variant": v, "ptxas": lines}
+        print(name, *lines, sep="\n  ", flush=True)
+        for (shape, form), (y, ch) in cases.items():
+            n2, n1, lanes = shape
+            tag = f"{form} {n2}x{n1}x{lanes}"
+            fn = getattr(lib, f"bbt_{form}")
+            ptrs = [c.data_ptr() for c in ch]
+            work = [p.clone() for p in y]
+            kern = lambda w=work: call(fn, dev, w[0].data_ptr(),
+                                       w[1].data_ptr(), *ptrs, n1, n2, lanes)
+            rel = None
+            if v == "old" or v[4] == 0:
+                if tag not in refs:
+                    yy = [p.clone() for p in y]
+                    refs[tag] = (dd.k2_theta_ref(*yy, ch[0])
+                                 if form == "k2_theta"
+                                 else dd.stage_b_ref(*yy, *ch))
+                kern()
+                torch.cuda.synchronize()
+                rel = check_k2_planes(f"{name} {tag}", work, refs[tag])
+            # in place on one scratch copy (a unit-modulus chirp keeps the
+            # values bounded over the repeats)
+            ms = cuda_ms(kern, reps)
+            bound = bytes_ms(*y, *ch, *y)
+            rec[tag] = {"ms": ms, "bound_ms": bound, "rel": rel}
+            print(f"{name}, {tag}: {ms:.4f} ms, bound {bound:.4f} ms "
+                  f"(bytes), vs plain {'-' if rel is None else f'{rel:.2e}'}",
+                  flush=True)
+            del work
+        out.append(rec)
+
+
+def sweep_resident(libs, dev, reps, out):
+    fold = torch.as_tensor(dd.fold_phase_vector(0.123, RES_RATE), device=dev)
+    scale = torch.tensor([0.5], device=dev)
+    refs = {}
+    for key in [k for k in libs if k[0] == "res"]:
+        lib, lines = libs[key]
+        v = key[1]
+        name = ("resident old kernel" if v == "old"
+                else f"resident {res_label(v)}")
+        rec = {"kernel": "resident", "variant": v, "ptxas": lines}
+        print(name, *lines, sep="\n  ", flush=True)
+        for n in RES_WINDOWS:
+            hop, n1, n2 = dr.resident_geometry(n, RES_PAD, RES_PAD)
+            T = RES_T // hop * hop
+            x = randn(dev, (T, L), 86, 2)
+            halos = randn(dev, (RES_PAD, L), 87, 4)
+            g = torch.Generator(device=dev)
+            g.manual_seed(88)
+            ph = torch.rand((n2, n1, L), generator=g, device=dev)
+            chirp = [torch.cos(2 * torch.pi * ph), torch.sin(2 * torch.pi * ph)]
+            ins = [*x, *halos, *chirp]
+            for stokes in (False, True):
+                form = f"N={n} {'stokes' if stokes else 'power'}"
+                W = 3 if stokes else 1
+                prof = torch.zeros((N_PHASE + 1, W * L), device=dev)
+                cnt = torch.zeros((N_PHASE + 1,), dtype=torch.int32,
+                                  device=dev)
+                kern = lambda: call(lib.bbt_resident, dev,
+                                    *(t.data_ptr() for t in ins),
+                                    fold.data_ptr(), scale.data_ptr(),
+                                    prof.data_ptr(), cnt.data_ptr(), n, L,
+                                    RES_PAD, RES_PAD, T, N_PHASE,
+                                    int(stokes))
+                kern()
+                torch.cuda.synchronize()
+                rel = cross = None
+                if v == "old" or v[1][1] == 0:
+                    if form not in refs:
+                        refs[form] = dr.dedisperse_fold_resident_ref(
+                            *ins, fold, scale, n_window=n, n_phase=N_PHASE,
+                            pad_start=RES_PAD, pad_end=RES_PAD,
+                            stokes=stokes)
+                    rprof, rcnt = refs[form]
+                    if not torch.equal(cnt, rcnt):
+                        raise AssertionError(f"{name} {form}: counts")
+                    rel = float(((prof[:, :L] - rprof[:, :L]).abs()
+                                 / rprof[:, :L].abs()).max())
+                    cross = (float((prof[:, L:] - rprof[:, L:]).abs().max()
+                                   / rprof[:, L:].abs().max())
+                             if stokes else 0.0)
+                    if not (rel <= 2e-4 and cross <= 1e-4):
+                        raise AssertionError(f"{name} {form}: {rel} {cross}")
+                ms = cuda_ms(lambda: (prof.zero_(), cnt.zero_(), kern()),
+                             reps)
+                zero_ms = cuda_ms(lambda: (prof.zero_(), cnt.zero_()), reps)
+                # the function's bytes (block, halos, chirp once; the
+                # profile) against its FP32 work over every window's rows
+                rows = T // hop * n
+                ops = rows * L * (10 * math.log2(n) + 8 + (12 if stokes
+                                                           else 3))
+                bound = max(bytes_ms(*ins, fold, prof, cnt),
+                            1e3 * ops / FP32_FLOPS)
+                rec[form] = {"ms": ms - zero_ms, "bound_ms": bound,
+                             "rel": rel, "cross": cross}
+                print(f"{name}, {form}: {ms - zero_ms:.4f} ms, bound "
+                      f"{bound:.4f} ms, vs plain "
+                      f"{'-' if rel is None else f'{rel:.2e} / {cross:.2e}'}",
+                      flush=True)
+            del x, halos, chirp, ins
+        out.append(rec)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--reps", type=int, default=20)
     p.add_argument("--old", default=None,
                    help="another checkout's csrc directory to time too")
+    p.add_argument("--only", default="corr,fold,k2,resident",
+                   help="the kernels to sweep, comma-separated")
     args = p.parse_args(argv)
+    only = args.only.split(",")
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
@@ -343,10 +598,12 @@ def main(argv=None):
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(gpu, flush=True)
     dev = torch.device("cuda", 0)
-    libs = build_variants(args.old)
+    libs = build_variants(args.old, only)
     out = []
-    sweep_corr(libs, dev, args.reps, out)
-    sweep_fold(libs, dev, args.reps, out)
+    for kind, sweep in (("corr", sweep_corr), ("fold", sweep_fold),
+                        ("k2", sweep_k2), ("resident", sweep_resident)):
+        if kind in only:
+            sweep(libs, dev, args.reps, out)
     print(json.dumps({"gpu": gpu, "variants": out}, default=str))
     return 0
 

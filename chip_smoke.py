@@ -12,7 +12,9 @@ DM 500, 64 phase bins, a B1937-like polyco, 8-bit plane-packed ingest;
 window N = 2^18, L = 128 lanes):
 
 (a) holds each flagship kernel against its plain PyTorch version on the
-    same random input at the flagship shapes, and times both;
+    same random input at the flagship shapes, and times both (K2 beside
+    its shared-memory design's recorded time, its register form
+    asserted);
 (b) drives the pipeline's entry points, ``run_fn(8, ingest_bits=8)`` and
     the float32 twin ``run_fn(2)``, with ``use_kernels=True``, checks the
     counts, checks the profiles against the plain versions on the card, and
@@ -99,7 +101,9 @@ pads 256/256, the 261,120-row block of ``tools/bench_resident.py``):
     resident (windows 2048 and 4096, power and Stokes) against their
     plain versions, and times them beside the one PyTorch call computing
     the same function (a complex ``matmul`` and ``|.|^2``; cuFFT's
-    inverse FFT of the bank product and ``|.|^2``), bank_power beside its
+    inverse FFT of the bank product and ``|.|^2``; resident, in its
+    register form, beside its shared-memory design's recorded time),
+    bank_power beside its
     3xTF32 tensor-core and FP32-core bounds and against float64 on 256
     rows (within 1e-5 of the peak);
 (l) runs ``FourierDomainAccelSearch.search`` on a seeded series (noise, a
@@ -117,7 +121,8 @@ pads 256/256, the 261,120-row block of ``tools/bench_resident.py``):
     window) to 5e-4 of the peak, on an FIR inside the pads (where
     overlap-save is exact at both window sizes) and on the DM-500 chirp
     (whose tails leak past the 256-row pads, ~1e-4 of the peak); then
-    both timed in turns.
+    both timed in turns, and whether the resident op beats the chain
+    printed.
 
 and for the bf16-intermediate mode of the flagship's split ops and the
 integration layer:
@@ -127,7 +132,8 @@ integration layer:
     k3_fold_stokes_bf16) against its plain bf16 version at the flagship
     shapes (planes within one bf16 ulp plus 1e-6 of the peak, counts
     exact, profiles as in (a) and within 1e-3 of the peak of the float32
-    kernel), times each beside its float32 twin; then drives
+    kernel), times each beside its float32 twin (the K2 forms also
+    beside their shared-memory design's recorded time); then drives
     ``dedisperse_fold_split`` and ``dedisperse_fold_split_packed`` with
     ``inter_dtype='bfloat16'`` (power and Stokes, float32 and bf16
     chirps), counted, against the plain bf16 path and the float32 op
@@ -267,6 +273,14 @@ KERNELS = {   # launch-count name -> (TPU kernel it replaces, source)
     "halo_remote": ("baseband_tasks_tpu/parallel/halo_pallas.py:73", HALO_CU),
 }
 FLAGSHIP = ("k1_packed", "k1_float", "k2", "k3_fold")
+# the kernels redesigned on register FFTs: the time of their shared-memory
+# design at the same shape on this card model, as PERF.md section 6
+# records it (NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
+PARENT_MS = {"k2": 0.4884, "k2_bf16": 0.4225, "k2_bf16_chirp": 0.4056,
+             "k2_theta": 0.4786, "resident N=2048 power": 1.2330,
+             "resident N=2048 stokes": 2.4290,
+             "resident N=4096 power": 1.7957,
+             "resident N=4096 stokes": 3.2166}
 VARIANTS = ("k3_fold_stokes", "k3_power", "k2_theta", "k1_planes",
             "k1_stream_planes")
 
@@ -362,6 +376,24 @@ def result(err, ms, plain_ms, cost, library_ms=None):
     bound_ms, bound_by = bound(*cost)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)
+
+
+def parent_note(key, ms):
+    """This run's time of a redesigned kernel beside its shared-memory
+    design's recorded one."""
+    old = PARENT_MS[key]
+    return (f"{key}: {ms:.4f} ms, the shared-memory design {old:.4f} ms "
+            f"(PERF.md section 6): {old / ms:.2f}x")
+
+
+def check_k2_form(name, y):
+    """The flagship's stage-B column runs the register K2."""
+    from baseband_tasks_tpu_torch.ops import dedisperse as dd
+    n2, _, L = y[0].shape
+    form = dd.k2_form(name, n2, L)
+    if form != "register":
+        raise AssertionError(f"{name} at N2={n2}, L={L} runs the {form} form")
+    return form
 
 
 def gpu_line():
@@ -477,6 +509,9 @@ def check_kernels(pipe, gpu):
         print(f"(a) {name}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
               f"bound {results[name]['bound_ms']:.4f} ms "
               f"({results[name]['bound_by']}) [{gpu}]", flush=True)
+        if name == "k2":
+            print(f"(a) {parent_note(name, ms)}, {check_k2_form(name, y)} "
+                  f"form [{gpu}]", flush=True)
     return results
 
 
@@ -1246,6 +1281,9 @@ def check_variant_kernels(pipe, gpu):
         print(f"(i) {name}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
               f"bound {results[name]['bound_ms']:.4f} ms "
               f"({results[name]['bound_by']}) [{gpu}]", flush=True)
+        if name == "k2_theta":
+            print(f"(i) {parent_note(name, ms)}, {check_k2_form(name, y)} "
+                  f"form [{gpu}]", flush=True)
     return results
 
 
@@ -1604,6 +1642,8 @@ def check_search_kernels(dev, gpu):
     CUDA events, with the one PyTorch call computing the same function
     where there is one."""
     from baseband_tasks_tpu_torch.ops import accel_correlate as ac
+    from baseband_tasks_tpu_torch.ops.dedisperse_resident import (
+        resident_form)
     mx = accel_search(dev, "mx")
     ka, kb, kc = mx._mx_fused_planes()
     n_seg = -(-mx.n_freq // mx.m)
@@ -1695,9 +1735,13 @@ def check_search_kernels(dev, gpu):
                     (prof, cnt), rows * L * (10 * np.log2(n_window) + 8
                                              + (12 if stokes else 3)))
             res = result(err, ms, plain_ms, cost)
+            form = resident_form(n_window, L, case["n_phase"], stokes)
+            if form != "register":
+                raise AssertionError(f"{tag} runs the {form} form")
             print(f"(k) {tag}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
                   f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}), "
-                  f"{T} rows [{gpu}]", flush=True)
+                  f"{T} rows, {form} form [{gpu}]", flush=True)
+            print(f"(k) {parent_note(tag, ms)} [{gpu}]", flush=True)
             if n_window == RESIDENT_WINDOWS[0] and not stokes:
                 results["resident"] = res
         del case
@@ -1872,6 +1916,11 @@ def drive_resident(dev, gpu):
                   f"{1e3 * samples / best['resident']:.4e} vs "
                   f"{1e3 * samples / best['three-pass']:.4e} samples/s "
                   f"[{gpu}]", flush=True)
+            wins = best["resident"] < best["three-pass"]
+            print(f"(m) {tag}: the resident op "
+                  f"{'beats' if wins else 'does not beat'} the three-pass "
+                  f"chain, {best['three-pass'] / best['resident']:.2f}x "
+                  f"[{gpu}]", flush=True)
         del case, fir
         torch.cuda.empty_cache()
     return launches
@@ -2012,6 +2061,9 @@ def check_bf16_kernels(pipe, gpu):
               f"twin, {plain_ms:.4f} ms plain, bound "
               f"{results[name]['bound_ms']:.4f} ms "
               f"({results[name]['bound_by']}) [{gpu}]", flush=True)
+        if name in PARENT_MS:
+            print(f"(n) {parent_note(name, ms)}, {check_k2_form(name, y16)} "
+                  f"form [{gpu}]", flush=True)
     return results
 
 

@@ -752,6 +752,52 @@ def test_k3_fold_tiles(dev, shape, bf16, stokes, n_phase):
     assert not prof[~hit].any()
 
 
+def _k2_columns(n2, L):
+    """Columns N1 for a K2 tile test: about 2^20 rows of N2 x L, at least
+    two, so that every case has more columns than the persistent grid has
+    blocks (at most a few hundred) except the largest lane counts, whose
+    grids are L / tile lane tiles wide."""
+    n1 = 1 << max(1, (1 << 20).bit_length() - 1 - (n2 * L).bit_length() + 1)
+    return min(n1, (1 << 24) // n2)
+
+
+@pytest.mark.parametrize("name", ["k2", "k2_bf16", "k2_bf16_chirp",
+                                  "k2_theta"])
+@pytest.mark.parametrize("L", [1, 2, 3, 24, 128])
+@pytest.mark.parametrize("n2", [32, 256, 512, 4096, 8192])
+def test_k2_tiles(dev, n2, L, name):
+    """K2's four launch names against their plain versions on one-, two-
+    and three-lane tiles and the compiled columns (N2 = 512 on 8-lane
+    tiles at L 24 and 16-lane tiles at 128; N2 = 256 on 16-lane tiles at
+    128), N2 32 to 4096 in registers and
+    8192 on the shared-memory body (the form asserted), each block walking
+    several columns; float32 planes within FFT_TOL of the peak, bf16
+    within one bf16 ulp plus 1e-6 of it."""
+    n1 = _k2_columns(n2, L)
+    assert dd.k2_form(name, n2, L) == ("register" if n2 <= 4096 else "shared")
+    y = randn(dev, (n2, n1, L), 81)
+    g = torch.Generator(device=dev)
+    g.manual_seed(82)
+    theta = torch.rand((n2, n1, L), generator=g, device=dev)
+    chirp = (torch.cos(2 * np.pi * theta), torch.sin(2 * np.pi * theta))
+    if name != "k2" and name != "k2_theta":
+        y = [p.to(torch.bfloat16) for p in y]
+    if name == "k2_bf16_chirp":
+        chirp = tuple(c.to(torch.bfloat16) for c in chirp)
+    dd.reset_launch_counts()
+    if name == "k2_theta":
+        got = dd.stage_b_theta(*[p.clone() for p in y], theta)
+        ref = dd.k2_theta_ref(*[p.clone() for p in y], theta)
+    else:
+        got = dd.stage_b(*[p.clone() for p in y], *chirp)
+        ref = dd.stage_b_ref(*[p.clone() for p in y], *chirp)
+    assert {k: v for k, v in dd.launch_counts.items() if v} == {name: 1}
+    if name in ("k2", "k2_theta"):
+        assert_planes(got, ref)
+    else:
+        assert_bf16_planes(got, ref)
+
+
 @pytest.mark.parametrize("engine", ["mx", "pallas", "xla"])
 def test_accel_search_on_card(dev, engine):
     """The search on the card (kernels) against the same search on the
@@ -787,9 +833,18 @@ def test_sources_default_to_card(dev):
 
 @pytest.mark.parametrize("n_phase", [16, 32768])
 @pytest.mark.parametrize("stokes", [False, True])
-@pytest.mark.parametrize("n_window,L", [(2048, 128), (4096, 8), (512, 2)])
+@pytest.mark.parametrize("n_window,L", [
+    (n, L) for n in (1024, 2048, 4096, 8192) for L in (1, 3, 4, 8, 128)]
+    + [(512, 2)])
 def test_resident(dev, n_window, L, stokes, n_phase):
+    """Both engines against the plain versions: windows 512 to 8192 (the
+    register form up to 4096, the shared-memory body for 8192, asserted),
+    one-lane tiles (L 1, 3: the partner the lane itself or the next
+    tile's), L 4 (the 2048-row Stokes tile is the whole row: the partner
+    wraps to lane 0), 8 and 128; the global-atomic fold at 2^15 bins."""
     from baseband_tasks_tpu_torch.ops import dedisperse_resident as dr
+    form = dr.resident_form(n_window, L, n_phase, stokes)
+    assert form == ("register" if n_window <= 4096 else "shared")
     ps = pe = n_window // 8
     hop, n1, n2 = dr.resident_geometry(n_window, ps, pe)
     T = 3 * hop
