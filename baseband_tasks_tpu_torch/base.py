@@ -43,6 +43,9 @@ __all__ = ["Base", "BaseTaskBase", "TaskBase", "PaddedTaskBase", "Task",
            "SetAttribute", "getattr_if_none", "check_broadcast_to",
            "simplify_shape", "FrameSizeWarning", "PerformanceHint"]
 
+#: Stream attributes that propagate through tasks via ``meta``.
+META_ATTRIBUTES = ("frequency", "sideband", "polarization")
+
 
 def getattr_if_none(ih, attr, value=None, required=True):
     """Return ``value`` if not None, else ``getattr(ih, attr)``: task

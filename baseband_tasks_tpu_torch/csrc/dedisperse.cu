@@ -28,14 +28,12 @@
 // of `tl` contiguous lanes, so loads and stores are contiguous runs of
 // tl floats; the lane tile is the fastest grid index, so the blocks in
 // flight together cover whole rows and device memory is read in full
-// rows rather than in scattered tl-float pieces.  Each thread issues
-// kBatch global loads before it stores any to shared memory, so enough
-// bytes are in flight to cover device-memory latency.  K1 runs the
-// shared-memory radix-2 of fft.cuh, three stages per pass; K2 and K3 run
+// rows rather than in scattered tl-float pieces.  All three passes run
 // their columns in registers (fft_reg.cuh) and stage the next column by
-// cp.async while they transform this one (see k2_reg_kernel and K3 below;
-// K2 keeps the shared-memory k2_kernel for columns longer than 4096);
-// wgmma, TMA loads and fusing the passes are later work.
+// cp.async while they transform this one (see K1, k2_reg_kernel and K3
+// below; K2 keeps the shared-memory k2_kernel, whose loads keep kBatch in
+// flight a thread, for columns longer than 4096); TMA loads and fusing
+// the passes are later work.
 //
 // bf16 intermediates (the JAX module's inter_dtype='bfloat16', whose K1
 // stores y in the output's dtype, K2 casts y and the chirp to f32 on load
@@ -156,95 +154,361 @@ __device__ __forceinline__ float decode_field(unsigned f, int bits,
 // streaming form, launched as k1_stream (`bbt_k1_stream`); its `pre` mix
 // is fourstep.cu's lane_mix, run on the output.
 //
-// Block (lane tile, b) assembles window column b: rows c < kf from the
-// front edge (row c*N2+b), rows c >= kf+nm from the end edge, and main row
-// m = c-kf either from the float planes (row m*N2+b) or decoded from field
-// m / nmp of packed word row (m % nmp)*N2+b.  Each packed word is read once
-// and all its fields are decoded together.  Then scale, FFT over c, the
-// W_N^{-c b} twiddle, and the store into row b of the d-major output.
-// Bound: bytes (1/4 of a float plane's read for 8-bit input, plus the full
-// write of y: float32, or bf16 with T = __nv_bfloat16, the bf16 K1 of
-// `_stage_a_stream2(_packed)`'s out_dtype, :587/:787); one read and one
-// write per element.  The twiddle depends on (k, b) only, so each
-// thread's V lanes share one sincospif.
-template <bool PACKED, typename T, int V>
-__global__ void __launch_bounds__(kThreads)
-k1_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-          const unsigned* __restrict__ xpr, const unsigned* __restrict__ xpi,
-          const float* __restrict__ fr, const float* __restrict__ fi,
-          const float* __restrict__ er, const float* __restrict__ ei,
-          const float* __restrict__ scale, float scale_value,
-          int edge_scale, T* __restrict__ yr, T* __restrict__ yi,
-          int log_n1, int n2, int L, int log_tl, int kf, int ke, int bits,
-          float offset, float4 lv) {
-  extern __shared__ float2 smem[];
+// Column b of a lane tile is window rows c*N2 + b, c < N1: rows c < kf
+// from the front edge (row c*N2+b), rows c >= kf+nm from the end edge,
+// and main row m = c-kf either from the float planes (row m*N2+b) or
+// field m / nmp of packed word row (m % nmp)*N2+b.  The block scales it,
+// runs the FFT over c, multiplies by W_N^{-k b} and stores it as row b of
+// the d-major output (rows b*N1 + k).
+// What bounds it on an H100: bytes (the window read once: 1/4 of a float
+// plane pair for 8-bit words; y written once, float32 or bf16, T =
+// __nv_bfloat16 for `_stage_a_stream2(_packed)`'s bf16 out_dtype,
+// :587/:787): K1p's are 80 % stores.  The design:
+// - Block (lane tile, group) walks a run of consecutive columns b, about
+//   one block per resident slot of the card.  Column b + kK1Stages - 1 is
+//   staged by cp.async while column b is transformed: whole tile rows
+//   (16 lanes: 64-byte rows, as K2 found best) of each plane as stored,
+//   the edge rows with the block's, and packed words raw (N1/(32/bits)
+//   rows: 16 KB a stage at 8 bits).
+// - Each thread reads its rows of the column from the stage into
+//   registers, decoding a packed row's field in place (each thread's
+//   rows, and so the word row and field each comes from, are fixed for
+//   the block's life: one descriptor a row, computed once), and runs the
+//   FFT over c there (reg::Plan, radix 8: three passes, two exchanges at
+//   N1 = 512; 8.8.4 at 256, 8.8.2 at 128).  The paths' columns (N1 = 512
+//   in every form, 256 and 128 for float32 planes, at the full tile) are
+//   compiled for their sizes; others take a run-time plan.
+// - W_N^{-k b} once a row, not once an element: the threads holding a
+//   row's lanes each compute sincospif (the exact argument k b / N, as
+//   before) for a share of the rows and take the rest by shuffle.
+// - Stores: a row's tile lanes are neighbouring threads, so each store
+//   instruction writes whole 64-byte tile rows of the d-major output;
+//   kK1Vec > 1 gives each thread kK1Vec neighbouring lanes of the same
+//   rows instead (8- or 16-byte stores; bf16 lanes rounded to nearest
+//   even, as `store_lanes`).
+// When the stages, and the exchange its column's stage buffer turns into
+// once read, do not fit twice (packed words: a small stage, a large
+// exchange), the exchange has a region of its own.  Sweep knobs
+// (tools/fft_sweep.py --only k1): the widest tile, the stage buffers,
+// the lanes a thread, and mode 1 (no FFT), 2 (no stores) or 3 (the
+// staged loads alone).
+constexpr int kK1Lanes = 16, kK1Stages = 2, kK1Vec = 1, kK1Mode = 0;
+constexpr int kK1LogR = 3;             // radix-8 register passes
+constexpr int kK1MaxThreads = 512;
+
+// (lane, row group) items a thread holds: VL neighbouring lanes of one
+// row group, or (VL = 1) two single-lane items, the lane fastest
+__host__ __device__ constexpr int k1_items(int vl) { return vl > 1 ? vl : 2; }
+
+// Shared-memory carve of a K1 block: kK1Stages stage buffers (the
+// column's planes as stored: N1 float rows, or the edge rows then the
+// packed word rows), the exchange when it has a region of its own, the
+// twiddle tables.
+template <bool PACKED>
+struct K1Smem {
+  int rows, stage, ex, buf, tw;   // rows a staged plane; the rest bytes
+  bool own_ex;
+  __host__ __device__ K1Smem(int n1, int tl, int kf, int ke, int nmp) {
+    rows = PACKED ? kf + ke + nmp : n1;
+    stage = (2 * rows * tl * 4 + 15) / 16 * 16;
+    ex = (reg::padded_size<2>(n1 * tl) * 8 + 15) / 16 * 16;
+    const int wide = stage > ex ? stage : ex;
+    own_ex = kK1Stages * stage + ex < kK1Stages * wide;
+    buf = own_ex ? stage : wide;
+    tw = reg::twiddle_slots(log2i(n1), kK1LogR) * 8;
+  }
+  __host__ __device__ int bytes() const {
+    return kK1Stages * buf + (own_ex ? ex : 0) + tw;
+  }
+};
+
+// VL float lanes stored at p + a as one access, rounded to T
+template <int VL, typename T>
+__device__ __forceinline__ void store_vec(T* __restrict__ p, long a,
+                                          const float (&v)[VL]) {
+  if constexpr (!kBf16<T>) {
+    if constexpr (VL == 4) {
+      *reinterpret_cast<float4*>(p + a) = make_float4(v[0], v[1], v[2], v[3]);
+    } else if constexpr (VL == 2) {
+      *reinterpret_cast<float2*>(p + a) = make_float2(v[0], v[1]);
+    } else {
+      p[a] = v[0];
+    }
+  } else if constexpr (VL == 4) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+    *reinterpret_cast<uint2*>(p + a) =
+        make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                   *reinterpret_cast<const unsigned*>(&hi));
+  } else if constexpr (VL == 2) {
+    *reinterpret_cast<__nv_bfloat162*>(p + a) = __floats2bfloat162_rn(v[0], v[1]);
+  } else {
+    p[a] = __float2bfloat16_rn(v[0]);
+  }
+}
+
+// LOG_N1 and LOG_TL fix log2(N1) and the tile at compile time for the
+// paths' columns (-1: the launch's arguments); VL lanes a thread.  chunk:
+// the cp.async copy size of a tile row (0: plain loads).
+template <bool PACKED, typename T, int LOG_N1, int LOG_TL, int VL>
+__global__ void __launch_bounds__(kK1MaxThreads)
+k1_reg_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+              const unsigned* __restrict__ xpr,
+              const unsigned* __restrict__ xpi, const float* __restrict__ fr,
+              const float* __restrict__ fi, const float* __restrict__ er,
+              const float* __restrict__ ei, const float* __restrict__ scale,
+              float scale_value, int edge_scale, T* __restrict__ yr,
+              T* __restrict__ yi, int log_n1_arg, int n2, int L,
+              int log_tl_arg, int kf, int ke, int bits, float offset,
+              float4 lv, int chunk) {
+  constexpr int R = 1 << kK1LogR;
+  constexpr int I = k1_items(VL);
+  constexpr int TI = VL > 1 ? 1 : I;   // distinct row groups a thread holds
+  constexpr int LOG_VL = VL == 4 ? 2 : VL == 2 ? 1 : 0;
+  using Plan = reg::Plan<kK1LogR, LOG_N1>;
+  extern __shared__ __align__(16) unsigned char k1_smem[];
+  const int log_n1 = LOG_N1 >= 0 ? LOG_N1 : log_n1_arg;
+  const int log_tl = LOG_TL >= 0 ? LOG_TL : log_tl_arg;
+  const Plan plan(log_n1);
   const int n1 = 1 << log_n1;
   const int tl = 1 << log_tl;
-  float2* x = smem;
-  float2* tw = smem + (n1 << log_tl);
-  const int b = blockIdx.y;
-  const int l0 = blockIdx.x << log_tl;
   const int nm = n1 - kf - ke;
+  const int nmp = PACKED ? nm / (32 / bits) : nm;
+  const K1Smem<PACKED> lay(n1, tl, kf, ke, nmp);
+  const int plane = lay.rows * tl;     // elements of one staged plane
+  float2* own_ex = reinterpret_cast<float2*>(k1_smem + kK1Stages * lay.buf);
+  float2* tw = reinterpret_cast<float2*>(k1_smem + kK1Stages * lay.buf +
+                                         (lay.own_ex ? lay.ex : 0));
+  const int l0 = blockIdx.x << log_tl;
+  const int nthreads = blockDim.x;
   const float s = scale ? *scale : scale_value;
   const float se = edge_scale ? s : 1.0f;   // the edges' scale
-  fill_twiddles(tw, n1);
+  const unsigned mask = PACKED ? (1u << bits) - 1u : 0u;
+  reg::fill_twiddle_tables(tw, log_n1, kK1LogR);
 
-  // element idx of a tile of rows: (row, lane) of a (rows, N2, L) plane
-  auto at = [&](int idx) {
-    return (static_cast<long>(idx >> log_tl) * n2 + b) * L + l0 + (idx & (tl - 1));
-  };
-  auto scaled = [&](float2* dst, float f) {
-    return [=](int idx, float2 v) { dst[idx] = make_float2(v.x * f, v.y * f); };
-  };
-  batched(kf << log_tl,
-          [&](int idx) { return make_float2(fr[at(idx)], fi[at(idx)]); },
-          scaled(x, se));
-  batched(ke << log_tl,
-          [&](int idx) { return make_float2(er[at(idx)], ei[at(idx)]); },
-          scaled(x + ((kf + nm) << log_tl), se));
-  if constexpr (PACKED) {
-    const int per = 32 / bits;
-    const int nmp = nm / per;
-    const unsigned mask = (1u << bits) - 1u;
-    batched(nmp << log_tl,
-            [&](int idx) { return make_uint2(xpr[at(idx)], xpi[at(idx)]); },
-            [&](int idx, uint2 w) {
-              const int lane = idx & (tl - 1);
-              const int j = idx >> log_tl;
-              for (int k = 0; k < per; ++k) {
-                const int c = kf + k * nmp + j;
-                const float vr = decode_field((w.x >> (bits * k)) & mask, bits, offset, lv);
-                const float vi = decode_field((w.y >> (bits * k)) & mask, bits, offset, lv);
-                x[(c << log_tl) + lane] = make_float2(vr * s, vi * s);
-              }
-            });
-  } else {
-    batched(nm << log_tl,
-            [&](int idx) { return make_float2(xr[at(idx)], xi[at(idx)]); },
-            scaled(x + (kf << log_tl), s));
-  }
-  __syncthreads();
-
-  const int total = n1 << log_tl;
-  fft_dif<false>(x, tw, log_n1, log_tl);
-
-  const float nf = static_cast<float>(n1) * static_cast<float>(n2);
-  for (int e = threadIdx.x * V; e < total; e += blockDim.x * V) {
-    const int lane = e & (tl - 1);
-    const int k = e >> log_tl;
-    const float2* v = x + (bitrev(k, log_n1) << log_tl) + lane;
-    float sn, cs;
-    sincospif(-2.0f * static_cast<float>(k * b) / nf, &sn, &cs);
-    float re[V], im[V];
+  // item i of this thread: lane `lane[i]` of the tile, row group t[i];
+  // the threads sharing a row group are 2^log_p neighbouring threads
+  const int log_p = log_tl > LOG_VL ? log_tl - LOG_VL : 0;
+  int t[I], lane[I];
+  bool live[I];
 #pragma unroll
-    for (int i = 0; i < V; ++i) {
-      const float2 out = cmul(v[i], make_float2(cs, sn));
-      re[i] = out.x;
-      im[i] = out.y;
+  for (int i = 0; i < I; ++i) {
+    if constexpr (VL > 1) {
+      const int g = threadIdx.x >> log_p;
+      live[i] = g < 1 << plan.log_t;
+      lane[i] = ((threadIdx.x & ((1 << log_p) - 1)) << LOG_VL) + i;
+      t[i] = live[i] ? g : 0;
+    } else {
+      const int item = threadIdx.x + i * nthreads;
+      live[i] = item < tl << plan.log_t;
+      lane[i] = item & (tl - 1);
+      t[i] = live[i] ? item >> log_tl : 0;
     }
-    const long o = (static_cast<long>(b) * n1 + k) * L + l0 + lane;
-    store_lanes<V>(yr, o, re);
-    store_lanes<V>(yi, o, im);
+  }
+  // packed: where each of this thread's rows comes from, for the block's
+  // life: (staged row << 6) | (field shift + 1), shift + 1 = 0 for a
+  // float edge row (the front edge rows first, then the end edge's, then
+  // the word rows)
+  int desc[TI][R];
+  if constexpr (PACKED) {
+#pragma unroll
+    for (int j = 0; j < TI; ++j)
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const int c = plan.row_in(0, q, t[j]);
+        int d;
+        if (c < kf) {
+          d = c << 6;
+        } else if (c >= kf + nm) {
+          d = (c - nm) << 6;
+        } else {
+          const int m = c - kf;
+          const int f = m / nmp;
+          d = ((kf + ke + m - f * nmp) << 6) | (bits * f + 1);
+        }
+        desc[j][q] = d;
+      }
+  }
+  float2* ex;                          // the current column's exchange
+  auto slot = [&](int i, int row) {
+    return ex + reg::pad_slot<2>(row * tl + lane[i]);
+  };
+  auto sync = [] { __syncthreads(); };
+
+  // column b of both planes into stage buffer s, as [plane][row][lane]
+  auto stage_column = [&](int b, unsigned char* sbuf) {
+    float* dst = reinterpret_cast<float*>(sbuf);
+    const int rows = lay.rows;
+    auto src = [&](int p, int r) {
+      const float* base;
+      int row;
+      if (r < kf) {
+        base = p ? fi : fr;
+        row = r;
+      } else if (PACKED ? r < kf + ke : r >= kf + nm) {
+        base = p ? ei : er;
+        row = r - (PACKED ? kf : kf + nm);
+      } else if constexpr (PACKED) {
+        base = reinterpret_cast<const float*>(p ? xpi : xpr);
+        row = r - kf - ke;
+      } else {
+        base = p ? xi : xr;
+        row = r - kf;
+      }
+      return base + (static_cast<long>(row) * n2 + b) * L + l0;
+    };
+    if (chunk) {
+      const int per = chunk / 4;
+      const int log_cpr = log_tl - (__ffs(per) - 1);   // copies a tile row
+      const int total = (2 * rows) << log_cpr;
+      for (int i = threadIdx.x; i < total; i += nthreads) {
+        const int k = i & ((1 << log_cpr) - 1);
+        const int rr = i >> log_cpr;   // plane * rows + row
+        const int p = rr >= rows;
+        cp_async(dst + rr * tl + k * per, src(p, rr - p * rows) + k * per,
+                 chunk);
+      }
+    } else {
+      for (int i = threadIdx.x; i < (2 * rows) << log_tl; i += nthreads) {
+        const int rr = i >> log_tl;
+        const int p = rr >= rows;
+        dst[i] = src(p, rr - p * rows)[i & (tl - 1)];
+      }
+    }
+  };
+  auto buf_of = [&](int k) { return k1_smem + (k % kK1Stages) * lay.buf; };
+
+  // this block's run of columns
+  const int per_group = (n2 + gridDim.y - 1) / gridDim.y;
+  const int b0 = blockIdx.y * per_group;
+  const int n_cols = max(0, min(per_group, n2 - b0));
+  for (int k = 0; k + 1 < kK1Stages; ++k) {
+    if (k < n_cols) stage_column(b0 + k, buf_of(k));
+    cp_async_commit();
+  }
+  const float nf = static_cast<float>(n1) * static_cast<float>(n2);
+  // W_N^{-k b} at the compiled tile: the 2^log_p threads of a row group
+  // each compute the twiddles of R / P of its rows (P = min(2^log_p, R))
+  // and the others take them by shuffle
+  constexpr bool kShareTw = LOG_TL >= 0;
+  constexpr int kLogPT = LOG_TL > LOG_VL ? LOG_TL - LOG_VL : 0;
+  constexpr int kLogP = kLogPT < kK1LogR ? kLogPT : kK1LogR;
+  constexpr int kOwn = kShareTw ? R >> kLogP : 1;
+  float keep = 0.0f;                   // kK1Mode 2, 3: the results
+  for (int k = 0; k < n_cols; ++k) {
+    const int b = b0 + k;
+    const int ahead = k + kK1Stages - 1;
+    if (ahead < n_cols) stage_column(b0 + ahead, buf_of(ahead));
+    cp_async_commit();
+    cp_async_wait<kK1Stages - 1>();    // column b arrived
+    __syncthreads();
+    const float* sf = reinterpret_cast<const float*>(buf_of(k));
+    const unsigned* su = reinterpret_cast<const unsigned*>(sf);
+    ex = lay.own_ex ? own_ex : reinterpret_cast<float2*>(buf_of(k));
+    float2 v[I][R];
+#pragma unroll
+    for (int i = 0; i < I; ++i) {
+      const int j = TI > 1 ? i : 0;
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        v[i][q] = make_float2(0.0f, 0.0f);
+        if (!live[i] || q >= plan.used) continue;
+        if constexpr (PACKED) {
+          const int d = desc[j][q];
+          const int a = (d >> 6) * tl + lane[i];
+          const int sh = (d & 63) - 1;
+          if (sh < 0) {
+            v[i][q] = make_float2(sf[a] * se, sf[a + plane] * se);
+          } else {
+            const unsigned fr_ = (su[a] >> sh) & mask;
+            const unsigned fi_ = (su[a + plane] >> sh) & mask;
+            v[i][q] = make_float2(decode_field(fr_, bits, offset, lv) * s,
+                                  decode_field(fi_, bits, offset, lv) * s);
+          }
+        } else {
+          const int c = plan.row_in(0, q, t[i]);
+          const int a = c * tl + lane[i];
+          const float f = c < kf || c >= kf + nm ? se : s;
+          v[i][q] = make_float2(sf[a] * f, sf[a + plane] * f);
+        }
+      }
+    }
+    if (kK1Mode == 0 || kK1Mode == 2)
+      plan.template run<false>(v, t, live, tw, slot, sync);
+    if (kK1Mode == 3) {
+#pragma unroll
+      for (int i = 0; i < I; ++i)
+#pragma unroll
+        for (int q = 0; q < R; ++q) keep += v[i][q].x + v[i][q].y;
+    } else {
+      auto twiddle = [&](int kk) {
+        float sn, cs;
+        sincospif(-2.0f * static_cast<float>(kk * b) / nf, &sn, &cs);
+        return make_float2(cs, sn);
+      };
+#pragma unroll
+      for (int j = 0; j < TI; ++j) {
+        float2 own[kOwn];
+        if constexpr (kShareTw) {
+#pragma unroll
+          for (int o = 0; o < kOwn; ++o)
+            own[o] = twiddle(plan.rows_final(
+                (o << kLogP) + (threadIdx.x & ((1 << kLogP) - 1)), t[j]));
+        }
+#pragma unroll
+        for (int q = 0; q < R; ++q) {
+          float2 w = make_float2(1.0f, 0.0f);
+          if constexpr (kShareTw) {
+            if constexpr (kLogP == 0) {
+              w = own[q];
+            } else {
+              const int src = (threadIdx.x & 31 & ~((1 << kLogPT) - 1)) |
+                              (q & ((1 << kLogP) - 1));
+              w.x = __shfl_sync(0xffffffffu, own[q >> kLogP].x, src);
+              w.y = __shfl_sync(0xffffffffu, own[q >> kLogP].y, src);
+            }
+          }
+          if (!live[j] || q >= plan.used) continue;
+          const int row = plan.rows_final(q, t[j]);
+          if constexpr (!kShareTw) w = twiddle(row);
+          const long o = (static_cast<long>(b) * n1 + row) * L + l0;
+          if constexpr (VL > 1) {
+            float re[VL], im[VL];
+#pragma unroll
+            for (int i = 0; i < VL; ++i) {
+              const float2 out = cmul(v[i][q], w);
+              re[i] = out.x;
+              im[i] = out.y;
+            }
+            if (kK1Mode == 2) {
+              keep += re[0] + im[VL - 1];
+              continue;
+            }
+            store_vec<VL>(yr, o + lane[0], re);
+            store_vec<VL>(yi, o + lane[0], im);
+          } else {
+            const float2 out = cmul(v[j][q], w);
+            if (kK1Mode == 2) {
+              keep += out.x + out.y;
+              continue;
+            }
+            const float re[1] = {out.x}, im[1] = {out.y};
+            store_vec<1>(yr, o + lane[j], re);
+            store_vec<1>(yi, o + lane[j], im);
+          }
+        }
+      }
+    }
+    // the next column's copies go to the buffer this one was staged and
+    // exchanged in: every thread must be done reading it (an exchange of
+    // its own is free once the next column's first exchange barrier has
+    // passed, and this column's stage buffer since its own)
+    if (!lay.own_ex || plan.passes < 2 || kK1Mode == 1 || kK1Mode == 3)
+      __syncthreads();
+  }
+  if (kK1Mode >= 2 && keep == -1.0f) {
+    const float kk[1] = {keep};
+    store_vec<1>(yr, 0, kk);
   }
 }
 
@@ -1016,6 +1280,34 @@ cudaError_t by_lanes(int log_tl, Go go) {
   return go(std::integral_constant<int, 1>{});
 }
 
+// The paths' K1 columns compiled for their sizes (a run-time pass plan is
+// several times slower): N1 = 512 in every form (the flagship's window,
+// config 2's stream), 256 and 128 (config 3's stream) for float32 planes
+// in and out.
+template <bool PACKED, typename T>
+constexpr bool k1_compiled(int n1) {
+  return n1 == 512 || (!PACKED && !bbt::kBf16<T> && (n1 == 256 || n1 == 128));
+}
+
+// The K1 block for an N1-row column: log2 of the widest power-of-two tile
+// <= kK1Lanes dividing L whose stages and exchange fit, or -1.
+template <bool PACKED>
+int k1_log_tl(int n1, int L, int kf, int ke, int nmp) {
+  for (int lt = bbt::log2i(bbt::kK1Lanes); lt >= 0; --lt) {
+    if (L % (1 << lt)) continue;
+    if (bbt::K1Smem<PACKED>(n1, 1 << lt, kf, ke, nmp).bytes() <= bbt::kMaxSmem)
+      return lt;
+  }
+  return -1;
+}
+
+template <bool PACKED, typename T>
+int k1_form(int n1, int L) {
+  const int lt = k1_log_tl<PACKED>(n1, L, 0, 0, PACKED ? n1 / 4 : n1);
+  if (lt < 0) return -1;
+  return lt == bbt::log2i(bbt::kK1Lanes) && k1_compiled<PACKED, T>(n1);
+}
+
 template <bool PACKED, typename T>
 int launch_k1(const float* xr, const float* xi, const void* xpr,
               const void* xpi, const float* fr, const float* fi,
@@ -1023,21 +1315,58 @@ int launch_k1(const float* xr, const float* xi, const void* xpr,
               float scale_value, int edge_scale, T* yr, T* yi, int n1, int n2,
               int L, int kf, int ke, int bits, float offset, float4 lv,
               int device, void* stream) {
-  const int log_tl = bbt::choose_log_tl(n1, L, 0, 0);
-  if (log_tl < 0) return cudaErrorInvalidValue;
-  const size_t smem = bbt::column_smem(n1, log_tl);
-  return by_lanes<T>(log_tl, [&](auto v) -> cudaError_t {
-    auto kernel = bbt::k1_kernel<PACKED, T, decltype(v)::value>;
+  const int nmp = (n1 - kf - ke) / (PACKED ? 32 / bits : 1);
+  const int log_tl = k1_log_tl<PACKED>(n1, L, kf, ke, nmp);
+  if (log_tl < 0 || kf < 0 || ke < 0 || kf + ke > n1)
+    return cudaErrorInvalidValue;
+  const int tl = 1 << log_tl;
+  const size_t smem = bbt::K1Smem<PACKED>(n1, tl, kf, ke, nmp).bytes();
+  const int row_groups = n1 > (1 << bbt::kK1LogR) ? n1 >> bbt::kK1LogR : 1;
+  const int chunk = bbt::copy_chunk(tl, L, 4, {xr, xi, xpr, xpi, fr, fi, er,
+                                              ei});
+  auto go = [&](auto kernel, int vl) -> cudaError_t {
+    // a row group's tl / vl threads (vl > 1), or two single-lane items a
+    // thread, in whole warps
+    const int items = (tl >= vl ? tl / vl : 1) * row_groups;
+    const int per = vl > 1 ? 1 : bbt::k1_items(1);
+    const int threads = (items + 32 * per - 1) / (32 * per) * 32;
+    if (threads > bbt::kK1MaxThreads ||
+        reinterpret_cast<uintptr_t>(yr) % (vl * sizeof(T)) ||
+        reinterpret_cast<uintptr_t>(yi) % (vl * sizeof(T)))
+      return cudaErrorInvalidValue;
     cudaError_t err = bbt::prepare(kernel, smem, device);
     if (err != cudaSuccess) return err;
-    kernel<<<dim3(L >> log_tl, n2), kThreads, smem,
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+    if (err != cudaSuccess) return err;
+    const int lane_tiles = L >> log_tl;
+    int groups = per_sm * sms / lane_tiles;
+    if (groups < 1) groups = 1;
+    if (groups > n2) groups = n2;
+    kernel<<<dim3(lane_tiles, groups), threads, smem,
              static_cast<cudaStream_t>(stream)>>>(
         xr, xi, static_cast<const unsigned*>(xpr),
         static_cast<const unsigned*>(xpi), fr, fi, er, ei, scale, scale_value,
         edge_scale, yr, yi, bbt::log2i(n1), n2, L, log_tl, kf, ke, bits,
-        offset, lv);
+        offset, lv, chunk);
     return cudaGetLastError();
-  });
+  };
+  constexpr int kHot = bbt::log2i(bbt::kK1Lanes);
+  constexpr int kVec = bbt::kK1Vec;
+  if (log_tl == kHot && k1_compiled<PACKED, T>(n1)) {
+    if (n1 == 512)
+      return go(bbt::k1_reg_kernel<PACKED, T, 9, kHot, kVec>, kVec);
+    if constexpr (!PACKED && !bbt::kBf16<T>) {
+      if (n1 == 256)
+        return go(bbt::k1_reg_kernel<PACKED, T, 8, kHot, kVec>, kVec);
+      return go(bbt::k1_reg_kernel<PACKED, T, 7, kHot, kVec>, kVec);
+    }
+  }
+  return go(bbt::k1_reg_kernel<PACKED, T, -1, -1, 1>, 1);
 }
 
 constexpr float4 kNoLevels = {0.f, 0.f, 0.f, 0.f};
@@ -1314,6 +1643,22 @@ extern "C" int bbt_k1_stream_planes(const float* x2, const float* front,
   return bbt_k1_float(x2, x2 + (n1 - kf - ke) * row, front, front + kf * row,
                       end, end + ke * row, scale, yr, yi, n1, n2, L, kf, ke,
                       device, stream);
+}
+
+// k1_form: 1 when a K1 launch (kind 0 k1_packed, 1 k1_packed_bf16, 2
+// k1_float and the window/stream/planes forms, 3 k1_float_bf16) of an
+// N1-row column on L lanes runs a register kernel compiled for its size,
+// 0 when it runs the general one (a run-time pass plan), -1 for a kind
+// it does not know or a shape no tile fits (k1_log_tl with no edges:
+// the edges only shrink a packed stage).
+extern "C" int bbt_k1_form(int n1, int L, int kind) {
+  switch (kind) {
+    case 0: return k1_form<true, float>(n1, L);
+    case 1: return k1_form<true, bf16>(n1, L);
+    case 2: return k1_form<false, float>(n1, L);
+    case 3: return k1_form<false, bf16>(n1, L);
+    default: return -1;
+  }
 }
 
 extern "C" int bbt_k2(void* yr, void* yi, const void* csr, const void* csi,

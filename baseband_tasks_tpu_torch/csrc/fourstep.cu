@@ -32,7 +32,6 @@
 
 #include "common.cuh"
 #include "fft.cuh"
-#include "lanemix.cuh"   // kMaxMixLanes
 #include "tf32mma.cuh"
 
 namespace bbt {

@@ -1,5 +1,6 @@
 // 3xTF32 matrix products on Hopper's tensor cores, for lane_mix
-// (fourstep.cu) and bank_power (accel.cu).
+// (fourstep.cu), bank_power (accel.cu) and the forward PFB's DFT
+// (pfb.cu).
 //
 // A block of two warpgroups (256 threads) computes a 128-row tile of
 // C = A @ B with `wgmma.mma_async` .tf32 (m64nNk8, float32 accumulate),
@@ -39,7 +40,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace bbt {
+
+// Widest lane axis the lane mixes and the forward PFB's DFT take: (2L)^2
+// split mixer floats, 80 MB at 1600 lanes.
+constexpr int kMaxMixLanes = 1600;
+
 namespace tc {
 
 constexpr int kThreads = 256;          // two warpgroups
@@ -287,10 +295,19 @@ __device__ __forceinline__ void mma3(float (&d)[N / 2], const Frag& a,
   Mma<N>::run(d, a.big, b_desc(b_big, j), 1);
 }
 
-// The main loop of both kernels over the stages of the depth.  The
+// Whether tile T computes part of its stage in the block (`prepare`).
+template <class T, class = void>
+struct HasPrepare : std::false_type {};
+template <class T>
+struct HasPrepare<T, std::void_t<decltype(&T::prepare)>> : std::true_type {};
+
+// The main loop of the kernels over the stages of the depth.  The
 // kernel's tile T supplies
 //   load(kt, stage): issue stage kt's cp.async copies (zeros past the
 //                    depth, also for the stages that pad the last period)
+//   prepare(stage):  optional: compute in the block what the stage's
+//                    fragments are loaded from (the PFB's tap sums), from
+//                    what load() staged there
 //   frags<S>(stage, j): load and split the A fragments of k8 step j into
 //                    fragment buffer S
 //   mma<S>(stage, j, fresh): issue step j's MMAs from buffer S into the
@@ -299,9 +316,14 @@ __device__ __forceinline__ void mma3(float (&d)[N / 2], const Frag& a,
 // Each PERIOD stages the partials are promoted: the warpgroup waits for
 // its MMAs and adds them on the CUDA cores.  Which stages promote is fixed
 // at compile time: `wgmma_wait` under a run-time branch makes ptxas
-// serialize the MMAs.
+// serialize the MMAs.  A tile with prepare() has stage kt + 2 prepared
+// while stage kt's MMAs run, from copies that arrived a stage before, so
+// the barrier each stage already takes publishes it: its stages are
+// waited for three ahead (STAGES >= 5).
 template <int STAGES, int STAGE_FLOATS, int PERIOD, class T>
 struct Pipeline {
+  static constexpr bool kPrep = HasPrepare<T>::value;
+  static_assert(!kPrep || STAGES >= 5, "prepare() needs 5 stages or more");
   T& t;
   float* stages;
   int k_tiles;                         // stages, padded to whole periods
@@ -317,13 +339,16 @@ struct Pipeline {
     wgmma_wait<1>();                   // step-1 fragments free
     t.template frags<1>(sa, 1);
     t.template mma<1>(sa, 1, false);
+    if constexpr (kPrep)               // while this stage's MMAs run
+      if (kt + 2 < k_tiles) t.prepare(slot(kt + 2));
     if constexpr (PROMOTE) {
       wgmma_wait<0>();
       t.promote();
     } else {
       wgmma_wait<1>();                 // step-0 fragments free
     }
-    cp_async_wait<STAGES - 3>();       // stage kt + 1 arrived
+    // stage kt + 1 arrived (kt + 3 with prepare(): prepared next stage)
+    cp_async_wait<kPrep ? STAGES - 5 : STAGES - 3>();
     fence_proxy_async();
     __syncthreads();                   // stage kt - 1 free
     if (kt + STAGES - 1 < k_tiles) t.load(kt + STAGES - 1, slot(kt + STAGES - 1));
@@ -343,9 +368,14 @@ struct Pipeline {
       if (s < k_tiles) t.load(s, slot(s));
       cp_async_commit();
     }
-    cp_async_wait<STAGES - 2>();
+    cp_async_wait<kPrep ? STAGES - 4 : STAGES - 2>();   // 0 (0..2) arrived
     fence_proxy_async();
     __syncthreads();
+    if constexpr (kPrep) {
+      t.prepare(slot(0));
+      if (1 < k_tiles) t.prepare(slot(1));
+      __syncthreads();
+    }
     t.template frags<0>(slot(0), 0);
     for (int kt = 0; kt < k_tiles; kt += PERIOD) period<0>(kt);
   }

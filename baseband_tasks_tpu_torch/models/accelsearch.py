@@ -15,13 +15,13 @@ Engines, as in the JAX package:
   reshapes, no gather) contract with the device-resident banded operator
   ``M_z[f, k] = conj(t_z)[f-k]`` in one bank product with a fused power
   epilogue (:func:`~..ops.accel_correlate.bank_matmul_power`, the
-  ``bank_power`` kernel on the card).  ``'auto'`` picks it on a CUDA
-  device.
+  ``bank_power`` kernel on the card).
 - ``'pallas'``: overlap-save segments, their forward FFT (``torch.fft``,
   as the JAX package computes it outside its kernel), then the fused
   bank correlation (:func:`~..ops.accel_correlate.accel_correlate_bank`,
   the ``accel_corr`` kernel on the card) over 128-lane chunks of the bank,
-  each computed and written for its real templates only.
+  each computed and written for its real templates only.  ``'auto'``
+  picks it on a CUDA device (:func:`auto_engine`).
 - ``'xla'``: the same overlap-save correlation on ``torch.fft``
   (broadcast multiply, batched inverse FFT); ``'auto'`` on the CPU.
 
@@ -46,7 +46,20 @@ from ..utils import units as u
 from .meshtools import (axis_devices, mesh_cache_key, pad_to_multiple,
                         require_mesh_axis)
 
-__all__ = ["FourierDomainAccelSearch", "accel_template"]
+__all__ = ["FourierDomainAccelSearch", "accel_template", "auto_engine"]
+
+
+def auto_engine(device_type):
+    """The engine ``engine='auto'`` runs on a device of this type:
+    'pallas' on 'cuda', 'xla' elsewhere.
+
+    The JAX package's rule takes the engine that wins on the backend: the
+    bank matmul ('mx') on a TPU, whose MXU runs it fastest, the FFT engine
+    everywhere else.  On an H100 the fused bank correlation wins: 'pallas'
+    takes 1.70-1.84 ms at 2^22 samples against 4.90-5.26 ms for 'xla' and
+    7.64-7.73 ms for 'mx' (PERF.md, the acceleration search), so 'auto'
+    on the card is 'pallas', not the JAX line's 'mx'."""
+    return "pallas" if device_type == "cuda" else "xla"
 
 
 def accel_template(z, m):
@@ -86,8 +99,8 @@ class FourierDomainAccelSearch:
         Spectrum segment length of the overlap-save correlation of the
         'xla' and 'pallas' engines ('mx' fixes its own L = 2m window).
     engine : 'auto', 'mx', 'xla' or 'pallas'
-        See the module docstring; 'auto' is 'mx' on a CUDA device and
-        'xla' on the CPU.
+        See the module docstring; 'auto' is 'pallas' on a CUDA device and
+        'xla' on the CPU (:func:`auto_engine`).
     device : torch device, optional
         Where the search runs; ``None`` means CUDA when available.
 
@@ -109,17 +122,18 @@ class FourierDomainAccelSearch:
         if engine not in ("auto", "mx", "xla", "pallas"):
             raise ValueError(f"engine={engine!r}: 'auto', 'mx', "
                              f"'xla' or 'pallas'")
-        if engine == "pallas":
+        if device is None:
+            device = "cuda" if torch.cuda.is_available() else "cpu"
+        self.device = torch.device(device)
+        self.engine = engine
+        # 'auto' on the card runs 'pallas' and takes its limits
+        if self._engine() == "pallas":
             if seg_len & (seg_len - 1) or seg_len > MAX_SEG_LEN:
                 raise ValueError(
                     f"engine='pallas' needs a power-of-two seg_len <= "
                     f"{MAX_SEG_LEN} (shared-memory budget of the fused "
                     f"kernel); got {seg_len}. Use engine='xla' or a smaller "
                     "window.")
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
-        self.engine = engine
         self.seg_len = int(seg_len)
         self.n_freq = self.n_time // 2 + 1
         # template transfer functions at the segment length: correlation
@@ -313,10 +327,14 @@ class FourierDomainAccelSearch:
         return cols[0] if len(cols) == 1 else torch.cat(cols, dim=1)
 
     # -- dispatch ---------------------------------------------------------
+    def _engine(self):
+        """The engine a search on this device runs: ``engine``, with
+        'auto' resolved by :func:`auto_engine`."""
+        return auto_engine(self.device.type) if self.engine == "auto" \
+            else self.engine
+
     def _use_mx(self):
-        if self.engine == "mx":
-            return True
-        return self.engine == "auto" and self.device.type == "cuda"
+        return self._engine() == "mx"
 
     def search(self, x):
         """(n_freq, n_z) normalized drift-corrected power map of the
@@ -330,7 +348,7 @@ class FourierDomainAccelSearch:
         x = x.to(dtype=torch.float32).to(self.device)
         if self._use_mx():
             return self._search_impl_mx_fused(x, *self._mx_fused_planes())
-        if self.engine == "pallas":
+        if self._engine() == "pallas":
             return self._search_impl_pallas(x, self._lane_banks())
         if self._tf_device is None:
             self._tf_device = self._on_device(self._tf_r, self._tf_i)

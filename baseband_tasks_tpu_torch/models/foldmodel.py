@@ -18,6 +18,8 @@ The rows are int64 and go to the device as integers; the JAX package's
 
 from __future__ import annotations
 
+from fractions import Fraction
+
 import numpy as np
 
 from ..integration import _phase_to_cycles
@@ -25,7 +27,37 @@ from ..ops.dedisperse import fold_phase_vector
 from ..utils import units as u
 from ..utils.time import TimeDelta
 
-__all__ = ["FoldModel"]
+__all__ = ["FoldModel", "best_rational"]
+
+
+def best_rational(x, max_pq=(1 << 31) - (1 << 20), max_q=1 << 23):
+    """Best rational p/q ≈ x (0 < x) subject to p·q < max_pq, q <= max_q.
+
+    Walks the continued-fraction convergents of ``x`` and returns the
+    last one satisfying both bounds; the classic convergent bound gives
+    |x - p/q| <= 1/q².  Exact rationals with a small denominator are
+    returned exactly.  Used for exact-rational period bookkeeping (e.g.
+    :class:`WidebandPulsarPipeline`'s fixed-period mode, which takes a
+    ``Fraction`` of samples per period).
+    """
+    if not np.isfinite(x) or x <= 0:
+        raise ValueError(f"fold rate must be positive and finite, got {x}")
+    frac = Fraction(float(x))  # exact binary expansion of the float
+    p_prev, q_prev = 0, 1
+    p_cur, q_cur = 1, 0
+    num, den = frac.numerator, frac.denominator
+    while den:
+        a = num // den
+        num, den = den, num - a * den
+        p_next = a * p_cur + p_prev
+        q_next = a * q_cur + q_prev
+        if (p_next * q_next >= max_pq or q_next > max_q) and q_cur:
+            break
+        p_prev, q_prev = p_cur, q_cur
+        p_cur, q_cur = p_next, q_next
+    if q_cur == 0:
+        raise ValueError(f"cannot approximate {x} under p*q < {max_pq}")
+    return p_cur, q_cur
 
 
 class FoldModel:

@@ -844,6 +844,18 @@ class WidebandPulsarPipeline:
         """Samples consumed per step across the whole mesh."""
         return self.block_samples * self.n_time_shards
 
+    def example_inputs(self, seed=0):
+        """Random inputs of :meth:`step_fn`'s shapes: the JAX package's
+        numbers from ``np.random.default_rng(seed)``, a (global_block,
+        n_chan, n_pol, 2) float32 tensor on the pipeline's device (the
+        step shards it over the mesh), and a float32 zero offset."""
+        rng = np.random.default_rng(seed)
+        xf = rng.standard_normal(
+            (self.global_block, self.n_chan, self.n_pol, 2)).astype(
+                np.float32)
+        return (torch.from_numpy(xf).to(self.device),
+                torch.tensor(0.0, dtype=torch.float32, device=self.device))
+
 
 def _map(grid, fn):
     """``fn`` of every block of an object grid."""

@@ -53,7 +53,8 @@ _SIGNATURES = {
     "bbt_k1_stream": [_P] * 5 + [_F] + [_P] * 2 + [_I] * 4 + [_I, _P],
     "bbt_lane_mix": [_P] * 5 + [_I] * 3 + [_I, _P],
     "bbt_lane_mix_tile": [_PI],
-    "bbt_pfb_fwd": [_P] * 8 + [_F] + [_P] * 2 + [_I] * 3 + [_I, _P],
+    "bbt_pfb_fwd": [_P] * 7 + [_F] + [_P] * 2 + [_I] * 3 + [_I, _P],
+    "bbt_pfb_fwd_tile": [_PI],
     "bbt_k1_planes": [_P] * 3 + [_I] * 3 + [_I, _P],
     "bbt_k1_stream_planes": [_P] * 6 + [_I] * 5 + [_I, _P],
     "bbt_k2_theta": [_P] * 3 + [_I] * 3 + [_I, _P],
@@ -65,6 +66,7 @@ _SIGNATURES = {
     "bbt_resident": [_P] * 12 + [_I] * 7 + [_I, _P],
     "bbt_resident_form": [_I] * 4,
     "bbt_k2_form": [_I] * 3,
+    "bbt_k1_form": [_I] * 3,
     "bbt_halo_edges": [_PLL] * 3 + [_I] * 5 + [_LL, _I] + [_I, _P],
     "bbt_enable_peer": [_I, _I],
 }
@@ -186,15 +188,17 @@ def library():
     return _lib
 
 
-def kernel_form(fn, *args):
+def kernel_form(fn, *args, other="shared"):
     """Which form of a kernel a launch of this shape runs, from its C
-    query ``fn`` (``bbt_k2_form``, ``bbt_resident_form``): 'register'
-    (the column in registers) or 'shared' (the shared-memory body kept
-    for columns the register block cannot hold)."""
+    query ``fn`` (``bbt_k2_form``, ``bbt_resident_form``, ``bbt_k1_form``):
+    'register' (the column in registers, compiled for its size), else
+    ``other``: 'shared' (the shared-memory body kept for columns the
+    register block cannot hold) or, for K1, 'general' (the register
+    kernel on a run-time pass plan)."""
     form = getattr(library(), fn)(*args)
     if form not in (0, 1):
         raise ValueError(f"{fn}{args}: no kernel takes this shape")
-    return "register" if form else "shared"
+    return "register" if form else other
 
 
 def kernel_tile(fn):

@@ -67,7 +67,7 @@ __all__ = ["split_n", "permute_to_storage_order", "fold_phase_vector",
            "dedisperse_fold_pow2", "dedisperse_fold_stream",
            "dedisperse_fold_split", "dedisperse_fold_split_packed",
            "fold_chain", "as_tensor", "launch_counts", "reset_launch_counts",
-           "k2_form"]
+           "k2_form", "k1_form"]
 
 _FX_BITS = 31
 _FX_ONE = 1 << _FX_BITS          # one pulse cycle in fixed-point units
@@ -484,6 +484,24 @@ def k2_form(name, n2, L):
     k2_bf16, k2_bf16_chirp, k2_theta) on (n2, n1, L) planes (needs the
     kernels' library, so a CUDA machine)."""
     return kernel_form("bbt_k2_form", int(n2), int(L), _K2_KINDS[name])
+
+
+_K1_KINDS = {"k1_packed": 0, "k1_packed_bf16": 1, "k1_float": 2,
+             "k1_float_bf16": 3}
+
+
+def k1_form(n1, L, name="k1_float"):
+    """'register' or 'general': whether K1 launch ``name`` (k1_packed,
+    k1_packed_bf16, k1_float, k1_float_bf16; k1_window, k1_stream,
+    k1_planes and k1_stream_planes run k1_float's kernel) on N1-row
+    columns of L lanes runs the register kernel compiled for its size or
+    the general one on a run-time pass plan (needs the kernels' library,
+    so a CUDA machine)."""
+    kind = _K1_KINDS.get(name, 2 if name.startswith("k1_") else None)
+    if kind is None:
+        raise ValueError(f"{name!r} is not a K1 launch")
+    return kernel_form("bbt_k1_form", int(n1), int(L), kind,
+                       other="general")
 
 
 def stage_b_theta(yr, yi, theta):

@@ -15,9 +15,12 @@ or, with the expanded DFT planes ``fr``/``fi`` (``ops.dft_matmul.
 _expanded_mats``, F ⊗ I_reps), the channelized spectra ``a @ (fr + i·fi)``
 in (channel major, trailing minor) lane order.
 
-:func:`pfb_forward_stream` launches ``csrc/pfb.cu`` on CUDA tensors (the
-DFT computed inside the kernel, from shared memory) and runs
-:func:`pfb_forward_stream_ref` on CPU ones.  The geometry gates
+:func:`pfb_forward_stream` launches ``csrc/pfb.cu`` on CUDA tensors and
+runs :func:`pfb_forward_stream_ref` on CPU ones: ``pfb_fwd`` (the FIR
+alone) or ``pfb_fwd_dft`` (the FIR's tap sums computed into the A stages
+of a 3xTF32 tensor-core GEMM against the DFT planes, split and staged
+once per pair of planes by ``ops/tf32.py``, float32-class as
+``lane_mix``).  The geometry gates
 (``forward_geometry_ok``, ``choose_block_rows``) are the JAX package's,
 so the compiled pipelines fuse exactly the stages that it fuses; the
 TPU's row-block tiling itself has no counterpart in the CUDA kernel.
@@ -27,10 +30,11 @@ from __future__ import annotations
 
 import torch
 
-from ._build import launch
+from ._build import kernel_tile, launch
 from .dedisperse import _check, _device_of, _on_cuda
 from .fft import scale_arg
 from .spectral_filter import MAX_MIX_LANES
+from .tf32 import cached, mix_operand, pack_operand
 
 __all__ = ["pfb_forward_stream", "pfb_forward_stream_ref",
            "forward_geometry_ok", "choose_block_rows"]
@@ -120,9 +124,9 @@ def pfb_forward_stream(carry_r, carry_i, xr, xi, taps, fr=None, fi=None,
                                       n_tap=n_tap, scale=scale)
     if not 2 <= n_tap <= MAX_TAPS:
         raise ValueError(f"n_tap={n_tap} outside the kernel's 2..{MAX_TAPS}")
-    if with_dft and L > MAX_MIX_LANES:
-        raise ValueError(f"L={L} lanes above the in-kernel DFT's "
-                         f"{MAX_MIX_LANES}")
+    if with_dft and (L > MAX_MIX_LANES or L % 16):
+        raise ValueError(f"L={L} lanes: the in-kernel DFT takes a multiple "
+                         f"of 16 up to {MAX_MIX_LANES}")
     for name, t, shape in (("carry_r", carry_r, (k, L)),
                            ("carry_i", carry_i, (k, L)),
                            ("xr", xr, (m, L)), ("xi", xi, (m, L)),
@@ -131,12 +135,16 @@ def pfb_forward_stream(carry_r, carry_i, xr, xi, taps, fr=None, fi=None,
         _check(t, name, torch.float32, shape, dev)
     yr = torch.empty((m, L), dtype=torch.float32, device=dev)
     yi = torch.empty_like(yr)
+    wp = None
+    if with_dft:
+        tile = kernel_tile("bbt_pfb_fwd_tile")
+        wp = cached((fr, fi), lambda: pack_operand([mix_operand(fr, fi)],
+                                                   *tile))
     ptr, value, keep = scale_arg(scale, dev)
     launch("pfb_fwd_dft" if with_dft else "pfb_fwd", "bbt_pfb_fwd", dev,
            carry_r.data_ptr(), carry_i.data_ptr(), xr.data_ptr(),
            xi.data_ptr(), taps.data_ptr(),
-           fr.data_ptr() if with_dft else None,
-           fi.data_ptr() if with_dft else None, ptr, value, yr.data_ptr(),
+           wp.data_ptr() if with_dft else None, ptr, value, yr.data_ptr(),
            yi.data_ptr(), m, L, n_tap)
     del keep
     return yr, yi

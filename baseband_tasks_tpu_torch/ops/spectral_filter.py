@@ -48,8 +48,8 @@ __all__ = ["spectral_filter_pow2", "spectral_filter_pow2_ref",
            "lane_mix", "lane_mix_ref", "geometry_ok", "lane_dft_mats",
            "expand_lane_mats"]
 
-#: widest lane axis the lane mixes take (the forward PFB's DFT holds a
-#: 16-row tile of it in shared memory)
+#: widest lane axis the lane mixes and the forward PFB's DFT take
+#: (``kMaxMixLanes``, ``csrc/tf32mma.cuh``)
 MAX_MIX_LANES = 1600
 
 

@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .base import TaskBase, BaseTaskBase
+from .base import META_ATTRIBUTES, TaskBase, BaseTaskBase
 from .utils import Time, units as u
 
 __all__ = ["ChangeSampleShapeBase", "ChangeSampleShape", "Reshape",
@@ -61,7 +61,7 @@ class ChangeSampleShapeBase(TaskBase):
 
     def _transform_attributes(self, ih):
         result = {}
-        for name in ("frequency", "sideband", "polarization"):
+        for name in META_ATTRIBUTES:
             value = getattr(ih, "meta", {}).get("__attributes__",
                                                 {}).get(name)
             if value is None:

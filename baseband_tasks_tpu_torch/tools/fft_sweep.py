@@ -1,7 +1,8 @@
 """Time variants of the register-FFT kernels, accel_corr (``csrc/
-accel.cu``), the K3 detect-fold and K2 (``csrc/dedisperse.cu``) and the
-resident dedisperse -> fold (``csrc/resident.cu``), on one CUDA card, at
-the main paths' shapes.
+accel.cu``), the K3 detect-fold, K2 and K1 (``csrc/dedisperse.cu``) and
+the resident dedisperse -> fold (``csrc/resident.cu``), and of the
+forward PFB (``csrc/pfb.cu``), on one CUDA card, at the main paths'
+shapes.
 
 Each variant is the checkout's own source with the kernel's constants
 line replaced:
@@ -35,10 +36,23 @@ line replaced:
   shared memory), the general instantiation's stage buffers, mode
   0, 1 (no FFT) or 2 (no fold), runs of equal bins summed (1) or an
   atomic a value (0), and the chirp held in registers for the block's
-  life (1) or read from L2 every window (0).
+  life (1) or read from L2 every window (0);
+- K1 (``kK1Lanes``, ``kK1Stages``, ``kK1Vec``, ``kK1Mode``): the widest
+  lane tile, the stage buffers, the neighbouring lanes a thread holds
+  (1: two single-lane items, 4-byte stores; 2 or 4: 8- or 16-byte
+  stores), and mode 0 (the kernel), 1 (no FFT), 2 (no stores) or 3 (the
+  staged loads and the decode alone);
+- the forward PFB (``kFirRows``, ``kFirUnroll``, ``kFirThreads``;
+  ``kPfbBN``, ``kPfbStages``, ``kPfbPeriod``, ``kPfbMode``): the FIR's
+  output rows a thread, rows a step and threads a block; the fused DFT's
+  column tile, ring stages, promotion period and mode 0 (the kernel), 1
+  (the raw window rows as the A tile: no tap sum), 2 (no A tile
+  written) or 3 (the mixer staged alone).
 
 With ``--old DIR`` the sources of another checkout's ``csrc`` (the
-kernels before the redesign) are built and timed too.  ``--only`` picks
+kernels before the redesign) are built and timed too; its K1 also with
+one phase cut at a time (the FFT, the twiddle, the stores, all but the
+loads), as it was before any redesign.  ``--only`` picks
 the kernels (default all).  The variants are built in parallel into
 ``build/fft_sweep/``, their ``-Xptxas -v`` register and spill lines and
 the shared-memory atomic instructions of their SASS printed, each
@@ -51,11 +65,17 @@ for 65 and 128 lanes; K3 and K2 at N1 = N2 = 512, L = 128 (K3 with 64
 phase bins, power and Stokes, float32 and bf16; K2 in its four launch
 forms, and k2 at the compiled PFB chains' N2 = 256, N1 = 128, L = 512);
 resident on a 261,120-row, 128-lane block at windows 2048 and
-4096, pads 256/256, 64 phase bins, power and Stokes; each beside its
-bound.  The first of each list is the kernel as the package builds it.
+4096, pads 256/256, 64 phase bins, power and Stokes; K1 at the
+flagship's window (N1 = N2 = 512, L = 128, pads 3584/4608: 8-bit
+packed, float32, both with bf16 planes out, the plain window) and
+config 3's and config 2's k1_stream, planes within 1e-4 of the peak
+(bf16 one ulp); the PFB at config 3's 32256 x 512, 8 taps, within 1e-4
+of the peak, beside the FIR then lane_mix and one complex ``matmul`` of
+the tap sums by F; each beside its bound.  The first of each list is
+the kernel as the package builds it.
 
     python -m baseband_tasks_tpu_torch.tools.fft_sweep [--reps N] \
-        [--old DIR] [--only corr,fold,k2,resident]
+        [--old DIR] [--only corr,fold,k2,resident,k1,pfb]
 
 Prints one line per measurement and ends with a JSON object of them.
 """
@@ -91,6 +111,27 @@ K2_RE = r"constexpr int kK2Lanes = [^;]*;"
 RES_RE = (r"constexpr int kResTile2048 = [^;]*;\n"
           r"constexpr int kResStages = [^;]*;")
 K2_KNOBS = ("kK2Lanes", "kK2Stages", "kK2Items", "kK2Chirp", "kK2Mode")
+K1_RE = r"constexpr int kK1Lanes = [^;]*;"
+K1_KNOBS = ("kK1Lanes", "kK1Stages", "kK1Vec", "kK1Mode")
+# (lanes, stages, lanes a thread, mode): mode 0 the kernel, 1 no FFT, 2 no
+# stores, 3 the staged loads alone
+K1_VARIANTS = [(16, 2, 1, 0), (16, 2, 2, 0), (16, 2, 4, 0), (16, 3, 1, 0),
+               (8, 2, 1, 0), (16, 2, 1, 1), (16, 2, 1, 2), (16, 2, 1, 3)]
+# the parent's shared-memory K1 (the kernel before the redesign, from
+# --old) with its phases cut one at a time
+K1_OLD_MODES = ("kernel", "no FFT", "no twiddle", "no stores", "loads only")
+FIR_RE = r"constexpr int kFirRows = [^;]*;"
+FIR_KNOBS = ("kFirRows", "kFirUnroll", "kFirThreads")
+PFB_RE = r"constexpr int kPfbBN = [^;]*;"
+PFB_KNOBS = ("kPfbBN", "kPfbStages", "kPfbPeriod", "kPfbMode")
+# ((FIR rows a thread, rows a step, threads), (DFT tile columns, stages,
+# promotion period, mode 0 the kernel or 1 no tap sum))
+PFB_VARIANTS = [((128, 4, 128), (128, 6, 2, 0)),
+                ((64, 4, 128), (128, 5, 2, 0)),
+                ((128, 4, 64), (128, 6, 1, 0)),
+                ((128, 2, 128), (128, 6, 2, 1)),
+                ((128, 4, 128), (128, 6, 2, 2)),
+                ((128, 4, 128), (128, 6, 2, 3))]
 RES_KNOBS = (("kResTile2048", "kResStages2048", "kResTile2048S",
               "kResStages2048S", "kResTile4096", "kResStages4096",
               "kResTile4096S", "kResStages4096S", "kResChirpRegs4096S"),
@@ -165,6 +206,55 @@ def k2_label(v):
             f"thread, {chirp}{mode}")
 
 
+def k1_label(v):
+    mode = ("", " no FFT", " no stores", " loads only")[v[3]]
+    return (f"tile {v[0]} lanes, {v[1]} stage buffer(s), {v[2]} lane(s) "
+            f"a thread{mode}")
+
+
+def patch_old_k1(src, mode):
+    """The parent's dedisperse.cu with one phase of its shared-memory
+    ``k1_kernel`` cut (``K1_OLD_MODES``); what a cut phase computed is
+    summed into a value stored only when it is -1, so the compiler keeps
+    the work that remains."""
+    if mode == "kernel":
+        return src
+    head, rest = src.split("k1_kernel(const float*", 1)
+    body, tail = rest.split("// K2: replaces", 1)
+
+    def sub(old, new):
+        nonlocal body
+        if body.count(old) != 1:
+            raise RuntimeError(f"parent k1_kernel: no single {old!r}")
+        body = body.replace(old, new)
+
+    fft = "  fft_dif<false>(x, tw, log_n1, log_tl);\n"
+    stores = ("    store_lanes<V>(yr, o, re);\n"
+              "    store_lanes<V>(yi, o, im);\n  }\n}")
+    if mode == "no FFT":
+        sub(fft, "")
+    elif mode == "no twiddle":
+        sub("    sincospif(-2.0f * static_cast<float>(k * b) / nf, &sn, &cs);",
+            "    sn = 0.0f;\n    cs = 1.0f + 0.0f * static_cast<float>(k * b) / nf;")
+    elif mode == "no stores":
+        sub(fft, fft + "  float keep = 0.0f;\n")
+        sub(stores, "    keep += re[0] + im[0];\n  }\n"
+            "  const float kk[1] = {keep};\n"
+            "  if (keep == -1.0f) store_lanes<1>(yr, 0, kk);\n}")
+    elif mode == "loads only":
+        sub(fft, "  {\n    const float kk[1] = {x[threadIdx.x].x + "
+            "x[threadIdx.x].y};\n    if (kk[0] == -1.0f) "
+            "store_lanes<1>(yr, 0, kk);\n    return;\n  }\n")
+    return head + "k1_kernel(const float*" + body + "// K2: replaces" + tail
+
+
+def pfb_label(v):
+    (rows, unroll, threads), (bn, stages, period, mode) = v
+    return (f"FIR {rows} rows a thread, {unroll} a step, {threads} threads; "
+            f"DFT {bn} columns, {stages} stages, promoted every {period}"
+            f"{('', ' no tap sum', ' no A tile', ' B alone')[mode]}")
+
+
 def res_label(v):
     (t2, s2, t2s, s2s, t4, s4, t4s, s4s, cr), (_, mode, runs, chirp) = v
     return (f"tile/stages {t2}/{s2} {t2s}/{s2s} {t4}/{s4} {t4s}/{s4s} "
@@ -174,14 +264,14 @@ def res_label(v):
             f"{('', ' no FFT', ' no fold')[mode]}")
 
 
-def build_one(name, unit_src, headers_dir, pattern, line):
+def build_one(name, unit_src, headers_dir, pattern, line, text=None):
     d = SWEEP_DIR / name
     if d.exists():
         shutil.rmtree(d)
     d.mkdir(parents=True)
     for h in headers_dir.glob("*.cuh"):
         shutil.copy(h, d / h.name)
-    src = unit_src.read_text()
+    src = unit_src.read_text() if text is None else text
     if pattern is not None:
         if len(re.findall(pattern, src)) != 1:
             raise RuntimeError(f"{unit_src.name}: no single line to vary")
@@ -228,14 +318,26 @@ def atomics(so, kernel):
     return [f"SASS shared atomics: {ops}"] if ops else []
 
 
-# the entry points whose arguments the redesign changed, as they were
+# the entry points whose arguments a redesign changed, as they were
 _OLD_SIGNATURES = {"bbt_accel_corr": [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] * 4 + [ctypes.c_int, ctypes.c_void_p]}
+                   + [ctypes.c_int] * 4 + [ctypes.c_int, ctypes.c_void_p],
+                   "bbt_pfb_fwd": [ctypes.c_void_p] * 8 + [ctypes.c_float]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                   + [ctypes.c_int, ctypes.c_void_p]}
+
+
+def old_pfb(lib):
+    """Whether ``lib``'s forward PFB takes the DFT planes (fr, fi) raw,
+    as before the tensor-core DFT (which reports a staged tile)."""
+    return not hasattr(lib, "bbt_pfb_fwd_tile")
 
 
 def load(so, old=False):
     lib = ctypes.CDLL(str(so))
-    sigs = dict(_build._SIGNATURES, **(_OLD_SIGNATURES if old else {}))
+    sigs = dict(_build._SIGNATURES)
+    if old:
+        sigs.update({k: v for k, v in _OLD_SIGNATURES.items()
+                     if k != "bbt_pfb_fwd" or old_pfb(lib)})
     for name, argtypes in sigs.items():
         if hasattr(lib, name):
             fn = getattr(lib, name)
@@ -270,6 +372,36 @@ def build_variants(old, only):
         jobs.append((("res", v), "resident_reg",
                      build_one("resident_" + "_".join(map(str, v[0] + v[1])),
                                csrc / "resident.cu", csrc, RES_RE, lines)))
+    if "k1" in only and re.search(K1_RE, (csrc / "dedisperse.cu")
+                                  .read_text()):
+        for v in K1_VARIANTS:
+            jobs.append((("k1", v), "k1_reg",
+                         build_one(f"k1_{'_'.join(map(str, v))}",
+                                   csrc / "dedisperse.cu", csrc, K1_RE,
+                                   knob_lines(K1_KNOBS, v))))
+    if old is not None and "k1" in only:
+        old_src = (Path(old) / "dedisperse.cu").read_text()
+        # phases are cut from the shared-memory K1 only (trees before the
+        # register K1); a later tree's K1 is timed whole
+        modes = (K1_OLD_MODES if "k1_kernel(const float*" in old_src
+                 else K1_OLD_MODES[:1])
+        for mode in modes:
+            src = patch_old_k1(old_src, mode)
+            jobs.append((("k1", ("old", mode)), "k1_kernel",
+                         build_one(f"k1_old_{mode.replace(' ', '_')}",
+                                   Path(old) / "dedisperse.cu", Path(old),
+                                   None, "", text=src)))
+    for v in PFB_VARIANTS if "pfb" in only else ():
+        src = re.sub(PFB_RE, knob_lines(PFB_KNOBS, v[1]),
+                     re.sub(FIR_RE, knob_lines(FIR_KNOBS, v[0]),
+                            (csrc / "pfb.cu").read_text()))
+        jobs.append((("pfb", v), ("pfb_fir", "pfb_dft"),
+                     build_one("pfb_" + "_".join(map(str, v[0] + v[1])),
+                               csrc / "pfb.cu", csrc, None, "", text=src)))
+    if old is not None and "pfb" in only:
+        jobs.append((("pfb", ("old",)), ("pfb_fir", "pfb_dft"),
+                     build_one("pfb_old", Path(old) / "pfb.cu", Path(old),
+                               None, "")))
     if old is not None:
         old = Path(old)
         if "corr" in only:
@@ -289,8 +421,10 @@ def build_variants(old, only):
         out = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"nvcc {key}:\n{out}")
-        libs[key] = (load(so, key[1] == "old"),
-                     ptxas_lines(out, kernel) + atomics(so, kernel))
+        libs[key] = (load(so, key[1] == "old" or key[1][0] == "old"),
+                     ptxas_lines(out, kernel)
+                     + [ln.strip() for ln in out.splitlines() if "wgmma" in ln]
+                     + atomics(so, kernel))
     if ("fold", "old") in libs:   # the parent's K2 is in its dedisperse.cu
         if "k2" in only:
             libs[("k2", "old")] = libs[("fold", "old")]
@@ -508,6 +642,182 @@ def sweep_k2(libs, dev, reps, out):
         out.append(rec)
 
 
+# K1 at the paths' shapes: the flagship's (N1 = N2 = 512, L = 128, pads
+# 3584/4608: kf 7, ke 9) packed 8-bit and float, float32 and bf16 planes,
+# and its plain window (k1_window, k1_planes); config 3's compiled PFB
+# chain (N1 = 128, N2 = 256, L = 512, the 256-row carry) and config 2's
+# (N1 = N2 = 512, L = 128, the 512-row carry) k1_stream
+K1_CASES = [("k1_packed", 512, 512, 128, 7, 9),
+            ("k1_packed_bf16", 512, 512, 128, 7, 9),
+            ("k1_float", 512, 512, 128, 7, 9),
+            ("k1_float_bf16", 512, 512, 128, 7, 9),
+            ("k1_window", 512, 512, 128, 0, 0),
+            ("k1_stream", 128, 256, 512, 1, 0),
+            ("k1_stream", 512, 512, 128, 1, 0)]
+K1_BITS = 8
+
+
+def k1_case(form, n1, n2, lanes, kf, ke, dev):
+    """(C entry point, its arguments, the plain result, the tensors it
+    reads and writes: the outputs last) of one K1 case."""
+    from ..ops import fft as ff
+    from ..ops.unpack import default_levels, default_offset
+    per = 32 // K1_BITS
+    nm = n1 - kf - ke
+    dt = torch.bfloat16 if form.endswith("_bf16") else torch.float32
+    edges = randn(dev, (kf * n2, lanes), 91, 2) + randn(dev, (ke * n2, lanes),
+                                                        92, 2)
+    scale = torch.tensor([0.75], device=dev)
+    y = [torch.empty((n2, n1, lanes), dtype=dt, device=dev) for _ in range(2)]
+    ptr = lambda ts: [t.data_ptr() for t in ts]
+    if form.startswith("k1_packed"):
+        g = torch.Generator(device=dev)
+        g.manual_seed(93)
+        words = [torch.randint(-2 ** 31, 2 ** 31 - 1, (nm // per * n2, lanes),
+                               generator=g, device=dev, dtype=torch.int64)
+                 .to(torch.int32) for _ in range(2)]
+        args = (*ptr(words), *ptr(edges), scale.data_ptr(), *ptr(y), n1, n2,
+                lanes, kf, ke, K1_BITS, float(default_offset(K1_BITS)),
+                *map(float, default_levels(K1_BITS)))
+        ref = dd.stage_a_packed_ref(*words, *edges, scale, bits=K1_BITS,
+                                    out_dtype=dt)
+        ins = words + edges
+    elif form.startswith("k1_float"):
+        x = randn(dev, (nm * n2, lanes), 94, 2)
+        args = (*ptr(x), *ptr(edges), scale.data_ptr(), *ptr(y), n1, n2,
+                lanes, kf, ke)
+        ref = dd.stage_a_ref(*x, *edges, scale, dt)
+        ins = x + edges
+    elif form == "k1_window":
+        x = randn(dev, (n1 * n2, lanes), 95, 2)
+        args = (*ptr(x), *ptr(y), n1, n2, lanes)
+        ref = ff.k1_window_ref(*x)
+        ins = x
+    else:
+        x = randn(dev, ((n1 - kf) * n2, lanes), 96, 2)
+        carry = edges[:2]
+        args = (*ptr(carry), *ptr(x), scale.data_ptr(), 0.0, *ptr(y), n1, n2,
+                lanes, kf)
+        ref = ff.k1_stream_ref(*carry, *x, scale)
+        ins = carry + x
+    return f"bbt_{form}", args, ref, ins + [scale] + y
+
+
+def sweep_k1(libs, dev, reps, out):
+    cases = [k1_case(*c, dev) for c in K1_CASES]
+    for key in [k for k in libs if k[0] == "k1"]:
+        lib, lines = libs[key]
+        v = key[1]
+        old = v[0] == "old"
+        name = (f"K1 old kernel, {v[1]}" if old else f"K1 {k1_label(v)}")
+        rec = {"kernel": "k1", "variant": v, "ptxas": lines}
+        print(name, *lines, sep="\n  ", flush=True)
+        for (form, n1, n2, lanes, kf, ke), (fn, args, ref, ts) in zip(
+                K1_CASES, cases):
+            tag = f"{form} {n1}x{n2}x{lanes}"
+            y = ts[-2:]
+            kern = lambda: call(getattr(lib, fn), dev, *args)
+            kern()
+            torch.cuda.synchronize()
+            rel = None
+            if (v[1] if old else v[3]) in ("kernel", 0):
+                rel = check_k2_planes(f"{name} {tag}", y, ref)
+            ms = cuda_ms(kern, reps)
+            bound = bytes_ms(*ts)
+            rec[tag] = {"ms": ms, "bound_ms": bound, "rel": rel}
+            print(f"{name}, {tag}: {ms:.4f} ms, bound {bound:.4f} ms "
+                  f"(bytes), vs plain {'-' if rel is None else f'{rel:.2e}'}",
+                  flush=True)
+        out.append(rec)
+
+
+# the forward PFB at config 3's shape: 32256 spectra of 512 lanes (256
+# channels x 2 pols), 8 taps, the DFT F (x) I_2
+PFB_M, PFB_L, PFB_TAPS = 32256, 512, 8
+TF32_FLOPS = 495e12            # dense TF32 on the tensor cores
+
+
+def sweep_pfb(libs, dev, reps, out):
+    """pfb_fwd and pfb_fwd_dft of each variant (and the parent's) against
+    the plain versions, timed beside their bounds; the shipped FIR then
+    lane_mix back to back, and one complex ``matmul`` of the tap sums by
+    F (the library's DFT product), timed in the same run."""
+    from ..ops import pfb as pf
+    from ..ops import spectral_filter as sf
+    from ..ops.dft_matmul import _expanded_mats, device_mats
+    from ..ops.tf32 import mix_operand, pack_operand
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m, lanes, nt = PFB_M, PFB_L, PFB_TAPS
+    carry = randn(dev, (nt - 1, lanes), 97, 2)
+    x = randn(dev, (m, lanes), 98, 2)
+    taps = randn(dev, (nt, lanes), 99, 1)[0]
+    fr, fi = device_mats(_expanded_mats(256, 2, "forward"), dev)
+    scale = torch.tensor([0.75], device=dev)
+    kw = dict(n_tap=nt, scale=scale)
+    ref_fir = pf.pfb_forward_stream_ref(*carry, *x, taps, **kw)
+    ref_dft = pf.pfb_forward_stream_ref(*carry, *x, taps, fr, fi, **kw)
+    y = [torch.empty((m, lanes), device=dev) for _ in range(2)]
+    ins = [*carry, *x, taps]
+    fir_bound = bytes_ms(*ins, scale, *y)
+    flops = 8 * lanes * m * lanes            # the DFT's, a pass
+    dft_bound = max(bytes_ms(*ins, fr, fi, scale, *y),
+                    1e3 * 3 * flops / TF32_FLOPS)
+    fp32_bound = 1e3 * flops / FP32_FLOPS
+    ptr = lambda ts: [t.data_ptr() for t in ts]
+    for key in [k for k in libs if k[0] == "pfb"]:
+        lib, lines = libs[key]
+        v = key[1]
+        old = v[0] == "old"
+        name = "PFB old kernels" if old else f"PFB {pfb_label(v)}"
+        rec = {"kernel": "pfb", "variant": v, "ptxas": lines}
+        print(name, *lines, sep="\n  ", flush=True)
+        if old and old_pfb(lib):
+            dft_args = (fr.data_ptr(), fi.data_ptr())
+            fir_args = (None, None)
+        else:
+            tile = (ctypes.c_int * 2)()
+            lib.bbt_pfb_fwd_tile(tile)
+            wp = pack_operand([mix_operand(fr, fi)], *tuple(tile))
+            dft_args = (wp.data_ptr(),)
+            fir_args = (None,)
+        for form, args, ref, bound in (
+                ("pfb_fwd", fir_args, ref_fir, fir_bound),
+                ("pfb_fwd_dft", dft_args, ref_dft, dft_bound)):
+            kern = lambda a=args: call(
+                lib.bbt_pfb_fwd, dev, *ptr(carry), *ptr(x), taps.data_ptr(),
+                *a, scale.data_ptr(), 0.0, *ptr(y), m, lanes, nt)
+            kern()
+            torch.cuda.synchronize()
+            rel = None
+            if old or v[1][3] == 0 or form == "pfb_fwd":
+                rel = check_k2_planes(f"{name} {form}", y, ref)
+            ms = cuda_ms(kern, reps)
+            rec[form] = {"ms": ms, "bound_ms": bound, "rel": rel}
+            print(f"{name}, {form}: {ms:.4f} ms, bound {bound:.4f} ms"
+                  f"{' (3xTF32; FP32-core %.4f)' % fp32_bound if 'dft' in form else ' (bytes)'}, "
+                  f"vs plain {'-' if rel is None else f'{rel:.2e}'}",
+                  flush=True)
+        out.append(rec)
+    # the yardsticks: the shipped FIR then lane_mix, and the library
+    fc = torch.complex(fr, fi)
+    ac = torch.complex(*ref_fir)
+    pair = lambda: sf.lane_mix(*pf.pfb_forward_stream(*carry, *x, taps, **kw),
+                               fr, fi)
+    got = pair()
+    torch.cuda.synchronize()
+    rel = check_k2_planes("pfb_fwd then lane_mix", got, ref_dft)
+    del got
+    pair_ms = cuda_ms(pair, reps)
+    mix_ms = cuda_ms(lambda: sf.lane_mix(*ref_fir, fr, fi), reps)
+    lib_ms = cuda_ms(lambda: torch.matmul(ac, fc), reps)
+    print(f"pfb_fwd then lane_mix (shipped): {pair_ms:.4f} ms (lane_mix "
+          f"alone {mix_ms:.4f}), vs plain {rel:.2e}; library (one complex "
+          f"matmul of the tap sums by F): {lib_ms:.4f} ms", flush=True)
+    out.append({"kernel": "pfb yardsticks", "pair_ms": pair_ms,
+                "lane_mix_ms": mix_ms, "pair_rel": rel, "library_ms": lib_ms,
+                "dft_bound_ms": dft_bound, "fp32_bound_ms": fp32_bound})
+
+
 def sweep_resident(libs, dev, reps, out):
     fold = torch.as_tensor(dd.fold_phase_vector(0.123, RES_RATE), device=dev)
     scale = torch.tensor([0.5], device=dev)
@@ -585,7 +895,7 @@ def main(argv=None):
     p.add_argument("--reps", type=int, default=20)
     p.add_argument("--old", default=None,
                    help="another checkout's csrc directory to time too")
-    p.add_argument("--only", default="corr,fold,k2,resident",
+    p.add_argument("--only", default="corr,fold,k2,resident,k1,pfb",
                    help="the kernels to sweep, comma-separated")
     args = p.parse_args(argv)
     only = args.only.split(",")
@@ -601,7 +911,8 @@ def main(argv=None):
     libs = build_variants(args.old, only)
     out = []
     for kind, sweep in (("corr", sweep_corr), ("fold", sweep_fold),
-                        ("k2", sweep_k2), ("resident", sweep_resident)):
+                        ("k2", sweep_k2), ("resident", sweep_resident),
+                        ("k1", sweep_k1), ("pfb", sweep_pfb)):
         if kind in only:
             sweep(libs, dev, args.reps, out)
     print(json.dumps({"gpu": gpu, "variants": out}, default=str))

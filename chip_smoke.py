@@ -12,9 +12,10 @@ DM 500, 64 phase bins, a B1937-like polyco, 8-bit plane-packed ingest;
 window N = 2^18, L = 128 lanes):
 
 (a) holds each flagship kernel against its plain PyTorch version on the
-    same random input at the flagship shapes, and times both (K2 beside
-    its shared-memory design's recorded time, its register form
-    asserted);
+    same random input at the flagship shapes, and times both (K1 and K2
+    beside their earlier designs' recorded times, their register forms
+    asserted: K1's at every path's column, flagship, config 2 and
+    config 3);
 (b) drives the pipeline's entry points, ``run_fn(8, ingest_bits=8)`` and
     the float32 twin ``run_fn(2)``, with ``use_kernels=True``, checks the
     counts, checks the profiles against the plain versions on the card, and
@@ -45,7 +46,9 @@ lanes) and of config 2:
 
 (g) holds the compiled slice's kernels against their plain versions at
     the shapes those paths give them: pfb_fwd without and with its
-    in-kernel DFT (32256 x 512, 8 taps), k1_stream without and with the
+    in-kernel DFT (32256 x 512, 8 taps; the fused DFT timed beside the
+    FIR then lane_mix, one complex ``matmul`` of the tap sums by F and
+    both of its bounds), k1_stream without and with the
     ``pre`` lane mix (2^15 x 512), k3_trim with the ``post`` lane mix
     (2^18 x 128), lane_mix (3xTF32 on the tensor cores) alone at the
     ``pre`` shape and at config 2's ``post`` shape (261,120 x 128), and
@@ -64,8 +67,8 @@ lanes) and of config 2:
     1e-3, atol 2e-3 for the chain as built (config 2 only reported: its
     frames sit off its pads, and the chirp's overlap-save leakage is
     outside that bound in the JAX package too) and where the eager frames
-    fall on the compiled windows; then config 3, config 2 and
-    Dechannelize -> inverse PFB timed in ms per block over a block
+    fall on the compiled windows; then config 3, the forward PFB, config
+    2 and Dechannelize -> inverse PFB timed in ms per block over a block
     already on the card, in turns, and profiled;
 
 and for the flagship's variants, at the flagship configuration again:
@@ -74,7 +77,8 @@ and for the flagship's variants, at the flagship configuration again:
     k3_power, k2_theta on the chirp phase plane, k1_planes,
     k1_stream_planes) against their plain versions on the same random
     input at the shapes the flagship paths give them (N = 2^18, L = 128),
-    and times both;
+    and times both (k2_theta, k1_planes and k1_stream_planes beside their
+    earlier designs' recorded times, their register forms asserted);
 (j) drives the variants' entry points at full width, each with its
     launches counted and asserted: ``run_fn(8, ingest_bits=8)`` with
     ``detect='stokes'``, ``step_fn`` (power and Stokes) on a polyco fold
@@ -108,10 +112,11 @@ pads 256/256, the 261,120-row block of ``tools/bench_resident.py``):
     rows (within 1e-5 of the peak);
 (l) runs ``FourierDomainAccelSearch.search`` on a seeded series (noise, a
     mid-band tone drifting 12 bins, a pulse train) with 'auto' (which
-    must be 'mx' on the card), 'pallas' (seg_len 4096) and 'xla' (8192),
-    asserts each engine's launches, holds mx and pallas against xla at
-    the JAX package's bounds, finds the tone with the map,
-    ``harmonic_sum`` and ``candidates``, times each engine against its
+    must be 'pallas' on the card: accel_corr launched, no bank_power),
+    'mx' by name (bank_power), 'pallas' (seg_len 4096) and 'xla' (8192),
+    asserts each engine's launches, holds mx, auto and pallas against xla
+    at the JAX package's bounds, finds the tone at every engine's map
+    peak and with 'auto''s ``harmonic_sum`` and ``candidates``, times each engine against its
     plain versions in turns and ``search_sharded`` 'pallas' over four
     virtual shards of the card, then runs ``FastFoldingSearch`` (base period
     1000, 4096 trials) on the card against the same call on the CPU;
@@ -132,8 +137,9 @@ integration layer:
     k3_fold_stokes_bf16) against its plain bf16 version at the flagship
     shapes (planes within one bf16 ulp plus 1e-6 of the peak, counts
     exact, profiles as in (a) and within 1e-3 of the peak of the float32
-    kernel), times each beside its float32 twin (the K2 forms also
-    beside their shared-memory design's recorded time); then drives
+    kernel), times each beside its float32 twin (the K1 and K2 forms also
+    beside their earlier designs' recorded times, their register forms
+    asserted); then drives
     ``dedisperse_fold_split`` and ``dedisperse_fold_split_packed`` with
     ``inter_dtype='bfloat16'`` (power and Stokes, float32 and bf16
     chirps), counted, against the plain bf16 path and the float32 op
@@ -273,14 +279,30 @@ KERNELS = {   # launch-count name -> (TPU kernel it replaces, source)
     "halo_remote": ("baseband_tasks_tpu/parallel/halo_pallas.py:73", HALO_CU),
 }
 FLAGSHIP = ("k1_packed", "k1_float", "k2", "k3_fold")
-# the kernels redesigned on register FFTs: the time of their shared-memory
-# design at the same shape on this card model, as PERF.md section 6
-# records it (NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
+# the redesigned kernels (K2, resident and K1 on register FFTs, the
+# forward PFB's FIR and its DFT on the tensor cores): the time of their
+# earlier design at the same shape on this card model, as PERF.md section
+# 6 records it (NVIDIA H100 80GB HBM3, 700.00 W), printed beside this
+# run's
 PARENT_MS = {"k2": 0.4884, "k2_bf16": 0.4225, "k2_bf16_chirp": 0.4056,
              "k2_theta": 0.4786, "resident N=2048 power": 1.2330,
              "resident N=2048 stokes": 2.4290,
              "resident N=4096 power": 1.7957,
-             "resident N=4096 stokes": 3.2166}
+             "resident N=4096 stokes": 3.2166,
+             "k1_packed": 0.2534, "k1_float": 0.3002,
+             "k1_packed_bf16": 0.2293, "k1_float_bf16": 0.2626,
+             "k1_window": 0.3005, "k1_planes": 0.2998,
+             "k1_stream_planes": 0.3028, "k1_stream": 0.1527,
+             "pfb_fwd": 0.1763, "pfb_fwd_dft": 1.9871}
+# the K1 columns of the paths, (N1, L) by launch: the flagship's window
+# (512 x 512, 128 lanes), config 3's stream (128 x 256, 512 lanes) and
+# config 2's (512 x 512, 128 lanes); each must run the register kernel
+# compiled for its size
+K1_PATHS = {"k1_packed": [(512, 128)], "k1_packed_bf16": [(512, 128)],
+            "k1_float": [(512, 128)], "k1_float_bf16": [(512, 128)],
+            "k1_window": [(512, 128)], "k1_planes": [(512, 128)],
+            "k1_stream_planes": [(512, 128)],
+            "k1_stream": [(128, 512), (512, 128)]}
 VARIANTS = ("k3_fold_stokes", "k3_power", "k2_theta", "k1_planes",
             "k1_stream_planes")
 
@@ -379,11 +401,30 @@ def result(err, ms, plain_ms, cost, library_ms=None):
 
 
 def parent_note(key, ms):
-    """This run's time of a redesigned kernel beside its shared-memory
-    design's recorded one."""
+    """This run's time of a redesigned kernel beside its earlier design's
+    recorded one."""
     old = PARENT_MS[key]
-    return (f"{key}: {ms:.4f} ms, the shared-memory design {old:.4f} ms "
+    return (f"{key}: {ms:.4f} ms, the earlier design {old:.4f} ms "
             f"(PERF.md section 6): {old / ms:.2f}x")
+
+
+def check_form(name, y):
+    """The register form of K1 launch ``name`` on the paths' columns, or
+    of K2 launch ``name`` on planes ``y``."""
+    return (check_k1_form(name) if name.startswith("k1")
+            else check_k2_form(name, y))
+
+
+def check_k1_form(name):
+    """Each of the paths' columns of K1 launch ``name`` runs the register
+    kernel compiled for its size."""
+    from baseband_tasks_tpu_torch.ops import dedisperse as dd
+    for n1, L in K1_PATHS[name]:
+        form = dd.k1_form(n1, L, name)
+        if form != "register":
+            raise AssertionError(f"{name} at N1={n1}, L={L} runs the {form} "
+                                 f"form")
+    return "register"
 
 
 def check_k2_form(name, y):
@@ -512,6 +553,9 @@ def check_kernels(pipe, gpu):
         if name == "k2":
             print(f"(a) {parent_note(name, ms)}, {check_k2_form(name, y)} "
                   f"form [{gpu}]", flush=True)
+        elif name.startswith("k1"):
+            print(f"(a) {parent_note(name, ms)}, {check_form(name, y)} "
+                  f"form [{gpu}]", flush=True)
     return results
 
 
@@ -629,6 +673,9 @@ def check_four_step(dev, gpu):
         results[name] = result(max(errs), ms, plain_ms, costs[name])
         print(f"(d) {name}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
               f"bound {results[name]['bound_ms']:.4f} ms [{gpu}]", flush=True)
+        if name in PARENT_MS:
+            print(f"(d) {parent_note(name, ms)}, {check_k1_form(name)} form "
+                  f"[{gpu}]", flush=True)
     # the one library call computing the whole transform (k1_window then
     # k2_fwd): cuFFT through torch.fft, on the same data as complex64
     xc = torch.complex(*x)
@@ -876,15 +923,22 @@ def check_compiled_kernels(dev, gpu):
     mix_flops = 8 * L                    # per output element
     costs = {
         "pfb_fwd": ((*carry, *x, taps), out, tap_flops),
-        "pfb_fwd_dft": ((*carry, *x, taps, *fwd), out,
-                        tap_flops + m * L * mix_flops),
+        # the DFT's product in 3xTF32 on the tensor cores (the tap sums'
+        # FP32 work, 1/64 of it, overlaps)
+        "pfb_fwd_dft": tf32x3_cost((*carry, *x, taps, *fwd), out,
+                                   m * L * mix_flops),
         "k1_stream": ((*sc, *sx, scale), spectra,
                       fft_flops(spectra, split_n(n)[0])),
         "lane_mix": tf32x3_cost((*rows, *pre), rows, n * L * mix_flops),
     }
     wc = torch.complex(*pre)
     rc = torch.complex(*rows)
-    library = {"lane_mix": lambda: torch.matmul(rc, wc)}   # one cgemm
+    # the DFT product of the tap sums alone: one cgemm
+    ac = torch.complex(*opfb.pfb_forward_stream_ref(*carry, *x, taps,
+                                                    **pfb_kw))
+    fc = torch.complex(*fwd)
+    library = {"lane_mix": lambda: torch.matmul(rc, wc),   # one cgemm
+               "pfb_fwd_dft": lambda: torch.matmul(ac, fc)}
     results = {}
     full_fp32()
     for name, (kern, plain_fn) in cases.items():
@@ -909,10 +963,23 @@ def check_compiled_kernels(dev, gpu):
                   f"({results[name]['bound_by']}), library "
                   f"{lib_ms if lib_ms is None else f'{lib_ms:.4f}'} ms "
                   f"[{gpu}]", flush=True)
+            if name in PARENT_MS:
+                print(f"(g) {parent_note(name, ms)}"
+                      + (f", {check_k1_form(name)} form" if name == "k1_stream"
+                         else "") + f" [{gpu}]", flush=True)
             if name == "lane_mix":
                 print(f"(g) lane_mix 2^15 x 512: {both_bounds(costs[name])}",
                       flush=True)
-    del rows, rc, wc
+            if name == "pfb_fwd_dft":
+                # the yardstick the fused kernel must beat: the FIR, then
+                # lane_mix on its output (a measurement only)
+                pair_ms = cuda_ms(lambda: sf.lane_mix(*opfb.pfb_forward_stream(
+                    *carry, *x, taps, **pfb_kw), *fwd), reps=10)
+                print(f"(g) pfb_fwd_dft 32256 x 512: {ms:.4f} ms fused, "
+                      f"{pair_ms:.4f} ms pfb_fwd then lane_mix, {lib_ms:.4f} "
+                      f"ms library (one complex matmul of the tap sums by "
+                      f"F), {both_bounds(costs[name])} [{gpu}]", flush=True)
+    del rows, rc, wc, ac, fc
     # 3xTF32 against the float64 product by depth 2L: float32-class at
     # every depth (the kernel promotes its partial sums; one TF32 pass is
     # ~3e-4 of the peak)
@@ -1180,8 +1247,8 @@ def time_compiled(name, kern, ref_cp, gpu, eager_ms=None):
 
 
 def drive_compiled_paths(dev, gpu, eager_c2_ms):
-    """Phase (h): the four compiled paths, then config 3, config 2 and
-    Dechannelize -> inverse PFB timed.  Returns the launch counts summed
+    """Phase (h): the four compiled paths, then config 3, the forward PFB,
+    config 2 and Dechannelize -> inverse PFB timed.  Returns the launch counts summed
     over the counted runs."""
     launches, timed = {}, {}
     full_fp32()
@@ -1190,10 +1257,10 @@ def drive_compiled_paths(dev, gpu, eager_c2_ms):
         counts, kcp, pcp = drive_compiled(name, dev, gpu)
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
-        if name in ("config3_quad", "config2", "dechan_inverse"):
-            timed[name] = (kcp, pcp)
+        timed[name] = (kcp, pcp)
         torch.cuda.empty_cache()
     time_compiled("config3_quad", *timed["config3_quad"], gpu)
+    time_compiled("pfb_forward", *timed["pfb_forward"], gpu)
     time_compiled("config2", *timed["config2"], gpu, eager_ms=eager_c2_ms)
     time_compiled("dechan_inverse", *timed["dechan_inverse"], gpu)
     return launches
@@ -1281,8 +1348,8 @@ def check_variant_kernels(pipe, gpu):
         print(f"(i) {name}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
               f"bound {results[name]['bound_ms']:.4f} ms "
               f"({results[name]['bound_by']}) [{gpu}]", flush=True)
-        if name == "k2_theta":
-            print(f"(i) {parent_note(name, ms)}, {check_k2_form(name, y)} "
+        if name in PARENT_MS:
+            print(f"(i) {parent_note(name, ms)}, {check_form(name, y)} "
                   f"form [{gpu}]", flush=True)
     return results
 
@@ -1750,20 +1817,22 @@ def check_search_kernels(dev, gpu):
 
 def drive_search(dev, gpu):
     """Phase (l): the acceleration search at full width on 'auto' (which
-    must be 'mx'), 'pallas' and 'xla', launches counted, held against each
-    other at the JAX package's engine bounds, the tone found by the map,
-    harmonic_sum and candidates; each engine timed against its plain
+    must be 'pallas' on the card), 'mx' (by name: bank_power launched),
+    'pallas' and 'xla', launches counted, held against each other at the
+    JAX package's engine bounds, the tone found by every engine's map and
+    by 'auto''s harmonic_sum and candidates; each engine timed against its plain
     versions in turns; then the FFA on the card against the same call on
     the CPU.  Returns the launch counts summed over the counted runs."""
     from baseband_tasks_tpu_torch import FastFoldingSearch, units as u
     from baseband_tasks_tpu_torch.ops import dedisperse as dd
     full_fp32()
     x = search_series(dev)
-    searches = {e: accel_search(dev, e) for e in ("auto", "pallas", "xla")}
-    if not searches["auto"]._use_mx():
-        raise AssertionError("'auto' did not pick 'mx' on the card")
-    expect = {"auto": {"bank_power": 1}, "pallas": {"accel_corr": 1},
-              "xla": {}}
+    searches = {e: accel_search(dev, e)
+                for e in ("auto", "mx", "pallas", "xla")}
+    if searches["auto"]._engine() != "pallas":
+        raise AssertionError("'auto' did not pick 'pallas' on the card")
+    expect = {"auto": {"accel_corr": 1}, "mx": {"bank_power": 1},
+              "pallas": {"accel_corr": 1}, "xla": {}}
     launches, maps = dict.fromkeys(dd.launch_counts, 0), {}
     for engine, s in searches.items():
         torch.cuda.synchronize()
@@ -1778,7 +1847,7 @@ def drive_search(dev, gpu):
         for k, v in counts.items():
             launches[k] += v
     ref = maps["xla"]
-    for engine, tol in (("auto", 2e-4), ("pallas", 2e-3)):
+    for engine, tol in (("mx", 2e-4), ("auto", 2e-3), ("pallas", 2e-3)):
         got = maps[engine]
         ratio = float(((got - ref).abs() / (tol + tol * ref.abs())).max())
         print(f"(l) '{engine}' vs 'xla': {ratio:.3f} of the rtol/atol "
@@ -1787,6 +1856,13 @@ def drive_search(dev, gpu):
                 got).all():
             raise AssertionError(f"search '{engine}' disagrees with 'xla'")
     s = searches["auto"]
+    for engine, m in maps.items():
+        zm = m.cpu().numpy()
+        pi, pj = np.unravel_index(np.argmax(zm[16:]), zm[16:].shape)
+        print(f"(l) '{engine}' map peak ({pi + 16}, {s.z_values[pj]})",
+              flush=True)
+        if abs(pi + 16 - TONE_F0) > 1 or abs(s.z_values[pj] - TONE_Z) > 2:
+            raise AssertionError(f"search '{engine}': tone not at its peak")
     zmap = maps["auto"].cpu().numpy()
     i, j = np.unravel_index(np.argmax(zmap[16:]), zmap[16:].shape)
     hmap = s.harmonic_sum(zmap, n_harm=4)
@@ -2062,7 +2138,7 @@ def check_bf16_kernels(pipe, gpu):
               f"{results[name]['bound_ms']:.4f} ms "
               f"({results[name]['bound_by']}) [{gpu}]", flush=True)
         if name in PARENT_MS:
-            print(f"(n) {parent_note(name, ms)}, {check_k2_form(name, y16)} "
+            print(f"(n) {parent_note(name, ms)}, {check_form(name, y16)} "
                   f"form [{gpu}]", flush=True)
     return results
 

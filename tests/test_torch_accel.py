@@ -200,8 +200,16 @@ def test_from_jax_state():
 
 def test_engine_choice():
     kw = dict(seg_len=1024)
-    assert not pacc.FourierDomainAccelSearch(
-        1 << 12, 1 * pu.kHz, device="cpu", **kw)._use_mx()
+    auto = pacc.FourierDomainAccelSearch(1 << 12, 1 * pu.kHz, device="cpu",
+                                         **kw)
+    # 'auto' on the CPU is the FFT engine, neither mx nor pallas, as the
+    # JAX package's rule is off a TPU
+    assert not auto._use_mx()
+    assert auto._engine() == "xla"
+    # and on the card the fused bank correlation: the rule of the device
+    # type, checked without a card
+    assert pacc.auto_engine("cuda") == "pallas"
+    assert pacc.auto_engine("cpu") == "xla"
     assert pacc.FourierDomainAccelSearch(
         1 << 12, 1 * pu.kHz, engine="mx", device="cpu", **kw)._use_mx()
     # the sharded search runs the engine of each shard's device: 'auto'
@@ -219,7 +227,9 @@ def test_default_device_is_the_card(monkeypatch):
     """With a card present the search runs there unless told otherwise."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     s = pacc.FourierDomainAccelSearch(1 << 12, 1 * pu.kHz, seg_len=1024)
-    assert s.device == torch.device("cuda") and s._use_mx()
+    assert s.device == torch.device("cuda")
+    # where 'auto' runs the fused bank correlation
+    assert s._engine() == "pallas" and not s._use_mx()
 
 
 def _raises(fn):

@@ -91,12 +91,45 @@ def assert_planes(got, ref):
 # (t_main, pad_start, pad_end, L): flagship-like, small, lopsided N2 > N1
 GEOMS = [(896, 32, 96, 128), (4096 - 512, 256, 256, 16),
          ((1 << 20) - 8192, 4096, 4096, 16)]
+# and the columns the register K1 is compiled for at its 16-lane tile:
+# the flagship's N1 = 512 (pads 3584/4608), 256 and 128 (config 3's
+# stream), and N1 = 512 on an 8-lane tile (the general kernel)
+K1_GEOMS = GEOMS + [((1 << 18) - 8192, 3584, 4608, 128),
+                    ((1 << 16) - 512, 256, 256, 32),
+                    ((1 << 14) - 256, 128, 128, 16),
+                    ((1 << 18) - 8192, 3584, 4608, 8)]
 
 
+def k1_form_of(n, L, name="k1_float"):
+    """The form K1 launch ``name`` must run on an n-row window: the
+    register kernel compiled for its column at the 16-lane tile (N1 512,
+    and 256, 128 for float32 planes), else the general one."""
+    n1 = dd.split_n(n)[0]
+    compiled = (128, 256, 512) if name == "k1_float" else (512,)
+    want = "register" if n1 in compiled and L % 16 == 0 else "general"
+    assert dd.k1_form(n1, L, name) == want
+    return want
+
+
+def _packed_geom(n, L, bits):
+    """(t_main, pad_start, pad_end, L) of an n-row window, pads 7 and 9
+    columns (the flagship's 3584/4608 at N2 = 512), the end pad grown
+    until the main rows divide by 32 / bits."""
+    n1, n2 = dd.split_n(n)
+    kf, ke = 7, 9
+    while (n1 - kf - ke) % (32 // bits):
+        ke += 1
+    return n - (kf + ke) * n2, kf * n2, ke * n2, L
+
+
+@pytest.mark.parametrize("n", [1 << 12, 1 << 18])
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])
-def test_k1_packed(dev, bits):
-    # the main rows must divide by 32/bits: a 4096-window, 64 x 64
-    t_main, p0, p1, L = 2048, 1024, 1024, 32
+def test_k1_packed(dev, bits, n):
+    # the main rows must divide by 32/bits: a 4096-window, 64 x 64 (the
+    # general kernel), and the flagship's 512 x 512 (compiled)
+    t_main, p0, p1, L = ((2048, 1024, 1024, 32) if n == 1 << 12
+                         else _packed_geom(n, 32, bits))
+    k1_form_of(n, L, "k1_packed")
     words, _, edges, scale = inputs(dev, t_main, p0, p1, L, bits)
     got = dd.stage_a_packed(*words, *edges, scale, bits=bits)
     ref = dd.stage_a_packed_ref(*words, *edges, scale, bits=bits)
@@ -112,9 +145,10 @@ def test_k1_packed_custom_levels(dev):
     assert_planes(got, ref)
 
 
-@pytest.mark.parametrize("geom", GEOMS)
+@pytest.mark.parametrize("geom", K1_GEOMS)
 def test_k1_float_and_k2(dev, geom):
     t_main, p0, p1, L = geom
+    k1_form_of(t_main + p0 + p1, L)
     _, planes, edges, scale = inputs(dev, t_main, p0, p1, L, 8, seed=2)
     y = dd.stage_a(*planes, *edges, scale)
     yref = dd.stage_a_ref(*planes, *edges, scale)
@@ -222,6 +256,7 @@ def test_no_fallback_when_library_missing(dev, monkeypatch):
 
 LANES = [8, 16, 128]
 WINDOWS = [1 << 9, 1 << 12, 1 << 15, 1 << 18]
+K1_WINDOWS = WINDOWS + [1 << 16]          # N1 = 256
 
 
 def randn(dev, shape, seed, count=2):
@@ -230,9 +265,10 @@ def randn(dev, shape, seed, count=2):
     return [torch.randn(shape, generator=g, device=dev) for _ in range(count)]
 
 
-@pytest.mark.parametrize("n", WINDOWS)
+@pytest.mark.parametrize("n", K1_WINDOWS)
 @pytest.mark.parametrize("L", LANES)
 def test_k1_window(dev, L, n):
+    k1_form_of(n, L)
     x = randn(dev, (n, L), 10)
     assert_planes(ff.k1_window(*x), ff.k1_window_ref(*x))
 
@@ -343,14 +379,24 @@ def mats(dev, L, seed):
 @pytest.mark.parametrize("dft", [False, True])
 @pytest.mark.parametrize("scale", [None, 0.75])
 @pytest.mark.parametrize("n_tap", [2, 8, 9])
-@pytest.mark.parametrize("m,L", [(48, 128), (32256, 512)])
+@pytest.mark.parametrize("m,L", [(48, 128), (1000, 512), (32256, 512),
+                                 (40, 100)])
 def test_pfb_fwd(dev, m, L, n_tap, scale, dft):
+    """The FIR (64-row runs of 4 lanes a thread; 100 lanes take single
+    lanes) and the fused DFT (128-row tiles) against their plain
+    versions, with ragged last row runs (48, 1000 and 40 rows)."""
     k = n_tap - 1
     carry = randn(dev, (k, L), 20)
     x = randn(dev, (m, L), 21)
     taps = randn(dev, (n_tap, L), 22, count=1)[0]
     f = mats(dev, L, 23) if dft else [None, None]
     sc = None if scale is None else torch.tensor([scale], device=dev)
+    if dft and L % 16:
+        # the fused DFT's depth slices are 16 lanes of one plane
+        with pytest.raises(ValueError, match="multiple of 16"):
+            opfb.pfb_forward_stream(*carry, *x, taps, *f, n_tap=n_tap,
+                                    scale=sc)
+        return
     dd.reset_launch_counts()
     got = opfb.pfb_forward_stream(*carry, *x, taps, *f, n_tap=n_tap,
                                   scale=sc)
@@ -367,8 +413,11 @@ def test_pfb_fwd(dev, m, L, n_tap, scale, dft):
 
 @pytest.mark.parametrize("pre", [False, True])
 @pytest.mark.parametrize("n,L,pad", [(1 << 12, 128, 256),
-                                     (1 << 15, 512, 512)])
+                                     (1 << 15, 512, 512),
+                                     (1 << 18, 128, 512)])
 def test_stream_stage_a(dev, n, L, pad, pre):
+    # config 3's k1_stream (N1 = 128, 512 lanes) and config 2's (N1 = 512)
+    k1_form_of(n, L)
     c = randn(dev, (pad, L), 24)
     x = randn(dev, (n - pad, L), 25)
     sc = torch.tensor([1.25], device=dev)
@@ -419,6 +468,26 @@ def test_lane_mix_precision_guard(dev, L):
     w = mats(dev, L, 35)
     got = sf.lane_mix(*x, *w)
     ref = sf.lane_mix_ref(*(t.double() for t in (*x, *w)))
+    _peak_close(torch.cat(got).double(), torch.cat(ref), TF32X3_TOL)
+
+
+@pytest.mark.parametrize("L", [128, 512, 1600])
+def test_pfb_fwd_dft_precision_guard(dev, L):
+    """The fused PFB's DFT (3xTF32 on the tensor cores, partials promoted
+    to float32) against the float64 tap sum and product: float32-class,
+    within 1e-5 of the peak at every depth."""
+    m, n_tap = 1000, 8
+    carry = randn(dev, (n_tap - 1, L), 36)
+    x = randn(dev, (m, L), 37)
+    taps = randn(dev, (n_tap, L), 38, count=1)[0]
+    f = mats(dev, L, 39)
+    dd.reset_launch_counts()
+    got = opfb.pfb_forward_stream(*carry, *x, taps, *f, n_tap=n_tap,
+                                  scale=0.75)
+    assert dd.launch_counts["pfb_fwd_dft"] == 1
+    ref = opfb.pfb_forward_stream_ref(
+        *(t.double() for t in (*carry, *x, taps, *f)), n_tap=n_tap,
+        scale=0.75)
     _peak_close(torch.cat(got).double(), torch.cat(ref), TF32X3_TOL)
 
 
@@ -550,10 +619,11 @@ def test_k3_power_and_k2_theta(dev, L, n):
     assert dd.launch_counts["k3_power"] == dd.launch_counts["k2_theta"] == 1
 
 
-@pytest.mark.parametrize("geom", GEOMS)
+@pytest.mark.parametrize("geom", K1_GEOMS)
 def test_k1_planes_and_stream_planes(dev, geom):
     t_main, p0, p1, L = geom
     n = t_main + p0 + p1
+    k1_form_of(n, L)
     (x2,) = randn(dev, (2, n, L), 43, count=1)
     assert_planes(dd.stage_a_planes(x2),
                   dd.stage_a_window_ref(torch.complex(x2[0], x2[1])))
@@ -801,7 +871,7 @@ def test_k2_tiles(dev, n2, L, name):
 @pytest.mark.parametrize("engine", ["mx", "pallas", "xla"])
 def test_accel_search_on_card(dev, engine):
     """The search on the card (kernels) against the same search on the
-    CPU (plain versions), and 'auto' is 'mx' on the card."""
+    CPU (plain versions), and 'auto' is 'pallas' on the card."""
     from baseband_tasks_tpu_torch.models import accelsearch as acc
     u = pytest.importorskip("baseband_tasks_tpu_torch").units
     n = 1 << 15
@@ -820,8 +890,13 @@ def test_accel_search_on_card(dev, engine):
     ref = acc.FourierDomainAccelSearch(n, 1 * u.kHz, device="cpu",
                                        **kw).search(x)
     torch.testing.assert_close(got.cpu(), ref, rtol=2e-4, atol=2e-4)
-    assert acc.FourierDomainAccelSearch(n, 1 * u.kHz, z_max=24,
-                                        seg_len=1024)._use_mx()
+    auto = acc.FourierDomainAccelSearch(n, 1 * u.kHz, z_max=24,
+                                        seg_len=1024)
+    assert auto._engine() == "pallas" and not auto._use_mx()
+    dd.reset_launch_counts()
+    auto.search(x)
+    assert {k: v for k, v in dd.launch_counts.items() if v} == {
+        "accel_corr": 1}
 
 
 def test_sources_default_to_card(dev):
@@ -899,12 +974,16 @@ def _peak_rel(got, ref):
     return float((got - ref).abs().max() / ref.abs().max())
 
 
-@pytest.mark.parametrize("geom", GEOMS[:2])
+@pytest.mark.parametrize("geom", GEOMS[:2] + [((1 << 18) - 8192, 3584,
+                                               4608, 128)])
 def test_bf16_passes(dev, geom):
     """K1p, K1f, K2 (float32 and bf16 chirp) and K3 (power, Stokes) on
     bf16 planes against their plain versions, each launching its own
-    bf16 kernel."""
+    bf16 kernel (K1 on the general kernel and, at the flagship's window,
+    the compiled one)."""
     t_main, p0, p1, L = geom
+    for name in ("k1_float_bf16", "k1_packed_bf16"):
+        k1_form_of(t_main + p0 + p1, L, name)
     words, planes, edges, scale = inputs(dev, t_main, p0, p1, L, 8, seed=9)
     bf16 = torch.bfloat16
     dd.reset_launch_counts()

@@ -257,3 +257,65 @@ def test_cached_per_tensor():
     del a
     gc.collect()
     assert len(tf32._CACHE) == n - 2
+
+
+# -- the forward PFB's fused DFT (csrc/pfb.cu pfb_dft_kernel) --------------
+
+def pfb_a_operand(carry, block, taps, scale):
+    """The A operand the fused PFB computes into each stage: window row q
+    is carry row q below k = n_tap - 1, else the block row scaled, and the
+    tap sum of output row r and lane l runs taps ascending from zero in
+    float32 (``PfbTile::prepare``, the FIR's order); [ar | ai] (m, 2L),
+    the real plane's lanes below L."""
+    (cr, ci), (xr, xi) = carry, block
+    k, m = cr.shape[0], xr.shape[0]
+    s = np.float32(scale)
+    planes = []
+    for c, x in ((cr, xr), (ci, xi)):
+        w = np.concatenate([c, x * s]).astype(np.float32)
+        acc = np.zeros((m, c.shape[1]), np.float32)
+        for t in range(taps.shape[0]):
+            acc = (acc.astype(np.float64) + taps[t].astype(np.float64)
+                   * w[t:t + m].astype(np.float64)).astype(np.float32)
+        planes.append(acc)
+    return torch.as_tensor(np.concatenate(planes, axis=1))
+
+
+@pytest.mark.parametrize("L", [128, 512])
+def test_pfb_a_operand_and_dft_float32_class(L):
+    """The tap sums equal the FIR's plain version; split big/small with
+    round-to-nearest TF32 and multiplied in the kernel's three passes,
+    promoted every 32 deep, the product is within 1e-5 of the float64
+    tap sum times the DFT's peak, and lands as [yr | yi]."""
+    from baseband_tasks_tpu_torch.ops import pfb as opfb
+    from baseband_tasks_tpu_torch.ops.dft_matmul import _expanded_mats
+    rng = np.random.default_rng(L)
+    n_tap, m = 8, 64
+    carry = [rng.standard_normal((n_tap - 1, L)).astype(np.float32)
+             for _ in (0, 1)]
+    block = [rng.standard_normal((m, L)).astype(np.float32) for _ in (0, 1)]
+    taps = rng.standard_normal((n_tap, L)).astype(np.float32)
+    fr, fi = (torch.as_tensor(np.asarray(p, np.float32)) for p in
+              _expanded_mats(L // 2, 2, "forward"))
+    a = pfb_a_operand(carry, block, taps, 0.75)
+    ar, ai = opfb.pfb_forward_stream_ref(
+        *map(torch.as_tensor, carry), *map(torch.as_tensor, block),
+        torch.as_tensor(taps), n_tap=n_tap, scale=0.75)
+    assert peak_rel(a, torch.cat([ar, ai], dim=1).double()) <= 1e-6
+    b = tf32.mix_operand(fr, fi)
+    got = mma_3xtf32(a, b[:, :128], period=4)
+    # float64 from the inputs
+    w = [np.concatenate([c.astype(np.float64), x.astype(np.float64) * 0.75])
+         for c, x in zip(carry, block)]
+    a64 = torch.as_tensor(np.concatenate(
+        [sum(taps[t].astype(np.float64) * p[t:t + m] for t in range(n_tap))
+         for p in w], axis=1))
+    ref = a64 @ b.double()
+    assert peak_rel(got, ref[:, :128]) <= SPLIT_TOL
+    # the whole product as the plain version lays it out
+    yr, yi = opfb.pfb_forward_stream_ref(
+        *(t.double() for t in map(torch.as_tensor, carry)),
+        *(t.double() for t in map(torch.as_tensor, block)),
+        torch.as_tensor(taps).double(), fr.double(), fi.double(),
+        n_tap=n_tap, scale=0.75)
+    assert peak_rel(torch.cat([yr, yi], dim=1), ref) <= 1e-12
