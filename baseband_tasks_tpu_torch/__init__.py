@@ -17,7 +17,14 @@ The slices so far:
   (``FastFoldingSearch``), and the single-pass resident dedisperse ->
   fold op (``ops.dedisperse_fold_resident``);
 - integration over time or pulse phase (``Integrate``, ``Fold``,
-  ``PulseStack``), eager and absorbed into compiled chains.
+  ``PulseStack``), eager and absorbed into compiled chains;
+- convolution (``Convolve``, ``ConvolveSamples``), resampling and delays
+  (``ShiftAndResample``, ``Resample``, ``TimeDelay``, ``ShiftSamples``),
+  incoherent ``DisperseSamples``/``DedisperseSamples``, the joins
+  (``CombineStreams``, ``Concatenate``, ``Stack``) with multi-input
+  compiled graphs, ``Real2Complex``, and on them the FX correlator and
+  the tied-array beamformer (``models.fx_correlate``,
+  ``models.tied_array_beam``).
 
 Frames are torch tensors on the stream's device (the card when there is
 one, unless a source is given another).  On a CUDA device the
@@ -30,18 +37,23 @@ package imports torch and numpy only; the kernels are built with
 from .base import (Base, BaseTaskBase, TaskBase, PaddedTaskBase, Task,
                    SetAttribute)
 from .channelize import Channelize, Dechannelize
-from .dispersion import Disperse, Dedisperse
+from .combining import CombineStreams, Concatenate, Stack
+from .conversion import Real2Complex
+from .convolution import Convolve, ConvolveSamples
+from .dispersion import (Disperse, Dedisperse, DisperseSamples,
+                         DedisperseSamples)
 from .dm import DispersionMeasure
 from .fourier import fft_maker
 from .functions import Square, Power
 from .generators import (StreamGenerator, EmptyStreamGenerator, Noise,
                          NoiseGenerator)
-from .integration import Fold, Integrate, PulseStack, Stack
+from .integration import Fold, Integrate, PulseStack
 from .models import (CompiledPipeline, FastFoldingSearch,
                      FourierDomainAccelSearch, WidebandPulsarPipeline)
 from .pfb import (InversePolyphaseFilterBank, PolyphaseFilterBank,
                   PolyphaseFilterBankSamples, sinc_hamming)
 from .phases import Polyco, PolycoPhase
+from .sampling import ShiftAndResample, Resample, TimeDelay, ShiftSamples
 from .shaping import (ChangeSampleShape, Reshape, Transpose,
                       ReshapeAndTranspose, GetItem, GetSlice)
 from .utils import Time, units
@@ -57,4 +69,7 @@ __all__ = ["Base", "BaseTaskBase", "TaskBase", "PaddedTaskBase", "Task",
            "InversePolyphaseFilterBank", "sinc_hamming", "Time", "units",
            "Polyco", "PolycoPhase", "FourierDomainAccelSearch",
            "FastFoldingSearch", "Integrate", "Fold", "PulseStack",
-           "Stack"]
+           "CombineStreams", "Concatenate", "Stack", "Convolve",
+           "ConvolveSamples", "ShiftAndResample", "Resample", "TimeDelay",
+           "ShiftSamples", "DisperseSamples", "DedisperseSamples",
+           "Real2Complex"]

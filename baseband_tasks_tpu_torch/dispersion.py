@@ -1,7 +1,7 @@
-"""Coherent dispersion and dedispersion.
+"""Coherent and incoherent dispersion and dedispersion.
 
-Counterpart of the coherent half of ``baseband_tasks_tpu/dispersion.py``
-(``Disperse``, ``Dedisperse``): an overlap-save chirp convolution whose
+Counterpart of ``baseband_tasks_tpu/dispersion.py``.  The coherent
+``Disperse``/``Dedisperse`` are an overlap-save chirp convolution whose
 total padding equals the dispersion smearing across the band.  The chirp
 exp(2πi φ_DM(f) · sideband) is built once on the host in float64 and
 cached on the stream's device as complex64.  Two engines:
@@ -18,8 +18,9 @@ cached on the stream's device as complex64.  Two engines:
   the compiled pipelines, which may fold a following Dechannelize in as
   the filter's ``post`` lane mix.
 
-The incoherent ``DisperseSamples``/``DedisperseSamples`` wait for the
-port of ``sampling.py`` (ROADMAP.md, queue 1 item 7).
+The incoherent ``DisperseSamples``/``DedisperseSamples`` shift each
+channel by its whole-sample mid-channel dispersion delay
+(``sampling.ShiftSamples``, a gather).
 """
 
 from __future__ import annotations
@@ -28,21 +29,19 @@ import numpy as np
 import torch
 
 from .base import PaddedTaskBase, getattr_if_none
+from .convolution import _pow2_len
 from .dm import DispersionMeasure
 from .fourier import fft_maker
 from .fourier.pallas import MIN_LANES
 from .ops.dedisperse import permute_to_storage_order, split_n
 from .ops.spectral_filter import (geometry_ok, spectral_filter_pow2,
                                   spectral_filter_stream)
+from .sampling import ShiftSamples
 from .utils import units as u
 from .utils.dtypes import numpy_dtype
 
-__all__ = ["Disperse", "Dedisperse"]
-
-
-def _pow2_len(n):
-    """Round up to a power of two ('pallas' engine windows)."""
-    return 1 << (n - 1).bit_length()
+__all__ = ["Disperse", "Dedisperse", "DisperseSamples",
+           "DedisperseSamples"]
 
 
 class Disperse(PaddedTaskBase):
@@ -318,6 +317,63 @@ class Dedisperse(Disperse):
     @property
     def dm(self):
         # the positive value passed in; the chirp uses its negation
+        return DispersionMeasure(-self._dm.to_value(u.DM), u.DM)
+
+    @property
+    def dedispersion_measure(self):
+        return self._dm
+
+
+class DisperseSamples(ShiftSamples):
+    """Incoherently disperse: shift each channel by its whole-sample
+    mid-channel dispersion delay."""
+
+    def __init__(self, ih, dm, *, reference_frequency=None,
+                 samples_per_frame=None, frequency=None, sideband=None):
+        frequency = getattr_if_none(ih, "frequency", frequency)
+        sideband = getattr_if_none(ih, "sideband", sideband)
+        if not isinstance(dm, DispersionMeasure):
+            dm = DispersionMeasure(dm if not isinstance(dm, u.Quantity)
+                                   else dm.to_value(u.DM))
+        self._dm = dm
+        sample_shape = ih.sample_shape if ih.sample_shape else (1,)
+        freq = u.Quantity(np.broadcast_to(
+            np.asarray(frequency.value, dtype=np.float64), sample_shape),
+            frequency.unit)
+        if ih.dtype.kind != "c":
+            # real data: labels are band edges; the delay acts at the
+            # mid-channel frequency
+            sb = np.broadcast_to(np.asarray(sideband), sample_shape)
+            freq = freq + sb * ih.sample_rate / 2.0
+        if reference_frequency is None:
+            reference_frequency = u.Quantity(
+                float(np.mean(freq.value)), freq.unit)
+        self.reference_frequency = reference_frequency
+        delay = dm.time_delay(freq, reference_frequency).to_value(u.s)
+        shift = np.round(delay * ih.sample_rate.to_value(u.Hz)).astype(int)
+        super().__init__(ih, shift, samples_per_frame=samples_per_frame)
+
+    @property
+    def dm(self):
+        return self._dm
+
+
+class DedisperseSamples(DisperseSamples):
+    """Incoherently dedisperse: remove the dispersion of ``dm``."""
+
+    def __init__(self, ih, dm, *, reference_frequency=None,
+                 samples_per_frame=None, frequency=None, sideband=None):
+        if not isinstance(dm, u.Quantity):
+            dm = DispersionMeasure(dm)
+        negated = DispersionMeasure(-dm.to_value(u.DM), u.DM)
+        super().__init__(ih, negated,
+                         reference_frequency=reference_frequency,
+                         samples_per_frame=samples_per_frame,
+                         frequency=frequency, sideband=sideband)
+
+    @property
+    def dm(self):
+        # the positive value passed in; the shifts use its negation
         return DispersionMeasure(-self._dm.to_value(u.DM), u.DM)
 
     @property

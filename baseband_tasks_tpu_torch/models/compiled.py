@@ -1,22 +1,31 @@
-"""Compiled execution of linear stream chains: one step per source block.
+"""Compiled execution of stream graphs: one step per source block.
 
 Counterpart of ``baseband_tasks_tpu/models/compiled.py``
 (``CompiledPipeline``).  The lazy stream API (``base.py``) drives each
-node's frame from the host; :class:`CompiledPipeline` walks a task chain
+node's frame from the host; :class:`CompiledPipeline` walks a task graph
 once and turns it into a single per-block step function, with the
 overlap-save pads carried from block to block as state instead of
 re-read.  The JAX package jits that step and scans it; here the step is a
 plain Python function on tensors, and :meth:`CompiledPipeline.run_fn`
 loops over blocks, as ``WidebandPulsarPipeline.run_fn`` does.
 
-Supported chains: linear sequences of ``TaskBase`` subclasses whose
-``task`` is a pure device function (Channelize, Dechannelize, Square,
-Power, Task, Disperse/Dedisperse, the PFBs...), with ``SetAttribute``
-relabels and ``GetSlice`` time slices (a slice is a pure shift of the
-timeline, folded into the source's read offset, ``source_offsets``).  Not
-ported yet (each raises NotImplementedError; ROADMAP.md queue 1):
-``CombineStreamsBase`` joins (with ``combining.py``) and packed ingest
-(``packed=True``, with I/O).
+Supported graphs:
+
+- linear sequences of ``TaskBase`` subclasses whose ``task`` is a pure
+  device function (Channelize, Dechannelize, Square, Power, Real2Complex,
+  Task, Convolve, Disperse/Dedisperse, ShiftAndResample, ShiftSamples,
+  the PFBs...), with ``SetAttribute`` relabels and ``GetSlice`` time
+  slices (a slice is a pure shift of the timeline, folded into its
+  sources' read offsets, ``source_offsets``);
+- multi-input graphs: ``CombineStreamsBase`` nodes (CombineStreams,
+  Concatenate, Stack) join several such chains, and the step takes one
+  source block per input stream, in the order the walk meets them.
+  Branches may arrive with different streaming delays and start offsets:
+  both become per-source read offsets, where the shifts are whole source
+  samples.
+
+Packed-payload ingest (``packed=True``) is not ported yet (raises
+NotImplementedError; ROADMAP.md queue 1, with I/O).
 
 A trailing ``Integrate``, ``Fold`` or ``PulseStack`` is split off and
 absorbed as a reduction: the step's output is summed into the node's bins
@@ -65,6 +74,7 @@ import numpy as np
 import torch
 
 from ..base import BaseTaskBase, PaddedTaskBase, SetAttribute, TaskBase
+from ..combining import CombineStreamsBase
 from ..integration import Fold, Integrate, PulseStack, _phase_bins
 from ..ops.dedisperse import _is_pow2, split_n
 from ..ops.dft_matmul import DeviceMats, _expanded_mats
@@ -77,6 +87,19 @@ __all__ = ["CompiledPipeline", "carry_from_numpy", "init_reduction_acc",
            "make_reduction_update"]
 
 _NOT_PORTED = "not ported yet (ROADMAP.md, queue 1 item {}: {})"
+
+
+class _CombineStage:
+    """A join of ``k`` branches (a ``CombineStreamsBase`` node)."""
+
+    __slots__ = ("node", "k")
+    padded = False
+    fused = None
+    skip = False
+
+    def __init__(self, node, k):
+        self.node = node
+        self.k = k
 
 
 class _Stage:
@@ -388,14 +411,15 @@ def carry_from_numpy(carry, device=None):
 
 
 class CompiledPipeline:
-    """Compile a lazy task chain into one per-block step.
+    """Compile a lazy task graph into one per-block step.
 
     Parameters
     ----------
     tail : stream
-        The chain's last node; its input ancestry is walked up to the
-        source stream.  The source itself is not compiled: blocks of
-        source samples are the step input.
+        The graph's last node; its input ancestry is walked up to the
+        source stream(s).  Sources are not compiled: blocks of source
+        samples are the step input, one block per source
+        (:attr:`sources`).
     block_samples : int, optional
         Source samples per block; padded stages pin it to their frame.
     fuse : bool
@@ -420,18 +444,19 @@ class CompiledPipeline:
             tail = tail.ih
         self._tail = tail
 
-        # -- walk the chain into a post-order program ---------------------
+        # -- walk the graph into a post-order program ---------------------
         # ("input", source_index) pushes a source block; ("entry", node)
-        # transforms the top of the stack.
+        # transforms the top of the stack; ("combine", node, k) pops k
+        # values and pushes the node's task of them.
         program = []
         sources = []
 
         def build(node):
-            if hasattr(node, "ihs"):
-                raise NotImplementedError(
-                    f"{type(node).__name__}: multi-input chains are "
-                    + _NOT_PORTED.format(7, "combining.py"))
-            if isinstance(node, BaseTaskBase):
+            if isinstance(node, CombineStreamsBase):
+                for ih in node.ihs:
+                    build(ih)
+                program.append(("combine", node, len(node.ihs)))
+            elif isinstance(node, BaseTaskBase):
                 build(node.ih)
                 program.append(("entry", node))
             else:
@@ -444,21 +469,60 @@ class CompiledPipeline:
         self.sources = sources
         self.source = sources[0]
 
-        # -- block-size constraints, in units of the tail block B ---------
+        # -- block-size constraints, in units of the source block B -------
         # Every point p of the program carries block_p = coef_p * B (an
         # exact Fraction of the source block).  Non-padded rate-changing
         # stages add a granularity requirement; padded stages pin block_p
-        # to their samples_per_frame.
+        # to their samples_per_frame.  Each branch on the stack carries its
+        # coef, streaming delay, warmup and the sources feeding it.
         stages = []
         pinned = None
         constraints = []  # (coef, granularity): coef*B % gran == 0
-        coef = Fraction(1)
-        delay = Fraction(0)
-        warmup = Fraction(0)
+        coef_stack, delay_stack, warmup_stack, srcs_stack = [], [], [], []
         source_offsets = [0] * len(sources)
 
         for kind, *rest in program:
             if kind == "input":
+                coef_stack.append(Fraction(1))
+                delay_stack.append(Fraction(0))
+                warmup_stack.append(Fraction(0))
+                srcs_stack.append([rest[0]])
+                continue
+            if kind == "combine":
+                node, k = rest
+                coefs, delays = coef_stack[-k:], delay_stack[-k:]
+                warmups, branch_srcs = warmup_stack[-k:], srcs_stack[-k:]
+                del coef_stack[-k:], delay_stack[-k:], warmup_stack[-k:]
+                del srcs_stack[-k:]
+                if len(set(coefs)) != 1:
+                    raise ValueError(
+                        "combined branches arrive with different block "
+                        "sizes; give their stages matching frame sizes")
+                # A branch at compiled index t holds its eager sample
+                # t - d_b; the node joins eager samples t' + offset_b of
+                # each branch.  Reading branch b's sources later by
+                # (d_b + offset_b - D) / coef samples, with D the least
+                # d_b + offset_b, aligns them all (no read before a
+                # source's start).
+                totals = [d + off for d, off in zip(delays, node._offsets)]
+                d_common = min(totals)
+                for lst, tot in zip(branch_srcs, totals):
+                    shift = Fraction(tot - d_common) / coefs[0]
+                    if shift.denominator != 1:
+                        raise ValueError(
+                            f"combined branches misaligned by "
+                            f"{tot - d_common} samples = {float(shift)} "
+                            f"source samples, not a whole number; adjust "
+                            f"pads or slices so that branch shifts are "
+                            f"whole source samples")
+                    for i in lst:
+                        source_offsets[i] += int(shift)
+                coef_stack.append(coefs[0])
+                delay_stack.append(d_common)
+                # the slowest branch's carries set the warmup
+                warmup_stack.append(max(warmups))
+                srcs_stack.append([i for lst in branch_srcs for i in lst])
+                stages.append(_CombineStage(node, k))
                 continue
             n = rest[0]
             if isinstance(n, SetAttribute):
@@ -466,19 +530,20 @@ class CompiledPipeline:
                 continue
             if isinstance(n, GetSlice):
                 # a time slice is a pure shift: its start maps back to
-                # start/coef source samples, folded into the read offset
-                shift = Fraction(n._start) / coef
+                # start/coef source samples, folded into the read offsets
+                shift = Fraction(n._start) / coef_stack[-1]
                 if shift.denominator != 1:
                     raise ValueError(
                         f"GetSlice start {n._start} is not a whole "
                         f"number of source samples (stage rate ratio "
-                        f"{coef}); slice at a multiple of "
-                        f"{coef.numerator} samples instead")
-                source_offsets[0] += int(shift)
+                        f"{coef_stack[-1]}); slice at a multiple of "
+                        f"{coef_stack[-1].numerator} samples instead")
+                for i in srcs_stack[-1]:
+                    source_offsets[i] += int(shift)
                 stages.append(_Stage(n, False, 0, None, None))
                 continue
             if isinstance(n, PaddedTaskBase):
-                need = Fraction(n.samples_per_frame) / coef
+                need = Fraction(n.samples_per_frame) / coef_stack[-1]
                 if need.denominator != 1:
                     raise ValueError("incompatible frame sizes along the "
                                      "chain")
@@ -493,8 +558,8 @@ class CompiledPipeline:
                 stages.append(_Stage(n, True, n.pad_start + n.pad_end,
                                      n.samples_per_frame,
                                      n.samples_per_frame))
-                delay += n.pad_start + n.pad_end
-                warmup += n.pad_start + n.pad_end
+                delay_stack[-1] += n.pad_start + n.pad_end
+                warmup_stack[-1] += n.pad_start + n.pad_end
                 continue
             if isinstance(n, TaskBase):
                 if "task" in n.__dict__ and inspect.ismethod(n.task):
@@ -509,14 +574,16 @@ class CompiledPipeline:
                 stages.append(_Stage(n, False, 0, ratio.denominator,
                                      ratio.numerator))
                 group = int(getattr(n, "_task_granularity", 1))
-                constraints.append((coef, _lcm(ratio.denominator, group)))
-                coef *= ratio
-                delay *= ratio
-                warmup *= ratio
+                constraints.append((coef_stack[-1],
+                                    _lcm(ratio.denominator, group)))
+                coef_stack[-1] *= ratio
+                delay_stack[-1] *= ratio
+                warmup_stack[-1] *= ratio
                 continue
             raise ValueError(f"cannot compile node {type(n).__name__}")
 
-        warmup = max(warmup, delay)
+        coef, delay = coef_stack[-1], delay_stack[-1]
+        warmup = max(warmup_stack[-1], delay)
         # coef_p * B must be a multiple of gran for each constraint:
         # (n/d)*B ≡ 0 mod g  ⇔  B multiple of g·d / gcd(n, g·d)
         B = 1
@@ -542,7 +609,8 @@ class CompiledPipeline:
 
         self.program = program
         self.stages = stages
-        #: per-source extra read offset (source samples) from GetSlice
+        #: per-source extra read offset (source samples): GetSlice starts
+        #: and the alignment of joined branches
         self.source_offsets = source_offsets
         self.block_samples = B
         self._tail_coef = coef
@@ -604,7 +672,7 @@ class CompiledPipeline:
     # -- the step -------------------------------------------------------
     @property
     def device(self):
-        """The device of the source, where the step runs."""
+        """The device of the (first) source, where the step runs."""
         return getattr(self.source, "device", torch.device("cpu"))
 
     def init_carry(self, planes=False):
@@ -629,10 +697,11 @@ class CompiledPipeline:
         return tuple(carries)
 
     def _prepare_caches(self):
-        """Build every lazy device cache (chirps, gains, lane matrices,
-        taps) before the first step, so no step copies from the host:
-        each fusion's matrices, and each node's own lazy caches through
-        its ``_prepare_device_caches``."""
+        """Build every lazy device cache (chirps, gains, responses, LO
+        rotations, gather indices, lane matrices, taps) before the first
+        step, so no step copies from the host: each fusion's matrices, and
+        each node's own lazy caches through its
+        ``_prepare_device_caches``."""
         for st in self.stages:
             if st.fused is not None:
                 st.fused.prepare()
@@ -640,49 +709,74 @@ class CompiledPipeline:
             if prepare is not None and not st.skip:
                 prepare()
 
-    def step_fn(self):
-        """``(carry, block) -> (carry, out_block)``: one source block
-        through the chain, complex data as complex tensors.  Each padded
-        stage assembles its window as [carry | block] and keeps the
-        window's last ``pad`` samples (a copy) as its next carry."""
-        self._prepare_caches()
-        stages = self.stages
+    def _run_program(self, xs, value, combine, entry):
+        """Walk the program over the step's source blocks ``xs`` (one
+        tensor, or a tuple with one per source): ``value(x)`` makes a
+        stack value of a source block, ``combine(stage, values)`` joins
+        branches, ``entry(stage, x)`` runs a task stage (SetAttribute,
+        GetSlice and the stages a fusion absorbed are passed over)."""
+        inputs = xs if len(self.sources) > 1 else (xs,)
+        stack = []
+        stages = iter(self.stages)
+        for kind, *rest in self.program:
+            if kind == "input":
+                stack.append(value(inputs[rest[0]]))
+                continue
+            st = next(stages)
+            if isinstance(st, _CombineStage):
+                args = stack[-st.k:]
+                del stack[-st.k:]
+                stack.append(combine(st, args))
+            elif not (st.skip or isinstance(st.node, (SetAttribute,
+                                                      GetSlice))):
+                stack.append(entry(st, stack.pop()))
+        return stack[-1]
 
-        def step(carry, x):
+    def step_fn(self):
+        """``(carry, blocks) -> (carry, out_block)``: one block per source
+        through the graph (``blocks`` a tensor, or a tuple of them in
+        :attr:`sources` order for a multi-input graph), complex data as
+        complex tensors.  Each padded stage assembles its window as
+        [carry | block] and keeps the window's last ``pad`` samples (a
+        copy) as its next carry."""
+        self._prepare_caches()
+
+        def step(carry, xs):
             new_carry = []
-            ci = 0
-            for st in stages:
-                if st.skip or isinstance(st.node, (SetAttribute, GetSlice)):
-                    continue
+            it = iter(carry)
+
+            def entry(st, x):
                 fn = st.fused if st.fused is not None else st.node
-                if st.padded:
-                    window = torch.cat([carry[ci], x], dim=0)
-                    ci += 1
-                    new_carry.append(window[window.shape[0] - st.pad:]
-                                     .clone())
-                    x = fn.task(window)
-                else:
-                    x = fn.task(x)
-            return tuple(new_carry), x
+                if not st.padded:
+                    return fn.task(x)
+                window = torch.cat([next(it), x], dim=0)
+                new_carry.append(window[window.shape[0] - st.pad:].clone())
+                return fn.task(window)
+
+            y = self._run_program(
+                xs, lambda x: x, lambda st, args: st.node.task(list(args)),
+                entry)
+            return tuple(new_carry), y
 
         return step
 
     def planes_step(self):
-        """``(carry, x, scale=None) -> (carry, (yr, yi))``: the step with
+        """``(carry, xs, scale=None) -> (carry, (yr, yi))``: the step with
         values flowing as separate float32 re/im planes (``yi`` None for
-        real data); ``x`` is a block tensor or an (re, im) pair.
+        real data); each source block is a tensor or an (re, im) pair
+        (``xs`` a tuple of them for a multi-input graph).
 
-        Stages with ``task_planes`` (the 'pallas' Disperse, the fusions,
-        (De)Channelize by matrix products, the FIR) run on planes; any
-        other stage goes through one complex recombination.  ``scale``
-        (None, a number or a one-element tensor) multiplies the input of
-        the first compute stage: inside its kernel, on the block rows
-        only, when that stage is a streaming fusion.  Streaming stages
-        get the carry as a separate buffer and assemble the window in
-        their first kernel.
+        Stages with ``task_planes`` (the 'pallas' Disperse and Convolve,
+        the fusions, (De)Channelize by matrix products, the FIR) run on
+        planes; any other stage, and a join, goes through one complex
+        recombination.  ``scale`` (None, a number or a one-element tensor)
+        multiplies the input of the first compute stage: inside its
+        kernel, on the block rows only, when that stage is a streaming
+        one (``task_stream``: the 'pallas' Disperse, Convolve and
+        ShiftAndResample, the fusions).  Streaming stages get the carry as
+        a separate buffer and assemble the window in their first kernel.
         """
         self._prepare_caches()
-        stages = self.stages
 
         def to_pair(x):
             if isinstance(x, tuple):
@@ -708,33 +802,39 @@ class CompiledPipeline:
                              for p in pair)
             return scaled((pair[0][-pad:], pair[1][-pad:]), s)
 
-        def step(carry, x, scale=None):
-            x = to_pair(x)
+        def step(carry, xs, scale=None):
             new_carry = []
-            ci = 0
-            pending = scale
-            for st in stages:
-                if st.skip or isinstance(st.node, (SetAttribute, GetSlice)):
-                    continue
+            it = iter(carry)
+            pending = [scale]
+
+            def take_scale():
+                s, pending[0] = pending[0], None
+                return s
+
+            def combine(st, args):
+                s = take_scale()
+                args = [to_complex(a) for a in args]
+                if s is not None:
+                    args = [a * s for a in args]
+                return to_pair(st.node.task(args))
+
+            def entry(st, x):
                 fn = st.fused if st.fused is not None else st.node
                 if st.padded:
-                    c = carry[ci]
-                    ci += 1
+                    c = next(it)
                     stream_fn = getattr(fn, "task_stream", None)
                     if (stream_fn is not None and x[1] is not None
                             and c[1] is not None
                             and 0 < st.pad <= x[0].shape[0]):
-                        y = stream_fn(c, x, scale=pending)
+                        y = stream_fn(c, x, scale=pending[0])
                         if y is not NotImplemented:
                             # the kernel scales the block rows only, so
                             # the carried tail is scaled here to hold its
                             # own iteration's values
-                            new_carry.append(tail_rows(x, st.pad, pending))
-                            pending = None
-                            x = y
-                            continue
-                    x = scaled(x, pending)
-                    pending = None
+                            new_carry.append(tail_rows(x, st.pad,
+                                                       take_scale()))
+                            return y
+                    x = scaled(x, take_scale())
                     wr = torch.cat([c[0], x[0]], dim=0)
                     wi = None if x[1] is None else torch.cat(
                         [torch.zeros_like(c[0]) if c[1] is None else c[1],
@@ -745,16 +845,17 @@ class CompiledPipeline:
                                       else wi[:0]))
                     x = (wr, wi)
                 else:
-                    x = scaled(x, pending)
-                    pending = None
+                    x = scaled(x, take_scale())
                 y = NotImplemented
                 planes_fn = getattr(fn, "task_planes", None)
                 if planes_fn is not None:
                     y = planes_fn(x)
                 if y is NotImplemented:
                     y = to_pair(fn.task(to_complex(x)))
-                x = y
-            return tuple(new_carry), x
+                return y
+
+            y = self._run_program(xs, to_pair, combine, entry)
+            return tuple(new_carry), y
 
         return step
 
@@ -812,14 +913,31 @@ class CompiledPipeline:
         return acc
 
     # -- running ----------------------------------------------------------
+    def _block(self, blocks, k):
+        """Block ``k`` of each source's stack: a tensor, or a tuple."""
+        if len(self.sources) > 1:
+            return tuple(b[k] for b in blocks)
+        return blocks[k]
+
+    def _prep_blocks(self, blocks):
+        """Stacked source blocks (a tensor or numpy array, a tuple of them
+        for a multi-input graph) on the source's device, and their
+        count."""
+        if len(self.sources) > 1:
+            blocks = tuple(as_tensor(b, device=self.device) for b in blocks)
+            return blocks, blocks[0].shape[0]
+        blocks = as_tensor(blocks, device=self.device)
+        return blocks, blocks.shape[0]
+
     def run_fn(self, n_blocks):
         """``run(blocks) -> out``: the step over ``n_blocks`` stacked
-        source blocks (``(n_blocks, block_samples) + sample_shape``) from
-        zeroed carries, a plain Python loop; ``out`` is the concatenated
-        tail-rate output.  With an absorbed reduction ``run(blocks) ->
-        (sums, counts)`` in the eager node's bin layout (its non-averaged
-        read; :meth:`run_reduced` averages).  Cached per ``n_blocks``,
-        with the segment ids on the device."""
+        source blocks (``(n_blocks, block_samples) + sample_shape``, a
+        tuple of such stacks in :attr:`sources` order for a multi-input
+        graph) from zeroed carries, a plain Python loop; ``out`` is the
+        concatenated tail-rate output.  With an absorbed reduction
+        ``run(blocks) -> (sums, counts)`` in the eager node's bin layout
+        (its non-averaged read; :meth:`run_reduced` averages).  Cached per
+        ``n_blocks``, with the segment ids on the device."""
         n_blocks = int(n_blocks)
         fn = self._run_cache.get(n_blocks)
         if fn is not None:
@@ -831,7 +949,7 @@ class CompiledPipeline:
                 carry = self.init_carry()
                 outs = []
                 for k in range(n_blocks):
-                    carry, y = step(carry, blocks[k])
+                    carry, y = step(carry, self._block(blocks, k))
                     outs.append(y)
                 return torch.cat(outs, dim=0)
         else:
@@ -844,7 +962,7 @@ class CompiledPipeline:
                 sums, counts = init_reduction_acc(
                     red, self._tail.sample_shape, n_seg, self.device)
                 for k in range(n_blocks):
-                    carry, y = step(carry, blocks[k])
+                    carry, y = step(carry, self._block(blocks, k))
                     update(sums, counts, y, ids[k])
                 return self._shape_reduced(sums), self._shape_reduced(counts)
 
@@ -852,15 +970,14 @@ class CompiledPipeline:
         return fn
 
     def run_reduced(self, blocks):
-        """The absorbed reduction over stacked source blocks (a tensor or
-        numpy array, taken to the source's device): ``(averages,
-        counts)``, the averages in the node's accumulation dtype.  A
-        masked reduction's fully flagged cells average to NaN, as the
-        eager node's do."""
+        """The absorbed reduction over stacked source blocks (as
+        :meth:`run_blocks` takes them): ``(averages, counts)``, the
+        averages in the node's accumulation dtype.  A masked reduction's
+        fully flagged cells average to NaN, as the eager node's do."""
         if self.reduction is None:
             raise ValueError("no reduction to run")
-        blocks = as_tensor(blocks, device=self.device)
-        sums, counts = self.run_fn(blocks.shape[0])(blocks)
+        blocks, n_blocks = self._prep_blocks(blocks)
+        sums, counts = self.run_fn(n_blocks)(blocks)
         shaped = counts.reshape(tuple(counts.shape)
                                 + (1,) * (sums.ndim - counts.ndim))
         out = sums / shaped.clamp_min(1)
@@ -870,15 +987,19 @@ class CompiledPipeline:
         return out, counts
 
     def run_blocks(self, blocks):
-        """Run the compiled chain over stacked source blocks (a tensor or
-        numpy array, taken to the source's device)."""
-        blocks = as_tensor(blocks, device=self.device)
-        return self.run_fn(blocks.shape[0])(blocks)
+        """Run the compiled graph over stacked source blocks (a tensor or
+        numpy array, taken to the source's device; a tuple of them, one
+        per source, for a multi-input graph)."""
+        blocks, n_blocks = self._prep_blocks(blocks)
+        return self.run_fn(n_blocks)(blocks)
 
     def read_source_blocks(self, n_blocks, offset=0):
-        """Read ``n_blocks`` blocks from the source, stacked for
-        :meth:`run_blocks`."""
+        """Read ``n_blocks`` blocks from each source at its read offset,
+        stacked for :meth:`run_blocks` (a tuple for a multi-input
+        graph)."""
         B = self.block_samples
-        src = self.source
-        src.seek(self.source_offsets[0] + offset)
-        return torch.stack([src.read(B) for _ in range(n_blocks)])
+        stacks = []
+        for src, extra in zip(self.sources, self.source_offsets):
+            src.seek(extra + offset)
+            stacks.append(torch.stack([src.read(B) for _ in range(n_blocks)]))
+        return tuple(stacks) if len(stacks) > 1 else stacks[0]

@@ -72,7 +72,8 @@ class CompiledStreamView(Base):
             # unpinned chains get the minimal legal block; a streamed view
             # wants big steps, so scale up where the stream allows
             B = cp.block_samples
-            avail = cp.source.shape[0] - cp.source_offsets[0]
+            avail = min(src.shape[0] - extra for src, extra in zip(
+                cp.sources, cp.source_offsets))
             big = -(-self._TARGET_BLOCK // B) * B
             big = max(min(big, avail // B * B), B)
             if big > B:
@@ -89,10 +90,10 @@ class CompiledStreamView(Base):
         self._tail = tail
         self._delay = int(cp.delay)
         self._wu = int(cp.warmup)
-        # full source blocks available from the source's folded offset
-        self._max_blocks = max(
-            (cp.source.shape[0] - cp.source_offsets[0]) // cp.block_samples,
-            0)
+        # full source blocks available from each source's folded offset
+        self._max_blocks = max(min(
+            (src.shape[0] - extra) // cp.block_samples
+            for src, extra in zip(cp.sources, cp.source_offsets)), 0)
         attrs = tail.meta.get("__attributes__", {})
         super().__init__(
             shape=tail.shape, start_time=tail.start_time,
@@ -112,11 +113,16 @@ class CompiledStreamView(Base):
         self._buf_start = 0      # compiled index of _bufs[0][0]
 
     def _read_next_source_block(self):
+        """The next block of each source (a tuple for a multi-input
+        graph)."""
         cp = self.cp
         n = cp.block_samples
-        cp.source.seek(cp.source_offsets[0] + self._next_step * n)
+        blocks = []
+        for src, extra in zip(cp.sources, cp.source_offsets):
+            src.seek(extra + self._next_step * n)
+            blocks.append(src.read(n))
         self._next_step += 1
-        return cp.source.read(n)
+        return tuple(blocks) if len(blocks) > 1 else blocks[0]
 
     def _compiled_read(self, c0, c1):
         """Compiled outputs [c0, c1) (compiled coordinates)."""

@@ -176,6 +176,32 @@ between cards are neither made nor timed here:
     against ``search()`` / ``snr()``; then the sharded packed step timed
     against one shard's, and the float step with each halo backend.
 
+and for the slice of convolution, resampling, incoherent dispersion and
+multi-input compiled graphs:
+
+(r) compiles the FX correlator and the tied-array beamformer of
+    ``tools/bench_full.py`` correlator() and beamform() at full width
+    (16 MHz complex noise stations, 256 channels, method 'phase'; the
+    correlator 2 stations at tau = 37.25 samples with n_avg 256 absorbed,
+    the beamformer 4 stations at (11.25 + 7k) samples, coherent), runs 8
+    blocks of 2^21 samples a station (one block tensor a station),
+    holds the first two blocks against the eager stream (rtol 1e-3, atol
+    2e-3) and the autocorrelations or beam power against the noise's
+    level, and times them (ms per block, station samples/s; no kernel of
+    the port runs: the F stage is a 256-point torch.fft);
+(s) drives ``ShiftAndResample(engine='pallas')`` on config 2's source
+    (per-channel delays linspace(0.1, 0.9, 128) samples, LO 1400 MHz, pad
+    64, frames of 261,632 samples: a 2^18 window, the 128-sample pad
+    rounded to one 512-row N2 block), asserting the engine and the
+    register forms: eagerly (k1_window, k2, k3_trim a frame) and compiled
+    through ``planes_step`` (k1_stream, k2, k3_trim a block), launches
+    counted exactly, each against the plain versions (1e-4 of the
+    peak), the compiled blocks against the eager frames, then both timed;
+(t) reads ``DedisperseSamples`` (DM 29.7) eagerly on config 1's detected
+    filterbank (16 MHz noise labelled 1400 MHz, Channelize(256), Square)
+    against the per-channel shifts applied to the filterbank, and times a
+    frame.
+
 The plain versions run on the card inside the package's test-only
 switch ``ops.dedisperse.plain_versions()``, with every float32 matmul
 in full float32 (``allow_tf32 = False``, precision 'highest', set and
@@ -1206,7 +1232,7 @@ def drive_compiled(name, dev, gpu, n_blocks=2):
     return counts, kern, ref_cp
 
 
-def time_compiled(name, kern, ref_cp, gpu, eager_ms=None):
+def time_compiled(name, kern, ref_cp, gpu, eager_ms=None, phase="(h)"):
     """ms per block of the compiled planes step over one block already on
     the card, N_STEPS chained steps a turn, turns plain, kernels,
     kernels, plain; then one profiled turn of the kernels."""
@@ -1230,20 +1256,21 @@ def time_compiled(name, kern, ref_cp, gpu, eager_ms=None):
         best[key] = min(best.get(key, np.inf), time.perf_counter() - t0)
     samples = kern.tail_block * int(np.prod(kern._tail.sample_shape or (1,)))
     for key, dt in best.items():
-        print(f"(h) {name} compiled {key}: {1e3 * dt / N_STEPS:.3f} ms/block, "
+        print(f"{phase} {name} compiled {key}: "
+              f"{1e3 * dt / N_STEPS:.3f} ms/block, "
               f"{samples * N_STEPS / dt:.4e} output samples/s [{gpu}]",
               flush=True)
     if eager_ms is not None:
-        print(f"(h) {name}: eager kernels frame (phase (f)) {eager_ms:.3f} "
-              f"ms for the same {kern.tail_block} samples, source included "
-              f"[{gpu}]", flush=True)
+        print(f"{phase} {name}: eager kernels frame (phase (f)) "
+              f"{eager_ms:.3f} ms for the same {kern.tail_block} samples, "
+              f"source included [{gpu}]", flush=True)
     wall, busy, rows = device_profile(lambda: turn("kernels"))
-    print(f"(h) {name} profiled turn: {wall / N_STEPS:.3f} ms/block "
+    print(f"{phase} {name} profiled turn: {wall / N_STEPS:.3f} ms/block "
           f"wall, {busy / N_STEPS:.3f} ms/block device busy "
           f"({busy / wall:.2f}) [{gpu}]", flush=True)
     for dev_us, count, key in rows[:8]:
-        print(f"(h)   {dev_us / 1e3 / N_STEPS:8.3f} ms/block  x{count:<3d} "
-              f"{key[:80]}", flush=True)
+        print(f"{phase}   {dev_us / 1e3 / N_STEPS:8.3f} ms/block  "
+              f"x{count:<3d} {key[:80]}", flush=True)
 
 
 def drive_compiled_paths(dev, gpu, eager_c2_ms):
@@ -2385,6 +2412,267 @@ def drive_masked_fold(dev, gpu):
           flush=True)
 
 
+# -- the slice of joins, resampling and incoherent dispersion: (r)-(t) ------
+
+CORR_N = 1 << 24             # tools/bench_full.py correlator()/beamform():
+CORR_BLOCK = 1 << 21         # 16 MHz stations of 2^24 samples in 8 blocks
+CORR_CHAN = 256
+CORR_AVG = 256
+CORR_EAGER_BLOCKS = 2        # compiled blocks held against the eager stream
+# (s): config 2's source, per-channel delays, the LO at its centre; the
+# 129-tap response's 128-sample pad rounds up to one N2 = 512 row block
+RESAMPLE_SPF = 261632
+RESAMPLE_PAD = 64
+# (t): config 1's detected filterbank at config 2's DM
+INCOH_SAMPLES = 1 << 23
+INCOH_SPF = 4096
+
+
+def fx_chain(dev, model):
+    """``tools/bench_full.py`` correlator() or beamform() in the port: 16
+    MHz complex noise stations (seeds 3, 4, ...), 256 channels, 'phase'
+    delays in frames of 2^21; the correlator 2 stations at tau = 37.25
+    samples and n_avg 256, the beamformer 4 stations at (11.25 + 7k)
+    samples, coherent."""
+    from baseband_tasks_tpu_torch import NoiseGenerator, Time, units as u
+    from baseband_tasks_tpu_torch.models import fx_correlate, tied_array_beam
+    rate = 16 * u.MHz
+    n_st = 2 if model == "correlator" else 4
+    # a frame more than the 8 blocks: the delayed stations' blocks are
+    # read from their alignment offsets
+    streams = [NoiseGenerator(shape=(CORR_N + (1 << 16),),
+                              start_time=Time.from_mjd(58000.0),
+                              sample_rate=rate, samples_per_frame=1 << 16,
+                              seed=3 + k, device=dev) for k in range(n_st)]
+    if model == "correlator":
+        return fx_correlate(streams, CORR_CHAN, CORR_AVG,
+                            delays=[None, 37.25 / rate], method="phase",
+                            samples_per_frame=CORR_BLOCK)
+    delays = [None] + [(11.25 + 7 * k) / rate for k in range(1, n_st)]
+    return tied_array_beam(streams, CORR_CHAN, delays=delays,
+                           method="phase", samples_per_frame=CORR_BLOCK)
+
+
+def drive_fx(dev, gpu):
+    """Phase (r): the FX correlator and the tied-array beamformer compiled
+    at full width, 8 blocks of 2^21 samples a station through ``run_fn``
+    (one block tensor a station; the correlator's Integrate absorbed),
+    the first two blocks against the eager stream (``_compare_eager``'s
+    rtol 1e-3, atol 2e-3; the correlator on its full visibilities), the
+    autocorrelations against the noise's 2 x 256 per channel, then timed
+    (ms per block, station samples/s) and profiled.  No kernel of the
+    port runs here: the F stage is a 256-point torch.fft."""
+    from baseband_tasks_tpu_torch import CompiledPipeline
+    from baseband_tasks_tpu_torch.ops import dedisperse as dd
+    n_blocks = CORR_N // CORR_BLOCK
+    for model in ("correlator", "beamform"):
+        tail = fx_chain(dev, model)
+        cp = CompiledPipeline(tail, block_samples=CORR_BLOCK)
+        n_st = len(cp.sources)
+        blocks = cp.read_source_blocks(n_blocks)
+        torch.cuda.synchronize()
+        run = cp.run_fn(n_blocks)
+        dd.reset_launch_counts()
+        out = run(blocks)
+        torch.cuda.synchronize()
+        if any(dd.launch_counts.values()):
+            raise AssertionError(f"{model}: launched {dd.launch_counts}")
+        print(f"(r) {model}: {n_st} stations, block {cp.block_samples}, "
+              f"tail block {cp.tail_block}, delay {cp.delay}, warmup "
+              f"{cp.warmup}, source offsets {cp.source_offsets}", flush=True)
+        tail.seek(0)
+        if model == "correlator":
+            sums, counts = out
+            vis = sums / counts.reshape(-1, 1, 1).clamp_min(1)
+            n = CORR_EAGER_BLOCKS * cp.tail_block // CORR_AVG
+            full = counts[:n] == CORR_AVG
+            eager = tail.read(n)
+            got, ref = vis[:n][full], eager[full]
+            autos = vis[counts == CORR_AVG][:, [0, 2]].real
+            level = float(autos.mean()) / (2 * CORR_CHAN)
+            cross = float((vis[counts == CORR_AVG][:, 1].abs()
+                           / autos.prod(dim=1).sqrt()).mean())
+            shape_ok = (tuple(vis.shape) == (n_blocks * cp.tail_block
+                                             // CORR_AVG, 3, CORR_CHAN)
+                        and int(full.sum()) >= n - 1
+                        and abs(level - 1) < 0.01 and cross < 0.1)
+            print(f"(r) correlator: {tuple(vis.shape)} visibilities, counts "
+                  f"{sorted(set(counts.tolist()))}; autos {level:.4f} of 2 x "
+                  f"{CORR_CHAN}, mean |coherence| {cross:.4f} (independent "
+                  f"stations)", flush=True)
+        else:
+            d, w = int(cp.delay), cp.warmup
+            n = CORR_EAGER_BLOCKS * cp.tail_block
+            eager = tail.read(n - d)
+            got, ref = out[w:n], eager[w - d:]
+            level = float((out.abs() ** 2).mean()) / (2 * CORR_CHAN / n_st)
+            shape_ok = (tuple(out.shape) == (n_blocks * cp.tail_block,
+                                             CORR_CHAN)
+                        and abs(level - 1) < 0.01)
+            print(f"(r) beamform: {tuple(out.shape)} beam spectra, power "
+                  f"{level:.4f} of 2 x {CORR_CHAN} / {n_st} (independent "
+                  f"stations)", flush=True)
+        torch.cuda.synchronize()
+        diff = (got - ref).abs()
+        ratio = float((diff / (EAGER_ATOL + EAGER_RTOL * ref.abs())).max())
+        finite = bool(torch.isfinite(torch.view_as_real(
+            vis if model == "correlator" else out)).all())
+        print(f"(r) {model}: compiled vs eager over {CORR_EAGER_BLOCKS} "
+              f"blocks ({got.shape[0]} rows): max |d| {float(diff.max()):.3e}"
+              f", {ratio:.3e} of the rtol/atol bound [{gpu}]", flush=True)
+        if ratio > 1.0 or not finite or not shape_ok:
+            raise AssertionError(f"{model}: output wrong")
+        del out, got, ref, eager
+        dt = host_s(lambda: run(blocks), turns=3)
+        samples = n_st * n_blocks * cp.block_samples
+        print(f"(r) {model} compiled: {1e3 * dt / n_blocks:.3f} ms per "
+              f"{cp.block_samples}-sample block, {samples / dt:.4e} station "
+              f"samples/s [{gpu}]", flush=True)
+        print_profile(f"(r) {model}, per block", lambda: run(blocks),
+                      n_blocks, gpu)
+        del blocks, run, cp, tail
+        torch.cuda.empty_cache()
+
+
+def resample_node(dev):
+    """Phase (s)'s path: ShiftAndResample(engine='pallas') of config 2's
+    source by per-channel delays of linspace(0.1, 0.9, 128) samples, LO
+    1400 MHz, pad 64, frames of 261,632 samples (a 2^18 window)."""
+    from baseband_tasks_tpu_torch import ShiftAndResample, units as u
+    return ShiftAndResample(config2_source(dev), np.linspace(0.1, 0.9, 128),
+                            lo=1400 * u.MHz, pad=RESAMPLE_PAD,
+                            samples_per_frame=RESAMPLE_SPF, engine="pallas")
+
+
+def check_resample_geometry(node):
+    from baseband_tasks_tpu_torch.ops import dedisperse as dd
+    got = (node.engine, node._padded_samples_per_frame, node.pad_start,
+           node.pad_end, node.samples_per_frame, node.response.shape[0])
+    forms = [check_k1_form("k1_window"), check_k1_form("k1_stream"),
+             dd.k2_form("k2", 512, 128)]
+    print(f"(s) resample: engine, window, pads, frame, taps {got}; K1 "
+          f"forms {forms[:2]}, K2 {forms[2]}", flush=True)
+    if got != ("pallas", 1 << 18, 448, 64, RESAMPLE_SPF, 129) \
+            or forms[2] != "register":
+        raise AssertionError(f"resample: geometry {got}, K2 {forms[2]}")
+
+
+def drive_resample(dev, gpu):
+    """Phase (s): the resample path eagerly (k1_window, k2, k3_trim a
+    frame) and compiled (k1_stream, k2, k3_trim a block through
+    ``planes_step``), each with its launches counted, against the same
+    path on the plain versions (1e-4 of the peak), the compiled blocks
+    against the eager frames (the response fits its pads: equal to
+    roundoff), then timed in turns.  Returns the launch counts of the
+    two runs."""
+    from baseband_tasks_tpu_torch import CompiledPipeline
+    from baseband_tasks_tpu_torch.ops import dedisperse as dd
+    kern, ref = resample_node(dev), resample_node(dev)
+    check_resample_geometry(kern)
+    launches = {}
+
+    def counted(name, fn, want):
+        dd.reset_launch_counts()
+        out = fn()
+        counts = dict(dd.launch_counts)
+        print(f"(s) resample {name}: launches {counts}", flush=True)
+        bad = {k: counts[k] for k in counts if counts[k] != want.get(k, 0)}
+        if bad:
+            raise AssertionError(f"resample {name}: launches {bad}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        return out
+
+    got = counted("eager", lambda: read_frames(kern, None, 0, N_FRAMES),
+                  {k: N_FRAMES for k in ("k1_window", "k2", "k3_trim")})
+    want = plain(read_frames)(ref, None, 0, N_FRAMES)
+    err, rel = compare((got.real, got.imag), (want.real, want.imag))
+    print(f"(s) resample eager: {tuple(got.shape)}, kernels vs plain max abs "
+          f"err {err:.3e}, {rel:.3e} of the peak [{gpu}]", flush=True)
+    if rel > FFT_TOL or tuple(got.shape) != (N_FRAMES * RESAMPLE_SPF, 128):
+        raise AssertionError("resample eager: output wrong")
+    del want
+    kcp, pcp = CompiledPipeline(kern), CompiledPipeline(ref)
+    blocks = kcp.read_source_blocks(N_FRAMES)
+    outs = counted("compiled", lambda: run_planes(kcp, blocks,
+                                                  [None] * N_FRAMES),
+                   {k: N_FRAMES for k in ("k1_stream", "k2", "k3_trim")})
+    comp = joined(outs)
+    refs = joined(plain(run_planes)(pcp, blocks, [None] * N_FRAMES))
+    err, rel = compare((comp.real, comp.imag), (refs.real, refs.imag))
+    d, w = int(kcp.delay), kcp.warmup
+    eerr, erel = compare((comp[w:].real, comp[w:].imag),
+                         (got[w - d:comp.shape[0] - d].real,
+                          got[w - d:comp.shape[0] - d].imag))
+    print(f"(s) resample compiled: block {kcp.block_samples}, delay {d}, "
+          f"warmup {w}; kernels vs plain {rel:.3e} of the peak, vs the eager "
+          f"frames past warmup {erel:.3e} [{gpu}]", flush=True)
+    if rel > FFT_TOL or erel > FFT_TOL:
+        raise AssertionError("resample compiled: output wrong")
+    del got, comp, refs, outs
+    best = {}
+    runs = {"kernels": (kern, read_frames), "plain": (ref, plain(read_frames))}
+    for frame, key in enumerate(("plain", "kernels", "kernels", "plain"),
+                                start=N_FRAMES):
+        node, read = runs[key]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        read(node, None, frame, 1)
+        best[key] = min(best.get(key, np.inf), time.perf_counter() - t0)
+    for key, dt in best.items():
+        print(f"(s) resample eager frame {key}: {1e3 * dt:.3f} ms/frame, "
+              f"{RESAMPLE_SPF * 128 / dt:.4e} samples/s (source read "
+              f"included) [{gpu}]", flush=True)
+    del blocks
+    time_compiled("resample", kcp, pcp, gpu, phase="(s)")
+    return launches
+
+
+def incoherent_chain(dev):
+    """Phase (t)'s path: config 1's source (16 MHz noise, seed 7, frames
+    of 2^16), labelled 1400 MHz (sideband +1), -> Channelize(256) ->
+    Square -> DedisperseSamples(DM 29.7) in frames of 4096 spectra."""
+    from baseband_tasks_tpu_torch import (Channelize, DedisperseSamples,
+                                          NoiseGenerator, SetAttribute,
+                                          Square, Time, units as u)
+    src = SetAttribute(NoiseGenerator(
+        shape=(INCOH_SAMPLES,), start_time=Time.from_mjd(58000.0),
+        sample_rate=16 * u.MHz, samples_per_frame=1 << 16, seed=7,
+        device=dev), frequency=1400 * u.MHz, sideband=1)
+    return DedisperseSamples(Square(Channelize(src, 256)), 29.7,
+                             samples_per_frame=INCOH_SPF)
+
+
+def drive_incoherent(dev, gpu):
+    """Phase (t): DedisperseSamples eagerly on the card, three frames read
+    against the per-channel shift applied to the detected filterbank read
+    alone (1e-6 of the peak), then ms per frame."""
+    node = incoherent_chain(dev)
+    n = 3 * INCOH_SPF
+    got = read_frames(node, None, 0, 3)
+    det = node.ih
+    det.seek(0)
+    raw = det.read()
+    idx = (torch.arange(n, device=dev)[:, None]
+           + torch.as_tensor(node._rel_index_host, device=dev))
+    want = torch.gather(raw, 0, idx)
+    err, rel = compare((got,), (want,))
+    shifts = node.pad_start - node._rel_index_host
+    print(f"(t) DedisperseSamples: {tuple(got.shape)} from {tuple(raw.shape)}"
+          f" spectra, pads ({node.pad_start}, {node.pad_end}), shifts "
+          f"{int(shifts.min())}..{int(shifts.max())}; vs the shifted "
+          f"filterbank {rel:.3e} of the peak [{gpu}]", flush=True)
+    if rel > 1e-6 or tuple(got.shape) != (n, 256):
+        raise AssertionError("DedisperseSamples: output wrong")
+    best = np.inf
+    for frame in range(3, 6):
+        best = min(best, host_s(lambda: read_frames(node, None, frame, 1), 1))
+    print(f"(t) DedisperseSamples eager: {1e3 * best:.3f} ms/frame of "
+          f"{INCOH_SPF} spectra x 256 channels, "
+          f"{INCOH_SPF * 256 / best:.4e} samples/s (channelize and square "
+          f"included) [{gpu}]", flush=True)
+
+
 # -- the mesh: phases (p) and (q) ---------------------------------------------
 
 N_SHARDS = 4                 # virtual shards of the one card
@@ -2754,6 +3042,14 @@ def main():
     results.update(check_halo_kernel(dev, gpu))
     torch.cuda.empty_cache()
     launches["halo_remote"] = drive_sharded(dev, gpu)["halo_remote"]
+    torch.cuda.empty_cache()
+    drive_fx(dev, gpu)
+    resample = drive_resample(dev, gpu)
+    print(f"(s) launches on the resample paths: {resample}", flush=True)
+    for k, v in resample.items():
+        launches[k] += v
+    torch.cuda.empty_cache()
+    drive_incoherent(dev, gpu)
     missing = [k for k in KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on a path: {missing}")

@@ -355,8 +355,6 @@ def test_refusals():
     with pytest.raises(ValueError, match="no task nodes"):
         PCompiled(ps)
 
-    class Joined(pb.Base):
-        ihs = (ps, ps)
-    with pytest.raises(NotImplementedError, match="combining"):
-        PCompiled(pb.Channelize(Joined((4096, 2), ps.start_time,
-                                       ps.sample_rate), 16))
+    # a join compiles: one source block per input, as in JAX
+    joined = PCompiled(pb.Channelize(pb.Stack([ps, ps]), 16))
+    assert len(joined.sources) == 2 and joined.source_offsets == [0, 0]

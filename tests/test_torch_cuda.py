@@ -11,7 +11,8 @@ depth, the float32 twin, small and lopsided windows, a fold whose
 partial profile does not fit shared memory (the global-atomic branch),
 the four-step passes (k1_window, k2_fwd, k2_inv, k3_trim) at 8, 16 and
 128 lanes and windows of 2^9 to 2^18 with and without pads, the FFT
-engine and the dispersion tasks on the card, the wrappers' refusals,
+engine and the dispersion tasks on the card, ShiftAndResample's kernel
+path (eager and compiled, with an LO), the wrappers' refusals,
 the forward-PFB kernel (n_tap 2, 8, 9, with and without its DFT and a
 scale), the streaming stage A (with and without the ``pre`` mix) and
 k3_trim with the ``post`` mix (L 128 and 512, pads 0 and not), lane_mix
@@ -577,6 +578,67 @@ def test_compiled_fusions_on_card(dev):
                 assert not any(counts.values()), (names, counts)
         for a, b in zip(*outs):
             assert_planes(a, b)
+
+
+@pytest.mark.filterwarnings(
+    "ignore::baseband_tasks_tpu_torch.base.FrameSizeWarning")
+def test_resample_on_card(dev):
+    """ShiftAndResample(engine='pallas') with an LO on a 16-lane card
+    stream: eager frames launch k1_window, k2 and k3_trim, the compiled
+    planes step k1_stream, k2 and k3_trim; each against the plain
+    versions, and the compiled blocks against the eager frames (the
+    65-tap response fits its 128-row pad, so overlap-save is exact at any
+    window offset and the LO is in every form)."""
+    import baseband_tasks_tpu_torch as bt
+    u = bt.units
+    freq = (400 + (np.arange(16) - 8) * 0.25) * u.MHz
+    src = bt.SetAttribute(bt.NoiseGenerator(
+        shape=(1 << 16, 16), start_time=bt.Time.from_mjd(58000.0),
+        sample_rate=250 * u.kHz, samples_per_frame=4096, seed=5,
+        device=dev), frequency=freq, sideband=1)
+
+    def node():
+        r = bt.ShiftAndResample(src, np.linspace(0.1, 0.9, 16),
+                                lo=400 * u.MHz, pad=32,
+                                samples_per_frame=8000, engine="pallas")
+        assert (r.engine, r._padded_samples_per_frame,
+                r.pad_start + r.pad_end) == ("pallas", 1 << 13, 128)
+        return r
+
+    outs = []
+    for plain in (contextlib.nullcontext, dd.plain_versions):
+        r = node()
+        cp = bt.CompiledPipeline(node())
+        blocks = cp.read_source_blocks(3)
+        dd.reset_launch_counts()
+        with plain():
+            eager = r.read(3 * r.samples_per_frame)
+            eager_counts = dict(dd.launch_counts)
+            dd.reset_launch_counts()
+            step, carry = cp.planes_step(), cp.init_carry(planes=True)
+            got = []
+            for x in blocks:
+                carry, y = step(carry, x)
+                got.append(torch.complex(*y))
+        counts = dict(dd.launch_counts)
+        if plain is contextlib.nullcontext:
+            assert all(eager_counts[k] == 3 for k in
+                       ("k1_window", "k2", "k3_trim")), eager_counts
+            assert all(counts[k] == 3 for k in
+                       ("k1_stream", "k2", "k3_trim")), counts
+            assert not counts["k1_window"], counts
+        else:
+            assert not any(eager_counts.values()) and not any(
+                counts.values())
+        outs.append((eager, torch.cat(got)))
+    for got, ref in zip(*outs):
+        assert got.device == dev
+        assert_planes((got.real, got.imag), (ref.real, ref.imag))
+    eager, comp = outs[0]
+    d = int(cp.delay)
+    assert_planes((comp[cp.warmup:].real, comp[cp.warmup:].imag),
+                  (eager[cp.warmup - d:comp.shape[0] - d].real,
+                   eager[cp.warmup - d:comp.shape[0] - d].imag))
 
 
 # -- the flagship's variants --------------------------------------------------

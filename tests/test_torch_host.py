@@ -6,7 +6,9 @@ storage planes are integer or float64 host bookkeeping: the port must
 reproduce them exactly (assert_array_equal, no tolerance).
 """
 
+import ast
 import os
+import pathlib
 import subprocess
 import sys
 
@@ -53,6 +55,27 @@ def test_import_leaves_jax_out():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "WidebandPulsarPipeline" in out.stdout
+
+
+def test_sources_import_no_jax():
+    """No module of the port, and not chip_smoke.py, imports jax or the
+    JAX package, at any level of any function."""
+    root = pathlib.Path(REPO)
+    files = sorted((root / "baseband_tasks_tpu_torch").rglob("*.py"))
+    files.append(root / "chip_smoke.py")
+    assert len(files) > 40
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and not node.level:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in ("jax", "jaxlib",
+                                                  "baseband_tasks_tpu"), \
+                    f"{path.relative_to(root)} imports {name}"
 
 
 def test_time_arithmetic():

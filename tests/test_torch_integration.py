@@ -249,7 +249,7 @@ def test_stack_is_a_deprecated_pulsestack():
     data = positive(1000, (), seed=6)
     src = sources(data, 1000, 100)["port"]
     with pytest.warns(DeprecationWarning, match="PulseStack"):
-        st = pb.Stack(src, 4, phase_model("port", 20.0))
+        st = pb.integration.Stack(src, 4, phase_model("port", 20.0))
     assert isinstance(st, pb.PulseStack)
     assert is_index(3) and not is_index(3.0)
 

@@ -1,6 +1,8 @@
-"""Public names of ported modules against the JAX package: the fold
-model's ``best_rational`` (exact: the same convergents of the same
-float), ``base.META_ATTRIBUTES`` (the same tuple) and
+"""Public names of ported modules against the JAX package: the top-level
+names both packages export (each from the same module, ``Stack`` the
+join of ``combining.py`` in both), the fold model's ``best_rational``
+(exact: the same convergents of the same float),
+``base.META_ATTRIBUTES`` (the same tuple) and
 ``WidebandPulsarPipeline.example_inputs`` (the same numbers from the same
 seed, laid out as the port's ``step_fn`` takes them, on one shard and on
 a (2, 1) mesh of CPU shards)."""
@@ -14,7 +16,9 @@ torch.set_num_threads(1)
 import jax  # noqa: E402
 from jax.sharding import Mesh as JMesh  # noqa: E402
 
+import baseband_tasks_tpu as jb  # noqa: E402
 import baseband_tasks_tpu.base as jbase  # noqa: E402
+import baseband_tasks_tpu.combining as jcombining  # noqa: E402
 import baseband_tasks_tpu.models as jmodels  # noqa: E402
 from baseband_tasks_tpu import utils as jutils  # noqa: E402
 from baseband_tasks_tpu.models.foldmodel import \
@@ -26,6 +30,30 @@ from baseband_tasks_tpu_torch import parallel as par  # noqa: E402
 from baseband_tasks_tpu_torch.models import foldmodel as pfold  # noqa: E402
 
 RATE = 250e3
+SHARED = sorted(set(jb.__all__) & set(bt.__all__))
+
+
+@pytest.mark.parametrize("name", SHARED)
+def test_top_level_names_from_the_same_module(name):
+    """A name both packages export at the top level comes from the module
+    of the same name in each."""
+    j, p = getattr(jb, name), getattr(bt, name)
+    if isinstance(j, type) or callable(j):
+        assert p.__module__.rsplit(".", 1)[-1] == \
+            j.__module__.rsplit(".", 1)[-1]
+        assert p.__name__ == j.__name__
+
+
+def test_stack_is_the_join():
+    """The top-level ``Stack`` is the join of streams in both packages;
+    the deprecated ``PulseStack`` alias stays in ``integration``."""
+    assert issubclass(jb.Stack, jcombining.CombineStreamsBase)
+    assert issubclass(bt.Stack, bt.combining.CombineStreamsBase)
+    assert "Stack" in SHARED and len(SHARED) >= 40
+    for pkg in (jb, bt):
+        with pytest.warns(DeprecationWarning, match="PulseStack"):
+            with pytest.raises(TypeError):
+                pkg.integration.Stack()
 
 
 @pytest.mark.parametrize("x, kw", [
