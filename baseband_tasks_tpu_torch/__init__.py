@@ -24,7 +24,12 @@ The slices so far:
   (``CombineStreams``, ``Concatenate``, ``Stack``) with multi-input
   compiled graphs, ``Real2Complex``, and on them the FX correlator and
   the tied-array beamformer (``models.fx_correlate``,
-  ``models.tied_array_beam``).
+  ``models.tied_array_beam``);
+- stored baseband: VDIF, Mark 5B, DADA and GUPPI readers and writers and
+  multi-file sequences (``io``, ``open``, with the host LUT decoder
+  ``native``), packed ingest decoded on the device
+  (``CompiledPipeline(..., packed=True)``) and the prefetching executor
+  ``models.StreamRunner`` (pinned buffers and a copy stream on the card).
 
 Frames are torch tensors on the stream's device (the card when there is
 one, unless a source is given another).  On a CUDA device the
@@ -34,6 +39,7 @@ package imports torch and numpy only; the kernels are built with
 ``nvcc`` at their first launch.
 """
 
+from . import io, native
 from .base import (Base, BaseTaskBase, TaskBase, PaddedTaskBase, Task,
                    SetAttribute)
 from .channelize import Channelize, Dechannelize
@@ -49,10 +55,12 @@ from .generators import (StreamGenerator, EmptyStreamGenerator, Noise,
                          NoiseGenerator)
 from .integration import Fold, Integrate, PulseStack
 from .models import (CompiledPipeline, FastFoldingSearch,
-                     FourierDomainAccelSearch, WidebandPulsarPipeline)
+                     FourierDomainAccelSearch, StreamRunner,
+                     WidebandPulsarPipeline)
 from .pfb import (InversePolyphaseFilterBank, PolyphaseFilterBank,
                   PolyphaseFilterBankSamples, sinc_hamming)
 from .phases import Polyco, PolycoPhase
+from .registry import open
 from .sampling import ShiftAndResample, Resample, TimeDelay, ShiftSamples
 from .shaping import (ChangeSampleShape, Reshape, Transpose,
                       ReshapeAndTranspose, GetItem, GetSlice)
@@ -72,4 +80,4 @@ __all__ = ["Base", "BaseTaskBase", "TaskBase", "PaddedTaskBase", "Task",
            "CombineStreams", "Concatenate", "Stack", "Convolve",
            "ConvolveSamples", "ShiftAndResample", "Resample", "TimeDelay",
            "ShiftSamples", "DisperseSamples", "DedisperseSamples",
-           "Real2Complex"]
+           "Real2Complex", "open", "io", "native", "StreamRunner"]

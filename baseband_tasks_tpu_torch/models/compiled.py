@@ -24,8 +24,14 @@ Supported graphs:
   both become per-source read offsets, where the shifts are whole source
   samples.
 
-Packed-payload ingest (``packed=True``) is not ported yet (raises
-NotImplementedError; ROADMAP.md queue 1, with I/O).
+Packed-payload ingest (``packed=True``): sources that expose
+``read_packed``/``packed_decode_fn`` (the file readers of ``io/``) give
+their raw payloads as int32 words (with a presence mask for VDIF and
+Mark 5B), and the step decodes them on the device before the first stage
+(``ops/unpack.py``, plain torch ops, bit for bit against the readers'
+host decode).  :meth:`CompiledPipeline.read_source_blocks` then stacks
+``read_packed`` results instead of decoded samples; the planes step
+refuses packed sources, as in the JAX package.
 
 A trailing ``Integrate``, ``Fold`` or ``PulseStack`` is split off and
 absorbed as a reduction: the step's output is summed into the node's bins
@@ -86,8 +92,6 @@ from ..utils.dtypes import as_tensor, torch_dtype
 __all__ = ["CompiledPipeline", "carry_from_numpy", "init_reduction_acc",
            "make_reduction_update"]
 
-_NOT_PORTED = "not ported yet (ROADMAP.md, queue 1 item {}: {})"
-
 
 class _CombineStage:
     """A join of ``k`` branches (a ``CombineStreamsBase`` node)."""
@@ -131,8 +135,10 @@ def init_reduction_acc(red, sample_shape, n_seg, device):
 
 def make_reduction_update(red):
     """``update(sums, counts, y, seg)``: add the tail block ``y`` into the
-    accumulators by segment id ``seg`` (int64, one per sample), in place.
-    With a masked reduction, non-finite cells drop out per cell."""
+    accumulators by segment id ``seg`` (int64, one per sample), in place,
+    with no host synchronisation (``index_add_``; ``bincount`` would read
+    the largest id back to size its output).  With a masked reduction,
+    non-finite cells drop out per cell."""
     acc_dtype = red._acc_dtype()
 
     def update(sums, counts, y, seg):
@@ -142,7 +148,7 @@ def make_reduction_update(red):
                                                   device=y.device))
             counts.index_add_(0, seg, valid.to(torch.int64))
         else:
-            counts += torch.bincount(seg, minlength=counts.shape[0])
+            counts.index_add_(0, seg, torch.ones_like(seg))
         sums.index_add_(0, seg, y.to(acc_dtype))
         return sums, counts
 
@@ -425,7 +431,10 @@ class CompiledPipeline:
     fuse : bool
         Apply the kernel fusions (module docstring).
     packed : bool
-        Packed-payload ingest: not ported yet (raises).
+        Packed-payload ingest: sources with ``read_packed`` take raw
+        payload words as their block input and are decoded inside the
+        step (module docstring); blocks and source offsets must then be
+        whole multiples of such a source's ``packed_alignment``.
 
     A trailing ``Integrate``/``Fold``/``PulseStack`` is absorbed as a
     reduction (:attr:`reduction`; module docstring).
@@ -433,9 +442,6 @@ class CompiledPipeline:
 
     def __init__(self, tail, *, block_samples=None, fuse=True,
                  packed=False):
-        if packed:
-            raise NotImplementedError("packed ingest is " + _NOT_PORTED
-                                      .format(9, "I/O, io/vdif.py"))
         self._run_cache = {}
         # split off a trailing reduction (Integrate and its subclasses)
         self.reduction = None
@@ -623,7 +629,27 @@ class CompiledPipeline:
         #: padded stage)
         self.delay = delay
         self.warmup = int(np.ceil(warmup))
-        self.packed = False
+
+        # -- packed-payload ingest ----------------------------------------
+        self.packed = bool(packed)
+        self._decoders = [None] * len(sources)
+        if packed:
+            for i, (src, extra) in enumerate(zip(sources, source_offsets)):
+                make = getattr(src, "packed_decode_fn", None)
+                if make is None:
+                    continue  # this source stays on the float path
+                align = src.packed_alignment
+                if self.block_samples % align or extra % align:
+                    raise ValueError(
+                        f"packed ingest needs frame-aligned blocks: "
+                        f"block_samples {self.block_samples} and source "
+                        f"offset {extra} must be multiples of the file's "
+                        f"{align} samples/frame")
+                self._decoders[i] = make()
+            if not any(d is not None for d in self._decoders):
+                raise ValueError(
+                    "packed=True but no source supports packed reads "
+                    "(needs read_packed/packed_decode_fn)")
         if fuse:
             self._apply_fusions()
 
@@ -732,13 +758,26 @@ class CompiledPipeline:
                 stack.append(entry(st, stack.pop()))
         return stack[-1]
 
+    def _decode(self, xs):
+        """Packed sources' blocks decoded on their device (``xs`` as
+        :meth:`step_fn` takes it); other sources' blocks as they are."""
+        if not self.packed:
+            return xs
+        if len(self.sources) > 1:
+            return tuple(x if dec is None else dec(x)
+                         for x, dec in zip(xs, self._decoders))
+        dec = self._decoders[0]
+        return xs if dec is None else dec(xs)
+
     def step_fn(self):
         """``(carry, blocks) -> (carry, out_block)``: one block per source
         through the graph (``blocks`` a tensor, or a tuple of them in
-        :attr:`sources` order for a multi-input graph), complex data as
-        complex tensors.  Each padded stage assembles its window as
-        [carry | block] and keeps the window's last ``pad`` samples (a
-        copy) as its next carry."""
+        :attr:`sources` order for a multi-input graph; a packed source's
+        block is its ``read_packed`` words, or ``(words, mask)``, as
+        tensors, decoded in the step), complex data as complex tensors.
+        Each padded stage assembles its window as [carry | block] and
+        keeps the window's last ``pad`` samples (a copy) as its next
+        carry."""
         self._prepare_caches()
 
         def step(carry, xs):
@@ -754,8 +793,8 @@ class CompiledPipeline:
                 return fn.task(window)
 
             y = self._run_program(
-                xs, lambda x: x, lambda st, args: st.node.task(list(args)),
-                entry)
+                self._decode(xs), lambda x: x,
+                lambda st, args: st.node.task(list(args)), entry)
             return tuple(new_carry), y
 
         return step
@@ -775,7 +814,14 @@ class CompiledPipeline:
         one (``task_stream``: the 'pallas' Disperse, Convolve and
         ShiftAndResample, the fusions).  Streaming stages get the carry as
         a separate buffer and assemble the window in their first kernel.
+        Packed sources are refused, as in the JAX package: their words go
+        through :meth:`step_fn`.
         """
+        if self.packed:
+            raise NotImplementedError(
+                "packed ingest is not wired into the planes-interchange "
+                "step; use the normal step (the packed words decode "
+                "inside step_fn)")
         self._prepare_caches()
 
         def to_pair(x):
@@ -866,15 +912,22 @@ class CompiledPipeline:
         outside every bin (negative warmup indices included) get id
         ``n_seg``, the trash segment.  Returns (int64 ids, n_seg)."""
         red = self.reduction
-        rel = np.arange(start, start + n, dtype=np.int64) - red._ih_start
+        rel0 = start - red._ih_start
         fine = red.n_phase if isinstance(red, PulseStack) else 1
         edges = red._get_offsets(np.arange(red.shape[0] * fine + 1))
         n_time = len(edges) - 1
-        valid = (rel >= edges[0]) & (rel < edges[-1])
-        ids = np.clip(np.searchsorted(edges, rel, side="right") - 1, 0,
-                      n_time - 1)
+        # the samples are consecutive and the edges whole sample offsets,
+        # so the bins are runs between the edges: one pass over the ids
+        # instead of a binary search per sample
+        bounds = np.clip(edges, rel0, rel0 + n) - rel0
+        ids = np.zeros(n, np.int64)
+        valid = np.zeros(n, bool)
+        ids[bounds[0]:bounds[-1]] = np.repeat(np.arange(n_time),
+                                              np.diff(bounds))
+        valid[bounds[0]:bounds[-1]] = True
         n_seg = n_time
         if isinstance(red, Fold):
+            rel = np.arange(rel0, rel0 + n, dtype=np.int64)
             ih_rate = red.ih.sample_rate.to_value(u.Hz)
             t = (red.ih._tell_time(red._ih_start)
                  + u.Quantity(rel / ih_rate, u.s))
@@ -914,20 +967,25 @@ class CompiledPipeline:
 
     # -- running ----------------------------------------------------------
     def _block(self, blocks, k):
-        """Block ``k`` of each source's stack: a tensor, or a tuple."""
+        """Block ``k`` of each source's stack (a packed source's stack is
+        its words, or a (words, mask) pair): a tensor, or a tuple."""
         if len(self.sources) > 1:
-            return tuple(b[k] for b in blocks)
-        return blocks[k]
+            return tuple(_tree_map(lambda b: b[k], b) for b in blocks)
+        return _tree_map(lambda b: b[k], blocks)
 
     def _prep_blocks(self, blocks):
-        """Stacked source blocks (a tensor or numpy array, a tuple of them
+        """Stacked source blocks (tensors or numpy arrays, as
+        :meth:`read_source_blocks` gives them; a tuple with one per source
         for a multi-input graph) on the source's device, and their
         count."""
-        if len(self.sources) > 1:
-            blocks = tuple(as_tensor(b, device=self.device) for b in blocks)
-            return blocks, blocks[0].shape[0]
-        blocks = as_tensor(blocks, device=self.device)
-        return blocks, blocks.shape[0]
+        def prep(b):
+            return _tree_map(lambda a: as_tensor(a, device=self.device), b)
+        blocks = (tuple(prep(b) for b in blocks) if len(self.sources) > 1
+                  else prep(blocks))
+        first = blocks
+        while isinstance(first, tuple):
+            first = first[0]
+        return blocks, first.shape[0]
 
     def run_fn(self, n_blocks):
         """``run(blocks) -> out``: the step over ``n_blocks`` stacked
@@ -987,19 +1045,38 @@ class CompiledPipeline:
         return out, counts
 
     def run_blocks(self, blocks):
-        """Run the compiled graph over stacked source blocks (a tensor or
-        numpy array, taken to the source's device; a tuple of them, one
-        per source, for a multi-input graph)."""
+        """Run the compiled graph over stacked source blocks (tensors or
+        numpy arrays, taken to the source's device; a tuple of them, one
+        per source, for a multi-input graph; packed sources take their
+        ``(words, mask)`` stacks from :meth:`read_source_blocks`)."""
         blocks, n_blocks = self._prep_blocks(blocks)
         return self.run_fn(n_blocks)(blocks)
 
     def read_source_blocks(self, n_blocks, offset=0):
         """Read ``n_blocks`` blocks from each source at its read offset,
         stacked for :meth:`run_blocks` (a tuple for a multi-input
-        graph)."""
+        graph), on the source's device.  Packed sources (``packed=True``)
+        come back as stacks of their raw ``read_packed`` words (and
+        masks): no host decode happens here."""
         B = self.block_samples
         stacks = []
-        for src, extra in zip(self.sources, self.source_offsets):
+        for i, (src, extra) in enumerate(zip(self.sources,
+                                             self.source_offsets)):
+            if self._decoders[i] is not None:
+                packs = [src.read_packed(extra + offset + k * B, B)
+                         for k in range(n_blocks)]
+                stacks.append(_tree_map(
+                    lambda *xs: as_tensor(np.stack(xs), device=self.device),
+                    *packs))
+                continue
             src.seek(extra + offset)
             stacks.append(torch.stack([src.read(B) for _ in range(n_blocks)]))
         return tuple(stacks) if len(stacks) > 1 else stacks[0]
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of equally nested tuples (a packed block is
+    its words or a (words, mask) pair); a leaf is anything else."""
+    if isinstance(trees[0], tuple):
+        return tuple(_tree_map(fn, *parts) for parts in zip(*trees))
+    return fn(*trees)

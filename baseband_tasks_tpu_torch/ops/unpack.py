@@ -1,20 +1,30 @@
-"""Plane-packed baseband samples: packing, edge decode and block decode.
+"""Packed baseband samples: payload decoders, plane packing, edge decode
+and block decode.
 
-Counterpart of ``baseband_tasks_tpu/ops/unpack_device.py``
-(``pack_time_planes`` :174, ``plane_edges_device`` :200,
+Counterpart of ``baseband_tasks_tpu/ops/unpack_device.py`` (the payload
+decoders ``unpack_*_device`` :76-133 of the file readers' packed ingest,
+``pack_time_planes`` :174, ``plane_edges_device`` :200,
 ``VDIF_2BIT_LEVELS``) and of the stage-A kernel's in-kernel decode
 (``ops/dedisperse_pallas._decode_planes`` :732).  The decode conventions
 are the JAX package's, bit for bit:
 
 - 8/4-bit: ``field - offset`` (default 127.5 / 7.5);
 - 2-bit: the crumb indexes a 4-entry level table (VDIF levels by default);
-- 1-bit: ``levels[0]`` or ``levels[3]`` (default -1 / +1).
+- 1-bit: ``levels[0]`` or ``levels[3]`` (default -1 / +1);
+- 16-bit payloads: little-endian ``u16 - 32767.5``; signed payloads
+  (DADA, GUPPI): two's-complement int8/int16; 32-bit: the words are the
+  float32 samples.
 
 Packed words travel as **int32 tensors holding the uint32 bit patterns**
 (torch's ``uint32`` lacks most CPU ops).  Every field is extracted as
 shift-then-mask, so the arithmetic shift's sign extension never reaches a
 field.  Field ``k`` of each word is the sample ``k * T/planes`` later in
 time, so each decoded plane is a contiguous row block of the FFT window.
+The payload decoders instead read a file's bytes in stream order: the
+fields of each word LSB first, word after word (``(..., n)`` words ->
+``(..., n * 32/bits)`` samples).  The JAX package computes them in plain
+XLA; here they are plain torch ops on the words' device (several
+elementwise passes on the card).
 """
 
 from __future__ import annotations
@@ -24,7 +34,9 @@ import torch
 
 __all__ = ["VDIF_2BIT_LEVELS", "pack_time_planes", "plane_edges",
            "decode_fields", "decode_planes", "default_offset",
-           "default_levels"]
+           "default_levels", "words_from_bytes", "unpack_8bit",
+           "unpack_4bit", "unpack_2bit", "unpack_1bit", "unpack_16bit",
+           "unpack_8bit_signed", "unpack_16bit_signed", "f32_payload"]
 
 # standard VDIF 2-bit reconstruction levels
 VDIF_2BIT_LEVELS = np.array([-3.3359, -1.0, 1.0, 3.3359], dtype=np.float32)
@@ -128,3 +140,86 @@ def plane_edges(words, pad_start, pad_end, bits, offset=None, levels=None):
     hi = torch.cat(hi_parts, dim=0) if hi_parts else empty
     return (decode_fields(lo, bits, offset, levels),
             decode_fields(hi, bits, offset, levels))
+
+
+# -- payload decoders (the file readers' packed ingest) ---------------------
+
+def words_from_bytes(raw):
+    """Host helper: a little-endian payload as a writable numpy int32
+    array of its uint32 words, the port's word convention.  ``raw`` is
+    bytes (their length a multiple of 4) or a uint8 array whose last axis
+    (a multiple of 4 long) is contiguous: the words keep its leading
+    axes, and are a view of it where it is writable (else a copy)."""
+    if isinstance(raw, np.ndarray):
+        if raw.strides[-1] != 1:
+            raw = np.ascontiguousarray(raw)
+        words = raw.view("<u4").view(np.int32)
+    else:
+        words = np.frombuffer(raw, "<u4").view(np.int32)
+    return words if words.flags.writeable else words.copy()
+
+
+def _stream_fields(words, bits):
+    """(..., n) int32 words -> (..., n * 32/bits) int32 fields in stream
+    order (each word's fields LSB first), shift-then-mask."""
+    per = 32 // bits
+    mask = (1 << bits) - 1
+    parts = [(words >> (bits * k)) & mask for k in range(per)]
+    return torch.stack(parts, dim=-1).reshape(
+        *words.shape[:-1], words.shape[-1] * per)
+
+
+def unpack_8bit(words, offset=127.5):
+    """(..., n) words -> (..., 4n) float32 samples, ``byte - offset``."""
+    return _stream_fields(words, 8).to(torch.float32) - float(offset)
+
+
+def unpack_4bit(words, offset=7.5):
+    """(..., n) words -> (..., 8n) float32 samples, ``nibble - offset``
+    (the low nibble of each byte first)."""
+    return _stream_fields(words, 4).to(torch.float32) - float(offset)
+
+
+def unpack_16bit(words, offset=32767.5):
+    """(..., n) words -> (..., 2n) float32 samples, little-endian
+    ``u16 - offset`` (the host ``'<u2'`` decode of io/vdif.py)."""
+    return _stream_fields(words, 16).to(torch.float32) - float(offset)
+
+
+def unpack_8bit_signed(words):
+    """(..., n) words -> (..., 4n) float32 from two's-complement int8
+    bytes (GUPPI and DADA payloads)."""
+    f = _stream_fields(words, 8)
+    return torch.where(f >= 128, f - 256, f).to(torch.float32)
+
+
+def unpack_16bit_signed(words):
+    """(..., n) words -> (..., 2n) float32 from little-endian
+    two's-complement int16 (DADA NBIT=16)."""
+    f = _stream_fields(words, 16)
+    return torch.where(f >= 32768, f - 65536, f).to(torch.float32)
+
+
+def f32_payload(words):
+    """The words' bytes are already little-endian float32 samples (DADA
+    NBIT=±32, VDIF 32-bit): a view, no copy."""
+    return words.view(torch.float32)
+
+
+def unpack_2bit(words, levels=None):
+    """(..., n) words -> (..., 16n) float32 samples through a 4-level
+    table (LSB-first crumbs; VDIF levels by default), as two nested
+    selects: the host LUT's values exactly."""
+    lv = np.asarray(VDIF_2BIT_LEVELS if levels is None else levels,
+                    dtype=np.float32)
+    c = _stream_fields(words, 2)
+    return torch.where(c < 2, torch.where(c == 0, float(lv[0]),
+                                          float(lv[1])),
+                       torch.where(c == 2, float(lv[2]), float(lv[3])))
+
+
+def unpack_1bit(words, low=-1.0, high=1.0):
+    """(..., n) words -> (..., 32n) float32 samples, ``bit ? high :
+    low`` (LSB first)."""
+    b = _stream_fields(words, 1).to(torch.float32)
+    return float(low) + b * float(high - low)

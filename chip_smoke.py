@@ -202,6 +202,30 @@ multi-input compiled graphs:
     against the per-channel shifts applied to the filterbank, and times a
     frame.
 
+and for stored baseband, at BASELINE config 4 (``tools/bench_full.py``
+config4_packed(): 16 VDIF threads of 8-bit complex noise at 2^18 Hz, rng
+seed 11, channel i at 1400 + 0.262144 (i // 2) MHz, Dedisperse(29.7) ->
+Square -> Integrate(4096); 'auto' is 'pallas' on the card: a 2^17 window,
+pads 512/512, blocks of 130,048 samples, file frames of 1024), the file
+written by the port's VDIF writer into a temporary directory:
+
+(u) runs ``StreamRunner`` over 6 blocks with packed ingest (the words
+    shipped through the pinned ring, decoded on the card in ``step_fn``:
+    k1_window, k2, k3_trim a block) and with float ingest (the host LUT
+    decode, planes through ``planes_step``: k1_stream, k2, k3_trim a
+    block), launches counted exactly; holds packed against float (rtol
+    1e-4, atol 1e-6, counts exact), each against the same runner on the
+    plain versions, and the bins against the eager chain read through
+    the VDIF reader (rtol 1e-3, atol 2e-3); then streams 48 blocks (~200
+    MB of packed payload) with each, in turns, and prints packed and
+    float samples/s, the host decode rate (``native.unpack_8bit``), the
+    bytes across the boundary per block, the time by layer (host read,
+    H2D through the pinned ring, decode, the path's kernels at config
+    4's 16 lanes against their plain versions, the reduction) and a
+    profiled run with the card's busy share; then decodes one Mark 5B,
+    DADA and GUPPI file each on the card from ``read_packed`` against
+    the host decode, bit for bit.
+
 The plain versions run on the card inside the package's test-only
 switch ``ops.dedisperse.plain_versions()``, with every float32 matmul
 in full float32 (``allow_tf32 = False``, precision 'highest', set and
@@ -2976,6 +3000,395 @@ def shard_grid(x, mesh):
     return shard(x, mesh, ("time", "chan"))
 
 
+# -- stored baseband: phase (u), BASELINE config 4 ---------------------------
+
+# tools/bench_full.py config4_packed(): 16 VDIF threads (8 channels x 2
+# pols) of 8-bit complex noise at 2^18 Hz, Dedisperse(29.7) -> Square ->
+# Integrate(4096), driven by StreamRunner, packed against float ingest
+C4_THREADS, C4_RATE, C4_DM, C4_AVG = 16, 1 << 18, 29.7, 4096
+C4_CHECK_BLOCKS = 6          # bench_full's n_blocks: the correctness run
+C4_TIME_BLOCKS = 48          # ~200 MB of packed payload: the steady state
+C4_PROFILE_BLOCKS = 8
+
+
+def config4_freq(u):
+    return (1400 + 0.262144 * (np.arange(C4_THREADS) // 2)) * u.MHz
+
+
+def config4_block(dev):
+    """The compiled block the padded stage pins ('pallas' on the card: a
+    2^17 window less its pads), probed as bench_full does, and the file
+    frame: the largest power of two dividing it, at most 4096."""
+    import warnings
+    from baseband_tasks_tpu_torch import (Dedisperse, NoiseGenerator,
+                                          SetAttribute, Time, units as u)
+    probe = NoiseGenerator(shape=(1 << 20, C4_THREADS),
+                           start_time=Time.from_mjd(58000.0),
+                           sample_rate=C4_RATE * u.Hz, samples_per_frame=8192,
+                           seed=11, device=dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        ded = Dedisperse(SetAttribute(probe, frequency=config4_freq(u),
+                                      sideband=1), C4_DM,
+                         samples_per_frame=1 << 16)
+    block = int(ded.samples_per_frame)
+    return block, min(4096, block & -block)
+
+
+def write_config4(path, block, spf, n_blocks):
+    """bench_full's file, written by the port's VDIF writer a block at a
+    time: rng(11) standard normals x 16 as 8-bit complex."""
+    from baseband_tasks_tpu_torch import NoiseGenerator, Time, units as u
+    from baseband_tasks_tpu_torch.io import vdif
+    template = NoiseGenerator(shape=(n_blocks * block, C4_THREADS),
+                              start_time=Time.from_mjd(58000.0),
+                              sample_rate=C4_RATE * u.Hz,
+                              samples_per_frame=8192, device="cpu")
+    rng = np.random.default_rng(11)
+    with vdif.open(path, "w", template=template, bps=8,
+                   samples_per_frame=spf, nthread=C4_THREADS) as wh:
+        for _ in range(n_blocks):
+            x = rng.standard_normal((block, C4_THREADS, 2)).astype(
+                np.float32) * 16
+            wh.write((x[..., 0] + 1j * x[..., 1]).astype(np.complex64))
+
+
+def config4_chain(path, dev, block, average=True):
+    """A VDIF reader on the card -> Dedisperse(29.7) ('auto') -> Square
+    -> Integrate(4096): the reader, the Dedisperse node and the tail."""
+    from baseband_tasks_tpu_torch import (Dedisperse, Integrate,
+                                          SetAttribute, Square, open,
+                                          units as u)
+    fr = open(path, sample_rate=C4_RATE * u.Hz, device=dev)
+    ded = Dedisperse(SetAttribute(fr, frequency=config4_freq(u), sideband=1),
+                     C4_DM, samples_per_frame=block)
+    return fr, ded, Integrate(Square(ded), C4_AVG, average=average)
+
+
+def counted_run(name, runner, n_blocks, want):
+    """One runner pass with the launches counted from zero; asserts the
+    exact counts.  Returns (sums, counts, launches)."""
+    from baseband_tasks_tpu_torch.ops import dedisperse as dd
+    dd.reset_launch_counts()
+    sums, counts = runner.run(n_blocks)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in dd.launch_counts.items() if v}
+    print(f"(u) config 4 {name}: launches {launched}", flush=True)
+    if launched != want:
+        raise AssertionError(f"config 4 {name}: launches {launched}, "
+                             f"expected {want}")
+    return sums, counts, launched
+
+
+def check_config4_kernels(dev, block, gpu):
+    """The path's kernels at config 4's shapes (a 2^17 window of 16
+    lanes, pads 512/512) against their plain versions, timed: the layer
+    times of the step.  Returns {name: ms}."""
+    from baseband_tasks_tpu_torch.ops import dedisperse as dd
+    from baseband_tasks_tpu_torch.ops import fft as ff
+    L, pad = C4_THREADS, 512
+    n = block + 2 * pad
+    n1, n2 = dd.split_n(n)
+    x = randn(dev, (n, L), 61)
+    c = randn(dev, (2 * pad, L), 62)
+    blk = randn(dev, (block, L), 63)
+    ph = torch.rand((n2, n1, L), generator=torch.Generator(
+        device=dev).manual_seed(64), device=dev) * 6.283
+    g = (torch.cos(ph), torch.sin(ph))
+    y = ff.k1_window(*x)
+    y2 = [t.clone() for t in y]          # K2 works in place: timed on these
+
+    def k2(planes):
+        return lambda: dd.stage_b(*[t.clone() for t in planes], *g)
+    # (checked call, timed call, planes in + out)
+    cases = {
+        "k1_window": (lambda: ff.k1_window(*x), lambda: ff.k1_window(*x),
+                      4),
+        "k1_stream": (lambda: ff.k1_stream(*c, *blk),
+                      lambda: ff.k1_stream(*c, *blk), 4),
+        "k2": (k2(y), lambda: dd.stage_b(*y2, *g), 6),
+        "k3_trim": (lambda: ff.k3_trim(*y, pad_start=pad, pad_end=pad),
+                    lambda: ff.k3_trim(*y, pad_start=pad, pad_end=pad),
+                    2 + 2 * block / n)}
+    times = {}
+    for name, (check, timed, planes) in cases.items():
+        got = [t.clone() for t in check()]
+        ref = [t.clone() for t in plain(check)()]
+        err, rel = compare(got, ref)
+        ms, pms = cuda_ms(timed), cuda_ms(plain(timed))
+        bound_ms = 1e3 * planes * n * L * 4 / HBM_BYTES_PER_S
+        print(f"(u) {name} at (N1, N2) = ({n1}, {n2}), {L} lanes: "
+              f"{rel:.3e} of the peak vs plain; {ms:.4f} ms, plain "
+              f"{pms:.4f}, bytes bound {bound_ms:.4f} ms [{gpu}]",
+              flush=True)
+        if rel > FFT_TOL:
+            raise AssertionError(f"config 4 {name}: {rel:.3e} of the peak")
+        times[name] = ms
+    forms = (dd.k1_form(n1, L, "k1_window"), dd.k1_form(n1, L, "k1_stream"),
+             dd.k2_form("k2", n2, L))
+    print(f"(u) forms at config 4's columns: k1_window {forms[0]}, "
+          f"k1_stream {forms[1]}, k2 {forms[2]}", flush=True)
+    return times
+
+
+def drive_config4(dev, gpu):
+    """Phase (u): BASELINE config 4 from a VDIF file on disk, through
+    StreamRunner: packed ingest (words shipped, decoded on the card in
+    step_fn: k1_window, k2, k3_trim a block) and float ingest (host LUT
+    decode, planes through planes_step: k1_stream, k2, k3_trim a block),
+    launches counted exactly, the two held together (rtol 1e-4, atol
+    1e-6, counts exact), each against the same chain on the plain
+    versions and against the eager chain read through the VDIF reader;
+    then 48 blocks streamed and timed, by layer, with the card's idle
+    share; then one Mark 5B, DADA and GUPPI file each decoded on the card
+    against the host decode, bit for bit.  Returns the launches."""
+    import tempfile
+    from baseband_tasks_tpu_torch import CompiledPipeline, StreamRunner
+    from baseband_tasks_tpu_torch import native
+    from baseband_tasks_tpu_torch.models.compiled import (
+        init_reduction_acc, make_reduction_update)
+    from baseband_tasks_tpu_torch.models.runner import _PinnedRing
+    from baseband_tasks_tpu_torch.ops import dedisperse as dd
+    block, spf = config4_block(dev)
+    print(f"(u) config 4: block {block}, file frames {spf}, "
+          f"{C4_THREADS} threads of 8-bit complex at {C4_RATE} Hz",
+          flush=True)
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/config4.vdif"
+        t0 = time.perf_counter()
+        write_config4(path, block, spf,
+                      max(C4_TIME_BLOCKS, C4_CHECK_BLOCKS))
+        raw = np.fromfile(path, np.uint8)
+        print(f"(u) wrote {raw.size / 2 ** 20:.1f} MiB in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        fr_p, ded, tail_p = config4_chain(path, dev, block)
+        fr_f, _, tail_f = config4_chain(path, dev, block)
+        geometry = (ded.engine, ded._padded_samples_per_frame, ded.pad_start,
+                    ded.pad_end, ded.samples_per_frame, fr_p.packed_alignment)
+        print(f"(u) engine, window, pads, frame, file frame: {geometry}",
+              flush=True)
+        if geometry != ("pallas", 1 << 17, 512, 512, block, spf):
+            raise AssertionError(f"config 4 geometry {geometry}")
+        cp_p = CompiledPipeline(tail_p, block_samples=block, packed=True)
+        cp_f = CompiledPipeline(tail_f, block_samples=block)
+        runner_p, runner_f = StreamRunner(cp_p), StreamRunner(cp_f,
+                                                              planes=True)
+        n = C4_CHECK_BLOCKS
+        s_p, c_p, lp = counted_run("packed", runner_p, n, {
+            "k1_window": n, "k2": n, "k3_trim": n})
+        s_f, c_f, lf = counted_run("float (planes)", runner_f, n, {
+            "k1_stream": n, "k2": n, "k3_trim": n})
+        for k, v in (*lp.items(), *lf.items()):
+            launches[k] = launches.get(k, 0) + v
+        err = float(((s_p - s_f).abs() / (1e-6 + 1e-4 * s_f.abs())).max())
+        finite = bool(torch.isfinite(s_p).all() and torch.isfinite(s_f).all())
+        print(f"(u) packed vs float: sums {tuple(s_p.shape)}, counts "
+              f"{sorted(set(c_p.tolist()))}; {err:.3e} of the rtol 1e-4 / "
+              f"atol 1e-6 bound [{gpu}]", flush=True)
+        if err > 1 or not torch.equal(c_p, c_f) or not finite:
+            raise AssertionError("config 4: packed and float disagree")
+        # the same chains on the plain versions (decode and reduction are
+        # plain torch on both sides)
+        for name, runner, got in (("packed", runner_p, s_p),
+                                  ("float", runner_f, s_f)):
+            with dd.plain_versions():
+                ref, rcnt = runner.run(n)
+            torch.cuda.synchronize()
+            rel = float(((got - ref).abs() / (1e-6 + 1e-4 * ref.abs())).max())
+            print(f"(u) {name} vs the plain versions: {rel:.3e} of the "
+                  f"rtol 1e-4 / atol 1e-6 bound", flush=True)
+            if rel > 1 or not torch.equal(rcnt, c_p):
+                raise AssertionError(f"config 4 {name}: kernels disagree "
+                                     f"with the plain versions")
+        # the eager chain through the VDIF reader: bins the compiled run
+        # filled completely (the first hold the carries' warmup)
+        full = (c_p == C4_AVG).nonzero().flatten()
+        lo, hi = int(full[0]), int(full[-1]) + 1
+        fr_e, _, tail_e = config4_chain(path, dev, block)
+        tail_e.seek(lo)
+        eager = tail_e.read(hi - lo)
+        comp = s_p[lo:hi] / C4_AVG
+        ratio = float(((comp - eager).abs()
+                       / (EAGER_ATOL + EAGER_RTOL * eager.abs())).max())
+        print(f"(u) compiled vs eager bins {lo}..{hi}: {ratio:.3e} of the "
+              f"rtol 1e-3 / atol 2e-3 bound (level "
+              f"{float(eager.mean()):.1f}) [{gpu}]", flush=True)
+        fr_e.close()
+        if ratio > 1 or hi - lo < n * block // C4_AVG - 2:
+            raise AssertionError("config 4: compiled disagrees with eager")
+        del s_p, s_f, c_p, c_f, ref, eager, comp
+
+        # -- the steady state: 48 blocks streamed, in turns ----------------
+        m = C4_TIME_BLOCKS
+        t0 = time.perf_counter()
+        cp_p.segment_ids_np(m)
+        ids_ms = 1e3 * (time.perf_counter() - t0)
+        # a runner's first run of m blocks computes their segment ids on
+        # the host and keeps them on the card: timed apart
+        first, best = {}, {}
+        for key in ("packed", "float", "float", "packed", "packed", "float"):
+            runner = runner_p if key == "packed" else runner_f
+            dt = host_s(lambda: runner.run(m), turns=1)
+            if key not in first:
+                first[key] = dt
+            else:
+                best[key] = min(best.get(key, np.inf), dt)
+        samples = m * block * C4_THREADS
+        words, mask = fr_p.read_packed(0, block)
+        packed_bytes = words.nbytes + mask.nbytes
+        planes_bytes = 2 * 4 * block * C4_THREADS
+        t0 = time.perf_counter()
+        native.unpack_8bit(raw)
+        host_dt = time.perf_counter() - t0
+        for key, dt in best.items():
+            print(f"(u) config 4 {key}: {samples / dt:.4e} samples/s, "
+                  f"{1e3 * dt / m:.3f} ms per block, {m} blocks of {block} "
+                  f"x {C4_THREADS}, best of 2 runs; the first run (segment "
+                  f"ids computed, {ids_ms:.1f} ms on the host) "
+                  f"{1e3 * first[key] / m:.3f} ms per block [{gpu}]",
+                  flush=True)
+        print(f"(u) host decode (native.unpack_8bit over the file): "
+              f"{raw.size / host_dt:.4e} bytes/s = samples/s of components "
+              f"(native library: {native.available()}); bytes across the "
+              f"boundary per block: packed {packed_bytes}, float planes "
+              f"{planes_bytes} ({planes_bytes / packed_bytes:.2f}x)",
+              flush=True)
+        del raw
+
+        # -- by layer ------------------------------------------------------
+        def host_ms(fn, turns=3):
+            best_dt = np.inf
+            for _ in range(turns):
+                t = time.perf_counter()
+                fn()
+                best_dt = min(best_dt, time.perf_counter() - t)
+            return 1e3 * best_dt
+        read_p = host_ms(lambda: fr_p.read_packed(block, block))
+        read_f = host_ms(lambda: fr_f.read_host(block, block))
+        host_f = fr_f.read_host(block, block)
+        ring = _PinnedRing(torch.device(dev), 1)
+        compute = torch.cuda.current_stream(dev)
+        planes_host = (host_f.real, host_f.imag)
+
+        def h2d(item):
+            def go():
+                out, ev = ring.ship(item, compute)
+                ev.synchronize()
+                return out
+            return go
+        h2d_p = host_ms(h2d((words, mask)))
+        h2d_f = host_ms(h2d(planes_host))
+        dev_words = (torch.as_tensor(words, device=dev),
+                     torch.as_tensor(mask, device=dev))
+        decode = cp_p._decoders[0]
+        dec_ms = cuda_ms(lambda: decode(dev_words))
+        kern = check_config4_kernels(dev, block, gpu)
+        y = torch.rand((block, C4_THREADS), device=dev)
+        ids_np, n_seg = cp_p.segment_ids_np(1)
+        ids = torch.as_tensor(ids_np[0], device=dev)
+        update = make_reduction_update(cp_p.reduction)
+        sums, cnts = init_reduction_acc(cp_p.reduction, (C4_THREADS,), n_seg,
+                                        dev)
+        red_ms = cuda_ms(lambda: update(sums, cnts, y, ids))
+        # the consumer's share: the steps alone on blocks already on the
+        # card (the Python of the step and its launches, no reads)
+        k = C4_PROFILE_BLOCKS
+        on_card = cp_p.read_source_blocks(k)
+        run_p = cp_p.run_fn(k)
+        step_p = 1e3 * host_s(lambda: run_p(on_card), turns=3) / k
+        on_card = cp_f.read_source_blocks(k)
+        planes = [(b.real.contiguous(), b.imag.contiguous())
+                  for b in on_card]
+        pstep = cp_f.planes_step()
+
+        def run_f():
+            carry = cp_f.init_carry(planes=True)
+            for b in planes:
+                carry, (yr, _) = pstep(carry, b)
+                update(sums, cnts, yr, ids)
+        step_f = 1e3 * host_s(run_f, turns=3) / k
+        del on_card, planes
+        print(f"(u) config 4 steps alone on blocks on the card: packed "
+              f"{step_p:.3f} ms per block (decode, kernels, reduction), "
+              f"float planes {step_f:.3f} [{gpu}]", flush=True)
+        print(f"(u) config 4 by layer, ms per block: host read packed "
+              f"{read_p:.3f} / float (LUT decode) {read_f:.3f}; H2D through "
+              f"the pinned ring packed {h2d_p:.3f} / float planes "
+              f"{h2d_f:.3f}; decode on the card {dec_ms:.4f}; k1_window "
+              f"{kern['k1_window']:.4f}, k1_stream {kern['k1_stream']:.4f}, "
+              f"k2 {kern['k2']:.4f}, k3_trim {kern['k3_trim']:.4f}; "
+              f"reduction (index_add_) {red_ms:.4f} [{gpu}]", flush=True)
+        for key, runner in (("packed", runner_p), ("float", runner_f)):
+            print_profile(f"(u) config 4 {key}, per block",
+                          lambda: runner.run(C4_PROFILE_BLOCKS),
+                          C4_PROFILE_BLOCKS, gpu)
+        fr_p.close()
+        fr_f.close()
+        check_other_formats(dev, tmp, gpu)
+    return launches
+
+
+def check_other_formats(dev, tmp, gpu):
+    """One Mark 5B (2-bit, 4 channels), DADA (8-bit complex, 2 pols x 4
+    channels) and GUPPI (8-bit, 4 channels x 2 pols) file each, written by
+    the port: read_packed, decoded on the card, against the host decode,
+    bit for bit."""
+    from baseband_tasks_tpu_torch import NoiseGenerator, Time, units as u
+    from baseband_tasks_tpu_torch.io import dada, guppi, mark5b
+    rng = np.random.default_rng(5)
+    t0 = Time.from_mjd(58000.0)
+
+    def template(shape, rate, dtype):
+        return NoiseGenerator(shape=shape, start_time=t0,
+                              sample_rate=rate * u.Hz, samples_per_frame=4096,
+                              dtype=dtype, device="cpu")
+
+    def cplx(shape, scale):
+        x = rng.standard_normal(shape + (2,)).astype(np.float32) * scale
+        return (x[..., 0] + 1j * x[..., 1]).astype(np.complex64)
+    cases = []
+    data = rng.standard_normal((200000, 4)).astype(np.float32)
+    path = f"{tmp}/x.m5b"
+    with mark5b.open(path, "w", template=template(data.shape, 10_000_000,
+                                                  np.float32)) as fw:
+        fw.write(data)
+    cases.append(("mark5b", mark5b.open(path, nchan=4, ref_time=t0,
+                                        sample_rate=10_000_000 * u.Hz,
+                                        device=dev)))
+    data = cplx((1 << 16, 2, 4), 10)
+    path = f"{tmp}/x.dada"
+    with dada.open(path, "w", template=template(data.shape, 1_000_000,
+                                                np.complex64), nbit=8) as fw:
+        fw.write(data)
+    cases.append(("dada", dada.open(path, device=dev)))
+    data = cplx((1 << 16, 4, 2), 1)
+    path = f"{tmp}/x.raw"
+    with guppi.open(path, "w", template=template(data.shape, 3_000_000,
+                                                 np.complex64),
+                    samples_per_block=8192) as fw:
+        fw.write(data)
+    cases.append(("guppi", guppi.open(path, device=dev)))
+    for name, reader in cases:
+        with reader:
+            align = reader.packed_alignment
+            count = reader.shape[0] // align * align
+            packed = reader.read_packed(0, count)
+            on_card = (tuple(torch.as_tensor(p, device=dev) for p in packed)
+                       if isinstance(packed, tuple)
+                       else torch.as_tensor(packed, device=dev))
+            got = reader.packed_decode_fn()(on_card)
+            want = torch.from_numpy(np.ascontiguousarray(
+                reader.read_host(0, count)))
+            same = (got.device == reader.device
+                    and torch.equal(got.cpu(), want))
+            print(f"(u) {name}: {count} samples of {tuple(got.shape[1:])}, "
+                  f"decoded on the card {'==' if same else '!='} the host "
+                  f"decode (bit for bit) [{gpu}]", flush=True)
+            if not same:
+                raise AssertionError(f"{name}: card decode differs")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -3050,6 +3463,11 @@ def main():
         launches[k] += v
     torch.cuda.empty_cache()
     drive_incoherent(dev, gpu)
+    torch.cuda.empty_cache()
+    config4 = drive_config4(dev, gpu)
+    print(f"(u) launches on the config 4 paths: {config4}", flush=True)
+    for k, v in config4.items():
+        launches[k] += v
     missing = [k for k in KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on a path: {missing}")

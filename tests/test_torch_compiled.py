@@ -340,7 +340,9 @@ def test_config2_geometry_eager_gap():
 
 def test_refusals():
     ps, _ = sources(1 << 12, (2,), 1.0, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # packed ingest is ported: a source without packed reads is refused
+    # with the JAX package's ValueError
+    with pytest.raises(ValueError, match="no source supports packed reads"):
         PCompiled(pb.Channelize(ps, 16), packed=True)
     # a reduction after a chain of fractional delay: refused, as in JAX
     ded = pb.Dedisperse(pb.SetAttribute(
