@@ -29,7 +29,15 @@ The slices so far:
   multi-file sequences (``io``, ``open``, with the host LUT decoder
   ``native``), packed ingest decoded on the device
   (``CompiledPipeline(..., packed=True)``) and the prefetching executor
-  ``models.StreamRunner`` (pinned buffers and a copy stream on the card).
+  ``models.StreamRunner`` (pinned buffers and a copy stream on the card);
+- the tasks beyond the reference (``FaradayRotate``/``DeFaraday``,
+  ``ConvertPolarization``/``ApplyJones``, ``SpectralKurtosis``/
+  ``ExciseSpectralKurtosis``), TOAs from folded profiles
+  (``ProfileTemplate``, ``fit_phase_shift``), the search models built on
+  them (``models.DMTrialSearch``, ``models.RMSynthesis``,
+  ``models.SecondarySpectrum``), SIGPROC filterbank files
+  (``io.sigproc``), the profiling hooks (``utils.profiling``) and the
+  PINT phase providers (``phases.PintPhase``, ``phases.PintToas``).
 
 Frames are torch tensors on the stream's device (the card when there is
 one, unless a source is given another).  On a CUDA device the
@@ -49,6 +57,7 @@ from .convolution import Convolve, ConvolveSamples
 from .dispersion import (Disperse, Dedisperse, DisperseSamples,
                          DedisperseSamples)
 from .dm import DispersionMeasure
+from .faraday import FaradayRotate, DeFaraday
 from .fourier import fft_maker
 from .functions import Square, Power
 from .generators import (StreamGenerator, EmptyStreamGenerator, Noise,
@@ -60,10 +69,13 @@ from .models import (CompiledPipeline, FastFoldingSearch,
 from .pfb import (InversePolyphaseFilterBank, PolyphaseFilterBank,
                   PolyphaseFilterBankSamples, sinc_hamming)
 from .phases import Polyco, PolycoPhase
+from .polarization import ConvertPolarization, ApplyJones
 from .registry import open
+from .rfi import SpectralKurtosis, ExciseSpectralKurtosis
 from .sampling import ShiftAndResample, Resample, TimeDelay, ShiftSamples
 from .shaping import (ChangeSampleShape, Reshape, Transpose,
                       ReshapeAndTranspose, GetItem, GetSlice)
+from .timing import ProfileTemplate, fit_phase_shift
 from .utils import Time, units
 
 __all__ = ["Base", "BaseTaskBase", "TaskBase", "PaddedTaskBase", "Task",
@@ -80,4 +92,7 @@ __all__ = ["Base", "BaseTaskBase", "TaskBase", "PaddedTaskBase", "Task",
            "CombineStreams", "Concatenate", "Stack", "Convolve",
            "ConvolveSamples", "ShiftAndResample", "Resample", "TimeDelay",
            "ShiftSamples", "DisperseSamples", "DedisperseSamples",
-           "Real2Complex", "open", "io", "native", "StreamRunner"]
+           "Real2Complex", "open", "io", "native", "StreamRunner",
+           "SpectralKurtosis", "ExciseSpectralKurtosis", "FaradayRotate",
+           "DeFaraday", "ConvertPolarization", "ApplyJones",
+           "ProfileTemplate", "fit_phase_shift"]

@@ -9,10 +9,12 @@ tables are cached per (mesh, axis) so a survey loop places them once.
 
 from __future__ import annotations
 
+import torch
+
 from ..parallel.mesh import axis_devices
 
 __all__ = ["require_mesh_axis", "mesh_cache_key", "pad_to_multiple",
-           "axis_devices"]
+           "axis_devices", "shard_columns"]
 
 
 def require_mesh_axis(mesh, axis_name):
@@ -33,3 +35,22 @@ def pad_to_multiple(n, k):
     """Samples of padding that lift ``n`` to a multiple of ``k``."""
     return (-n) % k
 
+
+def shard_columns(table, devices, dim=-1):
+    """``table`` cut along ``dim`` into one slice per device of
+    ``devices``, zero-padded to equal widths (a bank that does not divide
+    the shard count gets zero columns at its end): a list of tensors, each
+    on its device."""
+    dim = dim % table.ndim
+    n = table.shape[dim]
+    per = (n + pad_to_multiple(n, len(devices))) // len(devices)
+    parts = []
+    for k, dev in enumerate(devices):
+        cols = table.narrow(dim, min(k * per, n),
+                            max(min(per, n - k * per), 0))
+        shape = list(table.shape)
+        shape[dim] = per
+        part = torch.zeros(shape, dtype=table.dtype, device=dev)
+        part.narrow(dim, 0, cols.shape[dim]).copy_(cols)
+        parts.append(part)
+    return parts

@@ -2,6 +2,8 @@
 
 from .phase import Phase, FractionalPhase
 from .predictor import Polyco
-from .core import PolycoPhase
+from .pint_toas import PintToas
+from .core import PolycoPhase, PintPhase
 
-__all__ = ["Phase", "FractionalPhase", "Polyco", "PolycoPhase"]
+__all__ = ["Phase", "FractionalPhase", "Polyco", "PolycoPhase",
+           "PintPhase", "PintToas"]

@@ -8,8 +8,8 @@ third-party packages can register more formats under the
 ``open(name, mode, **kw)`` and optionally ``detect_format(head, name) ->
 bool``), picked up lazily on first use.
 
-VDIF, Mark 5B, DADA and GUPPI are ported (``io/``); HDF5, PSRFITS and
-SIGPROC files are detected as in the JAX package, and opening one raises
+VDIF, Mark 5B, DADA, GUPPI and SIGPROC are ported (``io/``); HDF5 and
+PSRFITS files are detected as in the JAX package, and opening one raises
 ``NotImplementedError`` (ROADMAP.md queue 1 item 8).
 """
 
@@ -69,11 +69,14 @@ def _dada_detect(head, name):
         name.lower().endswith(".dada")
 
 
+def _sigproc_open(name, mode="r", **kwargs):
+    from .io import sigproc
+    return sigproc.open(name, mode, **kwargs)
+
+
 def _sigproc_detect(head, name):
-    """SIGPROC filterbank files start with the length-prefixed
-    HEADER_START string."""
-    return head[:16] == b"\x0c\x00\x00\x00HEADER_START" or \
-        name.lower().endswith(".fil")
+    from .io import sigproc
+    return sigproc.detect_format(head, name)
 
 
 #: name -> (opener, detector), in detection order
@@ -87,7 +90,7 @@ FORMATS = {
     "mark5b": (_mark5b_open, _mark5b_detect),
     "dada": (_dada_open, _dada_detect),
     "guppi": (_guppi_open, _guppi_detect),
-    "sigproc": (_not_ported("SIGPROC", "io/sigproc.py"), _sigproc_detect),
+    "sigproc": (_sigproc_open, _sigproc_detect),
 }
 
 
@@ -141,8 +144,8 @@ def detect_format(name):
 def open(name, mode="r", format=None, **kwargs):
     """Open a stream file in any registered format.
 
-    ``format`` may be 'vdif', 'mark5b', 'dada', 'guppi' or any
-    plugin-registered name ('hdf5', 'psrfits' and 'sigproc' raise
+    ``format`` may be 'vdif', 'mark5b', 'dada', 'guppi', 'sigproc' or
+    any plugin-registered name ('hdf5' and 'psrfits' raise
     ``NotImplementedError``); when omitted it is detected from the file
     signature (reads) or required (writes).  Readers take ``device=``
     (default: the card when there is one).

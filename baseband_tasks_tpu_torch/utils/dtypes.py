@@ -47,6 +47,14 @@ def as_tensor(data, device=None, dtype=None):
                            else torch_dtype(dtype))
 
 
+def default_device(device=None):
+    """``device`` as a torch device; None means the card when there is
+    one, else the CPU (the port's rule for entry points)."""
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    return torch.device(device)
+
+
 def to_numpy(data):
     """A host numpy array of a tensor (or of anything numpy reads)."""
     if torch.is_tensor(data):

@@ -226,6 +226,45 @@ written by the port's VDIF writer into a temporary directory:
     DADA and GUPPI file each on the card from ``read_packed`` against
     the host decode, bit for bit.
 
+and for the tasks and search models beyond the reference, on the paths
+their users run:
+
+(v1) the FRB search of ``examples/frb_search.py`` (16 MHz complex noise
+    around 800 MHz with a burst at raw sample 200,000, 2^20 samples where
+    the example's 2^19 give fewer spectra than the search's 4096) ->
+    Disperse(26.7, 'pallas') -> Channelize(128) -> Square, its launches
+    counted (k1_window, k2, k3_trim once a frame) and ``monitor()``'s
+    seconds held against CUDA events around the same frames; the
+    filterbank through the SIGPROC writer and ``open`` (bit for bit),
+    ``DMTrialSearch`` (121 trials to DM 60, 4096 spectra) ``detect``,
+    ``candidates`` and ``search_stream`` recovering the burst within the
+    example's tolerances, the map against the chain on the plain
+    versions (1e-4 of the peak), ``search_sharded`` on four shards of the
+    card (1e-5), search and detect timed beside the tables' bytes bound,
+    and a ``trace()`` of one search;
+(v2) BASELINE polarization (``tools/bench_full.py`` polarization(): 64
+    blocks of 2^18 dual-pol samples, Channelize(128) ->
+    ConvertPolarization('circular') -> ApplyJones(inverse=True) -> Square
+    -> Integrate(64)) compiled with and without the two pol stages,
+    against the eager chain (rtol 1e-3, atol 2e-3, counts exact): samples/s
+    and pol_overhead;
+(v3) ``examples/calibrated_fold.py``'s chain at (v2)'s width (ApplyJones
+    and its inverse -> Channelize(128) -> ExciseSpectralKurtosis(64, NaN
+    fill) -> Square -> Fold(32, masked), 16 blocks): compiled against
+    eager flag for flag, the RFI channel, contrast and unbiased mean as the
+    example asserts them, the flagged share, a TOA by
+    ``ProfileTemplate.toa``, timed;
+(v4) DeFaraday(100 rad/m^2, linear) behind a 'pallas' Dedisperse(500)
+    on the flagship's band (64 channels x 2 pols at 250 kHz) -> Square ->
+    Integrate(1024), compiled: ``planes_step`` with k1_stream, k2,
+    k3_trim and DeFaraday's ``task_planes`` once a block, against the
+    complex step and the plain versions (1e-4 of the peak), timed;
+(v5) BASELINE rmsearch: ``RMSynthesis.fdf`` of (4096, 1024) Q/U planes at
+    1024 depths, timed beside its operations bound, 64 rows against
+    float64 and ``fdf_sharded`` on four shards (1e-5 of the peak);
+(v6) BASELINE secondary: ``secondary_spectrum`` of a (4096, 2048)
+    dynamic spectrum against float64 (1e-5 of the peak), timed.
+
 The plain versions run on the card inside the package's test-only
 switch ``ops.dedisperse.plain_versions()``, with every float32 matmul
 in full float32 (``allow_tf32 = False``, precision 'highest', set and
@@ -3389,6 +3428,519 @@ def check_other_formats(dev, tmp, gpu):
                 raise AssertionError(f"{name}: card decode differs")
 
 
+# -- the analysis slice beyond the reference: (v1)-(v6) ---------------------
+
+FRB_RATE, FRB_CHAN, FRB_DM = 16e6, 128, 26.7    # examples/frb_search.py
+FRB_BURST = 200_000          # raw sample of the burst
+# the example's 2^19 samples keep 'pallas' (one 411,648-sample frame, pads
+# 57,344 / 55,296 on the N2 grid) but give 3216 spectra, fewer than the
+# search's 4096: 2^20 samples give 7312 spectra in three frames
+FRB_N = 1 << 20
+FRB_DMS = np.linspace(0, 60, 121)
+FRB_NTIME = 4096
+# sharded against one search, fdf and the secondary against float64, of
+# the peak (float32 roundoff is ~1e-6 of it)
+SEARCH_TOL = 1e-5
+POL_BLOCKS, POL_BLOCK, POL_CHAN = 64, 1 << 18, 128  # bench_full polarization()
+POL_EAGER_BLOCKS = 4
+CF_BLOCKS, CF_PHASE, CF_F0 = 16, 32, 123.456  # examples/calibrated_fold.py
+CF_JONES = np.array([[1.15, 0.08 + 0.03j], [-0.05j, 0.92]], np.complex64)
+FAR_RM, FAR_BLOCKS, FAR_AVG = 100.0, 4, 1024
+RM_BATCH, RM_CHAN, RM_PHI = 4096, 1024, 1024   # bench_full rmsearch()
+SEC_T, SEC_F = 4096, 2048                       # bench_full secondary()
+
+
+def frb_chain(dev):
+    """examples/frb_search.py's chain on ``dev``: 16 MHz complex noise
+    (seed 42) with a 40-sigma, 3-sample burst at raw sample 200,000,
+    labelled 800 MHz -> Disperse(26.7, 'pallas') -> Channelize(128) ->
+    Square.  Returns (the Disperse node, the tail)."""
+    from baseband_tasks_tpu_torch import (Channelize, Disperse, Noise,
+                                          SetAttribute, Square,
+                                          StreamGenerator, Time, units as u)
+    noise = Noise(42)
+
+    def burst(fh):
+        data = noise(fh)
+        idx = torch.arange(fh.tell(), fh.tell() + len(data),
+                           dtype=torch.float64, device=data.device)
+        amp = 40.0 * torch.exp(-0.5 * ((idx - FRB_BURST) / 3.0) ** 2)
+        return data + amp.to(torch.float32)
+    gen = StreamGenerator(burst, (FRB_N,), Time("2021-03-01T00:00:00.0"),
+                          FRB_RATE * u.Hz, samples_per_frame=1 << 15,
+                          dtype=np.complex64, device=dev)
+    dispersed = Disperse(SetAttribute(gen, frequency=800 * u.MHz,
+                                      sideband=1), FRB_DM, engine="pallas")
+    return dispersed, Square(Channelize(dispersed, FRB_CHAN))
+
+
+def rel_err(got, ref):
+    """Max |got - ref| over max |ref|."""
+    return float((got - ref).abs().max()) / float(ref.abs().max())
+
+
+def check_burst(tag, t, dm, expected_t):
+    print(f"(v1) {tag}: peak at spectrum {t}, trial DM {dm:.2f} (expected "
+          f"{expected_t}, {FRB_DM})", flush=True)
+    if abs(dm - FRB_DM) > 1.0 or abs(t - expected_t) >= 40:
+        raise AssertionError(f"FRB {tag}: burst at ({t}, {dm}), expected "
+                             f"({expected_t}, {FRB_DM})")
+
+
+def drive_frb(dev, gpu, tmp):
+    """Phase (v1), the FRB search: the chain read on the card with its
+    launches counted (k1_window, k2, k3_trim once a Disperse frame), the
+    filterbank written by the SIGPROC writer and read back bit for bit,
+    ``DMTrialSearch`` detect / candidates / search_stream recovering the
+    burst within the example's tolerances, the map against the chain on
+    the plain versions, ``search_sharded`` on four shards of the card,
+    the monitor against CUDA events, a trace; search and detect timed.
+    Returns the launch counts."""
+    import os
+    from baseband_tasks_tpu_torch import (DispersionMeasure, SetAttribute,
+                                          open as bopen, units as u)
+    from baseband_tasks_tpu_torch.io import sigproc
+    from baseband_tasks_tpu_torch.models import DMTrialSearch
+    from baseband_tasks_tpu_torch.ops import dedisperse as dd
+    from baseband_tasks_tpu_torch.parallel import Mesh
+    from baseband_tasks_tpu_torch.utils.profiling import monitor, trace
+    dispersed, power = frb_chain(dev)
+    n_frames = -(-dispersed.shape[0] // dispersed.samples_per_frame)
+    geom = (dispersed.engine, dispersed._padded_samples_per_frame,
+            dispersed.pad_start, dispersed.pad_end,
+            dispersed.samples_per_frame, n_frames, tuple(power.shape))
+    print(f"(v1) FRB chain: engine, window, pads, frame, frames, "
+          f"filterbank {geom}", flush=True)
+    if dispersed.engine != "pallas":
+        raise AssertionError(f"FRB Disperse runs {dispersed.engine!r}")
+    dd.reset_launch_counts()
+    fb = power.read()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in dd.launch_counts.items() if v}
+    want = {k: n_frames for k in ("k1_window", "k2", "k3_trim")}
+    print(f"(v1) FRB read: launches {launches}", flush=True)
+    if launches != want:
+        raise AssertionError(f"FRB launches {launches}, expected {want}")
+    # the monitor (the card synchronized in each counted frame) against
+    # CUDA events recorded around the same frames inside it: a monitor
+    # that timed only the launches could come out below them
+    events = []
+    inner = power._read_frame
+
+    def evented(frame_index):
+        pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        pair[0].record()
+        out = inner(frame_index)
+        pair[1].record()
+        events.append(pair)
+        return out
+    power._read_frame = evented
+    mons = monitor(power)
+    power.seek(0)
+    power.read()
+    torch.cuda.synchronize()
+    ev_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
+    tail = mons[0]
+    print(f"(v1) monitor {tail.report()}; CUDA events of the same frames "
+          f"{1e3 * ev_s:.3f} ms [{gpu}]", flush=True)
+    if tail.samples != power.shape[0] or tail.seconds < ev_s:
+        raise AssertionError("FRB monitor: samples or seconds wrong")
+    # the filterbank through the SIGPROC writer (channels in frequency
+    # order) and back
+    freq = np.asarray(power.frequency.to_value(u.MHz)).reshape(-1)
+    order = np.argsort(freq)
+    path = os.path.join(tmp, "frb.fil")
+    with sigproc.open(path, "w", template=SetAttribute(
+            power, frequency=freq[order] * u.MHz), source_name="FRB") as fw:
+        fw.write(fb[:, order])
+    rh = bopen(path, device=dev)
+    back = rh.read()
+    if not torch.equal(back, fb[:, order]):
+        raise AssertionError("FRB filterbank changed through SIGPROC")
+    search = DMTrialSearch(rh.frequency, rh.sample_rate, FRB_DMS, FRB_NTIME,
+                           device=dev)
+    shift = (DispersionMeasure(FRB_DM).time_delay(
+        search.reference_frequency, 800 * u.MHz).to_value(u.s) * FRB_RATE)
+    expected_t = int((FRB_BURST + shift - dispersed.pad_start) / FRB_CHAN)
+    block = back[:FRB_NTIME]
+    snr, width = search.detect(block)
+    t, j = np.unravel_index(np.argmax(snr), snr.shape)
+    print(f"(v1) detect: S/N {snr[t, j]:.1f}, boxcar {int(width[t, j])}",
+          flush=True)
+    check_burst("detect", int(t), float(FRB_DMS[j]), expected_t)
+    cands = search.candidates(block, threshold=8.0)
+    if not cands:
+        raise AssertionError("FRB: no candidate above S/N 8")
+    print(f"(v1) candidates: {len(cands)}, first {cands[0]}", flush=True)
+    check_burst("candidates", cands[0]["time_sample"], cands[0]["dm"],
+                expected_t)
+    rh.seek(0)
+    smap = search.search_stream(rh)
+    ref_map = search.search(block)
+    valid = FRB_NTIME - search.max_delay_samples
+    err_st = rel_err(smap[:valid], ref_map[:valid])
+    t, j = np.unravel_index(int(smap.argmax()), tuple(smap.shape))
+    # the raw map's peak (no boxcar) is broad in DM: its time is checked
+    print(f"(v1) search_stream {tuple(smap.shape)}: peak at spectrum {t}, "
+          f"trial DM {FRB_DMS[j]:.2f}; its first {valid} rows vs search "
+          f"{err_st:.3e} of the peak", flush=True)
+    if abs(int(t) - expected_t) >= 40 or err_st > SEARCH_TOL:
+        raise AssertionError("FRB search_stream wrong")
+    with dd.plain_versions():
+        _, plain_power = frb_chain(dev)
+        plain_fb = plain_power.read(FRB_NTIME)
+    err_fb = rel_err(fb[:FRB_NTIME], plain_fb)
+    err_map = rel_err(ref_map, search.search(plain_fb[:, order]))
+    sharded = search.search_sharded(block, Mesh([dev] * 4, ("dm",)))
+    err_sh = rel_err(sharded, ref_map)
+    print(f"(v1) kernels vs plain: filterbank {err_fb:.3e}, search map "
+          f"{err_map:.3e} of the peak; search_sharded (4 shards) vs search "
+          f"{err_sh:.3e} [{gpu}]", flush=True)
+    if err_fb > FFT_TOL or err_map > FFT_TOL or err_sh > SEARCH_TOL:
+        raise AssertionError("FRB search disagrees")
+    ms = cuda_ms(lambda: search.search(block))
+    detect_ms = 1e3 * host_s(lambda: search.detect(block), turns=3)
+    tables = (search._phase_r, search._phase_i)
+    bound_ms, by = bound((block, *tables), (ref_map,), 8 * tables[0].numel())
+    print(f"(v1) DMTrialSearch {FRB_NTIME} x {FRB_CHAN} x {len(FRB_DMS)} "
+          f"trials: search {ms:.4f} ms ({bound_ms:.4f} ms bound by {by}: "
+          f"the {sum(t.numel() * 4 for t in tables) / 1e6:.1f} MB phase "
+          f"tables read once), detect {detect_ms:.3f} ms (host included); "
+          f"{FRB_NTIME * len(FRB_DMS) / ms * 1e3:.4e} trial-samples/s "
+          f"[{gpu}]", flush=True)
+    print_profile("(v1) one search", lambda: search.search(block), 1, gpu)
+    with trace(os.path.join(tmp, "trace")) as out:
+        search.search(block)
+    size = os.path.getsize(os.path.join(out, "trace.json"))
+    print(f"(v1) trace of one search: {size} bytes", flush=True)
+    if not size:
+        raise AssertionError("trace wrote nothing")
+    rh.close()
+    return launches
+
+
+def block_source(dev, blocks, **attrs):
+    """A stream on ``dev`` serving the stacked complex ``blocks`` (one a
+    frame) at 1 MHz."""
+    from baseband_tasks_tpu_torch import StreamGenerator, Time, units as u
+    n_blocks, block = blocks.shape[:2]
+    return StreamGenerator(lambda sh: blocks[sh.tell() // block],
+                           shape=(n_blocks * block,) + tuple(blocks.shape[2:]),
+                           start_time=Time("2020-01-01T00:00:00.0"),
+                           sample_rate=1 * u.MHz, samples_per_frame=block,
+                           dtype=np.complex64, device=dev, **attrs)
+
+
+def complex_randn(dev, shape, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(tuple(shape) + (2,), generator=g, device=dev)
+    return torch.view_as_complex(x)
+
+
+def pol_chain(dev, blocks, with_pol):
+    """``tools/bench_full.py`` polarization(): dual-pol blocks ->
+    Channelize(128) [-> ConvertPolarization('circular') ->
+    ApplyJones(inverse=True)] -> Square -> Integrate(64, sums), compiled
+    one block a step.  Returns (tail, CompiledPipeline)."""
+    from baseband_tasks_tpu_torch import (ApplyJones, Channelize,
+                                          CompiledPipeline,
+                                          ConvertPolarization, Integrate,
+                                          Square)
+    ch = Channelize(block_source(dev, blocks,
+                                 polarization=np.array(["X", "Y"])),
+                    POL_CHAN)
+    if with_pol:
+        jones = np.tile(np.array([[1.0, 0.05j], [-0.05j, 1.0]],
+                                 np.complex64), (POL_CHAN, 1, 1))
+        ch = ApplyJones(ConvertPolarization(ch, "circular"), jones,
+                        inverse=True)
+    tail = Integrate(Square(ch), 64, average=False)
+    return tail, CompiledPipeline(tail, block_samples=POL_BLOCK)
+
+
+def drive_polarization(dev, gpu):
+    """Phase (v2): BASELINE polarization, 64 blocks of 2^18 dual-pol
+    samples on the card, compiled with and without the two polarization
+    stages, against the eager chain on the first 4 blocks (rtol 1e-3,
+    atol 2e-3, counts exact), timed in turns: samples/s and
+    pol_overhead."""
+    blocks = complex_randn(dev, (POL_BLOCKS, POL_BLOCK, 2), 3)
+    head = blocks[:POL_EAGER_BLOCKS]
+    tail, cp = pol_chain(dev, head, True)
+    sums, counts = cp.run_fn(POL_EAGER_BLOCKS)(head)
+    eager = tail.read()
+    torch.cuda.synchronize()
+    counts = counts.reshape(tuple(counts.shape) + (1,) * (
+        eager.count.ndim - counts.ndim)).expand(eager.count.shape)
+    ok = (torch.equal(counts.to(eager.count.dtype), eager.count)
+          and torch.allclose(sums.double(), eager.data.double(),
+                             rtol=EAGER_RTOL, atol=EAGER_ATOL))
+    print(f"(v2) polarization chain: compiled {tuple(sums.shape)} vs eager "
+          f"{rel_err(sums, eager.data):.3e} of the peak, counts exact "
+          f"({'ok' if ok else 'FAIL'}) [{gpu}]", flush=True)
+    if not ok:
+        raise AssertionError("polarization chain: compiled != eager")
+    runs = {key: pol_chain(dev, blocks, key)[1].run_fn(POL_BLOCKS)
+            for key in (False, True)}
+    best = {}
+    for key in (False, True, True, False):
+        best[key] = min(best.get(key, np.inf),
+                        host_s(lambda: runs[key](blocks), turns=10))
+    n = POL_BLOCKS * POL_BLOCK * 2
+    rate = {k: n / v for k, v in best.items()}
+    print(f"(v2) polarization {POL_BLOCKS} x 2^18 x 2: with the pol stages "
+          f"{1e3 * best[True]:.3f} ms ({rate[True]:.4e} samples/s), without "
+          f"{1e3 * best[False]:.3f} ms ({rate[False]:.4e}); pol_overhead "
+          f"{rate[False] / rate[True] - 1:.3f} [{gpu}]", flush=True)
+    for key in (False, True):
+        print_profile(f"(v2) polarization run, pol stages {key}, per block",
+                      lambda: runs[key](blocks), POL_BLOCKS, gpu)
+
+
+def calibrated_blocks(dev):
+    """examples/calibrated_fold.py's voltages at (v2)'s width, made on the
+    card: complex noise, a 10 %-duty pulsar (F0 123.456 Hz, +0.8 noise in
+    the pulse) and a carrier at channel 5 of 128 in pol X, on for 8192
+    samples of every 16384."""
+    n = CF_BLOCKS * POL_BLOCK
+    x = complex_randn(dev, (n, 2), 1234)
+    k = torch.arange(n, device=dev, dtype=torch.float64)
+    in_pulse = ((k / 1e6 * CF_F0) % 1.0) < 0.1
+    x = x + 0.8 * in_pulse[:, None] * complex_randn(dev, (n, 2), 1235)
+    on = ((k // 8192) % 2) == 0
+    x[:, 0] += (6.0 * on * torch.exp(2j * np.pi * (5 / POL_CHAN) * k)).to(
+        torch.complex64)
+    return x.reshape(CF_BLOCKS, POL_BLOCK, 2)
+
+
+def calibrated_chain(dev, blocks):
+    """ApplyJones(J) -> ApplyJones(J, inverse=True) -> Channelize(128) ->
+    ExciseSpectralKurtosis(64, fill=nan) -> Square -> Fold(32, masked,
+    sums) of one block a fold row.  Returns (tail, CompiledPipeline)."""
+    from baseband_tasks_tpu_torch import (ApplyJones, Channelize,
+                                          CompiledPipeline,
+                                          ExciseSpectralKurtosis, Fold,
+                                          Square, Time, units as u)
+    src = block_source(dev, blocks, polarization=np.array(["X", "Y"]))
+    cal = ApplyJones(ApplyJones(src, CF_JONES), CF_JONES, inverse=True)
+    chain = Square(ExciseSpectralKurtosis(Channelize(cal, POL_CHAN), 64,
+                                          threshold=3.0, fill=np.nan))
+    t0 = Time("2020-01-01T00:00:00.0")
+    phase = (lambda t: u.Quantity((t - t0).sec * CF_F0, u.cycle))
+    tail = Fold(chain, CF_PHASE, phase, u.Quantity(POL_BLOCK / 1e6, u.s),
+                samples_per_frame=1, masked=True, average=False)
+    return tail, CompiledPipeline(tail, block_samples=POL_BLOCK)
+
+
+def drive_calibrated_fold(dev, gpu):
+    """Phase (v3): the calibrated masked fold compiled against eager, flag
+    for flag (the fold's per-cell counts exact, sums rtol 1e-4), the RFI
+    channel found, the profile's contrast and unbiased mean as the example
+    asserts them, the flagged share printed, a TOA fitted to the profile
+    (``ProfileTemplate.toa``), the compiled run timed."""
+    from baseband_tasks_tpu_torch import ProfileTemplate, Time, units as u
+    blocks = calibrated_blocks(dev)
+    tail, cp = calibrated_chain(dev, blocks)
+    run = cp.run_fn(CF_BLOCKS)
+    sums, counts = run(blocks)
+    eager = tail.read()
+    torch.cuda.synchronize()
+    same_flags = torch.equal(counts.to(eager.count.dtype), eager.count)
+    fin = eager.count > 0
+    rel = float(((sums[fin] - eager.data[fin]).abs()
+                 / eager.data[fin].abs()).max())
+    total = CF_BLOCKS * POL_BLOCK * 2
+    flagged = 1 - float(counts.sum()) / total
+    kept = counts.sum(dim=(0, 1)).double()
+    kept = kept / kept.max()
+    rfi = int(kept[:, 0].argmin())
+    mean = (sums / counts.clamp_min(1)).double()
+    prof = mean.mean(dim=(0, 2, 3))
+    contrast = float(prof.max() / prof.median())
+    bias = float(mean[..., rfi, 0].mean() / mean[..., rfi - 2, 0].mean())
+    print(f"(v3) calibrated fold: compiled vs eager counts "
+          f"{'exact' if same_flags else 'DIFFER'}, sums rel {rel:.3e}; "
+          f"flagged share {flagged:.4f}, RFI channel {rfi} (kept "
+          f"{float(kept[rfi, 0]):.2f}), contrast {contrast:.2f}, masked "
+          f"mean RFI/quiet {bias:.3f} [{gpu}]", flush=True)
+    if (not same_flags or rel > 1e-4 or rfi != 5 or contrast <= 1.2
+            or abs(bias - 1) >= 0.3):
+        raise AssertionError("calibrated fold wrong")
+    bins = (np.arange(CF_PHASE) + 0.5) / CF_PHASE
+    template = ProfileTemplate((bins < 0.1).astype(np.float64))
+    t0 = Time("2020-01-01T00:00:00.0")
+    toa, err, snr = template.toa(prof.cpu().numpy(), time=t0,
+                                 folded_phase=0.0,
+                                 period=u.Quantity(1.0 / CF_F0, u.s))
+    off = float((toa - t0).sec)
+    print(f"(v3) TOA of the profile: {off * 1e6:.2f} us from the fold's "
+          f"phase 0, error {err.to_value(u.s) * 1e6:.2f} us, S/N {snr:.1f}",
+          flush=True)
+    if not (abs(off) < 2 / CF_PHASE / CF_F0 and snr > 10):
+        raise AssertionError("calibrated fold: TOA off")
+    dt = host_s(lambda: run(blocks), turns=3)
+    print(f"(v3) calibrated fold run of {CF_BLOCKS} x 2^18 x 2: "
+          f"{1e3 * dt:.3f} ms ({total / dt:.4e} samples/s) [{gpu}]",
+          flush=True)
+    print_profile("(v3) calibrated fold run, per block", lambda: run(blocks),
+                  CF_BLOCKS, gpu)
+
+
+def faraday_chain(dev):
+    """Phase (v4)'s chain: the flagship's band (64 channels x 2 pols at
+    250 kHz around 1400 MHz, linear X/Y) of complex noise (seed 5) ->
+    Dedisperse(500, 'pallas', a 2^18 window) -> DeFaraday(100 rad/m^2,
+    linear) -> Square -> Integrate(1024), compiled."""
+    from baseband_tasks_tpu_torch import (CompiledPipeline, DeFaraday,
+                                          Dedisperse, Integrate,
+                                          NoiseGenerator, SetAttribute,
+                                          Square, Time, units as u)
+    freq = flagship_on_host().freqs.to_value(u.MHz)[:, None] * u.MHz
+    src = NoiseGenerator(shape=(1 << 21, 64, 2),
+                         start_time=Time.from_mjd(58000.0),
+                         sample_rate=250 * u.kHz, samples_per_frame=1 << 16,
+                         seed=5, device=dev)
+    src = SetAttribute(src, frequency=freq, sideband=1,
+                       polarization=np.array(["X", "Y"]))
+    ded = Dedisperse(src, 500.0, samples_per_frame=1 << 17, engine="pallas")
+    far = DeFaraday(ded, FAR_RM, basis="linear")
+    return far, CompiledPipeline(Integrate(Square(far), FAR_AVG))
+
+
+def drive_faraday(dev, gpu):
+    """Phase (v4): DeFaraday in a compiled planes chain behind a 'pallas'
+    Dedisperse: ``planes_step`` over 4 blocks with k1_stream, k2, k3_trim
+    once a block and DeFaraday.task_planes once a block, against the
+    complex step and the plain versions (1e-4 of the peak); the absorbed
+    Integrate against the plain versions; timed.  Returns the launch
+    counts of the planes run."""
+    from baseband_tasks_tpu_torch.ops import dedisperse as dd
+    far, cp = faraday_chain(dev)
+    _, ref = faraday_chain(dev)
+    calls = []
+    orig = far.task_planes
+    far.task_planes = lambda pair: calls.append(1) or orig(pair)
+    blocks = cp.read_source_blocks(FAR_BLOCKS)
+    print(f"(v4) DeFaraday chain: block {cp.block_samples}, delay "
+          f"{cp.delay}, window {far.ih._padded_samples_per_frame}, pads "
+          f"({far.ih.pad_start}, {far.ih.pad_end})", flush=True)
+
+    def planes(pipe):
+        step, carry = pipe.planes_step(), pipe.init_carry(planes=True)
+        outs = []
+        for b in blocks:
+            carry, (yr, yi) = step(carry, b)
+            outs.append(yr)
+        return torch.cat(outs)
+
+    dd.reset_launch_counts()
+    got = planes(cp)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in dd.launch_counts.items() if v}
+    want = {k: FAR_BLOCKS for k in ("k1_stream", "k2", "k3_trim")}
+    print(f"(v4) planes step: launches {launches}, DeFaraday.task_planes "
+          f"calls {len(calls)}", flush=True)
+    if launches != want or len(calls) != FAR_BLOCKS:
+        raise AssertionError(f"DeFaraday chain: launches {launches}, "
+                             f"task_planes calls {len(calls)}")
+    step, carry = cp.step_fn(), cp.init_carry()
+    comp = []
+    for b in blocks:
+        carry, y = step(carry, b)
+        comp.append(y)
+    err_c = rel_err(got, torch.cat(comp))
+    with dd.plain_versions():
+        err_p = rel_err(got, planes(ref))
+        avg_p, _ = ref.run_reduced(blocks)
+    avg, cnt = cp.run_reduced(blocks)
+    err_i = rel_err(avg, avg_p)
+    print(f"(v4) planes vs the complex step {err_c:.3e}, vs plain "
+          f"{err_p:.3e}; Integrate({FAR_AVG}) {tuple(avg.shape)} vs plain "
+          f"{err_i:.3e} of the peak [{gpu}]", flush=True)
+    if (max(err_c, err_p, err_i) > FFT_TOL
+            or not bool(torch.isfinite(avg).all())):
+        raise AssertionError("DeFaraday chain disagrees")
+    dt = host_s(lambda: planes(cp), turns=3)
+    print(f"(v4) DeFaraday planes chain: {1e3 * dt / FAR_BLOCKS:.3f} ms per "
+          f"block of {cp.block_samples} x 128 [{gpu}]", flush=True)
+    print_profile("(v4) DeFaraday planes chain, per block",
+                  lambda: planes(cp), FAR_BLOCKS, gpu)
+    return launches
+
+
+def drive_rmsearch(dev, gpu):
+    """Phase (v5): BASELINE rmsearch, (4096, 1024) Q/U planes against 1024
+    depths: ``fdf`` timed, 64 rows against float64 numpy and
+    ``fdf_sharded`` on four shards of the card against ``fdf`` (1e-5 of
+    the peak)."""
+    from baseband_tasks_tpu_torch import units as u
+    from baseband_tasks_tpu_torch.models import RMSynthesis
+    from baseband_tasks_tpu_torch.parallel import Mesh
+    freq = (1200 + 0.25 * np.arange(RM_CHAN)) * u.MHz
+    rm = RMSynthesis(freq, np.linspace(-500, 500, RM_PHI), device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    q, u_ = torch.randn((2, RM_BATCH, RM_CHAN), generator=g, device=dev)
+    f = rm.fdf(q, u_)
+    theta = -2.0 * np.outer(rm.lam2 - rm.lam2_0, rm.phis)
+    p = q[:64].double().cpu().numpy() + 1j * u_[:64].double().cpu().numpy()
+    want = torch.from_numpy(p @ np.exp(1j * theta) / RM_CHAN)
+    err64 = rel_err(f[:64].cpu().to(torch.complex128), want)
+    err_sh = rel_err(rm.fdf_sharded(q, u_, Mesh([dev] * 4, ("phi",))), f)
+    ms = cuda_ms(lambda: rm.fdf(q, u_))
+    bound_ms, by = bound((q, u_, rm._tr, rm._ti), (f,),
+                         4 * 2 * RM_BATCH * RM_CHAN * RM_PHI)
+    print(f"(v5) RMSynthesis {RM_BATCH} x {RM_CHAN} x {RM_PHI}: 64 rows vs "
+          f"float64 {err64:.3e}, fdf_sharded (4 shards) vs fdf {err_sh:.3e} "
+          f"of the peak; fdf {ms:.4f} ms ({bound_ms:.4f} ms bound by {by}), "
+          f"{RM_BATCH * RM_CHAN * RM_PHI / ms * 1e3:.4e} trial-samples/s "
+          f"[{gpu}]", flush=True)
+    if err64 > SEARCH_TOL or err_sh > SEARCH_TOL:
+        raise AssertionError("RM synthesis disagrees")
+
+
+def drive_secondary(dev, gpu):
+    """Phase (v6): BASELINE secondary, a (4096, 2048) dynamic spectrum
+    (normals + 10): ``secondary_spectrum`` against float64 numpy (1e-5 of
+    the peak), timed."""
+    from baseband_tasks_tpu_torch.models import secondary_spectrum
+    g = torch.Generator(device=dev).manual_seed(2)
+    d = torch.randn((SEC_T, SEC_F), generator=g, device=dev) + 10.0
+    S, _, _ = secondary_spectrum(d)
+    x = d.double().cpu().numpy()
+    x = x - x.mean(axis=-2, keepdims=True)
+    x = x - x.mean(axis=-1, keepdims=True)
+    want = np.fft.fftshift(np.abs(np.fft.rfft2(x)) ** 2, axes=-2)
+    err = rel_err(S.cpu().double(), torch.from_numpy(want))
+    ms = cuda_ms(lambda: secondary_spectrum(d))
+    bound_ms, by = bound((d,), (S,), 2.5 * d.numel() * np.log2(d.numel())
+                         + 4 * d.numel() + 3 * S.numel())
+    print(f"(v6) secondary spectrum {SEC_T} x {SEC_F}: vs float64 {err:.3e} "
+          f"of the peak; {ms:.4f} ms ({bound_ms:.4f} ms bound by {by}), "
+          f"{SEC_T * SEC_F / ms * 1e3:.4e} samples/s [{gpu}]", flush=True)
+    if err > SEARCH_TOL or tuple(S.shape) != (SEC_T, SEC_F // 2 + 1):
+        raise AssertionError("secondary spectrum disagrees")
+
+
+def drive_analysis(dev, gpu):
+    """Phase (v): the six paths beyond the reference.  Returns the launch
+    counts of (v1) and (v4)."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = dict(drive_frb(dev, gpu, tmp))
+    torch.cuda.empty_cache()
+    drive_polarization(dev, gpu)
+    torch.cuda.empty_cache()
+    drive_calibrated_fold(dev, gpu)
+    torch.cuda.empty_cache()
+    for k, v in drive_faraday(dev, gpu).items():
+        launches[k] = launches.get(k, 0) + v
+    torch.cuda.empty_cache()
+    drive_rmsearch(dev, gpu)
+    drive_secondary(dev, gpu)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -3467,6 +4019,11 @@ def main():
     config4 = drive_config4(dev, gpu)
     print(f"(u) launches on the config 4 paths: {config4}", flush=True)
     for k, v in config4.items():
+        launches[k] += v
+    torch.cuda.empty_cache()
+    analysis = drive_analysis(dev, gpu)
+    print(f"(v) launches on the analysis paths: {analysis}", flush=True)
+    for k, v in analysis.items():
         launches[k] += v
     missing = [k for k in KERNELS if launches[k] <= 0]
     if missing:

@@ -37,7 +37,12 @@ with fewer than two); stored baseband: ``StreamRunner``'s three modes
 (packed, float, planes) from a VDIF file against ``run_fn`` on the card
 and on the plain versions, a source on the card passed through, the
 pinned ring waiting for a slot's copy before refilling it, and the
-filter passes at config 4's 16 lanes.
+filter passes at config 4's 16 lanes; the slice beyond the reference:
+the FRB chain ('pallas' Disperse on one lane, launches counted) and its
+DM-trial search against the plain versions and the CPU, DeFaraday's
+planes form in a compiled chain behind a 'pallas' Dedisperse, and the
+Faraday, polarization, SK, RM-synthesis and secondary-spectrum code on
+CUDA tensors against the CPU.
 Tolerances as in ``chip_smoke.py``: planes
 to 1e-4 of their largest element (float32 FFT roundoff is ~1e-6 of it),
 profiles elementwise to rtol 2e-4 (atomic summation order), counts
@@ -1537,3 +1542,205 @@ def test_config4_kernels_16_lanes(dev):
     assert_planes(ff.k1_stream(*c, *blk), ff.k1_stream_ref(*c, *blk))
     assert {k: v for k, v in dd.launch_counts.items() if v} == {
         "k1_window": 1, "k2": 1, "k3_trim": 1, "k1_stream": 1}
+
+
+# -- the analysis slice beyond the reference (smoke phases (v1), (v4)) ------
+
+def frb_power(device, n=1 << 18):
+    """Smoke (v1)'s FRB chain at a small size: seeded complex noise with a
+    burst, 16 MHz around 800 MHz -> Disperse(2.0, 'pallas') ->
+    Channelize(64) -> Square.  Returns (Disperse node, tail)."""
+    import baseband_tasks_tpu_torch as bt
+    u = bt.units
+    rng = np.random.default_rng(42)
+    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(
+        np.complex64)
+    x[20000:20006] += 40.0
+    src = bt.StreamGenerator(lambda sh: x[sh.tell():sh.tell() + 8192],
+                             shape=(n,), start_time=bt.Time.from_mjd(58000.0),
+                             sample_rate=16 * u.MHz, samples_per_frame=8192,
+                             dtype=np.complex64, device=device)
+    ded = bt.Disperse(bt.SetAttribute(src, frequency=800 * u.MHz,
+                                      sideband=1), 2.0, engine="pallas",
+                      samples_per_frame=1 << 15)
+    return ded, bt.Square(bt.Channelize(ded, 64))
+
+
+def test_frb_chain_on_card(dev):
+    """The FRB path: 'pallas' Disperse on one lane launches k1_window, k2
+    and k3_trim once a frame; the filterbank and the DM-trial search map
+    equal the plain versions on the card (1e-4 of the peak) and the
+    search on the CPU (1e-5 of the peak)."""
+    import baseband_tasks_tpu_torch as bt
+    from baseband_tasks_tpu_torch.models import DMTrialSearch
+    ded, power = frb_power(dev)
+    frames = -(-ded.shape[0] // ded.samples_per_frame)
+    assert ded.engine == "pallas"
+    dd.reset_launch_counts()
+    got = power.read()
+    torch.cuda.synchronize()
+    assert {k: v for k, v in dd.launch_counts.items() if v} == \
+        {k: frames for k in ("k1_window", "k2", "k3_trim")}
+    with dd.plain_versions():
+        want = frb_power(dev)[1].read()
+    assert float((got - want).abs().max()) <= \
+        FFT_TOL * float(want.abs().max())
+    freq = np.asarray(power.frequency.to_value(bt.units.MHz)).reshape(-1)
+    search = {d: DMTrialSearch(freq * bt.units.MHz, power.sample_rate,
+                               np.linspace(0, 4, 9), 1024, device=d)
+              for d in (dev, "cpu")}
+    maps = {d: s.search(got[:1024]) for d, s in search.items()}
+    assert maps[dev].device == dev
+    ref = maps["cpu"]
+    assert float((maps[dev].cpu() - ref).abs().max()) <= \
+        1e-5 * float(ref.abs().max())
+    with dd.plain_versions():
+        plain_map = search[dev].search(want[:1024])
+    assert float((maps[dev] - plain_map).abs().max()) <= \
+        FFT_TOL * float(plain_map.abs().max())
+
+
+def test_defaraday_planes_chain_on_card(dev, monkeypatch):
+    """Smoke (v4) at a small size: DeFaraday behind a 'pallas' Dedisperse
+    in a compiled planes chain takes its planes form (task_planes once a
+    block) while k1_stream, k2 and k3_trim launch once a block, and
+    equals the complex step and the plain versions (1e-4 of the peak)."""
+    import baseband_tasks_tpu_torch as bt
+    from baseband_tasks_tpu_torch.models.compiled import CompiledPipeline
+    u = bt.units
+
+    def chain():
+        src = bt.NoiseGenerator(shape=(1 << 16, 8, 2),
+                                start_time=bt.Time.from_mjd(58000.0),
+                                sample_rate=250 * u.kHz,
+                                samples_per_frame=4096, seed=5, device=dev)
+        freq = (1400 + 0.25 * (np.arange(8) - 4))[:, None] * u.MHz
+        src = bt.SetAttribute(src, frequency=freq, sideband=1,
+                              polarization=np.array(["X", "Y"]))
+        ded = bt.Dedisperse(src, 20.0, engine="pallas",
+                            samples_per_frame=1 << 13)
+        far = bt.DeFaraday(ded, 100.0, basis="linear")
+        return far, CompiledPipeline(bt.Square(far))
+
+    far, cp = chain()
+    calls = []
+    orig = far.task_planes
+    monkeypatch.setattr(far, "task_planes",
+                        lambda pair: calls.append(1) or orig(pair))
+    blocks = cp.read_source_blocks(2)
+
+    def planes(pipe):
+        step, carry = pipe.planes_step(), pipe.init_carry(planes=True)
+        out = []
+        for b in blocks:
+            carry, (yr, yi) = step(carry, b)
+            out.append(yr)
+        return torch.cat(out)
+
+    dd.reset_launch_counts()
+    got = planes(cp)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in dd.launch_counts.items() if v} == \
+        {k: 2 for k in ("k1_stream", "k2", "k3_trim")}
+    assert len(calls) == 2
+    want = cp.run_blocks(blocks)
+    peak = float(want.abs().max())
+    assert float((got - want).abs().max()) <= FFT_TOL * peak
+    with dd.plain_versions():
+        plain = planes(chain()[1])
+    assert float((got - plain).abs().max()) <= FFT_TOL * peak
+
+
+def test_analysis_tasks_on_card(dev):
+    """The tasks and models beyond the reference on CUDA tensors equal
+    the same calls on the CPU: Faraday (both forms), polarization, SK
+    flags (exact), RM synthesis and the secondary spectrum (1e-5 of the
+    peak)."""
+    import baseband_tasks_tpu_torch as bt
+    from baseband_tasks_tpu_torch import rfi
+    from baseband_tasks_tpu_torch.models import RMSynthesis, secondary_spectrum
+    u = bt.units
+    rng = np.random.default_rng(7)
+    x = (rng.standard_normal((4096, 16, 2))
+         + 1j * rng.standard_normal((4096, 16, 2))).astype(np.complex64)
+    x[:, 3] += 10.0
+
+    def tasks(device):
+        src = bt.StreamGenerator(lambda sh: x[sh.tell():sh.tell() + 1024],
+                                 shape=x.shape,
+                                 start_time=bt.Time.from_mjd(58000.0),
+                                 sample_rate=1 * u.MHz,
+                                 samples_per_frame=1024, dtype=np.complex64,
+                                 device=device)
+        src = bt.SetAttribute(src, frequency=(400 + np.arange(16))[:, None]
+                              * u.MHz, sideband=1,
+                              polarization=np.array(["X", "Y"]))
+        far = bt.FaradayRotate(src, 3.0)
+        jones = bt.ApplyJones(bt.ConvertPolarization(far, "circular"),
+                              np.array([[1.1, 0.1j], [0.05, 0.9]]))
+        return far, bt.ExciseSpectralKurtosis(jones, 64)
+
+    (fc, ec), (fg, eg) = tasks("cpu"), tasks(dev)
+    close = lambda a, b: float((a.cpu() - b).abs().max()) <= \
+        1e-5 * float(b.abs().max())  # noqa: E731
+    assert close(fg.read(), fc.read())
+    xr = torch.from_numpy(np.ascontiguousarray(x.real))
+    xi = torch.from_numpy(np.ascontiguousarray(x.imag))
+    pr, pi = fg.task_planes((xr.to(dev), xi.to(dev)))
+    cr, ci = fc.task_planes((xr, xi))
+    assert close(pr, cr) and close(pi, ci)
+    got, want = eg.read(), ec.read()
+    assert torch.equal(got.cpu() == 0, want == 0)
+    assert close(got, want)
+    power = torch.from_numpy(np.abs(x[..., 0]) ** 2)
+    assert torch.equal(rfi.spectral_kurtosis(power.to(dev), 64).cpu() > 1.5,
+                       rfi.spectral_kurtosis(power, 64) > 1.5)
+    freq = (1200 + np.arange(64)) * u.MHz
+    q, uu = rng.standard_normal((2, 32, 64)).astype(np.float32)
+    fdf = {d: RMSynthesis(freq, np.linspace(-50, 50, 101), device=d).fdf(
+        q, uu) for d in (dev, "cpu")}
+    assert fdf[dev].device == dev and close(fdf[dev], fdf["cpu"])
+    d = rng.standard_normal((128, 96)).astype(np.float32) + 10
+    S = {k: secondary_spectrum(torch.from_numpy(d).to(k))[0]
+         for k in (dev, "cpu")}
+    assert S[dev].device == dev and close(S[dev], S["cpu"])
+
+
+def test_analysis_numpy_input_on_card(dev):
+    """Numpy given to the analysis entry points with no device comes
+    back on the card, equal to the same call on a CPU tensor (Stokes
+    exact; SK and the transforms to 1e-5 of the peak, float32
+    roundoff)."""
+    import baseband_tasks_tpu_torch as bt
+    from baseband_tasks_tpu_torch import rfi
+    from baseband_tasks_tpu_torch.models import (DMTrialSearch,
+                                                 RMSynthesis,
+                                                 secondary_spectrum)
+    u = bt.units
+    rng = np.random.default_rng(11)
+    cpu = torch.device("cpu")
+
+    def same(got, want, tol=0.0):
+        assert got.device == dev
+        assert float((got.cpu() - want).abs().max()) <= \
+            tol * float(want.abs().max())
+
+    power = rng.standard_normal((1024, 8)).astype(np.float32) ** 2
+    same(rfi.spectral_kurtosis(power, 64),
+         rfi.spectral_kurtosis(torch.from_numpy(power), 64), 1e-5)
+    stokes = rng.standard_normal((16, 32, 4)).astype(np.float32)
+    for a, b in zip(RMSynthesis.stokes_qu(stokes),
+                    RMSynthesis.stokes_qu(torch.from_numpy(stokes))):
+        same(a, b)
+    dyn = rng.standard_normal((128, 96)).astype(np.float32) + 10
+    same(secondary_spectrum(dyn)[0],
+         secondary_spectrum(torch.from_numpy(dyn))[0], 1e-5)
+    freq = (1200 + np.arange(32)) * u.MHz
+    q, uu = rng.standard_normal((2, 8, 32)).astype(np.float32)
+    rm = {d: RMSynthesis(freq, np.linspace(-50, 50, 101), device=d)
+          for d in (None, cpu)}
+    same(rm[None].fdf(q, uu), rm[cpu].fdf(q, uu), 1e-5)
+    block = rng.standard_normal((1024, 32)).astype(np.float32) ** 2
+    dm = {d: DMTrialSearch(freq, 10 * u.kHz, np.linspace(0, 2, 5), 1024,
+                           device=d) for d in (None, cpu)}
+    same(dm[None].search(block), dm[cpu].search(block), 1e-5)

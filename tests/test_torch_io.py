@@ -323,9 +323,6 @@ def _unported_files(tmp_path):
     data = np.abs(samples((4096, 2), np.float32, 1.0))
     _, jt = templates(data, 1_000_000, spf=1024,
                       freq_mhz=np.array([1400.0, 1401.0]))
-    files["sigproc"] = str(tmp_path / "x.fil")
-    with jb.io.sigproc.open(files["sigproc"], "w", template=jt) as fw:
-        fw.write(data)
     files["hdf5"] = str(tmp_path / "x.h5")
     with jb.io.hdf5.open(files["hdf5"], "w", template=jt) as fw:
         fw.write(data)
@@ -354,6 +351,13 @@ def test_open_and_detect_format(tmp_path):
     with pregistry.open(paths["mark5b"], "w", format="mark5b",
                         template=rt) as fw:
         fw.write(real)
+    power = np.abs(samples((4096, 2), np.float32, 1.0))
+    st, _ = templates(power, 1_000_000, spf=1024,
+                      freq_mhz=np.array([1400.0, 1401.0]))
+    paths["sigproc"] = str(tmp_path / "x.fil")
+    with pregistry.open(paths["sigproc"], "w", format="sigproc",
+                        template=st) as fw:
+        fw.write(power)
     unported = _unported_files(tmp_path)
     for fmt, path in {**paths, **unported}.items():
         assert pregistry.detect_format(path) == \

@@ -21,16 +21,23 @@ import baseband_tasks_tpu.base as jbase  # noqa: E402
 import baseband_tasks_tpu.combining as jcombining  # noqa: E402
 import baseband_tasks_tpu.models as jmodels  # noqa: E402
 from baseband_tasks_tpu import utils as jutils  # noqa: E402
+import baseband_tasks_tpu.phases as jphases  # noqa: E402
 from baseband_tasks_tpu.models.foldmodel import \
     best_rational as jbest_rational  # noqa: E402
 
 import baseband_tasks_tpu_torch as bt  # noqa: E402
 import baseband_tasks_tpu_torch.base as pbase  # noqa: E402
 from baseband_tasks_tpu_torch import parallel as par  # noqa: E402
+import baseband_tasks_tpu_torch.models as pmodels  # noqa: E402
+import baseband_tasks_tpu_torch.phases as pphases  # noqa: E402
 from baseband_tasks_tpu_torch.models import foldmodel as pfold  # noqa: E402
 
 RATE = 250e3
 SHARED = sorted(set(jb.__all__) & set(bt.__all__))
+#: names both packages' models and phases subpackages export
+SUBPACKAGES = [(j, p, name) for j, p in ((jmodels, pmodels),
+                                         (jphases, pphases))
+               for name in sorted(set(j.__all__) & set(p.__all__))]
 
 
 @pytest.mark.parametrize("name", SHARED)
@@ -42,6 +49,34 @@ def test_top_level_names_from_the_same_module(name):
         assert p.__module__.rsplit(".", 1)[-1] == \
             j.__module__.rsplit(".", 1)[-1]
         assert p.__name__ == j.__name__
+
+
+@pytest.mark.parametrize("jpkg, ppkg, name", SUBPACKAGES,
+                         ids=[f"{j.__name__.rsplit('.', 1)[-1]}.{n}"
+                              for j, _, n in SUBPACKAGES])
+def test_subpackage_names_from_the_same_module(jpkg, ppkg, name):
+    """A name both packages' ``models`` or ``phases`` export comes from
+    the module of the same name in each (the search models, the PINT
+    providers among them)."""
+    j, p = getattr(jpkg, name), getattr(ppkg, name)
+    assert p.__module__.rsplit(".", 1)[-1] == \
+        j.__module__.rsplit(".", 1)[-1]
+    assert p.__name__ == j.__name__
+
+
+def test_beyond_reference_names_exported():
+    """The tasks and search models beyond the reference are exported
+    where the JAX package exports them."""
+    for name in ("FaradayRotate", "DeFaraday", "ConvertPolarization",
+                 "ApplyJones", "SpectralKurtosis", "ExciseSpectralKurtosis",
+                 "ProfileTemplate", "fit_phase_shift"):
+        assert name in SHARED
+    for name in ("DMTrialSearch", "RMSynthesis", "SecondarySpectrum",
+                 "secondary_spectrum"):
+        assert (jmodels, pmodels, name) in SUBPACKAGES
+    for name in ("PintToas", "PintPhase"):
+        assert (jphases, pphases, name) in SUBPACKAGES
+    assert "ShardedPipeline" not in pmodels.__all__
 
 
 def test_stack_is_the_join():
