@@ -10,7 +10,9 @@ The slices so far:
   ``Power``) on the three-engine ``fourier`` layer, with coherent
   ``Disperse``/``Dedisperse``;
 - compiled chains (``CompiledPipeline``, ``stream.compile()``) with
-  their kernel fusions, and the polyphase filter bank and its Wiener
+  their kernel fusions, time-sharded over a mesh of one process
+  (``models.ShardedPipeline``, ``stream.compile(mesh=)``), and the
+  polyphase filter bank and its Wiener
   inversion (``PolyphaseFilterBank``, ``InversePolyphaseFilterBank``);
 - the period searches: the Fourier-domain acceleration search
   (``FourierDomainAccelSearch``) and the fast folding algorithm
@@ -25,7 +27,8 @@ The slices so far:
   compiled graphs, ``Real2Complex``, and on them the FX correlator and
   the tied-array beamformer (``models.fx_correlate``,
   ``models.tied_array_beam``);
-- stored baseband: VDIF, Mark 5B, DADA and GUPPI readers and writers and
+- stored baseband: VDIF, Mark 5B, DADA and GUPPI readers and writers,
+  HDF5 stream containers and PSRFITS (fold and search mode), and
   multi-file sequences (``io``, ``open``, with the host LUT decoder
   ``native``), packed ingest decoded on the device
   (``CompiledPipeline(..., packed=True)``) and the prefetching executor

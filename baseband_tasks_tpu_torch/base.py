@@ -314,7 +314,8 @@ class Base:
     def _read_frame(self, frame_index):  # pragma: no cover - abstract
         raise NotImplementedError
 
-    def compile(self, *, block_samples=None, fuse=True, mesh=None):
+    def compile(self, *, block_samples=None, fuse=True, mesh=None,
+                shard_axis="time"):
         """A read-compatible view backed by the compiled chain.
 
         Same filehandle protocol (``seek``/``read``/``tell``/meta), but
@@ -324,11 +325,14 @@ class Base:
         ``stream.compile().read(n) == stream.read(n)`` over the whole
         stream (head and tail edges are served eagerly; the midsection
         matches to the streaming-exactness contract of
-        ``models/compiled.py``).  ``mesh`` is not ported yet.
+        ``models/compiled.py``).  Pass ``mesh`` (a ``parallel.Mesh``) to
+        run each step time-sharded over its ``shard_axis`` shards
+        (:class:`~.models.sharded.ShardedPipeline`), behind the same
+        read-compatible API.
         """
         from .models.view import compile_stream
         return compile_stream(self, block_samples=block_samples, fuse=fuse,
-                              mesh=mesh)
+                              mesh=mesh, shard_axis=shard_axis)
 
     # -- conversions / niceties ------------------------------------------
     def __getitem__(self, item):

@@ -1,6 +1,7 @@
 """Compiled pipelines: the flagship dedisperse→detect→fold model,
 compiled stream graphs with their kernel fusions (``CompiledPipeline``,
-``stream.compile()``) and their prefetching executor (``StreamRunner``),
+``stream.compile()``), their time-sharded executor (``ShardedPipeline``)
+and their prefetching executor (``StreamRunner``),
 the period searches (the Fourier-domain acceleration search and the fast
 folding algorithm), the FX correlator and the tied-array beamformer, and
 the analysis models beyond the reference: the DM-trial search, RM
@@ -16,6 +17,7 @@ from .foldmodel import FoldModel
 from .rmsearch import RMSynthesis
 from .runner import StreamRunner
 from .scintillation import SecondarySpectrum, secondary_spectrum
+from .sharded import ShardedPipeline
 from .view import CompiledStreamView, compile_stream
 from .wideband import WidebandPulsarPipeline
 
@@ -25,4 +27,4 @@ __all__ = ["CompiledPipeline", "CompiledStreamView", "FoldModel",
            "FastFoldingSearch", "ffa_fold", "CrossMultiply",
            "fx_correlate", "BeamformStations", "tied_array_beam",
            "StreamRunner", "DMTrialSearch", "RMSynthesis",
-           "SecondarySpectrum", "secondary_spectrum"]
+           "SecondarySpectrum", "secondary_spectrum", "ShardedPipeline"]

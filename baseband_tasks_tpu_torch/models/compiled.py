@@ -769,35 +769,53 @@ class CompiledPipeline:
         dec = self._decoders[0]
         return xs if dec is None else dec(xs)
 
-    def step_fn(self):
+    def step_fn(self, pad_hook=None):
         """``(carry, blocks) -> (carry, out_block)``: one block per source
         through the graph (``blocks`` a tensor, or a tuple of them in
         :attr:`sources` order for a multi-input graph; a packed source's
         block is its ``read_packed`` words, or ``(words, mask)``, as
         tensors, decoded in the step), complex data as complex tensors.
-        Each padded stage assembles its window as [carry | block] and
-        keeps the window's last ``pad`` samples (a copy) as its next
-        carry."""
-        self._prepare_caches()
+
+        ``pad_hook(stage, carry_entry, x) -> (window, new_carry_entry)``
+        sets how a padded stage assembles its overlap-save window from its
+        carry and its input (the sharded executor, ``models/sharded.py``,
+        passes one that exchanges the shards' tails); the default
+        concatenates [carry | block] and keeps a copy of the window's last
+        ``pad`` samples as the next carry."""
+        run = self._program_step(pad_hook or _concat_window, _apply)
 
         def step(carry, xs):
+            return run(carry, self._decode(xs))
+
+        return step
+
+    def _program_step(self, hook, each):
+        """``run(carry, inputs) -> (carry, y)`` over decoded source blocks
+        (``inputs`` as :meth:`_run_program` takes them).  ``each(fn,
+        *values)`` applies a task to stack values: one tensor each for
+        :meth:`step_fn`, per-shard lists for the sharded step, where each
+        task then launches once per shard, stage by stage.  Padded stages
+        take their windows from ``hook`` (see :meth:`step_fn`)."""
+        self._prepare_caches()
+
+        def run(carry, inputs):
             new_carry = []
             it = iter(carry)
 
             def entry(st, x):
                 fn = st.fused if st.fused is not None else st.node
-                if not st.padded:
-                    return fn.task(x)
-                window = torch.cat([next(it), x], dim=0)
-                new_carry.append(window[window.shape[0] - st.pad:].clone())
-                return fn.task(window)
+                if st.padded:
+                    x, c = hook(st, next(it), x)
+                    new_carry.append(c)
+                return each(fn.task, x)
 
-            y = self._run_program(
-                self._decode(xs), lambda x: x,
-                lambda st, args: st.node.task(list(args)), entry)
+            def combine(st, args):
+                return each(lambda *a: st.node.task(list(a)), *args)
+
+            y = self._run_program(inputs, lambda x: x, combine, entry)
             return tuple(new_carry), y
 
-        return step
+        return run
 
     def planes_step(self):
         """``(carry, xs, scale=None) -> (carry, (yr, yi))``: the step with
@@ -1035,7 +1053,10 @@ class CompiledPipeline:
         if self.reduction is None:
             raise ValueError("no reduction to run")
         blocks, n_blocks = self._prep_blocks(blocks)
-        sums, counts = self.run_fn(n_blocks)(blocks)
+        return self._averaged(*self.run_fn(n_blocks)(blocks))
+
+    def _averaged(self, sums, counts):
+        """(averages, counts) of a reduction's sums and counts."""
         shaped = counts.reshape(tuple(counts.shape)
                                 + (1,) * (sums.ndim - counts.ndim))
         out = sums / shaped.clamp_min(1)
@@ -1080,3 +1101,15 @@ def _tree_map(fn, *trees):
     if isinstance(trees[0], tuple):
         return tuple(_tree_map(fn, *parts) for parts in zip(*trees))
     return fn(*trees)
+
+
+def _apply(fn, *values):
+    return fn(*values)
+
+
+def _concat_window(st, carry, x):
+    """The one-device pad hook: the window [carry | x] and a copy of its
+    last ``pad`` samples, the stage's next carry (never a view of a
+    block)."""
+    window = torch.cat([carry, x], dim=0)
+    return window, window[window.shape[0] - st.pad:].clone()

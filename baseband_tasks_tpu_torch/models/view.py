@@ -28,8 +28,11 @@ bookkeeping and rebinds over a compiled view of its input chain
 step; :meth:`~.compiled.CompiledPipeline.run_reduced` also sums on the
 device.
 
-One device only: ``mesh=`` (the JAX package's time-sharded super-steps)
-waits for the multi-device layer (ROADMAP.md queue 1 item 11).
+With ``mesh=``, each compiled step runs ``S = mesh.shape[shard_axis]``
+consecutive blocks, one a shard (:class:`~.sharded.ShardedPipeline`'s
+super-step, the ring exchange of tails in place of the carries between
+shards).  Only whole super-steps run compiled; the remainder (fewer than
+``S`` blocks) is served eagerly, like any partial tail.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ import torch
 
 from ..base import Base
 from ..integration import Integrate
+from .compiled import _tree_map
 
 __all__ = ["CompiledStreamView", "compile_stream"]
 
@@ -55,18 +59,19 @@ class CompiledStreamView(Base):
         ``PulseStack`` is handled by :func:`compile_stream`.
     block_samples, fuse
         Passed to :class:`~.compiled.CompiledPipeline`.
+    mesh, shard_axis
+        A ``parallel.Mesh`` to run each step as a super-step of ``S``
+        blocks over the shards along ``shard_axis``
+        (:class:`~.sharded.ShardedPipeline`); None for one block a step.
     """
 
     #: source samples per compiled step when nothing pins the block
     _TARGET_BLOCK = 1 << 16
 
-    def __init__(self, tail, *, block_samples=None, fuse=True, mesh=None):
+    def __init__(self, tail, *, block_samples=None, fuse=True, mesh=None,
+                 shard_axis="time"):
         from .compiled import CompiledPipeline
 
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (multi-device compiled views) is not ported yet "
-                "(ROADMAP.md, queue 1 item 11)")
         cp = CompiledPipeline(tail, block_samples=block_samples, fuse=fuse)
         if block_samples is None and cp.block_samples < self._TARGET_BLOCK:
             # unpinned chains get the minimal legal block; a streamed view
@@ -90,10 +95,20 @@ class CompiledStreamView(Base):
         self._tail = tail
         self._delay = int(cp.delay)
         self._wu = int(cp.warmup)
-        # full source blocks available from each source's folded offset
-        self._max_blocks = max(min(
-            (src.shape[0] - extra) // cp.block_samples
-            for src, extra in zip(cp.sources, cp.source_offsets)), 0)
+        # mesh=None: one block a step; with a mesh, S consecutive blocks
+        # a super-step, one a shard
+        self._sharded = None
+        self._S = 1
+        if mesh is not None:
+            from .sharded import ShardedPipeline
+            self._sharded = ShardedPipeline(cp, mesh, axis_name=shard_axis)
+            self._S = self._sharded.n_shards
+        # full source blocks available from each source's folded offset;
+        # with a mesh only whole super-steps run compiled, the remainder
+        # (< S blocks) is served eagerly like any partial tail
+        avail = min((src.shape[0] - extra) // cp.block_samples
+                    for src, extra in zip(cp.sources, cp.source_offsets))
+        self._max_blocks = max(avail // self._S * self._S, 0)
         attrs = tail.meta.get("__attributes__", {})
         super().__init__(
             shape=tail.shape, start_time=tail.start_time,
@@ -102,31 +117,47 @@ class CompiledStreamView(Base):
             frequency=attrs.get("frequency"),
             sideband=attrs.get("sideband"),
             polarization=attrs.get("polarization"), device=tail.device)
-        self._step = cp.step_fn()
+        if self._sharded is None:
+            self._step = cp.step_fn()
+        else:
+            step = self._sharded.sharded_step()
+
+            def super_step(carry, xs):
+                carry, ys = step(carry, xs)
+                return carry, torch.cat([y.to(self._device) for y in ys])
+            self._step = super_step
         self._reset_scan()
 
     # -- streaming state ---------------------------------------------------
     def _reset_scan(self):
         self._carry = self.cp.init_carry()
-        self._next_step = 0      # compiled steps taken
+        self._next_step = 0      # compiled steps taken (S blocks each)
         self._bufs = []          # per-step outputs, compiled coordinates
         self._buf_start = 0      # compiled index of _bufs[0][0]
 
     def _read_next_source_block(self):
-        """The next block of each source (a tuple for a multi-input
-        graph)."""
+        """The next step's input: the next block of each source (a tuple
+        for a multi-input graph), or with a mesh the ``S`` per-shard
+        blocks of the next super-step, each on its shard's device."""
         cp = self.cp
-        n = cp.block_samples
-        blocks = []
+        B, S = cp.block_samples, self._S
+        reads = []
         for src, extra in zip(cp.sources, cp.source_offsets):
-            src.seek(extra + self._next_step * n)
-            blocks.append(src.read(n))
+            src.seek(extra + self._next_step * S * B)
+            reads.append(src.read(S * B))
         self._next_step += 1
-        return tuple(blocks) if len(blocks) > 1 else blocks[0]
+
+        def block(i):
+            parts = tuple(r[i * B:(i + 1) * B] for r in reads)
+            return parts if len(parts) > 1 else parts[0]
+        if self._sharded is None:
+            return block(0)
+        return [_tree_map(lambda t, d=dev: t.to(d), block(i))
+                for i, dev in enumerate(self._sharded.devices)]
 
     def _compiled_read(self, c0, c1):
         """Compiled outputs [c0, c1) (compiled coordinates)."""
-        tb = self.cp.tail_block
+        tb = self._S * self.cp.tail_block
         if c0 < self._buf_start:
             self._reset_scan()
         # drop whole retained step outputs that precede c0
@@ -178,22 +209,26 @@ class CompiledStreamView(Base):
         super().close()
 
     def __repr__(self):
+        shard = f", shards={self._S}" if self._S > 1 else ""
         return (f"CompiledStreamView({self._tail!r},\n"
                 f"    block_samples={self.cp.block_samples}, "
-                f"delay={self._delay}, warmup={self._wu})")
+                f"delay={self._delay}, warmup={self._wu}{shard})")
 
 
-def compile_stream(tail, *, block_samples=None, fuse=True, mesh=None):
+def compile_stream(tail, *, block_samples=None, fuse=True, mesh=None,
+                   shard_axis="time"):
     """``tail.compile()``: a read-compatible compiled view of the chain
     (see :class:`CompiledStreamView`).  A trailing reduction is a copy of
-    the node reading from a compiled view of its input."""
+    the node reading from a compiled view of its input.  With ``mesh``,
+    each step runs ``S = mesh.shape[shard_axis]`` consecutive blocks, one
+    a shard, through :class:`~.sharded.ShardedPipeline`."""
     if isinstance(tail, Integrate):
         new = copy.copy(tail)
         new.ih = compile_stream(tail.ih, block_samples=block_samples,
-                                fuse=fuse, mesh=mesh)
+                                fuse=fuse, mesh=mesh, shard_axis=shard_axis)
         new._frame = None
         new._frame_index = None
         new._offset = 0
         return new
     return CompiledStreamView(tail, block_samples=block_samples, fuse=fuse,
-                              mesh=mesh)
+                              mesh=mesh, shard_axis=shard_axis)

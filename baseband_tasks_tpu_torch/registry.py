@@ -8,9 +8,9 @@ third-party packages can register more formats under the
 ``open(name, mode, **kw)`` and optionally ``detect_format(head, name) ->
 bool``), picked up lazily on first use.
 
-VDIF, Mark 5B, DADA, GUPPI and SIGPROC are ported (``io/``); HDF5 and
-PSRFITS files are detected as in the JAX package, and opening one raises
-``NotImplementedError`` (ROADMAP.md queue 1 item 8).
+Every format of the JAX registry is ported (``io/``): HDF5, PSRFITS,
+VDIF, Mark 5B, DADA, GUPPI and SIGPROC, detected as the JAX package
+detects them.
 """
 
 from __future__ import annotations
@@ -19,14 +19,15 @@ import builtins
 
 __all__ = ["open", "detect_format", "FORMATS"]
 
-_NOT_PORTED = ("{} files are not ported yet (ROADMAP.md, queue 1 item 8: "
-               "I/O, {})")
+
+def _hdf5_open(name, mode="r", **kwargs):
+    from .io import hdf5
+    return hdf5.open(name, mode, **kwargs)
 
 
-def _not_ported(fmt, module):
-    def opener(name, mode="r", **kwargs):
-        raise NotImplementedError(_NOT_PORTED.format(fmt, module))
-    return opener
+def _psrfits_open(name, mode="r", **kwargs):
+    from .io import psrfits
+    return psrfits.open(name, mode, **kwargs)
 
 
 def _vdif_open(name, mode="r", **kwargs):
@@ -81,9 +82,9 @@ def _sigproc_detect(head, name):
 
 #: name -> (opener, detector), in detection order
 FORMATS = {
-    "hdf5": (_not_ported("HDF5", "io/hdf5/"), lambda head, name:
+    "hdf5": (_hdf5_open, lambda head, name:
              head[:8] == b"\x89HDF\r\n\x1a\n"),
-    "psrfits": (_not_ported("PSRFITS", "io/psrfits/"), lambda head, name:
+    "psrfits": (_psrfits_open, lambda head, name:
                 head[:6] == b"SIMPLE"),
     "vdif": (_vdif_open, lambda head, name:
              name.lower().endswith((".vdif", ".vdf"))),
@@ -144,11 +145,10 @@ def detect_format(name):
 def open(name, mode="r", format=None, **kwargs):
     """Open a stream file in any registered format.
 
-    ``format`` may be 'vdif', 'mark5b', 'dada', 'guppi', 'sigproc' or
-    any plugin-registered name ('hdf5' and 'psrfits' raise
-    ``NotImplementedError``); when omitted it is detected from the file
-    signature (reads) or required (writes).  Readers take ``device=``
-    (default: the card when there is one).
+    ``format`` may be 'hdf5', 'psrfits', 'vdif', 'mark5b', 'dada',
+    'guppi', 'sigproc' or any plugin-registered name; when omitted it is
+    detected from the file signature (reads) or required (writes).
+    Readers take ``device=`` (default: the card when there is one).
 
     ``name`` may also denote a multi-file sequence -- a list/tuple of
     names, a glob pattern, a ``{file_nr}`` template string, or a

@@ -265,6 +265,37 @@ their users run:
 (v6) BASELINE secondary: ``secondary_spectrum`` of a (4096, 2048)
     dynamic spectrum against float64 (1e-5 of the peak), timed.
 
+and for the time-sharded compiled graphs and the stored-file formats
+(``models/sharded.py``, ``compile(mesh=)``, ``io/hdf5``, ``io/psrfits``),
+on four virtual shards of the card along 'time':
+
+(w1) config 2 compiled (Dechannelize(Dedisperse(29.7, 'pallas')), 128 x
+    125 kHz) through ``ShardedPipeline`` for 8 blocks, against the
+    one-device ``CompiledPipeline`` on the same blocks (rtol 1e-6), the
+    pads checked against the per-shard block (the refusal's condition),
+    both runs' launches equal (the complex step: k1_window, k2, k3_trim,
+    lane_mix a block), both timed in ms a block, the sharded run
+    profiled;
+(w2) the same for config 3's PFB round trip (the quad fusion; its
+    source lengthened to 2^26 samples for 8 blocks of 8,257,536);
+(w3) ``compile(mesh=)`` of config 2 read whole on a source of 9.5
+    blocks: two super-steps compiled, the warm-up and the remainder
+    served eagerly (bit for bit against the eager chain), the compiled
+    part against the one-device view (rtol 1e-6), and the compiled
+    windows of block 1 against the eager chain to (h)'s bound;
+(w4) (v1)'s filterbank through an 8-bit search-mode PSRFITS file (rows
+    of 1024) and back onto the card (within half a level step), with
+    ``DMTrialSearch`` recovering the burst from it; the flagship's
+    ``run_fn(2)`` profile through a fold-mode file and back (within one
+    16-bit level of a channel's range);
+(w5) where ``h5py`` imports: an 8-bit HDF5 file of config 4's shape, its
+    ``read_packed`` words decoded on the card bit for bit against the
+    host read, and packed Dedisperse(29.7) -> Square over the four
+    shards against the one-device float path (rtol 1e-5, atol 1e-6);
+    without ``h5py``, the payload coding at 8, 4 and 2 bits decoded on
+    the card against the host decode with no file.  No kernel's launch
+    count depends on (w5).
+
 The plain versions run on the card inside the package's test-only
 switch ``ops.dedisperse.plain_versions()``, with every float32 matmul
 in full float32 (``allow_tf32 = False``, precision 'highest', set and
@@ -701,16 +732,17 @@ def time_steps(kern, gpu):
               f"{samples / dt:.4e} samples/s [{gpu}]", flush=True)
 
 
-def config2_source(dev):
+def config2_source(dev, n_samples=1 << 23):
     """``tools/bench_full.py`` config 2's source, on the card: 128 x
     125 kHz complex channels around 1400 MHz, sideband +1, 2^23 samples
-    of noise from seed 1 in frames of 8192."""
+    (or ``n_samples``: the same samples, fewer of them) of noise from
+    seed 1 in frames of 8192."""
     from baseband_tasks_tpu_torch import (NoiseGenerator, SetAttribute,
                                           Time, units as u)
     n_chan = 128
     freq = (1400 + (np.arange(n_chan) - n_chan / 2) * 0.125) * u.MHz
     return SetAttribute(NoiseGenerator(
-        shape=(1 << 23, n_chan), start_time=Time.from_mjd(58000.0),
+        shape=(n_samples, n_chan), start_time=Time.from_mjd(58000.0),
         sample_rate=125 * u.kHz, samples_per_frame=8192, seed=1,
         device=dev), frequency=freq, sideband=1)
 
@@ -1109,9 +1141,10 @@ def check_compiled_kernels(dev, gpu):
     return results
 
 
-def compiled_tail(name, dev, offset=0):
+def compiled_tail(name, dev, offset=0, n_samples=None):
     """The tail of compiled path ``name`` on the card, with ``offset``
-    samples sliced off its source.
+    samples sliced off its source (``n_samples`` long: config 2's 2^23
+    and config 3's 2^24 by default).
 
     config3_quad, pfb_forward, dechan_inverse: ``tools/bench_full.py``
     config 3 (8 taps x 256 channels, frames of 32256 spectra, inverse
@@ -1126,7 +1159,8 @@ def compiled_tail(name, dev, offset=0):
     def sliced(src):
         return src[offset:] if offset else src
     if name == "config2":
-        return Dechannelize(Dedisperse(sliced(config2_source(dev)), 29.7,
+        src = config2_source(dev, n_samples or 1 << 23)
+        return Dechannelize(Dedisperse(sliced(src), 29.7,
                                        samples_per_frame=2 ** 17,
                                        engine="pallas"))
     h = sinc_hamming(8, 256)
@@ -1139,7 +1173,7 @@ def compiled_tail(name, dev, offset=0):
                                  samples_per_frame=1 << 12, seed=3,
                                  device=dev)
         return InversePolyphaseFilterBank(sliced(spectra), h, **inv_kw)
-    src = NoiseGenerator(shape=(1 << 24, 2), start_time=t0,
+    src = NoiseGenerator(shape=(n_samples or 1 << 24, 2), start_time=t0,
                          sample_rate=4 * u.MHz, samples_per_frame=1 << 16,
                          seed=2, device=dev)
     pfb = PolyphaseFilterBank(sliced(src), h, samples_per_frame=32256)
@@ -1202,17 +1236,17 @@ def joined(outs):
                          torch.cat([y[1] for y in outs]))
 
 
-def eager_bound(name, what, got, eager, gpu):
+def eager_bound(name, what, got, eager, gpu, phase="(h)"):
     """Max |got - eager| over the rtol/atol bound, printed with the SNR."""
     diff = (got - eager).abs()
     ratio = float((diff / (EAGER_ATOL + EAGER_RTOL * eager.abs())).max())
     power = (eager.abs() ** 2).mean()
     snr = float(10 * torch.log10(power / (diff ** 2).mean().clamp_min(
         1e-30)))
-    print(f"(h) {name}: vs eager {what} ({got.shape[0]} samples): max |d| "
-          f"{float(diff.max()):.3e}, rms |eager| {float(power.sqrt()):.3e}, "
-          f"SNR {snr:.1f} dB, {ratio:.3f} of the rtol/atol bound [{gpu}]",
-          flush=True)
+    print(f"{phase} {name}: vs eager {what} ({got.shape[0]} samples): "
+          f"max |d| {float(diff.max()):.3e}, rms |eager| "
+          f"{float(power.sqrt()):.3e}, SNR {snr:.1f} dB, {ratio:.3f} of the "
+          f"rtol/atol bound [{gpu}]", flush=True)
     return ratio
 
 
@@ -3479,9 +3513,9 @@ def rel_err(got, ref):
     return float((got - ref).abs().max()) / float(ref.abs().max())
 
 
-def check_burst(tag, t, dm, expected_t):
-    print(f"(v1) {tag}: peak at spectrum {t}, trial DM {dm:.2f} (expected "
-          f"{expected_t}, {FRB_DM})", flush=True)
+def check_burst(tag, t, dm, expected_t, phase="(v1)"):
+    print(f"{phase} {tag}: peak at spectrum {t}, trial DM {dm:.2f} "
+          f"(expected {expected_t}, {FRB_DM})", flush=True)
     if abs(dm - FRB_DM) > 1.0 or abs(t - expected_t) >= 40:
         raise AssertionError(f"FRB {tag}: burst at ({t}, {dm}), expected "
                              f"({expected_t}, {FRB_DM})")
@@ -3941,6 +3975,383 @@ def drive_analysis(dev, gpu):
     return launches
 
 
+# -- sharded compiles and the stored-file paths: phase (w) ------------------
+
+W_SHARDS = 4                 # virtual shards of the card along 'time'
+W_BLOCKS = 8                 # source blocks a sharded run: two super-steps
+# config 3's blocks are 32256 spectra x 256 = 8,257,536 samples: eight of
+# them need a source longer than the 2^24 of (h)
+W_SOURCE = {"config2": 1 << 23, "config3_quad": 1 << 26}
+W_RTOL = 1e-6                # sharded against one device (bit-exact in JAX)
+W_HDF5_RTOL, W_HDF5_ATOL = 1e-5, 1e-6   # the JAX packed padded chain's
+W_NSBLK = 1024               # search-mode PSRFITS rows of the filterbank
+
+
+def w_check_pads(tag, name, cp):
+    """Every padded stage's pad against its per-shard block: the
+    refusal's condition.  Returns the stages that would be refused."""
+    pads = [(type(st.node).__name__, st.pad, st.in_block)
+            for st in cp.stages if st.padded and not st.skip]
+    over = [p for p in pads if p[1] > p[2]]
+    verdict = (f"pads above the block {over}" if over else
+               "every pad within its per-shard block, no refusal")
+    print(f"{tag} {name}: block {cp.block_samples} source samples -> "
+          f"{cp.tail_block}; padded stages (name, pad, per-shard block) "
+          f"{pads}: {verdict}", flush=True)
+    return over
+
+
+def drive_sharded_compiled(name, dev, gpu, tag):
+    """(w1)/(w2): compiled path ``name`` through ``ShardedPipeline`` on
+    W_SHARDS virtual shards of the card for W_BLOCKS blocks, against the
+    one-device ``CompiledPipeline`` on the same blocks (rtol W_RTOL, the
+    launches of each run equal), both timed in ms a block, in turns, and
+    the sharded run profiled.  Returns the sharded run's launches."""
+    from baseband_tasks_tpu_torch import CompiledPipeline
+    from baseband_tasks_tpu_torch.models import ShardedPipeline
+    from baseband_tasks_tpu_torch.ops import dedisperse as dd
+    cp = CompiledPipeline(compiled_tail(name, dev,
+                                        n_samples=W_SOURCE[name]))
+    fused = [type(st.fused).__name__ for st in cp.stages
+             if getattr(st, "fused", None) is not None]
+    if fused != COMPILED[name][0]:
+        raise AssertionError(f"{tag} {name}: fused {fused}")
+    sp = ShardedPipeline(cp, virtual_mesh(dev, W_SHARDS, 1))
+    blocks = cp.read_source_blocks(W_BLOCKS)
+    torch.cuda.synchronize()
+    if w_check_pads(tag, name, cp):
+        # the JAX refusal, then the block its docstring asks for: frames
+        # large enough that every pad fits one shard's block
+        try:
+            sp.run_blocks(blocks)
+        except ValueError as exc:
+            print(f"{tag} {name}: refused as expected: {exc}", flush=True)
+        raise AssertionError(f"{tag} {name}: rebuild with a larger "
+                             f"samples_per_frame (no path here needs it)")
+    dd.reset_launch_counts()
+    got = sp.run_blocks(blocks)
+    torch.cuda.synchronize()
+    counts = nonzero(dd.launch_counts)
+    dd.reset_launch_counts()
+    ref = cp.run_blocks(blocks)
+    torch.cuda.synchronize()
+    one = nonzero(dd.launch_counts)
+    print(f"{tag} {name}: launches sharded {counts}, one device {one} "
+          f"[{gpu}]", flush=True)
+    if counts != one or any(counts.get(k, 0) <= 0
+                            for k in W_KERNELS[name]):
+        raise AssertionError(f"{tag} {name}: launches differ or a kernel "
+                             f"of {W_KERNELS[name]} is missing")
+    diff = (got - ref).abs()
+    peak = float(ref.abs().max())
+    err, rel = float(diff.max()), float((diff / ref.abs()).nan_to_num(
+        0.0, posinf=0.0).max())
+    want = (W_BLOCKS * cp.tail_block,) + tuple(cp._tail.sample_shape)
+    print(f"{tag} {name}: {tuple(got.shape)}, sharded vs one device: "
+          f"largest difference {err:.3e} ({err / peak:.3e} of the peak), "
+          f"largest relative {rel:.3e} [{gpu}]", flush=True)
+    if (tuple(got.shape) != want or not torch.isfinite(
+            torch.view_as_real(got)).all()
+            or not torch.allclose(got, ref, rtol=W_RTOL,
+                                  atol=W_RTOL * peak)):
+        raise AssertionError(f"{tag} {name}: sharded disagrees")
+    del got, ref
+    runs = {"one device": lambda: cp.run_blocks(blocks),
+            "sharded": lambda: sp.run_blocks(blocks)}
+    ms = best_ms(runs, ("one device", "sharded", "sharded", "one device"),
+                 W_BLOCKS)
+    print(f"{tag} {name}: {ms['sharded']:.3f} ms a block sharded "
+          f"({W_SHARDS} shards of the card), {ms['one device']:.3f} ms one "
+          f"device ({ms['sharded'] / ms['one device']:.2f}x); "
+          f"{cp.tail_block / ms['sharded'] * 1e3:.4e} output samples/s "
+          f"sharded [{gpu}]", flush=True)
+    wall, busy, rows = device_profile(lambda: sp.run_blocks(blocks))
+    print(f"{tag} {name} profiled sharded run: {wall / W_BLOCKS:.3f} ms a "
+          f"block wall, {busy / W_BLOCKS:.3f} device busy "
+          f"({busy / wall:.2f}) [{gpu}]", flush=True)
+    for dev_us, count, key in rows[:6]:
+        print(f"{tag}   {dev_us / 1e3 / W_BLOCKS:8.3f} ms/block  "
+              f"x{count:<3d} {key[:70]} [{gpu}]", flush=True)
+    return counts
+
+
+# which kernels each sharded path must launch: the complex step (as in
+# the JAX package) assembles each window and runs the fusions' window
+# form, k1_window; its forward FIR is the FIR node's own torch task, so
+# pfb_fwd runs on the planes step only
+W_KERNELS = {"config2": ("k1_window", "k2", "k3_trim", "lane_mix"),
+             "config3_quad": ("k1_window", "k2", "k3_trim")}
+
+
+def drive_sharded_view(dev, gpu):
+    """(w3): ``compile(mesh=)`` of config 2 read whole through the view,
+    on a source of 9.5 blocks: two super-steps compiled, the warm-up and
+    the remainder (one block and a half, fewer than S) served eagerly.
+    Against the eager chain: the eager parts bit for bit, the compiled
+    windows (block 1) to the eager bound of (h); against the one-device
+    view where both compile.  Returns the view's launches."""
+    from baseband_tasks_tpu_torch import CompiledPipeline
+    from baseband_tasks_tpu_torch.ops import dedisperse as dd
+    B = CompiledPipeline(compiled_tail("config2", dev)).block_samples
+    n = (2 * W_SHARDS + 1) * B + B // 2
+    view = compiled_tail("config2", dev, n_samples=n).compile(
+        mesh=virtual_mesh(dev, W_SHARDS, 1), shard_axis="time")
+    cp = view.cp
+    d, w, tb = int(cp.delay), cp.warmup, cp.tail_block
+    print(f"(w3) config2 view: {view.shape[0]} samples, {view._S} shards, "
+          f"{view._max_blocks} blocks compiled of {n // B}, delay {d}, "
+          f"warmup {w}", flush=True)
+    if view._S != W_SHARDS or view._max_blocks != 2 * W_SHARDS:
+        raise AssertionError("(w3) view geometry wrong")
+    dd.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = view.read()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = nonzero(dd.launch_counts)
+    print(f"(w3) view read: {1e3 * dt:.1f} ms for {got.shape[0]} samples, "
+          f"launches {launches} [{gpu}]", flush=True)
+    eager = compiled_tail("config2", dev, n_samples=n).read()
+    single = compiled_tail("config2", dev, n_samples=n).compile().read()
+    torch.cuda.synchronize()
+    lo, hi = w - d, 2 * W_SHARDS * tb - d
+    head = torch.equal(got[:lo], eager[:lo])
+    rest = torch.equal(got[hi:], eager[hi:])
+    diff = (got[lo:hi] - single[lo:hi]).abs()
+    err = float(diff.max())
+    print(f"(w3) eager head [0, {lo}) and remainder [{hi}, {got.shape[0]}) "
+          f"equal to eager: {head}, {rest}; compiled [{lo}, {hi}) vs the "
+          f"one-device view: largest difference {err:.3e} [{gpu}]",
+          flush=True)
+    if not (head and rest) or not torch.allclose(
+            got[lo:hi], single[lo:hi], rtol=W_RTOL,
+            atol=W_RTOL * float(single[lo:hi].abs().max())):
+        raise AssertionError("(w3) view disagrees")
+    eager_bound("config2 view", "as built, the compiled midsection",
+                got[lo:hi], eager[lo:hi], gpu, phase="(w3)")
+    del eager, single
+    offset = cp.block_samples - d * cp.block_samples // tb
+    aligned = compiled_tail("config2", dev, offset).read(tb)
+    if eager_bound("config2 view", "on the compiled windows (block 1)",
+                   got[tb - d:2 * tb - d], aligned, gpu,
+                   phase="(w3)") > 1.0:
+        raise AssertionError("(w3) view disagrees with eager")
+    return launches
+
+
+def drive_psrfits(dev, gpu, tmp):
+    """(w4): (v1)'s FRB filterbank through an 8-bit search-mode PSRFITS
+    file and back onto the card, ``DMTrialSearch`` recovering the burst
+    from it; the flagship ``run_fn`` profile through a fold-mode file and
+    back.  Returns the launches of the two paths' runs."""
+    import os
+    from baseband_tasks_tpu_torch import (DispersionMeasure,
+                                          EmptyStreamGenerator, SetAttribute,
+                                          Time, open as bopen, units as u)
+    from baseband_tasks_tpu_torch.io import psrfits
+    from baseband_tasks_tpu_torch.models import DMTrialSearch
+    from baseband_tasks_tpu_torch.ops import dedisperse as dd
+    dispersed, power = frb_chain(dev)
+    dd.reset_launch_counts()
+    fb = power.read()
+    torch.cuda.synchronize()
+    launches = nonzero(dd.launch_counts)
+    freq = np.asarray(power.frequency.to_value(u.MHz)).reshape(-1)
+    order = np.argsort(freq)
+    fb = fb[:, order]
+    path = os.path.join(tmp, "frb.fits")
+    t0 = time.perf_counter()
+    with psrfits.open(path, "w", obs_mode="search", template=SetAttribute(
+            power, frequency=freq[order] * u.MHz), nsblk=W_NSBLK, nbits=8,
+            source="FRB") as fw:
+        fw.write(fb)
+    t1 = time.perf_counter()
+    rh = bopen(path, device=dev)
+    back = rh.read()
+    t2 = time.perf_counter()
+    n = back.shape[0]
+    rows = fb[:n].reshape(n // W_NSBLK, W_NSBLK, -1)
+    step = (rows.amax(1) - rows.amin(1)) / 255
+    err = float(((back.reshape(rows.shape) - rows).abs()
+                 / step[:, None]).max())
+    print(f"(w4) search mode: {type(rh).__name__} {tuple(back.shape)} of "
+          f"{tuple(fb.shape)} spectra on {back.device}, 8 bits, rows of "
+          f"{W_NSBLK}: largest error {err:.3f} of a row's level step; "
+          f"write {1e3 * (t1 - t0):.1f} ms, read {1e3 * (t2 - t1):.1f} ms "
+          f"[{gpu}]", flush=True)
+    if back.device != fb.device or err > 0.5 + 1e-3:
+        raise AssertionError("(w4) search-mode round trip wrong")
+    search = DMTrialSearch(rh.frequency, rh.sample_rate, FRB_DMS,
+                           FRB_NTIME, device=dev)
+    shift = (DispersionMeasure(FRB_DM).time_delay(
+        search.reference_frequency, 800 * u.MHz).to_value(u.s) * FRB_RATE)
+    expected_t = int((FRB_BURST + shift - dispersed.pad_start) / FRB_CHAN)
+    snr, width = search.detect(back[:FRB_NTIME])
+    t, j = np.unravel_index(np.argmax(snr), snr.shape)
+    print(f"(w4) detect on the PSRFITS filterbank: S/N {snr[t, j]:.1f}, "
+          f"boxcar {int(width[t, j])} [{gpu}]", flush=True)
+    check_burst("detect (PSRFITS)", int(t), float(FRB_DMS[j]), expected_t,
+                phase="(w4)")
+    rh.close()
+    kern = flagship(dev)
+    dd.reset_launch_counts()
+    prof, cnt = kern.run_fn(2)(seed=0)
+    torch.cuda.synchronize()
+    for k, v in nonzero(dd.launch_counts).items():
+        launches[k] = launches.get(k, 0) + v
+    prof = (prof / cnt.clamp_min(1)[:, None, None]).float() \
+        if cnt.ndim == 1 else prof.float()
+    nbin, nchan, npol = prof.shape
+    fold_s = 2 * kern.global_block / kern.chan_rate.to_value(u.Hz)
+    freqs = np.asarray(kern.freqs.to_value(u.MHz)).reshape(nchan, 1)
+    template = SetAttribute(EmptyStreamGenerator(
+        shape=(1, nbin, nchan, npol), start_time=Time.from_mjd(58000.0),
+        sample_rate=u.Quantity(1 / fold_s, u.Hz), samples_per_frame=1,
+        dtype=np.float32, device="cpu"), frequency=freqs * u.MHz,
+        sideband=1)
+    path = os.path.join(tmp, "fold.fits")
+    with psrfits.open(path, "w", template=template, source="B1937+21",
+                      dm=500.0) as fw:
+        fw.write(prof[None])
+    fr = bopen(path, device=dev)
+    folded = fr.read(1)[0]
+    span = (prof.amax(0) - prof.amin(0)).clamp_min(1e-30)
+    ferr = float(((folded - prof).abs() / span).max())
+    print(f"(w4) fold mode: {type(fr).__name__} {tuple(fr.shape)} on "
+          f"{folded.device}, the flagship profile through 16 bits: largest "
+          f"error {ferr:.3e} of a channel's range (one level "
+          f"{1 / 65534:.3e}) [{gpu}]", flush=True)
+    if ferr > 1.0 / 65534 + 1e-6 or folded.device != prof.device:
+        raise AssertionError("(w4) fold-mode round trip wrong")
+    fr.close()
+    del kern
+    return launches
+
+
+def check_hdf5_coding(dev, gpu):
+    """Without ``h5py``: the HDF5 bit-packed payload coding of one config
+    4 block (16 complex lanes; 8, 4 and 2 bits, the writer's scale) with
+    no file, its words decoded on the card by the reader's decoder
+    against the reader's host decode, bit for bit."""
+    from baseband_tasks_tpu_torch.io import hdf5
+    from baseband_tasks_tpu_torch.ops import unpack as up
+    block, _ = config4_block(dev)
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((block, C4_THREADS, 2)).astype(np.float32)
+    data = (x[..., 0] + 1j * x[..., 1]).astype(np.complex64)
+    sigma = float(np.std(x))
+    for bps in (8, 4, 2):
+        scale = {8: 32.0, 4: 2.5, 2: 1.0}[bps] / sigma
+        raw = hdf5._encode(data * scale, "bps", bps)
+        host = hdf5.host_decode(raw, bps, data.dtype, data.shape, scale)
+        dec = hdf5.packed_decoder(bps, data.shape[1:], True, scale)(
+            torch.from_numpy(up.words_from_bytes(raw)).to(dev))
+        exact = torch.equal(dec, torch.from_numpy(host).to(dev))
+        print(f"(w5) {bps}-bit HDF5 payload coding of a {data.shape} "
+              f"block, decoded on {dec.device} vs the host decode bit for "
+              f"bit: {exact} [{gpu}]", flush=True)
+        if not exact:
+            raise AssertionError(f"(w5) {bps}-bit decode differs")
+
+
+def drive_hdf5(dev, gpu, tmp):
+    """(w5), where ``h5py`` imports: an 8-bit bps HDF5 file of config 4's
+    shape (16 complex lanes at 2^18 Hz, W_BLOCKS blocks), its packed
+    words decoded on the card against the host read bit for bit, then
+    packed Dedisperse(29.7) -> Square over W_SHARDS shards against the
+    one-device float path (the JAX test's rtol / atol).  Its launches
+    count toward no kernel."""
+    import os
+    try:
+        import h5py
+        import yaml
+    except ImportError as exc:
+        print(f"(w5) the HDF5 file and its sharded chain not run: {exc} on "
+              f"this machine", flush=True)
+        check_hdf5_coding(dev, gpu)
+        return
+    from baseband_tasks_tpu_torch import (CompiledPipeline, Dedisperse,
+                                          NoiseGenerator, SetAttribute,
+                                          Square, Time, open as bopen,
+                                          units as u)
+    from baseband_tasks_tpu_torch.io import hdf5
+    from baseband_tasks_tpu_torch.models import ShardedPipeline
+    print(f"(w5) h5py {h5py.__version__}, yaml {yaml.__version__}",
+          flush=True)
+    block, _ = config4_block(dev)
+    n = W_BLOCKS * block
+    template = NoiseGenerator(shape=(n, C4_THREADS),
+                              start_time=Time.from_mjd(58000.0),
+                              sample_rate=C4_RATE * u.Hz,
+                              samples_per_frame=8192, device="cpu")
+    path = os.path.join(tmp, "c4.h5")
+    rng = np.random.default_rng(11)
+    with hdf5.open(path, "w", template=template, bps=8) as fw:
+        for _ in range(W_BLOCKS):
+            x = rng.standard_normal((block, C4_THREADS, 2)).astype(
+                np.float32)
+            fw.write((x[..., 0] + 1j * x[..., 1]).astype(np.complex64))
+    fr = bopen(path, device=dev)
+    t0 = time.perf_counter()
+    host = torch.from_numpy(fr.read_host(0, n)).to(dev)
+    t1 = time.perf_counter()
+    words = torch.from_numpy(fr.read_packed(0, n)).to(dev)
+    dec = fr.packed_decode_fn()(words)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    exact = torch.equal(dec, host)
+    print(f"(w5) {type(fr).__name__} {fr.encoding} {fr.bps}-bit "
+          f"{tuple(fr.shape)}: read_packed + decode on the card vs the host "
+          f"read bit for bit: {exact}; host read {1e3 * (t1 - t0):.1f} ms, "
+          f"packed read + decode {1e3 * (t2 - t1):.1f} ms [{gpu}]",
+          flush=True)
+    if not exact:
+        raise AssertionError("(w5) HDF5 packed decode differs")
+    del host, words, dec
+    tail = Square(Dedisperse(SetAttribute(fr, frequency=config4_freq(u),
+                                          sideband=1),
+                             C4_DM, samples_per_frame=block))
+    cp_p = CompiledPipeline(tail, block_samples=block, packed=True)
+    cp_f = CompiledPipeline(tail, block_samples=block)
+    w_check_pads("(w5)", "hdf5 packed", cp_p)
+    ref = cp_f.run_blocks(cp_f.read_source_blocks(W_BLOCKS))
+    got = ShardedPipeline(cp_p, virtual_mesh(dev, W_SHARDS, 1)).run_blocks(
+        cp_p.read_source_blocks(W_BLOCKS))
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    ok = torch.allclose(got, ref, rtol=W_HDF5_RTOL, atol=W_HDF5_ATOL)
+    print(f"(w5) packed Dedisperse({C4_DM}, {tail.ih.engine!r}) -> Square "
+          f"over {W_SHARDS} shards vs the one-device float path: "
+          f"{tuple(got.shape)}, largest difference {err:.3e} (rtol "
+          f"{W_HDF5_RTOL}, atol {W_HDF5_ATOL}: {ok}) [{gpu}]", flush=True)
+    if not ok:
+        raise AssertionError("(w5) packed sharded chain disagrees")
+    fr.close()
+
+
+def drive_sharded_and_stored(dev, gpu):
+    """Phase (w).  Returns the launch counts of (w1)-(w4)."""
+    import tempfile
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    full_fp32()
+    add(drive_sharded_compiled("config2", dev, gpu, "(w1)"))
+    torch.cuda.empty_cache()
+    add(drive_sharded_compiled("config3_quad", dev, gpu, "(w2)"))
+    torch.cuda.empty_cache()
+    add(drive_sharded_view(dev, gpu))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        add(drive_psrfits(dev, gpu, tmp))
+        torch.cuda.empty_cache()
+        drive_hdf5(dev, gpu, tmp)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -4024,6 +4435,11 @@ def main():
     analysis = drive_analysis(dev, gpu)
     print(f"(v) launches on the analysis paths: {analysis}", flush=True)
     for k, v in analysis.items():
+        launches[k] += v
+    stored = drive_sharded_and_stored(dev, gpu)
+    print(f"(w) launches on the sharded and stored-file paths: {stored}",
+          flush=True)
+    for k, v in stored.items():
         launches[k] += v
     missing = [k for k in KERNELS if launches[k] <= 0]
     if missing:

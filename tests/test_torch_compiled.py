@@ -352,8 +352,11 @@ def test_refusals():
     assert PCompiled(frac).delay.denominator != 1
     with pytest.raises(ValueError, match="fractional-delay"):
         PCompiled(frac).run_reduced(np.zeros((1, 2048, 2), np.complex64))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pb.Channelize(ps, 16).compile(mesh=object())
+    # a mesh without the shard axis: the JAX package's ValueError
+    from baseband_tasks_tpu_torch.parallel import make_mesh
+    with pytest.raises(ValueError, match="no axis"):
+        pb.Channelize(ps, 16).compile(
+            mesh=make_mesh(time=2, devices=["cpu"] * 2), shard_axis="beam")
     with pytest.raises(ValueError, match="no task nodes"):
         PCompiled(ps)
 

@@ -42,7 +42,9 @@ the FRB chain ('pallas' Disperse on one lane, launches counted) and its
 DM-trial search against the plain versions and the CPU, DeFaraday's
 planes form in a compiled chain behind a 'pallas' Dedisperse, and the
 Faraday, polarization, SK, RM-synthesis and secondary-spectrum code on
-CUDA tensors against the CPU.
+CUDA tensors against the CPU; the sharded config-2 step on four virtual
+shards of the card against one device (launches and output), and the
+HDF5 and PSRFITS readers handing out CUDA tensors.
 Tolerances as in ``chip_smoke.py``: planes
 to 1e-4 of their largest element (float32 FFT roundoff is ~1e-6 of it),
 profiles elementwise to rtol 2e-4 (atomic summation order), counts
@@ -1744,3 +1746,130 @@ def test_analysis_numpy_input_on_card(dev):
     dm = {d: DMTrialSearch(freq, 10 * u.kHz, np.linspace(0, 2, 5), 1024,
                            device=d) for d in (None, cpu)}
     same(dm[None].search(block), dm[cpu].search(block), 1e-5)
+
+
+def config2_small(device, n=9 * 7424 + 3712, spf=4096):
+    """A small config-2 chain (Dechannelize of a 'pallas' Dedisperse, 8
+    channels of 125 kHz: an 8192 window, blocks of 7424) on ``device``,
+    9.5 blocks long."""
+    import baseband_tasks_tpu_torch as bt
+    u = bt.units
+    freq = (1400 + (np.arange(8) - 4) * 0.125) * u.MHz
+    src = bt.SetAttribute(bt.NoiseGenerator(
+        shape=(n, 8), start_time=bt.Time.from_mjd(58000.0),
+        sample_rate=125 * u.kHz, samples_per_frame=2048, seed=1,
+        device=device), frequency=freq, sideband=1)
+    return bt.Dechannelize(bt.Dedisperse(src, 29.7, samples_per_frame=spf,
+                                         engine="pallas"))
+
+
+def test_sharded_config2_step_on_card(dev):
+    """Smoke (w1) at a small size: ``ShardedPipeline`` on four virtual
+    shards of the card launches what the one-device complex step launches
+    (k1_window, k2, k3_trim, lane_mix once a block) and gives its output
+    bit for bit, each shard's block on its shard's device; the view of
+    ``compile(mesh=)`` equals the one-device view where both compile."""
+    from baseband_tasks_tpu_torch.models import (CompiledPipeline,
+                                                 ShardedPipeline)
+    from baseband_tasks_tpu_torch.parallel import make_mesh
+    cp = CompiledPipeline(config2_small(dev))
+    mesh = make_mesh(time=4, devices=[dev] * 4)
+    sp = ShardedPipeline(cp, mesh)
+    blocks = cp.read_source_blocks(8)
+    dd.reset_launch_counts()
+    got = sp.run_blocks(blocks)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in dd.launch_counts.items() if v}
+    dd.reset_launch_counts()
+    ref = cp.run_blocks(blocks)
+    torch.cuda.synchronize()
+    assert counts == {k: v for k, v in dd.launch_counts.items() if v} == \
+        {k: 8 for k in ("k1_window", "k2", "k3_trim", "lane_mix")}
+    assert torch.equal(got, ref)
+    carry, ys = sp.sharded_step()(cp.init_carry(),
+                                  [blocks[i] for i in range(4)])
+    assert [y.device for y in ys] == [dev] * 4
+    assert all(c.device == dev for c in carry)
+    view = config2_small(dev).compile(mesh=mesh)
+    single = config2_small(dev).compile()
+    a, b = view.read(), single.read()
+    hi = view._max_blocks * cp.tail_block - int(cp.delay)
+    assert view._S == 4 and a.device == dev
+    assert torch.equal(a[:hi], b[:hi])
+
+
+def filterbank_template(rng):
+    """A (4096, 16) detected filterbank and a stream template of it."""
+    import baseband_tasks_tpu_torch as bt
+    u = bt.units
+    power = (rng.standard_normal((4096, 16)) ** 2).astype(np.float32)
+
+    def frames(sh):
+        return power[sh.tell():sh.tell() + sh.samples_per_frame]
+    gen = bt.SetAttribute(bt.StreamGenerator(
+        frames, power.shape, bt.Time.from_mjd(58000.0), 1 * u.kHz,
+        samples_per_frame=1024, dtype=np.float32, device="cpu"),
+        frequency=(800 + np.arange(16)) * u.MHz, sideband=1)
+    return power, gen
+
+
+def test_stored_file_readers_on_card(dev, tmp_path):
+    """PSRFITS (fold and search mode) readers hand out CUDA tensors equal
+    to their host reads; the HDF5 bit-packed decoder on the card equals
+    the host decode bit for bit (no file: the card's machine may lack
+    h5py)."""
+    import baseband_tasks_tpu_torch as bt
+    from baseband_tasks_tpu_torch.io import hdf5, psrfits
+    from baseband_tasks_tpu_torch.ops import unpack as up
+    u = bt.units
+    rng = np.random.default_rng(5)
+    power, gen = filterbank_template(rng)
+    path = str(tmp_path / "s.fits")
+    with psrfits.open(path, "w", obs_mode="search", template=gen,
+                      nsblk=1024, nbits=8) as fw:
+        fw.write(power)
+    with bt.open(path, device=dev) as fh:
+        got = fh.read()
+        assert got.device == dev
+        assert torch.equal(got.cpu(), torch.from_numpy(
+            fh.read_host(0, fh.shape[0])))
+    prof = rng.standard_normal((2, 32, 16, 1)).astype(np.float32)
+    fold = bt.SetAttribute(bt.EmptyStreamGenerator(
+        shape=prof.shape, start_time=bt.Time.from_mjd(58000.0),
+        sample_rate=0.1 * u.Hz, samples_per_frame=1, dtype=np.float32,
+        device="cpu"), frequency=(800 + np.arange(16))[:, None] * u.MHz,
+        sideband=1)
+    path = str(tmp_path / "f.fits")
+    with psrfits.open(path, "w", template=fold) as fw:
+        fw.write(torch.from_numpy(prof).to(dev))
+    with bt.open(path, device=dev) as fh:
+        got = fh.read()
+        assert got.device == dev
+        assert float((got.cpu() - torch.from_numpy(prof)).abs().max()) <= \
+            float(np.ptp(prof)) / 65534
+    x = rng.standard_normal((4096, 4, 2)).astype(np.float32)
+    data = (x[..., 0] + 1j * x[..., 1]).astype(np.complex64)
+    for bps in (8, 4, 2):
+        scale = {8: 32.0, 4: 2.5, 2: 1.0}[bps] / float(np.std(x))
+        raw = hdf5._encode(data * scale, "bps", bps)
+        host = hdf5.host_decode(raw, bps, data.dtype, data.shape, scale)
+        dec = hdf5.packed_decoder(bps, (4,), True, scale)(
+            torch.from_numpy(up.words_from_bytes(raw)).to(dev))
+        assert dec.device == dev and torch.equal(dec.cpu(),
+                                                 torch.from_numpy(host))
+
+
+def test_hdf5_file_on_card(dev, tmp_path):
+    """An HDF5 file's reader hands out CUDA tensors, and its packed words
+    decode on the card to them bit for bit (skips without h5py)."""
+    pytest.importorskip("h5py")
+    import baseband_tasks_tpu_torch as bt
+    power, gen = filterbank_template(np.random.default_rng(5))
+    path = str(tmp_path / "b.h5")
+    with bt.open(path, "w", format="hdf5", template=gen, bps=8) as fw:
+        fw.write(power)
+    with bt.open(path, device=dev) as fh:
+        got = fh.read()
+        assert got.device == dev
+        words = torch.from_numpy(fh.read_packed(0, 4096)).to(dev)
+        assert torch.equal(fh.packed_decode_fn()(words), got)

@@ -7,7 +7,7 @@ other's reader (and the two writers write the same bytes), VDIF at 8, 4
 and 2 bits real and complex with missing and invalid frames read as
 zeros, Mark 5B at 1 to 8 bits with a dropped frame, DADA at 8, 16 and 32
 bits, GUPPI, multi-file sequences, ``open``/``detect_format`` over every
-format (the unported ones detected and refused), and the native LUT
+format (HDF5 and PSRFITS too), and the native LUT
 decoder with its numpy fallbacks.  Readers and writers are host code, so
 samples must agree exactly.
 """
@@ -317,8 +317,10 @@ def test_sequence_both_ways(tmp_path):
                                           back[4000:4200])
 
 
-def _unported_files(tmp_path):
-    """A file of each format the port detects but does not open yet."""
+def _jax_written_files(tmp_path):
+    """An HDF5 and a (search-mode) PSRFITS file from the JAX package's
+    writers."""
+    from baseband_tasks_tpu.io import psrfits as jpsrfits
     files = {}
     data = np.abs(samples((4096, 2), np.float32, 1.0))
     _, jt = templates(data, 1_000_000, spf=1024,
@@ -326,15 +328,17 @@ def _unported_files(tmp_path):
     files["hdf5"] = str(tmp_path / "x.h5")
     with jb.io.hdf5.open(files["hdf5"], "w", template=jt) as fw:
         fw.write(data)
-    files["psrfits"] = str(tmp_path / "x.data")
-    write_bytes(files["psrfits"], b"SIMPLE  =" + b" " * 71)
+    files["psrfits"] = str(tmp_path / "x.fits")
+    with jpsrfits.open(files["psrfits"], "w", obs_mode="search",
+                       template=jt, nsblk=1024) as fw:
+        fw.write(data)
     return files
 
 
 def test_open_and_detect_format(tmp_path):
     """detect_format names every file as the JAX package does; ``open``
-    opens the ported formats as the JAX package does and refuses the
-    others (ROADMAP)."""
+    opens every format as the JAX package does (HDF5 and PSRFITS from
+    the JAX writers)."""
     data = samples((8192, 2), np.complex64, 10.0)
     pt, jt = templates(data, VDIF_RATE, spf=2048)
     paths = {}
@@ -358,13 +362,10 @@ def test_open_and_detect_format(tmp_path):
     with pregistry.open(paths["sigproc"], "w", format="sigproc",
                         template=st) as fw:
         fw.write(power)
-    unported = _unported_files(tmp_path)
-    for fmt, path in {**paths, **unported}.items():
+    paths.update(_jax_written_files(tmp_path))
+    for fmt, path in paths.items():
         assert pregistry.detect_format(path) == \
             jregistry.detect_format(path) == fmt
-    for fmt, path in unported.items():
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pb.open(path)
     kw = {"vdif": {"sample_rate": pu.Quantity(VDIF_RATE, pu.Hz)},
           "mark5b": {"nchan": 4, "ref_time": PTime(START),
                      "sample_rate": pu.Quantity(10_000_000, pu.Hz)}}

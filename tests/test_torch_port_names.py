@@ -76,7 +76,27 @@ def test_beyond_reference_names_exported():
         assert (jmodels, pmodels, name) in SUBPACKAGES
     for name in ("PintToas", "PintPhase"):
         assert (jphases, pphases, name) in SUBPACKAGES
-    assert "ShardedPipeline" not in pmodels.__all__
+    assert (jmodels, pmodels, "ShardedPipeline") in SUBPACKAGES
+
+
+IO_MODULES = ["hdf5", "hdf5.interop", "psrfits", "psrfits.fitsio",
+              "psrfits.search"]
+
+
+@pytest.mark.parametrize("name", IO_MODULES)
+def test_io_module_names_match_jax(name):
+    """``io.hdf5`` and ``io.psrfits`` (and their submodules) export the
+    JAX modules' names, each class or function of the same name."""
+    import importlib
+    jmod = importlib.import_module(f"baseband_tasks_tpu.io.{name}")
+    pmod = importlib.import_module(f"baseband_tasks_tpu_torch.io.{name}")
+    assert pmod.__all__ == jmod.__all__
+    for attr in jmod.__all__:
+        j, p = getattr(jmod, attr), getattr(pmod, attr)
+        if callable(j):
+            assert p.__name__ == j.__name__
+            assert p.__module__.split(".", 1)[1] == \
+                j.__module__.split(".", 1)[1]
 
 
 def test_stack_is_the_join():
