@@ -43,8 +43,8 @@ import torch
 from ..ops.accel_correlate import (LANES, MAX_SEG_LEN,
                                    _accel_correlate_lanes, bank_matmul_power)
 from ..utils import units as u
-from .meshtools import (axis_devices, mesh_cache_key, pad_to_multiple,
-                        require_mesh_axis)
+from .meshtools import (axis_shards, join_parts, mesh_cache_key,
+                        pad_to_multiple, require_mesh_axis)
 
 __all__ = ["FourierDomainAccelSearch", "accel_template", "auto_engine"]
 
@@ -365,7 +365,8 @@ class FourierDomainAccelSearch:
         A bank whose size does not divide the shard count is zero-padded
         (padded templates give zero power) and the pad is trimmed.
         Returns the (n_freq, n_z) map of :meth:`search`, joined on the
-        first device of the axis.
+        first device of the axis (this process's first, on every process
+        of a mesh over several, each computing its own shards).
         """
         n_shards = require_mesh_axis(mesh, axis_name)
         if not torch.is_tensor(x):
@@ -375,18 +376,19 @@ class FourierDomainAccelSearch:
                              f"{tuple(x.shape)}")
         key = mesh_cache_key(mesh, axis_name)
         cache = self.__dict__.setdefault("_sharded_cache", {})
+        devices, owners, local = axis_shards(mesh, axis_name)
         if key not in cache:
-            cache[key] = self._shard_bank(axis_devices(mesh, axis_name),
-                                          n_shards)
-        shards = cache[key]
-        maps = [s.search(x.to(s.device)) for s in shards]
+            cache[key] = self._shard_bank(devices, n_shards, local)
+        maps = [None if s is None else s.search(x.to(s.device))
+                for s in cache[key]]
         n_z = len(self.zs)
-        zmap = torch.cat([m.to(shards[0].device) for m in maps], dim=1)
+        zmap = join_parts(maps, owners, dim=1)
         return zmap[:, :n_z] if zmap.shape[1] != n_z else zmap
 
-    def _shard_bank(self, devices, n_shards):
+    def _shard_bank(self, devices, n_shards, local):
         """One search per device over its zero-padded slice of the bank
-        (the same engine, planes built from the slice)."""
+        (the same engine, planes built from the slice); None for the
+        shards of other processes."""
         n_z = len(self.zs)
         per = (n_z + pad_to_multiple(n_z, n_shards)) // n_shards
 
@@ -398,6 +400,9 @@ class FourierDomainAccelSearch:
 
         shards = []
         for k, dev in enumerate(devices):
+            if not local[k]:
+                shards.append(None)
+                continue
             s = copy.copy(self)
             s.__dict__.pop("_sharded_cache", None)
             s.device = torch.device(dev)

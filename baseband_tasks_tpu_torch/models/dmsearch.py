@@ -26,8 +26,8 @@ import torch
 from ..dm import DispersionMeasure
 from ..utils import units as u
 from ..utils.dtypes import default_device, to_numpy
-from .meshtools import (axis_devices, mesh_cache_key, require_mesh_axis,
-                        shard_columns)
+from .meshtools import (axis_shards, join_parts, mesh_cache_key,
+                        require_mesh_axis, shard_columns)
 
 __all__ = ["DMTrialSearch"]
 
@@ -161,21 +161,22 @@ class DMTrialSearch:
         count is zero-padded (the JAX package requires it to divide) and
         the pad trimmed.  The per-device tables are cached per (mesh,
         axis).  Returns the (n_time, n_dm) map of :meth:`search`, joined
-        on the first device of the axis.
+        on the first device of the axis (this process's first, on every
+        process of a mesh over several, each computing its own trials).
         """
         require_mesh_axis(mesh, axis_name)
         key = mesh_cache_key(mesh, axis_name)
         cache = self.__dict__.setdefault("_sharded_cache", {})
+        devices, owners, local = axis_shards(mesh, axis_name)
         if key not in cache:
-            devices = axis_devices(mesh, axis_name)
-            cache[key] = list(zip(devices,
-                                  shard_columns(self._phase_r, devices),
-                                  shard_columns(self._phase_i, devices)))
-        shards = cache[key]
-        outs = [self._search_impl(self._block(power, dev), pr, pi)
-                for dev, pr, pi in shards]
+            cache[key] = list(zip(
+                devices, shard_columns(self._phase_r, devices, local=local),
+                shard_columns(self._phase_i, devices, local=local)))
+        outs = [None if pr is None else
+                self._search_impl(self._block(power, dev), pr, pi)
+                for dev, pr, pi in cache[key]]
         n_dm = len(self.dms)
-        d = torch.cat([o.to(shards[0][0]) for o in outs], dim=1)
+        d = join_parts(outs, owners, dim=1)
         return d[:, :n_dm] if d.shape[1] != n_dm else d
 
     def detect(self, power, widths=(1, 2, 4, 8, 16, 32)):

@@ -29,7 +29,8 @@ import numpy as np
 import torch
 
 from ..utils import units as u
-from .meshtools import axis_devices, pad_to_multiple, require_mesh_axis
+from .meshtools import (axis_shards, join_parts, pad_to_multiple,
+                        require_mesh_axis)
 
 __all__ = ["FastFoldingSearch", "ffa_fold", "ffa_survey"]
 
@@ -205,7 +206,9 @@ class FastFoldingSearch:
         recursion on its own rows.  ``x`` is ``(n_batch, n_time)``; a batch
         that does not divide the shard count is zero-padded (zero rows
         have zero MAD and score S/N 0) and trimmed from the ``(n_batch,
-        m)`` result, joined on the first device of the axis.
+        m)`` result, joined on the first device of the axis (this
+        process's first, on every process of a mesh over several, each
+        computing its own rows).
         """
         n_shards = require_mesh_axis(mesh, axis_name)
         x = self._check_block(x)
@@ -216,10 +219,11 @@ class FastFoldingSearch:
         pad = pad_to_multiple(n_batch, n_shards)
         if pad:
             x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
-        devices = axis_devices(mesh, axis_name)
-        parts = [self.snr(rows.to(dev), widths)
-                 for rows, dev in zip(x.chunk(n_shards), devices)]
-        s = torch.cat([p.to(devices[0]) for p in parts])
+        devices, owners, local = axis_shards(mesh, axis_name)
+        parts = [self.snr(rows.to(dev), widths) if keep else None
+                 for rows, dev, keep in zip(x.chunk(n_shards), devices,
+                                            local)]
+        s = join_parts(parts, owners, dim=0)
         return s[:n_batch] if pad else s
 
     def candidates(self, x, threshold=7.0, widths=(1, 2, 4, 8, 16)):

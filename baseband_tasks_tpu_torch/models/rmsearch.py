@@ -26,8 +26,8 @@ import torch
 from ..faraday import C_M_PER_S
 from ..utils import units as u
 from ..utils.dtypes import default_device, to_numpy
-from .meshtools import (axis_devices, mesh_cache_key, require_mesh_axis,
-                        shard_columns)
+from .meshtools import (axis_shards, join_parts, mesh_cache_key,
+                        require_mesh_axis, shard_columns)
 
 __all__ = ["RMSynthesis"]
 
@@ -135,19 +135,21 @@ class RMSynthesis:
         (replicated) planes, with no communication.  A grid that does
         not divide the shard count is zero-padded and the pad trimmed.
         Returns the (..., n_phi) spectrum of :meth:`fdf`, joined on the
-        first device of the axis.
+        first device of the axis (this process's first, on every process
+        of a mesh over several, each computing its own depths).
         """
         require_mesh_axis(mesh, axis_name)
         key = mesh_cache_key(mesh, axis_name)
         cache = self.__dict__.setdefault("_sharded_cache", {})
+        devices, owners, local = axis_shards(mesh, axis_name)
         if key not in cache:
-            devices = axis_devices(mesh, axis_name)
-            cache[key] = list(zip(devices, shard_columns(self._tr, devices),
-                                  shard_columns(self._ti, devices)))
-        parts = [self._fdf_impl(*self._planes(q, u_, dev), tr, ti)
+            cache[key] = list(zip(
+                devices, shard_columns(self._tr, devices, local=local),
+                shard_columns(self._ti, devices, local=local)))
+        parts = [None if tr is None else
+                 self._fdf_impl(*self._planes(q, u_, dev), tr, ti)
                  for dev, tr, ti in cache[key]]
-        dev0 = cache[key][0][0]
-        f = torch.cat([p.to(dev0) for p in parts], dim=-1)
+        f = join_parts(parts, owners, dim=-1)
         return f[..., :self.n_phi] if f.shape[-1] != self.n_phi else f
 
     def rmsf(self, oversample=2):

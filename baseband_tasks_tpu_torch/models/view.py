@@ -63,6 +63,7 @@ class CompiledStreamView(Base):
         A ``parallel.Mesh`` to run each step as a super-step of ``S``
         blocks over the shards along ``shard_axis``
         (:class:`~.sharded.ShardedPipeline`); None for one block a step.
+        A mesh over several processes is refused.
     """
 
     #: source samples per compiled step when nothing pins the block
@@ -72,6 +73,14 @@ class CompiledStreamView(Base):
                  shard_axis="time"):
         from .compiled import CompiledPipeline
 
+        if mesh is not None and mesh.spans_processes:
+            # the JAX view's np.asarray of a global array with shards on
+            # other processes is refused as well
+            raise ValueError(
+                "compile(mesh=) on a mesh over several processes: the view "
+                "reads its whole stream in one process; run "
+                "ShardedPipeline(cp, mesh).run_blocks in every process "
+                "instead")
         cp = CompiledPipeline(tail, block_samples=block_samples, fuse=fuse)
         if block_samples is None and cp.block_samples < self._TARGET_BLOCK:
             # unpinned chains get the minimal legal block; a streamed view

@@ -16,6 +16,14 @@ copies between the shards' devices, ``parallel.halo``; ``halo='remote'``:
 the ``halo_remote`` kernel, ``parallel.halo_remote``), zeros at the
 stream's two ends.  ``device`` is the one-shard mesh.
 
+On a mesh over several processes (``parallel.multihost.pod_mesh``) each
+process runs the same entry point with the same arguments, holds and
+computes the shards of its own cells only, and gets the whole result:
+the edges and the profiles cross processes through the process group,
+and the profiles are summed over time shards in shard order, so the
+result equals the one-process mesh's.  ``halo='remote'`` serves only time
+rings that one process holds whole.
+
 ``use_kernels`` means what the JAX pipeline's ``use_pallas`` means:
 
 - True: the kernel path.  A power-of-two window with pads rounded to
@@ -58,8 +66,9 @@ from ..ops.dedisperse import (_FX_MASK, _FX_ONE, as_tensor, dedisperse_pow2,
 from ..ops.fold import fold_accumulate
 from ..ops.unpack import plane_edges
 from ..parallel.halo import halo_edges, halo_exchange, ppermute
-from ..parallel.halo_remote import halo_edges_remote, halo_exchange_remote
-from ..parallel.mesh import Mesh, grid_indices, shard
+from ..parallel.halo_remote import (halo_edges_remote, halo_exchange_remote,
+                                    local_rings)
+from ..parallel.mesh import Mesh, gather_cells, grid_indices, shard
 from ..utils import units as u
 from .foldmodel import FoldModel, _phase_to_cycles
 from .meshtools import require_mesh_axis
@@ -169,14 +178,19 @@ class WidebandPulsarPipeline:
             raise ValueError(f"mesh axes must be ('time', 'chan'), got "
                              f"{mesh.axis_names}")
         self.mesh = mesh
-        self.device = mesh.devices[0, 0]   # where results are joined
+        self.device = mesh.local_device    # where results are joined
         self.n_time_shards = mesh.shape["time"]
         self.n_chan_shards = mesh.shape["chan"]
         if n_chan % self.n_chan_shards:
             raise ValueError("n_chan must divide over the chan mesh axis")
         self._c_local = n_chan // self.n_chan_shards
-        self._cells = [(t, c) for t in range(self.n_time_shards)
-                       for c in range(self.n_chan_shards)]
+        # the cells this process computes (all of a one-process mesh)
+        self._cells = mesh.local_cells()
+        self._owners = mesh.process_ids
+        if not self._cells:
+            raise ValueError("this process owns no cell of the mesh")
+        if halo == "remote":
+            local_rings(self._owners)      # a ring across processes raises
         self.use_kernels = bool(use_kernels)
         frac = (period_samples if isinstance(period_samples, Fraction)
                 else Fraction(*period_samples))
@@ -369,24 +383,33 @@ class WidebandPulsarPipeline:
             if axis != 0:
                 raise NotImplementedError(
                     "halo='remote' moves axis-0 halos; reshape first")
-            return halo_edges_remote(grid, self.pad_start, self.pad_end)
-        return halo_edges(grid, self.pad_start, self.pad_end, axis=axis)
+            return halo_edges_remote(grid, self.pad_start, self.pad_end,
+                                     owners=self._owners)
+        return halo_edges(grid, self.pad_start, self.pad_end, axis=axis,
+                          owners=self._owners)
 
     def _halo_exchange(self, grid):
         """Each shard's overlap-save window [front | block | end] along
         time, by the pipeline's halo backend."""
         if self.halo == "remote":
-            return halo_exchange_remote(grid, self.pad_start, self.pad_end)
-        return halo_exchange(grid, self.pad_start, self.pad_end)
+            return halo_exchange_remote(grid, self.pad_start, self.pad_end,
+                                        owners=self._owners)
+        return halo_exchange(grid, self.pad_start, self.pad_end,
+                             owners=self._owners)
 
     def _reduce(self, profs, cnts):
         """Per-shard (profile, counts) grids -> the profile summed over
         time shards and joined over chan shards, and the counts summed over
         time shards only (every chan shard counts the same samples), on
-        the pipeline's device."""
+        the pipeline's device.  Over several processes every process
+        first receives the other processes' shards, so each sums them in
+        shard order, as one process does."""
         if profs.size == 1:
             return profs[0, 0], cnts[0, 0]
         dev = self.device
+        cell = self._cells[0]
+        profs = gather_cells(profs, self._owners, like=profs[cell])
+        cnts = gather_cells(cnts, self._owners, like=cnts[cell])
 
         def over_time(grid, c):
             return functools.reduce(torch.add, (grid[t, c].to(dev) for t in
@@ -532,6 +555,17 @@ class WidebandPulsarPipeline:
             prof = prof.reshape(self.n_phase, self._c_local, self.n_pol)
         return prof, cnt[:self.n_phase]
 
+    def _shard_input(self, x, shape, dtype, spec):
+        """The mesh's grid of blocks of a step input: a global array
+        (tensor or numpy, every process passing the same), or a grid
+        already sharded (``parallel.shard``, ``multihost.host_local``)."""
+        if isinstance(x, np.ndarray) and x.dtype == object:
+            if x.shape != self.mesh.devices.shape:
+                raise ValueError(f"a sharded input's grid {x.shape} is not "
+                                 f"the mesh's {self.mesh.devices.shape}")
+            return x
+        return shard(self._as_input(x, shape, dtype), self.mesh, spec)
+
     def _as_input(self, block, shape, dtype):
         t = as_tensor(block)
         if tuple(t.shape) != shape or t.dtype != dtype:
@@ -545,7 +579,8 @@ class WidebandPulsarPipeline:
 
         ``xf`` : (global_block, n_chan, n_pol, 2) float32 voltages as
         trailing (re, im) pairs, a tensor or numpy, sharded over the mesh
-        (time on axis 0, channels on axis 1); ``offset_mod`` : a scalar
+        (time on axis 0, channels on axis 1), or its grid of blocks
+        already sharded (``multihost.host_local``); ``offset_mod`` : a scalar
         sample offset (fixed-period mode) or a (3,) ``[i0_fx, p_fx, 0]``
         row for the block's first valid sample (``FoldModel.foldv``).
         Returns the (n_phase, n_chan, n_pol) profile, (n_phase, n_chan, 4)
@@ -555,8 +590,8 @@ class WidebandPulsarPipeline:
         shape = (self.global_block, self.n_chan, self.n_pol, 2)
 
         def step(xf, offset_mod):
-            grid = shard(self._as_input(xf, shape, torch.float32), self.mesh,
-                         ("time", "chan"))
+            grid = self._shard_input(xf, shape, torch.float32,
+                                     ("time", "chan"))
             return self._pairs_step(grid, self._shard_bins(
                 self._foldv(offset_mod)))
         return step
@@ -664,8 +699,10 @@ class WidebandPulsarPipeline:
             if t == n - 1:
                 tail[t, c] = w.new_empty((self.pad_start, w.shape[1]),
                                          dtype=torch.float32)
-        front = ppermute(tail, [(i, i + 1) for i in range(n - 1)])
-        end = ppermute(lead, [(i + 1, i) for i in range(n - 1)])
+        front = ppermute(tail, [(i, i + 1) for i in range(n - 1)],
+                         self._owners)
+        end = ppermute(lead, [(i + 1, i) for i in range(n - 1)],
+                       self._owners)
         return front, end
 
     def _run_edges(self, bits, bases):
@@ -709,7 +746,10 @@ class WidebandPulsarPipeline:
     def _payload(self, seed, shape, bits):
         """Random input made on the device from ``seed``: uniform words
         for packed ingest, standard normal float32 otherwise (two planes
-        on the kernel path, one array of pairs on the plain path)."""
+        on the kernel path, one array of pairs on the plain path).  Each
+        process of a mesh over several makes the whole global block, so
+        the numbers do not depend on the process layout, and keeps its
+        own shards."""
         g = torch.Generator(device=self.device)
         g.manual_seed(int(seed))
         if bits:
@@ -858,8 +898,10 @@ class WidebandPulsarPipeline:
 
 
 def _map(grid, fn):
-    """``fn`` of every block of an object grid."""
+    """``fn`` of every block of an object grid (None where a cell is
+    another process's)."""
     out = np.empty(grid.shape, dtype=object)
     for idx in grid_indices(grid.shape):
-        out[idx] = fn(grid[idx])
+        if grid[idx] is not None:
+            out[idx] = fn(grid[idx])
     return out

@@ -10,6 +10,14 @@ grid of blocks: each column is one ring); results come back in the same
 form, each on its shard's device.  :func:`ppermute` is the collective: a
 slice plus ``.to(neighbour's device)``, a fresh contiguous copy as XLA's
 collective gives.
+
+On a mesh over several processes the functions take ``owners``, the
+rank owning each block (``Mesh.process_ids``, of the blocks' form; None:
+every block is this process's); a process's blocks of other processes'
+cells are None, and so are its results there.  A copy whose two ends
+belong to different processes goes through the process group
+(``parallel/_transport.py``); every process calls the function, with
+the same ``owners``.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import _transport
 from .mesh import grid_indices, shard, unshard
 
 __all__ = ["halo_exchange", "halo_edges", "sharded_overlap_save",
@@ -52,18 +61,35 @@ def _zeros_like(t, n, axis):
     return torch.zeros(shape, dtype=t.dtype, device=t.device)
 
 
-def ppermute(bufs, perm):
+def ppermute(bufs, perm, owners=None):
     """``jax.lax.ppermute`` over a ring: shard ``j`` receives a copy of
     ``bufs[i]`` on its own device for each ``(i, j)`` in ``perm``, and
     zeros of ``bufs[j]``'s shape where nothing is sent to it.  ``bufs``
-    is a sequence or a ring grid (see the module docstring)."""
+    is a sequence or a ring grid (see the module docstring); every shard's
+    buffer has one shape and dtype.  ``owners`` (the rank of each shard,
+    in ``bufs``' form; None: all this process's) sends the copies
+    between processes through one exchange."""
     grid = ring_grid(bufs)
     out = np.empty(grid.shape, dtype=object)
+    me = _transport.process_index()
+    ranks = np.full(grid.shape, me, dtype=object) if owners is None \
+        else ring_grid(np.asarray(owners, dtype=object))
+    pairs, dests = [], []
     for i, j in perm:
         for r in range(grid.shape[1]):
-            out[j, r] = _copy_to(grid[i, r], grid[j, r].device)
+            src, dst = int(ranks[i, r]), int(ranks[j, r])
+            if src == dst:
+                if src == me:
+                    out[j, r] = _copy_to(grid[i, r], grid[j, r].device)
+                continue
+            pairs.append((src, dst, grid[i, r] if src == me
+                          else grid[j, r]))
+            dests.append((j, r))
+    for (j, r), t in zip(dests, _transport.send_recv(pairs)):
+        if t is not None:
+            out[j, r] = t
     for idx in grid_indices(grid.shape):
-        if out[idx] is None:
+        if out[idx] is None and grid[idx] is not None:
             out[idx] = torch.zeros_like(grid[idx])
     return from_grid(out, bufs)
 
@@ -87,7 +113,13 @@ def _ring_perms(n_shards, periodic):
     return fwd, bwd
 
 
-def halo_edges(blocks, pad_start, pad_end, periodic=False, axis=0):
+def _first(grid):
+    """A block this process holds (every block has one shape)."""
+    return next(b for b in grid.flat if b is not None)
+
+
+def halo_edges(blocks, pad_start, pad_end, periodic=False, axis=0,
+               owners=None):
     """The two neighbour edge buffers of :func:`halo_exchange`,
     unconcatenated.
 
@@ -96,41 +128,55 @@ def halo_edges(blocks, pad_start, pad_end, periodic=False, axis=0):
     right neighbour's head, zeros at non-periodic boundaries (a lone
     shard wraps onto itself with ``periodic``).  For kernels that
     assemble their own windows this avoids the padded window in memory.
+    ``owners``: see the module docstring.
     """
     grid = ring_grid(blocks)
     n_shards = grid.shape[0]
-    local_n = grid[0, 0].shape[axis]
-    _check_pads(local_n, pad_start, pad_end, n_shards, periodic)
+    if not any(b is not None for b in grid.flat):
+        # every block on other processes: take part in their exchanges
+        if owners is None:
+            raise ValueError("no block given")
+        local_n = None
+    else:
+        local_n = _first(grid).shape[axis]
+    if local_n is not None:
+        _check_pads(local_n, pad_start, pad_end, n_shards, periodic)
     if n_shards == 1 and not periodic:
         # a lone shard at both stream edges: zeros, whatever the pads
         front = np.empty(grid.shape, dtype=object)
         end = np.empty(grid.shape, dtype=object)
         for idx in grid_indices(grid.shape):
-            front[idx] = _zeros_like(grid[idx], pad_start, axis)
-            end[idx] = _zeros_like(grid[idx], pad_end, axis)
+            if grid[idx] is not None:
+                front[idx] = _zeros_like(grid[idx], pad_start, axis)
+                end[idx] = _zeros_like(grid[idx], pad_end, axis)
         return from_grid(front, blocks), from_grid(end, blocks)
     tails = np.empty(grid.shape, dtype=object)
     heads = np.empty(grid.shape, dtype=object)
     for idx in grid_indices(grid.shape):
-        tails[idx] = grid[idx].narrow(axis, local_n - pad_start, pad_start)
-        heads[idx] = grid[idx].narrow(axis, 0, pad_end)
+        if grid[idx] is not None:
+            tails[idx] = grid[idx].narrow(axis, local_n - pad_start,
+                                          pad_start)
+            heads[idx] = grid[idx].narrow(axis, 0, pad_end)
     # a lone periodic shard is its own neighbour
     fwd, bwd = _ring_perms(n_shards, periodic) if n_shards > 1 \
         else ([(0, 0)], [(0, 0)])
-    front = ppermute(tails, fwd)
-    end = ppermute(heads, bwd)
+    front = ppermute(tails, fwd, owners)
+    end = ppermute(heads, bwd, owners)
     return from_grid(front, blocks), from_grid(end, blocks)
 
 
-def halo_exchange(blocks, pad_start, pad_end, periodic=False, axis=0):
+def halo_exchange(blocks, pad_start, pad_end, periodic=False, axis=0,
+                  owners=None):
     """Extend each shard's block with its neighbours' edge samples along
     ``axis``: ``pad_start + local_n + pad_end`` samples a shard, zeros at
     non-periodic stream edges (``periodic=True`` wraps the ring)."""
-    front, end = halo_edges(blocks, pad_start, pad_end, periodic, axis)
+    front, end = halo_edges(blocks, pad_start, pad_end, periodic, axis,
+                            owners)
     grid, fg, eg = ring_grid(blocks), ring_grid(front), ring_grid(end)
     out = np.empty(grid.shape, dtype=object)
     for idx in grid_indices(grid.shape):
-        out[idx] = torch.cat([fg[idx], grid[idx], eg[idx]], dim=axis)
+        if grid[idx] is not None:
+            out[idx] = torch.cat([fg[idx], grid[idx], eg[idx]], dim=axis)
     return from_grid(out, blocks)
 
 
@@ -144,18 +190,21 @@ def sharded_overlap_save(fn, mesh, pad_start, pad_end, *, in_spec=None,
     takes a global array (samples on mesh axis 'time', channels on
     'chan', by default), runs ``fn`` on each shard's window after a halo
     exchange along 'time', and returns the global result on the mesh's
-    first device.
+    first (local) device, on every process of a mesh over several.
     """
     in_spec = in_spec if in_spec is not None else ("time", "chan")
     out_spec = out_spec if out_spec is not None else in_spec
     t_axis = mesh.axis_names.index("time")
+    owners = np.moveaxis(mesh.process_ids, t_axis, 0)
 
     def sharded(x):
         blocks = np.moveaxis(shard(x, mesh, in_spec), t_axis, 0)
-        windows = halo_exchange(blocks, pad_start, pad_end, periodic)
+        windows = halo_exchange(blocks, pad_start, pad_end, periodic,
+                                owners=owners)
         out = np.empty(windows.shape, dtype=object)
         for idx in grid_indices(windows.shape):
-            out[idx] = fn(windows[idx])
+            if windows[idx] is not None:
+                out[idx] = fn(windows[idx])
         return unshard(np.moveaxis(out, 0, t_axis), mesh, out_spec)
 
     return sharded

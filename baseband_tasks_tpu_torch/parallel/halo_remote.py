@@ -17,6 +17,13 @@ is each shard's ``(front, end)``.  CUDA shards launch the kernel or
 raise; CPU shards (and the tests' ``plain_versions()``) take the plain
 version :func:`halo_edges_remote_ref`, the copies of ``halo_edges``.
 Every launch adds one to ``launch_counts['halo_remote']``.
+
+The kernel reads its neighbours' memory inside one process.  On a mesh
+over several processes (``owners``, the rank of each block) it serves
+the rings that one process holds whole; a time ring that crosses
+processes is refused, with a pointer to ``halo='ppermute'`` (whose copies
+cross processes).  The TPU's remote DMA crosses hosts; reading another
+process's card would need CUDA IPC handles, which the port does not use.
 """
 
 from __future__ import annotations
@@ -28,11 +35,13 @@ import torch
 
 from ..ops._build import launch, library
 from ..ops.dedisperse import _plain
+from . import _transport
 from .halo import _check_pads, from_grid, halo_edges, ring_grid
 from .mesh import grid_indices
 
 __all__ = ["halo_edges_remote", "halo_exchange_remote",
-           "halo_edges_remote_ref", "mesh_logical_id", "MAX_SHARDS"]
+           "halo_edges_remote_ref", "mesh_logical_id", "local_rings",
+           "MAX_SHARDS"]
 
 #: shards one launch can address (the kernel's table of block pointers)
 MAX_SHARDS = 64
@@ -94,12 +103,32 @@ def _addresses(values):
     return (ctypes.c_longlong * len(values))(*values)
 
 
-def halo_edges_remote(blocks, pad_start, pad_end, periodic=False):
+def local_rings(owners):
+    """The rings (columns of the ring grid of ``owners``) this process
+    holds whole; a ring that crosses processes raises."""
+    ranks = ring_grid(np.asarray(owners, dtype=object))
+    for r in range(ranks.shape[1]):
+        held = sorted({int(k) for k in ranks[:, r]})
+        if len(held) > 1:
+            raise ValueError(
+                f"halo='remote' reads its neighbours' memory inside one "
+                f"process, but time ring {r} crosses processes {held}; use "
+                f"halo='ppermute', whose copies cross processes")
+    me = _transport.process_index()
+    return [r for r in range(ranks.shape[1]) if int(ranks[0, r]) == me]
+
+
+def halo_edges_remote(blocks, pad_start, pad_end, periodic=False,
+                      owners=None):
     """Each shard's (front, end) edge buffers along axis 0, by the
     ``halo_remote`` kernel on CUDA shards (the plain copies on CPU
     shards): ``pad_start`` rows from the left neighbour's tail and
     ``pad_end`` from the right neighbour's head, zeros at non-periodic
-    boundaries.  Semantics of :func:`..parallel.halo.halo_edges`."""
+    boundaries.  Semantics of :func:`..parallel.halo.halo_edges`;
+    ``owners`` (a rank per block): the rings this process holds, None
+    elsewhere (see the module docstring)."""
+    if owners is not None:
+        return _on_local_rings(blocks, owners, pad_start, pad_end, periodic)
     grid = ring_grid(blocks)
     n_time, n_rings = grid.shape
     # row-major over (time, ring): slot s is the shard of logical id
@@ -155,13 +184,29 @@ def halo_edges_remote(blocks, pad_start, pad_end, periodic=False):
             from_grid(end.reshape(grid.shape), blocks))
 
 
-def halo_exchange_remote(blocks, pad_start, pad_end, periodic=False):
+def _on_local_rings(blocks, owners, pad_start, pad_end, periodic):
+    """:func:`halo_edges_remote` of the rings this process holds whole."""
+    grid = ring_grid(blocks)
+    cols = local_rings(owners)
+    front = np.empty(grid.shape, dtype=object)
+    end = np.empty(grid.shape, dtype=object)
+    if cols:
+        f, e = halo_edges_remote(grid[:, cols], pad_start, pad_end,
+                                 periodic)
+        front[:, cols], end[:, cols] = f, e
+    return from_grid(front, blocks), from_grid(end, blocks)
+
+
+def halo_exchange_remote(blocks, pad_start, pad_end, periodic=False,
+                         owners=None):
     """Each shard's padded window ``concat([front, block, end])`` by
     :func:`halo_edges_remote` (drop-in for
     :func:`..parallel.halo.halo_exchange`, axis 0 only)."""
-    front, end = halo_edges_remote(blocks, pad_start, pad_end, periodic)
+    front, end = halo_edges_remote(blocks, pad_start, pad_end, periodic,
+                                   owners)
     grid, fg, eg = ring_grid(blocks), ring_grid(front), ring_grid(end)
     out = np.empty(grid.shape, dtype=object)
     for idx in grid_indices(grid.shape):
-        out[idx] = torch.cat([fg[idx], grid[idx], eg[idx]])
+        if grid[idx] is not None:
+            out[idx] = torch.cat([fg[idx], grid[idx], eg[idx]])
     return from_grid(out, blocks)

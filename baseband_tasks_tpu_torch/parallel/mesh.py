@@ -1,13 +1,20 @@
-"""Device meshes of one process, and sharding a tensor over them.
+"""Device meshes, and sharding a tensor over them.
 
 Counterpart of ``baseband_tasks_tpu/parallel/mesh.py``.  A JAX ``Mesh``
 is one controller driving several devices through ``shard_map``; the port
-keeps that model: one process, and a mesh that is a named grid of
-``torch.device``.  A "sharded array" is an object array of the mesh's
-shape holding each device's block on that device (:func:`shard`), and
+keeps that model: a mesh is a named grid of ``torch.device``, driven by
+one process.  A "sharded array" is an object array of the mesh's shape
+holding each device's block on that device (:func:`shard`), and
 :func:`unshard` reassembles the global tensor.  A device may appear
 several times in a mesh: several shards then share one card (or the
 CPU), as the JAX tests put eight virtual devices on one CPU.
+
+A mesh may span processes (``multihost.pod_mesh``): ``process_ids`` holds
+the rank that owns each cell, every process runs the same program on the
+same mesh, and a process holds and computes the blocks of its own cells
+only (:meth:`Mesh.local_cells`; the other cells of a sharded array are
+None).  A mesh built without ``process_ids`` is wholly local to the
+process that uses it.
 """
 
 from __future__ import annotations
@@ -17,8 +24,11 @@ import itertools
 import numpy as np
 import torch
 
+from . import _transport
+
 __all__ = ["Mesh", "make_mesh", "time_chan_specs", "default_devices",
-           "axis_devices", "shard", "unshard"]
+           "axis_devices", "axis_owners", "axis_shards", "shard", "unshard",
+           "gather_cells", "join_parts"]
 
 
 def grid_indices(shape):
@@ -32,10 +42,14 @@ class Mesh:
 
     ``devices`` : array-like of ``torch.device`` (or device strings), of
     one dimension per name in ``axis_names``.  ``shape`` maps each axis
-    name to its size, as a JAX mesh's does.
+    name to its size, as a JAX mesh's does.  ``process_ids`` : optional
+    integer array of the grid's shape, the rank owning each cell (a mesh
+    over several processes, ``multihost.pod_mesh``); a device named in
+    another process's cell is that process's device.  Without it every
+    cell is this process's (``process_ids`` is all 0 in one process).
     """
 
-    def __init__(self, devices, axis_names):
+    def __init__(self, devices, axis_names, process_ids=None):
         names = tuple(axis_names)
         grid = _object_array(devices)
         if grid.ndim != len(names):
@@ -44,12 +58,41 @@ class Mesh:
         self.devices = grid
         self.axis_names = names
         self.shape = dict(zip(names, grid.shape))
+        me = _transport.process_index()
+        ids = np.full(grid.shape, me, dtype=np.int64) \
+            if process_ids is None \
+            else np.asarray(process_ids, dtype=np.int64)
+        if ids.shape != grid.shape:
+            raise ValueError(f"process_ids of shape {ids.shape} for "
+                             f"devices of shape {grid.shape}")
+        self.process_ids = ids
+        self._local = ids == me
+        self.spans_processes = not self._local.all()
 
     @property
     def size(self):
         return self.devices.size
 
+    def is_local(self, idx):
+        """Whether this process owns the cell at grid index ``idx``."""
+        return bool(self._local[idx])
+
+    def local_cells(self):
+        """This process's cells, as grid indices in row-major order."""
+        return [idx for idx in grid_indices(self.devices.shape)
+                if self._local[idx]]
+
+    @property
+    def local_device(self):
+        """This process's first device (its first cell's), where results
+        joined over the mesh are put; the first device of a local mesh."""
+        cells = self.local_cells()
+        return self.devices[cells[0]] if cells else self.devices.flat[0]
+
     def __repr__(self):
+        if self.spans_processes:
+            return (f"Mesh({self.shape}, {list(self.devices.flat)}, "
+                    f"process_ids={self.process_ids.tolist()})")
         return f"Mesh({self.shape}, {list(self.devices.flat)})"
 
 
@@ -83,7 +126,13 @@ def make_mesh(time=1, chan=1, devices=None):
     """
     devices = _object_array(list(devices) if devices is not None
                             else default_devices()).reshape(-1)
-    n = devices.size
+    time, chan = mesh_shape(devices.size, time, chan)
+    return Mesh(devices[:time * chan].reshape(time, chan), ("time", "chan"))
+
+
+def mesh_shape(n, time, chan):
+    """(time, chan) of a mesh over ``n`` devices, ``-1`` absorbing the
+    rest (:func:`make_mesh`'s rule)."""
     if time == -1 and chan == -1:
         raise ValueError("only one of time/chan may be -1")
     if time == -1:
@@ -96,7 +145,7 @@ def make_mesh(time=1, chan=1, devices=None):
     if time * chan > n:
         raise ValueError(f"mesh {time}x{chan} needs {time * chan} devices, "
                          f"have {n}")
-    return Mesh(devices[:time * chan].reshape(time, chan), ("time", "chan"))
+    return time, chan
 
 
 def time_chan_specs(mesh):
@@ -116,8 +165,17 @@ def axis_devices(mesh, axis_name):
     return list(mesh.devices[take])
 
 
-def _index(spec, shape, mesh, coord):
-    """The slices of an array of ``shape`` held at mesh ``coord``."""
+def axis_owners(mesh, axis_name):
+    """The ranks owning the cells of :func:`axis_devices`."""
+    axis = mesh.axis_names.index(axis_name)
+    take = tuple(slice(None) if i == axis else 0
+                 for i in range(mesh.devices.ndim))
+    return [int(r) for r in mesh.process_ids[take]]
+
+
+def block_index(spec, shape, mesh, idx):
+    """The slices of an array of ``shape`` held at grid index ``idx``."""
+    coord = dict(zip(mesh.axis_names, idx))
     out = []
     for dim, name in enumerate(spec):
         if name is None:
@@ -138,33 +196,94 @@ def shard(x, mesh, spec):
     mesh-axis name or None per leading dimension; axes not named are
     replicated): an object array of the mesh's shape holding each
     device's contiguous block on that device.  A block that is the whole
-    of ``x`` on its own device is ``x`` itself."""
+    of ``x`` on its own device is ``x`` itself.  On a mesh over several
+    processes every process passes the same global ``x`` (as to JAX's
+    ``device_put``) and gets the blocks of its own cells; the others are
+    None."""
     x = torch.as_tensor(x)
     out = np.empty(mesh.devices.shape, dtype=object)
-    for idx in grid_indices(mesh.devices.shape):
-        coord = dict(zip(mesh.axis_names, idx))
-        block = x[_index(spec, x.shape, mesh, coord)]
+    for idx in mesh.local_cells():
+        block = x[block_index(spec, x.shape, mesh, idx)]
         out[idx] = block.to(mesh.devices[idx]).contiguous()
     return out
 
 
 def unshard(blocks, mesh, spec, device=None):
     """The global tensor of a sharded array (the inverse of :func:`shard`),
-    on ``device`` (default: the mesh's first device).  Replicated axes
-    take the blocks at index 0."""
+    on ``device`` (default: the mesh's first local device).  Replicated
+    axes take the blocks at index 0.  On a mesh over several processes
+    every process calls it and gets the whole tensor (the other
+    processes' blocks are gathered)."""
     device = torch.device(device) if device is not None \
-        else mesh.devices.flat[0]
+        else mesh.local_device
     grid = np.asarray(blocks, dtype=object)
     named = {name: dim for dim, name in enumerate(spec) if name is not None}
     # index 0 along every mesh axis the spec does not split
-    take = tuple(slice(None) if name in named else 0
+    take = tuple(slice(None) if name in named else slice(0, 1)
                  for name in mesh.axis_names)
-    grid = grid[take]
+    grid = gather_cells(grid[take], mesh.process_ids[take], device=device)
     axes = [name for name in mesh.axis_names if name in named]
+    grid = grid.reshape([mesh.shape[name] for name in axes])
 
     def join(g, level):
         if level == len(axes):
             return g.to(device)
         return torch.cat([join(g[i], level + 1) for i in range(g.shape[0])],
                          dim=named[axes[level]])
-    return join(grid, 0)
+    return join(grid[()] if not axes else grid, 0)
+
+
+def gather_cells(grid, owners, device=None, like=None):
+    """Every cell of an object grid, on every process of ``owners`` (a
+    rank per cell): the cells this process holds as they are, the others
+    received from their owners, in cell order.
+    Received blocks land on ``device`` in the sender's shape and dtype,
+    or, given ``like`` (a tensor), in its shape, dtype and device, which
+    saves the shape exchange.  Every process of ``owners`` calls it."""
+    grid = np.asarray(grid, dtype=object)
+    owners = np.asarray(owners)
+    me = _transport.process_index()
+    ranks = sorted({int(r) for r in owners.flat})
+    cells = list(grid_indices(grid.shape))
+    pairs, where = [], []
+    for idx in cells:
+        src = int(owners[idx])
+        for dst in ranks:
+            if dst != src:
+                t = grid[idx] if src == me else like
+                pairs.append((src, dst, t))
+                where.append(idx)
+    got = _transport.send_recv(pairs, shapes=like is None, device=device)
+    out = grid.copy()
+    for idx, (_, dst, _), t in zip(where, pairs, got):
+        if dst == me:
+            out[idx] = t
+    return out
+
+
+def axis_shards(mesh, axis_name):
+    """``(devices, owners, local)`` along ``axis_name``: the devices, the
+    ranks owning them and whether
+    each is this process's.  A process must own one shard at least."""
+    devices = axis_devices(mesh, axis_name)
+    owners = axis_owners(mesh, axis_name)
+    me = _transport.process_index()
+    local = [r == me for r in owners]
+    if not any(local):
+        raise ValueError(f"this process owns no shard along mesh axis "
+                         f"{axis_name!r}")
+    return devices, owners, local
+
+
+def join_parts(parts, owners, dim):
+    """The shards' parts (None for other processes') joined along ``dim``
+    in shard order on this process's first shard's device, every part
+    received where another process computed it (every part has one shape
+    and dtype)."""
+    mine = [p for p in parts if p is not None]
+    home = mine[0].device
+    grid = np.empty(len(parts), dtype=object)
+    for i, p in enumerate(parts):
+        grid[i] = p
+    parts = list(gather_cells(grid, owners, like=mine[0]))
+    return torch.cat([p.to(home) for p in parts], dim=dim)

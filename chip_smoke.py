@@ -294,7 +294,27 @@ on four virtual shards of the card along 'time':
     shards against the one-device float path (rtol 1e-5, atol 1e-6);
     without ``h5py``, the payload coding at 8, 4 and 2 bits decoded on
     the card against the host decode with no file.  No kernel's launch
-    count depends on (w5).
+    count depends on (w5);
+
+and across two processes on the one card (``parallel.multihost``: two
+workers of ``baseband_tasks_tpu_torch.tools.multihost_check`` running
+:func:`multihost_worker_checks`, joined over gloo with the transfers
+staged through pinned host memory, 2 virtual shards of ``cuda:0``
+each; NCCL refuses two ranks on one card):
+
+(x1) the flagship at full width, ``run_fn(8, ingest_bits=8)`` on a (4, 1)
+    mesh split 2 + 2: each process launches k1_packed, k2 and k3_fold 16
+    times, the counts exact and the profiles within PROFILE_RTOL of
+    (q)'s one-process (4, 1) run; ms a step beside (q)'s, with the
+    transport's bytes and host ms a step; ``step_fn`` on (2, 2) against
+    one process;
+(x2) config 2 compiled through ``ShardedPipeline`` over the two
+    processes (S = 4, 8 blocks): every output block bit for bit against
+    (w1)'s one-process sharded output (SHA-256 of its bytes), the two
+    processes' launches summed equal to (w1)'s; ms a block beside (w1)'s;
+(x3) ``search_sharded`` ('pallas', accel_corr), ``snr_sharded``,
+    ``DMTrialSearch.search_sharded`` and ``fdf_sharded`` split over the
+    two processes against the same calls in one process.
 
 The plain versions run on the card inside the package's test-only
 switch ``ops.dedisperse.plain_versions()``, with every float32 matmul
@@ -2881,12 +2901,14 @@ def drive_sharded(dev, gpu):
     numpy fold; (4, 2) against (4, 1); ``search_sharded`` and
     ``snr_sharded`` on four shards against the unsharded calls; then the
     sharded step and the two halo backends timed.  Returns the launch
-    counts of the halo kernel's path."""
+    counts of the halo kernel's path, and the (4, 1) packed run's profile
+    and counts (on the host) and ms a step, for phase (x)."""
     from baseband_tasks_tpu_torch import (FastFoldingSearch,
                                           WidebandPulsarPipeline, units as u)
     from baseband_tasks_tpu_torch.ops import dedisperse as dd
     from baseband_tasks_tpu_torch.parallel import Mesh
     meshes = {"4x1": virtual_mesh(dev, 4, 1), "2x2": virtual_mesh(dev, 2, 2)}
+    refs = {}
     for name, mesh in meshes.items():
         pipe = flagship(None, mesh=mesh)
         run = pipe.run_fn(N_ITER, ingest_bits=8)
@@ -2907,6 +2929,8 @@ def drive_sharded(dev, gpu):
         if total != N_ITER * pipe.global_block:
             raise AssertionError(f"{name}: counts wrong")
         check_profile(f"run_fn on {name}", got, ref, False, gpu, "(q)")
+        if name == "4x1":
+            refs["run"] = tuple(t.cpu() for t in got)
         del pipe, run, got, ref
         torch.cuda.empty_cache()
 
@@ -3051,6 +3075,7 @@ def drive_sharded(dev, gpu):
     # a step of a (t, c) mesh folds t windows: against t one-shard steps
     ratio = {name: ms[name] / (mesh.shape["time"] * ms["1 shard"])
              for name, mesh in meshes.items()}
+    refs["ms"] = ms["4x1"]
     print(f"(q) packed step: 4x1 {ms['4x1']:.3f} ms/step (4 windows, "
           f"{ratio['4x1']:.3f} of 4 one-shard steps), 2x2 {ms['2x2']:.3f} "
           f"(2 windows, {ratio['2x2']:.3f} of 2), one shard "
@@ -3065,7 +3090,7 @@ def drive_sharded(dev, gpu):
           f"'ppermute' {ms['ppermute']:.3f} ms/step [{gpu}]", flush=True)
     print_profile("(q) profiled float step, 4x1, halo='remote'",
                   functools.partial(floats["remote"], seed=0), N_ITER, gpu)
-    return launches
+    return launches, refs
 
 
 def shard_grid(x, mesh):
@@ -4006,7 +4031,8 @@ def drive_sharded_compiled(name, dev, gpu, tag):
     W_SHARDS virtual shards of the card for W_BLOCKS blocks, against the
     one-device ``CompiledPipeline`` on the same blocks (rtol W_RTOL, the
     launches of each run equal), both timed in ms a block, in turns, and
-    the sharded run profiled.  Returns the sharded run's launches."""
+    the sharded run profiled.  Returns the sharded run's launches, its ms
+    a block and the SHA-256 of each output block's bytes (phase (x))."""
     from baseband_tasks_tpu_torch import CompiledPipeline
     from baseband_tasks_tpu_torch.models import ShardedPipeline
     from baseband_tasks_tpu_torch.ops import dedisperse as dd
@@ -4055,6 +4081,7 @@ def drive_sharded_compiled(name, dev, gpu, tag):
             or not torch.allclose(got, ref, rtol=W_RTOL,
                                   atol=W_RTOL * peak)):
         raise AssertionError(f"{tag} {name}: sharded disagrees")
+    digests = block_digests(got, cp.tail_block)
     del got, ref
     runs = {"one device": lambda: cp.run_blocks(blocks),
             "sharded": lambda: sp.run_blocks(blocks)}
@@ -4072,7 +4099,15 @@ def drive_sharded_compiled(name, dev, gpu, tag):
     for dev_us, count, key in rows[:6]:
         print(f"{tag}   {dev_us / 1e3 / W_BLOCKS:8.3f} ms/block  "
               f"x{count:<3d} {key[:70]} [{gpu}]", flush=True)
-    return counts
+    return counts, ms["sharded"], digests
+
+
+def block_digests(out, tail_block):
+    """SHA-256 of the bytes of each ``tail_block``-sample output block."""
+    import hashlib
+    host = out.cpu().numpy()
+    return [hashlib.sha256(host[k:k + tail_block].tobytes()).digest()
+            for k in range(0, host.shape[0], tail_block)]
 
 
 # which kernels each sharded path must launch: the complex step (as in
@@ -4330,7 +4365,8 @@ def drive_hdf5(dev, gpu, tmp):
 
 
 def drive_sharded_and_stored(dev, gpu):
-    """Phase (w).  Returns the launch counts of (w1)-(w4)."""
+    """Phase (w).  Returns the launch counts of (w1)-(w4), and (w1)'s
+    launches, ms a block and output digests for phase (x)."""
     import tempfile
     launches = {}
 
@@ -4338,9 +4374,10 @@ def drive_sharded_and_stored(dev, gpu):
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
     full_fp32()
-    add(drive_sharded_compiled("config2", dev, gpu, "(w1)"))
+    w1 = drive_sharded_compiled("config2", dev, gpu, "(w1)")
+    add(w1[0])
     torch.cuda.empty_cache()
-    add(drive_sharded_compiled("config3_quad", dev, gpu, "(w2)"))
+    add(drive_sharded_compiled("config3_quad", dev, gpu, "(w2)")[0])
     torch.cuda.empty_cache()
     add(drive_sharded_view(dev, gpu))
     torch.cuda.empty_cache()
@@ -4349,6 +4386,312 @@ def drive_sharded_and_stored(dev, gpu):
         torch.cuda.empty_cache()
         drive_hdf5(dev, gpu, tmp)
     torch.cuda.empty_cache()
+    return launches, w1
+
+# -- two processes on the one card: phase (x) -------------------------------
+
+X_WORLD = 2                  # processes, each with 2 virtual shards of cuda:0
+X_TIMEOUT = 300              # seconds for the pair of workers
+X_TURNS = 4                  # timed turns (best of)
+# the transport's kinds of counters, saved by the workers
+X_TRANSFER = ("calls", "bytes", "seconds")
+
+
+def _counts_arrays(counts):
+    names = sorted(k for k, v in counts.items() if v)
+    return np.asarray(names), np.asarray([counts[k] for k in names])
+
+
+def _counts_dict(results, key):
+    return {str(k): int(v) for k, v in zip(results[f"{key}/names"],
+                                           results[f"{key}/counts"])}
+
+
+def _x_turns(fn, per):
+    """Best host ms of ``fn`` over X_TURNS synchronised calls, divided by
+    ``per``, and the transport's counters a call, divided by ``per``."""
+    from baseband_tasks_tpu_torch.parallel import _transport as tr
+    tr.reset_transfer_counts()
+    best = min(host_s(fn, turns=1) for _ in range(X_TURNS))
+    return 1e3 * best / per, np.asarray(
+        [tr.transfer_counts[k] / (X_TURNS * per) for k in X_TRANSFER])
+
+
+def _x_profile(out, key, fn, per):
+    """This process's wall and device-busy ms of one profiled call of
+    ``fn`` over ``per`` steps or blocks, and its top device rows."""
+    wall, busy, rows = device_profile(fn)
+    out[f"{key}/profile"] = np.asarray([wall / per, busy / per])
+    out[f"{key}/rows"] = np.asarray([r[2][:60] for r in rows[:5]])
+    out[f"{key}/rows_ms"] = np.asarray([r[0] / 1e3 / per for r in rows[:5]])
+
+
+def _x_print_profile(tag, z, key, unit, gpu):
+    wall, busy = z[f"{key}/profile"]
+    print(f"{tag} profiled: {wall:.3f} ms a {unit} wall, this process's "
+          f"device work {busy:.3f} ({busy / wall:.2f}) [{gpu}]", flush=True)
+    for name, ms in zip(z[f"{key}/rows"], z[f"{key}/rows_ms"]):
+        print(f"{tag}   {ms:8.3f} ms/{unit}  {name} [{gpu}]", flush=True)
+
+
+def multihost_worker_checks(ctx):
+    """Phase (x) inside one of the two worker processes (started by
+    :func:`drive_multihost` through ``multihost_check``): the paths over
+    a mesh whose shards are split between the processes, counted and
+    timed; rank 0 also runs the searches on a one-process mesh.  Returns
+    the arrays the driver compares."""
+    import hashlib
+    from baseband_tasks_tpu_torch import CompiledPipeline, FastFoldingSearch
+    from baseband_tasks_tpu_torch.models import (DMTrialSearch, RMSynthesis,
+                                                 ShardedPipeline)
+    from baseband_tasks_tpu_torch.ops import dedisperse as dd
+    from baseband_tasks_tpu_torch.parallel import Mesh
+    from baseband_tasks_tpu_torch import units as u
+    full_fp32()
+    dev = torch.device(ctx.devices[0])
+    out = {"world": np.int64(ctx.world)}
+
+    # (x1) the flagship's packed run_fn on (4, 1), 2 + 2 shards
+    pipe = flagship(None, mesh=ctx.mesh(N_SHARDS, 1))
+    run = pipe.run_fn(N_ITER, ingest_bits=8)
+    dd.reset_launch_counts()
+    prof, cnt = run(seed=0)
+    torch.cuda.synchronize()
+    out["x1/names"], out["x1/counts"] = _counts_arrays(dd.launch_counts)
+    out["x1/prof"], out["x1/cnt"] = prof.cpu().numpy(), cnt.cpu().numpy()
+    out["x1/global_block"] = np.int64(pipe.global_block)
+    out["x1/ms"], out["x1/transfer"] = _x_turns(
+        functools.partial(run, seed=0), N_ITER)
+    _x_profile(out, "x1", functools.partial(run, seed=0), N_ITER)
+    del pipe, run
+
+    # step_fn on (2, 2), 2 + 2 shards, against one process on the card
+    mesh = ctx.mesh(2, 2)
+    step = flagship(None, mesh=mesh)
+    T = step.global_block
+    (xf,) = randn(dev, (T, 64, 2, 2), 72, count=1)
+    row = step.fold_model.foldv(3 * T, T)
+    got = step.step_fn()(xf, row)
+    out["x1s/prof"], out["x1s/cnt"] = (t.cpu().numpy() for t in got)
+    if ctx.rank == 0:
+        ref = flagship(None, mesh=ctx.local_mesh(mesh)).step_fn()(xf, row)
+        out["x1s/ref_prof"], out["x1s/ref_cnt"] = (t.cpu().numpy()
+                                                   for t in ref)
+    del step, xf, got
+    torch.cuda.empty_cache()
+
+    # (x2) config 2 through ShardedPipeline, S = 4 over the processes
+    cp = CompiledPipeline(compiled_tail("config2", dev,
+                                        n_samples=W_SOURCE["config2"]))
+    mesh = ctx.mesh(W_SHARDS, 1)
+    sp = ShardedPipeline(cp, mesh)
+    blocks = cp.read_source_blocks(W_BLOCKS)
+    torch.cuda.synchronize()
+    dd.reset_launch_counts()
+    mine = sp.run_blocks(blocks)
+    torch.cuda.synchronize()
+    out["x2/names"], out["x2/counts"] = _counts_arrays(dd.launch_counts)
+    local = [i for i in range(W_SHARDS) if mesh.process_ids[i, 0] ==
+             ctx.rank]
+    out["x2/blocks"] = np.asarray([k + i for k in range(0, W_BLOCKS,
+                                                        W_SHARDS)
+                                   for i in local])
+    host = mine.cpu().numpy()
+    tb = cp.tail_block
+    out["x2/digests"] = np.stack([np.frombuffer(hashlib.sha256(
+        host[k:k + tb].tobytes()).digest(), np.uint8)
+        for k in range(0, host.shape[0], tb)])
+    out["x2/finite"] = np.int64(bool(np.isfinite(host.view(
+        np.float32)).all()))
+    del mine, host
+    out["x2/ms"], out["x2/transfer"] = _x_turns(
+        lambda: sp.run_blocks(blocks), W_BLOCKS)
+    _x_profile(out, "x2", lambda: sp.run_blocks(blocks), W_BLOCKS)
+    del cp, sp, blocks
+    torch.cuda.empty_cache()
+
+    # (x3) the sharded searches, 2 + 2 shards, against one process
+    x = search_series(dev)
+    rows = torch.stack([x] + randn(dev, (SEARCH_N,), 75, count=3))
+    freq = (800 + (np.arange(FRB_CHAN) - FRB_CHAN / 2)
+            * (FRB_RATE / FRB_CHAN / 1e6)) * u.MHz
+    g = torch.Generator(device=dev).manual_seed(76)
+    power = torch.randn((FRB_NTIME, FRB_CHAN), generator=g,
+                        device=dev) ** 2
+    q, u_ = torch.randn((2, RM_BATCH, RM_CHAN), generator=g, device=dev)
+    cases = {
+        "accel": (lambda: accel_search(dev, "pallas"), "z",
+                  lambda s, m: s.search_sharded(x, m)),
+        "ffa": (lambda: FastFoldingSearch(FFA_BASE, SEARCH_N, device=dev),
+                "batch", lambda s, m: s.snr_sharded(rows, m)),
+        "dm": (lambda: DMTrialSearch(freq, FRB_RATE / FRB_CHAN * u.Hz,
+                                     FRB_DMS, FRB_NTIME, device=dev), "dm",
+               lambda s, m: s.search_sharded(power, m)),
+        "rm": (lambda: RMSynthesis((1200 + 0.25 * np.arange(RM_CHAN))
+                                   * u.MHz, np.linspace(-500, 500, RM_PHI),
+                                   device=dev), "phi",
+               lambda s, m: s.fdf_sharded(q, u_, m)),
+    }
+    for name, (make, axis, call) in cases.items():
+        model, mesh = make(), ctx.axis_mesh(axis, N_SHARDS)
+        call(model, mesh)                   # the shards' tables, once
+        torch.cuda.synchronize()
+        dd.reset_launch_counts()
+        got = call(model, mesh)
+        torch.cuda.synchronize()
+        out[f"x3/{name}/names"], out[f"x3/{name}/counts"] = \
+            _counts_arrays(dd.launch_counts)
+        out[f"x3/{name}/ms"], _ = _x_turns(lambda: call(model, mesh), 1)
+        if ctx.rank == 0:
+            ref = call(make(), ctx.local_mesh(mesh))
+            diff = (got - ref).abs()
+            out[f"x3/{name}/err"] = np.float64(
+                float(diff.max()) / max(float(ref.abs().max()), 1e-30))
+            out[f"x3/{name}/same"] = np.int64(bool(torch.equal(got, ref)))
+            out[f"x3/{name}/shape"] = np.asarray(got.shape)
+        del model, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def drive_multihost(dev, gpu, q_refs, w1):
+    """Phase (x): two worker processes on the card, each with 2 virtual
+    shards of it, over gloo (NCCL refuses two ranks on one card), running
+    :func:`multihost_worker_checks`; their results held against (q)'s
+    (4, 1) run and (w1)'s sharded output from this process.  Returns the
+    launch counts of both processes summed."""
+    import os
+    import subprocess
+    import tempfile
+    from baseband_tasks_tpu_torch.tools import multihost_check as mc
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "x.npz")
+        cmd = [sys.executable, "-m",
+               "baseband_tasks_tpu_torch.tools.multihost_check", None,
+               str(X_WORLD), f"file://{tmp}/rendezvous", out,
+               "chip_smoke:multihost_worker_checks",
+               ",".join([str(dev)] * 2), "--backend", "gloo"]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(cmd[:3] + [str(r)] + cmd[4:], cwd=root,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(X_WORLD)]
+        try:
+            texts = [p.communicate(timeout=X_TIMEOUT)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        for r, (p, text) in enumerate(zip(procs, texts)):
+            tail = "\n".join(text.strip().splitlines()[-40:])
+            print(f"(x) worker {r}: exit {p.returncode} after {wall:.1f} s; "
+                  f"its output's end:\n{tail}", flush=True)
+            if p.returncode != 0:
+                raise AssertionError(f"(x) worker {r} failed")
+        res = [dict(np.load(mc.rank_file(out, r))) for r in range(X_WORLD)]
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # (x1)
+    want = {k: N_ITER * N_SHARDS // X_WORLD
+            for k in ("k1_packed", "k2", "k3_fold")}
+    ref_prof, ref_cnt = q_refs["run"]
+    for r, z in enumerate(res):
+        counts = _counts_dict(z, "x1")
+        add(counts)
+        print(f"(x1) rank {r}: run_fn({N_ITER}, ingest_bits=8) on 4x1 "
+              f"(2 + 2 shards): launches {counts}", flush=True)
+        if counts != want:
+            raise AssertionError(f"(x1) rank {r}: launches, want {want}")
+        got = (torch.from_numpy(z["x1/prof"]), torch.from_numpy(z["x1/cnt"]))
+        total = int(got[1].sum())
+        if total != N_ITER * int(z["x1/global_block"]):
+            raise AssertionError(f"(x1) rank {r}: counts sum {total}")
+        check_profile(f"rank {r} against (q)'s one-process 4x1 run", got,
+                      (ref_prof, ref_cnt), False, gpu, "(x1)")
+        calls, nbytes, secs = z["x1/transfer"]
+        print(f"(x1) rank {r}: {z['x1/ms']:.3f} ms a step across two "
+              f"processes against (q)'s {q_refs['ms']:.3f} one-process "
+              f"({z['x1/ms'] / q_refs['ms']:.2f}x); the transport "
+              f"{calls:.1f} calls, {nbytes / 1e6:.3f} MB sent and "
+              f"{1e3 * secs:.3f} ms of host time a step [{gpu}]",
+              flush=True)
+        _x_print_profile(f"(x1) rank {r}", z, "x1", "step", gpu)
+    z = res[0]
+    a = tuple(torch.from_numpy(z[k]) for k in ("x1s/prof", "x1s/cnt"))
+    b = tuple(torch.from_numpy(z[k]) for k in ("x1s/ref_prof",
+                                                "x1s/ref_cnt"))
+    for r in range(1, X_WORLD):
+        other = (torch.from_numpy(res[r]["x1s/prof"]),
+                 torch.from_numpy(res[r]["x1s/cnt"]))
+        if not (torch.equal(other[0], a[0]) and torch.equal(other[1], a[1])):
+            raise AssertionError(f"(x1) step_fn: rank {r} holds another "
+                                 f"result than rank 0")
+    check_profile("step_fn on 2x2 (2 + 2 shards) against one process", a,
+                  b, False, gpu, "(x1)")
+
+    # (x2)
+    w1_counts, w1_ms, w1_digests = w1
+    summed = {}
+    for r, z in enumerate(res):
+        counts = _counts_dict(z, "x2")
+        add(counts)
+        for k, v in counts.items():
+            summed[k] = summed.get(k, 0) + v
+        same = [bytes(d) == w1_digests[int(k)]
+                for d, k in zip(z["x2/digests"], z["x2/blocks"])]
+        print(f"(x2) rank {r}: blocks {z['x2/blocks'].tolist()} of config "
+              f"2 through ShardedPipeline (S = {W_SHARDS} over "
+              f"{X_WORLD} processes): bit for bit with (w1)'s one-process "
+              f"output {sum(same)} of {len(same)}, finite "
+              f"{bool(z['x2/finite'])}; launches {counts}", flush=True)
+        if not all(same) or not z["x2/finite"]:
+            raise AssertionError(f"(x2) rank {r}: output differs from (w1)")
+    covered = sorted(int(k) for z in res for k in z["x2/blocks"])
+    print(f"(x2) launches of both processes {summed}, (w1)'s {w1_counts}",
+          flush=True)
+    if covered != list(range(W_BLOCKS)) or summed != w1_counts:
+        raise AssertionError("(x2) blocks or launches differ from (w1)")
+    for r, z in enumerate(res):
+        calls, nbytes, secs = z["x2/transfer"]
+        print(f"(x2) rank {r}: {z['x2/ms']:.3f} ms a block across two "
+              f"processes against (w1)'s {w1_ms:.3f} one-process "
+              f"({z['x2/ms'] / w1_ms:.2f}x); the transport {calls:.2f} "
+              f"calls, {nbytes / 1e6:.3f} MB sent and {1e3 * secs:.3f} ms "
+              f"of host time a block [{gpu}]", flush=True)
+        _x_print_profile(f"(x2) rank {r}", z, "x2", "block", gpu)
+
+    # (x3)
+    tols = {"accel": FFT_TOL, "ffa": 1e-4, "dm": SEARCH_TOL,
+            "rm": SEARCH_TOL}
+    for name, tol in tols.items():
+        for r, z in enumerate(res):
+            add(_counts_dict(z, f"x3/{name}"))
+        z = res[0]
+        err, same = float(z[f"x3/{name}/err"]), bool(z[f"x3/{name}/same"])
+        ms = [float(zr[f"x3/{name}/ms"]) for zr in res]
+        shape = tuple(z[f"x3/{name}/shape"].tolist())
+        print(f"(x3) {name} {shape} over 2 + 2 shards: vs one process "
+              f"{err:.3e} of the peak "
+              f"({'bit-identical' if same else 'not bit-identical'}); "
+              f"launches {[_counts_dict(zr, f'x3/{name}') for zr in res]}; "
+              f"{min(ms):.3f} ms a call [{gpu}]", flush=True)
+        if err > tol:
+            raise AssertionError(f"(x3) {name} disagrees with one process")
+    if launches.get("accel_corr", 0) != N_SHARDS:
+        raise AssertionError(f"(x3) accel_corr launched "
+                             f"{launches.get('accel_corr', 0)} times, want "
+                             f"{N_SHARDS} (one a shard)")
+    print(f"(x) two processes on one card: {wall:.1f} s of workers, "
+          f"launches {launches}", flush=True)
     return launches
 
 
@@ -4417,7 +4760,8 @@ def main():
     torch.cuda.empty_cache()
     results.update(check_halo_kernel(dev, gpu))
     torch.cuda.empty_cache()
-    launches["halo_remote"] = drive_sharded(dev, gpu)["halo_remote"]
+    sharded, q_refs = drive_sharded(dev, gpu)
+    launches["halo_remote"] = sharded["halo_remote"]
     torch.cuda.empty_cache()
     drive_fx(dev, gpu)
     resample = drive_resample(dev, gpu)
@@ -4436,10 +4780,15 @@ def main():
     print(f"(v) launches on the analysis paths: {analysis}", flush=True)
     for k, v in analysis.items():
         launches[k] += v
-    stored = drive_sharded_and_stored(dev, gpu)
+    stored, w1 = drive_sharded_and_stored(dev, gpu)
     print(f"(w) launches on the sharded and stored-file paths: {stored}",
           flush=True)
     for k, v in stored.items():
+        launches[k] += v
+    torch.cuda.empty_cache()
+    multi = drive_multihost(dev, gpu, q_refs, w1)
+    print(f"(x) launches on the two-process paths: {multi}", flush=True)
+    for k, v in multi.items():
         launches[k] += v
     missing = [k for k in KERNELS if launches[k] <= 0]
     if missing:

@@ -43,8 +43,9 @@ DM-trial search against the plain versions and the CPU, DeFaraday's
 planes form in a compiled chain behind a 'pallas' Dedisperse, and the
 Faraday, polarization, SK, RM-synthesis and secondary-spectrum code on
 CUDA tensors against the CPU; the sharded config-2 step on four virtual
-shards of the card against one device (launches and output), and the
-HDF5 and PSRFITS readers handing out CUDA tensors.
+shards of the card against one device (launches and output), the
+HDF5 and PSRFITS readers handing out CUDA tensors, and two processes on
+the one card through the multi-process transport (gloo, host-staged).
 Tolerances as in ``chip_smoke.py``: planes
 to 1e-4 of their largest element (float32 FFT roundoff is ~1e-6 of it),
 profiles elementwise to rtol 2e-4 (atomic summation order), counts
@@ -1873,3 +1874,39 @@ def test_hdf5_file_on_card(dev, tmp_path):
         assert got.device == dev
         words = torch.from_numpy(fh.read_packed(0, 4096)).to(dev)
         assert torch.equal(fh.packed_decode_fn()(words), got)
+
+
+def test_two_processes_on_one_card(dev, tmp_path):
+    """Two processes on the one card through the transport (gloo, CUDA
+    tensors staged through pinned host slots): the halo exchange, the
+    corner turn and the channelizers, the flagship step's reduction, bit
+    for bit against one process, and a run of transfers into a receiver
+    whose stream is held busy (a slot refilled before its copy completed
+    would hand out the next transfer's bytes)."""
+    import os
+    import subprocess
+    import sys
+    from baseband_tasks_tpu_torch.tools import multihost_check as mc
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = str(tmp_path / "out.npz")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "baseband_tasks_tpu_torch.tools."
+         "multihost_check", str(r), "2", f"file://{tmp_path}/rdv", out,
+         "transport", "cuda:0,cuda:0", "--backend", "gloo"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=root) for r in range(2)]
+    try:
+        texts = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, text in zip(procs, texts):
+        assert p.returncode == 0 and "MULTIHOST_OK" in text, text
+    for rank in (0, 1):
+        got = np.load(mc.rank_file(out, rank))
+        cases = [k[:-len("/one")] for k in got.files if k.endswith("/one")]
+        assert cases
+        for case in cases:
+            assert np.array_equal(got[f"{case}/multi"], got[f"{case}/one"]), \
+                f"rank {rank}: {case}"
+    assert "refill/one" in np.load(mc.rank_file(out, 1)).files

@@ -1,6 +1,8 @@
 """Public names of ported modules against the JAX package: the top-level
 names both packages export (each from the same module, ``Stack`` the
-join of ``combining.py`` in both), the fold model's ``best_rational``
+join of ``combining.py`` in both), those of ``models``, ``phases`` and
+``parallel`` (``multihost`` among them, with its ``initialize``,
+``pod_mesh`` and ``host_local``), the fold model's ``best_rational``
 (exact: the same convergents of the same float),
 ``base.META_ATTRIBUTES`` (the same tuple) and
 ``WidebandPulsarPipeline.example_inputs`` (the same numbers from the same
@@ -20,6 +22,7 @@ import baseband_tasks_tpu as jb  # noqa: E402
 import baseband_tasks_tpu.base as jbase  # noqa: E402
 import baseband_tasks_tpu.combining as jcombining  # noqa: E402
 import baseband_tasks_tpu.models as jmodels  # noqa: E402
+import baseband_tasks_tpu.parallel as jparallel  # noqa: E402
 from baseband_tasks_tpu import utils as jutils  # noqa: E402
 import baseband_tasks_tpu.phases as jphases  # noqa: E402
 from baseband_tasks_tpu.models.foldmodel import \
@@ -34,10 +37,20 @@ from baseband_tasks_tpu_torch.models import foldmodel as pfold  # noqa: E402
 
 RATE = 250e3
 SHARED = sorted(set(jb.__all__) & set(bt.__all__))
-#: names both packages' models and phases subpackages export
+#: names both packages' models, phases and parallel subpackages export
 SUBPACKAGES = [(j, p, name) for j, p in ((jmodels, pmodels),
-                                         (jphases, pphases))
+                                         (jphases, pphases),
+                                         (jparallel, par))
                for name in sorted(set(j.__all__) & set(p.__all__))]
+#: the port's names of the JAX package's Pallas modules, where they differ
+RENAMED = {"halo_pallas": "halo_remote"}
+
+
+def module_name(obj):
+    """The last component of the module ``obj`` is (a module) or comes
+    from."""
+    name = obj.__name__ if isinstance(obj, type(jb)) else obj.__module__
+    return name.rsplit(".", 1)[-1]
 
 
 @pytest.mark.parametrize("name", SHARED)
@@ -55,13 +68,24 @@ def test_top_level_names_from_the_same_module(name):
                          ids=[f"{j.__name__.rsplit('.', 1)[-1]}.{n}"
                               for j, _, n in SUBPACKAGES])
 def test_subpackage_names_from_the_same_module(jpkg, ppkg, name):
-    """A name both packages' ``models`` or ``phases`` export comes from
-    the module of the same name in each (the search models, the PINT
-    providers among them)."""
+    """A name both packages' ``models``, ``phases`` or ``parallel``
+    export comes from the module of the same name in each (the search
+    models, the PINT providers and ``multihost`` among them)."""
     j, p = getattr(jpkg, name), getattr(ppkg, name)
-    assert p.__module__.rsplit(".", 1)[-1] == \
-        j.__module__.rsplit(".", 1)[-1]
-    assert p.__name__ == j.__name__
+    want = module_name(j)
+    assert module_name(p) == RENAMED.get(want, want)
+    assert p.__name__.rsplit(".", 1)[-1] == j.__name__.rsplit(".", 1)[-1]
+
+
+def test_parallel_names_all_ported():
+    """Every name of the JAX package's ``parallel.__all__`` is in the
+    port's, and ``multihost`` has the JAX module's three entry points."""
+    assert set(jparallel.__all__) <= set(par.__all__)
+    assert (jparallel, par, "multihost") in SUBPACKAGES
+    for name in ("initialize", "pod_mesh", "host_local"):
+        assert name in par.multihost.__all__
+        assert callable(getattr(par.multihost, name))
+        assert name in jparallel.multihost.__all__
 
 
 def test_beyond_reference_names_exported():
