@@ -19,10 +19,15 @@ stream's two ends.  ``device`` is the one-shard mesh.
 On a mesh over several processes (``parallel.multihost.pod_mesh``) each
 process runs the same entry point with the same arguments, holds and
 computes the shards of its own cells only, and gets the whole result:
-the edges and the profiles cross processes through the process group,
-and the profiles are summed over time shards in shard order, so the
-result equals the one-process mesh's.  ``halo='remote'`` serves only time
-rings that one process holds whole.
+the profiles cross processes through the process group and are summed
+over time shards in shard order, so the result equals the one-process
+mesh's.  The float edges cross by the halo backend: with ``'ppermute'``
+through the process group, with ``'remote'`` by the ``halo_remote``
+kernel's push form, device to device through CUDA IPC on one host
+(``close()`` releases its mailboxes; every process calls it).  Packed
+steps move their decoded edges by copies with either backend, as the JAX
+pipeline moves them by ``ppermute``.  A time ring whose neighbours are on
+different hosts is refused with ``halo='remote'``.
 
 ``use_kernels`` means what the JAX pipeline's ``use_pallas`` means:
 
@@ -66,8 +71,9 @@ from ..ops.dedisperse import (_FX_MASK, _FX_ONE, as_tensor, dedisperse_pow2,
 from ..ops.fold import fold_accumulate
 from ..ops.unpack import plane_edges
 from ..parallel.halo import halo_edges, halo_exchange, ppermute
-from ..parallel.halo_remote import (halo_edges_remote, halo_exchange_remote,
-                                    local_rings)
+from ..parallel._ipc import Mailboxes
+from ..parallel.halo_remote import (check_hosts, halo_edges_remote,
+                                    halo_exchange_remote)
 from ..parallel.mesh import Mesh, gather_cells, grid_indices, shard
 from ..utils import units as u
 from .foldmodel import FoldModel, _phase_to_cycles
@@ -139,7 +145,8 @@ class WidebandPulsarPipeline:
         [XX, YY, Re XY*, Im XY*] per channel).
     halo : str
         'ppermute' (the time shards' edges copied between their devices)
-        or 'remote' (the ``halo_remote`` kernel on a CUDA mesh).
+        or 'remote' (the ``halo_remote`` kernel on a CUDA mesh, across the
+        processes of one host too).
     """
 
     def __init__(self, *, n_chan=1024, n_pol=4, dm=500.0,
@@ -190,7 +197,9 @@ class WidebandPulsarPipeline:
         if not self._cells:
             raise ValueError("this process owns no cell of the mesh")
         if halo == "remote":
-            local_rings(self._owners)      # a ring across processes raises
+            # CUDA IPC stays inside a host: a ring across hosts raises
+            check_hosts(self._owners, mesh.hosts)
+        self._mailboxes = Mailboxes()
         self.use_kernels = bool(use_kernels)
         frac = (period_samples if isinstance(period_samples, Fraction)
                 else Fraction(*period_samples))
@@ -384,7 +393,8 @@ class WidebandPulsarPipeline:
                 raise NotImplementedError(
                     "halo='remote' moves axis-0 halos; reshape first")
             return halo_edges_remote(grid, self.pad_start, self.pad_end,
-                                     owners=self._owners)
+                                     owners=self._owners,
+                                     mailboxes=self._mailboxes)
         return halo_edges(grid, self.pad_start, self.pad_end, axis=axis,
                           owners=self._owners)
 
@@ -393,9 +403,17 @@ class WidebandPulsarPipeline:
         time, by the pipeline's halo backend."""
         if self.halo == "remote":
             return halo_exchange_remote(grid, self.pad_start, self.pad_end,
-                                        owners=self._owners)
+                                        owners=self._owners,
+                                        mailboxes=self._mailboxes)
         return halo_exchange(grid, self.pad_start, self.pad_end,
                              owners=self._owners)
+
+    def close(self):
+        """Release the CUDA IPC mailboxes of ``halo='remote'`` across
+        processes (a collective: every process calls it, together; a
+        pipeline that has none returns at once).  Mailboxes not released
+        so are released at ``multihost.shutdown()`` or at exit."""
+        self._mailboxes.close()
 
     def _reduce(self, profs, cnts):
         """Per-shard (profile, counts) grids -> the profile summed over

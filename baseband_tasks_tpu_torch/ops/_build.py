@@ -39,6 +39,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LL = ctypes.c_longlong
 _PLL = ctypes.POINTER(_LL)          # a host array of device addresses
 _PI = ctypes.POINTER(_I)
+_U, _CP = ctypes.c_uint, ctypes.c_char_p
 # C entry points of csrc/*.cu and their argument types (each launch ends
 # with the device index and the stream)
 _SIGNATURES = {
@@ -68,7 +69,17 @@ _SIGNATURES = {
     "bbt_k2_form": [_I] * 3,
     "bbt_k1_form": [_I] * 3,
     "bbt_halo_edges": [_PLL] * 3 + [_I] * 5 + [_LL, _I] + [_I, _P],
+    "bbt_halo_push": [_PLL] * 2 + [_I] * 2 + [_LL] * 2 + [_I, _P],
     "bbt_enable_peer": [_I, _I],
+    # CUDA IPC mailboxes and stream flags of the halo's push form
+    "bbt_ipc_alloc": [_LL, _PLL, _I],
+    "bbt_ipc_free": [_LL, _I],
+    "bbt_ipc_export": [_LL, _CP, _I],
+    "bbt_ipc_open": [_CP, _PLL, _I],
+    "bbt_ipc_close": [_LL, _I],
+    "bbt_stream_ops": [_I],
+    "bbt_flag_write": [_LL, _U, _I, _P],
+    "bbt_flag_wait": [_LL, _U, _I, _P],
 }
 # the bf16-intermediate passes take the arguments of their float32 twins
 _SIGNATURES.update({f"{name}_bf16": _SIGNATURES[name] for name in (

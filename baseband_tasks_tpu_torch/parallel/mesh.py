@@ -47,9 +47,11 @@ class Mesh:
     over several processes, ``multihost.pod_mesh``); a device named in
     another process's cell is that process's device.  Without it every
     cell is this process's (``process_ids`` is all 0 in one process).
+    ``hosts`` : optional array of the grid's shape, the host name of each
+    cell's process (``pod_mesh`` records them); None where not known.
     """
 
-    def __init__(self, devices, axis_names, process_ids=None):
+    def __init__(self, devices, axis_names, process_ids=None, hosts=None):
         names = tuple(axis_names)
         grid = _object_array(devices)
         if grid.ndim != len(names):
@@ -66,6 +68,12 @@ class Mesh:
             raise ValueError(f"process_ids of shape {ids.shape} for "
                              f"devices of shape {grid.shape}")
         self.process_ids = ids
+        if hosts is not None:
+            hosts = np.asarray(hosts, dtype=object)
+            if hosts.shape != grid.shape:
+                raise ValueError(f"hosts of shape {hosts.shape} for "
+                                 f"devices of shape {grid.shape}")
+        self.hosts = hosts
         self._local = ids == me
         self.spans_processes = not self._local.all()
 

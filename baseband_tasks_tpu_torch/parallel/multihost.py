@@ -26,16 +26,18 @@ gloo: ``initialize("file:///tmp/rdv", 2, rank, backend="gloo")`` and
 from __future__ import annotations
 
 import os
+import socket
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from ._ipc import release_all
 from ._transport import process_count, process_index
 from .mesh import Mesh, block_index, default_devices, mesh_shape
 
-__all__ = ["initialize", "pod_mesh", "host_local", "process_index",
-           "process_count"]
+__all__ = ["initialize", "shutdown", "pod_mesh", "host_local",
+           "process_index", "process_count"]
 
 _TORCHRUN = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
@@ -159,6 +161,17 @@ def initialize(coordinator_address=None, num_processes=None,
                             world_size=num_processes, rank=rank)
 
 
+def shutdown():
+    """Release the CUDA IPC mailboxes still open (``halo='remote'``
+    across processes: closed in every process before any is freed) and
+    destroy the process group.  Every process calls it, together; a
+    no-op without a group."""
+    if not dist.is_initialized():
+        return
+    release_all()
+    dist.destroy_process_group()
+
+
 def _local_devices(local_devices):
     if local_devices is not None:
         return [str(torch.device(d)) for d in local_devices]
@@ -178,22 +191,26 @@ def pod_mesh(time=-1, chan=1, local_devices=None):
     (``cuda:local_rank``, see :func:`initialize`), ``cuda:LOCAL_RANK``
     under torchrun, else every local device.  The cells are laid out
     row-major, so with as many devices a process as chan shards each
-    process owns whole time rows.  Every process must call it (it
-    gathers the device lists).
+    process owns whole time rows.  The mesh records each cell's host
+    name (``Mesh.hosts``).  Every process must call it (it gathers the
+    device lists).
     """
-    mine = _local_devices(local_devices)
+    mine = (socket.gethostname(), _local_devices(local_devices))
     lists = [None] * process_count()
     if process_count() > 1:
         dist.all_gather_object(lists, mine)
     else:
         lists = [mine]
-    devices = [d for devs in lists for d in devs]
-    owners = [r for r, devs in enumerate(lists) for _ in devs]
+    devices = [d for _, devs in lists for d in devs]
+    owners = [r for r, (_, devs) in enumerate(lists) for _ in devs]
+    hosts = [host for host, devs in lists for _ in devs]
     time, chan = mesh_shape(len(devices), time, chan)
     n = time * chan
     return Mesh(np.asarray(devices[:n], dtype=object).reshape(time, chan),
                 ("time", "chan"),
-                process_ids=np.asarray(owners[:n]).reshape(time, chan))
+                process_ids=np.asarray(owners[:n]).reshape(time, chan),
+                hosts=np.asarray(hosts[:n], dtype=object).reshape(time,
+                                                                  chan))
 
 
 def host_local(local, mesh, spec):

@@ -16,7 +16,9 @@ multi-process entry point of the port against the same call on a mesh of
 one process, at small shapes), ``cpu3`` (the primitives and
 ``ShardedPipeline`` over three processes), ``transport`` (the
 collectives and a staging-slot stress on the given devices, e.g. two
-processes on one card) or ``module:function``, a function of the
+processes on one card), ``remote`` (``halo='remote'`` across the
+processes on the given devices, the push form through CUDA IPC on
+cards) or ``module:function``, a function of the
 working directory's modules taking a :class:`Context` and returning a
 dict of arrays.  Exit codes: 0 when the checks ran, 2 (after a line
 ``INIT_FAIL: ...``) only when the process group could not be
@@ -25,7 +27,9 @@ initialized, 1 on any other failure.
 Each case of the ``cpu`` set saves ``<case>/multi`` (this run, joined on
 rank 0 where a result is per process) and ``<case>/one`` (the same call
 on a one-process mesh of the same shape over rank 0's devices), which
-the caller compares; ``<case>/raised`` is 1 where a call had to raise.
+the caller compares; the ``halo='remote'`` cases also save
+``<case>/ppermute`` (the same call with the copies of ``'ppermute'``);
+``<case>/raised`` is 1 where a call had to raise.
 """
 
 from __future__ import annotations
@@ -98,6 +102,20 @@ class Context:
         return Mesh(mesh.devices.reshape(-1), (name,),
                     process_ids=mesh.process_ids.reshape(-1))
 
+    def owned_mesh(self, ids):
+        """A (time, chan) mesh whose cell ``idx`` belongs to rank
+        ``ids[idx]``, each process's devices cycled through its cells."""
+        from ..parallel import Mesh
+        lists = self.all_devices()
+        ids = np.asarray(ids)
+        devs = np.empty(ids.shape, dtype=object)
+        used = [0] * self.world
+        for idx in np.ndindex(ids.shape):
+            r = int(ids[idx])
+            devs[idx] = lists[r][used[r] % len(lists[r])]
+            used[r] += 1
+        return Mesh(devs, ("time", "chan"), process_ids=ids)
+
     def local_mesh(self, mesh):
         """A one-process mesh of ``mesh``'s shape over this process's
         devices (the reference), cycling through them."""
@@ -163,17 +181,20 @@ def _result(out, case, multi, one):
         out[f"{case}/one"] = one
 
 
-def _step_case(ctx, out, case, mesh, cfg, xf, *, local=None):
+def _step_case(ctx, out, case, mesh, cfg, xf, *, local=None, **kw):
     """``step_fn`` of ``xf`` (float32 17 as the offset) on ``mesh``, the
     input given whole, or as this process's rows through ``host_local``
-    (``local``), against a one-process mesh of the same shape."""
-    pipe = _pipe(mesh, cfg)
+    (``local``), against a one-process mesh of the same shape; ``kw``
+    the pipeline's keywords."""
+    pipe = _pipe(mesh, cfg, **kw)
     arg = xf if local is None else ctx.multihost.host_local(
         local, mesh, ("time", "chan"))
     prof, cnt = pipe.step_fn()(arg, np.float32(17))
+    pipe.close()
     one = None
     if ctx.rank == 0:
-        ref = _pipe(ctx.local_mesh(mesh), cfg).step_fn()(xf, np.float32(17))
+        ref = _pipe(ctx.local_mesh(mesh), cfg, **kw).step_fn()(
+            xf, np.float32(17))
         one = np.concatenate([_np(ref[0]).ravel(), _np(ref[1])])
     _result(out, case, np.concatenate([_np(prof).ravel(), _np(cnt)]), one)
     out[f"{case}/shape"] = np.asarray(prof.shape)
@@ -236,13 +257,29 @@ def cpu_flagship(ctx, out):
                 None if ref is None else np.concatenate(
                     [_np(ref[0]).ravel(), _np(ref[1])]))
 
-    # halo='remote' reads peers inside one process: a time ring across
-    # processes is refused, one that a process holds whole is served
-    try:
-        _pipe(mesh, cfg, halo="remote")
-        out["remote_across/raised"] = np.int64(0)
-    except ValueError as exc:
-        out["remote_across/raised"] = np.int64("ppermute" in str(exc))
+    # halo='remote' on time rings across the processes (the push form;
+    # on CPU shards its plain copies) against one process and against
+    # 'ppermute' (the cases above), and on rings each process holds whole
+    _step_case(ctx, out, "remote_across", mesh, cfg, xf, halo="remote",
+               local=xf[ctx.rank * rows:(ctx.rank + 1) * rows])
+    out["remote_across/ppermute"] = out["small/multi"]
+    out["remote_across/shape"] = out["small/shape"]
+    out["remote_across/samples"] = out["small/samples"]
+    _step_case(ctx, out, "remote_step_kernels", mesh, cfg, xk,
+               use_kernels=True, halo="remote")
+    kern = _pipe(mesh, cfg, use_kernels=True)
+    got = kern.step_fn()(xk, np.float32(17))
+    out["remote_step_kernels/ppermute"] = np.concatenate(
+        [_np(got[0]).ravel(), _np(got[1])])
+    remote = _pipe(mesh41, cfg, use_kernels=True, halo="remote")
+    got = remote.run_fn(2)(seed=3)
+    remote.close()
+    ref = _pipe(ctx.local_mesh(mesh41), cfg, use_kernels=True,
+                halo="remote").run_fn(2)(seed=3) if ctx.rank == 0 else None
+    _result(out, "remote_run_float", np.concatenate(
+        [_np(got[0]).ravel(), _np(got[1])]), None if ref is None else
+        np.concatenate([_np(ref[0]).ravel(), _np(ref[1])]))
+    out["remote_run_float/ppermute"] = out["run_float/multi"]
     remote = _pipe(ctx.chan_mesh(2), cfg, halo="remote").step_fn()(
         xf, np.float32(17))
     _result(out, "remote_chan", np.concatenate(
@@ -280,12 +317,17 @@ def cpu_primitives(ctx, out, n=4):
         for k, name in enumerate(("front", "end", "window")):
             _result(out, f"halo_{tag}_{name}", multi[k],
                     None if one is None else one[k])
-    try:
-        halo_edges_remote(shard(x, mesh, spec), 40, 24,
-                          owners=mesh.process_ids)
-        out["halo_remote_across/raised"] = np.int64(0)
-    except ValueError as exc:
-        out["halo_remote_across/raised"] = np.int64("ppermute" in str(exc))
+    got = halo_edges_remote(shard(x, mesh, spec), 40, 24,
+                            owners=mesh.process_ids)
+    _result(out, "halo_remote_across", np.concatenate(
+        [_stack(ctx.gather(g_, mesh.process_ids)).ravel() for g_ in got]),
+        None if ctx.rank else np.concatenate([_stack(g_).ravel() for g_ in
+                                              halo_edges_remote(shard(
+                                                  x, ref_mesh, spec), 40,
+                                                  24)]))
+    out["halo_remote_across/ppermute"] = np.concatenate(
+        [out["halo_open_front/multi"].ravel(),
+         out["halo_open_end/multi"].ravel()])
     _result(out, "unshard", _np(unshard(shard(x, mesh, spec), mesh, spec)),
             _np(x))
 
@@ -318,6 +360,72 @@ def cpu_primitives(ctx, out, n=4):
     _result(out, "channelize", _np(chan), _np(ref))
     _result(out, "dechannelize", _np(back),
             _np(sharded_dechannelize(local)(ref)))
+
+
+def remote_cases(ctx, out, meshes, rows=96, pads=(40, 24), x=None):
+    """``halo_edges_remote`` and ``halo_exchange_remote`` with ``owners``,
+    non-periodic and periodic, on each of ``meshes`` (name -> mesh)
+    against one process and against ``'ppermute'`` (``halo_edges`` /
+    ``halo_exchange`` with the same owners): cases ``remote_<periodicity>
+    _<name>``, each the front, end and window stacks flattened; the
+    ``halo_remote`` launches of this process in ``<case>/launches``.
+    Then a ring across two hosts, given to the check by name:
+    ``remote_hosts/raised``."""
+    from ..ops._build import launch_counts
+    from ..parallel import halo_edges, halo_exchange, shard
+    from ..parallel.halo_remote import (check_hosts, halo_edges_remote,
+                                        halo_exchange_remote)
+    spec = ("time", "chan")
+
+    def flat(grids, ids):
+        return np.concatenate([_stack(ctx.gather(g_, ids)).ravel()
+                               for g_ in grids])
+    for name, mesh in meshes.items():
+        n = mesh.devices.shape[0]
+        if x is None:
+            g = torch.Generator().manual_seed(n + 7)
+            data = torch.randn((n * rows, 2 * 6, 3), generator=g)
+        else:
+            data = x[:n * rows]
+        ids = mesh.process_ids
+        for periodic in (False, True):
+            case = f"remote_{'periodic' if periodic else 'open'}_{name}"
+            blocks = shard(data, mesh, spec)
+            before = launch_counts["halo_remote"]
+            got = (*halo_edges_remote(blocks, *pads, periodic, owners=ids),
+                   halo_exchange_remote(blocks, *pads, periodic, owners=ids))
+            out[f"{case}/launches"] = np.int64(launch_counts["halo_remote"]
+                                               - before)
+            pp = (*halo_edges(blocks, *pads, periodic, owners=ids),
+                  halo_exchange(blocks, *pads, periodic, owners=ids))
+            one = None
+            if ctx.rank == 0:
+                ref = shard(data, ctx.local_mesh(mesh), spec)
+                one = np.concatenate([_stack(g_).ravel() for g_ in (
+                    *halo_edges_remote(ref, *pads, periodic),
+                    halo_exchange_remote(ref, *pads, periodic))])
+            _result(out, case, flat(got, ids), one)
+            out[f"{case}/ppermute"] = flat(pp, ids)
+    line = next(iter(meshes.values()))
+    hosts = np.where(line.process_ids == 0, "host-a", "host-b")
+    try:
+        check_hosts(line.process_ids, hosts)
+        out["remote_hosts/raised"] = np.int64(0)
+    except ValueError as exc:
+        out["remote_hosts/raised"] = np.int64("ppermute" in str(exc))
+
+
+def remote_meshes(ctx):
+    """The meshes of :func:`remote_cases`: rings across the processes on
+    a (2W, 1) line ((4, 1) for two processes) and a (2, 2) grid ((3, 2)
+    for three), every ring whole with the chan axis across the processes,
+    and (two processes) one ring whole beside one across them."""
+    meshes = {"line": ctx.mesh(2 * ctx.world, 1),
+              "grid": ctx.mesh(2 if ctx.world == 2 else ctx.world, 2),
+              "chan": ctx.chan_mesh(2)}
+    if ctx.world == 2:
+        meshes["mixed"] = ctx.owned_mesh([[0, 0], [0, 1], [0, 1]])
+    return meshes
 
 
 def _config2_chain(n_samples=1 << 16, integrate=None, fold=None):
@@ -456,8 +564,12 @@ def cpu_initialize(ctx, out):
          _transport.transfer_counts["bytes"]])
 
 
-CPU_CASES = (cpu_flagship, cpu_primitives, cpu_sharded, cpu_searches,
-             cpu_initialize)
+def cpu_remote(ctx, out):
+    remote_cases(ctx, out, remote_meshes(ctx))
+
+
+CPU_CASES = (cpu_flagship, cpu_primitives, cpu_remote, cpu_sharded,
+             cpu_searches, cpu_initialize)
 
 
 def cpu(ctx):
@@ -508,6 +620,113 @@ def transport(ctx):
     return out
 
 
+# the card tests' flagship (tests/test_torch_cuda.py's sharded pipeline)
+CARD = dict(n_chan=8, n_pol=2, dm=1.0, period_samples=(800, 1), n_phase=16,
+            block_samples=1024)
+
+
+def remote_pipeline(ctx, out, cfg=CARD, n_iter=3):
+    """The flagship with ``halo='remote'`` on time rings across the
+    processes, against 'ppermute' in the same processes: the float
+    ``run_fn`` on (4, 1) (edges of its payload bit for bit, its profiles
+    and counts, the ``halo_remote`` launches and the transport's bytes
+    beside what the profiles' gather sends) and ``step_fn`` on (2, 2) on
+    both paths (bit for bit)."""
+    from ..ops._build import launch_counts, reset_launch_counts
+    from ..parallel import _transport, shard
+    mesh = ctx.mesh(4, 1)
+    cells = mesh.local_cells()
+    pipes = {h: _pipe(mesh, cfg, use_kernels=True, halo=h)
+             for h in ("remote", "ppermute")}
+    pipe = pipes["remote"]
+    shape = (pipe.global_block, cfg["n_chan"], cfg["n_pol"])
+    planes = [shard(b, mesh, ("time", "chan"))
+              for b in pipe._payload(0, shape, None)]
+    same = []
+    for p in planes:
+        a, b = (pipes[h]._halo_edges(p) for h in ("remote", "ppermute"))
+        same += [torch.equal(x[cell], y[cell]) for x, y in zip(a, b)
+                 for cell in cells]
+    out["run/edges_same"] = np.int64(all(same))
+    runs = {h: q.run_fn(n_iter) for h, q in pipes.items()}
+    runs["remote"](seed=0)              # the payload and the mailboxes
+    reset_launch_counts()
+    _transport.reset_transfer_counts()
+    got = runs["remote"](seed=0)
+    out["run/launches"] = np.int64(launch_counts["halo_remote"])
+    out["run/bytes"] = np.int64(_transport.transfer_counts["bytes"])
+    out["run/profile_bytes"] = np.int64(n_iter * len(cells) * pipe.n_phase
+                                        * (pipe._c_local * pipe.n_pol + 1)
+                                        * 4 * (ctx.world - 1))
+    ref = runs["ppermute"](seed=0)
+    out["run/prof"], out["run/cnt"] = (_np(t) for t in got)
+    out["run/pp_prof"], out["run/pp_cnt"] = (_np(t) for t in ref)
+    for q in pipes.values():
+        q.close()
+    mesh = ctx.mesh(2, 2)
+    dev = ctx.devices[0]
+    for kernels in (False, True):
+        case = f"step_{'kernels' if kernels else 'plain'}"
+        steps = {h: _pipe(mesh, cfg, use_kernels=kernels, halo=h)
+                 for h in ("remote", "ppermute")}
+        T = steps["remote"].global_block
+        xf = torch.randn((T, cfg["n_chan"], cfg["n_pol"], 2),
+                         generator=torch.Generator().manual_seed(46)).to(dev)
+        reset_launch_counts()
+        a = steps["remote"].step_fn()(xf, 300)
+        out[f"{case}/launches"] = np.int64(launch_counts["halo_remote"])
+        b = steps["ppermute"].step_fn()(xf, 300)
+        out[f"{case}/multi"] = np.concatenate([_np(a[0]).ravel(),
+                                               _np(a[1])])
+        out[f"{case}/ppermute"] = np.concatenate([_np(b[0]).ravel(),
+                                                  _np(b[1])])
+        for q in steps.values():
+            q.close()
+
+
+def remote_stress(ctx, out, n_calls=64, rows=4096, lanes=128,
+                  pads=(512, 768)):
+    """``n_calls`` consecutive exchanges on (4, 1), new data each call,
+    with rank 1's stream held busy before each (so rank 0 runs ahead and
+    a mailbox slot reused before it was copied out would hand out a later
+    call's edges); each process holds every edge it got against the
+    slices of the data it expects, at the end."""
+    from ..parallel import shard
+    from ..parallel.halo_remote import halo_edges_remote
+    mesh = ctx.mesh(4, 1)
+    dev = torch.device(ctx.devices[0])
+    n = mesh.devices.shape[0]
+    got, want = [], []
+    for k in range(n_calls):
+        g = torch.Generator(device=dev).manual_seed(100 + k)
+        x = torch.randn((n * rows, lanes), generator=g, device=dev)
+        if ctx.rank == 1 and dev.type == "cuda":
+            torch.cuda._sleep(2_000_000)        # ~1 ms of its stream
+        front, end = halo_edges_remote(shard(x, mesh, ("time", "chan")),
+                                       *pads, owners=mesh.process_ids)
+        for t, c in mesh.local_cells():
+            got += [front[t, c], end[t, c]]
+            zeros = torch.zeros((0, lanes), device=dev)
+            want += [x[t * rows - pads[0]:t * rows] if t > 0
+                     else zeros.new_zeros((pads[0], lanes)),
+                     x[(t + 1) * rows:(t + 1) * rows + pads[1]] if t < n - 1
+                     else zeros.new_zeros((pads[1], lanes))]
+    out["stress/calls"] = np.int64(n_calls)
+    out["stress/bad"] = np.int64(sum(not torch.equal(a, b)
+                                     for a, b in zip(got, want)))
+
+
+def remote(ctx):
+    """``halo='remote'`` across the processes on their devices (two
+    processes on one card, or a card each): :func:`remote_cases`,
+    :func:`remote_pipeline` and :func:`remote_stress`."""
+    out = {}
+    remote_cases(ctx, out, remote_meshes(ctx))
+    remote_pipeline(ctx, out)
+    remote_stress(ctx, out)
+    return out
+
+
 def cpu3(ctx):
     """Three processes, one time shard each: the primitives on a (3, 2)
     mesh and ``ShardedPipeline`` over 3 shards, where every exchange has
@@ -515,12 +734,14 @@ def cpu3(ctx):
     torch.set_num_threads(1)
     out = {}
     cpu_primitives(ctx, out, n=3)
+    cpu_remote(ctx, out)
     cpu_sharded(ctx, out, n=3, n_blocks=6, joined=False)
     cpu_initialize(ctx, out)
     return out
 
 
-BUILTIN = {"cpu": cpu, "cpu3": cpu3, "transport": transport}
+BUILTIN = {"cpu": cpu, "cpu3": cpu3, "transport": transport,
+           "remote": remote}
 
 
 def _check_set(mode):
@@ -566,8 +787,8 @@ def main(argv=None):
         traceback.print_exc()
         return 1
     finally:
-        if torch.distributed.is_initialized():
-            torch.distributed.destroy_process_group()
+        # the IPC mailboxes closed everywhere before any is freed
+        multihost.shutdown()
     print(f"MULTIHOST_OK rank={args.rank}", flush=True)
     return 0
 

@@ -314,7 +314,22 @@ each; NCCL refuses two ranks on one card):
     processes' launches summed equal to (w1)'s; ms a block beside (w1)'s;
 (x3) ``search_sharded`` ('pallas', accel_corr), ``snr_sharded``,
     ``DMTrialSearch.search_sharded`` and ``fdf_sharded`` split over the
-    two processes against the same calls in one process.
+    two processes against the same calls in one process;
+(x4) ``halo='remote'`` across the two processes: the halo_remote
+    kernel's push form writes each crossing edge into the other
+    process's memory through CUDA IPC, the streams ordered by flags in
+    device memory (no transport call carries an edge).  The remote_*
+    cases of ``multihost_check`` (small shapes; (4, 1), (2, 2), chan
+    across, a ring whole beside one across; open and periodic) bit for
+    bit against one process and 'ppermute'; the float ``run_fn(8)`` at
+    full width on (4, 1) split 2 + 2: edges bit for bit against
+    'ppermute', k1_float, k2, k3_fold 16 and halo_remote 32 launches a
+    process, profiles within PROFILE_RTOL of (q)'s one-process 'remote'
+    run and of 'ppermute', the transport's bytes a step only the
+    profiles' gather; ms a step beside 'ppermute' in the same workers,
+    (x1) and (q), each process's device work and the card's idle share;
+    ``step_fn`` on (2, 2) bit for bit against 'ppermute' (2 halo_remote
+    launches a process) and against one process.
 
 The plain versions run on the card inside the package's test-only
 switch ``ops.dedisperse.plain_versions()``, with every float32 matmul
@@ -3088,6 +3103,9 @@ def drive_sharded(dev, gpu):
                  ("remote", "ppermute", "ppermute", "remote"), N_ITER)
     print(f"(q) float step on 4x1: halo='remote' {ms['remote']:.3f} ms/step, "
           f"'ppermute' {ms['ppermute']:.3f} ms/step [{gpu}]", flush=True)
+    # for phase (x4): the one-process float run with halo='remote'
+    refs["remote_ms"] = ms["remote"]
+    refs["remote"] = tuple(t.cpu() for t in floats["remote"](seed=0))
     print_profile("(q) profiled float step, 4x1, halo='remote'",
                   functools.partial(floats["remote"], seed=0), N_ITER, gpu)
     return launches, refs
@@ -4424,6 +4442,8 @@ def _x_profile(out, key, fn, per):
     out[f"{key}/profile"] = np.asarray([wall / per, busy / per])
     out[f"{key}/rows"] = np.asarray([r[2][:60] for r in rows[:5]])
     out[f"{key}/rows_ms"] = np.asarray([r[0] / 1e3 / per for r in rows[:5]])
+    out[f"{key}/halo_ms"] = np.float64(sum(r[0] for r in rows
+                                           if "halo" in r[2]) / 1e3 / per)
 
 
 def _x_print_profile(tag, z, key, unit, gpu):
@@ -4479,6 +4499,7 @@ def multihost_worker_checks(ctx):
                                                    for t in ref)
     del step, xf, got
     torch.cuda.empty_cache()
+    x4_worker(ctx, dev, out)
 
     # (x2) config 2 through ShardedPipeline, S = 4 over the processes
     cp = CompiledPipeline(compiled_tail("config2", dev,
@@ -4552,6 +4573,204 @@ def multihost_worker_checks(ctx):
         del model, got
         torch.cuda.empty_cache()
     return out
+
+
+def _local_same_edges(a, b, cells):
+    """This process's cells' (front, end) buffers bit-identical."""
+    return all(torch.equal(x[cell], y[cell]) for x, y in zip(a, b)
+               for cell in cells)
+
+
+def x4_worker(ctx, dev, out):
+    """Phase (x4) in a worker: ``halo='remote'`` across the two
+    processes, the ``halo_remote`` kernel's push form writing the edges
+    into the other process's memory through CUDA IPC.  The remote_*
+    cases of ``multihost_check`` (small shapes, against one process and
+    'ppermute'); the float ``run_fn`` at full width on (4, 1), 2 + 2,
+    its edges against 'ppermute', counted, timed and profiled, with the
+    transport's bytes a step; ``step_fn`` on (2, 2) against 'ppermute'
+    and (rank 0) one process."""
+    from baseband_tasks_tpu_torch.ops import dedisperse as dd
+    from baseband_tasks_tpu_torch.parallel import _transport as tr
+    from baseband_tasks_tpu_torch.tools import multihost_check as mc
+    mc.remote_cases(ctx, out, mc.remote_meshes(ctx))
+    mesh = ctx.mesh(N_SHARDS, 1)
+    pipes = {h: flagship(None, mesh=mesh, halo=h)
+             for h in ("remote", "ppermute")}
+    runs = {h: p.run_fn(N_ITER) for h, p in pipes.items()}
+    cells = mesh.local_cells()
+    shape = (pipes["remote"].global_block, 64, 2)
+    planes = [shard_grid(b, mesh)
+              for b in pipes["remote"]._payload(0, shape, None)]
+    # every process makes every exchange (no short cut on a mismatch)
+    same = [_local_same_edges(pipes["remote"]._halo_edges(p),
+                              pipes["ppermute"]._halo_edges(p), cells)
+            for p in planes]
+    out["x4/edges_same"] = np.int64(all(same))
+    del planes
+    for run in runs.values():
+        run(seed=0)                     # the payload, made once per seed
+    torch.cuda.synchronize()
+    dd.reset_launch_counts()
+    tr.reset_transfer_counts()
+    prof, cnt = runs["remote"](seed=0)
+    torch.cuda.synchronize()
+    out["x4/names"], out["x4/counts"] = _counts_arrays(dd.launch_counts)
+    out["x4/transfer"] = np.asarray([tr.transfer_counts[k] / N_ITER
+                                     for k in X_TRANSFER])
+    pipe = pipes["remote"]
+    # what the profiles' gather sends a step: each local cell's profile
+    # and int32 counts to the other process
+    out["x4/profile_bytes"] = np.int64(len(cells) * pipe.n_phase * (
+        pipe._c_local * pipe.n_pol + 1) * 4 * (ctx.world - 1))
+    # the least bytes of this process's edges a step: each output written
+    # once, each neighbour row it copies read once (two planes)
+    n = mesh.devices.shape[0]
+    rows = sum(pipe.pad_start + pipe.pad_end + pipe.pad_start * (t > 0)
+               + pipe.pad_end * (t < n - 1) for t, _ in cells)
+    out["x4/halo_bound_ms"] = np.float64(
+        1e3 * 2 * rows * pipe._c_local * pipe.n_pol * 4 / HBM_BYTES_PER_S)
+    out["x4/prof"], out["x4/cnt"] = prof.cpu().numpy(), cnt.cpu().numpy()
+    out["x4/global_block"] = np.int64(pipe.global_block)
+    pp = runs["ppermute"](seed=0)
+    out["x4/pp_prof"], out["x4/pp_cnt"] = (t.cpu().numpy() for t in pp)
+    for h in ("remote", "ppermute", "ppermute", "remote"):
+        ms, transfer = _x_turns(functools.partial(runs[h], seed=0), N_ITER)
+        key = f"x4/{h}_ms"
+        out[key] = np.float64(min(ms, out.get(key, np.inf)))
+        out[f"x4/{h}_transfer"] = transfer
+    _x_profile(out, "x4", functools.partial(runs["remote"], seed=0), N_ITER)
+    for p in pipes.values():
+        p.close()
+    del pipes, runs, prof, cnt, pp
+    torch.cuda.empty_cache()
+
+    # step_fn on (2, 2): each time ring crosses the processes
+    mesh = ctx.mesh(2, 2)
+    steps = {h: flagship(None, mesh=mesh, halo=h)
+             for h in ("remote", "ppermute")}
+    T = steps["remote"].global_block
+    (xf,) = randn(dev, (T, 64, 2, 2), 72, count=1)
+    row = steps["remote"].fold_model.foldv(3 * T, T)
+    dd.reset_launch_counts()
+    a = steps["remote"].step_fn()(xf, row)
+    torch.cuda.synchronize()
+    out["x4s/names"], out["x4s/counts"] = _counts_arrays(dd.launch_counts)
+    b = steps["ppermute"].step_fn()(xf, row)
+    out["x4s/same"] = np.int64(torch.equal(a[0], b[0])
+                               and torch.equal(a[1], b[1]))
+    out["x4s/prof"], out["x4s/cnt"] = (t.cpu().numpy() for t in a)
+    for p in steps.values():
+        p.close()
+    if ctx.rank == 0:
+        ref = flagship(None, mesh=ctx.local_mesh(mesh),
+                       halo="remote").step_fn()(xf, row)
+        out["x4s/ref_prof"], out["x4s/ref_cnt"] = (t.cpu().numpy()
+                                                   for t in ref)
+    del steps, xf, a, b
+    torch.cuda.empty_cache()
+
+
+#: the remote_* cases of multihost_check, run by the (x4) workers
+X4_CASES = [f"remote_{p}_{m}" for m in ("line", "grid", "chan", "mixed")
+            for p in ("open", "periodic")]
+
+
+def check_x4(res, gpu, q_refs):
+    """Phase (x4)'s results from the two workers: the small remote_*
+    cases bit for bit against one process and 'ppermute'; the full-width
+    float ``run_fn`` with halo='remote' (edges bit for bit against
+    'ppermute', launches exact, profiles within PROFILE_RTOL of (q)'s
+    one-process 'remote' run and of 'ppermute', no edge bytes through
+    the transport), timed beside 'ppermute' in the same workers, (x1) and
+    (q); ``step_fn`` on (2, 2) against 'ppermute' and one process.
+    Returns the launches of the run and the step, both processes
+    summed."""
+    launches = {}
+    z = res[0]
+    for case in X4_CASES:
+        multi = z[f"{case}/multi"]
+        same_one = bool(np.array_equal(multi, z[f"{case}/one"]))
+        same_pp = bool(np.array_equal(multi, z[f"{case}/ppermute"]))
+        counts = [int(zr[f"{case}/launches"]) for zr in res]
+        print(f"(x4) {case}: {multi.size} values, against one process "
+              f"{'bit-identical' if same_one else 'DIFFERS'}, against "
+              f"'ppermute' {'bit-identical' if same_pp else 'DIFFERS'}; "
+              f"halo_remote launches {counts}", flush=True)
+        if not (same_one and same_pp):
+            raise AssertionError(f"(x4) {case} differs")
+    want = {"k1_float": N_ITER * N_SHARDS // X_WORLD,
+            "k2": N_ITER * N_SHARDS // X_WORLD,
+            "k3_fold": N_ITER * N_SHARDS // X_WORLD,
+            # two planes a step, each a push and a copy out
+            "halo_remote": N_ITER * 2 * 2}
+    ref_prof, ref_cnt = q_refs["remote"]
+    busy = []
+    for r, z in enumerate(res):
+        counts = _counts_dict(z, "x4")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        print(f"(x4) rank {r}: float run_fn({N_ITER}) halo='remote' on 4x1 "
+              f"(2 + 2 shards): launches {counts}; edges bit-identical to "
+              f"'ppermute': {bool(z['x4/edges_same'])}", flush=True)
+        if counts != want or not z["x4/edges_same"]:
+            raise AssertionError(f"(x4) rank {r}: launches (want {want}) "
+                                 f"or edges")
+        got = (torch.from_numpy(z["x4/prof"]), torch.from_numpy(z["x4/cnt"]))
+        total = int(got[1].sum())
+        if total != N_ITER * int(z["x4/global_block"]):
+            raise AssertionError(f"(x4) rank {r}: counts sum {total}")
+        check_profile(f"rank {r} against (q)'s one-process 4x1 'remote' "
+                      f"run", got, (ref_prof, ref_cnt), False, gpu, "(x4)")
+        check_profile(f"rank {r} 'remote' against 'ppermute' in the same "
+                      f"workers", got, (torch.from_numpy(z["x4/pp_prof"]),
+                                        torch.from_numpy(z["x4/pp_cnt"])),
+                      False, gpu, "(x4)")
+        calls, nbytes, secs = z["x4/transfer"]
+        pp_calls, pp_bytes, pp_secs = z["x4/ppermute_transfer"]
+        print(f"(x4) rank {r}: the transport a step: {calls:.2f} calls, "
+              f"{nbytes:.0f} B sent (the profiles' gather: "
+              f"{int(z['x4/profile_bytes'])} B), {1e3 * secs:.3f} ms of "
+              f"host time; 'ppermute' {pp_calls:.2f} calls, "
+              f"{pp_bytes / 1e6:.3f} MB, {1e3 * pp_secs:.3f} ms", flush=True)
+        if nbytes != int(z["x4/profile_bytes"]):
+            raise AssertionError(f"(x4) rank {r}: the transport carried "
+                                 f"{nbytes} B a step, not only the profiles")
+        x1_ms = float(z["x1/ms"])
+        print(f"(x4) rank {r}: {z['x4/remote_ms']:.3f} ms a float step "
+              f"across two processes with halo='remote', "
+              f"{z['x4/ppermute_ms']:.3f} with 'ppermute' (same workers), "
+              f"(x1)'s packed 'ppermute' {x1_ms:.3f}, (q)'s one-process "
+              f"'remote' {q_refs['remote_ms']:.3f} "
+              f"({z['x4/remote_ms'] / q_refs['remote_ms']:.2f}x) [{gpu}]",
+              flush=True)
+        _x_print_profile(f"(x4) rank {r}", z, "x4", "step", gpu)
+        print(f"(x4) rank {r}: halo_remote's push form and copy out "
+              f"{z['x4/halo_ms']:.4f} ms a step of device time (profiled, 4 "
+              f"launches), bound {z['x4/halo_bound_ms']:.4f} ms (bytes) "
+              f"[{gpu}]", flush=True)
+        busy.append(z["x4/profile"])
+    wall = max(b[0] for b in busy)
+    work = sum(b[1] for b in busy)
+    print(f"(x4) the card: both processes' device work {work:.3f} ms of a "
+          f"{wall:.3f} ms profiled step, idle share {1 - work / wall:.2f} "
+          f"[{gpu}]", flush=True)
+    for r, z in enumerate(res):
+        counts = _counts_dict(z, "x4s")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        print(f"(x4) rank {r}: step_fn halo='remote' on 2x2 (2 + 2 "
+              f"shards): launches {counts}; bit-identical to 'ppermute': "
+              f"{bool(z['x4s/same'])}", flush=True)
+        if counts.get("halo_remote") != 2 or not z["x4s/same"]:
+            raise AssertionError(f"(x4) rank {r}: step_fn remote")
+    z = res[0]
+    check_profile("step_fn 'remote' on 2x2 (2 + 2 shards) against one "
+                  "process", tuple(torch.from_numpy(z[k]) for k in (
+                      "x4s/prof", "x4s/cnt")),
+                  tuple(torch.from_numpy(z[k]) for k in (
+                      "x4s/ref_prof", "x4s/ref_cnt")), False, gpu, "(x4)")
+    return launches
 
 
 def drive_multihost(dev, gpu, q_refs, w1):
@@ -4637,6 +4856,8 @@ def drive_multihost(dev, gpu, q_refs, w1):
                                  f"result than rank 0")
     check_profile("step_fn on 2x2 (2 + 2 shards) against one process", a,
                   b, False, gpu, "(x1)")
+    x4_launches = check_x4(res, gpu, q_refs)
+    add(x4_launches)
 
     # (x2)
     w1_counts, w1_ms, w1_digests = w1

@@ -45,7 +45,10 @@ Faraday, polarization, SK, RM-synthesis and secondary-spectrum code on
 CUDA tensors against the CPU; the sharded config-2 step on four virtual
 shards of the card against one device (launches and output), the
 HDF5 and PSRFITS readers handing out CUDA tensors, and two processes on
-the one card through the multi-process transport (gloo, host-staged).
+the one card through the multi-process transport (gloo, host-staged) and
+with ``halo='remote'`` across them (the halo_remote push form through
+CUDA IPC, its stream flags, a 64-exchange stress; a card each where
+there are two).
 Tolerances as in ``chip_smoke.py``: planes
 to 1e-4 of their largest element (float32 FFT roundoff is ~1e-6 of it),
 profiles elementwise to rtol 2e-4 (atomic summation order), counts
@@ -1910,3 +1913,113 @@ def test_two_processes_on_one_card(dev, tmp_path):
             assert np.array_equal(got[f"{case}/multi"], got[f"{case}/one"]), \
                 f"rank {rank}: {case}"
     assert "refill/one" in np.load(mc.rank_file(out, 1)).files
+
+
+def _remote_workers(tmp_path, devices):
+    """Two ``multihost_check`` workers in the ``remote`` mode, rank r on
+    ``devices[r]`` (gloo for the setup's handshake and the profiles'
+    gather): both must exit 0; each rank's arrays."""
+    import os
+    import subprocess
+    import sys
+    from baseband_tasks_tpu_torch.tools import multihost_check as mc
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = str(tmp_path / "remote.npz")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "baseband_tasks_tpu_torch.tools."
+         "multihost_check", str(r), "2", f"file://{tmp_path}/rdv", out,
+         "remote", devices[r], "--backend", "gloo"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=root) for r in range(2)]
+    try:
+        texts = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, text in zip(procs, texts):
+        assert p.returncode == 0 and "MULTIHOST_OK" in text, text
+    return [dict(np.load(mc.rank_file(out, r))) for r in range(2)]
+
+
+def _assert_remote(results):
+    """The ``remote`` mode's results: the primitives (front, end and
+    window on (4, 1), (2, 2), chan across and mixed meshes, open and
+    periodic) bit for bit against 'ppermute' and one process; the float
+    ``run_fn``'s edges bit for bit, its profiles to the fold's atomic
+    order, counts exact, 12 halo_remote launches a process (3 steps x 2
+    planes x push and copy out) and no edge bytes through the transport;
+    ``step_fn`` on both paths bit for bit, 2 launches; the stress run."""
+    for rank, z in enumerate(results):
+        cases = [k[:-len("/ppermute")] for k in z if k.endswith("/ppermute")]
+        assert len(cases) >= 10
+        for case in cases:
+            assert np.array_equal(z[f"{case}/multi"], z[f"{case}/ppermute"]), \
+                f"rank {rank}: {case}"
+            if f"{case}/one" in z:
+                assert np.array_equal(z[f"{case}/multi"], z[f"{case}/one"])
+        assert z["remote_open_line/launches"] == 4         # 2 calls x 2
+        assert z["remote_open_chan/launches"] == 2         # pull, rings whole
+        assert z["run/edges_same"] == 1
+        assert z["run/launches"] == 3 * 2 * 2
+        assert z["run/bytes"] == z["run/profile_bytes"]
+        assert np.array_equal(z["run/cnt"], z["run/pp_cnt"])
+        torch.testing.assert_close(torch.from_numpy(z["run/prof"]),
+                                   torch.from_numpy(z["run/pp_prof"]),
+                                   rtol=PROFILE_RTOL, atol=0.0)
+        for case in ("step_plain", "step_kernels"):
+            assert z[f"{case}/launches"] == 2
+        assert z["stress/bad"] == 0 and z["stress/calls"] == 64
+
+
+def test_two_processes_remote_halo(dev, tmp_path):
+    """halo='remote' across two processes on the one card: each
+    process's ``halo_remote`` push form writes its edges into the other's
+    memory through CUDA IPC and the streams wait on flags, with no host
+    call in the step (see :func:`_assert_remote`); the stress run makes
+    64 exchanges while the receiver's stream is held busy, so a mailbox
+    slot reused before it was copied out would show; both workers exit
+    0 after closing their mappings before any mailbox is freed."""
+    _assert_remote(_remote_workers(tmp_path, ["cuda:0,cuda:0"] * 2))
+
+
+def test_two_processes_remote_halo_two_cards(tmp_path):
+    """The same across two processes with a card each (the mailboxes
+    mapped over peer access).  Needs two cards with peer access; skips
+    otherwise."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    if not torch.cuda.can_device_access_peer(0, 1):
+        pytest.skip("cuda:0 cannot reach cuda:1")
+    _assert_remote(_remote_workers(tmp_path, ["cuda:0,cuda:0",
+                                              "cuda:1,cuda:1"]))
+
+
+def test_push_form_kernel(dev):
+    """``bbt_halo_push`` alone, in one process: moves of front and end
+    sizes from blocks, and zeros, into local buffers, bit for bit, at the
+    16-, 4- and 1-byte widths; a move table it cannot take is refused."""
+    import ctypes
+    from baseband_tasks_tpu_torch.ops._build import launch
+    arr = ctypes.c_longlong * 4
+    for dtype, cols in ((torch.float32, 32), (torch.float32, 5),
+                        (torch.int8, 7)):
+        src = (torch.randn((64, cols), device=dev) * 50).to(dtype)
+        dst = torch.full((4, 64, cols), 3, dtype=dtype, device=dev)
+        row = src.element_size() * cols
+        moves = [(src[40:].data_ptr(), dst[0].data_ptr()),   # front: 24 rows
+                 (0, dst[1].data_ptr()),                      # front zeros
+                 (src.data_ptr(), dst[2].data_ptr()),         # end: 9 rows
+                 (0, dst[3].data_ptr())]                      # end zeros
+        dd.reset_launch_counts()
+        launch("halo_remote", "bbt_halo_push", dev,
+               arr(*(m[0] for m in moves)), arr(*(m[1] for m in moves)), 4,
+               2, 24 * row, 9 * row)
+        torch.cuda.synchronize()
+        assert dd.launch_counts["halo_remote"] == 1
+        assert torch.equal(dst[0, :24], src[40:])
+        assert not dst[1, :24].any() and torch.equal(dst[2, :9], src[:9])
+        assert not dst[3, :9].any()
+        assert bool((dst[0, 24:] == 3).all() and (dst[2, 9:] == 3).all())
+    with pytest.raises(RuntimeError, match="bbt_halo_push"):
+        launch("halo_remote", "bbt_halo_push", dev, arr(0, 0, 0, 0),
+               arr(0, 0, 0, 0), 4, 2, 16, 16)     # no destination

@@ -13,11 +13,19 @@ packed, float, Stokes and plain, ``step_bins_fn`` and ``planes_step``;
 the halo exchange, ``sharded_overlap_save``, the corner turn, the
 channelizers and ``unshard``; ``ShardedPipeline`` with and without an
 absorbed Integrate and on a two-source graph; the four sharded
-searches.  The small step is also held to the JAX package's
-single-process step on four virtual devices, counts exact and profiles
-within rtol 1e-5 (``tests/test_multihost.py``'s bar).  The refusals
-(``halo='remote'`` across processes, ``compile(mesh=)``, NCCL where it
-cannot serve) are checked too.
+searches; ``halo='remote'`` on time rings that cross the processes
+(``halo_edges_remote`` / ``halo_exchange_remote`` with ``owners``,
+non-periodic and periodic, on (4, 1) and (2, 2) meshes, with the chan
+axis across the processes and beside a ring held whole, and the
+pipeline's steps and float ``run_fn``), held against one process and
+against ``'ppermute'`` too (on CPU shards the remote halo takes its
+plain version, the copies of ``'ppermute'``; on the card its push form
+writes through CUDA IPC, ``tests/test_torch_cuda.py``).  The small step,
+with either halo, is also held to the JAX package's single-process step
+on four virtual devices, counts exact and profiles within rtol 1e-5
+(``tests/test_multihost.py``'s bar).  The refusals (``halo='remote'``
+on a ring across two hosts, ``compile(mesh=)``, NCCL where it cannot
+serve) are checked too.
 
 A worker that fails or times out fails the tests with its output; only a
 process group that cannot initialize here (``INIT_FAIL``) skips.
@@ -43,6 +51,16 @@ from baseband_tasks_tpu_torch.tools import multihost_check as mc  # noqa: E402
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 120
 
+#: halo='remote' across processes (the workers' remote_cases), on the
+#: meshes of both worker sets
+REMOTE = [f"remote_{p}_{m}" for m in ("line", "grid", "chan")
+          for p in ("open", "periodic")]
+#: halo='remote' on rings across the two processes: the pipeline's steps
+#: and float run_fn, the primitive, and one ring held whole beside one
+#: across them
+REMOTE_TWO = ["remote_across", "remote_step_kernels", "remote_run_float",
+              "halo_remote_across", "remote_open_mixed",
+              "remote_periodic_mixed"]
 #: cases the workers hold bit for bit against one process
 ONE_PROCESS = [
     "small", "small_chan", "production", "run_packed", "run_float",
@@ -51,15 +69,16 @@ ONE_PROCESS = [
     "halo_periodic_front", "halo_periodic_end", "halo_periodic_window",
     "unshard", "overlap_save", "corner_turn", "channelize", "dechannelize",
     "sharded", "sharded_integrate", "sharded_fold", "sharded_joined",
-    "search_accel", "search_ffa", "search_dm", "search_rm"]
+    "search_accel", "search_ffa", "search_dm", "search_rm"] \
+    + REMOTE_TWO + REMOTE
 #: cases the three workers hold bit for bit against one process
 THREE_PROCESSES = [
     "halo_open_front", "halo_open_end", "halo_open_window",
     "halo_periodic_front", "halo_periodic_end", "halo_periodic_window",
     "unshard", "overlap_save", "corner_turn", "channelize", "dechannelize",
-    "sharded", "sharded_integrate", "sharded_fold"]
+    "sharded", "sharded_integrate", "sharded_fold"] + REMOTE
 #: calls that must raise, and do with the message the worker looks for
-REFUSALS = ["remote_across", "halo_remote_across", "compile_mesh"]
+REFUSALS = ["remote_hosts", "compile_mesh"]
 
 
 def _run_workers(tmp, world, mode, devices):
@@ -127,9 +146,27 @@ def test_three_processes_equal_one(results3, case):
     assert np.array_equal(multi, one)
 
 
+@pytest.mark.parametrize("case", REMOTE_TWO + REMOTE)
+def test_remote_equals_ppermute(results, case):
+    """``halo='remote'`` across the two processes gives what
+    ``'ppermute'`` gives, bit for bit."""
+    multi, pp = results[f"{case}/multi"], results[f"{case}/ppermute"]
+    assert multi.shape == pp.shape and np.array_equal(multi, pp)
+
+
+@pytest.mark.parametrize("case", REMOTE)
+def test_three_processes_remote_equals_ppermute(results3, case):
+    multi, pp = results3[f"{case}/multi"], results3[f"{case}/ppermute"]
+    assert multi.shape == pp.shape and np.array_equal(multi, pp)
+
+
 @pytest.mark.parametrize("case", REFUSALS)
 def test_refused_across_processes(results, case):
     assert results[f"{case}/raised"] == 1
+
+
+def test_three_processes_refuse_across_hosts(results3):
+    assert results3["remote_hosts/raised"] == 1
 
 
 def test_remote_on_rings_held_whole(results):
@@ -166,12 +203,13 @@ def _jax_single_process_step(n_time, cfg):
 
 @pytest.mark.parametrize("case, n_time, cfg", [
     ("small", 2, mc.SMALL), ("small_chan", 2, mc.SMALL),
-    ("production", 4, mc.PRODUCTION)])
+    ("remote_across", 2, mc.SMALL), ("production", 4, mc.PRODUCTION)])
 def test_step_matches_jax(results, case, n_time, cfg):
     """The two-process step against the JAX package's single-process
     step on ``2 * n_time`` virtual devices: the small (2, 2) mesh with
-    each process handing over its own rows (``host_local``) or owning a
-    chan column, and the production shapes on (4, 2); counts exact,
+    each process handing over its own rows (``host_local``), with
+    ``'ppermute'`` and with ``halo='remote'`` across the processes, or
+    owning a chan column, and the production shapes on (4, 2); counts exact,
     profiles rtol 1e-5 (atol 1e-5 of the peak)."""
     prof_ref, cnt_ref, T = _jax_single_process_step(n_time, cfg)
     prof, cnt = _split(results, case)
@@ -299,7 +337,9 @@ def test_one_process_mesh_and_host_local():
 def test_mesh_process_ids_in_one_process():
     """A mesh whose cells name two ranks, seen from rank 0 without a
     group: its own cells are local, the others' blocks are None, and
-    ``halo='remote'`` on a ring across the ranks is refused."""
+    ``halo='remote'`` on a ring across the ranks does what ``'ppermute'``
+    does (on CPU shards it is the same copies): the pipeline builds, and
+    a step needs the process group."""
     mesh = par.Mesh([["cpu"] * 2] * 2, ("time", "chan"),
                     process_ids=[[0, 0], [1, 1]])
     assert mesh.spans_processes and mesh.is_local((0, 1))
@@ -311,10 +351,107 @@ def test_mesh_process_ids_in_one_process():
     assert grid[1, 0] is None and grid[1, 1] is None
     assert torch.equal(grid[0, 1], x[:4, 2:])
     from baseband_tasks_tpu_torch import WidebandPulsarPipeline, units as u
-    with pytest.raises(ValueError, match="ppermute"):
-        WidebandPulsarPipeline(freq_center=600 * u.MHz,
-                               chan_rate=250 * u.kHz, mesh=mesh,
-                               halo="remote", **mc.SMALL)
+    pipes = {h: WidebandPulsarPipeline(freq_center=600 * u.MHz,
+                                       chan_rate=250 * u.kHz, mesh=mesh,
+                                       halo=h, **mc.SMALL)
+             for h in ("ppermute", "remote")}
+    xf = mc.normal_pairs(pipes["remote"].global_block, mc.SMALL)
+    errors = {}
+    for h, pipe in pipes.items():
+        with pytest.raises(Exception) as info:
+            pipe.step_fn()(xf, np.float32(17))
+        errors[h] = (type(info.value), str(info.value))
+    assert errors["remote"] == errors["ppermute"]
     local = par.make_mesh(2, 2, devices=["cpu"] * 4)
     assert not local.spans_processes and not local.process_ids.any()
     assert all(local.is_local(c) for c in local.local_cells())
+
+
+# -- the push form's bookkeeping and the host check -----------------------
+
+def test_ring_across_two_hosts_refused():
+    """A time ring whose neighbours are on two hosts (the check given the
+    two host names) raises naming 'ppermute', from the check itself and
+    from the pipeline's constructor on a mesh that records the hosts; a
+    ring on one host, or with its hosts unknown, passes."""
+    from baseband_tasks_tpu_torch import WidebandPulsarPipeline, units as u
+    from baseband_tasks_tpu_torch.parallel import halo_remote as hr
+    ids = np.asarray([[0], [0], [1], [1]])
+    two = np.asarray([["node-a"], ["node-a"], ["node-b"], ["node-b"]],
+                     dtype=object)
+    with pytest.raises(ValueError, match="halo='ppermute'"):
+        hr.check_hosts(ids, two)
+    hr.check_hosts(ids, np.full((4, 1), "node-a", dtype=object))
+    hr.check_hosts(ids, None)
+    mesh = par.Mesh([["cpu"]] * 4, ("time", "chan"), process_ids=ids,
+                    hosts=two)
+    with pytest.raises(ValueError, match="halo='ppermute'"):
+        WidebandPulsarPipeline(freq_center=600 * u.MHz,
+                               chan_rate=250 * u.kHz, mesh=mesh,
+                               halo="remote", **mc.SMALL)
+    WidebandPulsarPipeline(freq_center=600 * u.MHz, chan_rate=250 * u.kHz,
+                           mesh=mesh, **mc.SMALL)      # 'ppermute' serves
+    from baseband_tasks_tpu_torch.parallel import _ipc
+    with pytest.raises(RuntimeError, match="halo='ppermute'"):
+        _ipc.check_reach([(0, 1)], ["node-a", "node-a"], [True, False])
+
+
+def test_pod_mesh_records_hosts():
+    import socket
+    mesh = multihost.pod_mesh(2, 1, local_devices=["cpu"] * 2)
+    assert mesh.hosts.shape == (2, 1)
+    assert set(mesh.hosts.flat) == {socket.gethostname()}
+
+
+@pytest.mark.parametrize("ids, periodic, launches", [
+    ([[0], [0], [1], [1]], False, {0: 2, 1: 2}),
+    ([[0], [0], [1], [1]], True, {0: 2, 1: 2}),
+    ([[0, 0], [1, 1]], False, {0: 2, 1: 2}),
+    ([[0], [1], [2]], True, {0: 2, 1: 2, 2: 2}),
+    ([[0, 0], [0, 1], [0, 1]], False, {0: 2, 1: 2}),
+    ([[0], [1]], True, {0: 2, 1: 2})])
+def test_push_plan(ids, periodic, launches):
+    """The push form's plan on every process: each shard's front and end
+    come from one move each (a push from its local source, a copy out of
+    its mailbox, or zeros), each crossing edge has its own slot, slots of
+    one receiver do not overlap, and each process makes two launches a
+    call (the push, then the copy out)."""
+    from baseband_tasks_tpu_torch.parallel import _ipc
+    ranks = np.asarray(ids)
+    for me in launches:
+        plan = _ipc.Plan(ranks, 5, 3, periodic, 48, me=me)
+        assert bool(plan.push_edges()) + bool(plan.copy_out_edges()) \
+            == launches[me]
+        got = {}
+        for e in plan.push_edges():
+            if plan.dst(e) == me:
+                got[(e[0], e[1], e[2])] = "zeros" if e[3] is None else "push"
+        for e in plan.copy_out_edges():
+            got[(e[0], e[1], e[2])] = "mailbox"
+        want = {(side, t, r) for (t, r), rank in np.ndenumerate(ranks)
+                if rank == me for side in (0, 1)}
+        assert set(got) == want
+        for e in plan.push_edges():
+            assert e[3] is None or plan.src(e) == me
+        for d, size in plan.parity_bytes.items():
+            spans = sorted((plan.offset[e], plan.offset[e]
+                            + plan.nbytes[e[0]]) for e in plan.transfers
+                           if plan.dst(e) == d)
+            assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+            assert spans[-1][1] <= size and size % 256 == 0
+        assert set(plan.send_to) == {plan.dst(e) for e in plan.transfers
+                                     if plan.src(e) == me}
+    # transfers cross processes only, the same list on every process
+    plans = [_ipc.Plan(ranks, 5, 3, periodic, 48, me=m) for m in launches]
+    assert all(p.transfers == plans[0].transfers for p in plans)
+    assert all(plans[0].src(e) != plans[0].dst(e)
+               for e in plans[0].transfers)
+
+
+def test_push_plan_rings_held_whole_need_no_transfer():
+    from baseband_tasks_tpu_torch.parallel import _ipc
+    from baseband_tasks_tpu_torch.parallel import halo_remote as hr
+    ids = np.asarray([[0, 1], [0, 1]])
+    assert _ipc.Plan(ids, 4, 4, True, 8, me=0).transfers == []
+    assert hr.crossing_rings(ids) == [] and hr.local_rings(ids) == [0]
+    assert hr.crossing_rings([[0, 0], [0, 1]]) == [1]
