@@ -76,6 +76,7 @@ from ..parallel.halo_remote import (check_hosts, halo_edges_remote,
                                     halo_exchange_remote)
 from ..parallel.mesh import Mesh, gather_cells, grid_indices, shard
 from ..utils import units as u
+from ..utils.profiling import span
 from .foldmodel import FoldModel, _phase_to_cycles
 from .meshtools import require_mesh_axis
 
@@ -156,112 +157,115 @@ class WidebandPulsarPipeline:
                  fft_pow2=False, use_kernels=False, phase_model=None,
                  start_time=None, ingest_bits=8, detect="power",
                  halo="ppermute"):
-        if freq_center is None:
-            freq_center = 1400 * u.MHz
-        if chan_rate is None:
-            chan_rate = 250 * u.kHz
-        if detect not in ("power", "stokes"):
-            raise ValueError(f"detect={detect!r}: 'power' or 'stokes'")
-        if detect == "stokes" and n_pol != 2:
-            raise ValueError("detect='stokes' needs dual polarization "
-                             "(n_pol=2): lanes pair (X, Y) per channel")
-        self.detect = detect
-        if halo not in ("ppermute", "remote"):
-            raise ValueError(f"halo={halo!r}: 'ppermute' or 'remote'")
-        self.halo = halo
-        self.n_chan = n_chan
-        self.n_pol = n_pol
-        self.n_phase = n_phase
-        if mesh is None:
-            if device is None:
-                device = "cuda" if torch.cuda.is_available() else "cpu"
-            mesh = Mesh([[device]], ("time", "chan"))
-        elif device is not None:
-            raise ValueError("give mesh or device, not both (device is the "
-                             "one-shard mesh)")
-        if mesh.axis_names != ("time", "chan"):
-            for axis in ("time", "chan"):
-                require_mesh_axis(mesh, axis)
-            raise ValueError(f"mesh axes must be ('time', 'chan'), got "
-                             f"{mesh.axis_names}")
-        self.mesh = mesh
-        self.device = mesh.local_device    # where results are joined
-        self.n_time_shards = mesh.shape["time"]
-        self.n_chan_shards = mesh.shape["chan"]
-        if n_chan % self.n_chan_shards:
-            raise ValueError("n_chan must divide over the chan mesh axis")
-        self._c_local = n_chan // self.n_chan_shards
-        # the cells this process computes (all of a one-process mesh)
-        self._cells = mesh.local_cells()
-        self._owners = mesh.process_ids
-        if not self._cells:
-            raise ValueError("this process owns no cell of the mesh")
-        if halo == "remote":
-            # CUDA IPC stays inside a host: a ring across hosts raises
-            check_hosts(self._owners, mesh.hosts)
-        self._mailboxes = Mailboxes()
-        self.use_kernels = bool(use_kernels)
-        frac = (period_samples if isinstance(period_samples, Fraction)
-                else Fraction(*period_samples))
-        self._per_q = int(frac.numerator)    # q samples per p periods
-        self._per_p = int(frac.denominator)
-        if self._per_p * self._per_q >= (1 << 31) or \
-                self._per_q >= (1 << 23):
-            raise ValueError(
-                f"period_samples {self._per_q}/{self._per_p} too fine: "
-                f"need p*q < 2^31 and q < 2^23 for exact bookkeeping")
-        if not 0 < int(n_phase) <= (1 << 15):
-            raise ValueError(f"n_phase={n_phase} must be in [1, 32768]")
-        self._p_fx = int(round((Fraction(self._per_p, self._per_q) % 1)
-                               * _FX_ONE)) & _FX_MASK
-        if phase_model is not None:
-            if start_time is None:
-                raise ValueError("phase_model requires start_time")
-            self.fold_model = FoldModel(phase_model, start_time,
-                                        chan_rate, n_phase)
-        else:
-            self.fold_model = None
+        with span("wideband.init"):
+            if freq_center is None:
+                freq_center = 1400 * u.MHz
+            if chan_rate is None:
+                chan_rate = 250 * u.kHz
+            if detect not in ("power", "stokes"):
+                raise ValueError(f"detect={detect!r}: 'power' or 'stokes'")
+            if detect == "stokes" and n_pol != 2:
+                raise ValueError("detect='stokes' needs dual polarization "
+                                 "(n_pol=2): lanes pair (X, Y) per channel")
+            self.detect = detect
+            if halo not in ("ppermute", "remote"):
+                raise ValueError(f"halo={halo!r}: 'ppermute' or 'remote'")
+            self.halo = halo
+            self.n_chan = n_chan
+            self.n_pol = n_pol
+            self.n_phase = n_phase
+            if mesh is None:
+                if device is None:
+                    device = "cuda" if torch.cuda.is_available() else "cpu"
+                mesh = Mesh([[device]], ("time", "chan"))
+            elif device is not None:
+                raise ValueError("give mesh or device, not both (device is "
+                                 "the one-shard mesh)")
+            if mesh.axis_names != ("time", "chan"):
+                for axis in ("time", "chan"):
+                    require_mesh_axis(mesh, axis)
+                raise ValueError(f"mesh axes must be ('time', 'chan'), got "
+                                 f"{mesh.axis_names}")
+            self.mesh = mesh
+            self.device = mesh.local_device    # where results are joined
+            self.n_time_shards = mesh.shape["time"]
+            self.n_chan_shards = mesh.shape["chan"]
+            if n_chan % self.n_chan_shards:
+                raise ValueError("n_chan must divide over the chan mesh axis")
+            self._c_local = n_chan // self.n_chan_shards
+            # the cells this process computes (all of a one-process mesh)
+            self._cells = mesh.local_cells()
+            self._owners = mesh.process_ids
+            if not self._cells:
+                raise ValueError("this process owns no cell of the mesh")
+            if halo == "remote":
+                # CUDA IPC stays inside a host: a ring across hosts raises
+                check_hosts(self._owners, mesh.hosts)
+            self._mailboxes = Mailboxes()
+            self.use_kernels = bool(use_kernels)
+            frac = (period_samples if isinstance(period_samples, Fraction)
+                    else Fraction(*period_samples))
+            self._per_q = int(frac.numerator)    # q samples per p periods
+            self._per_p = int(frac.denominator)
+            if self._per_p * self._per_q >= (1 << 31) or \
+                    self._per_q >= (1 << 23):
+                raise ValueError(
+                    f"period_samples {self._per_q}/{self._per_p} too fine: "
+                    f"need p*q < 2^31 and q < 2^23 for exact bookkeeping")
+            if not 0 < int(n_phase) <= (1 << 15):
+                raise ValueError(f"n_phase={n_phase} must be in [1, 32768]")
+            self._p_fx = int(round((Fraction(self._per_p, self._per_q) % 1)
+                                   * _FX_ONE)) & _FX_MASK
+            if phase_model is not None:
+                if start_time is None:
+                    raise ValueError("phase_model requires start_time")
+                self.fold_model = FoldModel(phase_model, start_time,
+                                            chan_rate, n_phase)
+            else:
+                self.fold_model = None
 
-        dm = dm if isinstance(dm, DispersionMeasure) else DispersionMeasure(dm)
-        self.dm = dm
-        rate_hz = chan_rate.to_value(u.Hz)
-        self.chan_rate = chan_rate
-        chan_idx = np.arange(n_chan) - n_chan / 2 + 0.5
-        freqs_mhz = freq_center.to_value(u.MHz) \
-            + chan_idx * chan_rate.to_value(u.MHz)
-        self.freqs = u.Quantity(freqs_mhz, u.MHz)
-        self.reference_frequency = freq_center
-        # per-channel pad from that channel's own smear (max over band),
-        # rounded to multiples of 128
-        edges = np.concatenate([freqs_mhz - rate_hz / 2e6,
-                                freqs_mhz + rate_hz / 2e6])
-        delays = dm.time_delay(u.Quantity(edges, u.MHz),
-                               freq_center).to_value(u.s)
-        pad_start = max(int(np.ceil(delays.max() * rate_hz)), 0) + 64
-        pad_end = max(int(np.ceil(-delays.min() * rate_hz)), 0) + 64
-        pad_start = -(-pad_start // 128) * 128
-        pad_end = -(-pad_end // 128) * 128
-        if pad_start + pad_end >= block_samples:
-            raise ValueError(
-                f"block_samples {block_samples} too small for dispersion "
-                f"pads ({pad_start}, {pad_end}); raise it or lower the DM")
-        n_min = block_samples + pad_start + pad_end
-        if fft_pow2 or self.use_kernels:
-            # power-of-two window with pads rounded up to multiples of N2,
-            # so stage A assembles the window from block + edges; packed
-            # ingest also needs the main rows divisible by 32/ingest_bits
-            n_fft = 1 << (n_min - 1).bit_length()
-            n1, n2 = split_n(n_fft)
-            pad_start = -(-pad_start // n2) * n2
-            pad_end = -(-pad_end // n2) * n2
-            planes = 32 // int(ingest_bits)
-            pad_end += ((n1 - (pad_start + pad_end) // n2) % planes) * n2
-        else:
-            n_fft = next_fast_len(n_min)
-        self.pad_start, self.pad_end, self._n_fft = pad_start, pad_end, n_fft
-        self.block_samples = n_fft - pad_start - pad_end
-        self._chirp_np = self._build_chirp()
-        self._dev = {}                   # device copies, made at first use
+            if not isinstance(dm, DispersionMeasure):
+                dm = DispersionMeasure(dm)
+            self.dm = dm
+            rate_hz = chan_rate.to_value(u.Hz)
+            self.chan_rate = chan_rate
+            chan_idx = np.arange(n_chan) - n_chan / 2 + 0.5
+            freqs_mhz = freq_center.to_value(u.MHz) \
+                + chan_idx * chan_rate.to_value(u.MHz)
+            self.freqs = u.Quantity(freqs_mhz, u.MHz)
+            self.reference_frequency = freq_center
+            # per-channel pad from that channel's own smear (max over band),
+            # rounded to multiples of 128
+            edges = np.concatenate([freqs_mhz - rate_hz / 2e6,
+                                    freqs_mhz + rate_hz / 2e6])
+            delays = dm.time_delay(u.Quantity(edges, u.MHz),
+                                   freq_center).to_value(u.s)
+            pad_start = max(int(np.ceil(delays.max() * rate_hz)), 0) + 64
+            pad_end = max(int(np.ceil(-delays.min() * rate_hz)), 0) + 64
+            pad_start = -(-pad_start // 128) * 128
+            pad_end = -(-pad_end // 128) * 128
+            if pad_start + pad_end >= block_samples:
+                raise ValueError(
+                    f"block_samples {block_samples} too small for dispersion "
+                    f"pads ({pad_start}, {pad_end}); raise it or lower the DM")
+            n_min = block_samples + pad_start + pad_end
+            if fft_pow2 or self.use_kernels:
+                # power-of-two window with pads rounded up to multiples of N2,
+                # so stage A assembles the window from block + edges; packed
+                # ingest also needs the main rows divisible by 32/ingest_bits
+                n_fft = 1 << (n_min - 1).bit_length()
+                n1, n2 = split_n(n_fft)
+                pad_start = -(-pad_start // n2) * n2
+                pad_end = -(-pad_end // n2) * n2
+                planes = 32 // int(ingest_bits)
+                pad_end += ((n1 - (pad_start + pad_end) // n2) % planes) * n2
+            else:
+                n_fft = next_fast_len(n_min)
+            self.pad_start, self.pad_end = pad_start, pad_end
+            self._n_fft = n_fft
+            self.block_samples = n_fft - pad_start - pad_end
+            self._chirp_np = self._build_chirp()
+            self._dev = {}                   # device copies, made at first use
 
     @classmethod
     def from_jax_state(cls, state, **kwargs):
@@ -818,33 +822,36 @@ class WidebandPulsarPipeline:
         words are packed per time shard (``pack_time_planes`` of each
         shard's samples, concatenated), since each shard decodes its own.
         """
-        T = self.global_block
-        per_q = float(self._per_q)
-        if ingest_bits not in (None, 1, 2, 4, 8):
-            raise ValueError("ingest_bits must be None, 1, 2, 4 or 8")
-        if ingest_bits and not self.use_kernels:
-            raise ValueError("packed ingest requires use_kernels=True (the "
-                             "JAX use_pallas=True)")
-        if ingest_bits:
-            n1, n2 = split_n(self._n_fft)
-            nm = (self._n_fft - self.pad_start - self.pad_end) // n2
-            per = 32 // ingest_bits
-            if nm % per:
-                raise ValueError(
-                    f"{ingest_bits}-bit ingest needs the window main rows "
-                    f"({nm}) divisible by {per}; adjust block_samples")
-            shape = (T * ingest_bits // 32, self.n_chan, self.n_pol)
-        elif self.use_kernels:
-            shape = (T, self.n_chan, self.n_pol)
-        else:
-            shape = (T, self.n_chan, self.n_pol, 2)
-        rows = None
-        if self.fold_model is not None:
-            rows = self.fold_model.table(offset0 + np.arange(n_iter) * T, T)
-        if self.use_kernels:
-            folds = self._kernel_folds(rows)
-        elif rows is not None:
-            rows = torch.as_tensor(rows, device=self.device)
+        with span("wideband.run_fn"):
+            T = self.global_block
+            per_q = float(self._per_q)
+            if ingest_bits not in (None, 1, 2, 4, 8):
+                raise ValueError("ingest_bits must be None, 1, 2, 4 or 8")
+            if ingest_bits and not self.use_kernels:
+                raise ValueError("packed ingest requires use_kernels=True "
+                                 "(the JAX use_pallas=True)")
+            if ingest_bits:
+                n1, n2 = split_n(self._n_fft)
+                nm = (self._n_fft - self.pad_start - self.pad_end) // n2
+                per = 32 // ingest_bits
+                if nm % per:
+                    raise ValueError(
+                        f"{ingest_bits}-bit ingest needs the window main "
+                        f"rows ({nm}) divisible by {per}; adjust "
+                        f"block_samples")
+                shape = (T * ingest_bits // 32, self.n_chan, self.n_pol)
+            elif self.use_kernels:
+                shape = (T, self.n_chan, self.n_pol)
+            else:
+                shape = (T, self.n_chan, self.n_pol, 2)
+            rows = None
+            if self.fold_model is not None:
+                rows = self.fold_model.table(offset0 + np.arange(n_iter) * T,
+                                             T)
+            if self.use_kernels:
+                folds = self._kernel_folds(rows)
+            elif rows is not None:
+                rows = torch.as_tensor(rows, device=self.device)
         L = self._c_local * self.n_pol
         cache = {}
 
@@ -856,44 +863,54 @@ class WidebandPulsarPipeline:
             return tuple(grids)
 
         def run(seed=0, blocks=None):
-            if blocks is None:
-                if seed not in cache:
-                    cache[seed] = blocks_of(self._payload(seed, shape,
-                                                          ingest_bits))
-                bases = cache[seed]
-            else:
-                dtype = torch.int32 if ingest_bits else torch.float32
-                bases = blocks_of([self._as_input(b, shape, dtype)
-                                   for b in blocks])
-            if self.use_kernels:
-                chirps = [self._shard_chirp("planes", c, self.mesh.devices[
-                    t, c]) for t, c in self._cells]
-                # one time shard: its edges are zeros whatever the step,
-                # so they are made once (no neighbour to read)
-                edges = (self._run_edges(ingest_bits, bases)
-                         if self.n_time_shards == 1 else None)
-            off = torch.tensor(float(offset0) % per_q, dtype=torch.float32,
-                               device=self.device)
-            width = 4 if self.detect == "stokes" else self.n_pol
-            acc = torch.zeros((self.n_phase, self.n_chan, width),
-                              dtype=torch.float32, device=self.device)
-            cnt_acc = torch.zeros((self.n_phase,), dtype=torch.int64,
-                                  device=self.device)
-            for k in range(n_iter):
-                if self.use_kernels:
-                    prof, cnt = self._kernel_step(ingest_bits, bases, chirps,
-                                                  off, folds(k, off), edges)
+            # nested in "wideband.call": the inputs ("mesh.shard" inside
+            # blocks_of), "wideband.prep" (chirps, edges, offset,
+            # accumulators), then one "wideband.step" a step
+            with span("wideband.call"):
+                if blocks is None:
+                    if seed not in cache:
+                        cache[seed] = blocks_of(self._payload(
+                            seed, shape, ingest_bits))
+                    bases = cache[seed]
                 else:
-                    foldv = rows[k] if rows is not None \
-                        else self._fixed_foldv(off)
-                    scale = 1.0 + 1e-6 * off
-                    prof, cnt = self._pairs_step(
-                        _map(bases[0], lambda b: b * scale.to(b.device)),
-                        self._shard_bins(foldv))
-                off = torch.remainder(off + T, per_q)
-                acc += prof
-                cnt_acc += cnt.to(torch.int64)
-            return acc, cnt_acc.to(torch.float32)
+                    dtype = torch.int32 if ingest_bits else torch.float32
+                    bases = blocks_of([self._as_input(b, shape, dtype)
+                                       for b in blocks])
+                with span("wideband.prep"):
+                    if self.use_kernels:
+                        chirps = [self._shard_chirp(
+                            "planes", c, self.mesh.devices[t, c])
+                            for t, c in self._cells]
+                        # one time shard: its edges are zeros whatever the
+                        # step, so they are made once (no neighbour to read)
+                        edges = (self._run_edges(ingest_bits, bases)
+                                 if self.n_time_shards == 1 else None)
+                    off = torch.tensor(float(offset0) % per_q,
+                                       dtype=torch.float32,
+                                       device=self.device)
+                    width = 4 if self.detect == "stokes" else self.n_pol
+                    acc = torch.zeros((self.n_phase, self.n_chan, width),
+                                      dtype=torch.float32, device=self.device)
+                    cnt_acc = torch.zeros((self.n_phase,), dtype=torch.int64,
+                                          device=self.device)
+                for k in range(n_iter):
+                    with span("wideband.step"):
+                        if self.use_kernels:
+                            prof, cnt = self._kernel_step(
+                                ingest_bits, bases, chirps, off,
+                                folds(k, off), edges)
+                        else:
+                            foldv = rows[k] if rows is not None \
+                                else self._fixed_foldv(off)
+                            scale = 1.0 + 1e-6 * off
+                            prof, cnt = self._pairs_step(
+                                _map(bases[0],
+                                     lambda b: b * scale.to(b.device)),
+                                self._shard_bins(foldv))
+                        off = torch.remainder(off + T, per_q)
+                        acc += prof
+                        cnt_acc += cnt.to(torch.int64)
+                return acc, cnt_acc.to(torch.float32)
 
         return run
 

@@ -26,6 +26,8 @@ from pathlib import Path
 
 import torch
 
+from ..utils.profiling import span
+
 __all__ = ["library", "build", "nvcc_path", "launch", "launch_counts",
            "reset_launch_counts", "kernel_tile", "kernel_form"]
 
@@ -183,8 +185,9 @@ def library():
     first use), with their argument types set."""
     global _lib
     if _lib is None:
-        paths, _ = build()
-        libs = [ctypes.CDLL(str(p)) for p in paths]
+        with span("ops.library"):
+            paths, _ = build()
+            libs = [ctypes.CDLL(str(p)) for p in paths]
         fns = {}
         for name, argtypes in _SIGNATURES.items():
             found = [getattr(lib, name) for lib in libs if hasattr(lib, name)]

@@ -17,15 +17,11 @@ a rank takes part in the transfers it is an end of.  Tensors travel as
 their bytes.  NCCL takes CUDA tensors directly; gloo takes host tensors,
 so a CUDA tensor is staged through a reused pinned host buffer (its
 device copy is ordered behind an event before the buffer is refilled).
-``transfer_counts`` counts the calls, the bytes this rank sent and the
-host seconds spent in the calls (staging copies and waits included), as
+``transfer_counts`` counts the calls and the bytes this rank sent, as
 ``ops.dedisperse.launch_counts`` counts kernel launches.
 """
 
 from __future__ import annotations
-
-import functools
-import time
 
 import torch
 import torch.distributed as dist
@@ -33,9 +29,9 @@ import torch.distributed as dist
 __all__ = ["process_index", "process_count", "send_recv", "all_to_all",
            "transfer_counts", "reset_transfer_counts"]
 
-#: calls of :func:`send_recv` / :func:`all_to_all`, the bytes this rank
-#: sent, and the host seconds the calls took
-transfer_counts = {"calls": 0, "bytes": 0, "seconds": 0.0}
+#: calls of :func:`send_recv` / :func:`all_to_all` and the bytes this
+#: rank sent
+transfer_counts = {"calls": 0, "bytes": 0}
 
 # dtypes a transfer header can name (receivers without a ``like``)
 _DTYPES = (torch.float32, torch.float64, torch.complex64, torch.complex128,
@@ -47,19 +43,6 @@ _HEADER = 10                     # dtype code, ndim, up to 8 dimensions
 def reset_transfer_counts():
     for k in transfer_counts:
         transfer_counts[k] = 0
-
-
-def _counted(fn):
-    """Count a transport call's host time (the other counts are added
-    inside, where the bytes are known)."""
-    @functools.wraps(fn)
-    def call(pairs, **kw):
-        t0 = time.perf_counter()
-        try:
-            return fn(pairs, **kw)
-        finally:
-            transfer_counts["seconds"] += time.perf_counter() - t0
-    return call
 
 
 def process_index():
@@ -185,7 +168,6 @@ def _headers(pairs):
     return out
 
 
-@_counted
 def send_recv(pairs, *, shapes=False, device=None):
     """Point-to-point transfers between processes.
 
@@ -238,7 +220,6 @@ def send_recv(pairs, *, shapes=False, device=None):
     return out
 
 
-@_counted
 def all_to_all(pairs):
     """The transfers of :func:`send_recv` (every receiver giving its
     like) through one ``all_to_all_single``: each rank sends the bytes of

@@ -24,6 +24,7 @@ import itertools
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from . import _transport
 
 __all__ = ["Mesh", "make_mesh", "time_chan_specs", "default_devices",
@@ -208,12 +209,13 @@ def shard(x, mesh, spec):
     processes every process passes the same global ``x`` (as to JAX's
     ``device_put``) and gets the blocks of its own cells; the others are
     None."""
-    x = torch.as_tensor(x)
-    out = np.empty(mesh.devices.shape, dtype=object)
-    for idx in mesh.local_cells():
-        block = x[block_index(spec, x.shape, mesh, idx)]
-        out[idx] = block.to(mesh.devices[idx]).contiguous()
-    return out
+    with span("mesh.shard"):
+        x = torch.as_tensor(x)
+        out = np.empty(mesh.devices.shape, dtype=object)
+        for idx in mesh.local_cells():
+            block = x[block_index(spec, x.shape, mesh, idx)]
+            out[idx] = block.to(mesh.devices[idx]).contiguous()
+        return out
 
 
 def unshard(blocks, mesh, spec, device=None):

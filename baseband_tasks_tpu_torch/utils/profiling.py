@@ -1,11 +1,16 @@
-"""Observability: per-stage throughput counters and profiler traces.
+"""Observability: per-stage throughput counters, profiler traces and the
+port's host spans.
 
 Counterpart of ``baseband_tasks_tpu/utils/profiling.py`` (the upstream
 baseband-tasks has no tracing or profiling hooks): (1)
 ``monitor(stream)`` wraps any stream node so its frames are counted and
 timed, with a pipeline-wide report; (2) ``trace(path)`` is a context
 manager around ``torch.profiler`` (CPU and, where there is a card, CUDA
-activities) that writes a Chrome trace under ``path``.
+activities) that writes a Chrome trace under ``path``; (3)
+``span(name)`` marks a stretch of the port's host code: while a profiler
+runs it is a ``record_function`` range, a ``user_annotation`` event on
+the same timeline as the card's kernels and copies, and otherwise a
+shared no-op.  Every span of the port goes through it.
 
 On a card a frame's launches return before the card has run them, so a
 monitor on a CUDA stream synchronizes that device inside the counted call:
@@ -25,7 +30,21 @@ import torch
 
 from . import units as u
 
-__all__ = ["monitor", "StreamMonitor", "trace"]
+__all__ = ["monitor", "StreamMonitor", "trace", "span"]
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name):
+    """A context naming the host code it wraps in a profiler's trace.
+
+    While ``torch.profiler`` (or the autograd profiler) runs, a
+    ``record_function(name)`` range; otherwise one shared no-op context,
+    so a span costs one check when nothing is traced (an ungated
+    ``record_function`` costs some microseconds even then)."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 class StreamMonitor:

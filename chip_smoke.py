@@ -4412,7 +4412,7 @@ X_WORLD = 2                  # processes, each with 2 virtual shards of cuda:0
 X_TIMEOUT = 300              # seconds for the pair of workers
 X_TURNS = 4                  # timed turns (best of)
 # the transport's kinds of counters, saved by the workers
-X_TRANSFER = ("calls", "bytes", "seconds")
+X_TRANSFER = ("calls", "bytes")
 
 
 def _counts_arrays(counts):
@@ -4726,13 +4726,12 @@ def check_x4(res, gpu, q_refs):
                       f"workers", got, (torch.from_numpy(z["x4/pp_prof"]),
                                         torch.from_numpy(z["x4/pp_cnt"])),
                       False, gpu, "(x4)")
-        calls, nbytes, secs = z["x4/transfer"]
-        pp_calls, pp_bytes, pp_secs = z["x4/ppermute_transfer"]
+        calls, nbytes = z["x4/transfer"]
+        pp_calls, pp_bytes = z["x4/ppermute_transfer"]
         print(f"(x4) rank {r}: the transport a step: {calls:.2f} calls, "
               f"{nbytes:.0f} B sent (the profiles' gather: "
-              f"{int(z['x4/profile_bytes'])} B), {1e3 * secs:.3f} ms of "
-              f"host time; 'ppermute' {pp_calls:.2f} calls, "
-              f"{pp_bytes / 1e6:.3f} MB, {1e3 * pp_secs:.3f} ms", flush=True)
+              f"{int(z['x4/profile_bytes'])} B); 'ppermute' "
+              f"{pp_calls:.2f} calls, {pp_bytes / 1e6:.3f} MB", flush=True)
         if nbytes != int(z["x4/profile_bytes"]):
             raise AssertionError(f"(x4) rank {r}: the transport carried "
                                  f"{nbytes} B a step, not only the profiles")
@@ -4836,13 +4835,12 @@ def drive_multihost(dev, gpu, q_refs, w1):
             raise AssertionError(f"(x1) rank {r}: counts sum {total}")
         check_profile(f"rank {r} against (q)'s one-process 4x1 run", got,
                       (ref_prof, ref_cnt), False, gpu, "(x1)")
-        calls, nbytes, secs = z["x1/transfer"]
+        calls, nbytes = z["x1/transfer"]
         print(f"(x1) rank {r}: {z['x1/ms']:.3f} ms a step across two "
               f"processes against (q)'s {q_refs['ms']:.3f} one-process "
               f"({z['x1/ms'] / q_refs['ms']:.2f}x); the transport "
-              f"{calls:.1f} calls, {nbytes / 1e6:.3f} MB sent and "
-              f"{1e3 * secs:.3f} ms of host time a step [{gpu}]",
-              flush=True)
+              f"{calls:.1f} calls, {nbytes / 1e6:.3f} MB sent a step "
+              f"[{gpu}]", flush=True)
         _x_print_profile(f"(x1) rank {r}", z, "x1", "step", gpu)
     z = res[0]
     a = tuple(torch.from_numpy(z[k]) for k in ("x1s/prof", "x1s/cnt"))
@@ -4882,12 +4880,12 @@ def drive_multihost(dev, gpu, q_refs, w1):
     if covered != list(range(W_BLOCKS)) or summed != w1_counts:
         raise AssertionError("(x2) blocks or launches differ from (w1)")
     for r, z in enumerate(res):
-        calls, nbytes, secs = z["x2/transfer"]
+        calls, nbytes = z["x2/transfer"]
         print(f"(x2) rank {r}: {z['x2/ms']:.3f} ms a block across two "
               f"processes against (w1)'s {w1_ms:.3f} one-process "
               f"({z['x2/ms'] / w1_ms:.2f}x); the transport {calls:.2f} "
-              f"calls, {nbytes / 1e6:.3f} MB sent and {1e3 * secs:.3f} ms "
-              f"of host time a block [{gpu}]", flush=True)
+              f"calls, {nbytes / 1e6:.3f} MB sent a block [{gpu}]",
+              flush=True)
         _x_print_profile(f"(x2) rank {r}", z, "x2", "block", gpu)
 
     # (x3)

@@ -245,6 +245,45 @@ def test_pipeline_kernels_match_plain(dev):
         torch.testing.assert_close(prof, rprof, rtol=PROFILE_RTOL, atol=0.0)
 
 
+# the profiler's own notice on starting a trace without a schedule
+@pytest.mark.filterwarnings("ignore:.*Profiler clears events:UserWarning")
+def test_pipeline_kernel_call_spans_nest(dev, tmp_path):
+    import json
+    import baseband_tasks_tpu_torch as bt
+    from baseband_tasks_tpu_torch.utils import profiling
+    u = bt.units
+    kern = bt.WidebandPulsarPipeline(
+        n_chan=8, n_pol=2, dm=0.5, freq_center=600 * u.MHz,
+        chan_rate=250 * u.kHz, period_samples=(512, 1), n_phase=8,
+        block_samples=1024, device=dev, use_kernels=True)
+    run = kern.run_fn(2, ingest_bits=8)
+    shape = (kern.global_block // 4, kern.n_chan, kern.n_pol)
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    words = tuple(torch.randint(0, 256, shape + (4,), generator=g,
+                                dtype=torch.uint8, device=dev).view(
+        torch.int32).reshape(shape) for _ in range(2))
+    run(blocks=words)
+    with profiling.trace(str(tmp_path / "t")):
+        run(blocks=words)
+    with open(tmp_path / "t" / "trace.json") as f:
+        spans = [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                 for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "user_annotation"]
+    # the two planes of words are sharded one by one
+    assert sorted(n for n, _, _ in spans) == [
+        "mesh.shard", "mesh.shard", "wideband.call", "wideband.prep",
+        "wideband.step", "wideband.step"]
+    by = {n: (a, b) for n, a, b in spans}
+    c0, c1 = by["wideband.call"]
+    assert all(c0 <= a and b <= c1 for _, a, b in spans)
+    shards = sorted(b for n, _, b in spans if n == "mesh.shard")
+    steps = sorted((a, b) for n, a, b in spans if n == "wideband.step")
+    assert shards[-1] <= by["wideband.prep"][0]
+    assert by["wideband.prep"][1] <= steps[0][0]
+    assert steps[0][1] <= steps[1][0]
+
+
 def test_wrappers_refuse_bad_inputs(dev):
     words, planes, edges, scale = inputs(dev, 896, 32, 96, 128, 8)
     with pytest.raises(TypeError):

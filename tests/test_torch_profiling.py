@@ -6,6 +6,12 @@ Channelize -> Square, and a join of two sources): the monitors come in
 the same order with the same names, and count the same frames and
 samples exactly; on CPU streams the port never synchronizes a card;
 ``trace`` writes a non-empty Chrome trace of the block it wraps.
+
+The port's spans (``span``, the port alone): with no profiler running a
+flagship call never enters ``record_function``; under ``trace`` it
+writes ``wideband.call`` with ``mesh.shard``, ``wideband.prep`` and one
+``wideband.step`` a step nested inside it, and building a pipeline and
+its ``run_fn`` writes ``wideband.init`` and ``wideband.run_fn``.
 """
 
 import json
@@ -78,3 +84,65 @@ def test_trace_writes_chrome_trace(tmp_path):
     assert os.path.getsize(out) > 0
     with open(out) as f:
         assert json.load(f)["traceEvents"]
+
+
+def flagship_small():
+    u = pb.units
+    return pb.WidebandPulsarPipeline(
+        n_chan=8, n_pol=2, dm=0.5, freq_center=600 * u.MHz,
+        chan_rate=250 * u.kHz, period_samples=(512, 1), n_phase=8,
+        block_samples=1024, device="cpu")
+
+
+def flagship_block(pipe):
+    shape = (pipe.global_block, pipe.n_chan, pipe.n_pol, 2)
+    return (np.random.default_rng(4).standard_normal(shape).astype(
+        np.float32),)
+
+
+def spans_of(path):
+    with open(os.path.join(path, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    return [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+            for e in events if e.get("cat") == "user_annotation"]
+
+
+def test_span_is_one_no_op_without_a_profiler(monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("entered record_function with no profiler")
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    assert pprof.span("a") is pprof.span("b")
+    pipe = flagship_small()
+    run = pipe.run_fn(2)
+    prof, cnt = run(blocks=flagship_block(pipe))
+    assert int(cnt.sum()) == 2 * pipe.global_block
+
+
+def test_flagship_call_spans_nest(tmp_path):
+    pipe = flagship_small()
+    run = pipe.run_fn(2)
+    block = flagship_block(pipe)
+    run(blocks=block)
+    with pprof.trace(str(tmp_path / "t")) as path:
+        run(blocks=block)
+    spans = spans_of(path)
+    names = sorted(n for n, _, _ in spans)
+    assert names == ["mesh.shard", "wideband.call", "wideband.prep",
+                     "wideband.step", "wideband.step"]
+    by = {n: (a, b) for n, a, b in spans}
+    c0, c1 = by["wideband.call"]
+    assert all(c0 <= a and b <= c1 for _, a, b in spans)
+    steps = sorted((a, b) for n, a, b in spans if n == "wideband.step")
+    # in order, none overlapping: the inputs, the preamble, the steps
+    assert by["mesh.shard"][1] <= by["wideband.prep"][0]
+    assert by["wideband.prep"][1] <= steps[0][0]
+    assert steps[0][1] <= steps[1][0]
+
+
+def test_flagship_set_up_spans(tmp_path):
+    with pprof.trace(str(tmp_path / "t")) as path:
+        pipe = flagship_small()
+        pipe.run_fn(2)
+    assert sorted(n for n, _, _ in spans_of(path)) == \
+        ["wideband.init", "wideband.run_fn"]
