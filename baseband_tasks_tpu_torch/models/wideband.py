@@ -459,14 +459,15 @@ class WidebandPulsarPipeline:
     def _fixed_foldv(self, off):
         """(3,) int64 fold row for the fixed rational period, from the
         float32 integer-valued sample offset carry (phase zero at global
-        sample 0).  float32 where the JAX pipeline computes in float32."""
+        sample 0); (n, 3) rows from (n,) offsets.  float32 where the JAX
+        pipeline computes in float32."""
         off_i = torch.remainder(off, float(self._per_q)).to(torch.int64)
         num = (off_i * self._per_p) % self._per_q    # exact: p*q < 2^31
         i0 = torch.round(num.to(torch.float32)
                          * np.float32(_FX_ONE / self._per_q))
         i0 = i0.to(torch.int64) & _FX_MASK
         return torch.stack([i0, torch.full_like(i0, self._p_fx),
-                            torch.zeros_like(i0)])
+                            torch.zeros_like(i0)], -1)
 
     def _foldv(self, fold_in):
         """The (3,) int64 fold row of a step input: a scalar sample offset
@@ -736,27 +737,22 @@ class WidebandPulsarPipeline:
         return [(fr[cell], fi[cell], er[cell], ei[cell])
                 for cell in self._cells]
 
-    def _kernel_step(self, bits, bases, chirps, off, folds, edges=None):
+    def _kernel_step(self, bits, bases, chirps, scales, folds, edges=None):
         """One window per shard on the kernel path, from the (rows, L)
         blocks ``bases`` (plane-packed int32 words with ``bits``, else
-        float32 planes), each shard's chirp planes and kernel fold row in
-        cell order, and the edges of :meth:`_run_edges` if given (else
-        exchanged here); returns :meth:`_reduce`'s profile and int32
-        counts.  The per-step scale is (1 + 1e-6·off)·norm, float32."""
-        scale = 1.0 + 1e-6 * off
-        if bits:
-            scale = scale * _NORM[bits]
-        scale = scale.reshape(1)
+        float32 planes), each shard's chirp planes, (1,) float32 scale
+        and kernel fold row in cell order (:meth:`_kernel_tables`), and
+        the edges of :meth:`_run_edges` if given (else exchanged here);
+        returns :meth:`_reduce`'s profile and int32 counts."""
         edges = edges or self._run_edges(bits, bases)
         profs = np.empty(bases[0].shape, dtype=object)
         cnts = np.empty(bases[0].shape, dtype=object)
         for i, (t, c) in enumerate(self._cells):
             cr, ci = bases[0][t, c], bases[1][t, c]
-            s = scale if cr.device == scale.device else scale.to(cr.device)
             if bits:
-                y = stage_a_packed(cr, ci, *edges[i], s, bits=bits)
+                y = stage_a_packed(cr, ci, *edges[i], scales[i], bits=bits)
             else:
-                y = stage_a(cr, ci, *edges[i], s)
+                y = stage_a(cr, ci, *edges[i], scales[i])
             prof, cnt = fold_chain(y, *chirps[i], folds[i],
                                    n_phase=self.n_phase,
                                    pad_start=self.pad_start,
@@ -782,24 +778,37 @@ class WidebandPulsarPipeline:
         return tuple(torch.randn(shape, generator=g, device=self.device)
                      for _ in range(2 if self.use_kernels else 1))
 
-    def _kernel_folds(self, rows):
-        """``folds(k, off)``: step k's int32 kernel fold rows, one per
-        shard in cell order on its device, from block rows (an (n_iter,
-        3) table put on the devices once) or from the fixed period's
-        carry."""
-        devs = [self.mesh.devices[cell] for cell in self._cells]
-        if rows is not None:
-            tables = [torch.as_tensor(self._shard_fold3(rows, t).astype(
-                np.int32), device=dev) for (t, _), dev in zip(self._cells,
-                                                               devs)]
-            return lambda k, off: [table[k] for table in tables]
+    def _offsets(self, offset0, n_iter):
+        """(n_iter,) float32 offsets of a run's steps on the pipeline's
+        device: ``offset0`` mod the period numerator, then the carry
+        ``off_{k+1} = (off_k + T) mod q`` step by step, in float32 as the
+        JAX run loop carries it."""
+        per_q = float(self._per_q)
+        off = torch.tensor(float(offset0) % per_q, dtype=torch.float32,
+                           device=self.device)
+        offs = [off]
+        for _ in range(n_iter - 1):
+            off = torch.remainder(off + self.global_block, per_q)
+            offs.append(off)
+        return torch.stack(offs)
 
-        def folds(k, off):
-            foldv = self._fixed_foldv(off)
-            return [self._shard_fold3(foldv, t).to(device=dev,
-                                                   dtype=torch.int32)
-                    for (t, _), dev in zip(self._cells, devs)]
-        return folds
+    def _kernel_tables(self, offs, rows, bits):
+        """Per step k, the kernel path's ``(scales, folds)``: one (1,)
+        float32 scale (1 + 1e-6·off_k)·norm and one (3,) int32 fold row
+        per shard in cell order, each a view of a table put on the
+        shard's device once, from the (n_iter,) offsets and the (n_iter,
+        3) int64 block rows."""
+        scale = 1.0 + 1e-6 * offs
+        if bits:
+            scale = scale * _NORM[bits]
+        scales, folds = [], []
+        for t, c in self._cells:
+            dev = self.mesh.devices[t, c]
+            scales.append(scale.to(dev))
+            folds.append(self._shard_fold3(rows, t).to(device=dev,
+                                                       dtype=torch.int32))
+        return [([s[k:k + 1] for s in scales], [f[k] for f in folds])
+                for k in range(len(offs))]
 
     def run_fn(self, n_iter, offset0=0, ingest_bits=None):
         """A loop of ``n_iter`` pipeline steps over one input block.
@@ -821,10 +830,23 @@ class WidebandPulsarPipeline:
         sharded over the mesh on axes 0 (time) and 1 (channels); packed
         words are packed per time shard (``pack_time_planes`` of each
         shard's samples, concatenated), since each shard decodes its own.
+
+        What depends only on these arguments is made here, once: the
+        steps' offsets (the carry run ahead on the device), their scales
+        and fold rows as tables on every shard's device.  The first call
+        adds each shard's chirp planes and, with one time shard, its zero
+        edges (no neighbour to read; every process of a mesh makes them
+        on its first call), which later calls reuse; a time-sharded mesh
+        exchanges its edges every step.  The sums start as the first
+        step's own profile and counts.  So with device blocks a call
+        makes no tensor from a Python number and does not wait for the
+        device.
         """
         with span("wideband.run_fn"):
             T = self.global_block
-            per_q = float(self._per_q)
+            if n_iter < 1:
+                raise ValueError(f"n_iter={n_iter}: a run takes one step "
+                                 f"or more")
             if ingest_bits not in (None, 1, 2, 4, 8):
                 raise ValueError("ingest_bits must be None, 1, 2, 4 or 8")
             if ingest_bits and not self.use_kernels:
@@ -844,16 +866,19 @@ class WidebandPulsarPipeline:
                 shape = (T, self.n_chan, self.n_pol)
             else:
                 shape = (T, self.n_chan, self.n_pol, 2)
-            rows = None
+            offs = self._offsets(offset0, n_iter)
             if self.fold_model is not None:
-                rows = self.fold_model.table(offset0 + np.arange(n_iter) * T,
-                                             T)
+                rows = torch.as_tensor(self.fold_model.table(
+                    offset0 + np.arange(n_iter) * T, T), device=self.device)
+            else:
+                rows = self._fixed_foldv(offs)
             if self.use_kernels:
-                folds = self._kernel_folds(rows)
-            elif rows is not None:
-                rows = torch.as_tensor(rows, device=self.device)
+                steps = self._kernel_tables(offs, rows, ingest_bits)
+            else:
+                scales = 1.0 + 1e-6 * offs
         L = self._c_local * self.n_pol
         cache = {}
+        made = {}
 
         def blocks_of(arrays):
             """The shards' blocks: (rows, L) on the kernel path."""
@@ -864,8 +889,8 @@ class WidebandPulsarPipeline:
 
         def run(seed=0, blocks=None):
             # nested in "wideband.call": the inputs ("mesh.shard" inside
-            # blocks_of), "wideband.prep" (chirps, edges, offset,
-            # accumulators), then one "wideband.step" a step
+            # blocks_of), "wideband.prep" (the chirps and edges, made on
+            # the first call), then one "wideband.step" a step
             with span("wideband.call"):
                 if blocks is None:
                     if seed not in cache:
@@ -877,39 +902,31 @@ class WidebandPulsarPipeline:
                     bases = blocks_of([self._as_input(b, shape, dtype)
                                        for b in blocks])
                 with span("wideband.prep"):
-                    if self.use_kernels:
-                        chirps = [self._shard_chirp(
+                    if self.use_kernels and not made:
+                        made["chirps"] = [self._shard_chirp(
                             "planes", c, self.mesh.devices[t, c])
                             for t, c in self._cells]
-                        # one time shard: its edges are zeros whatever the
-                        # step, so they are made once (no neighbour to read)
-                        edges = (self._run_edges(ingest_bits, bases)
-                                 if self.n_time_shards == 1 else None)
-                    off = torch.tensor(float(offset0) % per_q,
-                                       dtype=torch.float32,
-                                       device=self.device)
-                    width = 4 if self.detect == "stokes" else self.n_pol
-                    acc = torch.zeros((self.n_phase, self.n_chan, width),
-                                      dtype=torch.float32, device=self.device)
-                    cnt_acc = torch.zeros((self.n_phase,), dtype=torch.int64,
-                                          device=self.device)
+                        made["edges"] = (self._run_edges(ingest_bits, bases)
+                                         if self.n_time_shards == 1
+                                         else None)
                 for k in range(n_iter):
                     with span("wideband.step"):
                         if self.use_kernels:
                             prof, cnt = self._kernel_step(
-                                ingest_bits, bases, chirps, off,
-                                folds(k, off), edges)
+                                ingest_bits, bases, made["chirps"],
+                                *steps[k], made["edges"])
                         else:
-                            foldv = rows[k] if rows is not None \
-                                else self._fixed_foldv(off)
-                            scale = 1.0 + 1e-6 * off
+                            scale = scales[k]
                             prof, cnt = self._pairs_step(
                                 _map(bases[0],
                                      lambda b: b * scale.to(b.device)),
-                                self._shard_bins(foldv))
-                        off = torch.remainder(off + T, per_q)
-                        acc += prof
-                        cnt_acc += cnt.to(torch.int64)
+                                self._shard_bins(rows[k]))
+                        if k == 0:
+                            acc, cnt_acc = prof, cnt
+                        else:
+                            acc += prof
+                            cnt_acc = (cnt_acc.to(torch.int64)
+                                       + cnt.to(torch.int64))
                 return acc, cnt_acc.to(torch.float32)
 
         return run

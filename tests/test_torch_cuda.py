@@ -284,6 +284,49 @@ def test_pipeline_kernel_call_spans_nest(dev, tmp_path):
     assert steps[0][1] <= steps[1][0]
 
 
+# torch's notice on entering its sync debug mode
+@pytest.mark.filterwarnings(
+    "ignore:Synchronization debug mode is a prototype:UserWarning")
+@pytest.mark.parametrize("period", [(512, 1), (4099, 2)])
+def test_pipeline_call_does_not_sync(dev, period):
+    """After a first call, a call of ``run_fn(1)`` on device blocks, and
+    one on its cached seeded block, waits for nothing on the device,
+    launches K1p, K2 and K3 once each and repeats the first calls'
+    counts (profiles to the fold's atomic order)."""
+    import baseband_tasks_tpu_torch as bt
+    u = bt.units
+    kern = bt.WidebandPulsarPipeline(
+        n_chan=8, n_pol=2, dm=0.5, freq_center=600 * u.MHz,
+        chan_rate=250 * u.kHz, period_samples=period, n_phase=8,
+        block_samples=1024, device=dev, use_kernels=True)
+    run = kern.run_fn(1, offset0=3 * kern.global_block, ingest_bits=8)
+    shape = (kern.global_block // 4, kern.n_chan, kern.n_pol)
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    words = tuple(torch.randint(0, 256, shape + (4,), generator=g,
+                                dtype=torch.uint8, device=dev).view(
+        torch.int32).reshape(shape) for _ in range(2))
+    first = run(blocks=words), run(seed=5)
+    torch.cuda.synchronize()
+    got, counts = [], []
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        for kw in (dict(blocks=words), dict(seed=5)):
+            dd.reset_launch_counts()
+            got.append(run(**kw))
+            counts.append(dict(dd.launch_counts))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = dict(dict.fromkeys(dd.launch_counts, 0), k1_packed=1, k2=1,
+                k3_fold=1)
+    assert counts == [want, want]
+    for a, b in zip(first, got):
+        # K3 sums in atomic order: the same samples, another order
+        assert torch.equal(a[1], b[1])
+        torch.testing.assert_close(b[0], a[0], rtol=PROFILE_RTOL, atol=0.0)
+    assert int(got[0][1].sum()) == kern.global_block
+
+
 def test_wrappers_refuse_bad_inputs(dev):
     words, planes, edges, scale = inputs(dev, 896, 32, 96, 128, 8)
     with pytest.raises(TypeError):

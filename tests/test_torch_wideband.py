@@ -223,3 +223,122 @@ def test_rejects_unported_options():
         pp.run_fn(1, ingest_bits=3)
     with pytest.raises(ValueError, match="block must be"):
         pp.run_fn(1, ingest_bits=8)(blocks=(np.zeros(4), np.zeros(4)))
+
+
+# -- what run_fn makes once ---------------------------------------------------
+
+def step_by_step(pipe, offset0, n_iter, bits):
+    """Each step's float32 offset, (1,) kernel scale (1 + 1e-6·off)·norm
+    and (3,) fixed-period fold row, from the offset carry advanced one
+    step at a time as the JAX run loop does."""
+    T, per_q = pipe.global_block, float(pipe._per_q)
+    norm = {8: 1.0 / 64.0, 2: 1.0}.get(bits)
+    off = torch.tensor(float(offset0) % per_q, dtype=torch.float32)
+    out = []
+    for _ in range(n_iter):
+        scale = 1.0 + 1e-6 * off
+        if norm is not None:
+            scale = scale * norm
+        out.append((off, scale.reshape(1), pipe._fixed_foldv(off)))
+        off = torch.remainder(off + T, per_q)
+    return out
+
+
+def same_bits(a, b):
+    return a.dtype == b.dtype and torch.equal(
+        a.view(torch.int32) if a.is_floating_point() else a,
+        b.view(torch.int32) if b.is_floating_point() else b)
+
+
+@pytest.mark.parametrize("offset0", [0, 1000, 4099 - 300])
+@pytest.mark.parametrize("bits", [8, 2, None])
+def test_run_fn_tables_match_the_step_by_step_carry(bits, offset0):
+    """The offsets, scales and fixed-period fold rows run_fn tabulates
+    are, bit for bit, those of the carry advanced step by step; a period
+    of 4099 samples makes it wrap every few steps (T is 1024 or 1792), and
+    ``offset0`` starts it 300 samples short of the period.  ``bits``
+    None is the plain path, which scales the block and folds on the row
+    itself."""
+    kw = dict(port_kwargs(polyco=False, bits=bits or 8),
+              period_samples=(4099, 2), use_kernels=bits is not None)
+    pp = bt.WidebandPulsarPipeline(**kw)
+    n_iter = 12
+    scales, rows = [], []
+    if bits:
+        step = pp._kernel_step
+
+        def record(bits, bases, chirps, scale, folds, edges=None):
+            scales.append(scale[0])
+            rows.append(folds[0])
+            return step(bits, bases, chirps, scale, folds, edges)
+        pp._kernel_step = record
+        blocks = [w for w, _ in packed_blocks(pp.global_block, bits, 8)]
+    else:
+        pairs, bins = pp._pairs_step, pp._shard_bins
+
+        def record(grid, bins_of):
+            scales.append(grid[0, 0].reshape(-1)[:1])
+            return pairs(grid, bins_of)
+
+        def record_bins(foldv):
+            rows.append(foldv)
+            return bins(foldv)
+        pp._pairs_step, pp._shard_bins = record, record_bins
+        blocks = [np.ones((pp.global_block, 8, 2, 2), np.float32)]
+    pp.run_fn(n_iter, offset0=offset0, ingest_bits=bits)(blocks=blocks)
+    want = step_by_step(pp, offset0, n_iter, bits)
+    assert len(scales) == len(rows) == n_iter
+    for scale, fold, (_, w_scale, w_fold) in zip(scales, rows, want):
+        assert same_bits(scale, w_scale)
+        if bits:
+            w_fold = pp._shard_fold3(w_fold, 0).to(torch.int32)
+        assert same_bits(fold, w_fold)
+    offs = [float(off) for off, _, _ in want]
+    assert sum(b < a for a, b in zip(offs, offs[1:])) >= 2
+
+
+def test_run_fn_makes_edges_and_chirps_once(monkeypatch):
+    """One time shard: the zero edges and the chirp planes are made on a
+    run's first call and reused by the later ones (the outputs equal)."""
+    pp = bt.WidebandPulsarPipeline(**port_kwargs())
+    calls = []
+    edges, chirp = pp._run_edges, pp._shard_chirp
+    monkeypatch.setattr(pp, "_run_edges",
+                        lambda *a: calls.append("edges") or edges(*a))
+    monkeypatch.setattr(pp, "_shard_chirp",
+                        lambda *a: calls.append("chirp") or chirp(*a))
+    run = pp.run_fn(2, ingest_bits=8)
+    (wr, _), (wi, _) = packed_blocks(pp.global_block, 8, seed=9)
+    outs = [run(blocks=(wr, wi)) for _ in range(3)]
+    assert calls == ["chirp", "edges"]
+    for prof, cnt in outs[1:]:
+        assert torch.equal(prof, outs[0][0]) and torch.equal(cnt, outs[0][1])
+
+
+@pytest.mark.parametrize("n_iter", [1, 3])
+def test_run_fn_repeated_calls_match_jax(n_iter):
+    """Calls on the same blocks give the same bits, a call's result is
+    left untouched by later calls on other blocks (the sums start as a
+    step's own output), and they match the JAX run loop, with one step
+    and three."""
+    jp = jax_pipe()
+    T = jp.global_block
+    (wr, cr), (wi, ci) = packed_blocks(T, 8, seed=10)
+    other = [w for w, _ in packed_blocks(T, 8, seed=11)]
+    ref = jax_run(jp, functools.partial(jp._local_step_pallas_split_packed,
+                                        8), cr, ci, n_iter, offset0=2 * T)
+    pp = bt.WidebandPulsarPipeline.from_jax_state(jax_state(jp, n_iter + 2),
+                                                  **port_kwargs())
+    run = pp.run_fn(n_iter, offset0=2 * T, ingest_bits=8)
+    first = run(blocks=(wr, wi))
+    kept = [t.clone() for t in first]
+    between = run(blocks=other)
+    again = run(blocks=(wr, wi))
+    assert not torch.equal(between[0], first[0])
+    for a, b, c in zip(first, again, kept):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert first[1].dtype == torch.float32
+    assert int(first[1].sum()) == n_iter * T
+    assert_same(again, ref)
+    with pytest.raises(ValueError, match="one step or more"):
+        pp.run_fn(0)

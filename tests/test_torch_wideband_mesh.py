@@ -355,3 +355,25 @@ def test_chan_resharding_is_invisible(kernels):
     pb, cb = b.step_fn()(xf, 77)
     assert torch.equal(ca, cb)
     np.testing.assert_allclose(pa.numpy(), pb.numpy(), rtol=1e-6, atol=1e-3)
+
+
+@pytest.mark.parametrize("shape, once", [((4, 2), False),
+                                             ((1, 8), True)])
+def test_run_fn_edges_by_time_shards(monkeypatch, shape, once):
+    """A time-sharded mesh exchanges its edges every step; one time
+    shard (over eight chan shards) makes its zero edges on a run's first
+    call only.  Three calls of one run give the same bits."""
+    pp = bt.WidebandPulsarPipeline(
+        mesh=par.make_mesh(*shape, devices=["cpu"] * 8), use_kernels=True,
+        **config(bt.units))
+    made = []
+    edges = pp._run_edges
+    monkeypatch.setattr(pp, "_run_edges",
+                        lambda *a: made.append(1) or edges(*a))
+    run = pp.run_fn(N_ITER, ingest_bits=8)
+    (wr, _), (wi, _) = packed_per_shard(pp, 8, seed=31)
+    outs = [run(blocks=(wr, wi)) for _ in range(3)]
+    assert len(made) == (1 if once else 3 * N_ITER)
+    for out in outs[1:]:
+        assert_equal(out, outs[0])
+    assert int(outs[0][1].sum()) == N_ITER * pp.global_block
