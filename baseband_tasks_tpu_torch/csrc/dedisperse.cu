@@ -1486,27 +1486,40 @@ int launch_k2(void* yr, void* yi, const void* c0, const void* c1, int n1,
   });
 }
 
+// K3's tile: the widest power-of-two tile <= kFoldLanes dividing L whose
+// stages, exchange and shared partials fit; else the widest without
+// partials (the runs go to global atomics).  Returns false when none fits.
+template <bool STOKES, typename T>
+bool k3_fold_tile(int n1, int L, int n_phase, int* log_tl, int* smem_acc) {
+  using Smem = bbt::FoldSmem<STOKES, T>;
+  for (int acc = 1; acc >= 0; --acc) {
+    for (int lt = bbt::log2i(bbt::kFoldLanes); lt >= 0; --lt) {
+      if (L % (1 << lt)) continue;
+      if (Smem(n1, 1 << lt, n_phase, acc).bytes() <= bbt::kMaxSmem) {
+        *log_tl = lt;
+        *smem_acc = acc;
+        return true;
+      }
+    }
+  }
+  return false;
+}
+
+// the flagship's column (N1 = 512, the full tile) is compiled for its
+// shape; any other runs the general kernel
+constexpr int kK3HotTile = bbt::kFoldLanes == 16 ? 4
+                           : bbt::kFoldLanes == 8 ? 3
+                           : bbt::kFoldLanes == 4 ? 2 : -1;
+
 template <bool STOKES, typename T>
 int launch_k3_fold(const void* zr, const void* zi, const int* fold,
                    float* prof, unsigned* cnt, int n1, int n2, int L,
                    int n_phase, int pad_start, int n_valid, int device,
                    void* stream) {
   using Smem = bbt::FoldSmem<STOKES, T>;
-  // the widest power-of-two tile <= kFoldLanes dividing L whose stages,
-  // exchange and shared partials fit; else the widest without partials
-  // (the runs go to global atomics)
   int log_tl = -1, smem_acc = 1;
-  for (int acc = 1; acc >= 0 && log_tl < 0; --acc) {
-    for (int lt = bbt::log2i(bbt::kFoldLanes); lt >= 0; --lt) {
-      if (L % (1 << lt)) continue;
-      if (Smem(n1, 1 << lt, n_phase, acc).bytes() <= bbt::kMaxSmem) {
-        log_tl = lt;
-        smem_acc = acc;
-        break;
-      }
-    }
-  }
-  if (log_tl < 0) return cudaErrorInvalidValue;
+  if (!k3_fold_tile<STOKES, T>(n1, L, n_phase, &log_tl, &smem_acc))
+    return cudaErrorInvalidValue;
   const int tl = 1 << log_tl;
   const size_t smem = Smem(n1, tl, n_phase, smem_acc).bytes();
   // threads: the tile's (lane, row group) items, fold_items a thread,
@@ -1523,13 +1536,8 @@ int launch_k3_fold(const void* zr, const void* zi, const int* fold,
   // 16-byte (or smaller) cp.async copies of a tile row, when the rows
   // and the planes are aligned to them; else plain loads
   const int chunk = bbt::copy_chunk(tl, L, sizeof(T), {zr, zi});
-  // the flagship's column (N1 = 512, the full tile) compiled for its
-  // shape; any other through the general kernel
-  constexpr int kHotTile = bbt::kFoldLanes == 16 ? 4
-                           : bbt::kFoldLanes == 8 ? 3
-                           : bbt::kFoldLanes == 4 ? 2 : -1;
-  auto kernel = n1 == 512 && log_tl == kHotTile
-                    ? bbt::k3_fold_kernel<STOKES, T, 9, kHotTile>
+  auto kernel = n1 == 512 && log_tl == kK3HotTile
+                    ? bbt::k3_fold_kernel<STOKES, T, 9, kK3HotTile>
                     : bbt::k3_fold_kernel<STOKES, T, -1, -1>;
   cudaError_t err = bbt::prepare(kernel, smem, device);
   if (err != cudaSuccess) return err;
@@ -1712,6 +1720,32 @@ extern "C" int bbt_k2_form(int n2, int L, int kind) {
                                                   &staged);
     default:
       return -1;
+  }
+}
+
+// k3_form: the form a K3 launch (kind 0 k3_fold, 1 k3_fold_stokes, 2
+// k3_fold_bf16, 3 k3_fold_stokes_bf16) of an N1-row column on L lanes
+// with n_phase bins runs, as log2 of its lane tile (bits 0-3), 16 when
+// the run sums go to shared partials (else to global atomics) and 32 when
+// the column runs the instantiation compiled for the flagship's shape
+// (else the general kernel); -1 for a kind it does not know or a shape
+// no tile fits.
+template <bool STOKES, typename T>
+int k3_form(int n1, int L, int n_phase) {
+  int log_tl, smem_acc;
+  if (!k3_fold_tile<STOKES, T>(n1, L, n_phase, &log_tl, &smem_acc))
+    return -1;
+  return log_tl | (smem_acc ? 16 : 0) |
+         (n1 == 512 && log_tl == kK3HotTile ? 32 : 0);
+}
+
+extern "C" int bbt_k3_form(int n1, int L, int n_phase, int kind) {
+  switch (kind) {
+    case 0: return k3_form<false, float>(n1, L, n_phase);
+    case 1: return k3_form<true, float>(n1, L, n_phase);
+    case 2: return k3_form<false, bf16>(n1, L, n_phase);
+    case 3: return k3_form<true, bf16>(n1, L, n_phase);
+    default: return -1;
   }
 }
 

@@ -40,6 +40,12 @@ different hosts is refused with ``halo='remote'``.
   along time (cuFFT on a card), the chirp in natural order, detection
   and a one-hot fold.
 
+Packed ingest takes plane-packed words, or with ``ingest_layout='guppi'``
+GUPPI raw blocks as a recorder writes them (channel-major words of
+signed 8-bit dual-polarization samples), which each shard repacks on its
+device into the plane-packed words K1p reads (``guppi_repack``), a
+widening the JAX package lacks.
+
 The entry points are those of the JAX pipeline: ``step_fn`` (a block of
 the caller's voltages and a fold offset or fold row), ``step_bins_fn``
 with ``phase_bins`` (folding on host-computed, full-precision phase
@@ -66,8 +72,8 @@ from ..dm import DispersionMeasure
 from ..fourier import next_fast_len
 from ..ops.dedisperse import (_FX_MASK, _FX_ONE, as_tensor, dedisperse_pow2,
                               dedisperse_fold_stream, fold_chain,
-                              permute_to_storage_order, split_n, stage_a,
-                              stage_a_packed)
+                              guppi_repack, permute_to_storage_order,
+                              split_n, stage_a, stage_a_packed)
 from ..ops.fold import fold_accumulate
 from ..ops.unpack import plane_edges
 from ..parallel.halo import halo_edges, halo_exchange, ppermute
@@ -84,6 +90,9 @@ __all__ = ["WidebandPulsarPipeline"]
 
 # scale folded into the kernel per bit depth (keeps decoded values unit-ish)
 _NORM = {8: 1.0 / 64.0, 4: 1.0 / 4.0, 2: 1.0, 1: 1.0}
+# the 8-bit field offset of each ingest layout (None: the decoders'
+# default, 127.5): GUPPI's signed bytes arrive sign-flipped, v + 128
+_INGEST_OFFSET = {"planes": None, "guppi": 128.0}
 
 
 class _TableFoldModel:
@@ -148,6 +157,12 @@ class WidebandPulsarPipeline:
         'ppermute' (the time shards' edges copied between their devices)
         or 'remote' (the ``halo_remote`` kernel on a CUDA mesh, across the
         processes of one host too).
+    ingest_layout : str
+        The words :meth:`run_fn` takes with ``ingest_bits``: 'planes'
+        (two plane-packed blocks, offset-binary fields) or 'guppi' (one
+        GUPPI raw block, channel-major (n_chan, T) words of signed 8-bit
+        (X re, X im, Y re, Y im); the kernel path with n_pol = 2),
+        repacked into planes on the device by ``guppi_repack``.
     """
 
     def __init__(self, *, n_chan=1024, n_pol=4, dm=500.0,
@@ -156,7 +171,7 @@ class WidebandPulsarPipeline:
                  block_samples=16384, device=None, mesh=None,
                  fft_pow2=False, use_kernels=False, phase_model=None,
                  start_time=None, ingest_bits=8, detect="power",
-                 halo="ppermute"):
+                 halo="ppermute", ingest_layout="planes"):
         with span("wideband.init"):
             if freq_center is None:
                 freq_center = 1400 * u.MHz
@@ -171,6 +186,14 @@ class WidebandPulsarPipeline:
             if halo not in ("ppermute", "remote"):
                 raise ValueError(f"halo={halo!r}: 'ppermute' or 'remote'")
             self.halo = halo
+            if ingest_layout not in _INGEST_OFFSET:
+                raise ValueError(f"ingest_layout={ingest_layout!r}: "
+                                 f"'planes' or 'guppi'")
+            if ingest_layout == "guppi" and (n_pol != 2 or not use_kernels):
+                raise ValueError("ingest_layout='guppi' is the kernel path "
+                                 "(use_kernels=True) on dual-polarization "
+                                 "blocks (n_pol=2)")
+            self.ingest_layout = ingest_layout
             self.n_chan = n_chan
             self.n_pol = n_pol
             self.n_phase = n_phase
@@ -715,7 +738,8 @@ class WidebandPulsarPipeline:
             # (its buffer only gives ppermute the shape of the zeros)
             lead[t, c], tail[t, c] = plane_edges(
                 w, self.pad_end if t > 0 else 0,
-                self.pad_start if t < n - 1 else 0, bits)
+                self.pad_start if t < n - 1 else 0, bits,
+                _INGEST_OFFSET[self.ingest_layout])
             if t == 0:
                 lead[t, c] = w.new_empty((self.pad_end, w.shape[1]),
                                          dtype=torch.float32)
@@ -750,7 +774,8 @@ class WidebandPulsarPipeline:
         for i, (t, c) in enumerate(self._cells):
             cr, ci = bases[0][t, c], bases[1][t, c]
             if bits:
-                y = stage_a_packed(cr, ci, *edges[i], scales[i], bits=bits)
+                y = stage_a_packed(cr, ci, *edges[i], scales[i], bits=bits,
+                                   offset=_INGEST_OFFSET[self.ingest_layout])
             else:
                 y = stage_a(cr, ci, *edges[i], scales[i])
             prof, cnt = fold_chain(y, *chirps[i], folds[i],
@@ -763,18 +788,19 @@ class WidebandPulsarPipeline:
 
     def _payload(self, seed, shape, bits):
         """Random input made on the device from ``seed``: uniform words
-        for packed ingest, standard normal float32 otherwise (two planes
-        on the kernel path, one array of pairs on the plain path).  Each
-        process of a mesh over several makes the whole global block, so
-        the numbers do not depend on the process layout, and keeps its
-        own shards."""
+        for packed ingest (two planes, or one GUPPI block), standard
+        normal float32 otherwise (two planes on the kernel path, one
+        array of pairs on the plain path).  Each process of a mesh over
+        several makes the whole global block, so the numbers do not
+        depend on the process layout, and keeps its own shards."""
         g = torch.Generator(device=self.device)
         g.manual_seed(int(seed))
         if bits:
+            n = 1 if self.ingest_layout == "guppi" else 2
             return tuple(torch.randint(0, 256, shape + (4,), generator=g,
                                        dtype=torch.uint8, device=self.device
                                        ).view(torch.int32).reshape(shape)
-                         for _ in range(2))
+                         for _ in range(n))
         return tuple(torch.randn(shape, generator=g, device=self.device)
                      for _ in range(2 if self.use_kernels else 1))
 
@@ -830,14 +856,19 @@ class WidebandPulsarPipeline:
         sharded over the mesh on axes 0 (time) and 1 (channels); packed
         words are packed per time shard (``pack_time_planes`` of each
         shard's samples, concatenated), since each shard decodes its own.
+        With ``ingest_layout='guppi'`` (``ingest_bits=8``) ``blocks`` is
+        one GUPPI raw block, (n_chan, T) int32 words sharded on axes 0
+        (channels) and 1 (time); each shard's words are repacked into its
+        two planes on its device (span ``wideband.repack``).
 
         What depends only on these arguments is made here, once: the
         steps' offsets (the carry run ahead on the device), their scales
-        and fold rows as tables on every shard's device.  The first call
-        adds each shard's chirp planes and, with one time shard, its zero
-        edges (no neighbour to read; every process of a mesh makes them
-        on its first call), which later calls reuse; a time-sharded mesh
-        exchanges its edges every step.  The sums start as the first
+        and fold rows as tables on every shard's device.  Each shard's
+        chirp planes and, with one time shard, its zero edges (no
+        neighbour to read) are the pipeline's: the first call of its
+        first ``run_fn`` makes them (on every process of a mesh), and
+        every later call of every ``run_fn`` reuses them; a time-sharded
+        mesh exchanges its edges every step.  The sums start as the first
         step's own profile and counts.  So with device blocks a call
         makes no tensor from a Python number and does not wait for the
         device.
@@ -852,6 +883,10 @@ class WidebandPulsarPipeline:
             if ingest_bits and not self.use_kernels:
                 raise ValueError("packed ingest requires use_kernels=True "
                                  "(the JAX use_pallas=True)")
+            guppi = self.ingest_layout == "guppi"
+            if guppi and ingest_bits != 8:
+                raise ValueError("ingest_layout='guppi' reads 8-bit GUPPI "
+                                 "words: ingest_bits=8")
             if ingest_bits:
                 n1, n2 = split_n(self._n_fft)
                 nm = (self._n_fft - self.pad_start - self.pad_end) // n2
@@ -861,7 +896,8 @@ class WidebandPulsarPipeline:
                         f"{ingest_bits}-bit ingest needs the window main "
                         f"rows ({nm}) divisible by {per}; adjust "
                         f"block_samples")
-                shape = (T * ingest_bits // 32, self.n_chan, self.n_pol)
+                shape = ((self.n_chan, T) if guppi else
+                         (T * ingest_bits // 32, self.n_chan, self.n_pol))
             elif self.use_kernels:
                 shape = (T, self.n_chan, self.n_pol)
             else:
@@ -882,6 +918,12 @@ class WidebandPulsarPipeline:
 
         def blocks_of(arrays):
             """The shards' blocks: (rows, L) on the kernel path."""
+            if guppi:
+                grid = shard(arrays[0], self.mesh, ("chan", "time"))
+                with span("wideband.repack"):
+                    planes = _map(grid, guppi_repack)
+                return tuple(_map(planes, lambda p, k=k: p[k])
+                             for k in (0, 1))
             grids = [shard(a, self.mesh, ("time", "chan")) for a in arrays]
             if self.use_kernels:
                 grids = [_map(g, lambda b: b.reshape(-1, L)) for g in grids]
@@ -889,8 +931,9 @@ class WidebandPulsarPipeline:
 
         def run(seed=0, blocks=None):
             # nested in "wideband.call": the inputs ("mesh.shard" inside
-            # blocks_of), "wideband.prep" (the chirps and edges, made on
-            # the first call), then one "wideband.step" a step
+            # blocks_of, then "wideband.repack" for GUPPI words),
+            # "wideband.prep" (the chirps and edges, made on the first
+            # call), then one "wideband.step" a step
             with span("wideband.call"):
                 if blocks is None:
                     if seed not in cache:
@@ -900,15 +943,17 @@ class WidebandPulsarPipeline:
                 else:
                     dtype = torch.int32 if ingest_bits else torch.float32
                     bases = blocks_of([self._as_input(b, shape, dtype)
-                                       for b in blocks])
+                                       for b in ((blocks,) if guppi
+                                                 else blocks)])
                 with span("wideband.prep"):
                     if self.use_kernels and not made:
                         made["chirps"] = [self._shard_chirp(
                             "planes", c, self.mesh.devices[t, c])
                             for t, c in self._cells]
-                        made["edges"] = (self._run_edges(ingest_bits, bases)
-                                         if self.n_time_shards == 1
-                                         else None)
+                        made["edges"] = (self._on_device(
+                            ("zero edges", ingest_bits),
+                            lambda: self._run_edges(ingest_bits, bases))
+                            if self.n_time_shards == 1 else None)
                 for k in range(n_iter):
                     with span("wideband.step"):
                         if self.use_kernels:

@@ -70,6 +70,8 @@ _SIGNATURES = {
     "bbt_resident_form": [_I] * 4,
     "bbt_k2_form": [_I] * 3,
     "bbt_k1_form": [_I] * 3,
+    "bbt_k3_form": [_I] * 4,
+    "bbt_guppi_repack": [_P] * 3 + [_I] * 2 + [_I, _P],
     "bbt_halo_edges": [_PLL] * 3 + [_I] * 5 + [_LL, _I] + [_I, _P],
     "bbt_halo_push": [_PLL] * 2 + [_I] * 2 + [_LL] * 2 + [_I, _P],
     "bbt_enable_peer": [_I, _I],
@@ -97,7 +99,8 @@ _SIGNATURES["bbt_k2_bf16_chirp"] = _SIGNATURES["bbt_k2"]
 #: search's bank product and bank correlation, the single-pass resident
 #: dedisperse -> fold, and the flagship passes on bf16 intermediates:
 #: K1p, K1f, K2 with a float32 or a bf16 chirp, K3 power and Stokes;
-#: and the halo edges of a time-sharded mesh)
+#: the halo edges of a time-sharded mesh; and the repack of GUPPI words
+#: into K1p's planes)
 launch_counts = {"k1_packed": 0, "k1_float": 0, "k2": 0, "k3_fold": 0,
                  "k1_window": 0, "k2_fwd": 0, "k2_inv": 0, "k3_trim": 0,
                  "k1_stream": 0, "lane_mix": 0, "pfb_fwd": 0,
@@ -106,7 +109,8 @@ launch_counts = {"k1_packed": 0, "k1_float": 0, "k2": 0, "k3_fold": 0,
                  "bank_power": 0, "accel_corr": 0, "resident": 0,
                  "k1_packed_bf16": 0, "k1_float_bf16": 0, "k2_bf16": 0,
                  "k2_bf16_chirp": 0, "k3_fold_bf16": 0,
-                 "k3_fold_stokes_bf16": 0, "halo_remote": 0}
+                 "k3_fold_stokes_bf16": 0, "halo_remote": 0,
+                 "guppi_repack": 0}
 
 _lib = None
 

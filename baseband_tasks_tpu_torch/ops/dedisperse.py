@@ -53,7 +53,8 @@ import math
 import numpy as np
 import torch
 
-from ._build import kernel_form, launch, launch_counts, reset_launch_counts
+from ._build import (kernel_form, launch, launch_counts, library,
+                     reset_launch_counts)
 from .fold import fold_accumulate
 from .unpack import decode_planes, default_levels, default_offset
 
@@ -67,7 +68,8 @@ __all__ = ["split_n", "permute_to_storage_order", "fold_phase_vector",
            "dedisperse_fold_pow2", "dedisperse_fold_stream",
            "dedisperse_fold_split", "dedisperse_fold_split_packed",
            "fold_chain", "as_tensor", "launch_counts", "reset_launch_counts",
-           "k2_form", "k1_form"]
+           "k2_form", "k1_form", "k3_form", "guppi_repack",
+           "guppi_repack_ref"]
 
 _FX_BITS = 31
 _FX_ONE = 1 << _FX_BITS          # one pulse cycle in fixed-point units
@@ -176,6 +178,19 @@ def stage_a_packed_ref(xpr, xpi, fr, fi, er, ei, scale, *, bits,
     return stage_a_ref(decode_planes(xpr, bits, offset, levels),
                        decode_planes(xpi, bits, offset, levels),
                        fr, fi, er, ei, scale, out_dtype)
+
+
+def guppi_repack_ref(words):
+    """Plain GUPPI repack: (n_chan, T) int32 words, each one sample's
+    signed 8-bit (X re, X im, Y re, Y im) -> the (re, im) plane-packed
+    (T/4, 2 n_chan) int32 words of lanes 2c + p, each byte's sign bit
+    flipped (offset binary: decoded with offset 128)."""
+    c, t = words.shape
+    b = words.contiguous().view(torch.uint8).reshape(c, 4, t // 4, 2, 2)
+    # (chan, plane k, row r, pol, re/im) -> (re/im, r, chan, pol, k)
+    planes = (b ^ 0x80).permute(4, 2, 0, 3, 1).contiguous()
+    return tuple(p.view(torch.int32).reshape(t // 4, 2 * c)
+                 for p in planes)
 
 
 def _stage_b_ref(yr, yi, chirp):
@@ -384,6 +399,31 @@ def stage_a_packed(xpr, xpi, fr, fi, er, ei, scale, *, bits, offset=None,
     return yr, yi
 
 
+def guppi_repack(words):
+    """GUPPI words into K1p's two plane-packed planes: guppi_repack
+    (``csrc/unpack.cu``) on a CUDA tensor, else :func:`guppi_repack_ref`.
+
+    ``words`` : (n_chan, T) int32, channel-major, word (c, t) the bytes
+    (X re, X im, Y re, Y im) of channel c's sample t (GUPPI NPOL=4,
+    NBITS=8); T a multiple of 4.  Returns the (re, im) (T/4, 2 n_chan)
+    int32 planes, offset binary (:func:`stage_a_packed` with
+    ``offset=128`` decodes the signed values exactly).
+    """
+    if words.ndim != 2 or words.shape[1] % 4:
+        raise ValueError(f"GUPPI words must be (n_chan, T), T a multiple "
+                         f"of 4; got {tuple(words.shape)}")
+    if not _on_cuda(words):
+        return guppi_repack_ref(words)
+    c, t = words.shape
+    dev = words.device
+    _check(words, "words", torch.int32, (c, t), dev)
+    re = torch.empty((t // 4, 2 * c), dtype=torch.int32, device=dev)
+    im = torch.empty_like(re)
+    launch("guppi_repack", "bbt_guppi_repack", dev, words.data_ptr(),
+           re.data_ptr(), im.data_ptr(), c, t // 4)
+    return re, im
+
+
 def stage_a(xr, xi, fr, fi, er, ei, scale, out_dtype=torch.float32):
     """Stage A from float32 (T, L) planes: K1f (``k1_float``, or
     ``k1_float_bf16`` for bfloat16 ``out_dtype``) on CUDA tensors, else
@@ -502,6 +542,28 @@ def k1_form(n1, L, name="k1_float"):
         raise ValueError(f"{name!r} is not a K1 launch")
     return kernel_form("bbt_k1_form", int(n1), int(L), kind,
                        other="general")
+
+
+_K3_KINDS = {"k3_fold": 0, "k3_fold_stokes": 1, "k3_fold_bf16": 2,
+             "k3_fold_stokes_bf16": 3}
+
+
+def k3_form(name, n1, L, n_phase):
+    """The form of K3 launch ``name`` (k3_fold, k3_fold_stokes and their
+    ``_bf16`` twins) on N1-row columns of L lanes folding ``n_phase``
+    bins, as ``{"tile": lanes a block, "partials": 'shared' (the run
+    sums go to the block's shared profile) or 'global' (to global
+    atomics), "form": 'register' (the column compiled for the flagship's
+    shape) or 'general'}`` (needs the kernels' library, so a CUDA
+    machine)."""
+    code = library().bbt_k3_form(int(n1), int(L), int(n_phase),
+                                 _K3_KINDS[name])
+    if code < 0:
+        raise ValueError(f"{name}({n1}, {L}, {n_phase}): no kernel takes "
+                         f"this shape")
+    return {"tile": 1 << (code & 15),
+            "partials": "shared" if code & 16 else "global",
+            "form": "register" if code & 32 else "general"}
 
 
 def stage_b_theta(yr, yi, theta):

@@ -78,7 +78,13 @@ and for the flagship's variants, at the flagship configuration again:
     k1_stream_planes) against their plain versions on the same random
     input at the shapes the flagship paths give them (N = 2^18, L = 128),
     and times both (k2_theta, k1_planes and k1_stream_planes beside their
-    earlier designs' recorded times, their register forms asserted);
+    earlier designs' recorded times, their register forms asserted); at
+    the GUPPI full-Stokes node's shapes (``benchmark/configs/
+    guppi_b1937_stokes.json``) holds guppi_repack on one (64, 200,704)
+    block of GUPPI words bit for bit against its plain version, and K3
+    Stokes at 2048 bins over 128 lanes of the 2^18 window (pads 32,768 /
+    28,672; its 4-lane, shared-partials general form asserted) against
+    its plain version, both timed;
 (j) drives the variants' entry points at full width, each with its
     launches counted and asserted: ``run_fn(8, ingest_bits=8)`` with
     ``detect='stokes'``, ``step_fn`` (power and Stokes) on a polyco fold
@@ -90,7 +96,11 @@ and for the flagship's variants, at the flagship configuration again:
     profiles one turn of ``run_fn`` Stokes (wall, device busy, time per
     kernel) and times one call that also builds it; then holds
     ``step_fn`` on the kernels against its torch.fft path (``use_kernels=False, fft_pow2=True``, no
-    kernel launched) to the JAX package's rtol 1e-3 / atol 1e-2;
+    kernel launched) to the JAX package's rtol 1e-3 / atol 1e-2; and
+    drives the GUPPI node's entry, ``run_fn(1, ingest_bits=8)`` with
+    ``ingest_layout='guppi'`` on a block of device words (guppi_repack,
+    K1p, K2 and K3 Stokes once each), against the same call on the plain
+    versions, timed;
 
 and for the searches and the single-pass resident op, at the acceleration
 search of ``tools/bench_full.py`` ``accel()`` (a 2^22-sample series at
@@ -383,6 +393,7 @@ PFB_CU = "baseband_tasks_tpu_torch/csrc/pfb.cu"
 ACCEL_CU = "baseband_tasks_tpu_torch/csrc/accel.cu"
 RESIDENT_CU = "baseband_tasks_tpu_torch/csrc/resident.cu"
 HALO_CU = "baseband_tasks_tpu_torch/csrc/halo.cu"
+UNPACK_CU = "baseband_tasks_tpu_torch/csrc/unpack.cu"
 KERNELS = {   # launch-count name -> (TPU kernel it replaces, source)
     "k1_packed": ("baseband_tasks_tpu/ops/dedisperse_pallas.py:764",
                   DEDISPERSE_CU),
@@ -432,6 +443,9 @@ KERNELS = {   # launch-count name -> (TPU kernel it replaces, source)
                             DEDISPERSE_CU),
     # the halo edges of a time-sharded mesh (halo='remote')
     "halo_remote": ("baseband_tasks_tpu/parallel/halo_pallas.py:73", HALO_CU),
+    # GUPPI raw words into K1p's planes (ingest_layout='guppi'), a
+    # widening the JAX package lacks
+    "guppi_repack": (None, UNPACK_CU),
 }
 FLAGSHIP = ("k1_packed", "k1_float", "k2", "k3_fold")
 # the redesigned kernels (K2, resident and K1 on register FFTs, the
@@ -460,6 +474,11 @@ K1_PATHS = {"k1_packed": [(512, 128)], "k1_packed_bf16": [(512, 128)],
             "k1_stream": [(128, 512), (512, 128)]}
 VARIANTS = ("k3_fold_stokes", "k3_power", "k2_theta", "k1_planes",
             "k1_stream_planes")
+# the GUPPI full-Stokes node's window (n_fft, pad_start, pad_end) and the
+# form K3 Stokes takes there at 2048 bins over 128 lanes: 8 lanes'
+# partials exceed the shared-memory budget
+GUPPI_WINDOW = (1 << 18, 32768, 28672)
+GUPPI_K3_FORM = {"tile": 4, "partials": "shared", "form": "general"}
 
 
 def b1937_polyco():
@@ -485,6 +504,30 @@ def flagship(device, use_kernels=True, **extra):
         block_samples=1 << 17, device=device, use_kernels=use_kernels,
         phase_model=b1937_polyco(), start_time=Time.from_mjd(58000.0),
         ingest_bits=8, **extra)
+
+
+def guppi_node(device):
+    """The GUPPI full-Stokes node of ``benchmark/configs/
+    guppi_b1937_stokes.json`` on ``device``: 64 x 1.5625 MHz x 2 pol at
+    1150 MHz, DM 71.0197, 2048 Stokes bins, 8-bit GUPPI words."""
+    from baseband_tasks_tpu_torch import Time, WidebandPulsarPipeline, units
+    u = units
+    return WidebandPulsarPipeline(
+        n_chan=64, n_pol=2, dm=71.0197, freq_center=1150 * u.MHz,
+        chan_rate=1562.5 * u.kHz, period_samples=(243407, 100),
+        n_phase=2048, block_samples=1 << 17, device=device,
+        use_kernels=True, phase_model=b1937_polyco(),
+        start_time=Time.from_mjd(58000.0), ingest_bits=8, detect="stokes",
+        ingest_layout="guppi")
+
+
+def guppi_words(dev, n_chan, t, seed):
+    """(n_chan, t) int32 GUPPI words of random bytes on ``dev``."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return torch.randint(0, 256, (n_chan, t, 4), generator=g,
+                         dtype=torch.uint8, device=dev).view(
+        torch.int32).reshape(n_chan, t)
 
 
 @functools.lru_cache(maxsize=1)
@@ -1490,7 +1533,8 @@ def check_variant_kernels(pipe, gpu):
                          / ref[0][:, :L].abs().clamp_min(1e-30)).max())
             cross = compare((got[0][:, L:],), (ref[0][:, L:],))[1]
             print(f"(i) {name}: power plane rel {rel:.3e}, cross planes "
-                  f"{cross:.3e} of their peak", flush=True)
+                  f"{cross:.3e} of their peak; K3 form "
+                  f"{dd.k3_form(name, n1, L, pipe.n_phase)}", flush=True)
             ok = rel <= PROFILE_RTOL and cross <= FFT_TOL
             got = got[:1]
         else:
@@ -1511,6 +1555,120 @@ def check_variant_kernels(pipe, gpu):
             print(f"(i) {parent_note(name, ms)}, {check_form(name, y)} "
                   f"form [{gpu}]", flush=True)
     return results
+
+
+def check_guppi_kernels(dev, gpu):
+    """Phase (i) at the GUPPI node's shapes: guppi_repack on one (64,
+    200,704) block bit for bit against its plain version, and K3 Stokes
+    at 2048 bins over 128 lanes of the node's window (its form
+    asserted) against its plain version at the 64-bin case's
+    tolerances; both timed."""
+    from baseband_tasks_tpu_torch.ops import dedisperse as dd
+    n, p0, p1 = GUPPI_WINDOW
+    t, L, n_phase = n - p0 - p1, 128, 2048
+    words = guppi_words(dev, L // 2, t, 70)
+    dd.reset_launch_counts()
+    got = dd.guppi_repack(words)
+    torch.cuda.synchronize()
+    ref = dd.guppi_repack_ref(words)
+    same = all(torch.equal(a, b) for a, b in zip(got, ref))
+    print(f"(i) guppi_repack {tuple(words.shape)}: launches "
+          f"{dd.launch_counts['guppi_repack']}, "
+          f"{'bit-identical to' if same else 'DIFFERS from'} plain",
+          flush=True)
+    if not same or dd.launch_counts["guppi_repack"] != 1:
+        raise AssertionError("guppi_repack disagrees with its plain version")
+    ms, plain_ms = (cuda_ms(lambda f=f: f(words), reps=10)
+                    for f in (dd.guppi_repack, dd.guppi_repack_ref))
+    results = {"guppi_repack": result(0.0, ms, plain_ms,
+                                      ((words,), got, 0))}
+    print(f"(i) guppi_repack: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
+          f"bound {results['guppi_repack']['bound_ms']:.4f} ms "
+          f"({results['guppi_repack']['bound_by']}) [{gpu}]", flush=True)
+    del words, got, ref
+    n1, n2 = dd.split_n(n)
+    form = dd.k3_form("k3_fold_stokes", n1, L, n_phase)
+    print(f"(i) k3_fold_stokes at {n_phase} bins, window {GUPPI_WINDOW}: "
+          f"K3 form {form}", flush=True)
+    if form != GUPPI_K3_FORM:
+        raise AssertionError(f"K3 Stokes at {n_phase} bins: form {form}, "
+                             f"want {GUPPI_K3_FORM}")
+    z = randn(dev, (n2, n1, L), 71)
+    fold = torch.as_tensor(dd.fold_phase_vector(0.3, 1.0 / 2434.07),
+                           device=dev)
+    kw = dict(n_phase=n_phase, pad_start=p0, n_valid=t, stokes=True)
+    dd.reset_launch_counts()
+    prof, cnt = dd.detect_fold(*z, fold, **kw)
+    torch.cuda.synchronize()
+    rprof, rcnt = dd.fold_ref(*z, fold, **kw)
+    if (dd.launch_counts["k3_fold_stokes"] != 1 or not torch.equal(cnt, rcnt)
+            or int(cnt[:n_phase].sum()) != t):
+        raise AssertionError(f"k3_fold_stokes at {n_phase} bins: launches "
+                             f"or counts differ")
+    hit = rcnt > 0
+    rel = float(((prof[:, :L] - rprof[:, :L]).abs()[hit]
+                 / rprof[:, :L].abs()[hit]).max())
+    cross = compare((prof[:, L:],), (rprof[:, L:],))[1]
+    ok = (rel <= PROFILE_RTOL and cross <= FFT_TOL
+          and bool(torch.isfinite(prof).all()))
+    print(f"(i) k3_fold_stokes at {n_phase} bins: power plane rel "
+          f"{rel:.3e}, cross planes {cross:.3e} of their peak "
+          f"({'ok' if ok else 'FAIL'})", flush=True)
+    if not ok:
+        raise AssertionError(f"k3_fold_stokes at {n_phase} bins disagrees "
+                             f"with its plain version")
+    del prof, cnt, rprof, rcnt
+    ms, plain_ms = (cuda_ms(f, reps=10) for f in (
+        lambda: dd.detect_fold(*z, fold, **kw),
+        lambda: dd.fold_ref(*z, fold, **kw)))
+    meta = torch.empty((n_phase + 1, 3 * L + 1), device="meta")
+    bound_ms, bound_by = bound((*z, fold), (meta,), fft_flops(z, n1, 11))
+    print(f"(i) k3_fold_stokes at {n_phase} bins: {ms:.4f} ms kernel, "
+          f"{plain_ms:.4f} ms plain, bound {bound_ms:.4f} ms ({bound_by}) "
+          f"[{gpu}]", flush=True)
+    return results
+
+
+def drive_guppi(dev, gpu):
+    """Phase (j), the GUPPI node's entry: ``run_fn(1)`` on a block of
+    device words, its launches counted (guppi_repack, K1p, K2 and K3
+    Stokes once each), against the same call on the plain versions,
+    timed.  Returns the launch counts."""
+    from baseband_tasks_tpu_torch.ops import dedisperse as dd
+    node = guppi_node(dev)
+    geom = (node._n_fft, node.pad_start, node.pad_end)
+    if geom != GUPPI_WINDOW:
+        raise AssertionError(f"GUPPI node window {geom}, want "
+                             f"{GUPPI_WINDOW}")
+    T = node.global_block
+    words = guppi_words(dev, node.n_chan, T, 72)
+    run = node.run_fn(1, offset0=3 * T, ingest_bits=8)
+
+    def call():
+        return run(blocks=words)
+    torch.cuda.synchronize()
+    dd.reset_launch_counts()
+    got = call()
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in dd.launch_counts.items() if v}
+    expect_launches("run_fn guppi", counts, dict.fromkeys(
+        ("guppi_repack", "k1_packed", "k2", "k3_fold_stokes"), 1))
+    ref = plain(call)()
+    if int(got[1].sum()) != T:
+        raise AssertionError(f"run_fn guppi: counts sum "
+                             f"{int(got[1].sum())}, want {T}")
+    check_profile("run_fn guppi", got, ref, True, gpu)
+    best = {}
+    for key in ("plain", "kernels", "kernels", "plain"):
+        fn = plain(call) if key == "plain" else call
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best[key] = min(best.get(key, np.inf), time.perf_counter() - t0)
+    print(f"(j) run_fn guppi: {1e3 * best['kernels']:.3f} ms/step kernels, "
+          f"{1e3 * best['plain']:.3f} ms/step plain [{gpu}]", flush=True)
+    return counts
 
 
 def expect_launches(name, counts, want):
@@ -4938,6 +5096,7 @@ def main():
     time_steps(kern, gpu)
     results.update(check_variant_kernels(kern, gpu))
     del kern
+    results.update(check_guppi_kernels(dev, gpu))
     torch.cuda.empty_cache()
     results.update(check_four_step(dev, gpu))
     task_launches, task_kern, task_plain = drive_task_paths(dev, gpu)
@@ -4957,6 +5116,9 @@ def main():
     variants = drive_variants(dev, gpu)
     for k in VARIANTS:
         launches[k] = variants[k]
+    torch.cuda.empty_cache()
+    for k, v in drive_guppi(dev, gpu).items():
+        launches[k] += v
     torch.cuda.empty_cache()
     results.update(check_search_kernels(dev, gpu))
     torch.cuda.empty_cache()

@@ -48,7 +48,9 @@ HDF5 and PSRFITS readers handing out CUDA tensors, and two processes on
 the one card through the multi-process transport (gloo, host-staged) and
 with ``halo='remote'`` across them (the halo_remote push form through
 CUDA IPC, its stream flags, a 64-exchange stress; a card each where
-there are two).
+there are two); the GUPPI entry: guppi_repack bit for bit against its
+plain version, K3 Stokes at 2048 bins on the deployment's 2^18 window
+(its form asserted) and the entry's call under the sync check.
 Tolerances as in ``chip_smoke.py``: planes
 to 1e-4 of their largest element (float32 FFT roundoff is ~1e-6 of it),
 profiles elementwise to rtol 2e-4 (atomic summation order), counts
@@ -325,6 +327,73 @@ def test_pipeline_call_does_not_sync(dev, period):
         assert torch.equal(a[1], b[1])
         torch.testing.assert_close(b[0], a[0], rtol=PROFILE_RTOL, atol=0.0)
     assert int(got[0][1].sum()) == kern.global_block
+
+
+def _guppi_words(dev, n_chan, t, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return torch.randint(0, 256, (n_chan, t, 4), generator=g,
+                         dtype=torch.uint8, device=dev).view(
+        torch.int32).reshape(n_chan, t)
+
+
+@pytest.mark.filterwarnings(
+    "ignore:Synchronization debug mode is a prototype:UserWarning")
+def test_guppi_call_does_not_sync(dev):
+    """The GUPPI entry (``ingest_layout='guppi'``, full Stokes at 2048
+    bins): after a first call, a call on device words and one on the
+    cached seeded block wait for nothing on the device; the words' call
+    launches guppi_repack, K1p, K2 and K3 Stokes once each, the seeded
+    one (its planes cached) the last three; both repeat the first calls'
+    outputs, and the words' call matches the plain versions."""
+    import baseband_tasks_tpu_torch as bt
+    u = bt.units
+    kern = bt.WidebandPulsarPipeline(
+        n_chan=8, n_pol=2, dm=0.5, freq_center=600 * u.MHz,
+        chan_rate=250 * u.kHz, period_samples=(4099, 2), n_phase=2048,
+        block_samples=4096, device=dev, use_kernels=True, detect="stokes",
+        ingest_layout="guppi")
+    run = kern.run_fn(1, offset0=3 * kern.global_block, ingest_bits=8)
+    words = _guppi_words(dev, kern.n_chan, kern.global_block, 6)
+    first = run(blocks=words), run(seed=5)
+    torch.cuda.synchronize()
+    got, counts = [], []
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        for kw in (dict(blocks=words), dict(seed=5)):
+            dd.reset_launch_counts()
+            got.append(run(**kw))
+            counts.append(dict(dd.launch_counts))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = dict(dict.fromkeys(dd.launch_counts, 0), k1_packed=1, k2=1,
+                k3_fold_stokes=1)
+    assert counts == [dict(want, guppi_repack=1), want]
+    for a, b in zip(first, got):
+        assert torch.equal(a[1], b[1])
+        torch.testing.assert_close(b[0], a[0], rtol=PROFILE_RTOL,
+                                   atol=FFT_TOL * float(a[0].abs().max()))
+    with dd.plain_versions():
+        prof, cnt = kern.run_fn(1, offset0=3 * kern.global_block,
+                                ingest_bits=8)(blocks=words)
+    assert torch.equal(cnt, got[0][1])
+    hit = cnt > 0
+    power, rpower = got[0][0][hit][..., :2], prof[hit][..., :2]
+    assert float(((power - rpower).abs() / rpower).max()) <= PROFILE_RTOL
+    assert_planes((got[0][0][..., 2:],), (prof[..., 2:],))
+
+
+@pytest.mark.parametrize("n_chan, t", [(1, 4), (4, 2304), (33, 1000),
+                                       (64, 200704)])
+def test_guppi_repack(dev, n_chan, t):
+    """Bit for bit against the plain version: one channel and one row,
+    ragged tiles of rows and channels, the GUPPI deployment's block."""
+    words = _guppi_words(dev, n_chan, t, 60 + n_chan)
+    dd.reset_launch_counts()
+    got = dd.guppi_repack(words)
+    assert dd.launch_counts["guppi_repack"] == 1
+    ref = dd.guppi_repack_ref(words)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
 
 
 def test_wrappers_refuse_bad_inputs(dev):
@@ -761,6 +830,34 @@ def test_k3_fold_stokes(dev, geom, n_phase):
     assert float(rel) <= PROFILE_RTOL
     assert_planes((prof[:, L:],), (rprof[:, L:],))
     assert not prof[~hit].any()
+
+
+def test_k3_fold_stokes_guppi_shape(dev):
+    """The GUPPI deployment's fold: 2048 Stokes bins over 128 lanes of a
+    2^18 window (pads 32768 / 28672) take the general kernel on 4-lane
+    tiles with shared partials (8 lanes' partials exceed the budget);
+    the flagship's 64 bins keep the compiled 8-lane column."""
+    n, p0, p1, L = 1 << 18, 32768, 28672, 128
+    n1, n2 = dd.split_n(n)
+    assert dd.k3_form("k3_fold_stokes", n1, L, 2048) == {
+        "tile": 4, "partials": "shared", "form": "general"}
+    for name in ("k3_fold", "k3_fold_stokes"):
+        assert dd.k3_form(name, n1, L, 64) == {
+            "tile": 8, "partials": "shared", "form": "register"}
+    z = randn(dev, (n2, n1, L), 45)
+    fold = torch.as_tensor(dd.fold_phase_vector(0.3, 1.0 / 2434.07),
+                           device=dev)
+    kw = dict(n_phase=2048, pad_start=p0, n_valid=n - p0 - p1, stokes=True)
+    dd.reset_launch_counts()
+    prof, cnt = dd.detect_fold(*z, fold, **kw)
+    assert dd.launch_counts["k3_fold_stokes"] == 1
+    rprof, rcnt = dd.fold_ref(*z, fold, **kw)
+    assert torch.equal(cnt, rcnt) and int(cnt[:2048].sum()) == n - p0 - p1
+    hit = rcnt > 0
+    rel = ((prof[:, :L] - rprof[:, :L]).abs()[hit]
+           / rprof[:, :L].abs()[hit]).max()
+    assert float(rel) <= PROFILE_RTOL
+    assert_planes((prof[:, L:],), (rprof[:, L:],))
 
 
 @pytest.mark.parametrize("n", [1 << 10, 1 << 18])

@@ -315,6 +315,25 @@ def test_run_fn_makes_edges_and_chirps_once(monkeypatch):
         assert torch.equal(prof, outs[0][0]) and torch.equal(cnt, outs[0][1])
 
 
+def test_run_fns_share_the_zero_edges(monkeypatch):
+    """One time shard: the zero edges are the pipeline's, made by the
+    first run_fn's first call and reused by every later run_fn (a run
+    per stream offset, as a sub-integration's calls are)."""
+    pp = bt.WidebandPulsarPipeline(**port_kwargs())
+    calls = []
+    edges = pp._run_edges
+    monkeypatch.setattr(pp, "_run_edges",
+                        lambda *a: calls.append("edges") or edges(*a))
+    (wr, _), (wi, _) = packed_blocks(pp.global_block, 8, seed=9)
+    runs = [pp.run_fn(1, offset0=k * pp.global_block, ingest_bits=8)
+            for k in range(3)]
+    outs = [run(blocks=(wr, wi)) for run in runs]
+    assert calls == ["edges"]
+    first = pp._dev[("zero edges", 8)]
+    assert all(not t.any() for cell in first for t in cell)
+    assert int(outs[2][1].sum()) == pp.global_block
+
+
 @pytest.mark.parametrize("n_iter", [1, 3])
 def test_run_fn_repeated_calls_match_jax(n_iter):
     """Calls on the same blocks give the same bits, a call's result is
