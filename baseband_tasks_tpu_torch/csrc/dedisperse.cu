@@ -53,6 +53,7 @@
 // the float2 column: 8-way shared-memory bank conflicts on every store, for
 // no fewer bytes from device memory.  Tiles of one lane (odd L) take V = 1.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -921,8 +922,9 @@ k2_reg_kernel(T* __restrict__ yr, T* __restrict__ yi,
 //   integer counts) go to the global (n_phase+1, W*L) profile and
 //   (n_phase+1,) counts with one atomic per entry at the block's end.
 //   Counts are taken by the lane-0 items of the lane-tile-0 blocks only
-//   (the bin depends on t alone), once per row.  When the partials do not
-//   fit shared memory (huge n_phase) the runs go to global atomics.
+//   (the bin depends on t alone), once per row.  Where the partials of
+//   the widest tile L allows do not fit shared memory (many bins), the
+//   shape takes the gather form below.
 // - A row's 8 lanes are 8 neighbouring threads with the same bins: each
 //   computes one of the row group's 8 bins and shuffles it to the others.
 // What holds it back (tools/fft_sweep.py, which times the tile width,
@@ -930,8 +932,37 @@ k2_reg_kernel(T* __restrict__ yr, T* __restrict__ yi,
 // and the kernel without its FFT or without its fold, kFoldMode 1, 2): the staged loads and the fold alone, and
 // the FFT alone, each take about 0.14 ms of the power form's ~0.19, and
 // overlap only in part.
+//
+// The gather form (the overload of k3_fold_kernel tagged Gather, below)
+// folds many bins.  At 2048 Stokes bins a run of equal bins lasts ~1.2
+// samples, so the runs above flush nearly every sample (two shared
+// compare-and-swap loops each), and the partials of 8 lanes no longer
+// fit: the tile shrinks to 4 lanes and one block an SM.  The four-step
+// layout keeps samples N2 apart in a column, so no block of this form
+// sees a stretch of time and any fold in it has to scatter.  The gather
+// form stops scattering: phase 1 transforms every column as above and
+// stores z (with 1/N1) time-major into a complex float32 scratch (N, L);
+// after a grid-wide barrier, phase 2 gives each (bin, lane) to one thread,
+// which finds its bin's rows in every pulse period from the bin map's
+// edges and sums them in registers in time order: no atomics on bins 0
+// .. n_phase-1, and the same sums on every call.  What bounds it: bytes,
+// the planes read once, the scratch written once and read once (~0.80 GB
+// at the GUPPI node's 2^18 x 128 window, 0.24 ms at 3.35 TB/s).  It keeps
+// no partials, so its tile is the widest the stages allow, and no
+// partner column (phase 2 reads lane l+1 from the scratch).  It is one
+// cooperative launch, not two kernels, so that one launch a step is the
+// whole fold (the launch grid is already about one block per resident
+// slot, which co-residency needs).  `k3_uses_gather` picks it by shape:
+// where the runs' widest tile, with its shared partials, does not fit.
 constexpr int kFoldLanes = 8, kFoldStages = 2, kFoldMode = 0, kFoldRuns = 1;
 constexpr int kFoldLogR = 3;           // radix-8 register passes
+// The gather form: its widest tile, (lane, row group) items a thread,
+// stage buffers, the rows each phase-2 thread loads at once, and
+// kFoldGather (tools/fft_sweep.py --only forms): 0 the form by shape, 1
+// the gather form wherever its tile fits
+constexpr int kGatherLanes = 16, kGatherItems = 2, kGatherStages = 2,
+              kGatherRows = 8, kFoldGather = 0;
+constexpr int kTrashRows = 256;        // pad rows a phase-2 trash item sums
 
 // (lane, row group) items a thread holds: one with STOKES (whose run
 // sums take three registers a row) on tiles of up to 8 lanes, else two
@@ -958,15 +989,14 @@ struct FoldSmem {
   // bf16 partners are staged as the aligned 4-byte lane pair they open
   static constexpr int kPartnerWords = kBf16<T> ? 2 : 1;
   int ex_main, buf, tw, acc;   // ex_main in float2 slots, the rest bytes
-  __host__ __device__ FoldSmem(int n1, int tl, int n_phase, int smem_acc) {
+  __host__ __device__ FoldSmem(int n1, int tl, int n_phase) {
     const int elems = 2 * n1 * tl + (STOKES ? 2 * n1 * kPartnerWords : 0);
     const int stage = elems * static_cast<int>(sizeof(T));
     ex_main = reg::padded_size<2>(n1 * tl);
     const int ex = (ex_main + (STOKES ? 2 * reg::padded_size<1>(n1) : 0)) * 8;
     buf = ((stage > ex ? stage : ex) + 15) / 16 * 16;
     tw = reg::twiddle_slots(log2i(n1), kFoldLogR) * 8;
-    acc = smem_acc ? ((n_phase + 1) * (STOKES ? 3 : 1) * tl + n_phase + 1) * 4
-                   : 0;
+    acc = ((n_phase + 1) * (STOKES ? 3 : 1) * tl + n_phase + 1) * 4;
   }
   __host__ __device__ int bytes() const { return kFoldStages * buf + tw + acc; }
 };
@@ -981,7 +1011,7 @@ k3_fold_kernel(const T* __restrict__ zr, const T* __restrict__ zi,
                const int* __restrict__ fold, float* __restrict__ prof,
                unsigned* __restrict__ cnt, int log_n1_arg, int log_n2, int L,
                int log_tl_arg, int n_phase, int pad_start, int n_valid,
-               int smem_acc, int n_main, int chunk) {
+               int n_main, int chunk) {
   constexpr int W = STOKES ? 3 : 1;   // profile planes
   constexpr int R = 1 << kFoldLogR;
   constexpr int I = fold_items<STOKES>();
@@ -995,7 +1025,7 @@ k3_fold_kernel(const T* __restrict__ zr, const T* __restrict__ zi,
   const int n1 = 1 << log_n1;
   const int n2 = 1 << log_n2;
   const int tl = 1 << log_tl;
-  const FoldSmem<STOKES, T> lay(n1, tl, n_phase, smem_acc);
+  const FoldSmem<STOKES, T> lay(n1, tl, n_phase);
   T* stages = reinterpret_cast<T*>(k3_smem);
   float2* tw = reinterpret_cast<float2*>(k3_smem + kFoldStages * lay.buf);
   float* pprof = reinterpret_cast<float*>(k3_smem + kFoldStages * lay.buf +
@@ -1007,11 +1037,8 @@ k3_fold_kernel(const T* __restrict__ zr, const T* __restrict__ zi,
   const bool counter = blockIdx.x == 0;
   const int nthreads = blockDim.x;
   reg::fill_twiddle_tables(tw, log_n1, kFoldLogR);
-  if (smem_acc) {
-    for (int i = threadIdx.x; i < acc_rows * tl; i += nthreads)
-      pprof[i] = 0.0f;
-    for (int i = threadIdx.x; i <= n_phase; i += nthreads) pcnt[i] = 0u;
-  }
+  for (int i = threadIdx.x; i < acc_rows * tl; i += nthreads) pprof[i] = 0.0f;
+  for (int i = threadIdx.x; i <= n_phase; i += nthreads) pcnt[i] = 0u;
   const unsigned i0 = static_cast<unsigned>(fold[0]);
   const unsigned p = static_cast<unsigned>(fold[1]);
   const unsigned nph = static_cast<unsigned>(n_phase);
@@ -1021,13 +1048,6 @@ k3_fold_kernel(const T* __restrict__ zr, const T* __restrict__ zi,
   // with STOKES each lane's (Re, Im) cross sums side by side, which one
   // 64-bit compare-and-swap adds together
   auto add = [&](unsigned bin, int lane, const float (&v)[W]) {
-    if (!smem_acc) {
-#pragma unroll
-      for (int k = 0; k < W; ++k)
-        atomicAdd(&prof[(static_cast<long>(bin) * W + k) * L + l0 + lane],
-                  v[k]);
-      return;
-    }
     float* row = pprof + static_cast<int>(bin) * W * tl;
     atomicAdd(&row[lane], v[0]);
     if constexpr (STOKES) {
@@ -1211,10 +1231,7 @@ k3_fold_kernel(const T* __restrict__ zr, const T* __restrict__ zi,
           continue;
         }
         const unsigned bin = kShareBins ? shared_bin : bin_of(c);
-        if (counter && lane[i] == 0) {
-          if (smem_acc) atomicAdd(&pcnt[bin], 1u);
-          else atomicAdd(&cnt[bin], 1u);
-        }
+        if (counter && lane[i] == 0) atomicAdd(&pcnt[bin], 1u);
         float val[W];
         val[0] = vr * vr + vi * vi;
         if constexpr (STOKES) {
@@ -1246,20 +1263,374 @@ k3_fold_kernel(const T* __restrict__ zr, const T* __restrict__ zi,
     for (int q = 0; q < R; ++q)
       if (live[i] && !partner) flush(i, q);
   if (kFoldMode == 2 && keep == -1.0f) prof[0] = keep;
-  if (smem_acc) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < acc_rows * tl; i += nthreads) {
-      if (pprof[i] == 0.0f) continue;
-      const int bin = i / (W * tl), j = i - bin * W * tl;
-      const int k = j < tl ? 0 : 1 + ((j - tl) & 1);
-      const int ln = j < tl ? j : (j - tl) >> 1;
-      atomicAdd(&prof[(static_cast<long>(bin) * W + k) * L + l0 + ln],
-                pprof[i]);
-    }
-    if (counter)
-      for (int i = threadIdx.x; i <= n_phase; i += nthreads)
-        if (pcnt[i]) atomicAdd(&cnt[i], pcnt[i]);
+  __syncthreads();
+  for (int i = threadIdx.x; i < acc_rows * tl; i += nthreads) {
+    if (pprof[i] == 0.0f) continue;
+    const int bin = i / (W * tl), j = i - bin * W * tl;
+    const int k = j < tl ? 0 : 1 + ((j - tl) & 1);
+    const int ln = j < tl ? j : (j - tl) >> 1;
+    atomicAdd(&prof[(static_cast<long>(bin) * W + k) * L + l0 + ln],
+              pprof[i]);
   }
+  if (counter)
+    for (int i = threadIdx.x; i <= n_phase; i += nthreads)
+      if (pcnt[i]) atomicAdd(&cnt[i], pcnt[i]);
+}
+
+// ---------------------------------------------------------------------------
+// K3's gather form (see the K3 notes above): k3_fold_kernel<..., Gather>.
+
+struct Gather {};                      // tags the gather form's overload
+
+// threads of a gather block at N1 = 512 (64 row groups), in whole warps
+__host__ __device__ constexpr int gather_threads(int tl = kGatherLanes) {
+  return (64 * tl / kGatherItems + 31) / 32 * 32;
+}
+
+// Shared-memory carve of a gather block: kGatherStages buffers, each a
+// column's staged planes and then its exchange; the twiddles.
+template <typename T>
+struct GatherSmem {
+  int buf, tw;                         // bytes
+  __host__ __device__ GatherSmem(int n1, int tl) {
+    const int stage = 2 * n1 * tl * static_cast<int>(sizeof(T));
+    const int ex = reg::padded_size<2>(n1 * tl) * 8;
+    buf = ((stage > ex ? stage : ex) + 15) / 16 * 16;
+    tw = reg::twiddle_slots(log2i(n1), kFoldLogR) * 8;
+  }
+  __host__ __device__ int bytes() const { return kGatherStages * buf + tw; }
+};
+
+// Bytes of the gather form's scratch for an (n1 n2, L) window: z as
+// complex float32, time-major, then the trash items' sums (W planes of L
+// lanes for each kTrashRows pad rows, of at most n1 n2 pad rows).
+template <bool STOKES>
+long long gather_scratch_bytes(int n1, int n2, int L) {
+  const long long n = static_cast<long long>(n1) * n2;
+  return n * L * 8 + (n + kTrashRows - 1) / kTrashRows * (STOKES ? 3 : 1) *
+                         L * 4;
+}
+
+// One edge of a bin's runs: t = ceil(x / p), x = j 2^31 + e - i0, the
+// first row of pulse period j whose phase is at or past e, with s = t p -
+// x in [0, p).  next() moves it to period j + 1 exactly, from 2^31 = q p
+// + r, with no division.
+struct RunEdge {
+  long long t;
+  int s;
+  __device__ __forceinline__ void start(long long x, int p) {
+    t = x >= 0 ? (x + p - 1) / p : -((-x) / p);
+    s = static_cast<int>(t * p - x);
+  }
+  __device__ __forceinline__ void next(int q, int r, int p) {
+    t += q;
+    s -= r;
+    if (s < 0) {
+      s += p;
+      t += 1;
+    }
+  }
+};
+
+// The rows t in [ta, tb) that the bin map puts in bin k, in increasing
+// order.  The map (bin_of above, fold_bins in ops/dedisperse.py) is
+// floor(num n / 2^31), num = (i0 + t p) mod 2^31, which rises with num,
+// so bin k holds the rows of num in [E(k), E(k+1)), E(k) = ceil(k 2^31 /
+// n): in pulse period j (i0 + t p in [j 2^31, (j+1) 2^31)) the run
+// between the edges of phases E(k) and E(k+1).  Where p > 2^30 the phase
+// falls a row: the rows are then those of 2^31 - 1 - num, which rises by
+// 2^31 - p a row, in [2^31 - E(k+1), 2^31 - E(k)).  The first period's
+// edges are exact 64-bit quotients; each later one is stepped (RunEdge).
+// ops/dedisperse.py `fold_bin_runs` is its plain version.
+struct BinRows {
+  RunEdge lo, hi;
+  long long cur, end, j, j1;
+  int q, r, p, ta, tb;
+  __device__ __forceinline__ BinRows(unsigned i0, unsigned p_fx, int n,
+                                     int k, int ta_, int tb_)
+      : ta(ta_), tb(tb_) {
+    constexpr long long kOne = 1ll << 31;
+    long long a = ((static_cast<long long>(k) << 31) + n - 1) / n;
+    long long b = ((static_cast<long long>(k + 1) << 31) + n - 1) / n;
+    long long x0 = i0;
+    long long step = p_fx;
+    if (step > kOne / 2) {             // the phase falls: mirror it
+      x0 = kOne - 1 - x0;
+      step = kOne - step;
+      const long long a0 = a;
+      a = kOne - b;
+      b = kOne - a0;
+    }
+    if (step == 0) {                   // one phase for every row
+      j = j1 = 0;
+      cur = ta;
+      end = x0 >= a && x0 < b ? tb : ta;
+      q = r = 0;
+      p = 1;
+      return;
+    }
+    p = static_cast<int>(step);
+    q = static_cast<int>(kOne / step);
+    r = static_cast<int>(kOne % step);
+    j = (x0 + ta * step) >> 31;
+    j1 = tb > ta ? (x0 + (tb - 1ll) * step) >> 31 : j - 1;
+    lo.start((j << 31) + a - x0, p);
+    hi.start((j << 31) + b - x0, p);
+    cur = max(lo.t, static_cast<long long>(ta));
+    end = min(hi.t, static_cast<long long>(tb));
+  }
+  // the next row into t; false when there is none
+  __device__ __forceinline__ bool next(int& t) {
+    while (cur >= end && j < j1) {
+      ++j;
+      lo.next(q, r, p);
+      hi.next(q, r, p);
+      cur = max(lo.t, static_cast<long long>(ta));
+      end = min(hi.t, static_cast<long long>(tb));
+    }
+    if (cur >= end) return false;
+    t = static_cast<int>(cur++);
+    return true;
+  }
+};
+
+// The pad rows [i, i1) of the pad rows' sequence (rows [0, ta) then [tb,
+// n)), in time order.
+struct PadRows {
+  int i, i1, ta, tb;
+  __device__ __forceinline__ PadRows(int i_, int i1_, int ta_, int tb_)
+      : i(i_), i1(i1_), ta(ta_), tb(tb_) {}
+  __device__ __forceinline__ bool next(int& t) {
+    if (i >= i1) return false;
+    t = i < ta ? i : tb + (i - ta);
+    ++i;
+    return true;
+  }
+};
+
+// Lane l's detected sums (|z_l|^2, then with STOKES Re and Im z_l conj
+// z_l+1, l+1 mod L) over the rows `rows` gives, added to acc in row
+// order, U rows' loads in flight at a time; returns the rows' count.
+template <bool STOKES, int U, typename Rows>
+__device__ __forceinline__ int sum_rows(Rows& rows,
+                                        const float2* __restrict__ z, int L,
+                                        int l, float (&acc)[STOKES ? 3 : 1]) {
+  const int lp = l + 1 == L ? 0 : l + 1;
+  int count = 0;
+  bool more = true;
+  while (more) {
+    int row[U];
+    bool ok[U];
+    float2 a[U], b[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      ok[u] = more && rows.next(row[u]);
+      more = ok[u];
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (!ok[u]) continue;
+      const float2* at = z + static_cast<long>(row[u]) * L;
+      a[u] = __ldcg(at + l);
+      if (STOKES) b[u] = __ldcg(at + lp);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (!ok[u]) continue;
+      acc[0] += a[u].x * a[u].x + a[u].y * a[u].y;
+      if constexpr (STOKES) {
+        acc[1] += a[u].x * b[u].x + a[u].y * b[u].y;
+        acc[2] += a[u].y * b[u].x - a[u].x * b[u].y;
+      }
+      ++count;
+    }
+  }
+  return count;
+}
+
+// Phase 1 runs the runs form's column walk (stages, register FFT) on
+// units of (lane tile, run of columns), lane tile fastest, and stores z
+// / N1 at scratch row t = c*N2 + b.  Phase 2's items are (row, lane),
+// lane fastest, so a warp's loads of a row are one contiguous run: first
+// the trash items (kTrashRows pad rows each, summed into the scratch's
+// tail), then the bins.  Phase 3 sums each lane's trash items in a fixed
+// order into row n_phase.
+template <bool STOKES, typename T, int LOG_N1, int LOG_TL, typename FORM>
+__global__ void __launch_bounds__(gather_threads())
+k3_fold_kernel(const T* __restrict__ zr, const T* __restrict__ zi,
+               const int* __restrict__ fold, float* __restrict__ prof,
+               unsigned* __restrict__ cnt, float2* __restrict__ scratch,
+               int log_n1_arg, int log_n2, int L, int log_tl_arg,
+               int n_phase, int pad_start, int n_valid, int n_groups,
+               int chunk) {
+  static_assert(std::is_same_v<FORM, Gather>, "the gather form's overload");
+  namespace cg = cooperative_groups;
+  constexpr int W = STOKES ? 3 : 1;
+  constexpr int R = 1 << kFoldLogR;
+  constexpr int I = kGatherItems;
+  constexpr int U = kGatherRows;
+  using Plan = reg::Plan<kFoldLogR, LOG_N1>;
+  extern __shared__ __align__(16) unsigned char gather_smem[];
+  const int log_n1 = LOG_N1 >= 0 ? LOG_N1 : log_n1_arg;
+  const int log_tl = LOG_TL >= 0 ? LOG_TL : log_tl_arg;
+  const Plan plan(log_n1);
+  const int n1 = 1 << log_n1;
+  const int n2 = 1 << log_n2;
+  const int tl = 1 << log_tl;
+  const GatherSmem<T> lay(n1, tl);
+  T* stages = reinterpret_cast<T*>(gather_smem);
+  float2* tw =
+      reinterpret_cast<float2*>(gather_smem + kGatherStages * lay.buf);
+  reg::fill_twiddle_tables(tw, log_n1, kFoldLogR);
+  const float inv_n1 = 1.0f / static_cast<float>(n1);
+
+  // -- phase 1: the transform into the time-major scratch --
+  int t[I], lane[I];
+  bool live[I];
+#pragma unroll
+  for (int i = 0; i < I; ++i) {
+    const int item = threadIdx.x + i * blockDim.x;
+    live[i] = item < tl << plan.log_t;
+    lane[i] = item & (tl - 1);
+    t[i] = live[i] ? item >> log_tl : 0;
+  }
+  float2* ex;                          // the current column's exchange
+  auto slot = [&](int i, int row) {
+    return ex + reg::pad_slot<2>(row * tl + lane[i]);
+  };
+  auto sync = [] { __syncthreads(); };
+  auto stage_buf = [&](int k) {
+    return stages +
+           (k % kGatherStages) * (lay.buf / static_cast<int>(sizeof(T)));
+  };
+  const int lane_tiles = L >> log_tl;
+  const int per_group = (n2 + n_groups - 1) / n_groups;
+  for (int unit = blockIdx.x; unit < lane_tiles * n_groups;
+       unit += gridDim.x) {
+    const int l0 = (unit % lane_tiles) << log_tl;
+    const int b0 = unit / lane_tiles * per_group;
+    const int n_cols = max(0, min(per_group, n2 - b0));
+    // column b of both planes into stage buffer s
+    auto stage_column = [&](int b, T* s) {
+      const long base = static_cast<long>(b) * n1 * L;
+      if (chunk) {
+        const int per = chunk / static_cast<int>(sizeof(T));
+        const int log_cpr = log_tl - (__ffs(per) - 1);   // copies a plane row
+        for (int i = threadIdx.x; i < (2 * n1) << log_cpr; i += blockDim.x) {
+          const int c = i & ((1 << log_cpr) - 1);
+          const int row = (i >> log_cpr) & (n1 - 1);
+          const int plane = i >> (log_cpr + log_n1);
+          cp_async(s + (plane * n1 + row) * tl + c * per,
+                   (plane ? zi : zr) + base + static_cast<long>(row) * L + l0 +
+                       c * per,
+                   chunk);
+        }
+      } else {
+        for (int i = threadIdx.x; i < (2 * n1) << log_tl; i += blockDim.x) {
+          const int ln = i & (tl - 1), row = (i >> log_tl) & (n1 - 1);
+          const int plane = i >> (log_tl + log_n1);
+          s[i] =
+              (plane ? zi : zr)[base + static_cast<long>(row) * L + l0 + ln];
+        }
+      }
+    };
+    for (int k = 0; k + 1 < kGatherStages; ++k) {
+      if (k < n_cols) stage_column(b0 + k, stage_buf(k));
+      cp_async_commit();
+    }
+    for (int k = 0; k < n_cols; ++k) {
+      const int b = b0 + k;
+      const int ahead = k + kGatherStages - 1;
+      if (ahead < n_cols) stage_column(b0 + ahead, stage_buf(ahead));
+      cp_async_commit();
+      cp_async_wait<kGatherStages - 1>();   // column b arrived
+      __syncthreads();
+      const T* s = stage_buf(k);
+      ex = reinterpret_cast<float2*>(stage_buf(k));
+      float2 v[I][R];
+#pragma unroll
+      for (int i = 0; i < I; ++i) {
+#pragma unroll
+        for (int q = 0; q < R; ++q) {
+          v[i][q] = make_float2(0.0f, 0.0f);
+          if (!live[i] || q >= plan.used) continue;
+          const int a = plan.row_in(0, q, t[i]) * tl + lane[i];
+          v[i][q] = make_float2(to_float(s[a]), to_float(s[a + n1 * tl]));
+        }
+      }
+      plan.template run<true>(v, t, live, tw, slot, sync);
+#pragma unroll
+      for (int i = 0; i < I; ++i) {
+#pragma unroll
+        for (int q = 0; q < R; ++q) {
+          if (!live[i] || q >= plan.used) continue;
+          const long row =
+              static_cast<long>(plan.rows_final(q, t[i])) * n2 + b;
+          scratch[row * L + l0 + lane[i]] =
+              make_float2(v[i][q].x * inv_n1, v[i][q].y * inv_n1);
+        }
+      }
+      // the next column's copies go to the buffer this one was staged and
+      // exchanged in: every thread must be done reading it
+      __syncthreads();
+    }
+  }
+  cg::this_grid().sync();
+
+  // -- phase 2: each (row, lane) item sums its rows in registers --
+  const int n = n1 * n2;
+  const int ta = min(max(pad_start, 0), n);
+  const int tb = static_cast<int>(
+      max(static_cast<long long>(ta),
+          min(static_cast<long long>(pad_start) + n_valid,
+              static_cast<long long>(n))));
+  const int n_pad = n - (tb - ta);
+  const int n_chunks = (n_pad + kTrashRows - 1) / kTrashRows;
+  float* part = reinterpret_cast<float*>(scratch + static_cast<long>(n) * L);
+  const unsigned i0 = static_cast<unsigned>(fold[0]) & 0x7FFFFFFFu;
+  const unsigned p = static_cast<unsigned>(fold[1]) & 0x7FFFFFFFu;
+  const long long gid =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long threads = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long items = static_cast<long long>(n_chunks + n_phase) * L;
+  for (long long it = gid; it < items; it += threads) {
+    const int row = static_cast<int>(it / L);
+    const int l = static_cast<int>(it - static_cast<long long>(row) * L);
+    float acc[W];
+#pragma unroll
+    for (int k = 0; k < W; ++k) acc[k] = 0.0f;
+    if (row < n_chunks) {
+      PadRows rows(row * kTrashRows, min((row + 1) * kTrashRows, n_pad), ta,
+                   tb);
+      sum_rows<STOKES, U>(rows, scratch, L, l, acc);
+#pragma unroll
+      for (int k = 0; k < W; ++k)
+        part[(static_cast<long>(row) * W + k) * L + l] = acc[k];
+    } else {
+      const int bin = row - n_chunks;
+      BinRows rows(i0, p, n_phase, bin, ta, tb);
+      const int c = sum_rows<STOKES, U>(rows, scratch, L, l, acc);
+#pragma unroll
+      for (int k = 0; k < W; ++k)
+        prof[(static_cast<long>(bin) * W + k) * L + l] = acc[k];
+      if (l == 0) cnt[bin] = static_cast<unsigned>(c);
+    }
+  }
+  cg::this_grid().sync();
+
+  // -- phase 3: the trash row, a warp a (plane, lane), in a fixed order --
+  const int lane32 = threadIdx.x & 31;
+  for (long long x = gid >> 5; x < W * L; x += threads >> 5) {
+    const int k = static_cast<int>(x / L), l = static_cast<int>(x % L);
+    float s = 0.0f;
+    for (int c = lane32; c < n_chunks; c += 32)
+      s += __ldcg(part + (static_cast<long>(c) * W + k) * L + l);
+#pragma unroll
+    for (int off = 16; off; off >>= 1)
+      s += __shfl_down_sync(0xffffffffu, s, off);
+    if (lane32 == 0) prof[(static_cast<long>(n_phase) * W + k) * L + l] = s;
+  }
+  if (gid == 0) cnt[n_phase] = static_cast<unsigned>(n_pad);
 }
 
 }  // namespace bbt
@@ -1486,23 +1857,16 @@ int launch_k2(void* yr, void* yi, const void* c0, const void* c1, int n1,
   });
 }
 
-// K3's tile: the widest power-of-two tile <= kFoldLanes dividing L whose
-// stages, exchange and shared partials fit; else the widest without
-// partials (the runs go to global atomics).  Returns false when none fits.
+// The runs form's tile: the widest power-of-two tile <= kFoldLanes
+// dividing L.  Returns whether its stages, exchange and shared partials
+// fit; where they do not, the shape takes the gather form.
 template <bool STOKES, typename T>
-bool k3_fold_tile(int n1, int L, int n_phase, int* log_tl, int* smem_acc) {
-  using Smem = bbt::FoldSmem<STOKES, T>;
-  for (int acc = 1; acc >= 0; --acc) {
-    for (int lt = bbt::log2i(bbt::kFoldLanes); lt >= 0; --lt) {
-      if (L % (1 << lt)) continue;
-      if (Smem(n1, 1 << lt, n_phase, acc).bytes() <= bbt::kMaxSmem) {
-        *log_tl = lt;
-        *smem_acc = acc;
-        return true;
-      }
-    }
-  }
-  return false;
+bool k3_fold_tile(int n1, int L, int n_phase, int* log_tl) {
+  int lt = bbt::log2i(bbt::kFoldLanes);
+  while (L % (1 << lt)) --lt;
+  *log_tl = lt;
+  return bbt::FoldSmem<STOKES, T>(n1, 1 << lt, n_phase).bytes() <=
+         bbt::kMaxSmem;
 }
 
 // the flagship's column (N1 = 512, the full tile) is compiled for its
@@ -1511,17 +1875,98 @@ constexpr int kK3HotTile = bbt::kFoldLanes == 16 ? 4
                            : bbt::kFoldLanes == 8 ? 3
                            : bbt::kFoldLanes == 4 ? 2 : -1;
 
+// The gather form's tile: the widest power-of-two tile <= kGatherLanes
+// dividing L whose stages fit; -1 when none does.
+template <typename T>
+int gather_log_tl(int n1, int L) {
+  for (int lt = bbt::log2i(bbt::kGatherLanes); lt >= 0; --lt)
+    if (L % (1 << lt) == 0 &&
+        bbt::GatherSmem<T>(n1, 1 << lt).bytes() <= bbt::kMaxSmem)
+      return lt;
+  return -1;
+}
+
+// Whether K3 of this shape takes the gather form: where the runs form's
+// tile, with its shared partials, does not fit (kFoldGather: wherever
+// the gather form's tile fits).  Where neither fits, the runs form's
+// launch refuses the shape.
+template <bool STOKES, typename T>
+bool k3_uses_gather(int n1, int L, int n_phase) {
+  if (gather_log_tl<T>(n1, L) < 0) return false;
+  int log_tl;
+  return bbt::kFoldGather || !k3_fold_tile<STOKES, T>(n1, L, n_phase, &log_tl);
+}
+
+// the gather form's full tile at N1 = 512 is compiled for its shape
+constexpr int kK3GatherHotTile = bbt::log2i(bbt::kGatherLanes);
+
+// The gather form: one cooperative launch (its grid barriers need every
+// block resident), about one block per resident slot.
+template <bool STOKES, typename T>
+int launch_k3_gather(const void* zr, const void* zi, const int* fold,
+                     float* prof, unsigned* cnt, void* scratch, int n1,
+                     int n2, int L, int n_phase, int pad_start, int n_valid,
+                     int device, void* stream) {
+  int log_tl = gather_log_tl<T>(n1, L);
+  if (log_tl < 0 || scratch == nullptr) return cudaErrorInvalidValue;
+  const int tl = 1 << log_tl;
+  const size_t smem = bbt::GatherSmem<T>(n1, tl).bytes();
+  const int row_groups = n1 > (1 << bbt::kFoldLogR) ? n1 >> bbt::kFoldLogR
+                                                    : 1;
+  constexpr int per_warp = 32 * bbt::kGatherItems;
+  const int threads = (tl * row_groups + per_warp - 1) / per_warp * 32;
+  using Kernel = void (*)(const T*, const T*, const int*, float*, unsigned*,
+                          float2*, int, int, int, int, int, int, int, int,
+                          int);
+  Kernel kernel =
+      n1 == 512 && log_tl == kK3GatherHotTile
+          ? &bbt::k3_fold_kernel<STOKES, T, 9, kK3GatherHotTile, bbt::Gather>
+          : &bbt::k3_fold_kernel<STOKES, T, -1, -1, bbt::Gather>;
+  cudaError_t err = bbt::prepare(kernel, smem, device);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const int resident = per_sm * sms;
+  if (resident < 1) return cudaErrorInvalidConfiguration;
+  // units of (lane tile, run of columns): about one a resident slot
+  const int lane_tiles = L >> log_tl;
+  int n_groups = resident / lane_tiles;
+  if (n_groups < 1) n_groups = 1;
+  if (n_groups > n2) n_groups = n2;
+  const int blocks = lane_tiles * n_groups < resident ? lane_tiles * n_groups
+                                                      : resident;
+  int chunk = bbt::copy_chunk(tl, L, sizeof(T), {zr, zi});
+  const T* zr_t = static_cast<const T*>(zr);
+  const T* zi_t = static_cast<const T*>(zi);
+  float2* z = static_cast<float2*>(scratch);
+  int log_n1 = bbt::log2i(n1), log_n2 = bbt::log2i(n2);
+  void* args[] = {&zr_t,    &zi_t,      &fold,      &prof,    &cnt,
+                  &z,       &log_n1,    &log_n2,    &L,       &log_tl,
+                  &n_phase, &pad_start, &n_valid,   &n_groups, &chunk};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                    dim3(blocks), dim3(threads), args, smem,
+                                    static_cast<cudaStream_t>(stream));
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 template <bool STOKES, typename T>
 int launch_k3_fold(const void* zr, const void* zi, const int* fold,
-                   float* prof, unsigned* cnt, int n1, int n2, int L,
-                   int n_phase, int pad_start, int n_valid, int device,
+                   float* prof, unsigned* cnt, void* scratch, int n1, int n2,
+                   int L, int n_phase, int pad_start, int n_valid, int device,
                    void* stream) {
-  using Smem = bbt::FoldSmem<STOKES, T>;
-  int log_tl = -1, smem_acc = 1;
-  if (!k3_fold_tile<STOKES, T>(n1, L, n_phase, &log_tl, &smem_acc))
+  if (k3_uses_gather<STOKES, T>(n1, L, n_phase))
+    return launch_k3_gather<STOKES, T>(zr, zi, fold, prof, cnt, scratch, n1,
+                                       n2, L, n_phase, pad_start, n_valid,
+                                       device, stream);
+  int log_tl = -1;
+  if (!k3_fold_tile<STOKES, T>(n1, L, n_phase, &log_tl))
     return cudaErrorInvalidValue;
   const int tl = 1 << log_tl;
-  const size_t smem = Smem(n1, tl, n_phase, smem_acc).bytes();
+  const size_t smem = bbt::FoldSmem<STOKES, T>(n1, tl, n_phase).bytes();
   // threads: the tile's (lane, row group) items, fold_items a thread,
   // then with STOKES the partner column's row groups, in whole warps
   constexpr int items = bbt::fold_items<STOKES>();
@@ -1556,7 +2001,7 @@ int launch_k3_fold(const void* zr, const void* zi, const int* fold,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(zr), static_cast<const T*>(zi), fold, prof, cnt,
       bbt::log2i(n1), bbt::log2i(n2), L, log_tl, n_phase, pad_start, n_valid,
-      smem_acc, n_main, chunk);
+      n_main, chunk);
   return cudaGetLastError();
 }
 
@@ -1725,18 +2170,20 @@ extern "C" int bbt_k2_form(int n2, int L, int kind) {
 
 // k3_form: the form a K3 launch (kind 0 k3_fold, 1 k3_fold_stokes, 2
 // k3_fold_bf16, 3 k3_fold_stokes_bf16) of an N1-row column on L lanes
-// with n_phase bins runs, as log2 of its lane tile (bits 0-3), 16 when
-// the run sums go to shared partials (else to global atomics) and 32 when
-// the column runs the instantiation compiled for the flagship's shape
-// (else the general kernel); -1 for a kind it does not know or a shape
-// no tile fits.
+// with n_phase bins runs, as log2 of its lane tile (bits 0-3), 16 for
+// the runs form (its run sums go to shared partials), 64 for the gather
+// form (its tile is phase 1's) and 32 when the column runs the
+// instantiation compiled for its tile at N1 = 512 (else the general
+// kernel); -1 for a kind it does not know or a shape no form fits.
 template <bool STOKES, typename T>
 int k3_form(int n1, int L, int n_phase) {
-  int log_tl, smem_acc;
-  if (!k3_fold_tile<STOKES, T>(n1, L, n_phase, &log_tl, &smem_acc))
-    return -1;
-  return log_tl | (smem_acc ? 16 : 0) |
-         (n1 == 512 && log_tl == kK3HotTile ? 32 : 0);
+  if (k3_uses_gather<STOKES, T>(n1, L, n_phase)) {
+    const int log_tl = gather_log_tl<T>(n1, L);
+    return log_tl | 64 | (n1 == 512 && log_tl == kK3GatherHotTile ? 32 : 0);
+  }
+  int log_tl;
+  if (!k3_fold_tile<STOKES, T>(n1, L, n_phase, &log_tl)) return -1;
+  return log_tl | 16 | (n1 == 512 && log_tl == kK3HotTile ? 32 : 0);
 }
 
 extern "C" int bbt_k3_form(int n1, int L, int n_phase, int kind) {
@@ -1749,42 +2196,66 @@ extern "C" int bbt_k3_form(int n1, int L, int n_phase, int kind) {
   }
 }
 
+template <bool STOKES, typename T>
+long long k3_scratch(int n1, int n2, int L, int n_phase) {
+  return k3_uses_gather<STOKES, T>(n1, L, n_phase)
+             ? bbt::gather_scratch_bytes<STOKES>(n1, n2, L)
+             : 0;
+}
+
+// k3_scratch: the bytes of device memory a K3 launch (kinds as k3_form's)
+// of this shape needs for its `scratch` argument: the gather form's
+// time-major z and trash sums, 0 for the runs form (which takes null);
+// -1 for a kind it does not know.
+extern "C" long long bbt_k3_scratch(int n1, int n2, int L, int n_phase,
+                                    int kind) {
+  switch (kind) {
+    case 0: return k3_scratch<false, float>(n1, n2, L, n_phase);
+    case 1: return k3_scratch<true, float>(n1, n2, L, n_phase);
+    case 2: return k3_scratch<false, bf16>(n1, n2, L, n_phase);
+    case 3: return k3_scratch<true, bf16>(n1, n2, L, n_phase);
+    default: return -1;
+  }
+}
+
+// The K3 launches: scratch is bbt_k3_scratch's bytes (null when 0).
 extern "C" int bbt_k3_fold(const void* zr, const void* zi, const int* fold,
-                           float* prof, unsigned* cnt, int n1, int n2, int L,
-                           int n_phase, int pad_start, int n_valid, int device,
-                           void* stream) {
-  return launch_k3_fold<false, float>(zr, zi, fold, prof, cnt, n1, n2, L,
-                                      n_phase, pad_start, n_valid, device,
-                                      stream);
+                           float* prof, unsigned* cnt, void* scratch, int n1,
+                           int n2, int L, int n_phase, int pad_start,
+                           int n_valid, int device, void* stream) {
+  return launch_k3_fold<false, float>(zr, zi, fold, prof, cnt, scratch, n1,
+                                      n2, L, n_phase, pad_start, n_valid,
+                                      device, stream);
 }
 
 // k3_fold_stokes: K3 folding the (n_phase+1, 3L) full-Stokes profile.
 extern "C" int bbt_k3_fold_stokes(const void* zr, const void* zi,
                                   const int* fold, float* prof, unsigned* cnt,
-                                  int n1, int n2, int L, int n_phase,
-                                  int pad_start, int n_valid, int device,
-                                  void* stream) {
-  return launch_k3_fold<true, float>(zr, zi, fold, prof, cnt, n1, n2, L,
-                                     n_phase, pad_start, n_valid, device,
-                                     stream);
+                                  void* scratch, int n1, int n2, int L,
+                                  int n_phase, int pad_start, int n_valid,
+                                  int device, void* stream) {
+  return launch_k3_fold<true, float>(zr, zi, fold, prof, cnt, scratch, n1,
+                                     n2, L, n_phase, pad_start, n_valid,
+                                     device, stream);
 }
 
 extern "C" int bbt_k3_fold_bf16(const void* zr, const void* zi,
                                 const int* fold, float* prof, unsigned* cnt,
-                                int n1, int n2, int L, int n_phase,
-                                int pad_start, int n_valid, int device,
-                                void* stream) {
-  return launch_k3_fold<false, bf16>(zr, zi, fold, prof, cnt, n1, n2, L,
-                                     n_phase, pad_start, n_valid, device,
-                                     stream);
+                                void* scratch, int n1, int n2, int L,
+                                int n_phase, int pad_start, int n_valid,
+                                int device, void* stream) {
+  return launch_k3_fold<false, bf16>(zr, zi, fold, prof, cnt, scratch, n1,
+                                     n2, L, n_phase, pad_start, n_valid,
+                                     device, stream);
 }
 
 extern "C" int bbt_k3_fold_stokes_bf16(const void* zr, const void* zi,
                                        const int* fold, float* prof,
-                                       unsigned* cnt, int n1, int n2, int L,
-                                       int n_phase, int pad_start, int n_valid,
-                                       int device, void* stream) {
-  return launch_k3_fold<true, bf16>(zr, zi, fold, prof, cnt, n1, n2, L,
-                                    n_phase, pad_start, n_valid, device,
+                                       unsigned* cnt, void* scratch, int n1,
+                                       int n2, int L, int n_phase,
+                                       int pad_start, int n_valid, int device,
+                                       void* stream) {
+  return launch_k3_fold<true, bf16>(zr, zi, fold, prof, cnt, scratch, n1, n2,
+                                    L, n_phase, pad_start, n_valid, device,
                                     stream);
 }

@@ -49,7 +49,7 @@ _SIGNATURES = {
     "bbt_k1_float": [_P] * 9 + [_I] * 5 + [_I, _P],
     "bbt_k1_window": [_P] * 4 + [_I] * 3 + [_I, _P],
     "bbt_k2": [_P] * 4 + [_I] * 3 + [_I, _P],
-    "bbt_k3_fold": [_P] * 5 + [_I] * 6 + [_I, _P],
+    "bbt_k3_fold": [_P] * 6 + [_I] * 6 + [_I, _P],
     "bbt_k2_fwd": [_P] * 4 + [_F] + [_I] * 3 + [_I, _P],
     "bbt_k2_inv": [_P] * 4 + [_F] + [_I] * 3 + [_I, _P],
     "bbt_k3_trim": [_P] * 4 + [_I] * 5 + [_I, _P],
@@ -61,7 +61,7 @@ _SIGNATURES = {
     "bbt_k1_planes": [_P] * 3 + [_I] * 3 + [_I, _P],
     "bbt_k1_stream_planes": [_P] * 6 + [_I] * 5 + [_I, _P],
     "bbt_k2_theta": [_P] * 3 + [_I] * 3 + [_I, _P],
-    "bbt_k3_fold_stokes": [_P] * 5 + [_I] * 6 + [_I, _P],
+    "bbt_k3_fold_stokes": [_P] * 6 + [_I] * 6 + [_I, _P],
     "bbt_k3_power": [_P] * 3 + [_I] * 3 + [_I, _P],
     "bbt_bank_power": [_P] * 4 + [_I] * 3 + [_I, _P],
     "bbt_bank_power_tile": [_PI],
@@ -71,6 +71,7 @@ _SIGNATURES = {
     "bbt_k2_form": [_I] * 3,
     "bbt_k1_form": [_I] * 3,
     "bbt_k3_form": [_I] * 4,
+    "bbt_k3_scratch": [_I] * 5,
     "bbt_guppi_repack": [_P] * 3 + [_I] * 2 + [_I, _P],
     "bbt_halo_edges": [_PLL] * 3 + [_I] * 5 + [_LL, _I] + [_I, _P],
     "bbt_halo_push": [_PLL] * 2 + [_I] * 2 + [_LL] * 2 + [_I, _P],
@@ -90,6 +91,8 @@ _SIGNATURES.update({f"{name}_bf16": _SIGNATURES[name] for name in (
     "bbt_k1_packed", "bbt_k1_float", "bbt_k2", "bbt_k3_fold",
     "bbt_k3_fold_stokes")})
 _SIGNATURES["bbt_k2_bf16_chirp"] = _SIGNATURES["bbt_k2"]
+# the entry points that return something wider than an int
+_RESTYPES = {"bbt_k3_scratch": _LL}
 
 #: kernel launches since the last :func:`reset_launch_counts`, by launch
 #: name (the flagship's K1p/K1f/K2/K3, the four-step passes, the
@@ -99,8 +102,9 @@ _SIGNATURES["bbt_k2_bf16_chirp"] = _SIGNATURES["bbt_k2"]
 #: search's bank product and bank correlation, the single-pass resident
 #: dedisperse -> fold, and the flagship passes on bf16 intermediates:
 #: K1p, K1f, K2 with a float32 or a bf16 chirp, K3 power and Stokes;
-#: the halo edges of a time-sharded mesh; and the repack of GUPPI words
-#: into K1p's planes)
+#: the halo edges of a time-sharded mesh; the repack of GUPPI words
+#: into K1p's planes; and, counted beside its launch name, every K3
+#: launch that took the gather form)
 launch_counts = {"k1_packed": 0, "k1_float": 0, "k2": 0, "k3_fold": 0,
                  "k1_window": 0, "k2_fwd": 0, "k2_inv": 0, "k3_trim": 0,
                  "k1_stream": 0, "lane_mix": 0, "pfb_fwd": 0,
@@ -110,7 +114,7 @@ launch_counts = {"k1_packed": 0, "k1_float": 0, "k2": 0, "k3_fold": 0,
                  "k1_packed_bf16": 0, "k1_float_bf16": 0, "k2_bf16": 0,
                  "k2_bf16_chirp": 0, "k3_fold_bf16": 0,
                  "k3_fold_stokes_bf16": 0, "halo_remote": 0,
-                 "guppi_repack": 0}
+                 "guppi_repack": 0, "k3_fold_gather": 0}
 
 _lib = None
 
@@ -200,7 +204,7 @@ def library():
                                    f"libraries, expected 1")
             fn = found[0]
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
             fns[name] = fn
         _lib = types.SimpleNamespace(**fns)
     return _lib

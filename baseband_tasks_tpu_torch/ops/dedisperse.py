@@ -48,6 +48,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 import math
 
 import numpy as np
@@ -59,8 +60,8 @@ from .fold import fold_accumulate
 from .unpack import decode_planes, default_levels, default_offset
 
 __all__ = ["split_n", "permute_to_storage_order", "fold_phase_vector",
-           "fold_bins_ref", "fold_bins", "fold_detected", "stage_a_packed",
-           "stage_a", "stage_a_planes",
+           "fold_bins_ref", "fold_bins", "fold_bin_runs", "fold_detected",
+           "stage_a_packed", "stage_a", "stage_a_planes",
            "stage_a_stream_planes", "stage_b", "stage_b_theta",
            "detect_fold", "k3_power", "stage_a_packed_ref", "stage_a_ref",
            "stage_b_ref", "k2_theta_ref", "fold_ref", "k3_power_ref",
@@ -263,6 +264,53 @@ def fold_bins(fold, t, valid, n_phase):
     num = (f[0] + t * f[1]) & _FX_MASK
     bins = (((num >> 16) * n_phase) + (((num & 0xFFFF) * n_phase) >> 16)) >> 15
     return torch.where(valid, bins, n_phase)
+
+
+def fold_bin_runs(fold, k, n_phase, pad_start, n_valid, n):
+    """The rows t of [pad_start, pad_start + n_valid) (clipped to [0, n))
+    that :func:`fold_bins` puts in bin ``k``, as (start, stop) runs in
+    increasing t: the plain version of the gather form's search
+    (``csrc/dedisperse.cu`` ``BinRows``), with its arithmetic.
+
+    The map is floor(num·n_phase / 2^31), num = (i0 + t·p) mod 2^31, so
+    bin k holds num in [E_k, E_{k+1}), E_k = ceil(k·2^31 / n_phase): in
+    each pulse period j (i0 + t·p in [j·2^31, (j+1)·2^31)) one run
+    between the rows where the phase reaches E_k and E_{k+1}.  Where p >
+    2^30 the phase falls a row, and the rows are those of 2^31 - 1 - num,
+    which rises by 2^31 - p, in [2^31 - E_{k+1}, 2^31 - E_k).  The first
+    period's edges are exact quotients; each later edge steps by 2^31 =
+    q·p + r with a remainder in [0, p), no division."""
+    one = _FX_ONE
+    i0, p = int(fold[0]) & _FX_MASK, int(fold[1]) & _FX_MASK
+    ta = min(max(int(pad_start), 0), n)
+    tb = max(ta, min(int(pad_start) + int(n_valid), n))
+    a = -(-(k << 31) // n_phase)
+    b = -(-((k + 1) << 31) // n_phase)
+    if p > one // 2:                  # the phase falls: mirror it
+        i0, p, a, b = one - 1 - i0, one - p, one - b, one - a
+    if p == 0:                        # one phase for every row
+        return [(ta, tb)] if a <= i0 < b and ta < tb else []
+    q, r = divmod(one, p)
+
+    def start(x):                     # ceil(x / p) and its remainder
+        t = -(-x // p)
+        return t, t * p - x
+
+    j = (i0 + ta * p) >> 31
+    j1 = (i0 + (tb - 1) * p) >> 31 if tb > ta else j - 1
+    (lo, s_lo), (hi, s_hi) = start((j << 31) + a - i0), \
+        start((j << 31) + b - i0)
+    runs = []
+    while j <= j1:
+        t0, t1 = max(lo, ta), min(hi, tb)
+        if t0 < t1:
+            runs.append((t0, t1))
+        j += 1
+        lo, s_lo = (lo + q, s_lo - r) if s_lo >= r else \
+            (lo + q + 1, s_lo - r + p)
+        hi, s_hi = (hi + q, s_hi - r) if s_hi >= r else \
+            (hi + q + 1, s_hi - r + p)
+    return runs
 
 
 def fold_detected(detected, bins, n_phase):
@@ -551,19 +599,30 @@ _K3_KINDS = {"k3_fold": 0, "k3_fold_stokes": 1, "k3_fold_bf16": 2,
 def k3_form(name, n1, L, n_phase):
     """The form of K3 launch ``name`` (k3_fold, k3_fold_stokes and their
     ``_bf16`` twins) on N1-row columns of L lanes folding ``n_phase``
-    bins, as ``{"tile": lanes a block, "partials": 'shared' (the run
-    sums go to the block's shared profile) or 'global' (to global
-    atomics), "form": 'register' (the column compiled for the flagship's
-    shape) or 'general'}`` (needs the kernels' library, so a CUDA
-    machine)."""
+    bins, as ``{"tile": lanes a block, "partials": 'shared' (the runs
+    form: the run sums go to the block's shared profile) or 'gather' (the
+    gather form, where the runs form's widest tile with its partials does
+    not fit: the columns into a time-major scratch, then a thread a bin
+    and lane sums its rows; the tile is its transform's), "form":
+    'register' (the column compiled for its tile at N1 = 512, the
+    flagship's and the GUPPI node's) or 'general'}``.
+    The form follows from the shape alone (needs the kernels' library,
+    so a CUDA machine)."""
     code = library().bbt_k3_form(int(n1), int(L), int(n_phase),
                                  _K3_KINDS[name])
     if code < 0:
         raise ValueError(f"{name}({n1}, {L}, {n_phase}): no kernel takes "
                          f"this shape")
     return {"tile": 1 << (code & 15),
-            "partials": "shared" if code & 16 else "global",
+            "partials": "gather" if code & 64 else "shared",
             "form": "register" if code & 32 else "general"}
+
+
+@functools.lru_cache(maxsize=None)
+def _k3_scratch_bytes(name, n1, n2, L, n_phase):
+    """Device bytes K3 launch ``name`` of this shape needs as scratch: the
+    gather form's, 0 for the runs form."""
+    return library().bbt_k3_scratch(n1, n2, L, n_phase, _K3_KINDS[name])
 
 
 def stage_b_theta(yr, yi, theta):
@@ -609,9 +668,11 @@ def k3_power(zr, zi):
 def detect_fold(zr, zi, fold, *, n_phase, pad_start, n_valid, stokes=False):
     """Inverse stage A, detection and fold: K3 (k3_fold, or
     k3_fold_stokes; ``*_bf16`` for bfloat16 planes) on CUDA tensors, else
-    :func:`fold_ref`.  ``fold`` : (3,) int32 ``[i0_fx, p_fx, 0]`` on the
-    planes' device.  Returns (n_phase+1, L) float32 sums ((n_phase+1, 3L)
-    with ``stokes``) and (n_phase+1,) int32 counts."""
+    :func:`fold_ref`.  K3 takes its form from the shape (:func:`k3_form`);
+    a launch of the gather form also counts one ``k3_fold_gather``.
+    ``fold`` : (3,) int32 ``[i0_fx, p_fx, 0]`` on the planes' device.
+    Returns (n_phase+1, L) float32 sums ((n_phase+1, 3L) with ``stokes``)
+    and (n_phase+1,) int32 counts."""
     _pair_dtype(zr, zi, ("zr", "zi"))
     if not _on_cuda(zr):
         return fold_ref(zr, zi, fold, n_phase=n_phase, pad_start=pad_start,
@@ -623,9 +684,17 @@ def detect_fold(zr, zi, fold, *, n_phase, pad_start, n_valid, stokes=False):
     prof = torch.zeros((n_phase + 1, width), dtype=torch.float32, device=dev)
     cnt = torch.zeros((n_phase + 1,), dtype=torch.int32, device=dev)
     name = ("k3_fold_stokes" if stokes else "k3_fold") + _bf16_suffix(dt)
+    nbytes = _k3_scratch_bytes(name, n1, n2, L, n_phase)
+    # the gather form's time-major z: the caching allocator hands the same
+    # block back on every call of the stream
+    scratch = (torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+               if nbytes else None)
     launch(name, f"bbt_{name}", dev, zr.data_ptr(), zi.data_ptr(),
-           fold.data_ptr(), prof.data_ptr(), cnt.data_ptr(), n1, n2, L,
+           fold.data_ptr(), prof.data_ptr(), cnt.data_ptr(),
+           None if scratch is None else scratch.data_ptr(), n1, n2, L,
            n_phase, int(pad_start), int(n_valid))
+    if scratch is not None:
+        launch_counts["k3_fold_gather"] += 1
     return prof, cnt
 
 

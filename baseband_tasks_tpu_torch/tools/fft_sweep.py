@@ -20,6 +20,17 @@ line replaced:
   without the fold), and whether each register slot sums its run of
   equal bins over the block's columns before one shared-memory atomic
   (1) or adds every value with its own atomic (0);
+- K3's two forms (``kGatherLanes``, ``kGatherItems``, ``kGatherStages``,
+  ``kGatherRows``, ``kFoldGather``): the gather form's widest lane tile,
+  (lane, row group) items a thread, stage buffers and rows a phase-2
+  thread loads at once, and the form every shape takes: 0 the form by
+  shape (the runs form where its 8-lane tile holds its shared partials),
+  1 the gather form; timed at 64 to 8192 bins, power and Stokes, on the
+  GUPPI node's window (N1 = N2 = 512, L = 128, pads 32768/28672, ~2434
+  samples a period), the knobs at the node's 2048 Stokes bins and at
+  4096 power bins; with ``--old`` the other checkout's K3 at every bin
+  count too (before the gather form: the runs form, on narrower tiles or
+  global atomics where the 8-lane tile's partials do not fit);
 - K2 (``kK2Lanes``, ``kK2Stages``, ``kK2Items``, ``kK2Chirp``,
   ``kK2Mode``): the widest lane tile, the stage buffers, the (lane, row
   group) items a thread, the chirp staged with the planes where the
@@ -75,7 +86,7 @@ the tap sums by F; each beside its bound.  The first of each list is
 the kernel as the package builds it.
 
     python -m baseband_tasks_tpu_torch.tools.fft_sweep [--reps N] \
-        [--old DIR] [--only corr,fold,k2,resident,k1,pfb]
+        [--old DIR] [--only corr,fold,forms,k2,resident,k1,pfb]
 
 Prints one line per measurement and ends with a JSON object of them.
 """
@@ -108,6 +119,17 @@ CORR_RE = (r"constexpr int kCorrThreads = \d+, kCorrLanes = \d+, "
 FOLD_RE = (r"constexpr int kFoldLanes = \d+, kFoldStages = \d+, "
            r"kFoldMode = \d+, kFoldRuns = \d+;")
 K2_RE = r"constexpr int kK2Lanes = [^;]*;"
+GATHER_RE = r"constexpr int kGatherLanes = [^;]*;"
+GATHER_KNOBS = ("kGatherLanes", "kGatherItems", "kGatherStages",
+                "kGatherRows", "kFoldGather")
+# (lanes, items, stages, rows, gather): gather 0 the form by shape, 1 the
+# gather form everywhere; the first two are timed at every bin count
+FORM_VARIANTS = [(16, 2, 2, 8, 0), (16, 2, 2, 8, 1), (8, 2, 2, 8, 1),
+                 (16, 1, 2, 8, 1), (16, 2, 1, 8, 1), (16, 2, 2, 4, 1),
+                 (16, 2, 2, 16, 1)]
+FORM_BINS = (64, 256, 1024, 2048, 4096, 8192)
+# the GUPPI node's window and rate (B1937+21 at 1.5625 MHz)
+FORM_PADS, FORM_RATE = (32768, 28672), 1.0 / 2434.07
 RES_RE = (r"constexpr int kResTile2048 = [^;]*;\n"
           r"constexpr int kResStages = [^;]*;")
 K2_KNOBS = ("kK2Lanes", "kK2Stages", "kK2Items", "kK2Chirp", "kK2Mode")
@@ -190,6 +212,15 @@ def corr_label(v):
     mode = ("", " no FFT", " no trim")[v[2]]
     return (f"{v[0]} threads, {v[1]} lanes a tile, next lane "
             f"{'staged' if v[3] else 'after'}{mode}")
+
+
+def form_label(v):
+    if v == "old":
+        return "old kernel"
+    if v[4] == 0:
+        return "form by shape"
+    return (f"gather form, tile {v[0]} lanes, {v[1]} item(s) a thread, "
+            f"{v[2]} stage buffer(s), {v[3]} rows in flight")
 
 
 def fold_label(v):
@@ -341,8 +372,37 @@ def load(so, old=False):
     for name, argtypes in sigs.items():
         if hasattr(lib, name):
             fn = getattr(lib, name)
-            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            fn.argtypes = argtypes
+            fn.restype = _build._RESTYPES.get(name, ctypes.c_int)
+    if not hasattr(lib, "bbt_k3_scratch"):    # K3 before its scratch
+        for name in ("bbt_k3_fold", "bbt_k3_fold_stokes", "bbt_k3_fold_bf16",
+                     "bbt_k3_fold_stokes_bf16"):
+            if hasattr(lib, name):
+                getattr(lib, name).argtypes = (
+                    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                    + [ctypes.c_int, ctypes.c_void_p])
     return lib
+
+
+def k3_call(lib, form, dev, z, fold, prof, cnt, n_phase, pad_start,
+            n_valid):
+    """A launch of K3 ``form`` (k3_fold, k3_fold_stokes, their _bf16
+    twins) from ``lib``, with the scratch its shape needs (none before K3
+    took one), as a function of no arguments."""
+    n2, n1, lanes = z[0].shape
+    fn = getattr(lib, f"bbt_{form}")
+    head = (z[0].data_ptr(), z[1].data_ptr(), fold.data_ptr(),
+            prof.data_ptr(), cnt.data_ptr())
+    if hasattr(lib, "bbt_k3_scratch"):
+        nbytes = lib.bbt_k3_scratch(n1, n2, lanes, n_phase,
+                                    dd._K3_KINDS[form])
+        scratch = (torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+                   if nbytes else None)
+        head += (None if scratch is None else scratch.data_ptr(),)
+    else:
+        scratch = None
+    return lambda: (scratch, call(fn, dev, *head, n1, n2, lanes, n_phase,
+                                  pad_start, n_valid))
 
 
 def build_variants(old, only):
@@ -362,6 +422,11 @@ def build_variants(old, only):
         jobs.append((("fold", v), "k3_fold",
                      build_one(f"dedisperse_{'_'.join(map(str, v))}",
                                csrc / "dedisperse.cu", csrc, FOLD_RE, line)))
+    for v in FORM_VARIANTS if "forms" in only else ():
+        jobs.append((("forms", v), "k3_fold",
+                     build_one(f"forms_{'_'.join(map(str, v))}",
+                               csrc / "dedisperse.cu", csrc, GATHER_RE,
+                               knob_lines(GATHER_KNOBS, v))))
     for v in K2_VARIANTS if "k2" in only else ():
         jobs.append((("k2", v), "k2_reg",
                      build_one(f"k2_{'_'.join(map(str, v))}",
@@ -412,6 +477,10 @@ def build_variants(old, only):
             jobs.append((("fold", "old"), ("k3_fold", "k2_kernel"),
                          build_one("dedisperse_old", old / "dedisperse.cu",
                                    old, None, "")))
+        if "forms" in only:
+            jobs.append((("forms", "old"), "k3_fold",
+                         build_one("forms_old", old / "dedisperse.cu", old,
+                                   None, "")))
         if "resident" in only:
             jobs.append((("res", "old"), "resident_kernel",
                          build_one("resident_old", old / "resident.cu", old,
@@ -535,11 +604,8 @@ def sweep_fold(libs, dev, reps, out):
                 prof = torch.zeros((N_PHASE + 1, W * L), device=dev)
                 cnt = torch.zeros((N_PHASE + 1,), dtype=torch.int32,
                                   device=dev)
-                fn = getattr(lib, f"bbt_{form}")
-                kern = lambda: call(fn, dev, z[0].data_ptr(), z[1].data_ptr(),
-                                    fold.data_ptr(), prof.data_ptr(),
-                                    cnt.data_ptr(), N1, N2, L, N_PHASE,
-                                    PAD_START, N_VALID)
+                kern = k3_call(lib, form, dev, z, fold, prof, cnt, N_PHASE,
+                               PAD_START, N_VALID)
                 kern()
                 torch.cuda.synchronize()
                 rel = cross = None
@@ -569,6 +635,65 @@ def sweep_fold(libs, dev, reps, out):
                       f"{bound:.4f} ms (bytes), vs plain "
                       f"{'-' if rel is None else f'{rel:.2e} / {cross:.2e}'}",
                       flush=True)
+        out.append(rec)
+
+
+def sweep_forms(libs, dev, reps, out):
+    """K3's forms at FORM_BINS, power and Stokes, on the GUPPI node's
+    window (by shape, the gather form everywhere, and ``--old``'s); the
+    gather knobs at 2048 Stokes and 4096 power bins.  Each held to the plain version (counts exact, power within
+    rtol 2e-4, cross planes within 1e-4 of their peak), timed beside the
+    planes' bytes bound."""
+    z = randn(dev, (N2, N1, L), 86, 2)
+    fold = torch.as_tensor(dd.fold_phase_vector(0.3, FORM_RATE), device=dev)
+    n = N1 * N2
+    pad_start, n_valid = FORM_PADS[0], n - sum(FORM_PADS)
+    keys = [k for k in libs if k[0] == "forms"]
+    for key in keys:
+        lib, lines = libs[key]
+        v = key[1]
+        name = f"K3 {form_label(v)}"
+        rec = {"kernel": "k3_fold", "variant": v, "ptxas": lines}
+        print(name, *lines, sep="\n  ", flush=True)
+        cases = ([(b, s) for b in FORM_BINS for s in (False, True)]
+                 if v in ("old", *FORM_VARIANTS[:2])
+                 else [(2048, True), (4096, False)])
+        for n_phase, stokes in cases:
+            form = "k3_fold_stokes" if stokes else "k3_fold"
+            W = 3 if stokes else 1
+            code = lib.bbt_k3_form(N1, L, n_phase, dd._K3_KINDS[form])
+            shape = ("gather" if code & 64 else "shared" if code & 16
+                     else "global", 1 << (code & 15))
+            prof = torch.zeros((n_phase + 1, W * L), device=dev)
+            cnt = torch.zeros((n_phase + 1,), dtype=torch.int32, device=dev)
+            kern = k3_call(lib, form, dev, z, fold, prof, cnt, n_phase,
+                           pad_start, n_valid)
+            kern()
+            torch.cuda.synchronize()
+            rprof, rcnt = dd.fold_ref(*z, fold, n_phase=n_phase,
+                                      pad_start=pad_start, n_valid=n_valid,
+                                      stokes=stokes)
+            if not torch.equal(cnt, rcnt):
+                raise AssertionError(f"{name} {form} {n_phase}: counts")
+            hit = rcnt > 0
+            rel = float(((prof[:, :L] - rprof[:, :L]).abs()[hit]
+                         / rprof[:, :L].abs()[hit]).max())
+            cross = (float((prof[:, L:] - rprof[:, L:]).abs().max()
+                           / rprof[:, L:].abs().max()) if stokes else 0.0)
+            del rprof, rcnt
+            if not (rel <= 2e-4 and cross <= 1e-4):
+                raise AssertionError(f"{name} {form} {n_phase}: {rel} "
+                                     f"{cross}")
+            ms = cuda_ms(lambda: (prof.zero_(), cnt.zero_(), kern()), reps)
+            zero_ms = cuda_ms(lambda: (prof.zero_(), cnt.zero_()), reps)
+            bound = bytes_ms(*z, fold, prof, cnt)
+            rec[f"{form} {n_phase}"] = {"ms": ms - zero_ms, "bound_ms": bound,
+                                        "form": shape, "rel": rel,
+                                        "cross": cross}
+            print(f"{name}, {form} at {n_phase} bins ({shape[0]}, tile "
+                  f"{shape[1]}): {ms - zero_ms:.4f} ms, bound {bound:.4f} "
+                  f"ms (planes' bytes), vs plain {rel:.2e} / {cross:.2e}",
+                  flush=True)
         out.append(rec)
 
 
@@ -895,7 +1020,7 @@ def main(argv=None):
     p.add_argument("--reps", type=int, default=20)
     p.add_argument("--old", default=None,
                    help="another checkout's csrc directory to time too")
-    p.add_argument("--only", default="corr,fold,k2,resident,k1,pfb",
+    p.add_argument("--only", default="corr,fold,forms,k2,resident,k1,pfb",
                    help="the kernels to sweep, comma-separated")
     args = p.parse_args(argv)
     only = args.only.split(",")
@@ -911,6 +1036,7 @@ def main(argv=None):
     libs = build_variants(args.old, only)
     out = []
     for kind, sweep in (("corr", sweep_corr), ("fold", sweep_fold),
+                        ("forms", sweep_forms),
                         ("k2", sweep_k2), ("resident", sweep_resident),
                         ("k1", sweep_k1), ("pfb", sweep_pfb)):
         if kind in only:

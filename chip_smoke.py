@@ -441,6 +441,10 @@ KERNELS = {   # launch-count name -> (TPU kernel it replaces, source)
                      DEDISPERSE_CU),
     "k3_fold_stokes_bf16": ("baseband_tasks_tpu/ops/dedisperse_pallas.py:345",
                             DEDISPERSE_CU),
+    # K3's gather form (many bins), counted beside its launch's name; its
+    # entry is K3 Stokes at the GUPPI node's 2048 bins
+    "k3_fold_gather": ("baseband_tasks_tpu/ops/dedisperse_pallas.py:345",
+                       DEDISPERSE_CU),
     # the halo edges of a time-sharded mesh (halo='remote')
     "halo_remote": ("baseband_tasks_tpu/parallel/halo_pallas.py:73", HALO_CU),
     # GUPPI raw words into K1p's planes (ingest_layout='guppi'), a
@@ -475,10 +479,12 @@ K1_PATHS = {"k1_packed": [(512, 128)], "k1_packed_bf16": [(512, 128)],
 VARIANTS = ("k3_fold_stokes", "k3_power", "k2_theta", "k1_planes",
             "k1_stream_planes")
 # the GUPPI full-Stokes node's window (n_fft, pad_start, pad_end) and the
-# form K3 Stokes takes there at 2048 bins over 128 lanes: 8 lanes'
-# partials exceed the shared-memory budget
+# form K3 Stokes takes there at 2048 bins over 128 lanes: 8 lanes' shared
+# partials exceed the budget, so it takes the gather form on the 16-lane
+# column compiled for it; at 1024 bins the runs form still holds its tile
 GUPPI_WINDOW = (1 << 18, 32768, 28672)
-GUPPI_K3_FORM = {"tile": 4, "partials": "shared", "form": "general"}
+GUPPI_K3_FORM = {"tile": 16, "partials": "gather", "form": "register"}
+GUPPI_K3_RUNS = {"tile": 8, "partials": "shared", "form": "register"}
 
 
 def b1937_polyco():
@@ -1587,28 +1593,48 @@ def check_guppi_kernels(dev, gpu):
           f"({results['guppi_repack']['bound_by']}) [{gpu}]", flush=True)
     del words, got, ref
     n1, n2 = dd.split_n(n)
-    form = dd.k3_form("k3_fold_stokes", n1, L, n_phase)
-    print(f"(i) k3_fold_stokes at {n_phase} bins, window {GUPPI_WINDOW}: "
-          f"K3 form {form}", flush=True)
-    if form != GUPPI_K3_FORM:
-        raise AssertionError(f"K3 Stokes at {n_phase} bins: form {form}, "
-                             f"want {GUPPI_K3_FORM}")
     z = randn(dev, (n2, n1, L), 71)
     fold = torch.as_tensor(dd.fold_phase_vector(0.3, 1.0 / 2434.07),
                            device=dev)
+    # the gather form at the node's 2048 bins (the kernels line's
+    # k3_fold_gather), the runs form at 1024
+    for bins, want, gather in ((n_phase, GUPPI_K3_FORM, 1),
+                               (n_phase // 2, GUPPI_K3_RUNS, 0)):
+        key = "k3_fold_gather" if gather else f"k3_fold_stokes_{bins}"
+        results[key] = check_guppi_k3(dev, gpu, z, fold, bins, want, gather)
+    return results
+
+
+def check_guppi_k3(dev, gpu, z, fold, n_phase, want, gather):
+    """K3 Stokes at ``n_phase`` bins on the GUPPI node's window: its form
+    (``want``, ``gather`` launches of the gather form counted) asserted,
+    against its plain version, timed beside the planes' bytes bound and,
+    for the gather form, beside its own (the scratch written and read
+    once too)."""
+    from baseband_tasks_tpu_torch.ops import dedisperse as dd
+    n, p0, p1 = GUPPI_WINDOW
+    n2, n1, L = z[0].shape
+    t = n - p0 - p1
+    form = dd.k3_form("k3_fold_stokes", n1, L, n_phase)
+    print(f"(i) k3_fold_stokes at {n_phase} bins, window {GUPPI_WINDOW}: "
+          f"K3 form {form}", flush=True)
+    if form != want:
+        raise AssertionError(f"K3 Stokes at {n_phase} bins: form {form}, "
+                             f"want {want}")
     kw = dict(n_phase=n_phase, pad_start=p0, n_valid=t, stokes=True)
     dd.reset_launch_counts()
     prof, cnt = dd.detect_fold(*z, fold, **kw)
     torch.cuda.synchronize()
     rprof, rcnt = dd.fold_ref(*z, fold, **kw)
-    if (dd.launch_counts["k3_fold_stokes"] != 1 or not torch.equal(cnt, rcnt)
-            or int(cnt[:n_phase].sum()) != t):
+    if (dd.launch_counts["k3_fold_stokes"] != 1
+            or dd.launch_counts["k3_fold_gather"] != gather
+            or not torch.equal(cnt, rcnt) or int(cnt[:n_phase].sum()) != t):
         raise AssertionError(f"k3_fold_stokes at {n_phase} bins: launches "
                              f"or counts differ")
     hit = rcnt > 0
     rel = float(((prof[:, :L] - rprof[:, :L]).abs()[hit]
                  / rprof[:, :L].abs()[hit]).max())
-    cross = compare((prof[:, L:],), (rprof[:, L:],))[1]
+    err, cross = compare((prof[:, L:],), (rprof[:, L:],))
     ok = (rel <= PROFILE_RTOL and cross <= FFT_TOL
           and bool(torch.isfinite(prof).all()))
     print(f"(i) k3_fold_stokes at {n_phase} bins: power plane rel "
@@ -1622,11 +1648,18 @@ def check_guppi_kernels(dev, gpu):
         lambda: dd.detect_fold(*z, fold, **kw),
         lambda: dd.fold_ref(*z, fold, **kw)))
     meta = torch.empty((n_phase + 1, 3 * L + 1), device="meta")
-    bound_ms, bound_by = bound((*z, fold), (meta,), fft_flops(z, n1, 11))
+    cost = ((*z, fold), (meta,), fft_flops(z, n1, 11))
+    bound_ms, bound_by = bound(*cost)
+    note = ""
+    if gather:
+        zs = torch.empty((n, L), dtype=torch.complex64, device="meta")
+        own = bound((*z, fold, zs), (meta, zs), cost[2])[0]
+        note = (f", gather form's bound {own:.4f} ms (the scratch written "
+                f"and read once)")
     print(f"(i) k3_fold_stokes at {n_phase} bins: {ms:.4f} ms kernel, "
-          f"{plain_ms:.4f} ms plain, bound {bound_ms:.4f} ms ({bound_by}) "
-          f"[{gpu}]", flush=True)
-    return results
+          f"{plain_ms:.4f} ms plain, bound {bound_ms:.4f} ms ({bound_by})"
+          f"{note} [{gpu}]", flush=True)
+    return result(err, ms, plain_ms, cost)
 
 
 def drive_guppi(dev, gpu):
@@ -1652,7 +1685,8 @@ def drive_guppi(dev, gpu):
     torch.cuda.synchronize()
     counts = {k: v for k, v in dd.launch_counts.items() if v}
     expect_launches("run_fn guppi", counts, dict.fromkeys(
-        ("guppi_repack", "k1_packed", "k2", "k3_fold_stokes"), 1))
+        ("guppi_repack", "k1_packed", "k2", "k3_fold_stokes",
+         "k3_fold_gather"), 1))
     ref = plain(call)()
     if int(got[1].sum()) != T:
         raise AssertionError(f"run_fn guppi: counts sum "

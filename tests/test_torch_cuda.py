@@ -8,7 +8,7 @@ On a GPU machine (which need not have jax) run them with
 
 They cover what the smoke (``chip_smoke.py``) does not: every bit
 depth, the float32 twin, small and lopsided windows, a fold whose
-partial profile does not fit shared memory (the global-atomic branch),
+partial profile does not fit shared memory (K3's gather form),
 the four-step passes (k1_window, k2_fwd, k2_inv, k3_trim) at 8, 16 and
 128 lanes and windows of 2^9 to 2^18 with and without pads, the FFT
 engine and the dispersion tasks on the card, ShiftAndResample's kernel
@@ -50,7 +50,10 @@ with ``halo='remote'`` across them (the halo_remote push form through
 CUDA IPC, its stream flags, a 64-exchange stress; a card each where
 there are two); the GUPPI entry: guppi_repack bit for bit against its
 plain version, K3 Stokes at 2048 bins on the deployment's 2^18 window
-(its form asserted) and the entry's call under the sync check.
+(its form asserted) and the entry's call under the sync check; K3's
+gather form at 1024 to 8192 bins, power and Stokes, against the plain
+version over the bin map's edge cases, and bit for bit from call to
+call.
 Tolerances as in ``chip_smoke.py``: planes
 to 1e-4 of their largest element (float32 FFT roundoff is ~1e-6 of it),
 profiles elementwise to rtol 2e-4 (atomic summation order), counts
@@ -343,9 +346,10 @@ def test_guppi_call_does_not_sync(dev):
     """The GUPPI entry (``ingest_layout='guppi'``, full Stokes at 2048
     bins): after a first call, a call on device words and one on the
     cached seeded block wait for nothing on the device; the words' call
-    launches guppi_repack, K1p, K2 and K3 Stokes once each, the seeded
-    one (its planes cached) the last three; both repeat the first calls'
-    outputs, and the words' call matches the plain versions."""
+    launches guppi_repack, K1p, K2 and K3 Stokes (its gather form) once
+    each, the seeded one (its planes cached) the last three; both repeat
+    the first calls' outputs (bins 0 .. n_phase-1 bit for bit), and the
+    words' call matches the plain versions."""
     import baseband_tasks_tpu_torch as bt
     u = bt.units
     kern = bt.WidebandPulsarPipeline(
@@ -367,10 +371,11 @@ def test_guppi_call_does_not_sync(dev):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     want = dict(dict.fromkeys(dd.launch_counts, 0), k1_packed=1, k2=1,
-                k3_fold_stokes=1)
+                k3_fold_stokes=1, k3_fold_gather=1)
     assert counts == [dict(want, guppi_repack=1), want]
     for a, b in zip(first, got):
-        assert torch.equal(a[1], b[1])
+        # the gather form sums each bin in a fixed order
+        assert torch.equal(a[1], b[1]) and torch.equal(a[0][:-1], b[0][:-1])
         torch.testing.assert_close(b[0], a[0], rtol=PROFILE_RTOL,
                                    atol=FFT_TOL * float(a[0].abs().max()))
     with dd.plain_versions():
@@ -813,7 +818,7 @@ def test_resample_on_card(dev):
 @pytest.mark.parametrize("geom", GEOMS[:2] + [(896, 32, 96, 2)])
 def test_k3_fold_stokes(dev, geom, n_phase):
     """Every lane's partner, the tile's last lane and the wrap included;
-    the global-atomic branch at n_phase 2^15."""
+    the gather form at n_phase 2^15."""
     t_main, p0, p1, L = geom
     n1, n2 = dd.split_n(t_main + p0 + p1)
     z = randn(dev, (n2, n1, L), 40)
@@ -834,13 +839,13 @@ def test_k3_fold_stokes(dev, geom, n_phase):
 
 def test_k3_fold_stokes_guppi_shape(dev):
     """The GUPPI deployment's fold: 2048 Stokes bins over 128 lanes of a
-    2^18 window (pads 32768 / 28672) take the general kernel on 4-lane
-    tiles with shared partials (8 lanes' partials exceed the budget);
-    the flagship's 64 bins keep the compiled 8-lane column."""
+    2^18 window (pads 32768 / 28672) take the gather form on the 16-lane
+    column compiled for it (8 lanes' shared partials exceed the budget);
+    the flagship's 64 bins keep the compiled 8-lane runs form."""
     n, p0, p1, L = 1 << 18, 32768, 28672, 128
     n1, n2 = dd.split_n(n)
     assert dd.k3_form("k3_fold_stokes", n1, L, 2048) == {
-        "tile": 4, "partials": "shared", "form": "general"}
+        "tile": 16, "partials": "gather", "form": "register"}
     for name in ("k3_fold", "k3_fold_stokes"):
         assert dd.k3_form(name, n1, L, 64) == {
             "tile": 8, "partials": "shared", "form": "register"}
@@ -850,7 +855,8 @@ def test_k3_fold_stokes_guppi_shape(dev):
     kw = dict(n_phase=2048, pad_start=p0, n_valid=n - p0 - p1, stokes=True)
     dd.reset_launch_counts()
     prof, cnt = dd.detect_fold(*z, fold, **kw)
-    assert dd.launch_counts["k3_fold_stokes"] == 1
+    assert {k: v for k, v in dd.launch_counts.items() if v} == {
+        "k3_fold_stokes": 1, "k3_fold_gather": 1}
     rprof, rcnt = dd.fold_ref(*z, fold, **kw)
     assert torch.equal(cnt, rcnt) and int(cnt[:2048].sum()) == n - p0 - p1
     hit = rcnt > 0
@@ -858,6 +864,79 @@ def test_k3_fold_stokes_guppi_shape(dev):
            / rprof[:, :L].abs()[hit]).max()
     assert float(rel) <= PROFILE_RTOL
     assert_planes((prof[:, L:],), (rprof[:, L:],))
+
+
+# the GUPPI node's rate (~2434 samples a period, 1.19 a bin at 2048
+# bins) and one whose bin edges fall on whole samples (2^20 a sample)
+GATHER_RATES = (1.0 / 2434.07, 1.0 / 2048)
+
+
+@pytest.mark.parametrize("pads", [(0, 0), (32768, 28672)])
+@pytest.mark.parametrize("stokes", [False, True])
+@pytest.mark.parametrize("n_phase", [1024, 2048, 4096, 8192])
+def test_k3_fold_many_bins(dev, n_phase, stokes, pads):
+    """K3 at 1024 to 8192 bins on the GUPPI node's 2^18 x 128 window,
+    power and Stokes, in the form its shape takes (the gather form where
+    the runs form cannot keep its 8-lane tile with shared partials:
+    Stokes from 2048 bins, power from 4096), against the plain version:
+    phase offsets 0 and 2^31 - 1, the node's rate and one that puts the
+    bin edges on samples, no pads and the node's; counts exact, power
+    within PROFILE_RTOL, cross planes within FFT_TOL of their peak."""
+    n, L = 1 << 18, 128
+    p0, p1 = pads
+    n1, n2 = dd.split_n(n)
+    name = "k3_fold_stokes" if stokes else "k3_fold"
+    form = dd.k3_form(name, n1, L, n_phase)
+    gather = n_phase >= (2048 if stokes else 4096)
+    assert form == ({"tile": 16, "partials": "gather", "form": "register"}
+                    if gather else
+                    {"tile": 8, "partials": "shared", "form": "register"})
+    z = randn(dev, (n2, n1, L), 46)
+    kw = dict(n_phase=n_phase, pad_start=p0, n_valid=n - p0 - p1,
+              stokes=stokes)
+    for i0 in (0, (1 << 31) - 1):
+        for rate in GATHER_RATES:
+            p = int(round(rate * (1 << 31)))
+            fold = torch.tensor([i0, p, 0], dtype=torch.int32, device=dev)
+            dd.reset_launch_counts()
+            prof, cnt = dd.detect_fold(*z, fold, **kw)
+            assert dd.launch_counts[name] == 1
+            assert dd.launch_counts["k3_fold_gather"] == int(gather)
+            rprof, rcnt = dd.fold_ref(*z, fold, **kw)
+            assert torch.equal(cnt, rcnt)
+            assert int(cnt[:n_phase].sum()) == n - p0 - p1
+            hit = rcnt > 0
+            rel = ((prof[:, :L] - rprof[:, :L]).abs()[hit]
+                   / rprof[:, :L].abs()[hit]).max()
+            assert float(rel) <= PROFILE_RTOL, (i0, rate)
+            if stokes:
+                assert_planes((prof[:, L:],), (rprof[:, L:],))
+            assert not prof[~hit].any()
+            del rprof, rcnt
+
+
+@pytest.mark.parametrize("stokes", [False, True])
+def test_k3_gather_is_deterministic(dev, stokes):
+    """The gather form sums each (bin, lane) in registers in time order,
+    with no atomics on bins 0 .. n_phase-1: two calls on the same planes
+    give those rows bit for bit, and the same counts (the GUPPI node's
+    window and rate, 8192 bins for power, 2048 for Stokes)."""
+    n, p0, p1, L = 1 << 18, 32768, 28672, 128
+    n1, n2 = dd.split_n(n)
+    n_phase = 2048 if stokes else 8192
+    name = "k3_fold_stokes" if stokes else "k3_fold"
+    assert dd.k3_form(name, n1, L, n_phase)["partials"] == "gather"
+    z = randn(dev, (n2, n1, L), 47)
+    fold = torch.as_tensor(dd.fold_phase_vector(0.7, 1.0 / 2434.07),
+                           device=dev)
+    kw = dict(n_phase=n_phase, pad_start=p0, n_valid=n - p0 - p1,
+              stokes=stokes)
+    dd.reset_launch_counts()
+    a = dd.detect_fold(*z, fold, **kw)
+    b = dd.detect_fold(*z, fold, **kw)
+    assert dd.launch_counts["k3_fold_gather"] == 2
+    # the trash row too: its pad rows are summed in a fixed order
+    assert torch.equal(a[1], b[1]) and torch.equal(a[0], b[0])
 
 
 @pytest.mark.parametrize("n", [1 << 10, 1 << 18])
@@ -1050,9 +1129,9 @@ def test_k3_fold_tiles(dev, shape, bf16, stokes, n_phase):
     """K3's four launch names on one-lane tiles (L 1 and 3), two-lane
     tiles, and the flagship's column (N1 = 512, 8-lane tiles: three of
     them at L 24, sixteen at 128): every Stokes partner, across each tile
-    edge and from lane L-1 to lane 0; the global-atomic path at n_phase
-    2^15; counts exact, the power plane within PROFILE_RTOL, the cross
-    planes within FFT_TOL of their peak."""
+    edge and from lane L-1 to lane 0; the gather form at n_phase 2^15
+    (counted beside the launch name); counts exact, the power plane within
+    PROFILE_RTOL, the cross planes within FFT_TOL of their peak."""
     n2, n1, L = shape
     z = randn(dev, (n2, n1, L), 80)
     if bf16:
@@ -1065,7 +1144,10 @@ def test_k3_fold_tiles(dev, shape, bf16, stokes, n_phase):
     prof, cnt = dd.detect_fold(*z, fold, **kw)
     name = ("k3_fold_stokes" if stokes else "k3_fold") + (
         "_bf16" if bf16 else "")
-    assert {k: v for k, v in dd.launch_counts.items() if v} == {name: 1}
+    gather = dd.k3_form(name, n1, L, n_phase)["partials"] == "gather"
+    assert gather == (n_phase == 32768)
+    assert {k: v for k, v in dd.launch_counts.items() if v} == dict(
+        {name: 1}, **({"k3_fold_gather": 1} if gather else {}))
     rprof, rcnt = dd.fold_ref(*z, fold, **kw)
     assert torch.equal(cnt, rcnt)
     assert int(cnt.sum()) == n1 * n2

@@ -137,6 +137,58 @@ def test_fold_matches_pallas(rate):
                                rtol=PROF_RTOL, atol=PROF_ATOL)
 
 
+def assert_bin_runs(fold, n_phase, pad_start, pad_end, n):
+    """fold_bin_runs' runs of every bin tile the window without overlap,
+    in increasing order, and put each row in the bin fold_bins gives."""
+    fold = torch.tensor([fold[0], fold[1], 0], dtype=torch.int32)
+    n_valid = n - pad_start - pad_end
+    got = np.full(n, n_phase)
+    for k in range(n_phase):
+        last = -1
+        for t0, t1 in dd.fold_bin_runs(fold, k, n_phase, pad_start, n_valid,
+                                       n):
+            assert last <= t0 < t1
+            assert (got[t0:t1] == n_phase).all()
+            got[t0:t1] = k
+            last = t1
+    t = torch.arange(n, dtype=torch.int64)
+    want = dd.fold_bins(fold, t, (t >= pad_start) & (t < pad_start + n_valid),
+                        n_phase)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+_ONE = 1 << 31
+# (i0, p): the GUPPI node's rate (~2434 samples a period) and one that puts
+# the bin edges on samples, from both ends of the phase
+GATHER_FOLDS = [(i0, round(rate * _ONE)) for i0 in (0, _ONE - 1)
+                for rate in (1 / 2434.07, 1 / 2048)]
+
+
+@pytest.mark.parametrize("pads", [(0, 0), (32768, 28672)])
+@pytest.mark.parametrize("n_phase", [64, 2048])
+@pytest.mark.parametrize("fold", GATHER_FOLDS)
+def test_fold_bin_runs_match_fold_bins(fold, n_phase, pads):
+    """The gather form's search of a bin's rows (its plain version, on
+    the GUPPI node's 2^18 window, no pads and the node's) against the
+    kernels' bin map."""
+    assert_bin_runs(fold, n_phase, *pads, 1 << 18)
+
+
+@pytest.mark.parametrize("fold, n_phase, pads, n", [
+    ((12345, _ONE - round(_ONE / 2434.07)), 2048, (32768, 28672), 1 << 18),
+    ((_ONE - 1, _ONE - 21), 2048, (0, 0), 1 << 18),
+    ((777, 0), 64, (100, 200), 4096),
+    ((5, round(0.37 * _ONE)), 64, (100, 200), 4096),
+    ((5, _ONE // 2), 8, (0, 4096), 4096)],
+    ids=["falling", "falling-slowly", "rate-0", "many-periods",
+         "no-valid-rows"])
+def test_fold_bin_runs_edge_cases(fold, n_phase, pads, n):
+    """The phase falling a row (p > 2^30: the mirrored search), a
+    constant phase, periods of under three rows, and a window of pads
+    alone."""
+    assert_bin_runs(fold, n_phase, *pads, n)
+
+
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])
 def test_dedisperse_fold_split_packed(bits):
     c = make_case(bits, seed=4)
