@@ -23,8 +23,8 @@
 // blocks in flight share a few operator column tiles and the segment
 // planes (35 MB) stay in L2.  What holds it back is staging: a block
 // reads 16 KB of segments and 24 KB of split operator per stage from L2,
-// 22 GB in all, which alone takes 3.4 ms (tools/tf32_sweep.py's "staging
-// only") and overlaps little with the MMAs.
+// 22 GB in all, which alone took 3.4 ms in PR 8's sweep (a build whose
+// MMAs were dropped) and overlaps little with the MMAs.
 //
 // accel_corr: replaces `_kernel` (accel_correlate.py:54, launched by
 // `_accel_correlate_impl` :81), the 'pallas' engine.  Block (tile of
@@ -46,10 +46,12 @@
 // read once per segment and lane; the spectrum once per block.  Two teams
 // of 256 threads (own named barriers) share a block of ~227 KB (the
 // exchanges, the twiddle tables and the 8-lane power stage): one block,
-// 16 warps, per SM.  kCorrNext 1 loads the next lane's templates into
-// registers during this lane's FFT.  What holds it back
-// (tools/fft_sweep.py): the FFT alone and the loads and stores alone each
-// take about half the kernel's time, and overlap little in one block.
+// 16 warps, per SM.  The next lane's templates are loaded into registers
+// during this lane's FFT (PR 9's sweep timed loading them after it, and a
+// cp.async ring).  What holds it back (PR 9's sweep, which timed builds
+// without the FFT and without the trim and stores): the FFT alone and the
+// loads and stores alone each take about half the kernel's time, and
+// overlap little in one block.
 
 #include <cuda_runtime.h>
 
@@ -167,12 +169,9 @@ bank_power_kernel(const float* __restrict__ fr, const float* __restrict__ fi,
   }
 }
 
-// accel_corr constants: threads a block, z lanes a tile (staged power
-// rows), 0 / 1 (no FFT: load and store only) / 2 (no trim: FFT only),
-// and whether the next round's bank is loaded into registers during this
-// round's FFT (1) or at its own round's start (0) (tools/fft_sweep.py
-// varies this line)
-constexpr int kCorrThreads = 512, kCorrLanes = 8, kCorrMode = 0, kCorrNext = 1;
+// accel_corr constants: threads a block and z lanes a tile (staged power
+// rows) (tools/fft_sweep.py --only corr varies this line)
+constexpr int kCorrThreads = 512, kCorrLanes = 8;
 constexpr int kCorrLogR = 4;           // radix-16 register passes
 
 // Shared-memory carve of an accel_corr block (host and device): one
@@ -253,12 +252,10 @@ accel_corr_kernel(const float2* __restrict__ spec,
   auto slot = [&](int, int row) { return my_ex + reg::pad_slot<1>(row); };
   const int tt[1] = {t};
   const bool live_ex[1] = {true};      // dead lanes transform zeros
-  float keep = 0.0f;                   // kCorrMode 2: the FFT's results
 
-  // kCorrNext: bk holds this round's bank, loaded during the last
-  // round's FFT; otherwise it is loaded at the round's start
+  // bk holds this round's bank, loaded during the last round's FFT
   float2 bk[R];
-  if (kCorrNext) load_bank(0, bk);
+  load_bank(0, bk);
   // the grid's rows walk the segments (at most 65535 rows)
   for (long s = blockIdx.y; s < n_seg; s += gridDim.y) {
     // this thread's rows of the segment spectrum, kept for every lane
@@ -269,14 +266,12 @@ accel_corr_kernel(const float2* __restrict__ spec,
                             : make_float2(0.0f, 0.0f);
     for (int rd = 0; rd < rounds; ++rd) {
       const int g = rd * lay.teams + team;
-      if (!kCorrNext) load_bank(rd, bk);
       float2 v[1][R];
 #pragma unroll
       for (int q = 0; q < R; ++q) v[0][q] = cmul(sp[q], bk[q]);
       // the next round's lane (the first again for the next segment)
-      if (kCorrNext) load_bank(rd + 1 < rounds ? rd + 1 : 0, bk);
-      if (kCorrMode != 1)
-        plan.template run<true>(v, tt, live_ex, tw, slot, sync);
+      load_bank(rd + 1 < rounds ? rd + 1 : 0, bk);
+      plan.template run<true>(v, tt, live_ex, tw, slot, sync);
       if (l0 + g < n_used) {
 #pragma unroll
         for (int q = 0; q < R; ++q) {
@@ -284,27 +279,23 @@ accel_corr_kernel(const float2* __restrict__ spec,
           const int r = plan.rows_final(q, t);
           const float vr = v[0][q].x * inv_n;
           const float vi = v[0][q].y * inv_n;
-          if (kCorrMode == 2) keep += vr * vr + vi * vi;
-          else if (r < valid) stage[st(r, g)] = vr * vr + vi * vi;
+          if (r < valid) stage[st(r, g)] = vr * vr + vi * vi;
         }
       }
     }
     __syncthreads();
     // the tile's rows, lane-fastest: each output row's lanes in one run
-    if (kCorrMode != 2) {
-      float* o = out + s * valid * n_out + l0;
+    float* o = out + s * valid * n_out + l0;
 #pragma unroll 4
-      for (int i = threadIdx.x; i < (valid << log_g); i += kCorrThreads) {
-        const int r = i >> log_g, g = i & (lay.lanes - 1);
-        if (g < g_out)
-          o[static_cast<long>(r) * n_out + g] =
-              g < g_here ? stage[st(r, g)] : 0.0f;
-      }
+    for (int i = threadIdx.x; i < (valid << log_g); i += kCorrThreads) {
+      const int r = i >> log_g, g = i & (lay.lanes - 1);
+      if (g < g_out)
+        o[static_cast<long>(r) * n_out + g] =
+            g < g_here ? stage[st(r, g)] : 0.0f;
     }
     // the next segment overwrites the stage
     __syncthreads();
   }
-  if (kCorrMode == 2 && keep == -1.0f) out[0] = keep;
 }
 
 }  // namespace bbt

@@ -182,24 +182,19 @@ __device__ __forceinline__ float decode_field(unsigned f, int bits,
 // - W_N^{-k b} once a row, not once an element: the threads holding a
 //   row's lanes each compute sincospif (the exact argument k b / N, as
 //   before) for a share of the rows and take the rest by shuffle.
-// - Stores: a row's tile lanes are neighbouring threads, so each store
-//   instruction writes whole 64-byte tile rows of the d-major output;
-//   kK1Vec > 1 gives each thread kK1Vec neighbouring lanes of the same
-//   rows instead (8- or 16-byte stores; bf16 lanes rounded to nearest
-//   even, as `store_lanes`).
+// - Stores: each thread holds two single-lane (lane, row group) items, the
+//   lane fastest, and a row's tile lanes are neighbouring threads, so each
+//   store instruction writes whole 64-byte tile rows of the d-major
+//   output.  PR 11's sweep chose this over 2 or 4 neighbouring lanes a
+//   thread (8- or 16-byte stores).
 // When the stages, and the exchange its column's stage buffer turns into
 // once read, do not fit twice (packed words: a small stage, a large
 // exchange), the exchange has a region of its own.  Sweep knobs
-// (tools/fft_sweep.py --only k1): the widest tile, the stage buffers,
-// the lanes a thread, and mode 1 (no FFT), 2 (no stores) or 3 (the
-// staged loads alone).
-constexpr int kK1Lanes = 16, kK1Stages = 2, kK1Vec = 1, kK1Mode = 0;
+// (tools/fft_sweep.py --only k1): the widest tile and the stage buffers.
+constexpr int kK1Lanes = 16, kK1Stages = 2;
 constexpr int kK1LogR = 3;             // radix-8 register passes
 constexpr int kK1MaxThreads = 512;
-
-// (lane, row group) items a thread holds: VL neighbouring lanes of one
-// row group, or (VL = 1) two single-lane items, the lane fastest
-__host__ __device__ constexpr int k1_items(int vl) { return vl > 1 ? vl : 2; }
+constexpr int kK1Items = 2;            // (lane, row group) items a thread
 
 // Shared-memory carve of a K1 block: kK1Stages stage buffers (the
 // column's planes as stored: N1 float rows, or the edge rows then the
@@ -223,35 +218,20 @@ struct K1Smem {
   }
 };
 
-// VL float lanes stored at p + a as one access, rounded to T
-template <int VL, typename T>
-__device__ __forceinline__ void store_vec(T* __restrict__ p, long a,
-                                          const float (&v)[VL]) {
+// A float lane stored at p + a, rounded to T
+template <typename T>
+__device__ __forceinline__ void store_vec(T* __restrict__ p, long a, float v) {
   if constexpr (!kBf16<T>) {
-    if constexpr (VL == 4) {
-      *reinterpret_cast<float4*>(p + a) = make_float4(v[0], v[1], v[2], v[3]);
-    } else if constexpr (VL == 2) {
-      *reinterpret_cast<float2*>(p + a) = make_float2(v[0], v[1]);
-    } else {
-      p[a] = v[0];
-    }
-  } else if constexpr (VL == 4) {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-    *reinterpret_cast<uint2*>(p + a) =
-        make_uint2(*reinterpret_cast<const unsigned*>(&lo),
-                   *reinterpret_cast<const unsigned*>(&hi));
-  } else if constexpr (VL == 2) {
-    *reinterpret_cast<__nv_bfloat162*>(p + a) = __floats2bfloat162_rn(v[0], v[1]);
+    p[a] = v;
   } else {
-    p[a] = __float2bfloat16_rn(v[0]);
+    p[a] = __float2bfloat16_rn(v);
   }
 }
 
 // LOG_N1 and LOG_TL fix log2(N1) and the tile at compile time for the
-// paths' columns (-1: the launch's arguments); VL lanes a thread.  chunk:
-// the cp.async copy size of a tile row (0: plain loads).
-template <bool PACKED, typename T, int LOG_N1, int LOG_TL, int VL>
+// paths' columns (-1: the launch's arguments).  chunk: the cp.async copy
+// size of a tile row (0: plain loads).
+template <bool PACKED, typename T, int LOG_N1, int LOG_TL>
 __global__ void __launch_bounds__(kK1MaxThreads)
 k1_reg_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
               const unsigned* __restrict__ xpr,
@@ -263,9 +243,7 @@ k1_reg_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
               int log_tl_arg, int kf, int ke, int bits, float offset,
               float4 lv, int chunk) {
   constexpr int R = 1 << kK1LogR;
-  constexpr int I = k1_items(VL);
-  constexpr int TI = VL > 1 ? 1 : I;   // distinct row groups a thread holds
-  constexpr int LOG_VL = VL == 4 ? 2 : VL == 2 ? 1 : 0;
+  constexpr int I = kK1Items;
   using Plan = reg::Plan<kK1LogR, LOG_N1>;
   extern __shared__ __align__(16) unsigned char k1_smem[];
   const int log_n1 = LOG_N1 >= 0 ? LOG_N1 : log_n1_arg;
@@ -287,33 +265,24 @@ k1_reg_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   const unsigned mask = PACKED ? (1u << bits) - 1u : 0u;
   reg::fill_twiddle_tables(tw, log_n1, kK1LogR);
 
-  // item i of this thread: lane `lane[i]` of the tile, row group t[i];
-  // the threads sharing a row group are 2^log_p neighbouring threads
-  const int log_p = log_tl > LOG_VL ? log_tl - LOG_VL : 0;
+  // item i of this thread: lane `lane[i]` of the tile, row group t[i]
   int t[I], lane[I];
   bool live[I];
 #pragma unroll
   for (int i = 0; i < I; ++i) {
-    if constexpr (VL > 1) {
-      const int g = threadIdx.x >> log_p;
-      live[i] = g < 1 << plan.log_t;
-      lane[i] = ((threadIdx.x & ((1 << log_p) - 1)) << LOG_VL) + i;
-      t[i] = live[i] ? g : 0;
-    } else {
-      const int item = threadIdx.x + i * nthreads;
-      live[i] = item < tl << plan.log_t;
-      lane[i] = item & (tl - 1);
-      t[i] = live[i] ? item >> log_tl : 0;
-    }
+    const int item = threadIdx.x + i * nthreads;
+    live[i] = item < tl << plan.log_t;
+    lane[i] = item & (tl - 1);
+    t[i] = live[i] ? item >> log_tl : 0;
   }
   // packed: where each of this thread's rows comes from, for the block's
   // life: (staged row << 6) | (field shift + 1), shift + 1 = 0 for a
   // float edge row (the front edge rows first, then the end edge's, then
   // the word rows)
-  int desc[TI][R];
+  int desc[I][R];
   if constexpr (PACKED) {
 #pragma unroll
-    for (int j = 0; j < TI; ++j)
+    for (int j = 0; j < I; ++j)
 #pragma unroll
       for (int q = 0; q < R; ++q) {
         const int c = plan.row_in(0, q, t[j]);
@@ -388,14 +357,13 @@ k1_reg_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     cp_async_commit();
   }
   const float nf = static_cast<float>(n1) * static_cast<float>(n2);
-  // W_N^{-k b} at the compiled tile: the 2^log_p threads of a row group
-  // each compute the twiddles of R / P of its rows (P = min(2^log_p, R))
-  // and the others take them by shuffle
+  // W_N^{-k b} at the compiled tile: the tl threads of a row group each
+  // compute the twiddles of R / P of its rows (P = min(tl, R)) and the
+  // others take them by shuffle
   constexpr bool kShareTw = LOG_TL >= 0;
-  constexpr int kLogPT = LOG_TL > LOG_VL ? LOG_TL - LOG_VL : 0;
+  constexpr int kLogPT = LOG_TL > 0 ? LOG_TL : 0;
   constexpr int kLogP = kLogPT < kK1LogR ? kLogPT : kK1LogR;
   constexpr int kOwn = kShareTw ? R >> kLogP : 1;
-  float keep = 0.0f;                   // kK1Mode 2, 3: the results
   for (int k = 0; k < n_cols; ++k) {
     const int b = b0 + k;
     const int ahead = k + kK1Stages - 1;
@@ -409,13 +377,12 @@ k1_reg_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     float2 v[I][R];
 #pragma unroll
     for (int i = 0; i < I; ++i) {
-      const int j = TI > 1 ? i : 0;
 #pragma unroll
       for (int q = 0; q < R; ++q) {
         v[i][q] = make_float2(0.0f, 0.0f);
         if (!live[i] || q >= plan.used) continue;
         if constexpr (PACKED) {
-          const int d = desc[j][q];
+          const int d = desc[i][q];
           const int a = (d >> 6) * tl + lane[i];
           const int sh = (d & 63) - 1;
           if (sh < 0) {
@@ -434,82 +401,51 @@ k1_reg_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
         }
       }
     }
-    if (kK1Mode == 0 || kK1Mode == 2)
-      plan.template run<false>(v, t, live, tw, slot, sync);
-    if (kK1Mode == 3) {
+    plan.template run<false>(v, t, live, tw, slot, sync);
+    auto twiddle = [&](int kk) {
+      float sn, cs;
+      sincospif(-2.0f * static_cast<float>(kk * b) / nf, &sn, &cs);
+      return make_float2(cs, sn);
+    };
 #pragma unroll
-      for (int i = 0; i < I; ++i)
+    for (int i = 0; i < I; ++i) {
+      float2 own[kOwn];
+      if constexpr (kShareTw) {
 #pragma unroll
-        for (int q = 0; q < R; ++q) keep += v[i][q].x + v[i][q].y;
-    } else {
-      auto twiddle = [&](int kk) {
-        float sn, cs;
-        sincospif(-2.0f * static_cast<float>(kk * b) / nf, &sn, &cs);
-        return make_float2(cs, sn);
-      };
+        for (int o = 0; o < kOwn; ++o)
+          own[o] = twiddle(plan.rows_final(
+              (o << kLogP) + (threadIdx.x & ((1 << kLogP) - 1)), t[i]));
+      }
 #pragma unroll
-      for (int j = 0; j < TI; ++j) {
-        float2 own[kOwn];
+      for (int q = 0; q < R; ++q) {
+        float2 w = make_float2(1.0f, 0.0f);
         if constexpr (kShareTw) {
-#pragma unroll
-          for (int o = 0; o < kOwn; ++o)
-            own[o] = twiddle(plan.rows_final(
-                (o << kLogP) + (threadIdx.x & ((1 << kLogP) - 1)), t[j]));
-        }
-#pragma unroll
-        for (int q = 0; q < R; ++q) {
-          float2 w = make_float2(1.0f, 0.0f);
-          if constexpr (kShareTw) {
-            if constexpr (kLogP == 0) {
-              w = own[q];
-            } else {
-              const int src = (threadIdx.x & 31 & ~((1 << kLogPT) - 1)) |
-                              (q & ((1 << kLogP) - 1));
-              w.x = __shfl_sync(0xffffffffu, own[q >> kLogP].x, src);
-              w.y = __shfl_sync(0xffffffffu, own[q >> kLogP].y, src);
-            }
-          }
-          if (!live[j] || q >= plan.used) continue;
-          const int row = plan.rows_final(q, t[j]);
-          if constexpr (!kShareTw) w = twiddle(row);
-          const long o = (static_cast<long>(b) * n1 + row) * L + l0;
-          if constexpr (VL > 1) {
-            float re[VL], im[VL];
-#pragma unroll
-            for (int i = 0; i < VL; ++i) {
-              const float2 out = cmul(v[i][q], w);
-              re[i] = out.x;
-              im[i] = out.y;
-            }
-            if (kK1Mode == 2) {
-              keep += re[0] + im[VL - 1];
-              continue;
-            }
-            store_vec<VL>(yr, o + lane[0], re);
-            store_vec<VL>(yi, o + lane[0], im);
+          if constexpr (kLogP == 0) {
+            w = own[q];
           } else {
-            const float2 out = cmul(v[j][q], w);
-            if (kK1Mode == 2) {
-              keep += out.x + out.y;
-              continue;
-            }
-            const float re[1] = {out.x}, im[1] = {out.y};
-            store_vec<1>(yr, o + lane[j], re);
-            store_vec<1>(yi, o + lane[j], im);
+            const int src = (threadIdx.x & 31 & ~((1 << kLogPT) - 1)) |
+                            (q & ((1 << kLogP) - 1));
+            w.x = __shfl_sync(0xffffffffu, own[q >> kLogP].x, src);
+            w.y = __shfl_sync(0xffffffffu, own[q >> kLogP].y, src);
           }
         }
+        if (!live[i] || q >= plan.used) continue;
+        const int row = plan.rows_final(q, t[i]);
+        if constexpr (!kShareTw) w = twiddle(row);
+        // the row's offset, then the lane at the store: with the lane added
+        // into the offset ptxas gave the compiled tiles 128 registers, not
+        // 115-123
+        const long o = (static_cast<long>(b) * n1 + row) * L + l0;
+        const float2 out = cmul(v[i][q], w);
+        store_vec(yr, o + lane[i], out.x);
+        store_vec(yi, o + lane[i], out.y);
       }
     }
     // the next column's copies go to the buffer this one was staged and
     // exchanged in: every thread must be done reading it (an exchange of
     // its own is free once the next column's first exchange barrier has
     // passed, and this column's stage buffer since its own)
-    if (!lay.own_ex || plan.passes < 2 || kK1Mode == 1 || kK1Mode == 3)
-      __syncthreads();
-  }
-  if (kK1Mode >= 2 && keep == -1.0f) {
-    const float kk[1] = {keep};
-    store_vec<1>(yr, 0, kk);
+    if (!lay.own_ex || plan.passes < 2) __syncthreads();
   }
 }
 
@@ -636,22 +572,20 @@ k2_kernel(T* __restrict__ yr, T* __restrict__ yi,
 // device memory: the tile is 16 lanes (64-byte float32 rows), with which
 // the kernel moves its bytes about 1.3x faster than with 8 (32-byte rows,
 // tools/fft_sweep.py), and two (lane, row group) items a thread keep the
-// 16-lane block at 512 threads.  What holds it back is device memory: the
-// sweep's variant without FFTs takes about as long as the kernel.  The
-// flagship's column (N2 = 512, the 16- and 8-lane tiles) is compiled for
-// its size, as is the compiled PFB chains' (N2 = 256, 512 lanes).  Sweep
-// knobs (tools/fft_sweep.py): the widest tile, the stage buffers, the
-// items a thread, where the chirp comes from, and mode 1 (no FFT: the
-// staged loads, the products and the stores) or 2 (no stores).  The
-// chirp is staged with the planes when the stage buffers hold it at the
-// widest tile; else float32 k2 reads it from device memory into registers
-// at the column's start (kK2Chirp 0: N2 = 512's 16-lane float32 column
-// and chirp do not fit twice; N2 = 256's do).  The bf16 and theta forms
-// always stage theirs, whose widening or sincospif at the load would
-// stall it.  kK2Chirp 1: float32 k2 always into registers; 2: always
-// staged, on a narrower tile if it must.
-constexpr int kK2Lanes = 16, kK2Stages = 2, kK2Items = 2, kK2Chirp = 0,
-              kK2Mode = 0;
+// 16-lane block at 512 threads.  What holds it back is device memory: in
+// PR 10's sweep a build without the FFTs took about as long as the kernel.
+// The flagship's column (N2 = 512, the 16- and 8-lane tiles) is compiled
+// for its size, as is the compiled PFB chains' (N2 = 256, 512 lanes).
+// Sweep knobs (tools/fft_sweep.py --only k2): the widest tile, the stage
+// buffers, the items a thread, and where the chirp comes from.  The chirp
+// is staged with the planes when the stage buffers hold it at the widest
+// tile; else float32 k2 reads it from device memory into registers at the
+// column's start (kK2Chirp 0: N2 = 512's 16-lane float32 column and chirp
+// do not fit twice; N2 = 256's do).  The bf16 and theta forms always stage
+// theirs, whose widening or sincospif at the load would stall it.
+// kK2Chirp 1: float32 k2 always into registers; 2: always staged, on a
+// narrower tile if it must.
+constexpr int kK2Lanes = 16, kK2Stages = 2, kK2Items = 2, kK2Chirp = 0;
 constexpr int kK2LogR = 3;             // radix-8 register passes
 constexpr int kK2MaxThreads = 512;
 
@@ -767,7 +701,6 @@ k2_reg_kernel(T* __restrict__ yr, T* __restrict__ yi,
   constexpr bool kShareTw = LOG_TL >= 1;
   constexpr int kLogP = LOG_TL < kK2LogR ? LOG_TL : kK2LogR;
   constexpr int kOwn = kShareTw ? R >> kLogP : 1;
-  float keep = 0.0f;                   // kK2Mode 2: the results
   for (int k = 0; k < n_cols; ++k) {
     const int c = cb + k;
     const int ahead = k + kK2Stages - 1;
@@ -805,7 +738,7 @@ k2_reg_kernel(T* __restrict__ yr, T* __restrict__ yi,
         }
       }
     }
-    if (kK2Mode != 1) plan.template run<false>(v, t, live, tw, slot, sync);
+    plan.template run<false>(v, t, live, tw, slot, sync);
 #pragma unroll
     for (int i = 0; i < I; ++i)
 #pragma unroll
@@ -831,7 +764,7 @@ k2_reg_kernel(T* __restrict__ yr, T* __restrict__ yi,
           if (q < plan.used) v[i][q] = *slot(i, plan.row_in(0, q, t[i]));
       }
     }
-    if (kK2Mode != 1) plan.template run<true>(v, t, live, tw, slot, sync);
+    plan.template run<true>(v, t, live, tw, slot, sync);
     // 1/N2, W_N^{+c b} and the store of row b = rows_final(q, t)
     auto twiddle = [&](int b) {
       float sn, cs;
@@ -860,10 +793,6 @@ k2_reg_kernel(T* __restrict__ yr, T* __restrict__ yi,
         const int b = plan.rows_final(q, t[i]);
         if constexpr (!kShareTw) w = twiddle(b);
         const float2 out = cmul(v[i][q], w);
-        if (kK2Mode == 2) {
-          keep += out.x + out.y;
-          continue;
-        }
         const long o = (static_cast<long>(b) * n1 + c) * L + l0 + lane[i];
         const float re[1] = {out.x}, im[1] = {out.y};
         store_lanes<1>(yr, o, re);
@@ -874,7 +803,6 @@ k2_reg_kernel(T* __restrict__ yr, T* __restrict__ yi,
     // exchanged in: every thread must be done reading it
     __syncthreads();
   }
-  if (kK2Mode == 2 && keep == -1.0f) yr[0] = yr[1];
 }
 
 // ---------------------------------------------------------------------------
@@ -917,21 +845,22 @@ k2_reg_kernel(T* __restrict__ yr, T* __restrict__ yi,
 //   row's bin moves by one sample from one column to the next, so each
 //   register slot sums its run of equal bins over the block's columns
 //   and adds the run to the shared partials only when the bin changes
-//   (kFoldRuns; 0: one atomic per value); a Stokes run's two cross sums
-//   go in one 64-bit compare-and-swap.  The partials (float sums,
-//   integer counts) go to the global (n_phase+1, W*L) profile and
-//   (n_phase+1,) counts with one atomic per entry at the block's end.
+//   (PR 9's sweep chose this over one atomic per value); a Stokes run's
+//   two cross sums go in one 64-bit compare-and-swap.  The partials
+//   (float sums, integer counts) go to the global (n_phase+1, W*L)
+//   profile and (n_phase+1,) counts with one atomic per entry at the
+//   block's end.
 //   Counts are taken by the lane-0 items of the lane-tile-0 blocks only
 //   (the bin depends on t alone), once per row.  Where the partials of
 //   the widest tile L allows do not fit shared memory (many bins), the
 //   shape takes the gather form below.
 // - A row's 8 lanes are 8 neighbouring threads with the same bins: each
 //   computes one of the row group's 8 bins and shuffles it to the others.
-// What holds it back (tools/fft_sweep.py, which times the tile width,
-// one stage against two or three, the runs against an atomic per value,
-// and the kernel without its FFT or without its fold, kFoldMode 1, 2): the staged loads and the fold alone, and
-// the FFT alone, each take about 0.14 ms of the power form's ~0.19, and
-// overlap only in part.
+// What holds it back (PR 9's sweep, which timed builds without the FFT
+// and without the fold): the staged loads and the fold alone, and the FFT
+// alone, each take about 0.14 ms of the power form's ~0.19, and overlap
+// only in part.  Sweep knobs (tools/fft_sweep.py --only fold): the widest
+// tile and the stage buffers.
 //
 // The gather form (the overload of k3_fold_kernel tagged Gather, below)
 // folds many bins.  At 2048 Stokes bins a run of equal bins lasts ~1.2
@@ -954,7 +883,7 @@ k2_reg_kernel(T* __restrict__ yr, T* __restrict__ yi,
 // whole fold (the launch grid is already about one block per resident
 // slot, which co-residency needs).  `k3_uses_gather` picks it by shape:
 // where the runs' widest tile, with its shared partials, does not fit.
-constexpr int kFoldLanes = 8, kFoldStages = 2, kFoldMode = 0, kFoldRuns = 1;
+constexpr int kFoldLanes = 8, kFoldStages = 2;
 constexpr int kFoldLogR = 3;           // radix-8 register passes
 // The gather form: its widest tile, (lane, row group) items a thread,
 // stage buffers, the rows each phase-2 thread loads at once, and
@@ -1153,7 +1082,6 @@ k3_fold_kernel(const T* __restrict__ zr, const T* __restrict__ zi,
     if (k < n_cols) stage_column(b0 + k, stage_buf(k));
     cp_async_commit();
   }
-  float keep = 0.0f;                   // kFoldMode 2: the FFT's results
   for (int k = 0; k < n_cols; ++k) {
     const int b = b0 + k;
     // column b + kFoldStages - 1 into the buffer column b - 1 left
@@ -1177,7 +1105,7 @@ k3_fold_kernel(const T* __restrict__ zr, const T* __restrict__ zi,
         v[i][q] = make_float2(to_float(s[a]), to_float(s[a + im]));
       }
     }
-    if (kFoldMode != 1) plan.template run<true>(v, t, live, tw, slot, sync);
+    plan.template run<true>(v, t, live, tw, slot, sync);
     // STOKES: the partner column's transform, for the tile's last lane
     // (every other lane's partner is the next thread's item), in a region
     // of its own past the partner's exchange
@@ -1226,10 +1154,6 @@ k3_fold_kernel(const T* __restrict__ zr, const T* __restrict__ zi,
         const int c = plan.rows_final(q, t[i]);
         const float vr = v[i][q].x * inv_n1;
         const float vi = v[i][q].y * inv_n1;
-        if (kFoldMode == 2) {
-          keep += vr * vr + vi * vi;
-          continue;
-        }
         const unsigned bin = kShareBins ? shared_bin : bin_of(c);
         if (counter && lane[i] == 0) atomicAdd(&pcnt[bin], 1u);
         float val[W];
@@ -1241,16 +1165,12 @@ k3_fold_kernel(const T* __restrict__ zr, const T* __restrict__ zi,
           val[1] = vr * qr + vi * qi;
           val[2] = vi * qr - vr * qi;
         }
-        if (kFoldRuns) {
-          if (bin != run_bin[i][q]) {
-            flush(i, q);
-            run_bin[i][q] = bin;
-          }
-#pragma unroll
-          for (int k = 0; k < W; ++k) run[i][q][k] += val[k];
-        } else {
-          add(bin, lane[i], val);
+        if (bin != run_bin[i][q]) {
+          flush(i, q);
+          run_bin[i][q] = bin;
         }
+#pragma unroll
+        for (int k = 0; k < W; ++k) run[i][q][k] += val[k];
       }
     }
     // the next column's copies go to the buffer this one was staged and
@@ -1262,7 +1182,6 @@ k3_fold_kernel(const T* __restrict__ zr, const T* __restrict__ zi,
 #pragma unroll
     for (int q = 0; q < R; ++q)
       if (live[i] && !partner) flush(i, q);
-  if (kFoldMode == 2 && keep == -1.0f) prof[0] = keep;
   __syncthreads();
   for (int i = threadIdx.x; i < acc_rows * tl; i += nthreads) {
     if (pprof[i] == 0.0f) continue;
@@ -1695,16 +1614,11 @@ int launch_k1(const float* xr, const float* xi, const void* xpr,
   const int row_groups = n1 > (1 << bbt::kK1LogR) ? n1 >> bbt::kK1LogR : 1;
   const int chunk = bbt::copy_chunk(tl, L, 4, {xr, xi, xpr, xpi, fr, fi, er,
                                               ei});
-  auto go = [&](auto kernel, int vl) -> cudaError_t {
-    // a row group's tl / vl threads (vl > 1), or two single-lane items a
-    // thread, in whole warps
-    const int items = (tl >= vl ? tl / vl : 1) * row_groups;
-    const int per = vl > 1 ? 1 : bbt::k1_items(1);
-    const int threads = (items + 32 * per - 1) / (32 * per) * 32;
-    if (threads > bbt::kK1MaxThreads ||
-        reinterpret_cast<uintptr_t>(yr) % (vl * sizeof(T)) ||
-        reinterpret_cast<uintptr_t>(yi) % (vl * sizeof(T)))
-      return cudaErrorInvalidValue;
+  auto go = [&](auto kernel) -> cudaError_t {
+    // kK1Items single-lane items a thread, in whole warps
+    constexpr int per_warp = 32 * bbt::kK1Items;
+    const int threads = (tl * row_groups + per_warp - 1) / per_warp * 32;
+    if (threads > bbt::kK1MaxThreads) return cudaErrorInvalidValue;
     cudaError_t err = bbt::prepare(kernel, smem, device);
     if (err != cudaSuccess) return err;
     int per_sm = 0, sms = 0;
@@ -1727,17 +1641,14 @@ int launch_k1(const float* xr, const float* xi, const void* xpr,
     return cudaGetLastError();
   };
   constexpr int kHot = bbt::log2i(bbt::kK1Lanes);
-  constexpr int kVec = bbt::kK1Vec;
   if (log_tl == kHot && k1_compiled<PACKED, T>(n1)) {
-    if (n1 == 512)
-      return go(bbt::k1_reg_kernel<PACKED, T, 9, kHot, kVec>, kVec);
+    if (n1 == 512) return go(bbt::k1_reg_kernel<PACKED, T, 9, kHot>);
     if constexpr (!PACKED && !bbt::kBf16<T>) {
-      if (n1 == 256)
-        return go(bbt::k1_reg_kernel<PACKED, T, 8, kHot, kVec>, kVec);
-      return go(bbt::k1_reg_kernel<PACKED, T, 7, kHot, kVec>, kVec);
+      if (n1 == 256) return go(bbt::k1_reg_kernel<PACKED, T, 8, kHot>);
+      return go(bbt::k1_reg_kernel<PACKED, T, 7, kHot>);
     }
   }
-  return go(bbt::k1_reg_kernel<PACKED, T, -1, -1, 1>, 1);
+  return go(bbt::k1_reg_kernel<PACKED, T, -1, -1>);
 }
 
 constexpr float4 kNoLevels = {0.f, 0.f, 0.f, 0.f};

@@ -174,9 +174,9 @@ k3_trim_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
 // element (0.42 ms at 2^15 x 512, 0.21 ms at 261,120 x 128 at 495
 // TFLOP/s), above the bytes (0.08 / 0.16 ms).  What holds it back is
 // staging: each block reads its 8 KB of x and 16 KB of split mixer per
-// stage from L2, which alone takes about as long as the MMAs (0.47 ms at
-// 2^15 x 512, tools/tf32_sweep.py's "staging only"), and the two overlap
-// little.
+// stage from L2, which alone took about as long as the MMAs (0.47 ms at
+// 2^15 x 512 in PR 8's sweep, a build whose MMAs were dropped), and the
+// two overlap little.
 template <int BN, bool VEC>
 struct MixTile {
   static constexpr int kA = tc::kBM * tc::kAStride;   // a staged A tile

@@ -42,7 +42,9 @@
 // as lane_mix loads its staged A.  B, the mixer, is split and staged
 // once per mixer by the wrapper (ops/tf32.py), as lane_mix's is; the
 // partial sums are promoted into float32 totals every kPfbPeriod stages.
-// tools/fft_sweep.py --only pfb times it against the FIR then lane_mix.
+// tools/fft_sweep.py --only pfb times it against the FIR then lane_mix;
+// PR 11's sweep (builds without the tap sum, without the A tile written,
+// and with B staged alone) put it on shared-memory traffic.
 
 #include <cuda_runtime.h>
 
@@ -60,10 +62,8 @@ constexpr int kMaxTaps = 9;
 // accesses where L % 4 == 0 and the planes are aligned)
 constexpr int kFirRows = 128, kFirUnroll = 4, kFirThreads = 128;
 // the fused DFT: columns of a block tile, ring stages (>= 5: the tap sums
-// are prepared two stages ahead), promotion period, and mode 0 (the
-// kernel), 1 (no tap sum: the A tile is the raw window rows), 2 (no A
-// tile written: the staging and the MMAs) or 3 (B staged alone)
-constexpr int kPfbBN = 128, kPfbStages = 5, kPfbPeriod = 2, kPfbMode = 0;
+// are prepared two stages ahead) and promotion period
+constexpr int kPfbBN = 128, kPfbStages = 5, kPfbPeriod = 2;
 
 template <int VEC>
 struct Lanes {
@@ -196,8 +196,8 @@ struct PfbTile {
     const float* block = im ? xi : xr;
     // the raw window rows m0 .. m0 + 128 + k - 1, 16 bytes a copy, then
     // the taps of the slice's lanes: at most 3 copies a thread, unrolled
-    const int raw_copies = kPfbMode == 3 ? 0 : (tc::kBM + k) * 4;
-    const int copies = raw_copies + (kPfbMode == 3 ? 0 : n_tap * 4);
+    const int raw_copies = (tc::kBM + k) * 4;
+    const int copies = raw_copies + n_tap * 4;
     static_assert(3 * tc::kThreads >= (kRawRows + kMaxTaps) * 4, "copies");
 #pragma unroll
     for (int u = 0; u < 3; ++u) {
@@ -235,7 +235,6 @@ struct PfbTile {
     const int c = threadIdx.x & (tc::kBK - 1);
     const int r0 = 16 * (threadIdx.x >> 5) + 4 * ((threadIdx.x >> 4) & 1);
     const int k = n_tap - 1;
-    if (kPfbMode >= 2) return;
     float tap[kMaxTaps];
 #pragma unroll
     for (int t = 0; t < kMaxTaps; ++t)
@@ -245,11 +244,6 @@ struct PfbTile {
       const int row = r0 + 8 * run;
       const float* raw = sa + kOffRaw + row * kRawStride + c;
       float* a = sa + kOffA + row * tc::kAStride + c;
-      if (kPfbMode == 1) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r) a[r * tc::kAStride] = raw[r * kRawStride];
-        continue;
-      }
       // window rows below k (the carry, unscaled) only in the first tile
       float w[4 + kMaxTaps - 1];
       const bool carry_rows = m0 + row < k;

@@ -50,10 +50,11 @@
 //   2048 as 16.16.8, 4096 as 16.16.16, three passes, two exchanges, both
 //   compiled for their sizes).  The chirp rows a thread needs are the
 //   frequencies it holds after the forward FFT (natural order), the same
-//   in every window: kResChirp 1 loads them into registers once a block
-//   (the 4096-row Stokes block keeps half of them in shared memory), 0
-//   reads them from L2 every window.  At a compiled size the inverse FFT
-//   takes its inputs by renamed registers (Plan::to_inputs).
+//   in every window, so they are loaded into registers once a block (the
+//   4096-row Stokes block keeps half of them in shared memory); PR 10's
+//   sweep chose this over reading them from L2 every window.  At a
+//   compiled size the inverse FFT takes its inputs by renamed registers
+//   (Plan::to_inputs).
 // - The fold: the transformed window goes once through the exchange so
 //   that each thread folds R consecutive rows of one lane; it sums its run
 //   of equal bins in registers (a bin spans 6-25 rows at the paths' fold
@@ -61,16 +62,17 @@
 //   block's life, the run state parked in shared memory between windows)
 //   and adds a run to the shared partials only when the bin changes
 //   (float atomicAdd on shared memory is a compare-and-swap loop on this
-//   card; Stokes cross sums go in one 64-bit compare-and-swap,
-//   `add_pair`), counts one integer atomic a run from the lane-0 items of
-//   the lane-tile-0 blocks.
+//   card, and PR 10's sweep chose the runs over an atomic a value; Stokes
+//   cross sums go in one 64-bit compare-and-swap, `add_pair`), counts one
+//   integer atomic a run from the lane-0 items of the lane-tile-0 blocks.
 // - Stokes: the partner of the tile's last lane, (l0 + tl) mod L, is
 //   staged beside the tile and transformed in the same register passes by
 //   threads of its own; a lane's partner is the next thread's value (a
 //   shuffle), the last lane's comes from the partner's exchange.
-// What holds it back (the sweep's variants): the FFTs' shared-memory
-// exchanges and barriers, one block of 16-24 warps an SM; without the
-// fold the kernel takes ~0.87 of its time, without the FFTs ~0.5.
+// What holds it back (PR 10's sweep, which timed builds without the fold
+// and without the FFTs): the FFTs' shared-memory exchanges and barriers,
+// one block of 16-24 warps an SM; without the fold the kernel took ~0.87
+// of its time, without the FFTs ~0.5.
 // resident_kernel, the shared-memory form for longer windows: fft.cuh's
 // radix-2 passes over the whole column in shared memory, the chirp
 // gathered at bit-reversed rows, an atomic a value.
@@ -212,14 +214,11 @@ resident_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 // Stokes) and the chirp slots a thread of the 4096-row Stokes case holds
 // in registers (its 768 threads have 80 registers each; the rest go to a
 // per-thread copy in shared memory, read once a window); the general
-// instantiation's stage buffers; mode 1 (no FFT:
-// staged loads, chirp, exchange and fold) or 2 (no fold); runs of equal
-// bins summed (1) or an atomic a value (0); the chirp in registers (1) or
-// from L2 every window (0).
+// instantiation's stage buffers.
 constexpr int kResTile2048 = 4, kResStages2048 = 2, kResTile2048S = 4,
               kResStages2048S = 1, kResTile4096 = 2, kResStages4096 = 1,
               kResTile4096S = 2, kResStages4096S = 1, kResChirpRegs4096S = 8;
-constexpr int kResStages = 2, kResMode = 0, kResRuns = 1, kResChirp = 1;
+constexpr int kResStages = 2;
 constexpr int kResLogR = 4;            // radix-16 register passes
 constexpr int kResMaxThreads = 512;    // the general instantiation's block
 
@@ -363,20 +362,19 @@ resident_reg_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   park[blockDim.x] = 0u;
 #pragma unroll
   for (int k = 0; k < W; ++k) park[(2 + k) * blockDim.x] = 0u;
-  auto load_chirp = [&] {
+  // the chirp at the rows this thread holds after the forward FFT, for
+  // the block's life
 #pragma unroll
-    for (int q = 0; q < R; ++q) {
-      float2 c = make_float2(1.0f, 0.0f);
-      if (live[0] && q < plan.used) {
-        const long a = static_cast<long>(plan.rows_final(q, t[0])) * L +
-                       lane_abs;
-        c = make_float2(cr[a], ci[a]);
-      }
-      if (q < CR) ch[q < CR ? q : 0] = c;
-      else chs[(q - CR) * blockDim.x] = c;
+  for (int q = 0; q < R; ++q) {
+    float2 c = make_float2(1.0f, 0.0f);
+    if (live[0] && q < plan.used) {
+      const long a = static_cast<long>(plan.rows_final(q, t[0])) * L +
+                     lane_abs;
+      c = make_float2(cr[a], ci[a]);
     }
-  };
-  if (kResChirp) load_chirp();
+    if (q < CR) ch[q < CR ? q : 0] = c;
+    else chs[(q - CR) * blockDim.x] = c;
+  }
 
   // window w's rows for the tile (and the partner lane) into buffer sb:
   // window row r is block row q = w*hop - ps + r, the front halo's row
@@ -457,7 +455,6 @@ resident_reg_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     if (k < n_wins) stage_window(w0 + k, buf_of(k));
     cp_async_commit();
   }
-  float keep = 0.0f;                   // kResMode 2: the FFT's results
   for (int k = 0; k < n_wins; ++k) {
     const int w = w0 + k;
     const int ahead = k + S - 1;
@@ -477,8 +474,7 @@ resident_reg_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
       const int im = partner ? n : n * tl;
       v[0][q] = make_float2(sb[a] * s, sb[a + im] * s);
     }
-    if (!kResChirp) load_chirp();
-    if (kResMode != 1) plan.template run<false>(v, t, live, tw, slot, sync);
+    plan.template run<false>(v, t, live, tw, slot, sync);
 #pragma unroll
     for (int q = 0; q < R; ++q)
       v[0][q] = cmul(v[0][q], q < CR ? ch[q < CR ? q : 0]
@@ -499,7 +495,7 @@ resident_reg_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
           if (q < plan.used) v[0][q] = *slot(0, plan.row_in(0, q, t[0]));
       }
     }
-    if (kResMode != 1) plan.template run<true>(v, t, live, tw, slot, sync);
+    plan.template run<true>(v, t, live, tw, slot, sync);
     // the transformed window into the exchange in natural order, then
     // each tile thread folds rows [g*used, g*used + used) of its lane
     __syncthreads();
@@ -552,21 +548,13 @@ resident_reg_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
           val[1] = vr * qr + vi * qi;
           val[2] = vi * qr - vr * qi;
         }
-        if (kResMode == 2) {
-          keep += val[0];
-          continue;
+        if (bin != run_bin) {
+          flush();
+          run_bin = bin;
         }
-        if (kResRuns) {
-          if (bin != run_bin) {
-            flush();
-            run_bin = bin;
-          }
 #pragma unroll
-          for (int j = 0; j < W; ++j) run[j] += val[j];
-          ++run_n;
-        } else {
-          add(bin, val, 1u);
-        }
+        for (int j = 0; j < W; ++j) run[j] += val[j];
+        ++run_n;
       }
       park[0] = run_bin;
       park[blockDim.x] = run_n;
@@ -578,7 +566,6 @@ resident_reg_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     // exchanged in: every thread must be done reading it
     __syncthreads();
   }
-  if (kResMode == 2 && keep == -1.0f) prof[0] = keep;
   if (!partner && live[0] && park[0] != kNoBin) {  // the last run
     float run[W];
 #pragma unroll

@@ -31,7 +31,7 @@
 // ~6e-7 of the peak at every depth with PERIOD 1 or 2 (16 or 32 deep),
 // the class of float32 on the CUDA cores.  The totals cost a second set of registers,
 // and each promotion waits for the warpgroup's MMAs in flight (`Pipeline`
-// below; tools/tf32_sweep.py times the periods).
+// below; tools/fft_sweep.py --only mix,bank times the periods).
 // One __syncthreads per stage publishes the stage that arrived and frees
 // the one read two steps before; the fragments of the next step load
 // while the current step's three MMAs run (wait_group 1).

@@ -1,92 +1,61 @@
-"""Time variants of the register-FFT kernels, accel_corr (``csrc/
-accel.cu``), the K3 detect-fold, K2 and K1 (``csrc/dedisperse.cu``) and
-the resident dedisperse -> fold (``csrc/resident.cu``), and of the
-forward PFB (``csrc/pfb.cu``), on one CUDA card, at the main paths'
-shapes.
+"""Time variants of the hand-written kernels' shipped parameters on one
+CUDA card, at the main paths' shapes.
 
-Each variant is the checkout's own source with the kernel's constants
-line replaced:
+Each variant is the checkout's own source with one constants line of a
+kernel replaced (``TABLES``: the line's names and the values it is built
+with, the first the line as shipped):
 
-- accel_corr (``kCorrThreads``, ``kCorrLanes``, ``kCorrMode``,
-  ``kCorrNext``): threads a block, lanes a tile (the power rows staged
-  for lane-fastest stores), mode 0 (the kernel), 1 (no FFT: the loads,
-  the products and the stores alone) or 2 (the FFT without the trim and
-  the stores), and whether the next lane's bank is loaded into registers
-  during this lane's FFT (1) or after it (0);
-- K3 (``kFoldLanes``, ``kFoldStages``, ``kFoldMode``, ``kFoldRuns``):
-  the widest lane tile, one stage buffer or two (the next column's copies
-  in flight during this column's FFT and fold, or issued after it), mode
-  0 (the kernel), 1 (no FFT: the staged loads and the fold) or 2 (the FFT
-  without the fold), and whether each register slot sums its run of
-  equal bins over the block's columns before one shared-memory atomic
-  (1) or adds every value with its own atomic (0);
-- K3's two forms (``kGatherLanes``, ``kGatherItems``, ``kGatherStages``,
-  ``kGatherRows``, ``kFoldGather``): the gather form's widest lane tile,
-  (lane, row group) items a thread, stage buffers and rows a phase-2
-  thread loads at once, and the form every shape takes: 0 the form by
-  shape (the runs form where its 8-lane tile holds its shared partials),
-  1 the gather form; timed at 64 to 8192 bins, power and Stokes, on the
-  GUPPI node's window (N1 = N2 = 512, L = 128, pads 32768/28672, ~2434
-  samples a period), the knobs at the node's 2048 Stokes bins and at
-  4096 power bins; with ``--old`` the other checkout's K3 at every bin
-  count too (before the gather form: the runs form, on narrower tiles or
-  global atomics where the 8-lane tile's partials do not fit);
-- K2 (``kK2Lanes``, ``kK2Stages``, ``kK2Items``, ``kK2Chirp``,
-  ``kK2Mode``): the widest lane tile, the stage buffers, the (lane, row
-  group) items a thread, the chirp staged with the planes where the
-  buffers hold it, else float32 k2's read into registers (0), float32
-  k2's always into registers (1) or always staged (2; the other forms
-  stage theirs), and mode 0 (the kernel), 1 (no FFT: the staged loads,
-  the chirp and twiddle products and the stores) or 2 (the FFTs without
-  the stores);
-- resident (``kResTile2048``, ``kResStages2048``, ... ``kResStages4096S``,
-  ``kResChirpRegs4096S``; ``kResStages``, ``kResMode``, ``kResRuns``,
-  ``kResChirp``): the lane tile and stage buffers of each compiled case
-  (N 2048 power and Stokes, 4096 power and Stokes), the chirp slots a
-  thread of the 4096-row Stokes case holds in registers (the rest in
-  shared memory), the general instantiation's stage buffers, mode
-  0, 1 (no FFT) or 2 (no fold), runs of equal bins summed (1) or an
-  atomic a value (0), and the chirp held in registers for the block's
-  life (1) or read from L2 every window (0);
-- K1 (``kK1Lanes``, ``kK1Stages``, ``kK1Vec``, ``kK1Mode``): the widest
-  lane tile, the stage buffers, the neighbouring lanes a thread holds
-  (1: two single-lane items, 4-byte stores; 2 or 4: 8- or 16-byte
-  stores), and mode 0 (the kernel), 1 (no FFT), 2 (no stores) or 3 (the
-  staged loads and the decode alone);
-- the forward PFB (``kFirRows``, ``kFirUnroll``, ``kFirThreads``;
-  ``kPfbBN``, ``kPfbStages``, ``kPfbPeriod``, ``kPfbMode``): the FIR's
+- corr (``csrc/accel.cu`` accel_corr): threads a block, lanes a tile;
+- bank (``csrc/accel.cu`` bank_power) and mix (``csrc/fourstep.cu``
+  lane_mix), the 3xTF32 GEMMs: the column tile, the stages of the
+  shared-memory ring, and the stages a partial runs before it is promoted
+  into the float32 totals;
+- fold (``csrc/dedisperse.cu`` K3's runs form): the widest lane tile and
+  the stage buffers;
+- forms (K3's gather form): its widest lane tile, (lane, row group)
+  items a thread, stage buffers, rows a phase-2 thread loads at once, and
+  the form every shape takes (``kFoldGather`` 0 the form by shape, 1 the
+  gather form); timed at 64 to 8192 bins, power and Stokes, on the GUPPI
+  node's window (N1 = N2 = 512, L = 128, pads 32768/28672, ~2434 samples
+  a period), the other knobs at 2048 Stokes and 4096 power bins;
+- k2 (K2 in registers): the widest lane tile, the stage buffers, the
+  items a thread, and the chirp staged where it fits, else float32 k2's
+  read into registers (0), float32 k2's always into registers (1) or
+  always staged (2);
+- k1 (K1 in registers): the widest lane tile and the stage buffers;
+- fir and pfb (``csrc/pfb.cu``, both timed by ``--only pfb``): the FIR's
   output rows a thread, rows a step and threads a block; the fused DFT's
-  column tile, ring stages, promotion period and mode 0 (the kernel), 1
-  (the raw window rows as the A tile: no tap sum), 2 (no A tile
-  written) or 3 (the mixer staged alone).
+  column tile, ring stages and promotion period;
+- resident (``csrc/resident.cu``): the lane tile and stage buffers of
+  each compiled case (N 2048 power and Stokes, 4096 power and Stokes) and
+  the chirp slots a thread of the 4096-row Stokes case holds in
+  registers.
 
-With ``--old DIR`` the sources of another checkout's ``csrc`` (the
-kernels before the redesign) are built and timed too; its K1 also with
-one phase cut at a time (the FFT, the twiddle, the stores, all but the
-loads), as it was before any redesign.  ``--only`` picks
-the kernels (default all).  The variants are built in parallel into
-``build/fft_sweep/``, their ``-Xptxas -v`` register and spill lines and
-the shared-memory atomic instructions of their SASS printed, each
-variant of mode 0 held against the plain version (accel_corr and K2
-float32 planes within 1e-4 of the peak, bf16 planes within one bf16 ulp
-plus 1e-6 of it; K3 and resident counts exact, the power plane within
-rtol 2e-4, the Stokes cross planes within 1e-4 of their peak), and timed
-with CUDA events: accel_corr at 547 segments of 4096 with 3840 valid lags
-for 65 and 128 lanes; K3 and K2 at N1 = N2 = 512, L = 128 (K3 with 64
-phase bins, power and Stokes, float32 and bf16; K2 in its four launch
-forms, and k2 at the compiled PFB chains' N2 = 256, N1 = 128, L = 512);
-resident on a 261,120-row, 128-lane block at windows 2048 and
-4096, pads 256/256, 64 phase bins, power and Stokes; K1 at the
-flagship's window (N1 = N2 = 512, L = 128, pads 3584/4608: 8-bit
-packed, float32, both with bf16 planes out, the plain window) and
-config 3's and config 2's k1_stream, planes within 1e-4 of the peak
-(bf16 one ulp); the PFB at config 3's 32256 x 512, 8 taps, within 1e-4
-of the peak, beside the FIR then lane_mix and one complex ``matmul`` of
-the tap sums by F; each beside its bound.  The first of each list is
-the kernel as the package builds it.
+With ``--old DIR`` the kernels of another checkout's ``csrc`` directory,
+as it ships them, are built and timed at the same shapes.  ``--only``
+picks the groups (default all).  The builds go in parallel into
+``build/fft_sweep/``; each prints its ``-Xptxas -v`` register and spill
+lines, its wgmma warnings, and the shared-memory atomics and tensor-core
+instructions of its SASS.  Every build is held against the plain version
+(accel_corr and K2 float32 planes within 1e-4 of the peak, bf16 planes
+within one bf16 ulp plus 1e-6 of it; K3 and resident counts exact, the
+power plane within rtol 2e-4, the Stokes cross planes within 1e-4 of
+their peak; lane_mix and bank_power also against float64 at several
+depths and seeds) and timed with CUDA events beside its bound: accel_corr
+at 547 segments of 4096 with 3840 valid lags for 65 and 128 lanes; the
+3xTF32 GEMMs at the paths' shapes beside one library call; K3 and K2 at
+N1 = N2 = 512, L = 128 (K3 with 64 phase bins, power and Stokes, float32
+and bf16; K2 in its four launch forms, and k2 at the compiled PFB chains'
+N2 = 256, N1 = 128, L = 512); resident on a 261,120-row, 128-lane block
+at windows 2048 and 4096, pads 256/256, 64 phase bins, power and Stokes;
+K1 at the flagship's window (N1 = N2 = 512, L = 128, pads 3584/4608:
+8-bit packed, float32, both with bf16 planes out, the plain window) and
+config 3's and config 2's k1_stream; the PFB at config 3's 32256 x 512,
+8 taps, beside the FIR then lane_mix and one complex ``matmul`` of the
+tap sums by F.
 
     python -m baseband_tasks_tpu_torch.tools.fft_sweep [--reps N] \
-        [--old DIR] [--only corr,fold,forms,k2,resident,k1,pfb]
+        [--old DIR] [--only corr,bank,mix,fold,forms,k2,resident,k1,pfb]
 
 Prints one line per measurement and ends with a JSON object of them.
 """
@@ -95,6 +64,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
 import math
 import re
@@ -102,224 +72,179 @@ import shutil
 import subprocess
 import sys
 from pathlib import Path
+from typing import Callable, NamedTuple
 
 import torch
 
-from ..ops import _build
+from ..ops import _build, tf32
 from ..ops import dedisperse as dd
 from ..ops import dedisperse_resident as dr
-from ..ops.accel_correlate import accel_correlate_bank_ref
+from ..ops.accel_correlate import (accel_correlate_bank_ref,
+                                   bank_matmul_power_ref)
+from ..ops.spectral_filter import lane_mix_ref
 
 SWEEP_DIR = _build.BUILD_DIR.parent / "fft_sweep"
 HBM_BYTES_PER_S = 3.35e12      # the H100 SXM data sheet's HBM rate
 FP32_FLOPS = 67e12             # its FP32 rate outside the tensor cores
-
-CORR_RE = (r"constexpr int kCorrThreads = \d+, kCorrLanes = \d+, "
-           r"kCorrMode = \d+, kCorrNext = \d+;")
-FOLD_RE = (r"constexpr int kFoldLanes = \d+, kFoldStages = \d+, "
-           r"kFoldMode = \d+, kFoldRuns = \d+;")
-K2_RE = r"constexpr int kK2Lanes = [^;]*;"
-GATHER_RE = r"constexpr int kGatherLanes = [^;]*;"
-GATHER_KNOBS = ("kGatherLanes", "kGatherItems", "kGatherStages",
-                "kGatherRows", "kFoldGather")
-# (lanes, items, stages, rows, gather): gather 0 the form by shape, 1 the
-# gather form everywhere; the first two are timed at every bin count
-FORM_VARIANTS = [(16, 2, 2, 8, 0), (16, 2, 2, 8, 1), (8, 2, 2, 8, 1),
-                 (16, 1, 2, 8, 1), (16, 2, 1, 8, 1), (16, 2, 2, 4, 1),
-                 (16, 2, 2, 16, 1)]
-FORM_BINS = (64, 256, 1024, 2048, 4096, 8192)
-# the GUPPI node's window and rate (B1937+21 at 1.5625 MHz)
-FORM_PADS, FORM_RATE = (32768, 28672), 1.0 / 2434.07
-RES_RE = (r"constexpr int kResTile2048 = [^;]*;\n"
-          r"constexpr int kResStages = [^;]*;")
-K2_KNOBS = ("kK2Lanes", "kK2Stages", "kK2Items", "kK2Chirp", "kK2Mode")
-K1_RE = r"constexpr int kK1Lanes = [^;]*;"
-K1_KNOBS = ("kK1Lanes", "kK1Stages", "kK1Vec", "kK1Mode")
-# (lanes, stages, lanes a thread, mode): mode 0 the kernel, 1 no FFT, 2 no
-# stores, 3 the staged loads alone
-K1_VARIANTS = [(16, 2, 1, 0), (16, 2, 2, 0), (16, 2, 4, 0), (16, 3, 1, 0),
-               (8, 2, 1, 0), (16, 2, 1, 1), (16, 2, 1, 2), (16, 2, 1, 3)]
-# the parent's shared-memory K1 (the kernel before the redesign, from
-# --old) with its phases cut one at a time
-K1_OLD_MODES = ("kernel", "no FFT", "no twiddle", "no stores", "loads only")
-FIR_RE = r"constexpr int kFirRows = [^;]*;"
-FIR_KNOBS = ("kFirRows", "kFirUnroll", "kFirThreads")
-PFB_RE = r"constexpr int kPfbBN = [^;]*;"
-PFB_KNOBS = ("kPfbBN", "kPfbStages", "kPfbPeriod", "kPfbMode")
-# ((FIR rows a thread, rows a step, threads), (DFT tile columns, stages,
-# promotion period, mode 0 the kernel or 1 no tap sum))
-PFB_VARIANTS = [((128, 4, 128), (128, 6, 2, 0)),
-                ((64, 4, 128), (128, 5, 2, 0)),
-                ((128, 4, 64), (128, 6, 1, 0)),
-                ((128, 2, 128), (128, 6, 2, 1)),
-                ((128, 4, 128), (128, 6, 2, 2)),
-                ((128, 4, 128), (128, 6, 2, 3))]
-RES_KNOBS = (("kResTile2048", "kResStages2048", "kResTile2048S",
-              "kResStages2048S", "kResTile4096", "kResStages4096",
-              "kResTile4096S", "kResStages4096S", "kResChirpRegs4096S"),
-             ("kResStages", "kResMode", "kResRuns", "kResChirp"))
-# (lanes, stages, items, chirp, mode): chirp 0 staged where it fits, else
-# float32 k2's into registers; 1 float32 k2's always into registers; 2
-# always staged
-K2_VARIANTS = [(16, 2, 2, 0, 0), (16, 2, 2, 1, 0), (16, 2, 2, 2, 0),
-               (16, 1, 2, 0, 0), (8, 2, 2, 0, 0), (8, 2, 1, 0, 0),
-               (16, 2, 2, 0, 1), (16, 2, 2, 0, 2)]
-# ((tile, stages) of 2048 power, 2048 Stokes, 4096 power, 4096 Stokes,
-# chirp slots in registers at 4096 Stokes), (general stages, mode, runs,
-# chirp in registers)
-_RES = (4, 2, 4, 1, 2, 1, 2, 1, 8)
-RES_VARIANTS = [(_RES, (2, 0, 1, 1)),
-                ((4, 2, 4, 1, 2, 1, 2, 1, 16), (2, 0, 1, 1)),
-                ((4, 2, 4, 2, 2, 2, 1, 2, 8), (2, 0, 1, 1)),
-                ((4, 1, 4, 1, 2, 1, 1, 1, 8), (2, 0, 1, 1)),
-                ((2, 1, 2, 1, 1, 1, 1, 1, 8), (2, 0, 1, 1)),
-                (_RES, (2, 0, 0, 1)), (_RES, (2, 0, 1, 0)),
-                (_RES, (2, 1, 1, 1)), (_RES, (2, 2, 1, 1))]
+TF32_FLOPS = 495e12            # dense TF32 on the tensor cores
 
 
-def knob_lines(names, values):
+class Table(NamedTuple):
+    """One constants line of a ``csrc`` unit and the values the sweep
+    builds it with; the first are the line as shipped."""
+    unit: str
+    names: tuple
+    variants: list
+    label: Callable
+
+
+def knob_pattern(names):
+    """The regular expression of the constants line of ``names``."""
+    return ("constexpr int "
+            + r",\s+".join(rf"{k} = -?\d+" for k in names) + ";")
+
+
+def knob_line(names, values):
     """``constexpr int a = 1, b = 2;`` for the names and values."""
     return ("constexpr int "
             + ", ".join(f"{k} = {v}" for k, v in zip(names, values)) + ";")
 
 
-# (threads, lanes, mode, next)
-CORR_VARIANTS = [(512, 8, 0, 1), (512, 8, 0, 0), (256, 4, 0, 1),
-                 (256, 4, 0, 0), (512, 8, 1, 1), (512, 8, 2, 1)]
-# (lanes, stages, mode, runs)
-FOLD_VARIANTS = [(8, 2, 0, 1), (8, 1, 0, 1), (8, 3, 0, 1), (8, 2, 0, 0),
-                 (4, 2, 0, 1), (16, 2, 0, 1), (8, 2, 1, 1), (8, 2, 2, 1)]
-# the search's path: 2^22 samples, seg_len 4096, 547 segments, 3840 lags
-N_SEG, SEG_LEN, VALID = 547, 4096, 3840
-# the flagship's window: N = 2^18 as 512 x 512, L = 128, pads 3584/4608
-N1 = N2 = 512
-L = 128
-N_PHASE, PAD_START, N_VALID = 64, 3584, (1 << 18) - 3584 - 4608
-# K2 at the paths' shapes: the flagship's planes in the four launch forms,
-# and the compiled PFB chains' (config 3: 2^15-row windows, 512 lanes)
-K2_SHAPES = [(N2, N1, L, ("k2", "k2_bf16", "k2_bf16_chirp", "k2_theta")),
-             (256, 128, 512, ("k2",))]
-# the resident path (chip_smoke.py phase (k), tools/bench_resident.py's
-# block): 261,120 rows cut to whole hops, 128 lanes, pads 256/256
-RES_T, RES_PAD, RES_WINDOWS = 261120, 256, (2048, 4096)
-RES_RATE = 1.0 / 1607.3
-# cycles per sample: the flagship's B1937-like pulsar (641.93 Hz) at the
-# channel rate of 250 kHz, ~389 samples a turn (chip_smoke.py's polyco)
-FOLD_RATE = 641.928123 / 250e3
-
-
-def corr_label(v):
-    mode = ("", " no FFT", " no trim")[v[2]]
-    return (f"{v[0]} threads, {v[1]} lanes a tile, next lane "
-            f"{'staged' if v[3] else 'after'}{mode}")
-
-
 def form_label(v):
-    if v == "old":
-        return "old kernel"
     if v[4] == 0:
         return "form by shape"
     return (f"gather form, tile {v[0]} lanes, {v[1]} item(s) a thread, "
             f"{v[2]} stage buffer(s), {v[3]} rows in flight")
 
 
-def fold_label(v):
-    mode = ("", " no FFT", " no fold")[v[2]]
-    return (f"tile {v[0]} lanes, {v[1]} stage buffer(s), "
-            f"{'runs summed' if v[3] else 'an atomic a value'}{mode}")
-
-
 def k2_label(v):
-    mode = ("", " no FFT", " no stores")[v[4]]
     chirp = ("chirp staged where it fits", "k2's chirp to registers",
              "chirp staged")[v[3]]
     return (f"tile {v[0]} lanes, {v[1]} stage buffer(s), {v[2]} item(s) a "
-            f"thread, {chirp}{mode}")
-
-
-def k1_label(v):
-    mode = ("", " no FFT", " no stores", " loads only")[v[3]]
-    return (f"tile {v[0]} lanes, {v[1]} stage buffer(s), {v[2]} lane(s) "
-            f"a thread{mode}")
-
-
-def patch_old_k1(src, mode):
-    """The parent's dedisperse.cu with one phase of its shared-memory
-    ``k1_kernel`` cut (``K1_OLD_MODES``); what a cut phase computed is
-    summed into a value stored only when it is -1, so the compiler keeps
-    the work that remains."""
-    if mode == "kernel":
-        return src
-    head, rest = src.split("k1_kernel(const float*", 1)
-    body, tail = rest.split("// K2: replaces", 1)
-
-    def sub(old, new):
-        nonlocal body
-        if body.count(old) != 1:
-            raise RuntimeError(f"parent k1_kernel: no single {old!r}")
-        body = body.replace(old, new)
-
-    fft = "  fft_dif<false>(x, tw, log_n1, log_tl);\n"
-    stores = ("    store_lanes<V>(yr, o, re);\n"
-              "    store_lanes<V>(yi, o, im);\n  }\n}")
-    if mode == "no FFT":
-        sub(fft, "")
-    elif mode == "no twiddle":
-        sub("    sincospif(-2.0f * static_cast<float>(k * b) / nf, &sn, &cs);",
-            "    sn = 0.0f;\n    cs = 1.0f + 0.0f * static_cast<float>(k * b) / nf;")
-    elif mode == "no stores":
-        sub(fft, fft + "  float keep = 0.0f;\n")
-        sub(stores, "    keep += re[0] + im[0];\n  }\n"
-            "  const float kk[1] = {keep};\n"
-            "  if (keep == -1.0f) store_lanes<1>(yr, 0, kk);\n}")
-    elif mode == "loads only":
-        sub(fft, "  {\n    const float kk[1] = {x[threadIdx.x].x + "
-            "x[threadIdx.x].y};\n    if (kk[0] == -1.0f) "
-            "store_lanes<1>(yr, 0, kk);\n    return;\n  }\n")
-    return head + "k1_kernel(const float*" + body + "// K2: replaces" + tail
-
-
-def pfb_label(v):
-    (rows, unroll, threads), (bn, stages, period, mode) = v
-    return (f"FIR {rows} rows a thread, {unroll} a step, {threads} threads; "
-            f"DFT {bn} columns, {stages} stages, promoted every {period}"
-            f"{('', ' no tap sum', ' no A tile', ' B alone')[mode]}")
+            f"thread, {chirp}")
 
 
 def res_label(v):
-    (t2, s2, t2s, s2s, t4, s4, t4s, s4s, cr), (_, mode, runs, chirp) = v
-    return (f"tile/stages {t2}/{s2} {t2s}/{s2s} {t4}/{s4} {t4s}/{s4s} "
-            f"({cr} chirp registers), "
-            f"{'runs summed' if runs else 'an atomic a value'}, chirp "
-            f"{'in registers' if chirp else 'from L2'}"
-            f"{('', ' no FFT', ' no fold')[mode]}")
+    return (f"tile/stages {v[0]}/{v[1]} {v[2]}/{v[3]} {v[4]}/{v[5]} "
+            f"{v[6]}/{v[7]} ({v[8]} chirp registers)")
 
 
-def build_one(name, unit_src, headers_dir, pattern, line, text=None):
-    d = SWEEP_DIR / name
+def tile_label(v):
+    return f"tile {v[0]} lanes, {v[1]} stage buffer(s)"
+
+
+def gemm_label(v):
+    return f"BN {v[0]} stages {v[1]} period {v[2]}"
+
+
+TABLES = {
+    "corr": Table("accel.cu", ("kCorrThreads", "kCorrLanes"),
+                  [(512, 8), (256, 4)],
+                  lambda v: f"{v[0]} threads, {v[1]} lanes a tile"),
+    "bank": Table("accel.cu", ("kBankBN", "kBankStages", "kBankPeriod"),
+                  [(64, 4, 1), (64, 4, 2), (64, 4, 4), (56, 4, 2),
+                   (80, 4, 2)], gemm_label),
+    "mix": Table("fourstep.cu", ("kMixBN", "kMixStages", "kMixPeriod"),
+                 [(128, 4, 2), (128, 4, 1), (128, 4, 4), (128, 5, 2)],
+                 gemm_label),
+    "fold": Table("dedisperse.cu", ("kFoldLanes", "kFoldStages"),
+                  [(8, 2), (8, 1), (8, 3), (4, 2), (16, 2)], tile_label),
+    # the first two are timed at every bin count
+    "forms": Table("dedisperse.cu", ("kGatherLanes", "kGatherItems",
+                                     "kGatherStages", "kGatherRows",
+                                     "kFoldGather"),
+                   [(16, 2, 2, 8, 0), (16, 2, 2, 8, 1), (8, 2, 2, 8, 1),
+                    (16, 1, 2, 8, 1), (16, 2, 1, 8, 1), (16, 2, 2, 4, 1),
+                    (16, 2, 2, 16, 1)], form_label),
+    "k2": Table("dedisperse.cu", ("kK2Lanes", "kK2Stages", "kK2Items",
+                                  "kK2Chirp"),
+                [(16, 2, 2, 0), (16, 2, 2, 1), (16, 2, 2, 2), (16, 1, 2, 0),
+                 (8, 2, 2, 0), (8, 2, 1, 0)], k2_label),
+    "k1": Table("dedisperse.cu", ("kK1Lanes", "kK1Stages"),
+                [(16, 2), (16, 3), (8, 2)], tile_label),
+    "fir": Table("pfb.cu", ("kFirRows", "kFirUnroll", "kFirThreads"),
+                 [(128, 4, 128), (64, 4, 128), (128, 4, 64)],
+                 lambda v: (f"FIR {v[0]} rows a thread, {v[1]} a step, "
+                            f"{v[2]} threads")),
+    "pfb": Table("pfb.cu", ("kPfbBN", "kPfbStages", "kPfbPeriod"),
+                 [(128, 5, 2), (128, 6, 2), (128, 6, 1)],
+                 lambda v: (f"DFT {v[0]} columns, {v[1]} stages, promoted "
+                            f"every {v[2]}")),
+    "resident": Table("resident.cu", (
+        "kResTile2048", "kResStages2048", "kResTile2048S", "kResStages2048S",
+        "kResTile4096", "kResStages4096", "kResTile4096S", "kResStages4096S",
+        "kResChirpRegs4096S"),
+        [(4, 2, 4, 1, 2, 1, 2, 1, 8), (4, 2, 4, 1, 2, 1, 2, 1, 16),
+         (4, 2, 4, 2, 2, 2, 1, 2, 8), (4, 1, 4, 1, 2, 1, 1, 1, 8),
+         (2, 1, 2, 1, 1, 1, 1, 1, 8)], res_label),
+}
+
+# the search's path: 2^22 samples, seg_len 4096, 547 segments, 3840 lags
+N_SEG, SEG_LEN, VALID = 547, 4096, 3840
+# the flagship's window: N = 2^18 as 512 x 512, L = 128, pads 3584/4608
+N1 = N2 = 512
+L = 128
+N_PHASE, PAD_START, N_VALID = 64, 3584, (1 << 18) - 3584 - 4608
+FORM_BINS = (64, 256, 1024, 2048, 4096, 8192)
+# the GUPPI node's window and rate (B1937+21 at 1.5625 MHz)
+FORM_PADS, FORM_RATE = (32768, 28672), 1.0 / 2434.07
+# K2 at the paths' shapes: the flagship's planes in the four launch forms,
+# and the compiled PFB chains' (config 3: 2^15-row windows, 512 lanes)
+K2_SHAPES = [(N2, N1, L, ("k2", "k2_bf16", "k2_bf16_chirp", "k2_theta")),
+             (256, 128, 512, ("k2",))]
+# the resident path (chip_smoke.py phase (k)): 261,120 rows cut to whole
+# hops, 128 lanes, pads 256/256
+RES_T, RES_PAD, RES_WINDOWS = 261120, 256, (2048, 4096)
+RES_RATE = 1.0 / 1607.3
+# cycles per sample: the flagship's B1937-like pulsar (641.93 Hz) at the
+# channel rate of 250 kHz, ~389 samples a turn (chip_smoke.py's polyco)
+FOLD_RATE = 641.928123 / 250e3
+# the 3xTF32 GEMMs' float64 checks
+MIX_DEPTHS = (128, 512, 1600)
+SEEDS = (0, 1, 2, 3, 4)
+
+
+class Build(NamedTuple):
+    label: str
+    variant: object      # the table's values, or "old"
+    lib: ctypes.CDLL
+    lines: list          # ptxas and SASS lines of the group's kernels
+
+
+def build_one(src_dir, unit, edit, started):
+    """The library of ``src_dir``'s ``unit`` with the constants line
+    ``edit = (pattern, line)`` replaced (None: as it is), its ``nvcc``
+    started into ``started`` {library: process} unless an equal source
+    already is."""
+    src = (Path(src_dir) / unit).read_text()
+    if edit is not None:
+        if len(re.findall(edit[0], src)) != 1:
+            raise RuntimeError(f"{unit}: no single line to vary")
+        src = re.sub(edit[0], edit[1], src)
+    headers = sorted(Path(src_dir).glob("*.cuh"))
+    digest = hashlib.sha1(src.encode())
+    for h in headers:
+        digest.update(h.read_bytes())
+    d = SWEEP_DIR / f"{unit[:-3]}_{digest.hexdigest()[:12]}"
+    so = d / "lib.so"
+    if so in started:
+        return so
     if d.exists():
         shutil.rmtree(d)
     d.mkdir(parents=True)
-    for h in headers_dir.glob("*.cuh"):
+    for h in headers:
         shutil.copy(h, d / h.name)
-    src = unit_src.read_text() if text is None else text
-    if pattern is not None:
-        if len(re.findall(pattern, src)) != 1:
-            raise RuntimeError(f"{unit_src.name}: no single line to vary")
-        src = re.sub(pattern, line, src)
-    (d / unit_src.name).write_text(src)
-    so = d / "lib.so"
-    proc = subprocess.Popen([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
-                             str(so), str(d / unit_src.name)],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
-    return so, proc
+    (d / unit).write_text(src)
+    started[so] = subprocess.Popen(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so),
+         str(d / unit)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    return so
 
 
-def ptxas_lines(out, kernel):
-    """The register and spill lines of the entries of ``kernel`` (a name
-    or a tuple of names)."""
-    names = (kernel,) if isinstance(kernel, str) else kernel
+def ptxas_lines(out, names):
+    """The register and spill lines of the entries of kernels ``names``,
+    and the wgmma warnings."""
     lines, keep = [], False
     for ln in out.splitlines():
         if "Compiling entry function" in ln:
@@ -329,176 +254,74 @@ def ptxas_lines(out, kernel):
                 lines.append(name + ln.split(name)[-1].split("EEv")[0] + "E")
         elif keep and ("registers" in ln or "spill" in ln):
             lines.append(ln.split("ptxas info    :")[-1].strip())
+        elif "wgmma" in ln or "C75" in ln:
+            lines.append(ln.strip())
     return lines
 
 
-def atomics(so, kernel):
-    """The shared-memory atomic instructions in the SASS of ``kernel``'s
-    entries, by opcode (a float add to shared memory is a CAS loop)."""
+def sass_lines(so, names):
+    """The shared-memory atomic instructions (a float add to shared memory
+    is a CAS loop) and tensor-core instructions in the SASS of kernels
+    ``names``, by opcode."""
     sass = subprocess.run(
         [str(Path(_build.nvcc_path()).parent / "cuobjdump"), "-sass",
          str(so)], capture_output=True, text=True, check=True).stdout
-    names = (kernel,) if isinstance(kernel, str) else kernel
-    ops = {}
-    for fn in sass.split("Function : ")[1:]:
-        if not any(k in fn.split()[0] for k in names):
-            continue
-        for m in re.finditer(r"\b(ATOMS\.\S+)", fn):
-            op = m.group(1).rstrip(";")
-            ops[op] = ops.get(op, 0) + 1
-    return [f"SASS shared atomics: {ops}"] if ops else []
+    lines = []
+    for what, op in (("shared atomics", r"ATOMS\.\S+"),
+                     ("tensor-core instructions", r"HGMMA\.\S+")):
+        ops = {}
+        for fn in sass.split("Function : ")[1:]:
+            if any(k in fn.split()[0] for k in names):
+                for m in re.finditer(rf"\b({op})", fn):
+                    ops[m.group(1).rstrip(";")] = ops.get(
+                        m.group(1).rstrip(";"), 0) + 1
+        if ops:
+            lines.append(f"SASS {what}: {ops}")
+    return lines
 
 
-# the entry points whose arguments a redesign changed, as they were
-_OLD_SIGNATURES = {"bbt_accel_corr": [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] * 4 + [ctypes.c_int, ctypes.c_void_p],
-                   "bbt_pfb_fwd": [ctypes.c_void_p] * 8 + [ctypes.c_float]
-                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
-                   + [ctypes.c_int, ctypes.c_void_p]}
-
-
-def old_pfb(lib):
-    """Whether ``lib``'s forward PFB takes the DFT planes (fr, fi) raw,
-    as before the tensor-core DFT (which reports a staged tile)."""
-    return not hasattr(lib, "bbt_pfb_fwd_tile")
-
-
-def load(so, old=False):
+def load(so):
     lib = ctypes.CDLL(str(so))
-    sigs = dict(_build._SIGNATURES)
-    if old:
-        sigs.update({k: v for k, v in _OLD_SIGNATURES.items()
-                     if k != "bbt_pfb_fwd" or old_pfb(lib)})
-    for name, argtypes in sigs.items():
+    for name, argtypes in _build._SIGNATURES.items():
         if hasattr(lib, name):
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = _build._RESTYPES.get(name, ctypes.c_int)
-    if not hasattr(lib, "bbt_k3_scratch"):    # K3 before its scratch
-        for name in ("bbt_k3_fold", "bbt_k3_fold_stokes", "bbt_k3_fold_bf16",
-                     "bbt_k3_fold_stokes_bf16"):
-            if hasattr(lib, name):
-                getattr(lib, name).argtypes = (
-                    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                    + [ctypes.c_int, ctypes.c_void_p])
     return lib
 
 
-def k3_call(lib, form, dev, z, fold, prof, cnt, n_phase, pad_start,
-            n_valid):
-    """A launch of K3 ``form`` (k3_fold, k3_fold_stokes, their _bf16
-    twins) from ``lib``, with the scratch its shape needs (none before K3
-    took one), as a function of no arguments."""
-    n2, n1, lanes = z[0].shape
-    fn = getattr(lib, f"bbt_{form}")
-    head = (z[0].data_ptr(), z[1].data_ptr(), fold.data_ptr(),
-            prof.data_ptr(), cnt.data_ptr())
-    if hasattr(lib, "bbt_k3_scratch"):
-        nbytes = lib.bbt_k3_scratch(n1, n2, lanes, n_phase,
-                                    dd._K3_KINDS[form])
-        scratch = (torch.empty((nbytes,), dtype=torch.uint8, device=dev)
-                   if nbytes else None)
-        head += (None if scratch is None else scratch.data_ptr(),)
-    else:
-        scratch = None
-    return lambda: (scratch, call(fn, dev, *head, n1, n2, lanes, n_phase,
-                                  pad_start, n_valid))
-
-
 def build_variants(old, only):
-    """{key: (library, ptxas lines)}: key (kind, v) for kind 'corr',
-    'fold', 'k2', 'res', or (kind, 'old') for ``old``'s sources."""
-    csrc = _build.CSRC
-    jobs = []
-    for v in CORR_VARIANTS if "corr" in only else ():
-        line = (f"constexpr int kCorrThreads = {v[0]}, kCorrLanes = {v[1]}, "
-                f"kCorrMode = {v[2]}, kCorrNext = {v[3]};")
-        jobs.append((("corr", v), "accel_corr",
-                     build_one(f"accel_{'_'.join(map(str, v))}",
-                               csrc / "accel.cu", csrc, CORR_RE, line)))
-    for v in FOLD_VARIANTS if "fold" in only else ():
-        line = (f"constexpr int kFoldLanes = {v[0]}, kFoldStages = {v[1]}, "
-                f"kFoldMode = {v[2]}, kFoldRuns = {v[3]};")
-        jobs.append((("fold", v), "k3_fold",
-                     build_one(f"dedisperse_{'_'.join(map(str, v))}",
-                               csrc / "dedisperse.cu", csrc, FOLD_RE, line)))
-    for v in FORM_VARIANTS if "forms" in only else ():
-        jobs.append((("forms", v), "k3_fold",
-                     build_one(f"forms_{'_'.join(map(str, v))}",
-                               csrc / "dedisperse.cu", csrc, GATHER_RE,
-                               knob_lines(GATHER_KNOBS, v))))
-    for v in K2_VARIANTS if "k2" in only else ():
-        jobs.append((("k2", v), "k2_reg",
-                     build_one(f"k2_{'_'.join(map(str, v))}",
-                               csrc / "dedisperse.cu", csrc, K2_RE,
-                               knob_lines(K2_KNOBS, v))))
-    for v in RES_VARIANTS if "resident" in only else ():
-        lines = "\n".join(knob_lines(k, x) for k, x in zip(RES_KNOBS, v))
-        jobs.append((("res", v), "resident_reg",
-                     build_one("resident_" + "_".join(map(str, v[0] + v[1])),
-                               csrc / "resident.cu", csrc, RES_RE, lines)))
-    if "k1" in only and re.search(K1_RE, (csrc / "dedisperse.cu")
-                                  .read_text()):
-        for v in K1_VARIANTS:
-            jobs.append((("k1", v), "k1_reg",
-                         build_one(f"k1_{'_'.join(map(str, v))}",
-                                   csrc / "dedisperse.cu", csrc, K1_RE,
-                                   knob_lines(K1_KNOBS, v))))
-    if old is not None and "k1" in only:
-        old_src = (Path(old) / "dedisperse.cu").read_text()
-        # phases are cut from the shared-memory K1 only (trees before the
-        # register K1); a later tree's K1 is timed whole
-        modes = (K1_OLD_MODES if "k1_kernel(const float*" in old_src
-                 else K1_OLD_MODES[:1])
-        for mode in modes:
-            src = patch_old_k1(old_src, mode)
-            jobs.append((("k1", ("old", mode)), "k1_kernel",
-                         build_one(f"k1_old_{mode.replace(' ', '_')}",
-                                   Path(old) / "dedisperse.cu", Path(old),
-                                   None, "", text=src)))
-    for v in PFB_VARIANTS if "pfb" in only else ():
-        src = re.sub(PFB_RE, knob_lines(PFB_KNOBS, v[1]),
-                     re.sub(FIR_RE, knob_lines(FIR_KNOBS, v[0]),
-                            (csrc / "pfb.cu").read_text()))
-        jobs.append((("pfb", v), ("pfb_fir", "pfb_dft"),
-                     build_one("pfb_" + "_".join(map(str, v[0] + v[1])),
-                               csrc / "pfb.cu", csrc, None, "", text=src)))
-    if old is not None and "pfb" in only:
-        jobs.append((("pfb", ("old",)), ("pfb_fir", "pfb_dft"),
-                     build_one("pfb_old", Path(old) / "pfb.cu", Path(old),
-                               None, "")))
-    if old is not None:
-        old = Path(old)
-        if "corr" in only:
-            jobs.append((("corr", "old"), "accel_corr",
-                         build_one("accel_old", old / "accel.cu", old, None,
-                                   "")))
-        if {"fold", "k2"} & set(only):
-            jobs.append((("fold", "old"), ("k3_fold", "k2_kernel"),
-                         build_one("dedisperse_old", old / "dedisperse.cu",
-                                   old, None, "")))
-        if "forms" in only:
-            jobs.append((("forms", "old"), "k3_fold",
-                         build_one("forms_old", old / "dedisperse.cu", old,
-                                   None, "")))
-        if "resident" in only:
-            jobs.append((("res", "old"), "resident_kernel",
-                         build_one("resident_old", old / "resident.cu", old,
-                                   None, "")))
-    libs = {}
-    for key, kernel, (so, proc) in jobs:
+    """{group: [Build]}: the variants of each of the group's tables (one
+    library for equal sources, timed once a group) and, with ``old``,
+    that checkout's kernels."""
+    procs, wanted = {}, []
+    for group in only:
+        tables, kernels, _ = GROUPS[group]
+        seen = set()
+        for t in tables:
+            tab = TABLES[t]
+            for v in tab.variants:
+                edit = (knob_pattern(tab.names), knob_line(tab.names, v))
+                so = build_one(_build.CSRC, tab.unit, edit, procs)
+                if so not in seen:
+                    seen.add(so)
+                    wanted.append((group, f"{t} {tab.label(v)}", v, kernels,
+                                   so))
+        if old is not None:
+            so = build_one(old, TABLES[tables[0]].unit, None, procs)
+            wanted.append((group, "old kernel", "old", kernels, so))
+    outs = {}
+    for so, proc in procs.items():
         out = proc.communicate()[0]
         if proc.returncode:
-            raise RuntimeError(f"nvcc {key}:\n{out}")
-        libs[key] = (load(so, key[1] == "old" or key[1][0] == "old"),
-                     ptxas_lines(out, kernel)
-                     + [ln.strip() for ln in out.splitlines() if "wgmma" in ln]
-                     + atomics(so, kernel))
-    if ("fold", "old") in libs:   # the parent's K2 is in its dedisperse.cu
-        if "k2" in only:
-            libs[("k2", "old")] = libs[("fold", "old")]
-        if "fold" not in only:
-            del libs[("fold", "old")]
+            raise RuntimeError(f"nvcc {so.parent.name}:\n{out}")
+        outs[so] = (load(so), out)
+    libs = {}
+    for group, label, v, kernels, so in wanted:
+        lib, out = outs[so]
+        libs.setdefault(group, []).append(Build(
+            label, v, lib, ptxas_lines(out, kernels) + sass_lines(so,
+                                                                  kernels)))
     return libs
 
 
@@ -533,69 +356,195 @@ def bytes_ms(*tensors_or_bytes):
     return 1e3 * n / HBM_BYTES_PER_S
 
 
-def sweep_corr(libs, dev, reps, out):
+def start(kernel, build, out):
+    """The record of one build, its header printed."""
+    name = f"{kernel} {build.label}"
+    print(name, *build.lines, sep="\n  ", flush=True)
+    rec = {"kernel": kernel, "variant": build.variant, "ptxas": build.lines}
+    out.append(rec)
+    return name, rec
+
+
+def check_fold(name, prof, cnt, ref, stokes):
+    """Counts exact, bins no row reached zero, the power plane within rtol
+    2e-4 elsewhere, the Stokes cross planes within 1e-4 of their peak;
+    (rel, cross)."""
+    rprof, rcnt = ref
+    if not torch.equal(cnt, rcnt):
+        raise AssertionError(f"{name}: counts")
+    hit = rcnt > 0
+    if prof[~hit].any() or rprof[~hit].any():
+        raise AssertionError(f"{name}: an empty bin is not zero")
+    rel = float(((prof[:, :L] - rprof[:, :L]).abs()[hit]
+                 / rprof[:, :L].abs()[hit]).max())
+    cross = (float((prof[:, L:] - rprof[:, L:]).abs().max()
+                   / rprof[:, L:].abs().max()) if stokes else 0.0)
+    if not (rel <= 2e-4 and cross <= 1e-4):
+        raise AssertionError(f"{name}: {rel} {cross}")
+    return rel, cross
+
+
+def sweep_corr(builds, dev, reps, out):
     sr, si = randn(dev, (N_SEG, SEG_LEN), 81, 2)
     segs = torch.complex(sr, si)
     tr, ti = randn(dev, (SEG_LEN, 128), 82, 2)
     bank = torch.complex(tr, ti).T.contiguous()
     ref = accel_correlate_bank_ref(segs, tr, ti, valid=VALID)
-    keys = [k for k in libs if k[0] == "corr"]
-    for key in keys:
-        lib, lines = libs[key]
-        v = key[1]
-        name = ("accel_corr old kernel" if v == "old"
-                else f"accel_corr {corr_label(v)}")
-        rec = {"kernel": "accel_corr", "variant": v, "ptxas": lines}
-        print(name, *lines, sep="\n  ", flush=True)
+    for b in builds:
+        name, rec = start("accel_corr", b, out)
         for n_used, n_out in ((65, 72), (65, 65), (128, 128)):
             got = torch.empty((N_SEG, VALID, n_out), device=dev)
-            if v == "old":
-                if n_used != 128:
-                    continue
-                kern = lambda: call(lib.bbt_accel_corr, dev, segs.data_ptr(),
-                                    tr.data_ptr(), ti.data_ptr(),
-                                    got.data_ptr(), N_SEG, SEG_LEN, 128,
-                                    VALID)
-            else:
-                kern = lambda: call(lib.bbt_accel_corr, dev, segs.data_ptr(),
-                                    bank.data_ptr(), got.data_ptr(), N_SEG,
-                                    SEG_LEN, 128, n_used, n_out, VALID)
+            kern = lambda: call(b.lib.bbt_accel_corr, dev, segs.data_ptr(),
+                                bank.data_ptr(), got.data_ptr(), N_SEG,
+                                SEG_LEN, 128, n_used, n_out, VALID)
             kern()
             torch.cuda.synchronize()
-            rel = None
-            if v == "old" or v[2] == 0:
-                r = ref[..., :n_used]
-                rel = float((got[..., :n_used] - r).abs().max()
-                            / r.abs().max())
-                if got[..., n_used:].any():
-                    raise AssertionError(f"{name}: padding lanes not zero")
-                if not rel <= 1e-4:
-                    raise AssertionError(f"{name}: {rel} of the peak")
+            r = ref[..., :n_used]
+            rel = float((got[..., :n_used] - r).abs().max() / r.abs().max())
+            if got[..., n_used:].any():
+                raise AssertionError(f"{name}: padding lanes not zero")
+            if not rel <= 1e-4:
+                raise AssertionError(f"{name}: {rel} of the peak")
             ms = cuda_ms(kern, reps)
             bound = bytes_ms(segs, 8 * SEG_LEN * n_used,
                              4 * N_SEG * VALID * n_used)
             rec[f"{n_used} lanes, rows of {n_out}"] = {
                 "ms": ms, "bound_ms": bound, "rel": rel}
             print(f"{name}, {n_used} lanes, rows of {n_out}: {ms:.4f} ms, "
-                  f"bound {bound:.4f} "
-                  f"ms (bytes), vs plain "
-                  f"{'-' if rel is None else f'{rel:.2e}'}", flush=True)
+                  f"bound {bound:.4f} ms (bytes), vs plain {rel:.2e}",
+                  flush=True)
             del got
-        out.append(rec)
 
 
-def sweep_fold(libs, dev, reps, out):
+def tile_of(lib, name):
+    tile = (ctypes.c_int * 2)()
+    getattr(lib, name)(tile)
+    return tuple(tile)
+
+
+def peak_rel(got, ref):
+    err = max(float((g.double() - r).abs().max()) for g, r in zip(got, ref))
+    return err / max(float(r.abs().max()) for r in ref)
+
+
+def sweep_mix(builds, dev, reps, out):
+    """lane_mix against float64 at MIX_DEPTHS and SEEDS, then timed at the
+    compiled chains' shapes beside one complex ``matmul``."""
+    for b in builds:
+        name, rec = start("lane_mix", b, out)
+        rec["f64"] = {}
+
+        def run(xr, xi, wr, wi):
+            rows, lanes = xr.shape
+            wp = tf32.pack_operand([tf32.mix_operand(wr, wi)],
+                                   *tile_of(b.lib, "bbt_lane_mix_tile"))
+            yr, yi = torch.empty_like(xr), torch.empty_like(xr)
+            call(b.lib.bbt_lane_mix, dev, xr.data_ptr(), xi.data_ptr(),
+                 wp.data_ptr(), yr.data_ptr(), yi.data_ptr(), rows, lanes,
+                 int(lanes % 4 == 0))
+            return (yr, yi), wp
+
+        for depth in MIX_DEPTHS:
+            errs = []
+            for seed in SEEDS:
+                x = randn(dev, (4096, depth), 100 + seed, 2)
+                w = randn(dev, (depth, depth), 200 + seed, 2)
+                got, _ = run(*x, *w)
+                errs.append(peak_rel(got, lane_mix_ref(
+                    *(t.double() for t in (*x, *w)))))
+            rec["f64"][f"4096x{depth}"] = errs
+            print(f"{name} 4096 x {depth} against float64, seeds {SEEDS}: "
+                  f"{', '.join(f'{e:.3e}' for e in errs)}", flush=True)
+        for rows, lanes in ((32768, 512), (261120, 128)):
+            x = randn(dev, (rows, lanes), 41, 2)
+            w = randn(dev, (lanes, lanes), 42, 2)
+            got, wp = run(*x, *w)
+            rel = peak_rel(got, [r.double() for r in lane_mix_ref(*x, *w)])
+            xc, wc = torch.complex(*x), torch.complex(*w)
+            kern = lambda: call(b.lib.bbt_lane_mix, dev, x[0].data_ptr(),
+                                x[1].data_ptr(), wp.data_ptr(),
+                                got[0].data_ptr(), got[1].data_ptr(), rows,
+                                lanes, 1)
+            ms = cuda_ms(kern, reps)
+            lib_ms = cuda_ms(lambda: torch.matmul(xc, wc), reps)
+            rec[f"{rows}x{lanes}"] = {"ms": ms, "library_ms": lib_ms,
+                                      "rel_vs_plain": rel}
+            print(f"{name} {rows} x {lanes}: {ms:.4f} ms kernel, {lib_ms:.4f}"
+                  f" ms library (one complex matmul), vs plain rel {rel:.3e}",
+                  flush=True)
+            del x, w, got, xc, wc, wp
+
+
+def sweep_bank(builds, dev, reps, out):
+    """bank_power against float64 at SEEDS, then timed at the search's
+    full width beside a complex ``matmul`` and ``abs()**2``."""
+    n_seg, depth, n_cols = 8448, 512, 16896
+    fr, fi = randn(dev, (n_seg, depth), 74, 2)
+    ka, kb, kc = randn(dev, (depth, n_cols), 75, 3)
+    op, sc = torch.complex(ka, kb), torch.complex(fr, fi)
+    for b in builds:
+        name, rec = start("bank_power", b, out)
+
+        def run(ar, ai, oa, ob, oc):
+            kp = tf32.pack_operand([oa, ob, oc],
+                                   *tile_of(b.lib, "bbt_bank_power_tile"))
+            got = torch.empty((ar.shape[0], oa.shape[1]), device=dev)
+            call(b.lib.bbt_bank_power, dev, ar.data_ptr(), ai.data_ptr(),
+                 kp.data_ptr(), got.data_ptr(), ar.shape[0], ar.shape[1],
+                 oa.shape[1])
+            return got, kp
+
+        errs = []
+        for seed in SEEDS:
+            a = randn(dev, (256, depth), 300 + seed, 2)
+            k = randn(dev, (depth, n_cols), 400 + seed, 3)
+            got, _ = run(*a, *k)
+            errs.append(peak_rel([got], [bank_matmul_power_ref(
+                *(t.double() for t in (*a, *k)))]))
+            del a, k, got
+        rec[f"f64 256x{depth}x{n_cols}"] = errs
+        print(f"{name} 256 x {depth} x {n_cols} against float64, seeds "
+              f"{SEEDS}: {', '.join(f'{e:.3e}' for e in errs)}", flush=True)
+        got, kp = run(fr, fi, ka, kb, kc)
+        rel = peak_rel([got], [bank_matmul_power_ref(fr, fi, ka, kb,
+                                                     kc).double()])
+        kern = lambda: call(b.lib.bbt_bank_power, dev, fr.data_ptr(),
+                            fi.data_ptr(), kp.data_ptr(), got.data_ptr(),
+                            n_seg, depth, n_cols)
+        ms = cuda_ms(kern, reps)
+        lib_ms = cuda_ms(lambda: (sc @ op).abs() ** 2, reps)
+        rec[f"{n_seg}x{depth}x{n_cols}"] = {"ms": ms, "library_ms": lib_ms,
+                                            "rel_vs_plain": rel}
+        print(f"{name} {n_seg} x {depth} x {n_cols}: {ms:.4f} ms kernel, "
+              f"{lib_ms:.4f} ms library (complex matmul + abs()**2), vs "
+              f"plain rel {rel:.3e}", flush=True)
+        del got, kp
+
+
+def k3_call(lib, form, dev, z, fold, prof, cnt, n_phase, pad_start,
+            n_valid):
+    """A launch of K3 ``form`` (k3_fold, k3_fold_stokes, their _bf16
+    twins) from ``lib``, with the scratch its shape needs, as a function
+    of no arguments."""
+    n2, n1, lanes = z[0].shape
+    nbytes = lib.bbt_k3_scratch(n1, n2, lanes, n_phase, dd._K3_KINDS[form])
+    scratch = (torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+               if nbytes else None)
+    args = (z[0].data_ptr(), z[1].data_ptr(), fold.data_ptr(),
+            prof.data_ptr(), cnt.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), n1, n2, lanes,
+            n_phase, pad_start, n_valid)
+    fn = getattr(lib, f"bbt_{form}")
+    return lambda: (scratch, call(fn, dev, *args))
+
+
+def sweep_fold(builds, dev, reps, out):
     zf = randn(dev, (N2, N1, L), 83, 2)
     zb = [p.to(torch.bfloat16) for p in zf]
     fold = torch.as_tensor(dd.fold_phase_vector(0.3, FOLD_RATE), device=dev)
     refs = {}
-    keys = [k for k in libs if k[0] == "fold"]
-    for key in keys:
-        lib, lines = libs[key]
-        v = key[1]
-        name = ("K3 old kernel" if v == "old" else f"K3 {fold_label(v)}")
-        rec = {"kernel": "k3_fold", "variant": v, "ptxas": lines}
-        print(name, *lines, sep="\n  ", flush=True)
+    for b in builds:
+        name, rec = start("K3", b, out)
         for stokes in (False, True):
             for z in (zf, zb):
                 form = (("k3_fold_stokes" if stokes else "k3_fold")
@@ -604,27 +553,16 @@ def sweep_fold(libs, dev, reps, out):
                 prof = torch.zeros((N_PHASE + 1, W * L), device=dev)
                 cnt = torch.zeros((N_PHASE + 1,), dtype=torch.int32,
                                   device=dev)
-                kern = k3_call(lib, form, dev, z, fold, prof, cnt, N_PHASE,
+                kern = k3_call(b.lib, form, dev, z, fold, prof, cnt, N_PHASE,
                                PAD_START, N_VALID)
                 kern()
                 torch.cuda.synchronize()
-                rel = cross = None
-                if v == "old" or v[2] == 0:
-                    if form not in refs:
-                        refs[form] = dd.fold_ref(
-                            *z, fold, n_phase=N_PHASE, pad_start=PAD_START,
-                            n_valid=N_VALID, stokes=stokes)
-                    rprof, rcnt = refs[form]
-                    if not torch.equal(cnt, rcnt):
-                        raise AssertionError(f"{name} {form}: counts")
-                    hit = rcnt > 0
-                    rel = float(((prof[:, :L] - rprof[:, :L]).abs()[hit]
-                                 / rprof[:, :L].abs()[hit]).max())
-                    cross = (float((prof[:, L:] - rprof[:, L:]).abs().max()
-                                   / rprof[:, L:].abs().max())
-                             if stokes else 0.0)
-                    if not (rel <= 2e-4 and cross <= 1e-4):
-                        raise AssertionError(f"{name} {form}: {rel} {cross}")
+                if form not in refs:
+                    refs[form] = dd.fold_ref(
+                        *z, fold, n_phase=N_PHASE, pad_start=PAD_START,
+                        n_valid=N_VALID, stokes=stokes)
+                rel, cross = check_fold(f"{name} {form}", prof, cnt,
+                                        refs[form], stokes)
                 ms = cuda_ms(lambda: (prof.zero_(), cnt.zero_(), kern()),
                              reps)
                 zero_ms = cuda_ms(lambda: (prof.zero_(), cnt.zero_()), reps)
@@ -632,58 +570,41 @@ def sweep_fold(libs, dev, reps, out):
                 rec[form] = {"ms": ms - zero_ms, "bound_ms": bound,
                              "rel": rel, "cross": cross}
                 print(f"{name}, {form}: {ms - zero_ms:.4f} ms, bound "
-                      f"{bound:.4f} ms (bytes), vs plain "
-                      f"{'-' if rel is None else f'{rel:.2e} / {cross:.2e}'}",
-                      flush=True)
-        out.append(rec)
+                      f"{bound:.4f} ms (bytes), vs plain {rel:.2e} / "
+                      f"{cross:.2e}", flush=True)
 
 
-def sweep_forms(libs, dev, reps, out):
+def sweep_forms(builds, dev, reps, out):
     """K3's forms at FORM_BINS, power and Stokes, on the GUPPI node's
     window (by shape, the gather form everywhere, and ``--old``'s); the
-    gather knobs at 2048 Stokes and 4096 power bins.  Each held to the plain version (counts exact, power within
-    rtol 2e-4, cross planes within 1e-4 of their peak), timed beside the
-    planes' bytes bound."""
+    gather knobs at 2048 Stokes and 4096 power bins.  Each held to the
+    plain version, timed beside the planes' bytes bound."""
     z = randn(dev, (N2, N1, L), 86, 2)
     fold = torch.as_tensor(dd.fold_phase_vector(0.3, FORM_RATE), device=dev)
     n = N1 * N2
     pad_start, n_valid = FORM_PADS[0], n - sum(FORM_PADS)
-    keys = [k for k in libs if k[0] == "forms"]
-    for key in keys:
-        lib, lines = libs[key]
-        v = key[1]
-        name = f"K3 {form_label(v)}"
-        rec = {"kernel": "k3_fold", "variant": v, "ptxas": lines}
-        print(name, *lines, sep="\n  ", flush=True)
-        cases = ([(b, s) for b in FORM_BINS for s in (False, True)]
-                 if v in ("old", *FORM_VARIANTS[:2])
-                 else [(2048, True), (4096, False)])
+    every = ("old", *TABLES["forms"].variants[:2])
+    for b in builds:
+        name, rec = start("K3", b, out)
+        cases = ([(bins, s) for bins in FORM_BINS for s in (False, True)]
+                 if b.variant in every else [(2048, True), (4096, False)])
         for n_phase, stokes in cases:
             form = "k3_fold_stokes" if stokes else "k3_fold"
             W = 3 if stokes else 1
-            code = lib.bbt_k3_form(N1, L, n_phase, dd._K3_KINDS[form])
+            code = b.lib.bbt_k3_form(N1, L, n_phase, dd._K3_KINDS[form])
             shape = ("gather" if code & 64 else "shared" if code & 16
                      else "global", 1 << (code & 15))
             prof = torch.zeros((n_phase + 1, W * L), device=dev)
             cnt = torch.zeros((n_phase + 1,), dtype=torch.int32, device=dev)
-            kern = k3_call(lib, form, dev, z, fold, prof, cnt, n_phase,
+            kern = k3_call(b.lib, form, dev, z, fold, prof, cnt, n_phase,
                            pad_start, n_valid)
             kern()
             torch.cuda.synchronize()
-            rprof, rcnt = dd.fold_ref(*z, fold, n_phase=n_phase,
-                                      pad_start=pad_start, n_valid=n_valid,
-                                      stokes=stokes)
-            if not torch.equal(cnt, rcnt):
-                raise AssertionError(f"{name} {form} {n_phase}: counts")
-            hit = rcnt > 0
-            rel = float(((prof[:, :L] - rprof[:, :L]).abs()[hit]
-                         / rprof[:, :L].abs()[hit]).max())
-            cross = (float((prof[:, L:] - rprof[:, L:]).abs().max()
-                           / rprof[:, L:].abs().max()) if stokes else 0.0)
-            del rprof, rcnt
-            if not (rel <= 2e-4 and cross <= 1e-4):
-                raise AssertionError(f"{name} {form} {n_phase}: {rel} "
-                                     f"{cross}")
+            ref = dd.fold_ref(*z, fold, n_phase=n_phase, pad_start=pad_start,
+                              n_valid=n_valid, stokes=stokes)
+            rel, cross = check_fold(f"{name} {form} {n_phase}", prof, cnt,
+                                    ref, stokes)
+            del ref
             ms = cuda_ms(lambda: (prof.zero_(), cnt.zero_(), kern()), reps)
             zero_ms = cuda_ms(lambda: (prof.zero_(), cnt.zero_()), reps)
             bound = bytes_ms(*z, fold, prof, cnt)
@@ -694,7 +615,6 @@ def sweep_forms(libs, dev, reps, out):
                   f"{shape[1]}): {ms - zero_ms:.4f} ms, bound {bound:.4f} "
                   f"ms (planes' bytes), vs plain {rel:.2e} / {cross:.2e}",
                   flush=True)
-        out.append(rec)
 
 
 def check_k2_planes(name, got, ref):
@@ -715,7 +635,7 @@ def check_k2_planes(name, got, ref):
     return rel
 
 
-def sweep_k2(libs, dev, reps, out):
+def sweep_k2(builds, dev, reps, out):
     cases = {}          # (shape, form) -> (planes, chirp planes)
     for n2, n1, lanes, forms in K2_SHAPES:
         y32 = randn(dev, (n2, n1, lanes), 84, 2)
@@ -731,40 +651,31 @@ def sweep_k2(libs, dev, reps, out):
         for form in forms:
             cases[((n2, n1, lanes), form)] = every[form]
     refs = {}
-    for key in [k for k in libs if k[0] == "k2"]:
-        lib, lines = libs[key]
-        v = key[1]
-        name = "K2 old kernel" if v == "old" else f"K2 {k2_label(v)}"
-        rec = {"kernel": "k2", "variant": v, "ptxas": lines}
-        print(name, *lines, sep="\n  ", flush=True)
+    for b in builds:
+        name, rec = start("K2", b, out)
         for (shape, form), (y, ch) in cases.items():
             n2, n1, lanes = shape
             tag = f"{form} {n2}x{n1}x{lanes}"
-            fn = getattr(lib, f"bbt_{form}")
+            fn = getattr(b.lib, f"bbt_{form}")
             ptrs = [c.data_ptr() for c in ch]
             work = [p.clone() for p in y]
             kern = lambda w=work: call(fn, dev, w[0].data_ptr(),
                                        w[1].data_ptr(), *ptrs, n1, n2, lanes)
-            rel = None
-            if v == "old" or v[4] == 0:
-                if tag not in refs:
-                    yy = [p.clone() for p in y]
-                    refs[tag] = (dd.k2_theta_ref(*yy, ch[0])
-                                 if form == "k2_theta"
-                                 else dd.stage_b_ref(*yy, *ch))
-                kern()
-                torch.cuda.synchronize()
-                rel = check_k2_planes(f"{name} {tag}", work, refs[tag])
+            if tag not in refs:
+                yy = [p.clone() for p in y]
+                refs[tag] = (dd.k2_theta_ref(*yy, ch[0]) if form == "k2_theta"
+                             else dd.stage_b_ref(*yy, *ch))
+            kern()
+            torch.cuda.synchronize()
+            rel = check_k2_planes(f"{name} {tag}", work, refs[tag])
             # in place on one scratch copy (a unit-modulus chirp keeps the
             # values bounded over the repeats)
             ms = cuda_ms(kern, reps)
             bound = bytes_ms(*y, *ch, *y)
             rec[tag] = {"ms": ms, "bound_ms": bound, "rel": rel}
             print(f"{name}, {tag}: {ms:.4f} ms, bound {bound:.4f} ms "
-                  f"(bytes), vs plain {'-' if rel is None else f'{rel:.2e}'}",
-                  flush=True)
+                  f"(bytes), vs plain {rel:.2e}", flush=True)
             del work
-        out.append(rec)
 
 
 # K1 at the paths' shapes: the flagship's (N1 = N2 = 512, L = 128, pads
@@ -828,50 +739,37 @@ def k1_case(form, n1, n2, lanes, kf, ke, dev):
     return f"bbt_{form}", args, ref, ins + [scale] + y
 
 
-def sweep_k1(libs, dev, reps, out):
+def sweep_k1(builds, dev, reps, out):
     cases = [k1_case(*c, dev) for c in K1_CASES]
-    for key in [k for k in libs if k[0] == "k1"]:
-        lib, lines = libs[key]
-        v = key[1]
-        old = v[0] == "old"
-        name = (f"K1 old kernel, {v[1]}" if old else f"K1 {k1_label(v)}")
-        rec = {"kernel": "k1", "variant": v, "ptxas": lines}
-        print(name, *lines, sep="\n  ", flush=True)
+    for b in builds:
+        name, rec = start("K1", b, out)
         for (form, n1, n2, lanes, kf, ke), (fn, args, ref, ts) in zip(
                 K1_CASES, cases):
             tag = f"{form} {n1}x{n2}x{lanes}"
-            y = ts[-2:]
-            kern = lambda: call(getattr(lib, fn), dev, *args)
+            kern = lambda: call(getattr(b.lib, fn), dev, *args)
             kern()
             torch.cuda.synchronize()
-            rel = None
-            if (v[1] if old else v[3]) in ("kernel", 0):
-                rel = check_k2_planes(f"{name} {tag}", y, ref)
+            rel = check_k2_planes(f"{name} {tag}", ts[-2:], ref)
             ms = cuda_ms(kern, reps)
             bound = bytes_ms(*ts)
             rec[tag] = {"ms": ms, "bound_ms": bound, "rel": rel}
             print(f"{name}, {tag}: {ms:.4f} ms, bound {bound:.4f} ms "
-                  f"(bytes), vs plain {'-' if rel is None else f'{rel:.2e}'}",
-                  flush=True)
-        out.append(rec)
+                  f"(bytes), vs plain {rel:.2e}", flush=True)
 
 
 # the forward PFB at config 3's shape: 32256 spectra of 512 lanes (256
 # channels x 2 pols), 8 taps, the DFT F (x) I_2
 PFB_M, PFB_L, PFB_TAPS = 32256, 512, 8
-TF32_FLOPS = 495e12            # dense TF32 on the tensor cores
 
 
-def sweep_pfb(libs, dev, reps, out):
-    """pfb_fwd and pfb_fwd_dft of each variant (and the parent's) against
-    the plain versions, timed beside their bounds; the shipped FIR then
-    lane_mix back to back, and one complex ``matmul`` of the tap sums by
-    F (the library's DFT product), timed in the same run."""
+def sweep_pfb(builds, dev, reps, out):
+    """pfb_fwd and pfb_fwd_dft of each build against the plain versions,
+    timed beside their bounds; the shipped FIR then lane_mix back to
+    back, and one complex ``matmul`` of the tap sums by F (the library's
+    DFT product), timed in the same run."""
     from ..ops import pfb as pf
     from ..ops import spectral_filter as sf
     from ..ops.dft_matmul import _expanded_mats, device_mats
-    from ..ops.tf32 import mix_operand, pack_operand
-    torch.backends.cuda.matmul.allow_tf32 = False
     m, lanes, nt = PFB_M, PFB_L, PFB_TAPS
     carry = randn(dev, (nt - 1, lanes), 97, 2)
     x = randn(dev, (m, lanes), 98, 2)
@@ -889,40 +787,25 @@ def sweep_pfb(libs, dev, reps, out):
                     1e3 * 3 * flops / TF32_FLOPS)
     fp32_bound = 1e3 * flops / FP32_FLOPS
     ptr = lambda ts: [t.data_ptr() for t in ts]
-    for key in [k for k in libs if k[0] == "pfb"]:
-        lib, lines = libs[key]
-        v = key[1]
-        old = v[0] == "old"
-        name = "PFB old kernels" if old else f"PFB {pfb_label(v)}"
-        rec = {"kernel": "pfb", "variant": v, "ptxas": lines}
-        print(name, *lines, sep="\n  ", flush=True)
-        if old and old_pfb(lib):
-            dft_args = (fr.data_ptr(), fi.data_ptr())
-            fir_args = (None, None)
-        else:
-            tile = (ctypes.c_int * 2)()
-            lib.bbt_pfb_fwd_tile(tile)
-            wp = pack_operand([mix_operand(fr, fi)], *tuple(tile))
-            dft_args = (wp.data_ptr(),)
-            fir_args = (None,)
+    for b in builds:
+        name, rec = start("PFB", b, out)
+        wp = tf32.pack_operand([tf32.mix_operand(fr, fi)],
+                               *tile_of(b.lib, "bbt_pfb_fwd_tile"))
         for form, args, ref, bound in (
-                ("pfb_fwd", fir_args, ref_fir, fir_bound),
-                ("pfb_fwd_dft", dft_args, ref_dft, dft_bound)):
+                ("pfb_fwd", (None,), ref_fir, fir_bound),
+                ("pfb_fwd_dft", (wp.data_ptr(),), ref_dft, dft_bound)):
             kern = lambda a=args: call(
-                lib.bbt_pfb_fwd, dev, *ptr(carry), *ptr(x), taps.data_ptr(),
+                b.lib.bbt_pfb_fwd, dev, *ptr(carry), *ptr(x), taps.data_ptr(),
                 *a, scale.data_ptr(), 0.0, *ptr(y), m, lanes, nt)
             kern()
             torch.cuda.synchronize()
-            rel = None
-            if old or v[1][3] == 0 or form == "pfb_fwd":
-                rel = check_k2_planes(f"{name} {form}", y, ref)
+            rel = check_k2_planes(f"{name} {form}", y, ref)
             ms = cuda_ms(kern, reps)
             rec[form] = {"ms": ms, "bound_ms": bound, "rel": rel}
-            print(f"{name}, {form}: {ms:.4f} ms, bound {bound:.4f} ms"
-                  f"{' (3xTF32; FP32-core %.4f)' % fp32_bound if 'dft' in form else ' (bytes)'}, "
-                  f"vs plain {'-' if rel is None else f'{rel:.2e}'}",
-                  flush=True)
-        out.append(rec)
+            by = (f"3xTF32; FP32-core {fp32_bound:.4f}" if "dft" in form
+                  else "bytes")
+            print(f"{name}, {form}: {ms:.4f} ms, bound {bound:.4f} ms ({by}),"
+                  f" vs plain {rel:.2e}", flush=True)
     # the yardsticks: the shipped FIR then lane_mix, and the library
     fc = torch.complex(fr, fi)
     ac = torch.complex(*ref_fir)
@@ -943,17 +826,12 @@ def sweep_pfb(libs, dev, reps, out):
                 "dft_bound_ms": dft_bound, "fp32_bound_ms": fp32_bound})
 
 
-def sweep_resident(libs, dev, reps, out):
+def sweep_resident(builds, dev, reps, out):
     fold = torch.as_tensor(dd.fold_phase_vector(0.123, RES_RATE), device=dev)
     scale = torch.tensor([0.5], device=dev)
     refs = {}
-    for key in [k for k in libs if k[0] == "res"]:
-        lib, lines = libs[key]
-        v = key[1]
-        name = ("resident old kernel" if v == "old"
-                else f"resident {res_label(v)}")
-        rec = {"kernel": "resident", "variant": v, "ptxas": lines}
-        print(name, *lines, sep="\n  ", flush=True)
+    for b in builds:
+        name, rec = start("resident", b, out)
         for n in RES_WINDOWS:
             hop, n1, n2 = dr.resident_geometry(n, RES_PAD, RES_PAD)
             T = RES_T // hop * hop
@@ -970,7 +848,7 @@ def sweep_resident(libs, dev, reps, out):
                 prof = torch.zeros((N_PHASE + 1, W * L), device=dev)
                 cnt = torch.zeros((N_PHASE + 1,), dtype=torch.int32,
                                   device=dev)
-                kern = lambda: call(lib.bbt_resident, dev,
+                kern = lambda: call(b.lib.bbt_resident, dev,
                                     *(t.data_ptr() for t in ins),
                                     fold.data_ptr(), scale.data_ptr(),
                                     prof.data_ptr(), cnt.data_ptr(), n, L,
@@ -978,23 +856,12 @@ def sweep_resident(libs, dev, reps, out):
                                     int(stokes))
                 kern()
                 torch.cuda.synchronize()
-                rel = cross = None
-                if v == "old" or v[1][1] == 0:
-                    if form not in refs:
-                        refs[form] = dr.dedisperse_fold_resident_ref(
-                            *ins, fold, scale, n_window=n, n_phase=N_PHASE,
-                            pad_start=RES_PAD, pad_end=RES_PAD,
-                            stokes=stokes)
-                    rprof, rcnt = refs[form]
-                    if not torch.equal(cnt, rcnt):
-                        raise AssertionError(f"{name} {form}: counts")
-                    rel = float(((prof[:, :L] - rprof[:, :L]).abs()
-                                 / rprof[:, :L].abs()).max())
-                    cross = (float((prof[:, L:] - rprof[:, L:]).abs().max()
-                                   / rprof[:, L:].abs().max())
-                             if stokes else 0.0)
-                    if not (rel <= 2e-4 and cross <= 1e-4):
-                        raise AssertionError(f"{name} {form}: {rel} {cross}")
+                if form not in refs:
+                    refs[form] = dr.dedisperse_fold_resident_ref(
+                        *ins, fold, scale, n_window=n, n_phase=N_PHASE,
+                        pad_start=RES_PAD, pad_end=RES_PAD, stokes=stokes)
+                rel, cross = check_fold(f"{name} {form}", prof, cnt,
+                                        refs[form], stokes)
                 ms = cuda_ms(lambda: (prof.zero_(), cnt.zero_(), kern()),
                              reps)
                 zero_ms = cuda_ms(lambda: (prof.zero_(), cnt.zero_()), reps)
@@ -1008,11 +875,24 @@ def sweep_resident(libs, dev, reps, out):
                 rec[form] = {"ms": ms - zero_ms, "bound_ms": bound,
                              "rel": rel, "cross": cross}
                 print(f"{name}, {form}: {ms - zero_ms:.4f} ms, bound "
-                      f"{bound:.4f} ms, vs plain "
-                      f"{'-' if rel is None else f'{rel:.2e} / {cross:.2e}'}",
+                      f"{bound:.4f} ms, vs plain {rel:.2e} / {cross:.2e}",
                       flush=True)
             del x, halos, chirp, ins
-        out.append(rec)
+
+
+# group: (its tables, the kernels whose ptxas and SASS lines it prints,
+# its sweep); the order is the order they run in
+GROUPS = {
+    "corr": (("corr",), ("accel_corr",), sweep_corr),
+    "bank": (("bank",), ("bank_power_kernel",), sweep_bank),
+    "mix": (("mix",), ("lane_mix_kernel",), sweep_mix),
+    "fold": (("fold",), ("k3_fold",), sweep_fold),
+    "forms": (("forms",), ("k3_fold",), sweep_forms),
+    "k2": (("k2",), ("k2_reg",), sweep_k2),
+    "resident": (("resident",), ("resident_reg",), sweep_resident),
+    "k1": (("k1",), ("k1_reg",), sweep_k1),
+    "pfb": (("fir", "pfb"), ("pfb_fir", "pfb_dft"), sweep_pfb),
+}
 
 
 def main(argv=None):
@@ -1020,13 +900,19 @@ def main(argv=None):
     p.add_argument("--reps", type=int, default=20)
     p.add_argument("--old", default=None,
                    help="another checkout's csrc directory to time too")
-    p.add_argument("--only", default="corr,fold,forms,k2,resident,k1,pfb",
-                   help="the kernels to sweep, comma-separated")
+    p.add_argument("--only", default=",".join(GROUPS),
+                   help="the groups to sweep, comma-separated")
     args = p.parse_args(argv)
-    only = args.only.split(",")
+    only = [g for g in GROUPS if g in args.only.split(",")]
+    unknown = set(args.only.split(",")) - set(GROUPS)
+    if unknown:
+        p.error(f"no group {', '.join(sorted(unknown))}")
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
+    # the library calls and references in full float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
     gpu = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1035,12 +921,8 @@ def main(argv=None):
     dev = torch.device("cuda", 0)
     libs = build_variants(args.old, only)
     out = []
-    for kind, sweep in (("corr", sweep_corr), ("fold", sweep_fold),
-                        ("forms", sweep_forms),
-                        ("k2", sweep_k2), ("resident", sweep_resident),
-                        ("k1", sweep_k1), ("pfb", sweep_pfb)):
-        if kind in only:
-            sweep(libs, dev, args.reps, out)
+    for group in only:
+        GROUPS[group][2](libs[group], dev, args.reps, out)
     print(json.dumps({"gpu": gpu, "variants": out}, default=str))
     return 0
 

@@ -356,9 +356,12 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
+
+from benchmark import peaks
 
 # float32 FFT roundoff over log2(512) radix-2 stages is ~1e-6 of the
 # largest element; an indexing or decode fault gives errors of order 1.
@@ -381,12 +384,13 @@ EAGER_RTOL, EAGER_ATOL = 1e-3, 2e-3
 # test_config2_geometry_eager_gap
 EAGER_AS_BUILT = ("config3_quad", "pfb_forward", "dechan_inverse")
 N_STEPS = 8                # compiled steps per timed turn
-# what bounds a kernel (`bound_ms`): the H100 SXM data sheet's HBM rate,
-# FP32 rate outside the tensor cores and dense TF32 tensor-core rate (the
-# 3xTF32 kernels, lane_mix and bank_power, do 3 TF32 passes per product)
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
+# what bounds a kernel (`bound_ms`): the benchmark's peaks (the H100 SXM
+# data sheet's HBM rate and FP32 rate outside the tensor cores) and the
+# dense TF32 tensor-core rate (the 3xTF32 kernels, lane_mix and
+# bank_power, do 3 TF32 passes per product)
+HBM_BYTES_PER_S = peaks.HBM_BYTES_PER_S
 TF32_FLOPS = 495e12
+CONFIGS = Path(__file__).resolve().parent / "benchmark" / "configs"
 DEDISPERSE_CU = "baseband_tasks_tpu_torch/csrc/dedisperse.cu"
 FOURSTEP_CU = "baseband_tasks_tpu_torch/csrc/fourstep.cu"
 PFB_CU = "baseband_tasks_tpu_torch/csrc/pfb.cu"
@@ -487,44 +491,45 @@ GUPPI_K3_FORM = {"tile": 16, "partials": "gather", "form": "register"}
 GUPPI_K3_RUNS = {"tile": 8, "partials": "shared", "form": "register"}
 
 
-def b1937_polyco():
-    """bench.py's synthetic B1937+21-like single-entry polyco."""
-    from baseband_tasks_tpu_torch import Polyco, PolycoPhase
-    f0 = 641.928123
-    text = ("B1937+21    9-AUG-18  120000.00   58000.00000000000"
-            "            71.019700              0.000000   0.000\n"
-            f"123456789.321700  {f0:.12E}   ao  1440    3   1400.000\n"
-            "0.00000000000000000D+00 0.00000000000000000D+00 "
-            "5.00000000000000000D-01\n").replace("E+", "D+")
-    return PolycoPhase(Polyco(text))
+def config_pipeline(name):
+    """The ``WidebandPulsarPipeline`` keywords of the benchmark's
+    configuration ``benchmark/configs/<name>.json``: its geometry, polyco,
+    start and ingest."""
+    from baseband_tasks_tpu_torch import Polyco, PolycoPhase, Time, units
+    cfg = json.loads((CONFIGS / f"{name}.json").read_text())
+    kw = dict(
+        n_chan=cfg["n_chan"], n_pol=cfg["n_pol"], dm=cfg["dm"],
+        freq_center=cfg["freq_center_mhz"] * units.MHz,
+        chan_rate=cfg["chan_rate_khz"] * units.kHz,
+        period_samples=tuple(cfg["period_samples"]), n_phase=cfg["n_phase"],
+        block_samples=cfg["block_samples"],
+        phase_model=PolycoPhase(Polyco("".join(f"{line}\n" for line in
+                                               cfg["polyco"]))),
+        start_time=Time.from_mjd(float(cfg["start_mjd"])),
+        ingest_bits=cfg["ingest_bits"], detect=cfg["detect"])
+    if "ingest_layout" in cfg:
+        kw["ingest_layout"] = cfg["ingest_layout"]
+    return kw
 
 
 def flagship(device, use_kernels=True, **extra):
-    """The flagship pipeline (kernel path unless told otherwise) on
-    ``device``, or on ``mesh=`` with ``device`` None."""
-    from baseband_tasks_tpu_torch import Time, WidebandPulsarPipeline, units
-    u = units
-    return WidebandPulsarPipeline(
-        n_chan=64, n_pol=2, dm=500.0, freq_center=1400 * u.MHz,
-        chan_rate=250 * u.kHz, period_samples=(160000, 3), n_phase=64,
-        block_samples=1 << 17, device=device, use_kernels=use_kernels,
-        phase_model=b1937_polyco(), start_time=Time.from_mjd(58000.0),
-        ingest_bits=8, **extra)
+    """The flagship pipeline of ``benchmark/configs/flagship_fold.json``
+    (kernel path unless told otherwise) on ``device``, or on ``mesh=``
+    with ``device`` None; ``extra`` overrides its keywords."""
+    from baseband_tasks_tpu_torch import WidebandPulsarPipeline
+    return WidebandPulsarPipeline(**{
+        **config_pipeline("flagship_fold"), "device": device,
+        "use_kernels": use_kernels, **extra})
 
 
 def guppi_node(device):
     """The GUPPI full-Stokes node of ``benchmark/configs/
     guppi_b1937_stokes.json`` on ``device``: 64 x 1.5625 MHz x 2 pol at
     1150 MHz, DM 71.0197, 2048 Stokes bins, 8-bit GUPPI words."""
-    from baseband_tasks_tpu_torch import Time, WidebandPulsarPipeline, units
-    u = units
+    from baseband_tasks_tpu_torch import WidebandPulsarPipeline
     return WidebandPulsarPipeline(
-        n_chan=64, n_pol=2, dm=71.0197, freq_center=1150 * u.MHz,
-        chan_rate=1562.5 * u.kHz, period_samples=(243407, 100),
-        n_phase=2048, block_samples=1 << 17, device=device,
-        use_kernels=True, phase_model=b1937_polyco(),
-        start_time=Time.from_mjd(58000.0), ingest_bits=8, detect="stokes",
-        ingest_layout="guppi")
+        **config_pipeline("guppi_b1937_stokes"), device=device,
+        use_kernels=True)
 
 
 def guppi_words(dev, n_chan, t, seed):
@@ -554,15 +559,14 @@ def plain(fn):
     return call
 
 
-def bound(reads, writes, flops, rate=FP32_FLOPS):
+def bound(reads, writes, flops, rate=peaks.FP32_FLOPS):
     """(bound_ms, bound_by): the least time of a kernel that reads each
     tensor of ``reads`` once, writes each of ``writes`` once and does
     ``flops`` operations at ``rate`` (FP32 on the CUDA cores unless
-    given), at the card's peak rates."""
+    given), at the card's peak rates (``benchmark/peaks.py``)."""
     nbytes = sum(t.numel() * t.element_size() for t in (*reads, *writes))
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
-    return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations")
+    seconds, by = peaks.work_bound_s(nbytes, flops * peaks.FP32_FLOPS / rate)
+    return 1e3 * seconds, by
 
 
 def tf32x3_cost(reads, writes, flops):
@@ -1736,7 +1740,6 @@ def drive_variants(dev, gpu):
     width, counted, against the plain versions, timed; step_fn on the
     kernels against its torch.fft path.  Returns the launch counts summed
     over the counted runs."""
-    from baseband_tasks_tpu_torch import Time
     from baseband_tasks_tpu_torch.ops import dedisperse as dd
     power, stokes = flagship(dev), flagship(dev, detect="stokes")
     T, ps, n_phase = power.global_block, power.pad_start, power.n_phase
@@ -1749,7 +1752,8 @@ def drive_variants(dev, gpu):
     fold3 = torch.as_tensor(power._shard_fold3(row).astype(np.int32),
                             device=dev)
     t0 = time.perf_counter()
-    bins = power.phase_bins(b1937_polyco(), Time.from_mjd(58000.0), 3 * T)
+    cfg = config_pipeline("flagship_fold")
+    bins = power.phase_bins(cfg["phase_model"], cfg["start_time"], 3 * T)
     print(f"(j) phase_bins of {T} samples from the polyco: "
           f"{time.perf_counter() - t0:.3f} s on the host", flush=True)
     csr, csi = power._chirp_device()

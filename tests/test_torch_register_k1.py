@@ -4,7 +4,7 @@
 The CUDA kernel runs only on a card; this model replays, thread by
 thread, what it does with a column b of a lane tile: the (lane, row
 group) items each thread holds (two single-lane items a thread, lane
-fastest, or VL neighbouring lanes of one row group), the rows each
+fastest), the rows each
 register holds (``reg::Plan`` radix 8: 8.8.8 at N1 = 512, 8.8.4 at 256,
 8.8.2 at 128), the staged rows those registers are read from (the front
 edge rows, the end edge rows, then the packed word rows) with each row's
@@ -41,38 +41,27 @@ def log2(n):
     return n.bit_length() - 1
 
 
-def k1_items(n1, tl, vl):
+def k1_items(n1, tl):
     """(thread, item) -> (lane, row group) of the kernel's items, for the
     live ones, and the block's threads."""
     plan = Plan(LOG_R, log2(n1))
     groups = 1 << plan.log_t
     out = {}
-    if vl > 1:
-        log_p = max(log2(tl) - log2(vl), 0)
-        threads = -(-(max(tl // vl, 1) * groups) // 32) * 32
-        for tid in range(threads):
-            g = tid >> log_p
-            if g < groups:
-                for i in range(vl):
-                    out[tid, i] = (((tid & ((1 << log_p) - 1)) << log2(vl))
-                                   + i, g)
-    else:
-        threads = -(-(tl * groups) // 64) * 32
-        for tid in range(threads):
-            for i in range(2):
-                item = tid + i * threads
-                if item < tl * groups:
-                    out[tid, i] = (item & (tl - 1), item >> log2(tl))
+    threads = -(-(tl * groups) // 64) * 32
+    for tid in range(threads):
+        for i in range(2):
+            item = tid + i * threads
+            if item < tl * groups:
+                out[tid, i] = (item & (tl - 1), item >> log2(tl))
     return out, threads
 
 
 @pytest.mark.parametrize("n1", [512, 256, 128, 16, 4])
-@pytest.mark.parametrize("tl,vl", [(16, 1), (16, 2), (16, 4), (8, 1),
-                                   (1, 1)])
-def test_items_cover_the_column(n1, tl, vl):
+@pytest.mark.parametrize("tl", [16, 8, 1])
+def test_items_cover_the_column(n1, tl):
     """Every (lane, row group) of the tile is one item of one thread, and
     a block has at most 512 threads."""
-    items, threads = k1_items(n1, tl, vl)
+    items, threads = k1_items(n1, tl)
     groups = 1 << Plan(LOG_R, log2(n1)).log_t
     assert sorted(items.values()) == [(lane, g) for lane in range(tl)
                                       for g in range(groups)]
@@ -80,16 +69,16 @@ def test_items_cover_the_column(n1, tl, vl):
 
 
 @pytest.mark.parametrize("n1", [512, 256, 128])
-@pytest.mark.parametrize("tl,vl", [(16, 1), (16, 2), (16, 4), (8, 1)])
-def test_shared_twiddles_reach_their_rows(n1, tl, vl):
+@pytest.mark.parametrize("tl", [16, 8])
+def test_shared_twiddles_reach_their_rows(n1, tl):
     """The compiled tile's twiddle sharing: thread pos of a row group
     computes W for rows_final((o << kLogP) + pos mod P), o < R / P, and
     the thread holding slot q takes own[q >> kLogP] from the group's
     thread (lane & ~(P' - 1)) | (q mod P): that is W of its own row."""
     plan = Plan(LOG_R, log2(n1))
-    log_pt = max(log2(tl) - log2(vl), 0)
+    log_pt = log2(tl)
     log_p = min(log_pt, LOG_R)
-    items, _ = k1_items(n1, tl, vl)
+    items, _ = k1_items(n1, tl)
     for (tid, i), (lane, g) in items.items():
         for q in range(plan.R):
             src = (tid & ~31) | ((tid & 31) & ~((1 << log_pt) - 1)) | (
