@@ -80,7 +80,8 @@ from ..parallel.halo import halo_edges, halo_exchange, ppermute
 from ..parallel._ipc import Mailboxes
 from ..parallel.halo_remote import (check_hosts, halo_edges_remote,
                                     halo_exchange_remote)
-from ..parallel.mesh import Mesh, gather_cells, grid_indices, shard
+from ..parallel.mesh import (Mesh, gather_cells, grid_indices, shard,
+                             shard_async)
 from ..utils import units as u
 from ..utils.profiling import span
 from .foldmodel import FoldModel, _phase_to_cycles
@@ -871,7 +872,12 @@ class WidebandPulsarPipeline:
         mesh exchanges its edges every step.  The sums start as the first
         step's own profile and counts.  So with device blocks a call
         makes no tensor from a Python number and does not wait for the
-        device.
+        device.  Contiguous blocks in pinned host memory are copied on
+        each device's copy stream (``parallel.mesh.shard_async``), under
+        the kernels already queued; the steps wait on the device for
+        their copies, and the call, at its end (span ``mesh.copy_wait``),
+        waits on the host for those copies alone, not for its kernels.
+        When it returns, the caller may refill its blocks.
         """
         with span("wideband.run_fn"):
             T = self.global_block
@@ -917,62 +923,76 @@ class WidebandPulsarPipeline:
         made = {}
 
         def blocks_of(arrays):
-            """The shards' blocks: (rows, L) on the kernel path."""
+            """The shards' blocks, (rows, L) on the kernel path, and the
+            copies from pinned memory they wait on (``shard_async``'s
+            pending, one an array)."""
             if guppi:
-                grid = shard(arrays[0], self.mesh, ("chan", "time"))
+                grid, pending = shard_async(arrays[0], self.mesh,
+                                            ("chan", "time"))
                 with span("wideband.repack"):
                     planes = _map(grid, guppi_repack)
                 return tuple(_map(planes, lambda p, k=k: p[k])
-                             for k in (0, 1))
-            grids = [shard(a, self.mesh, ("time", "chan")) for a in arrays]
+                             for k in (0, 1)), (pending,)
+            grids, pending = zip(*(shard_async(a, self.mesh, ("time", "chan"))
+                                   for a in arrays))
             if self.use_kernels:
                 grids = [_map(g, lambda b: b.reshape(-1, L)) for g in grids]
-            return tuple(grids)
+            return tuple(grids), pending
 
         def run(seed=0, blocks=None):
             # nested in "wideband.call": the inputs ("mesh.shard" inside
             # blocks_of, then "wideband.repack" for GUPPI words),
             # "wideband.prep" (the chirps and edges, made on the first
-            # call), then one "wideband.step" a step
+            # call), one "wideband.step" a step, then, where blocks were
+            # copied from pinned memory, "mesh.copy_wait" for those copies
+            pending = ()
             with span("wideband.call"):
-                if blocks is None:
-                    if seed not in cache:
-                        cache[seed] = blocks_of(self._payload(
-                            seed, shape, ingest_bits))
-                    bases = cache[seed]
-                else:
-                    dtype = torch.int32 if ingest_bits else torch.float32
-                    bases = blocks_of([self._as_input(b, shape, dtype)
-                                       for b in ((blocks,) if guppi
-                                                 else blocks)])
-                with span("wideband.prep"):
-                    if self.use_kernels and not made:
-                        made["chirps"] = [self._shard_chirp(
-                            "planes", c, self.mesh.devices[t, c])
-                            for t, c in self._cells]
-                        made["edges"] = (self._on_device(
-                            ("zero edges", ingest_bits),
-                            lambda: self._run_edges(ingest_bits, bases))
-                            if self.n_time_shards == 1 else None)
-                for k in range(n_iter):
-                    with span("wideband.step"):
-                        if self.use_kernels:
-                            prof, cnt = self._kernel_step(
-                                ingest_bits, bases, made["chirps"],
-                                *steps[k], made["edges"])
-                        else:
-                            scale = scales[k]
-                            prof, cnt = self._pairs_step(
-                                _map(bases[0],
-                                     lambda b: b * scale.to(b.device)),
-                                self._shard_bins(rows[k]))
-                        if k == 0:
-                            acc, cnt_acc = prof, cnt
-                        else:
-                            acc += prof
-                            cnt_acc = (cnt_acc.to(torch.int64)
-                                       + cnt.to(torch.int64))
-                return acc, cnt_acc.to(torch.float32)
+                try:
+                    if blocks is None:
+                        if seed not in cache:
+                            cache[seed], pending = blocks_of(self._payload(
+                                seed, shape, ingest_bits))
+                        bases = cache[seed]
+                    else:
+                        dtype = torch.int32 if ingest_bits else torch.float32
+                        bases, pending = blocks_of(
+                            [self._as_input(b, shape, dtype)
+                             for b in ((blocks,) if guppi else blocks)])
+                    with span("wideband.prep"):
+                        if self.use_kernels and not made:
+                            made["chirps"] = [self._shard_chirp(
+                                "planes", c, self.mesh.devices[t, c])
+                                for t, c in self._cells]
+                            made["edges"] = (self._on_device(
+                                ("zero edges", ingest_bits),
+                                lambda: self._run_edges(ingest_bits, bases))
+                                if self.n_time_shards == 1 else None)
+                    for k in range(n_iter):
+                        with span("wideband.step"):
+                            if self.use_kernels:
+                                prof, cnt = self._kernel_step(
+                                    ingest_bits, bases, made["chirps"],
+                                    *steps[k], made["edges"])
+                            else:
+                                scale = scales[k]
+                                prof, cnt = self._pairs_step(
+                                    _map(bases[0],
+                                         lambda b: b * scale.to(b.device)),
+                                    self._shard_bins(rows[k]))
+                            if k == 0:
+                                acc, cnt_acc = prof, cnt
+                            else:
+                                acc += prof
+                                cnt_acc = (cnt_acc.to(torch.int64)
+                                           + cnt.to(torch.int64))
+                    return acc, cnt_acc.to(torch.float32)
+                finally:
+                    # the caller may refill its pinned blocks on return,
+                    # also when a step raised
+                    if any(pending):
+                        with span("mesh.copy_wait"):
+                            for p in pending:
+                                p.wait()
 
         return run
 

@@ -12,8 +12,8 @@ processes (``torch.distributed``) and builds a mesh over all of them;
 the same collectives then cross processes where a copy's two ends do.
 """
 
-from .mesh import (Mesh, default_devices, make_mesh, shard, time_chan_specs,
-                   unshard)
+from .mesh import (Mesh, default_devices, make_mesh, shard, shard_async,
+                   time_chan_specs, unshard)
 from .halo import halo_edges, halo_exchange, ppermute, sharded_overlap_save
 from .halo_remote import (halo_edges_remote, halo_edges_remote_ref,
                           halo_exchange_remote, mesh_logical_id)
@@ -22,8 +22,8 @@ from .corner import (all_to_all, corner_turn, sharded_channelize,
 from . import multihost
 
 __all__ = ["Mesh", "make_mesh", "default_devices", "time_chan_specs",
-           "shard", "unshard", "halo_exchange", "halo_edges", "ppermute",
-           "halo_edges_remote", "halo_edges_remote_ref",
+           "shard", "shard_async", "unshard", "halo_exchange", "halo_edges",
+           "ppermute", "halo_edges_remote", "halo_edges_remote_ref",
            "halo_exchange_remote", "mesh_logical_id", "sharded_overlap_save",
            "corner_turn", "all_to_all", "sharded_channelize",
            "sharded_dechannelize", "multihost"]

@@ -4,10 +4,12 @@ Counterpart of ``baseband_tasks_tpu/parallel/mesh.py``.  A JAX ``Mesh``
 is one controller driving several devices through ``shard_map``; the port
 keeps that model: a mesh is a named grid of ``torch.device``, driven by
 one process.  A "sharded array" is an object array of the mesh's shape
-holding each device's block on that device (:func:`shard`), and
-:func:`unshard` reassembles the global tensor.  A device may appear
-several times in a mesh: several shards then share one card (or the
-CPU), as the JAX tests put eight virtual devices on one CPU.
+holding each device's block on that device (:func:`shard`;
+:func:`shard_async` leaves the copies from pinned host memory running on
+each card's copy stream), and :func:`unshard` reassembles the global
+tensor.  A device may appear several times in a mesh: several shards
+then share one card (or the CPU), as the JAX tests put eight virtual
+devices on one CPU.
 
 A mesh may span processes (``multihost.pod_mesh``): ``process_ids`` holds
 the rank that owns each cell, every process runs the same program on the
@@ -28,8 +30,8 @@ from ..utils.profiling import span
 from . import _transport
 
 __all__ = ["Mesh", "make_mesh", "time_chan_specs", "default_devices",
-           "axis_devices", "axis_owners", "axis_shards", "shard", "unshard",
-           "gather_cells", "join_parts"]
+           "axis_devices", "axis_owners", "axis_shards", "shard",
+           "shard_async", "Pending", "unshard", "gather_cells", "join_parts"]
 
 
 def grid_indices(shape):
@@ -200,6 +202,84 @@ def block_index(spec, shape, mesh, idx):
     return tuple(out)
 
 
+class Pending:
+    """The host-to-card copies :func:`shard_async` issued: each copy's
+    event, and its pinned source, held until :meth:`wait`.  Empty (false)
+    where nothing was issued."""
+
+    def __init__(self):
+        self._events = []
+        self._sources = []
+
+    def __bool__(self):
+        return bool(self._events)
+
+    def add(self, event, source):
+        self._events.append(event)
+        self._sources.append(source)
+
+    def wait(self):
+        """Block the host until every copy has read its source (each
+        copy's event, never a stream); then the sources may be refilled.
+        A no-op when nothing was issued."""
+        for event in self._events:
+            event.synchronize()
+        self._events.clear()
+        self._sources.clear()
+
+
+_COPY_STREAMS = {}
+
+
+def _copy_stream(device):
+    """The one copy stream of a CUDA ``device``, made at first use."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _COPY_STREAMS:
+        _COPY_STREAMS[index] = torch.cuda.Stream(index)
+    return _COPY_STREAMS[index]
+
+
+def _to_device(block, device, pending):
+    """``block`` on ``device`` as a contiguous tensor.  A contiguous
+    pinned block bound for a CUDA device is copied on the device's copy
+    stream, which the device's current stream waits for, and the copy is
+    added to ``pending``; anything else is copied on the current stream
+    (the host waits where ``.to`` does)."""
+    if not (device.type == "cuda" and block.device.type == "cpu"
+            and block.is_contiguous() and block.is_pinned()):
+        return block.to(device).contiguous()
+    stream = _copy_stream(device)
+    with torch.cuda.stream(stream):
+        out = block.to(device, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(stream)
+    compute = torch.cuda.current_stream(device)
+    compute.wait_event(done)
+    out.record_stream(compute)
+    pending.add(done, block)
+    return out
+
+
+def shard_async(x, mesh, spec):
+    """:func:`shard`, without waiting for the copies from pinned memory:
+    ``(grid, pending)``.  Each contiguous block of a pinned ``x`` bound for
+    a CUDA device is copied on that device's copy stream, and the device's
+    current stream waits for the copy, so the copy runs under the kernels
+    already queued there.  ``x`` may be refilled only after
+    ``pending.wait()``, which blocks the host on those copies alone.  Other
+    blocks (on a device already, pageable, a non-contiguous view) are
+    copied as :func:`shard` copies them, and add nothing to ``pending``."""
+    pending = Pending()
+    with span("mesh.shard"):
+        x = torch.as_tensor(x)
+        out = np.empty(mesh.devices.shape, dtype=object)
+        for idx in mesh.local_cells():
+            block = x[block_index(spec, x.shape, mesh, idx)]
+            out[idx] = _to_device(block, mesh.devices[idx], pending)
+    return out, pending
+
+
 def shard(x, mesh, spec):
     """Split ``x`` (a tensor or numpy) over ``mesh`` by ``spec`` (one
     mesh-axis name or None per leading dimension; axes not named are
@@ -208,14 +288,12 @@ def shard(x, mesh, spec):
     of ``x`` on its own device is ``x`` itself.  On a mesh over several
     processes every process passes the same global ``x`` (as to JAX's
     ``device_put``) and gets the blocks of its own cells; the others are
-    None."""
-    with span("mesh.shard"):
-        x = torch.as_tensor(x)
-        out = np.empty(mesh.devices.shape, dtype=object)
-        for idx in mesh.local_cells():
-            block = x[block_index(spec, x.shape, mesh, idx)]
-            out[idx] = block.to(mesh.devices[idx]).contiguous()
-        return out
+    None.  When it returns, ``x`` may be refilled: a copy from pinned
+    memory (:func:`shard_async`) has been waited for, the kernels queued
+    on the device have not."""
+    grid, pending = shard_async(x, mesh, spec)
+    pending.wait()
+    return grid
 
 
 def unshard(blocks, mesh, spec, device=None):

@@ -53,7 +53,11 @@ plain version, K3 Stokes at 2048 bins on the deployment's 2^18 window
 (its form asserted) and the entry's call under the sync check; K3's
 gather form at 1024 to 8192 bins, power and Stokes, against the plain
 version over the bin map's edge cases, and bit for bit from call to
-call.
+call; host-fed calls: both entries on pinned host blocks return while
+the compute stream is held (they wait for their copies alone, in one
+``mesh.copy_wait`` after the steps) and match a device-block call, and
+``shard`` keeps ``.to()``'s blocks and contract for pinned, pageable and
+non-contiguous inputs.
 Tolerances as in ``chip_smoke.py``: planes
 to 1e-4 of their largest element (float32 FFT roundoff is ~1e-6 of it),
 profiles elementwise to rtol 2e-4 (atomic summation order), counts
@@ -386,6 +390,133 @@ def test_guppi_call_does_not_sync(dev):
     power, rpower = got[0][0][hit][..., :2], prof[hit][..., :2]
     assert float(((power - rpower).abs() / rpower).max()) <= PROFILE_RTOL
     assert_planes((got[0][0][..., 2:],), (prof[..., 2:],))
+
+
+def _small_entry(dev, layout):
+    """A small flagship (plane-packed words) or GUPPI entry, its
+    ``run_fn(1)``, one input block on the card, and the launches a call
+    on it makes."""
+    import baseband_tasks_tpu_torch as bt
+    u = bt.units
+    kw = dict(n_chan=8, n_pol=2, dm=0.5, freq_center=600 * u.MHz,
+              chan_rate=250 * u.kHz, device=dev, use_kernels=True)
+    want = dict.fromkeys(dd.launch_counts, 0)
+    if layout == "guppi":
+        kern = bt.WidebandPulsarPipeline(
+            period_samples=(4099, 2), n_phase=2048, block_samples=4096,
+            detect="stokes", ingest_layout="guppi", **kw)
+        words = _guppi_words(dev, kern.n_chan, kern.global_block, 6)
+        want.update(guppi_repack=1, k1_packed=1, k2=1, k3_fold_stokes=1,
+                    k3_fold_gather=1)
+    else:
+        kern = bt.WidebandPulsarPipeline(
+            period_samples=(512, 1), n_phase=8, block_samples=1024, **kw)
+        shape = (kern.global_block // 4, kern.n_chan, kern.n_pol)
+        g = torch.Generator(device=dev)
+        g.manual_seed(4)
+        words = tuple(torch.randint(0, 256, shape + (4,), generator=g,
+                                    dtype=torch.uint8, device=dev).view(
+            torch.int32).reshape(shape) for _ in range(2))
+        want.update(k1_packed=1, k2=1, k3_fold=1)
+    run = kern.run_fn(1, offset0=3 * kern.global_block, ingest_bits=8)
+    return run, words, want
+
+
+def _pinned(words):
+    if isinstance(words, tuple):
+        return tuple(w.cpu().pin_memory() for w in words)
+    return words.cpu().pin_memory()
+
+
+@pytest.mark.parametrize("layout", ["planes", "guppi"])
+def test_pinned_call_waits_only_for_its_copies(dev, layout):
+    """A call on blocks in pinned host memory returns while the compute
+    stream is still held behind earlier work (it waits for its copies,
+    which run on the copy stream, not for the kernels); the blocks may be
+    overwritten as soon as it returns, and once the card has run it the
+    output is a device-block call's: counts bit for bit, the profile to
+    the fold's atomic order, the same launches once each."""
+    run, words, want = _small_entry(dev, layout)
+    host = _pinned(words)
+    ref = run(blocks=words)
+    run(blocks=host)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1 << 31)          # ~1 s of the compute stream
+    held = torch.cuda.Event()
+    held.record()
+    dd.reset_launch_counts()
+    got = run(blocks=host)
+    counts = dict(dd.launch_counts)
+    assert not held.query(), "the call waited for the compute stream"
+    for h in (host if isinstance(host, tuple) else (host,)):
+        h.zero_()
+    torch.cuda.synchronize()
+    assert counts == want
+    assert torch.equal(got[1], ref[1])
+    atol = FFT_TOL * float(ref[0].abs().max()) if layout == "guppi" else 0.0
+    torch.testing.assert_close(got[0], ref[0], rtol=PROFILE_RTOL, atol=atol)
+
+
+# the profiler's own notice on starting a trace without a schedule
+@pytest.mark.filterwarnings("ignore:.*Profiler clears events:UserWarning")
+@pytest.mark.parametrize("layout", ["planes", "guppi"])
+def test_pinned_call_spans(dev, tmp_path, layout):
+    """Traced, a call on pinned blocks ends in one ``mesh.copy_wait``,
+    inside its ``wideband.call`` and after its last ``wideband.step``; a
+    call on device blocks has none."""
+    import json
+    from baseband_tasks_tpu_torch.utils import profiling
+    run, words, _ = _small_entry(dev, layout)
+    host = _pinned(words)
+    run(blocks=host)
+    with profiling.trace(str(tmp_path / "t")):
+        for b in (host, words, host):
+            run(blocks=b)
+    with open(tmp_path / "t" / "trace.json") as f:
+        spans = [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                 for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "user_annotation"]
+    calls = sorted((a, b) for n, a, b in spans if n == "wideband.call")
+    assert len(calls) == 3
+    waits = [(a, b) for n, a, b in spans if n == "mesh.copy_wait"]
+    assert len(waits) == 2
+    for (c0, c1), pinned in zip(calls, (True, False, True)):
+        inside = [(a, b) for a, b in waits if c0 <= a and b <= c1]
+        assert len(inside) == pinned
+        last_step = max(b for n, a, b in spans
+                        if n == "wideband.step" and c0 <= a and b <= c1)
+        assert all(last_step <= a for a, _ in inside)
+
+
+def test_shard_copies_pinned_blocks_on_the_copy_stream(dev):
+    """``shard`` of a pinned tensor gives ``.to()``'s blocks, and the
+    source may be overwritten as soon as it returns; ``shard_async`` of
+    contiguous pinned blocks has copies pending, of pageable numpy or a
+    non-contiguous pinned view (a channel shard) none."""
+    from baseband_tasks_tpu_torch import parallel as par
+    g = torch.Generator()
+    g.manual_seed(7)
+    x = torch.randn((1 << 16, 8, 2), generator=g).pin_memory()
+    want = x.to(dev)
+    time2 = par.make_mesh(2, 1, devices=[dev] * 2)
+    chan2 = par.make_mesh(1, 2, devices=[dev] * 2)
+    spec = ("time", "chan")
+    torch.cuda._sleep(1 << 28)          # ~0.1-0.2 s of the compute stream
+    grid = par.shard(x, time2, spec)
+    x.zero_()
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([grid[0, 0], grid[1, 0]]), want)
+    x.copy_(want.cpu())
+    grid, pending = par.shard_async(x, time2, spec)
+    assert pending
+    pending.wait()
+    assert not pending
+    assert torch.equal(grid[1, 0], want[1 << 15:])
+    for src, mesh in ((want.cpu().numpy(), time2), (x, chan2)):
+        grid, pending = par.shard_async(src, mesh, spec)
+        assert not pending
+        assert torch.equal(par.unshard(grid, mesh, spec), want)
+        assert all(b.is_contiguous() and b.device == dev for b in grid.flat)
 
 
 @pytest.mark.parametrize("n_chan, t", [(1, 4), (4, 2304), (33, 1000),

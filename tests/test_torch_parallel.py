@@ -100,6 +100,48 @@ def test_shard_and_unshard_round_trip():
         par.shard(x[:6], mesh, ("time", "chan"))
 
 
+@pytest.mark.parametrize("as_numpy", [False, True])
+@pytest.mark.parametrize("spec", [("time", "chan"), ("chan",),
+                                  (None, "chan"), ("chan", "time")])
+def test_shard_async_on_the_cpu_issues_nothing(spec, as_numpy):
+    """On a CPU mesh ``shard_async`` gives ``shard``'s grid and an empty
+    pending, whose ``wait`` is a no-op: no block goes to a CUDA device."""
+    mesh = par.make_mesh(time=2, chan=2, devices=CPUS[:4])
+    x = torch.arange(8 * 6 * 3, dtype=torch.float32).reshape(8, 6, 3)
+    x = x.numpy() if as_numpy else x
+    grid, pending = par.shard_async(x, mesh, spec)
+    want = par.shard(x, mesh, spec)
+    assert grid.shape == want.shape == (2, 2)
+    assert all(torch.equal(grid[i], want[i]) for i in np.ndindex(2, 2))
+    assert not pending
+    pending.wait()
+    pending.wait()
+    assert not pending
+
+
+def test_pending_waits_on_each_copy_once():
+    """``Pending.wait`` synchronizes every copy's event, then lets go of
+    the events and their sources."""
+    from baseband_tasks_tpu_torch.parallel.mesh import Pending
+    waited = []
+
+    class Event:
+        def __init__(self, i):
+            self.i = i
+
+        def synchronize(self):
+            waited.append(self.i)
+
+    pending = Pending()
+    for i in range(3):
+        pending.add(Event(i), torch.zeros(2))
+    assert pending
+    pending.wait()
+    assert waited == [0, 1, 2] and not pending
+    pending.wait()
+    assert waited == [0, 1, 2]
+
+
 # -- halo exchange -----------------------------------------------------------
 
 @pytest.mark.parametrize("periodic", [False, True])

@@ -10,8 +10,11 @@ samples exactly; on CPU streams the port never synchronizes a card;
 The port's spans (``span``, the port alone): with no profiler running a
 flagship call never enters ``record_function``; under ``trace`` it
 writes ``wideband.call`` with ``mesh.shard``, ``wideband.prep`` and one
-``wideband.step`` a step nested inside it, and building a pipeline and
-its ``run_fn`` writes ``wideband.init`` and ``wideband.run_fn``.
+``wideband.step`` a step nested inside it (and, after the steps,
+``mesh.copy_wait`` where the inputs were issued as copies: a stand-in
+copy here, as a CPU mesh issues none, also waited for when a step
+raises), and building a pipeline and its ``run_fn`` writes
+``wideband.init`` and ``wideband.run_fn``.
 """
 
 import json
@@ -138,6 +141,71 @@ def test_flagship_call_spans_nest(tmp_path):
     assert by["mesh.shard"][1] <= by["wideband.prep"][0]
     assert by["wideband.prep"][1] <= steps[0][0]
     assert steps[0][1] <= steps[1][0]
+
+
+class FakeCopy:
+    """An issued copy's stand-in: counts the host's waits on it."""
+
+    def __init__(self):
+        self.waits = 0
+
+    def synchronize(self):
+        self.waits += 1
+
+
+def with_fake_copy(monkeypatch):
+    """Make ``run_fn``'s ``shard_async`` add one fake copy to the pending
+    of each array it shards (a CPU mesh issues none)."""
+    from baseband_tasks_tpu_torch.models import wideband
+    copies = []
+    real = wideband.shard_async
+
+    def shard_async(x, mesh, spec):
+        grid, pending = real(x, mesh, spec)
+        copies.append(FakeCopy())
+        pending.add(copies[-1], x)
+        return grid, pending
+    monkeypatch.setattr(wideband, "shard_async", shard_async)
+    return copies
+
+
+def test_flagship_call_waits_for_its_copies_last(tmp_path, monkeypatch):
+    """A call whose inputs were issued as copies waits for each once, in
+    one ``mesh.copy_wait`` inside ``wideband.call``, after its last
+    ``wideband.step``."""
+    pipe = flagship_small()
+    run = pipe.run_fn(2)
+    block = flagship_block(pipe)
+    run(blocks=block)
+    copies = with_fake_copy(monkeypatch)
+    with pprof.trace(str(tmp_path / "t")) as path:
+        run(blocks=block)
+    assert [c.waits for c in copies] == [1]
+    spans = spans_of(path)
+    assert sorted(n for n, _, _ in spans) == [
+        "mesh.copy_wait", "mesh.shard", "wideband.call", "wideband.prep",
+        "wideband.step", "wideband.step"]
+    by = {n: (a, b) for n, a, b in spans}
+    c0, c1 = by["wideband.call"]
+    assert all(c0 <= a and b <= c1 for _, a, b in spans)
+    last_step = max(b for n, _, b in spans if n == "wideband.step")
+    assert last_step <= by["mesh.copy_wait"][0]
+
+
+def test_flagship_call_waits_for_its_copies_when_a_step_raises(
+        monkeypatch):
+    """A step that raises after the inputs were issued still leaves no
+    copy reading the caller's blocks."""
+    pipe = flagship_small()
+    run = pipe.run_fn(2)
+    copies = with_fake_copy(monkeypatch)
+
+    def fail(*a, **k):
+        raise RuntimeError("a step failed")
+    monkeypatch.setattr(pipe, "_pairs_step", fail)
+    with pytest.raises(RuntimeError, match="a step failed"):
+        run(blocks=flagship_block(pipe))
+    assert [c.waits for c in copies] == [1]
 
 
 def test_flagship_set_up_spans(tmp_path):
