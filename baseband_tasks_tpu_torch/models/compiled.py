@@ -88,6 +88,7 @@ from ..ops.pfb import choose_block_rows, forward_geometry_ok
 from ..shaping import GetSlice
 from ..utils import units as u
 from ..utils.dtypes import as_tensor, torch_dtype
+from ..utils.profiling import span
 
 __all__ = ["CompiledPipeline", "carry_from_numpy", "init_reduction_acc",
            "make_reduction_update"]
@@ -1013,7 +1014,9 @@ class CompiledPipeline:
         concatenated tail-rate output.  With an absorbed reduction
         ``run(blocks) -> (sums, counts)`` in the eager node's bin layout
         (its non-averaged read; :meth:`run_reduced` averages).  Cached per
-        ``n_blocks``, with the segment ids on the device."""
+        ``n_blocks``, with the segment ids on the device.  Its spans:
+        ``compiled.call`` around the whole call, ``compiled.block`` around
+        each block's step and its reduction update."""
         n_blocks = int(n_blocks)
         fn = self._run_cache.get(n_blocks)
         if fn is not None:
@@ -1022,25 +1025,30 @@ class CompiledPipeline:
         red = self.reduction
         if red is None:
             def fn(blocks):
-                carry = self.init_carry()
-                outs = []
-                for k in range(n_blocks):
-                    carry, y = step(carry, self._block(blocks, k))
-                    outs.append(y)
-                return torch.cat(outs, dim=0)
+                with span("compiled.call"):
+                    carry = self.init_carry()
+                    outs = []
+                    for k in range(n_blocks):
+                        with span("compiled.block"):
+                            carry, y = step(carry, self._block(blocks, k))
+                        outs.append(y)
+                    return torch.cat(outs, dim=0)
         else:
             ids, n_seg = self.segment_ids_np(n_blocks)
             ids = torch.as_tensor(ids, device=self.device)
             update = make_reduction_update(red)
 
             def fn(blocks):
-                carry = self.init_carry()
-                sums, counts = init_reduction_acc(
-                    red, self._tail.sample_shape, n_seg, self.device)
-                for k in range(n_blocks):
-                    carry, y = step(carry, self._block(blocks, k))
-                    update(sums, counts, y, ids[k])
-                return self._shape_reduced(sums), self._shape_reduced(counts)
+                with span("compiled.call"):
+                    carry = self.init_carry()
+                    sums, counts = init_reduction_acc(
+                        red, self._tail.sample_shape, n_seg, self.device)
+                    for k in range(n_blocks):
+                        with span("compiled.block"):
+                            carry, y = step(carry, self._block(blocks, k))
+                            update(sums, counts, y, ids[k])
+                    return (self._shape_reduced(sums),
+                            self._shape_reduced(counts))
 
         self._run_cache[n_blocks] = fn
         return fn

@@ -10,6 +10,11 @@ built from ordinary stream nodes:
   CrossMultiply                                      the "X" stage
   Integrate(n_avg)                                   visibility dump
 
+Station streams may carry further sample axes after time, e.g. ``(time,
+subband, pol)``: the F stage channelizes each of them, and with
+``products='full'`` a trailing polarization axis of 2 gives all four
+polarization products of every baseline.
+
 so the result seeks by absolute ``Time``, carries per-channel
 frequencies, and compiles (``CompiledPipeline``: one source block per
 station, the integration absorbed).  The cross products are a gather and
@@ -20,6 +25,9 @@ station k; the correlator advances each stream by its delay so that
 wavefronts align.  With ``lo`` set, the advance also rotates by
 exp(+2πi lo delay sideband): fringe stopping for a signal mixed down from
 sky frequency ``lo`` (the convention of ``sampling.ShiftAndResample``).
+``lo`` may be an array that broadcasts against a station's sample shape,
+e.g. one sky frequency per subband, shape ``(n_subband, 1)`` for
+``(time, subband, pol)`` streams.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from ..integration import Integrate
 from ..sampling import ShiftAndResample, ShiftSamples
 from ..shaping import Reshape
 from ..utils import units as u
+from ..utils.profiling import span
 
 __all__ = ["CrossMultiply", "fx_correlate"]
 
@@ -52,12 +61,30 @@ class CrossMultiply(TaskBase):
     baselines : list of (i, j), optional
         Station index pairs.  Default: all pairs with ``i <= j``
         (autocorrelations included, in packed upper-triangle order).
+    products : 'elementwise' or 'full', optional
+        'elementwise' (default): ``X_i conj(X_j)`` element by element
+        along the trailing axes, so a polarization axis gives the
+        parallel hands only.  'full': the trailing axis is a polarization
+        pair (X, Y) and is replaced by the four products ``[X_i conj(X_j),
+        X_i conj(Y_j), Y_i conj(X_j), Y_i conj(Y_j)]`` (XX*, XY*, YX*,
+        YY*, in that order); a polarization label becomes the four pairs
+        of labels.
     """
 
-    def __init__(self, ih, baselines=None):
+    def __init__(self, ih, baselines=None, products="elementwise"):
         if ih.dtype.kind != "c":
             raise ValueError("CrossMultiply needs complex (voltage "
                              "spectra) input.")
+        if products not in ("elementwise", "full"):
+            raise ValueError(f"products={products!r} must be 'elementwise' "
+                             f"or 'full'")
+        self._full = products == "full"
+        if self._full and (len(ih.sample_shape) < 2
+                           or ih.sample_shape[-1] != 2):
+            raise ValueError(
+                f"products='full' needs a trailing polarization axis of 2 "
+                f"after the station axis; the sample shape is "
+                f"{ih.sample_shape}")
         n_st = ih.sample_shape[0]
         if baselines is None:
             baselines = [(i, j) for i in range(n_st)
@@ -87,6 +114,8 @@ class CrossMultiply(TaskBase):
                             f"stations disagree on {name}; correlation "
                             f"needs identical channel labels")
                     value = first
+            if self._full and value is not None:
+                value = _full_products_label(name, value)
             kw[name] = value
         super().__init__(ih, dtype=np.complex64, **kw)
         self._bi = torch.tensor([p[0] for p in pairs], device=self.device)
@@ -97,18 +126,48 @@ class CrossMultiply(TaskBase):
         return self._baselines
 
     def _output_sample_shape(self, ih):
-        return (len(self._baselines),) + tuple(ih.sample_shape[1:])
+        shape = (len(self._baselines),) + tuple(ih.sample_shape[1:])
+        return shape[:-1] + (4,) if self._full else shape
 
     def task(self, data):
-        bi, bj = self._bi.to(data.device), self._bj.to(data.device)
-        return data[:, bi] * torch.conj(data[:, bj])
+        with span("correlator.x"):
+            bi, bj = self._bi.to(data.device), self._bj.to(data.device)
+            if not self._full:
+                return data[:, bi] * torch.conj(data[:, bj])
+            # (..., p, 1) x (..., 1, q) -> (..., p, q), flattened p-major;
+            # the conjugate taken of the stations before the gather, so
+            # no gathered side is copied again to resolve it
+            conj = torch.conj(data).resolve_conj()
+            return (data[:, bi].unsqueeze(-1)
+                    * conj[:, bj].unsqueeze(-2)).flatten(-2)
+
+
+def _full_products_label(name, value):
+    """A label of the (station-collapsed) input as the four polarization
+    products carry it: a polarization label's pairs of names, ``'X' 'Y'``
+    -> ``'XX' 'XY' 'YX' 'YY'``; another label with a polarization axis of
+    2 (a channelized stream's sideband, say) kept once where both
+    polarizations agree, refused where they do not; a label without one
+    as it is."""
+    arr = np.asarray(getattr(value, "value", value))
+    if arr.ndim == 0 or arr.shape[-1] != 2:
+        return value
+    if name == "polarization":
+        return np.char.add(np.repeat(arr, 2, axis=-1).astype(str),
+                           np.tile(arr, 2).astype(str))
+    if not np.all(arr[..., :1] == arr[..., 1:]):
+        raise ValueError(f"the polarizations disagree on {name}; the full "
+                         f"products need one {name} for both")
+    return value[..., :1]
 
 
 def _phase_rotation(s, anchor, rate_hz, n_chan, d, lo, samples_per_frame):
     """method='phase' alignment of station stream ``s`` for arrival delay
     ``d``: (the stream shifted by whole samples and relabelled onto the
-    anchor grid, the (n_chan,) complex64 per-channel rotation for the
-    fractional advance and the fringe stopping)."""
+    anchor grid, the complex64 per-channel rotation for the fractional
+    advance and the fringe stopping, shaped ``(n_chan,)`` + one axis per
+    sample axis of ``s``: length 1, or that of ``lo`` where an array
+    ``lo`` varies along it)."""
     # the data advance needed on the anchor grid: the stream's label
     # offset already accounts for part of the delay (output k must hold
     # the station signal at anchor time k + tau = label lab + (k +
@@ -130,16 +189,25 @@ def _phase_rotation(s, anchor, rate_hz, n_chan, d, lo, samples_per_frame):
     if lab:
         s = SetAttribute(s, start_time=s.start_time - lab / s.sample_rate)
     # the per-channel slope of the fractional advance, and the fringe
-    # stopping of the whole delay
+    # stopping of the whole delay (in float64: at a sky frequency of
+    # ~1e8 Hz and a delay of ~1e-4 s the phase is ~1e4 cycles)
+    nd = len(s.sample_shape)
     fk = np.fft.fftfreq(n_chan)                           # cycles/sample
-    rot = np.exp(2j * np.pi * fk * frac)
+    rot = np.exp(2j * np.pi * fk * frac).reshape((n_chan,) + (1,) * nd)
     if lo is not None:
         sb = np.asarray(getattr(s, "sideband", 1))
         if sb.ndim:
             raise ValueError("method='phase' fringe stopping needs a "
                              "scalar sideband")
-        rot = rot * np.exp(2j * np.pi * float(lo.to_value(u.Hz))
-                           * float(d.to_value(u.s)) * float(sb))
+        lo_hz = np.asarray(lo.to_value(u.Hz), dtype=np.float64)
+        if lo_hz.ndim > nd or np.broadcast_shapes(
+                lo_hz.shape, tuple(s.sample_shape)) != tuple(s.sample_shape):
+            raise ValueError(f"lo of shape {lo_hz.shape} does not broadcast "
+                             f"against the sample shape {s.sample_shape}")
+        fringe = np.exp(2j * np.pi * lo_hz * float(d.to_value(u.s))
+                        * float(sb))
+        rot = rot * fringe.reshape((1,) * (nd - lo_hz.ndim + 1)
+                                   + lo_hz.shape)
     return s, rot.astype(np.complex64)
 
 
@@ -201,9 +269,7 @@ def _aligned_spectra(streams, n_chan, *, delays, lo, samples_per_frame,
         ch = Channelize(s, n_chan)
         if rotate is not None:
             # the rotation, on the stream's device from the start
-            rv = torch.as_tensor(rotate.reshape(
-                (n_chan,) + (1,) * (len(ch.sample_shape) - 1)),
-                device=ch.device)
+            rv = torch.as_tensor(rotate, device=ch.device)
             ch = Task(ch, lambda data, rv=rv: data * rv.to(data.device))
         channelized.append(ch)
     if len(channelized) == 1:
@@ -214,7 +280,7 @@ def _aligned_spectra(streams, n_chan, *, delays, lo, samples_per_frame,
 
 def fx_correlate(streams, n_chan, n_avg, *, delays=None, lo=None,
                  baselines=None, average=True, samples_per_frame=None,
-                 method="sinc"):
+                 method="sinc", products="elementwise", start=0):
     """Build a lazy FX-correlator chain over ``streams``.
 
     Parameters
@@ -231,9 +297,19 @@ def fx_correlate(streams, n_chan, n_avg, *, delays=None, lo=None,
         given).  None entries are left as they are.
     lo : Quantity, optional
         Local-oscillator (sky) frequency of the downconversion; enables
-        fringe stopping.
+        fringe stopping.  An array broadcasting against a station's
+        sample shape gives each of its elements (e.g. each subband) its
+        own sky frequency.
     baselines : list of (i, j), optional
         Passed to :class:`CrossMultiply`.
+    products : 'elementwise' or 'full', optional
+        Passed to :class:`CrossMultiply`: 'full' turns a trailing
+        polarization axis of 2 into the four products XX*, XY*, YX*, YY*.
+    start : Time or int, optional
+        Start of the first dump (an int counts spectra from the start of
+        the channelized stream), passed to :class:`Integrate`; default
+        the stream's start.  A compiled run whose first spectra are its
+        carries' warm-up starts its first dump after them.
     average : bool, optional
         Means (default), or sums and counts (``Integrated``).
     method : 'sinc' or 'phase', optional
@@ -246,11 +322,11 @@ def fx_correlate(streams, n_chan, n_avg, *, delays=None, lo=None,
 
     Returns
     -------
-    stream with samples ``(n_baseline, n_chan) + trailing``, one per
-    ``n_avg`` spectra.
+    stream with samples ``(n_baseline, n_chan) + trailing`` (the last
+    trailing axis 4 with ``products='full'``), one per ``n_avg`` spectra.
     """
     stacked = _aligned_spectra(streams, n_chan, delays=delays, lo=lo,
                                samples_per_frame=samples_per_frame,
                                method=method)
-    prods = CrossMultiply(stacked, baselines=baselines)
-    return Integrate(prods, n_avg, average=average)
+    prods = CrossMultiply(stacked, baselines=baselines, products=products)
+    return Integrate(prods, n_avg, start=start, average=average)

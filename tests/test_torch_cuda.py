@@ -2415,3 +2415,73 @@ def test_push_form_kernel(dev):
     with pytest.raises(RuntimeError, match="bbt_halo_push"):
         launch("halo_remote", "bbt_halo_push", dev, arr(0, 0, 0, 0),
                arr(0, 0, 0, 0), 4, 2, 16, 16)     # no destination
+
+
+# -- the LOFAR HBA correlator node: the compiled FX path -------------------
+
+def _lofar(**sizes):
+    """(configuration, system, reference) of the benchmark's LOFAR node,
+    ``sizes`` replacing the deployment's."""
+    from benchmark import harness
+    cfg = harness.config_of(harness.load_spec(), "lofar_hba_cobalt")
+    cfg.update(sizes)
+    return (cfg, harness.module("systems", "lofar_hba_cobalt"),
+            harness.module("reference", "lofar_hba_cobalt"))
+
+
+def test_lofar_correlator_one_dump(dev):
+    """62 stations x 2 subbands x 2 pol, 64 channels, one dump of 3072
+    spectra: the compiled correlator (the four polarization products,
+    the fringe stopped at each subband's sky frequency) on the card
+    against the benchmark's float64 reference, computed on the card, under
+    its limits; the dump counts 3072."""
+    from benchmark import harness
+    cfg, system, ref = _lofar(n_subband=2)
+    traffic = dict(harness.traffic_of("dump_1s"), pool=1)
+    feed = system.make_feed(cfg, traffic, 2 ** 31 + 5, dev, harness.Spans())
+    sums, counts = feed.unit(0)
+    assert sums.shape == (1, 1953, 64, 2, 4) and list(counts) == [3072]
+    want = ref.expected(cfg, traffic, feed.reference_data(), [0], dev)[0]
+    nums = ref.compare((sums, counts), want)
+    assert all(nums[k] <= ref.LIMITS[k] for k in nums), nums
+    feed.release()
+    feed.close()
+
+
+@pytest.mark.filterwarnings("ignore:.*Profiler clears events:UserWarning")
+def test_lofar_correlator_spans(dev):
+    """A traced run of the compiled correlator holds one
+    ``compiled.call``, a ``compiled.block`` a block and a ``correlator.x``
+    inside each block; the profiler links to the X spans (by ``External
+    id``) every kernel that ``CrossMultiply.task`` launches, a block's
+    worth per span."""
+    from benchmark import harness
+    from benchmark.trace import traced
+    cfg, system, _ = _lofar(n_station=4, n_subband=2, n_chan=8, n_avg=64,
+                            block_samples=128, max_delay_samples=16)
+    traffic = dict(harness.traffic_of("dump_1s"), pool=1, steps_per_call=4)
+    feed = system.make_feed(cfg, traffic, 11, dev, harness.Spans())
+    n_blocks = system.dump_blocks(cfg)[1]
+    _, tr = traced(lambda: feed.unit(0), dev)
+    spans = {}
+    for e in tr.host:
+        if e.get("cat") == "user_annotation":
+            a = float(e["ts"])
+            spans.setdefault(e["name"], []).append((a, a + float(e["dur"])))
+    assert len(spans["compiled.call"]) == 1
+    assert len(spans["compiled.block"]) == len(spans["correlator.x"]) \
+        == n_blocks
+    (c0, c1), = spans["compiled.call"]
+    for (a, b), (xa, xb) in zip(sorted(spans["compiled.block"]),
+                                sorted(spans["correlator.x"])):
+        assert c0 <= a <= xa <= xb <= b <= c1
+    reader = harness.module("metrics", "correlator.x_roofline")
+    secs, n = reader.launched_inside(tr, "correlator.x")
+    # the kernels of one X stage alone, under the same profiler
+    x = torch.randn((16, 4, 8, 2, 2), device=dev, dtype=torch.complex64)
+    task = feed.cp.stages[-1].node.task
+    _, alone = traced(lambda: task(x), dev)
+    assert len(alone.kernels) >= 2
+    assert n == n_blocks * len(alone.kernels) and secs > 0
+    feed.release()
+    feed.close()
