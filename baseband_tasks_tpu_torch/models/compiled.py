@@ -39,7 +39,13 @@ on the device (``index_add_`` by segment id), with the ids computed on the
 host at two-double phase precision (:meth:`CompiledPipeline.segment_ids_np`)
 and carried as one int64 tensor; :meth:`CompiledPipeline.run_reduced`
 returns the averages and counts, :meth:`CompiledPipeline.run_fn` the sums
-and counts.
+and counts.  Where the graph ends in the correlator's X stage on a card
+(a ``CrossMultiply`` of all baselines i <= j, wide enough to fill the
+card, into a plain, unmasked complex64 ``Integrate``;
+:attr:`CompiledPipeline.x_form` 'fused'),
+:meth:`CompiledPipeline.run_fn` runs each step up to the X stage's input
+and adds the products into the sums in one kernel (``ops/xcorr.py``); the
+counts keep their ``index_add_``.
 
 Streaming semantics: each padded stage carries its last ``pad`` input
 samples, so it needs one window of history before its output matches the
@@ -74,7 +80,7 @@ from __future__ import annotations
 
 import inspect
 from fractions import Fraction
-from math import gcd
+from math import gcd, prod
 
 import numpy as np
 import torch
@@ -85,10 +91,12 @@ from ..integration import Fold, Integrate, PulseStack, _phase_bins
 from ..ops.dedisperse import _is_pow2, split_n
 from ..ops.dft_matmul import DeviceMats, _expanded_mats
 from ..ops.pfb import choose_block_rows, forward_geometry_ok
+from ..ops.xcorr import MIN_BASELINE_CELLS, xcorr_accumulate
 from ..shaping import GetSlice
 from ..utils import units as u
 from ..utils.dtypes import as_tensor, torch_dtype
 from ..utils.profiling import span
+from .correlator import CrossMultiply
 
 __all__ = ["CompiledPipeline", "carry_from_numpy", "init_reduction_acc",
            "make_reduction_update"]
@@ -154,6 +162,28 @@ def make_reduction_update(red):
         return sums, counts
 
     return update
+
+
+def _x_form(stage, red, device):
+    """How :meth:`CompiledPipeline.run_fn` runs a graph's tail ``stage``
+    into its reduction ``red``: 'fused' (the X stage and the sums' update
+    as one ``xcorr`` launch a block, ``ops/xcorr.py``) for a
+    ``CrossMultiply`` of every baseline i <= j of complex64 spectra, at
+    least ``MIN_BASELINE_CELLS`` baselines x cells a spectrum, into a
+    plain, unmasked complex64 ``Integrate`` (not a ``Fold`` or
+    ``PulseStack``) on a CUDA device, else 'products' (the tail's task,
+    then the update)."""
+    node = stage.node
+    if not (isinstance(node, CrossMultiply) and type(red) is Integrate
+            and not red._masked and device.type == "cuda"
+            and red._acc_dtype() == torch.complex64
+            and np.dtype(stage.in_dtype) == np.complex64):
+        return "products"
+    n = node.ih.sample_shape[0]
+    every = tuple((i, j) for i in range(n) for j in range(i, n))
+    cells = prod(node.sample_shape) // (4 if node.full else 1)
+    return ("fused" if node.baselines == every
+            and cells >= MIN_BASELINE_CELLS else "products")
 
 
 def _lcm(a, b):
@@ -438,7 +468,8 @@ class CompiledPipeline:
         whole multiples of such a source's ``packed_alignment``.
 
     A trailing ``Integrate``/``Fold``/``PulseStack`` is absorbed as a
-    reduction (:attr:`reduction`; module docstring).
+    reduction (:attr:`reduction`; module docstring); :attr:`x_form` says
+    whether :meth:`run_fn` fuses a correlator's X stage into it.
     """
 
     def __init__(self, tail, *, block_samples=None, fuse=True,
@@ -654,6 +685,15 @@ class CompiledPipeline:
         if fuse:
             self._apply_fusions()
 
+    @property
+    def x_form(self):
+        """'fused' where :meth:`run_fn` adds a ``CrossMultiply`` tail's
+        products into the reduction's sums in one kernel a block, else
+        'products' (:func:`_x_form`: decided by the graph and the
+        device)."""
+        return ("products" if self.reduction is None else
+                _x_form(self.stages[-1], self.reduction, self.device))
+
     def _apply_fusions(self):
         """Peephole pass: fuse adjacent stages whose second half is a
         pure lane-axis mix the kernels can absorb.  Execution only; the
@@ -783,27 +823,36 @@ class CompiledPipeline:
         passes one that exchanges the shards' tails); the default
         concatenates [carry | block] and keeps a copy of the window's last
         ``pad`` samples as the next carry."""
-        run = self._program_step(pad_hook or _concat_window, _apply)
+        return self._step(pad_hook or _concat_window)
+
+    def _step(self, hook, tail=True):
+        """:meth:`step_fn`'s step; with ``tail`` False it stops before the
+        tail stage and returns that stage's input."""
+        run = self._program_step(hook, _apply, tail)
 
         def step(carry, xs):
             return run(carry, self._decode(xs))
 
         return step
 
-    def _program_step(self, hook, each):
+    def _program_step(self, hook, each, tail=True):
         """``run(carry, inputs) -> (carry, y)`` over decoded source blocks
         (``inputs`` as :meth:`_run_program` takes them).  ``each(fn,
         *values)`` applies a task to stack values: one tensor each for
         :meth:`step_fn`, per-shard lists for the sharded step, where each
         task then launches once per shard, stage by stage.  Padded stages
-        take their windows from ``hook`` (see :meth:`step_fn`)."""
+        take their windows from ``hook`` (see :meth:`step_fn`).  With
+        ``tail`` False the tail stage passes its input through."""
         self._prepare_caches()
+        last = None if tail else self.stages[-1]
 
         def run(carry, inputs):
             new_carry = []
             it = iter(carry)
 
             def entry(st, x):
+                if st is last:
+                    return x
                 fn = st.fused if st.fused is not None else st.node
                 if st.padded:
                     x, c = hook(st, next(it), x)
@@ -1016,13 +1065,23 @@ class CompiledPipeline:
         (its non-averaged read; :meth:`run_reduced` averages).  Cached per
         ``n_blocks``, with the segment ids on the device.  Its spans:
         ``compiled.call`` around the whole call, ``compiled.block`` around
-        each block's step and its reduction update."""
+        each block's step and its reduction update.  With :attr:`x_form`
+        'fused' the step stops at the X stage's input, and one ``xcorr``
+        launch inside span ``correlator.x`` adds the block's products into
+        the sums."""
         n_blocks = int(n_blocks)
         fn = self._run_cache.get(n_blocks)
-        if fn is not None:
-            return fn
-        step = self.step_fn()
+        if fn is None:
+            fn = self._run_cache[n_blocks] = self._run_fn(n_blocks,
+                                                          self.x_form)
+        return fn
+
+    def _run_fn(self, n_blocks, x_form):
+        """:meth:`run_fn`'s run, uncached, with the X stage in form
+        ``x_form`` (:attr:`x_form`) whatever the graph and the device."""
         red = self.reduction
+        fused = x_form == "fused"
+        step = self._step(_concat_window, tail=not fused)
         if red is None:
             def fn(blocks):
                 with span("compiled.call"):
@@ -1036,7 +1095,16 @@ class CompiledPipeline:
         else:
             ids, n_seg = self.segment_ids_np(n_blocks)
             ids = torch.as_tensor(ids, device=self.device)
-            update = make_reduction_update(red)
+            if fused:
+                full = self.stages[-1].node.full
+                ones = torch.ones_like(ids[0])
+
+                def update(sums, counts, x, seg):
+                    with span("correlator.x"):
+                        xcorr_accumulate(x, seg, sums, full=full)
+                    counts.index_add_(0, seg, ones)
+            else:
+                update = make_reduction_update(red)
 
             def fn(blocks):
                 with span("compiled.call"):
@@ -1050,7 +1118,6 @@ class CompiledPipeline:
                     return (self._shape_reduced(sums),
                             self._shape_reduced(counts))
 
-        self._run_cache[n_blocks] = fn
         return fn
 
     def run_reduced(self, blocks):

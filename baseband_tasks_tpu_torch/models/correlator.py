@@ -125,6 +125,12 @@ class CrossMultiply(TaskBase):
     def baselines(self):
         return self._baselines
 
+    @property
+    def full(self):
+        """Whether the products are the four polarization products of
+        each baseline (``products='full'``)."""
+        return self._full
+
     def _output_sample_shape(self, ih):
         shape = (len(self._baselines),) + tuple(ih.sample_shape[1:])
         return shape[:-1] + (4,) if self._full else shape

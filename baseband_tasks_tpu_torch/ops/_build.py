@@ -73,6 +73,8 @@ _SIGNATURES = {
     "bbt_k3_form": [_I] * 4,
     "bbt_k3_scratch": [_I] * 5,
     "bbt_guppi_repack": [_P] * 3 + [_I] * 2 + [_I, _P],
+    "bbt_xcorr": ([_P] * 3 + [_I] * 4 + [_LL] * 3 + [_I, _PI, _PLL, _PLL]
+                  + [_I, _P]),
     "bbt_halo_edges": [_PLL] * 3 + [_I] * 5 + [_LL, _I] + [_I, _P],
     "bbt_halo_push": [_PLL] * 2 + [_I] * 2 + [_LL] * 2 + [_I, _P],
     "bbt_enable_peer": [_I, _I],
@@ -103,8 +105,9 @@ _RESTYPES = {"bbt_k3_scratch": _LL}
 #: dedisperse -> fold, and the flagship passes on bf16 intermediates:
 #: K1p, K1f, K2 with a float32 or a bf16 chirp, K3 power and Stokes;
 #: the halo edges of a time-sharded mesh; the repack of GUPPI words
-#: into K1p's planes; and, counted beside its launch name, every K3
-#: launch that took the gather form)
+#: into K1p's planes; the correlator's X stage with its dump sums; and,
+#: counted beside its launch name, every K3 launch that took the gather
+#: form)
 launch_counts = {"k1_packed": 0, "k1_float": 0, "k2": 0, "k3_fold": 0,
                  "k1_window": 0, "k2_fwd": 0, "k2_inv": 0, "k3_trim": 0,
                  "k1_stream": 0, "lane_mix": 0, "pfb_fwd": 0,
@@ -114,7 +117,7 @@ launch_counts = {"k1_packed": 0, "k1_float": 0, "k2": 0, "k3_fold": 0,
                  "k1_packed_bf16": 0, "k1_float_bf16": 0, "k2_bf16": 0,
                  "k2_bf16_chirp": 0, "k3_fold_bf16": 0,
                  "k3_fold_stokes_bf16": 0, "halo_remote": 0,
-                 "guppi_repack": 0, "k3_fold_gather": 0}
+                 "guppi_repack": 0, "xcorr": 0, "k3_fold_gather": 0}
 
 _lib = None
 

@@ -29,7 +29,12 @@ with, the first the line as shipped):
 - resident (``csrc/resident.cu``): the lane tile and stage buffers of
   each compiled case (N 2048 power and Stokes, 4096 power and Stokes) and
   the chirp slots a thread of the 4096-row Stokes case holds in
-  registers.
+  registers;
+- xcorr (``csrc/xcorr.cu``, the correlator's fused X stage): threads a
+  block, the stations a thread's tile spans on each side, spectra a ring
+  buffer, ring buffers, and the blocks an SM its launch bounds ask for; timed on one LOFAR block (64 spectra, 62
+  stations x 2 pol, 64 channels x 30 subbands into one dump row) beside
+  the unfused products and ``index_add_`` it replaces.
 
 With ``--old DIR`` the kernels of another checkout's ``csrc`` directory,
 as it ships them, are built and timed at the same shapes.  ``--only``
@@ -55,7 +60,8 @@ config 3's and config 2's k1_stream; the PFB at config 3's 32256 x 512,
 tap sums by F.
 
     python -m baseband_tasks_tpu_torch.tools.fft_sweep [--reps N] \
-        [--old DIR] [--only corr,bank,mix,fold,forms,k2,resident,k1,pfb]
+        [--old DIR] \
+        [--only corr,bank,mix,fold,forms,k2,resident,k1,pfb,xcorr]
 
 Prints one line per measurement and ends with a JSON object of them.
 """
@@ -177,6 +183,14 @@ TABLES = {
         [(4, 2, 4, 1, 2, 1, 2, 1, 8), (4, 2, 4, 1, 2, 1, 2, 1, 16),
          (4, 2, 4, 2, 2, 2, 1, 2, 8), (4, 1, 4, 1, 2, 1, 1, 1, 8),
          (2, 1, 2, 1, 1, 1, 1, 1, 8)], res_label),
+    "xcorr": Table("xcorr.cu", ("kXcThreads", "kXcTileI", "kXcTileJ",
+                                "kXcChunk", "kXcStages", "kXcMinBlocks"),
+                   [(384, 4, 2, 16, 2, 1), (384, 2, 4, 16, 2, 1),
+                    (256, 4, 4, 16, 2, 1), (512, 2, 2, 16, 2, 1),
+                    (384, 4, 2, 32, 2, 1), (384, 4, 2, 8, 3, 1)],
+                   lambda v: (f"{v[0]} threads, {v[1]} x {v[2]} station "
+                              f"tiles, {v[3]} spectra a buffer, {v[4]} "
+                              f"buffers, {v[5]} blocks an SM")),
 }
 
 # the search's path: 2^22 samples, seg_len 4096, 547 segments, 3840 lags
@@ -882,6 +896,66 @@ def sweep_resident(builds, dev, reps, out):
 
 # group: (its tables, the kernels whose ptxas and SASS lines it prints,
 # its sweep); the order is the order they run in
+# one LOFAR block: 64 spectra of 62 stations x 2 pol at 64 channels x 30
+# subbands, all of one dump
+XC_T, XC_N, XC_F, XC_SB = 64, 62, 64 * 30, 30
+
+
+def sweep_xcorr(builds, dev, reps, out):
+    """xcorr of each build against the plain version (within 2e-6 of the
+    peak) and timed on one LOFAR block, laid out as the correlator's
+    stack is (each station's channels contiguous, its polarizations and
+    subbands outside them), beside its bound (8 operations a complex
+    product at the FP32 rate; the spectra read once, one dump row read
+    and written) and the unfused path (gathers, products and
+    ``index_add_``, ``models/correlator.py``)."""
+    from ..ops.xcorr import _cell_axes, xcorr_accumulate_ref
+    xr, xi = randn(dev, (XC_T, XC_SB, 2, XC_N, XC_F // XC_SB), 91, 2)
+    x = torch.complex(xr, xi).permute(0, 3, 4, 1, 2)
+    del xr, xi
+    seg = torch.zeros(XC_T, dtype=torch.int64, device=dev)
+    nb = XC_N * (XC_N + 1) // 2
+    zeros = torch.zeros((2, nb, XC_F // XC_SB, XC_SB, 4),
+                        dtype=torch.complex64, device=dev)
+    ref = xcorr_accumulate_ref(x, seg, zeros.clone(), full=True)[0]
+    peak = float(ref.abs().max())
+    bi, bj = torch.triu_indices(XC_N, XC_N, device=dev)
+
+    def unfused():
+        conj = torch.conj(x).resolve_conj()
+        y = (x[:, bi].unsqueeze(-1) * conj[:, bj].unsqueeze(-2)).flatten(-2)
+        zeros.index_add_(0, seg, y)
+
+    dims, strides, outs = _cell_axes(x, 2)
+    nd = len(dims)
+    dims = (ctypes.c_int * nd)(*dims)
+    strides = (ctypes.c_longlong * nd)(*strides)
+    outs = (ctypes.c_longlong * nd)(*outs)
+    ops = 8.0 * nb * 4 * XC_F * XC_T
+    bound = max(1e3 * ops / FP32_FLOPS, bytes_ms(x, 2 * nb * XC_F * 32))
+    lib_ms = cuda_ms(unfused, max(1, reps // 10))
+    print(f"xcorr unfused (gathers, products, index_add_): {lib_ms:.4f} ms",
+          flush=True)
+    for b in builds:
+        name, rec = start("xcorr", b, out)
+        sums = zeros.clone().zero_()
+        kern = lambda: call(b.lib.bbt_xcorr, dev, x.data_ptr(),
+                            seg.data_ptr(), sums.data_ptr(), XC_T, XC_N, 2,
+                            1, x.stride(0), x.stride(1), x.stride(-1), nd,
+                            dims, strides, outs)
+        kern()
+        torch.cuda.synchronize()
+        rel = float((sums[0] - ref).abs().max()) / peak
+        if not rel <= 2e-6:
+            raise AssertionError(f"{name}: {rel} of the peak")
+        ms = cuda_ms(kern, reps)
+        rec["lofar block"] = {"ms": ms, "bound_ms": bound, "rel": rel,
+                              "unfused_ms": lib_ms}
+        print(f"{name}: {ms:.4f} ms, bound {bound:.4f} ms (operations), "
+              f"{100 * bound / ms:.1f} %, vs plain {rel:.2e}", flush=True)
+        del sums
+
+
 GROUPS = {
     "corr": (("corr",), ("accel_corr",), sweep_corr),
     "bank": (("bank",), ("bank_power_kernel",), sweep_bank),
@@ -892,6 +966,7 @@ GROUPS = {
     "resident": (("resident",), ("resident_reg",), sweep_resident),
     "k1": (("k1",), ("k1_reg",), sweep_k1),
     "pfb": (("fir", "pfb"), ("pfb_fir", "pfb_dft"), sweep_pfb),
+    "xcorr": (("xcorr",), ("xcorr_kernel",), sweep_xcorr),
 }
 
 

@@ -197,8 +197,10 @@ multi-input compiled graphs:
     blocks of 2^21 samples a station (one block tensor a station),
     holds the first two blocks against the eager stream (rtol 1e-3, atol
     2e-3) and the autocorrelations or beam power against the noise's
-    level, and times them (ms per block, station samples/s; no kernel of
-    the port runs: the F stage is a 256-point torch.fft);
+    level, and times them (ms per block, station samples/s).  No kernel
+    of the port runs: the F stage is a 256-point torch.fft, and the
+    correlator's 3 baselines x 256 channels are too few for the fused X
+    stage (``CompiledPipeline.x_form`` 'products', asserted);
 (s) drives ``ShiftAndResample(engine='pallas')`` on config 2's source
     (per-channel delays linspace(0.1, 0.9, 128) samples, LO 1400 MHz, pad
     64, frames of 261,632 samples: a 2^18 window, the 128-sample pad
@@ -341,6 +343,23 @@ each; NCCL refuses two ranks on one card):
     ``step_fn`` on (2, 2) bit for bit against 'ppermute' (2 halo_remote
     launches a process) and against one process.
 
+and for the LOFAR HBA correlator node (``benchmark/configs/
+lofar_hba_cobalt.json``: 62 stations x 2 pol, 30 subbands of 64
+channels, dumps of 3072 spectra in blocks of 64):
+
+(y) builds the node's compiled chain at full width and takes one
+    block's stack (the X stage's input, at the strides the chain gives
+    it) from its step: ``xcorr`` on it (the lead block's segment ids)
+    against its plain version and the unfused path at the node's measure
+    (a visibility's gap over sqrt(V_ii^pp V_jj^qq), under 4e-5; the plain
+    version on the stack rounded to bf16 is held to fail it), bit for bit
+    from call to call, one launch a call; timed beside the plain
+    version, the unfused path (``CrossMultiply.task`` and the
+    reduction's ``index_add_``) and its operations bound; then one dump
+    through ``run_fn`` (49 blocks, ``CompiledPipeline.x_form`` 'fused'),
+    one ``xcorr`` launch a block and no other kernel of the port, against
+    the same run on the plain versions at the same measure.
+
 The plain versions run on the card inside the package's test-only
 switch ``ops.dedisperse.plain_versions()``, with every float32 matmul
 in full float32 (``allow_tf32 = False``, precision 'highest', set and
@@ -398,6 +417,7 @@ ACCEL_CU = "baseband_tasks_tpu_torch/csrc/accel.cu"
 RESIDENT_CU = "baseband_tasks_tpu_torch/csrc/resident.cu"
 HALO_CU = "baseband_tasks_tpu_torch/csrc/halo.cu"
 UNPACK_CU = "baseband_tasks_tpu_torch/csrc/unpack.cu"
+XCORR_CU = "baseband_tasks_tpu_torch/csrc/xcorr.cu"
 KERNELS = {   # launch-count name -> (TPU kernel it replaces, source)
     "k1_packed": ("baseband_tasks_tpu/ops/dedisperse_pallas.py:764",
                   DEDISPERSE_CU),
@@ -454,6 +474,9 @@ KERNELS = {   # launch-count name -> (TPU kernel it replaces, source)
     # GUPPI raw words into K1p's planes (ingest_layout='guppi'), a
     # widening the JAX package lacks
     "guppi_repack": (None, UNPACK_CU),
+    # the correlator's X stage with its dump sums (the LOFAR node), which
+    # the JAX package computes in plain jnp
+    "xcorr": (None, XCORR_CU),
 }
 FLAGSHIP = ("k1_packed", "k1_float", "k2", "k3_fold")
 # the redesigned kernels (K2, resident and K1 on register FFTs, the
@@ -2789,7 +2812,10 @@ def drive_fx(dev, gpu):
     rtol 1e-3, atol 2e-3; the correlator on its full visibilities), the
     autocorrelations against the noise's 2 x 256 per channel, then timed
     (ms per block, station samples/s) and profiled.  No kernel of the
-    port runs here: the F stage is a 256-point torch.fft."""
+    port runs here: the F stage is a 256-point torch.fft, and the
+    correlator's 3 baselines x 256 channels are below
+    ``ops.xcorr.MIN_BASELINE_CELLS``, so its X stage keeps the products
+    and their ``index_add_``."""
     from baseband_tasks_tpu_torch import CompiledPipeline
     from baseband_tasks_tpu_torch.ops import dedisperse as dd
     n_blocks = CORR_N // CORR_BLOCK
@@ -2803,8 +2829,9 @@ def drive_fx(dev, gpu):
         dd.reset_launch_counts()
         out = run(blocks)
         torch.cuda.synchronize()
-        if any(dd.launch_counts.values()):
-            raise AssertionError(f"{model}: launched {dd.launch_counts}")
+        if any(dd.launch_counts.values()) or cp.x_form != "products":
+            raise AssertionError(f"{model}: x_form {cp.x_form!r}, launched "
+                                 f"{dd.launch_counts}")
         print(f"(r) {model}: {n_st} stations, block {cp.block_samples}, "
               f"tail block {cp.tail_block}, delay {cp.delay}, warmup "
               f"{cp.warmup}, source offsets {cp.source_offsets}", flush=True)
@@ -5110,6 +5137,122 @@ def drive_multihost(dev, gpu, q_refs, w1):
     return launches
 
 
+# -- the LOFAR correlator node: phase (y) ----------------------------------
+
+LOFAR_SEED = 2 ** 31 + 28
+LOFAR_LIMIT = 4e-5    # the node's vis_rel_err and auto_rel_err limits
+
+
+def vis_gap(got, want):
+    """The LOFAR node's measure of full-polarization visibility sums
+    ``(n_seg, n_baseline, ..., 4)``: the largest gap over sqrt(V_ii^pp
+    V_jj^qq) of its cell, the autocorrelations those of ``want``."""
+    n = int(round((np.sqrt(8 * want.shape[1] + 1) - 1) / 2))
+    i, j = np.triu_indices(n)
+    auto = np.cumsum([0] + [n - k for k in range(n - 1)])
+    power = want[:, auto].abs()[..., [0, 3]]           # (S, n, ..., 2)
+    pi = power[:, i].repeat_interleave(2, dim=-1)       # p of XX XY YX YY
+    pj = power[:, j].repeat(*(1,) * (power.ndim - 1), 2)
+    return float(((got - want).abs() / (pi * pj).sqrt()).max())
+
+
+def drive_lofar(dev, gpu):
+    """Phase (y) (module docstring): ``xcorr`` at the LOFAR node's full
+    width on a block's stack as the node's chain gives it, then one dump
+    through ``run_fn``.  Returns (the kernels line's ``xcorr`` result,
+    the dump's ``xcorr`` launches)."""
+    from benchmark import harness
+    from baseband_tasks_tpu_torch.models.compiled import (
+        _concat_window, init_reduction_acc, make_reduction_update)
+    from baseband_tasks_tpu_torch.ops import dedisperse as dd
+    from baseband_tasks_tpu_torch.ops.xcorr import (xcorr_accumulate,
+                                                    xcorr_accumulate_ref)
+    system = harness.module("systems", "lofar_hba_cobalt")
+    cfg = harness.config_of(harness.load_spec(), "lofar_hba_cobalt")
+    traffic = dict(harness.traffic_of("dump_1s"), pool=1)
+    feed = system.make_feed(cfg, traffic, LOFAR_SEED, dev, harness.Spans())
+    cp, blocks = feed.cp, feed.blocks[0]
+    n_blocks = system.dump_blocks(cfg)[1]
+    ids, n_seg = cp.segment_ids_np(n_blocks)
+    seg = torch.as_tensor(ids[0], device=dev)
+    _, x = cp._step(_concat_window, tail=False)(cp.init_carry(),
+                                                 cp._block(blocks, 0))
+    zeros = init_reduction_acc(cp.reduction, cp._tail.sample_shape, n_seg,
+                               dev)[0]
+    print(f"(y) LOFAR block stack {tuple(x.shape)} strides {x.stride()}, "
+          f"segment ids {sorted(set(ids[0].tolist()))} (trash {n_seg}), "
+          f"sums {tuple(zeros.shape)}, x_form {cp.x_form!r}", flush=True)
+    dd.reset_launch_counts()
+    got = xcorr_accumulate(x, seg, zeros.clone(), full=True)
+    again = xcorr_accumulate(x, seg, zeros.clone(), full=True)
+    torch.cuda.synchronize()
+    n_launch = dd.launch_counts["xcorr"]
+    want = xcorr_accumulate_ref(x, seg, zeros.clone(), full=True)
+    xb = torch.complex(x.real.to(torch.bfloat16).float(),
+                       x.imag.to(torch.bfloat16).float())
+    control = xcorr_accumulate_ref(xb, seg, zeros.clone(), full=True)
+    del xb
+    counts = torch.zeros(n_seg + 1, dtype=torch.int64, device=dev)
+    node, update = cp.stages[-1].node, make_reduction_update(cp.reduction)
+    unfused = zeros.clone()
+    update(unfused, counts, node.task(x), seg)
+    gap = vis_gap(got[:n_seg], want[:n_seg])
+    gap_u = vis_gap(got[:n_seg], unfused[:n_seg])
+    ctl = vis_gap(control[:n_seg], want[:n_seg])
+    err = float((got - want).abs().max())
+    same = torch.equal(got, again)
+    trash = torch.equal(got[n_seg], zeros[n_seg])
+    print(f"(y) xcorr at the LOFAR width: launches {n_launch}, gap {gap:.3e} "
+          f"to the plain version, {gap_u:.3e} to the unfused path (limit "
+          f"{LOFAR_LIMIT:g}; the bf16 control {ctl:.3e}), max abs err "
+          f"{err:.3e}, {'bit for bit' if same else 'DIFFERS'} from call to "
+          f"call, trash row {'untouched' if trash else 'WRITTEN'} [{gpu}]",
+          flush=True)
+    if (n_launch != 2 or not same or not trash or cp.x_form != "fused"
+            or not gap_u <= LOFAR_LIMIT or not gap <= LOFAR_LIMIT < ctl):
+        raise AssertionError("xcorr disagrees with its plain version at the "
+                             "LOFAR width")
+    del got, again, want, control, unfused
+    sums = zeros.clone()
+    ms = cuda_ms(lambda: xcorr_accumulate(x, seg, sums, full=True))
+    plain_ms = cuda_ms(lambda: xcorr_accumulate_ref(x, seg, sums, full=True),
+                       reps=5)
+    lib_ms = cuda_ms(lambda: update(sums, counts, node.task(x), seg), reps=5)
+    nb, cells = sums.shape[1], sums[0, 0].numel() // 4
+    res = result(err, ms, plain_ms,
+                 ((x, sums[0]), (sums[0],), 8 * nb * 4 * cells * x.shape[0]),
+                 lib_ms)
+    print(f"(y) xcorr: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
+          f"{lib_ms:.4f} ms unfused (gathers, products, index_add_), bound "
+          f"{res['bound_ms']:.4f} ms ({res['bound_by']}): "
+          f"{100 * res['bound_ms'] / ms:.1f} % [{gpu}]", flush=True)
+    del sums, counts, x, zeros
+    torch.cuda.empty_cache()
+    run = cp.run_fn(n_blocks)
+    dd.reset_launch_counts()
+    vis, cnt = run(blocks)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in dd.launch_counts.items() if v}
+    with dd.plain_versions():
+        pvis, pcnt = run(blocks)
+    torch.cuda.synchronize()
+    gap = vis_gap(vis, pvis)
+    print(f"(y) LOFAR dump through run_fn({n_blocks}): launches {launched}, "
+          f"counts {cnt.tolist()}, gap to the plain versions' run {gap:.3e} "
+          f"(limit {LOFAR_LIMIT:g}) [{gpu}]", flush=True)
+    if (launched != {"xcorr": n_blocks} or not torch.equal(cnt, pcnt)
+            or not gap <= LOFAR_LIMIT):
+        raise AssertionError("the LOFAR dump disagrees with its plain run")
+    del vis, cnt, pvis, pcnt
+    dt = host_s(lambda: run(blocks), turns=3)
+    print(f"(y) LOFAR dump: {1e3 * dt:.1f} ms, "
+          f"{feed.samples_per_unit / dt:.4e} samples/s (host clock, "
+          f"synchronized) [{gpu}]", flush=True)
+    feed.release()
+    feed.close()
+    return {"xcorr": res}, n_blocks
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -5209,6 +5352,10 @@ def main():
     print(f"(x) launches on the two-process paths: {multi}", flush=True)
     for k, v in multi.items():
         launches[k] += v
+    torch.cuda.empty_cache()
+    lofar, launches["xcorr"] = drive_lofar(dev, gpu)
+    results.update(lofar)
+    torch.cuda.empty_cache()
     missing = [k for k in KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on a path: {missing}")

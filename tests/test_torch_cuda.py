@@ -2452,15 +2452,16 @@ def test_lofar_correlator_one_dump(dev):
 def test_lofar_correlator_spans(dev):
     """A traced run of the compiled correlator holds one
     ``compiled.call``, a ``compiled.block`` a block and a ``correlator.x``
-    inside each block; the profiler links to the X spans (by ``External
-    id``) every kernel that ``CrossMultiply.task`` launches, a block's
-    worth per span."""
+    inside each block; the profiler links to each X span (by ``External
+    id``) the one fused ``xcorr`` kernel its operator launched (16
+    stations x 128 cells, wide enough for the fused X stage)."""
     from benchmark import harness
     from benchmark.trace import traced
-    cfg, system, _ = _lofar(n_station=4, n_subband=2, n_chan=8, n_avg=64,
-                            block_samples=128, max_delay_samples=16)
+    cfg, system, _ = _lofar(n_station=16, n_subband=2, n_chan=64, n_avg=64,
+                            block_samples=1024, max_delay_samples=16)
     traffic = dict(harness.traffic_of("dump_1s"), pool=1, steps_per_call=4)
     feed = system.make_feed(cfg, traffic, 11, dev, harness.Spans())
+    assert feed.cp.x_form == "fused"
     n_blocks = system.dump_blocks(cfg)[1]
     _, tr = traced(lambda: feed.unit(0), dev)
     spans = {}
@@ -2477,11 +2478,125 @@ def test_lofar_correlator_spans(dev):
         assert c0 <= a <= xa <= xb <= b <= c1
     reader = harness.module("metrics", "correlator.x_roofline")
     secs, n = reader.launched_inside(tr, "correlator.x")
-    # the kernels of one X stage alone, under the same profiler
-    x = torch.randn((16, 4, 8, 2, 2), device=dev, dtype=torch.complex64)
-    task = feed.cp.stages[-1].node.task
-    _, alone = traced(lambda: task(x), dev)
-    assert len(alone.kernels) >= 2
-    assert n == n_blocks * len(alone.kernels) and secs > 0
+    assert n == n_blocks and secs > 0
+    names = {e["name"] for e in tr.kernels}
+    assert any("xcorr_kernel" in k for k in names), names
+    assert not any("indexFuncLargeIndex" in k for k in names
+                   if "complex" in k), names
     feed.release()
     feed.close()
+
+
+def test_lofar_run_fn_one_xcorr_a_block(dev):
+    """The compiled correlator at the deployment's 62 stations (2
+    subbands) takes the fused X stage: one ``xcorr`` launch a block of
+    ``run_fn``, and the sums of the plain versions' run (the products and
+    their ``index_add_``) to float32 roundoff."""
+    from benchmark import harness
+    cfg, system, _ = _lofar(n_subband=2)
+    traffic = dict(harness.traffic_of("dump_1s"), pool=1)
+    feed = system.make_feed(cfg, traffic, 2 ** 31 + 9, dev, harness.Spans())
+    n_blocks = system.dump_blocks(cfg)[1]
+    assert feed.cp.x_form == "fused"
+    dd.reset_launch_counts()
+    sums, counts = feed.cp.run_fn(n_blocks)(feed.blocks[0])
+    torch.cuda.synchronize()
+    assert dd.launch_counts["xcorr"] == n_blocks
+    products = system.compiled(cfg, feed.d, dev)._run_fn(n_blocks,
+                                                          "products")
+    want, wcounts = products(feed.blocks[0])
+    assert torch.equal(counts, wcounts)
+    assert _vis_gap(sums, want) <= 1e-5
+    feed.release()
+    feed.close()
+
+
+def _vis_gap(got, want):
+    """The largest gap of a visibility (``(n_seg, n_baseline, ..., 4)``
+    full-polarization sums) over sqrt(V_ii^pp V_jj^qq) of its cell, the
+    LOFAR cell's measure."""
+    nb = want.shape[1]
+    n = int(round((np.sqrt(8 * nb + 1) - 1) / 2))
+    i, j = np.triu_indices(n)
+    auto = np.cumsum([0] + [n - k for k in range(n - 1)])
+    power = want[:, auto].abs()[..., [0, 3]]          # (S, n, ..., 2)
+    pi = power[:, i].repeat_interleave(2, dim=-1)      # p of XX XY YX YY
+    pj = power[:, j].repeat(*(1,) * (power.ndim - 1), 2)
+    bound = (pi * pj).sqrt()
+    return float(((got - want).abs() / bound).max())
+
+
+# (stations, cells (channel, subband, ...; the elementwise products' pol
+# axis among them), products, segment ids of the block; trash id 2)
+XCORR_CASES = {
+    "lofar_lead_block": (62, (64, 2), "full", [2] + [0] * 63),
+    "lofar_tail_block": (62, (64, 2), "full", [0] + [2] * 63),
+    "lofar_dump_boundary": (62, (64, 2), "full", [0] * 40 + [1] * 24),
+    "odd_stations_ragged": (33, (13,), "full", [0] * 17 + [1] * 20),
+    "one_station": (1, (9,), "full", [2, 0, 0, 1, 1, 1, 2]),
+    "five_stations": (5, (3, 7), "full", [1, 0] * 11),
+    "elementwise": (5, (3, 7, 2), "elementwise", [0] * 30 + [1] * 9 + [2]),
+    "elementwise_lofar": (62, (64, 2, 2), "elementwise", [0] * 64),
+}
+
+
+@pytest.mark.parametrize("case", sorted(XCORR_CASES))
+def test_xcorr_kernel_matches_plain(dev, case):
+    """The fused X stage (``xcorr``) against its plain version: the LOFAR
+    node's widths at 2 subbands (62 stations x 2 pol, the lead block, the
+    tail block, a dump boundary inside a block) under the cell's limit of
+    4e-5, and odd station counts, ragged cells and the elementwise
+    products; the trash row untouched, bit for bit from call to call."""
+    from baseband_tasks_tpu_torch.ops.xcorr import xcorr_accumulate
+    n, cells, products, ids = XCORR_CASES[case]
+    full = products == "full"
+    g = torch.Generator(device=dev)
+    g.manual_seed(len(ids) + n)
+    x = torch.randn((len(ids), n) + cells + ((2,) if full else ()),
+                    dtype=torch.complex64, generator=g, device=dev)
+    seg = torch.tensor(ids, device=dev)
+    out = cells + (4,) if full else cells
+    start = torch.randn((3, n * (n + 1) // 2) + out, dtype=torch.complex64,
+                        generator=g, device=dev)
+    dd.reset_launch_counts()
+    got = xcorr_accumulate(x, seg, start.clone(), full=full)
+    again = xcorr_accumulate(x, seg, start.clone(), full=full)
+    torch.cuda.synchronize()
+    assert dd.launch_counts["xcorr"] == 2
+    assert torch.equal(got, again)
+    assert torch.equal(got[2], start[2])
+    with dd.plain_versions():
+        want = xcorr_accumulate(x, seg, start.clone(), full=full)
+    assert dd.launch_counts["xcorr"] == 2
+    if full:
+        rows = sorted(set(ids) - {2})
+        assert _vis_gap((got - start)[rows], (want - start)[rows]) <= 4e-5
+    peak = float((want - start).abs().max())
+    assert float((got - want).abs().max()) <= 2e-6 * peak
+
+
+def test_xcorr_kernel_on_the_stacks_layout(dev):
+    """The correlator's stack holds each station's channels contiguous
+    and its subbands and polarizations outside the stations: the kernel
+    reads it at its strides and gives the bits it gives on a contiguous
+    copy, and the plain version's sums."""
+    from baseband_tasks_tpu_torch.ops.xcorr import xcorr_accumulate
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    x = torch.randn((64, 3, 2, 62, 64), dtype=torch.complex64, generator=g,
+                    device=dev).permute(0, 3, 4, 1, 2)
+    assert not x.is_contiguous()
+    seg = torch.tensor([1] + [0] * 63, device=dev)
+    sums = torch.zeros((2, 1953, 64, 3, 4), dtype=torch.complex64,
+                       device=dev)
+    got = xcorr_accumulate(x, seg, sums.clone(), full=True)
+    dense = xcorr_accumulate(x.contiguous(), seg, sums.clone(), full=True)
+    assert torch.equal(got, dense)
+    with dd.plain_versions():
+        want = xcorr_accumulate(x, seg, sums.clone(), full=True)
+    assert _vis_gap(got[:1], want[:1]) <= 4e-5
+    sums = torch.zeros((2, 1953, 64, 3, 2), dtype=torch.complex64,
+                       device=dev)
+    got = xcorr_accumulate(x, seg, sums.clone(), full=False)
+    dense = xcorr_accumulate(x.contiguous(), seg, sums.clone(), full=False)
+    assert torch.equal(got, dense)
