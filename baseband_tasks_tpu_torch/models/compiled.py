@@ -96,6 +96,7 @@ from ..shaping import GetSlice
 from ..utils import units as u
 from ..utils.dtypes import as_tensor, torch_dtype
 from ..utils.profiling import span
+from .beamform import BeamformStations
 from .correlator import CrossMultiply
 
 __all__ = ["CompiledPipeline", "carry_from_numpy", "init_reduction_acc",
@@ -469,7 +470,8 @@ class CompiledPipeline:
 
     A trailing ``Integrate``/``Fold``/``PulseStack`` is absorbed as a
     reduction (:attr:`reduction`; module docstring); :attr:`x_form` says
-    whether :meth:`run_fn` fuses a correlator's X stage into it.
+    whether :meth:`run_fn` fuses a correlator's X stage into it,
+    :attr:`bf_form` how it forms a beamformer's TABs.
     """
 
     def __init__(self, tail, *, block_samples=None, fuse=True,
@@ -693,6 +695,16 @@ class CompiledPipeline:
         device)."""
         return ("products" if self.reduction is None else
                 _x_form(self.stages[-1], self.reduction, self.device))
+
+    @property
+    def bf_form(self):
+        """How :meth:`run_fn` forms a tied-array beamformer tail's TABs
+        (a ``BeamformStations`` with a TAB axis): 'products' (its task:
+        one batched complex matrix product a block, the detection, then
+        the reduction's update); None for any other graph."""
+        node = self.stages[-1].node
+        return ("products" if isinstance(node, BeamformStations)
+                and node.n_tab is not None else None)
 
     def _apply_fusions(self):
         """Peephole pass: fuse adjacent stages whose second half is a
@@ -1065,7 +1077,9 @@ class CompiledPipeline:
         (its non-averaged read; :meth:`run_reduced` averages).  Cached per
         ``n_blocks``, with the segment ids on the device.  Its spans:
         ``compiled.call`` around the whole call, ``compiled.block`` around
-        each block's step and its reduction update.  With :attr:`x_form`
+        each block's step and its reduction update (a tail's task keeps
+        its own span inside it: ``beamformer.bf`` around a beamformer's
+        TAB products and detection).  With :attr:`x_form`
         'fused' the step stops at the X stage's input, and one ``xcorr``
         launch inside span ``correlator.x`` adds the block's products into
         the sums."""

@@ -96,27 +96,11 @@ class CrossMultiply(TaskBase):
                 raise ValueError(f"baseline ({i}, {j}) outside the "
                                  f"{n_st} stations")
         self._baselines = tuple(pairs)
-        # meta attributes spanning the station axis cannot broadcast to
-        # the baseline axis: all stations observe the same sky, so require
-        # identical labels and keep one station's copy
-        kw = {}
-        nss = len(ih.sample_shape)
-        for name in ("frequency", "sideband", "polarization"):
-            value = getattr(ih, name, None)
-            if value is not None:
-                arr = np.asarray(getattr(value, "value", value))
-                if arr.ndim >= nss and arr.shape[-nss] == n_st != 1:
-                    st_axis = arr.ndim - nss
-                    first = value[(slice(None),) * st_axis + (0,)]
-                    f_arr = np.asarray(getattr(first, "value", first))
-                    if not np.all(arr == np.expand_dims(f_arr, st_axis)):
-                        raise ValueError(
-                            f"stations disagree on {name}; correlation "
-                            f"needs identical channel labels")
-                    value = first
-            if self._full and value is not None:
-                value = _full_products_label(name, value)
-            kw[name] = value
+        kw = _one_station_labels(ih, "correlation")
+        if self._full:
+            kw = {name: None if value is None
+                  else _full_products_label(name, value)
+                  for name, value in kw.items()}
         super().__init__(ih, dtype=np.complex64, **kw)
         self._bi = torch.tensor([p[0] for p in pairs], device=self.device)
         self._bj = torch.tensor([p[1] for p in pairs], device=self.device)
@@ -146,6 +130,33 @@ class CrossMultiply(TaskBase):
             conj = torch.conj(data).resolve_conj()
             return (data[:, bi].unsqueeze(-1)
                     * conj[:, bj].unsqueeze(-2)).flatten(-2)
+
+
+def _one_station_labels(ih, what):
+    """The labels of ``ih`` (the station axis first in its sample shape)
+    as one station carries them.  A label spanning the station axis
+    cannot broadcast to the axis that replaces it (baselines, beams): all
+    stations observe the same sky, so the stations' labels must be
+    identical (``what`` names the operation that needs it) and one
+    station's copy is kept.  Returns {name: label or None}."""
+    n_st = ih.sample_shape[0]
+    nss = len(ih.sample_shape)
+    kw = {}
+    for name in ("frequency", "sideband", "polarization"):
+        value = getattr(ih, name, None)
+        if value is not None:
+            arr = np.asarray(getattr(value, "value", value))
+            if arr.ndim >= nss and arr.shape[-nss] == n_st != 1:
+                st_axis = arr.ndim - nss
+                first = value[(slice(None),) * st_axis + (0,)]
+                f_arr = np.asarray(getattr(first, "value", first))
+                if not np.all(arr == np.expand_dims(f_arr, st_axis)):
+                    raise ValueError(
+                        f"stations disagree on {name}; {what} needs "
+                        f"identical channel labels")
+                value = first
+        kw[name] = value
+    return kw
 
 
 def _full_products_label(name, value):

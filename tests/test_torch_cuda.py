@@ -57,7 +57,11 @@ call; host-fed calls: both entries on pinned host blocks return while
 the compute stream is held (they wait for their copies alone, in one
 ``mesh.copy_wait`` after the steps) and match a device-block call, and
 ``shard`` keeps ``.to()``'s blocks and contract for pinned, pageable and
-non-contiguous inputs.
+non-contiguous inputs; the LOTAAS beamformer: one block of the cell's
+widths (12 fields, 73 TABs, 16 channels, 61 subbands) against the
+float64 reference in a process that allows TF32 (the product run with it
+off), the same block with the product's inputs rounded to TF32 failing
+the cell's limit, and the spans its metrics read.
 Tolerances as in ``chip_smoke.py``: planes
 to 1e-4 of their largest element (float32 FFT roundoff is ~1e-6 of it),
 profiles elementwise to rtol 2e-4 (atomic summation order), counts
@@ -65,6 +69,7 @@ exact.
 """
 
 import contextlib
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -2600,3 +2605,119 @@ def test_xcorr_kernel_on_the_stacks_layout(dev):
     got = xcorr_accumulate(x, seg, sums.clone(), full=False)
     dense = xcorr_accumulate(x.contiguous(), seg, sums.clone(), full=False)
     assert torch.equal(got, dense)
+
+
+# -- the LOTAAS tied-array beamformer: TABs on the compiled path ------------
+
+def _lotaas(**sizes):
+    """(configuration, system, reference) of the benchmark's LOTAAS node,
+    ``sizes`` replacing the deployment's."""
+    from benchmark import harness
+    cfg = harness.config_of(harness.load_spec(), "lofar_lotaas_tabs")
+    cfg.update(sizes)
+    return (cfg, harness.module("systems", "lofar_lotaas_tabs"),
+            harness.module("reference", "lofar_lotaas_tabs"))
+
+
+def _lotaas_block(dev, monkeypatch, product=None):
+    """One block at the cell's widths (12 fields x 61 subbands x 2 pol, 16
+    channels, 73 TABs, 256 Stokes rows) run in a process that allows
+    TF32: (the comparison's numbers, its limits, the process's TF32 flag
+    during each TAB product, the flag after the run).  ``product``
+    replaces the beamformer's product where given."""
+    from baseband_tasks_tpu_torch.models import beamform
+    from benchmark import harness
+    cfg, system, ref = _lotaas(cobalt_block_samples=24576)
+    traffic = dict(harness.traffic_of("stokes_1s"), pool=1,
+                   steps_per_call=1)
+    flags = []
+    matmul = torch.matmul
+
+    def spy(*args):
+        flags.append(torch.backends.cuda.matmul.allow_tf32)
+        return matmul(*args)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch, "matmul", spy)
+    if product is not None:
+        monkeypatch.setattr(beamform, "_tab_products", product)
+    feed = system.make_feed(cfg, traffic, 2 ** 31 + 29, dev,
+                            harness.Spans())
+    sums, counts = feed.unit(0)
+    allowed = torch.backends.cuda.matmul.allow_tf32
+    assert feed.cp.bf_form == "products"
+    assert sums.shape == (256, 73, 16, 61) and (counts == 6).all()
+    want = ref.expected(cfg, traffic, feed.reference_data(), [0], dev)[0]
+    nums = ref.compare((sums, counts), want)
+    feed.release()
+    feed.close()
+    return nums, ref.LIMITS, flags, allowed
+
+
+def test_lotaas_tabs_one_block(dev, monkeypatch):
+    """One block of the LOTAAS cell's widths: the compiled beamformer's
+    Stokes I sums against the benchmark's float64 reference, computed on
+    the card, at least 10x under the cell's limit, in a process that
+    allows TF32: every TAB product ran with TF32 off, and the process's
+    setting is as it was after it."""
+    nums, limits, flags, allowed = _lotaas_block(dev, monkeypatch)
+    assert nums["count_err"] == 0
+    assert nums["stokes_rel_err"] <= limits["stokes_rel_err"] / 10, nums
+    assert flags and not any(flags)
+    assert allowed is True
+
+
+def _tf32(t):
+    """``t`` (complex64) with each float rounded to TF32's 10 mantissa
+    bits (round to nearest even), as the tensor cores take it."""
+    i = torch.view_as_real(t).contiguous().view(torch.int32)
+    i = (i + 0xFFF + ((i >> 13) & 1)) & ~0x1FFF
+    return torch.view_as_complex(i.view(torch.float32))
+
+
+def test_lotaas_tabs_tf32_fails_the_limit(dev, monkeypatch):
+    """The same block with the TAB product's inputs rounded to TF32 fails
+    the cell's limit: a product in TF32 is seen."""
+    nums, limits, _, _ = _lotaas_block(
+        dev, monkeypatch,
+        product=lambda w, x: torch.matmul(_tf32(w), _tf32(x)))
+    assert nums["stokes_rel_err"] > 10 * limits["stokes_rel_err"], nums
+
+
+@pytest.mark.filterwarnings("ignore:.*Profiler clears events:UserWarning")
+def test_lotaas_tabs_spans(dev):
+    """A traced run of the compiled beamformer holds one ``compiled.call``,
+    a ``compiled.block`` a block and a ``beamformer.bf`` inside each
+    block; the kernels launched inside the TAB spans are found, the
+    complex matrix product among them, and hold most of the kernel time
+    (``beamformer.bf_share``)."""
+    from benchmark import harness
+    from benchmark.trace import traced
+    cfg, system, _ = _lotaas(n_subband=8, cobalt_block_samples=49152)
+    traffic = dict(harness.traffic_of("stokes_1s"), pool=1,
+                   steps_per_call=2)
+    feed = system.make_feed(cfg, traffic, 13, dev, harness.Spans())
+    n_blocks = system.unit_blocks(cfg)[1]
+    _, tr = traced(lambda: feed.unit(0), dev)
+    spans = {}
+    for e in tr.host:
+        if e.get("cat") == "user_annotation":
+            a = float(e["ts"])
+            spans.setdefault(e["name"], []).append((a, a + float(e["dur"])))
+    assert len(spans["compiled.call"]) == 1
+    assert len(spans["compiled.block"]) == len(spans["beamformer.bf"]) \
+        == n_blocks
+    (c0, c1), = spans["compiled.call"]
+    for (a, b), (xa, xb) in zip(sorted(spans["compiled.block"]),
+                                sorted(spans["beamformer.bf"])):
+        assert c0 <= a <= xa <= xb <= b <= c1
+    reader = harness.module("metrics", "correlator.x_roofline")
+    secs, n = reader.launched_inside(tr, "beamformer.bf")
+    assert n >= 2 * n_blocks and secs > 0
+    run = SimpleNamespace(trace=tr, spans={}, work=tuple(
+        w * 1 for w in feed.work_per_unit()))
+    share = harness.module("metrics", "beamformer.bf_share").read(run)
+    assert 50 < share <= 100, share
+    roof = harness.module("metrics", "beamformer.bf_roofline").read(run)
+    assert 0 < roof <= 100, roof
+    feed.release()
+    feed.close()
